@@ -1,0 +1,151 @@
+"""PyTorch port: periodic neighbour tables and wraps against the JAX package.
+
+Tables are compared as the port promises: equal masks, equal per-row sets of
+(src, cell offset) where the mask is true, and dist/vec of each such edge to
+1e-5.  The order of tied slots is not compared (see the port's ops/pbc.py).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from adsorbdiff_tpu.ops import pbc as jpbc
+from adsorbdiff_tpu_torch.ops import pbc
+from tests.port_bridge import assert_same_neighbors, to_numpy
+from tests.test_pbc import make_system
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _bench_like_batch(b=2, seed=0):
+    """The bench.py workload's systems: 74 slab + 6 adsorbate atoms in an
+    11.4 x 11.4 x 36 A cell (cutoff 12 A, K = 50, cell_reps (2, 2, 0))."""
+    rng = np.random.default_rng(seed)
+    pos, cells, ads = [], [], []
+    for _ in range(b):
+        cell = np.diag([11.4, 11.4, 36.0]).astype(np.float32)
+        slab = (rng.random((74, 3)) * [1, 1, 0.35]) @ cell
+        a = rng.random((6, 3)) * 1.6 + np.array([5, 5, 14.5])
+        pos.append(np.concatenate([slab, a]).astype(np.float32))
+        cells.append(cell)
+        ads.append(np.array([False] * 74 + [True] * 6))
+    return np.stack(pos), np.stack(cells), np.ones((b, 80), bool), np.stack(ads)
+
+
+@pytest.mark.parametrize("n,k", [(12, 64), (16, 4), (14, 10)], ids=["all-edges", "cap-binds", "mid"])
+def test_radius_graph_matches_jax(rng, n, k):
+    pos, cell = make_system(rng, n=n)
+    mask = np.ones(n, bool)
+    mask[-2:] = False  # padded atoms: no edges to or from them
+    radius = 5.0
+    reps = jpbc.compute_cell_reps(cell, radius)
+    assert pbc.compute_cell_reps(cell, radius) == reps
+    want = jpbc.radius_graph_pbc(jnp.asarray(pos), jnp.asarray(cell), jnp.asarray(mask),
+                                 radius=radius, max_neighbors=k, reps=reps)
+    got = pbc.radius_graph_pbc(_t(pos), _t(cell), _t(mask), radius=radius, max_neighbors=k, reps=reps)
+    assert got.src.dtype == torch.int32 and got.src.shape == (n, k)
+    assert_same_neighbors(got, want)
+    assert not to_numpy(got.mask)[-2:].any()
+
+
+def test_radius_graph_batched_matches_jax(rng):
+    systems = [make_system(rng, n=12) for _ in range(3)]
+    pos = np.stack([p for p, _ in systems])
+    cell = np.stack([c for _, c in systems])
+    mask = np.ones((3, 12), bool)
+    reps = jpbc.compute_cell_reps(cell, 5.0)
+    want = jpbc.radius_graph_pbc_batched(jnp.asarray(pos), jnp.asarray(cell), jnp.asarray(mask),
+                                         radius=5.0, max_neighbors=16, reps=reps)
+    got = pbc.radius_graph_pbc(_t(pos), _t(cell), _t(mask), radius=5.0, max_neighbors=16, reps=reps)
+    assert_same_neighbors(got, want)
+
+
+@pytest.mark.parametrize("max_ads", [4, 8])
+def test_incremental_graph_matches_jax_and_full(rng, max_ads):
+    """slab_static_topk -> radius_graph_pbc_incremental after the adsorbate
+    moved, against JAX's incremental table and the port's full build
+    (the layout of tests/test_pbc.py::test_incremental_graph_matches_full)."""
+    pos, cell = make_system(rng, n=14)
+    ads = np.zeros(14, bool)
+    ads[-3:] = True
+    pos[-3:] += np.array([0.5, 0.5, 3.0], np.float32)
+    atom_mask = np.ones(14, bool)
+    atom_mask[-1] = ads[-1] = False
+    radius, k = 5.0, 10
+    reps = jpbc.compute_cell_reps(cell, radius)
+    kw = dict(radius=radius, max_neighbors=k, reps=reps)
+
+    static_j = jpbc.slab_static_topk(jnp.asarray(pos), jnp.asarray(cell), jnp.asarray(atom_mask), jnp.asarray(ads), **kw)
+    static_t = pbc.slab_static_topk(_t(pos), _t(cell), _t(atom_mask), _t(ads), **kw)
+    valid = np.asarray(static_j.neg_d2) > -np.finfo(np.float32).max
+    np.testing.assert_array_equal(to_numpy(static_t.neg_d2) > -np.finfo(np.float32).max, valid)
+    np.testing.assert_allclose(to_numpy(static_t.neg_d2)[valid], np.asarray(static_j.neg_d2)[valid], atol=1e-5)
+    for row in range(14):
+        assert set(to_numpy(static_t.flat_idx)[row][valid[row]]) == set(np.asarray(static_j.flat_idx)[row][valid[row]])
+
+    moved = pos.copy()
+    moved[-3:-1] += np.asarray(rng.normal(0, 1.5, (2, 3)), np.float32)
+    want = jpbc.radius_graph_pbc_incremental(
+        jnp.asarray(moved), jnp.asarray(cell), jnp.asarray(atom_mask), jnp.asarray(ads), static_j, max_ads=max_ads, **kw)
+    got = pbc.radius_graph_pbc_incremental(
+        _t(moved), _t(cell), _t(atom_mask), _t(ads), static_t, max_ads=max_ads, **kw)
+    assert_same_neighbors(got, want)
+    full = pbc.radius_graph_pbc(_t(moved), _t(cell), _t(atom_mask), **kw)
+    assert_same_neighbors(got, full, atol=0.0)
+
+
+def test_bench_like_slab_graphs_match_jax():
+    """The sampling workload's geometry: full and incremental tables, batched."""
+    pos, cell, mask, ads = _bench_like_batch()
+    kw = dict(radius=12.0, max_neighbors=50, reps=(2, 2, 0))
+    want = jpbc.radius_graph_pbc_batched(jnp.asarray(pos), jnp.asarray(cell), jnp.asarray(mask), **kw)
+    got = pbc.radius_graph_pbc(_t(pos), _t(cell), _t(mask), **kw)
+    assert_same_neighbors(got, want)
+
+    static_j = jpbc.slab_static_topk_batched(jnp.asarray(pos), jnp.asarray(cell), jnp.asarray(mask), jnp.asarray(ads), **kw)
+    static_t = pbc.slab_static_topk(_t(pos), _t(cell), _t(mask), _t(ads), **kw)
+    moved = pos.copy()
+    moved[:, 74:, :2] += np.array([3.1, -2.2], np.float32)  # the adsorbate slides over the slab
+    want = jpbc.radius_graph_pbc_incremental_batched(
+        jnp.asarray(moved), jnp.asarray(cell), jnp.asarray(mask), jnp.asarray(ads), static_j, max_ads=8, **kw)
+    got = pbc.radius_graph_pbc_incremental(_t(moved), _t(cell), _t(mask), _t(ads), static_t, max_ads=8, **kw)
+    assert_same_neighbors(got, want)
+
+
+def _skewed_cell(rng):
+    return (np.diag([5.0, 6.0, 30.0]) + rng.normal(0, 0.3, (3, 3)) * np.tri(3, 3, -1)).astype(np.float32)
+
+
+@pytest.mark.parametrize("fn", ["wrap_positions", "frac_wrap_center"])
+def test_wraps_match_jax_with_negative_coordinates(rng, fn):
+    cell = _skewed_cell(rng)
+    x = rng.normal(0, 12, (32, 3)).astype(np.float32)
+    x[:8] = -np.abs(x[:8])  # negative coordinates: remainder, not fmod
+    got = getattr(pbc, fn)(_t(x), _t(cell)).numpy()
+    np.testing.assert_allclose(got, np.asarray(getattr(jpbc, fn)(jnp.asarray(x), jnp.asarray(cell))), atol=1e-5)
+    # batched cells broadcast like the JAX functions
+    cells = np.stack([cell, _skewed_cell(rng)])
+    xb = x[:2]
+    got_b = getattr(pbc, fn)(_t(xb), _t(cells)).numpy()
+    np.testing.assert_allclose(got_b, np.asarray(getattr(jpbc, fn)(jnp.asarray(xb), jnp.asarray(cells))), atol=1e-5)
+
+
+def test_min_image_diff_matches_jax(rng):
+    cell = _skewed_cell(rng)
+    a = rng.normal(0, 6, (16, 3)).astype(np.float32)
+    b = rng.normal(0, 6, (16, 3)).astype(np.float32)
+    np.testing.assert_allclose(
+        pbc.min_image_diff(_t(a), _t(b), _t(cell)).numpy(),
+        np.asarray(jpbc.min_image_diff(jnp.asarray(a), jnp.asarray(b), jnp.asarray(cell))), atol=1e-5,
+    )
+
+
+def test_cell_reps_match_jax():
+    pos, cell, _, _ = _bench_like_batch()
+    for radius in (6.0, 12.0):
+        assert pbc.compute_cell_reps(cell, radius) == jpbc.compute_cell_reps(cell, radius)
+        assert pbc.auto_cell_reps(list(pos), list(cell), radius) == jpbc.auto_cell_reps(list(pos), list(cell), radius)
+    assert pbc.auto_cell_reps(list(pos), list(cell), 12.0) == (2, 2, 0)  # the z-vacuum is pruned
+    np.testing.assert_array_equal(pbc._offset_grid((1, 2, 0)), jpbc._offset_grid((1, 2, 0)))
