@@ -15,9 +15,8 @@
 // What bounds it on the H100: at the sampling shape (B=16, N=80, K=50,
 // H=512, R=128) the filter product alone is 2*E*R*3H = 25.2 GFLOP per layer
 // (E = 64,000 edge slots) in f32 on the CUDA cores (67 TFLOP/s, >= 0.38 ms),
-// while the bytes it must move are ~27 MB (8 us at 3.35 TB/s). So it is bound
-// by f32 operations, and the design keeps every operand of those operations
-// on chip:
+// while the bytes it must move from device memory are ~27 MB (8 us at
+// 3.35 TB/s). So the least time is set by f32 operations. The design:
 //   * one block per target atom and 128 feature columns; thread h owns the
 //     three filter columns h, H+h, 2H+h that its outputs need;
 //   * the block stages its K edges' basis [R][K] (computed in the block, never
@@ -28,6 +27,12 @@
 //   * the source rows of xh/vec are read straight from device memory by index
 //     (coalesced across h), replacing the TPU's one-hot gather matmul, and the
 //     K-reduction is a register sum, replacing its selection-matrix matmuls.
+// W is not kept on chip: every block reloads its 128 x 384 slice of W
+// (196 KB) for each 16-edge pass, 4 passes at K=50, so a launch at the
+// sampling shape loads ~4 GB of W through L1/L2 (W itself, 0.79 MB, stays in
+// L2). That traffic may limit the kernel as much as the FMAs do; which one
+// does is not measured. Making each W load serve more edges (several targets
+// per block, W tiles staged in shared memory) is the next step.
 // Not yet used: tensor cores (wgmma) and TMA; the f32 path rules out TF32.
 //
 // Masked slots and sources outside [0, N) contribute nothing, which is what

@@ -9,7 +9,7 @@ graph) under ``torch.profiler`` for a few steps and prints:
   same steps) and the idle share;
 - the device kernels with the most time, with their share of busy time.
 
-    python scripts/profile_torch_sampling.py [--steps 20] [--trace out.json]
+    python scripts/profile_torch_sampling.py [--steps 20]
 
 The last line is one JSON object with the same numbers.
 """
@@ -31,12 +31,12 @@ from adsorbdiff_tpu_torch.models.painn import PaiNN  # noqa: E402
 from adsorbdiff_tpu_torch.relaxation.ml_relaxation import DiffusionEngine, make_score_fn  # noqa: E402
 from chip_smoke import MODEL_KW, PARAMS, bench_systems  # noqa: E402
 
+TOP_KERNELS = 15  # rows of the per-kernel table
+
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--top", type=int, default=15)
-    ap.add_argument("--trace", default=None, help="write a Chrome trace of the window here")
     args = ap.parse_args()
 
     device = resolve_device(None)
@@ -75,14 +75,12 @@ def main() -> None:
           f"(profiler on), idle share {per_step['idle_share']:.3f}; {per_step['device_events']:.0f} device events "
           f"of {len(by_name)} kinds")
     top = []
-    for name, (calls, us) in sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)[: args.top]:
+    for name, (calls, us) in sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)[:TOP_KERNELS]:
         row = {"name": name, "calls_per_step": calls / args.steps, "device_ms_per_step": us / 1e3 / args.steps,
                "share": us / busy_us}
         top.append(row)
         print(f"{row['share']:7.1%}  {row['device_ms_per_step']:9.4f} ms/step  {row['calls_per_step']:6.1f} calls/step  "
               f"{name[:100]}")
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "steps": args.steps, **per_step, "top": top}))
 
 
