@@ -63,15 +63,55 @@ def painn_message_fused_reference(
     return dx, dvec
 
 
-def _painn_message_fused_lib() -> ctypes.CDLL:
-    lib = build.load("painn_message_fused")
-    fn = lib.painn_message_fused_f32
+def _library(name: str, argtypes) -> ctypes.CDLL:
+    """Kernel ``name``'s library, built on first use; its C entry point is
+    ``<name>_f32(..., stream)`` returning a cudaError code, and
+    ``<name>_error_string(code)`` names the code."""
+    lib = build.load(name)
+    fn = getattr(lib, name + "_f32")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        lib.painn_message_fused_error_string.argtypes = [ctypes.c_int]
-        lib.painn_message_fused_error_string.restype = ctypes.c_char_p
+        msg = getattr(lib, name + "_error_string")
+        msg.argtypes = [ctypes.c_int]
+        msg.restype = ctypes.c_char_p
     return lib
+
+
+def _check_cuda_inputs(kernel: str, tensors: dict, dtypes: dict) -> None:
+    """Raise unless every tensor is a contiguous tensor of ``dtypes`` (f32
+    where unnamed) on the first tensor's CUDA device, with no autograd."""
+    device = next(iter(tensors.values())).device
+    if device.type != "cuda":
+        raise ValueError(f"{kernel}: unsupported device {device}")
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, not {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+        want = dtypes.get(name, torch.float32)
+        if t.dtype != want:
+            raise TypeError(f"{kernel}: {name} must be {want}, got {t.dtype}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
+        raise NotImplementedError(f"{kernel} has no backward kernel on CUDA yet")
+
+
+def _check_shapes(kernel: str, tensors: dict, expected: dict) -> None:
+    for name, shape in expected.items():
+        if tuple(tensors[name].shape) != shape:
+            raise ValueError(f"{kernel}: {name} has shape {tuple(tensors[name].shape)}, want {shape}")
+
+
+def _launch(kernel: str, lib: ctypes.CDLL, device: torch.device, *args) -> None:
+    """Call ``<kernel>_f32(*args, stream)`` on the current stream of
+    ``device``; raise on a non-zero cudaError, else count the launch."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, kernel + "_f32")(*args, stream)
+    if err != 0:
+        msg = getattr(lib, kernel + "_error_string")(err).decode()
+        raise RuntimeError(f"{kernel} launch failed: {msg} (cudaError {err})")
+    launches[kernel] += 1
 
 
 def painn_message_fused(
@@ -102,18 +142,7 @@ def painn_message_fused(
             cutoff=cutoff, envelope_exponent=envelope_exponent,
         )
     tensors = dict(xh=xh, vec=vec, src=src, dist=dist, mask=mask, unit=unit, weight=weight, bias=bias)
-    if xh.device.type != "cuda":
-        raise ValueError(f"painn_message_fused: unsupported device {xh.device}")
-    for name, t in tensors.items():
-        if t.device != xh.device:
-            raise ValueError(f"painn_message_fused: {name} is on {t.device}, xh on {xh.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"painn_message_fused: {name} must be contiguous")
-        want = {"src": torch.int32, "mask": torch.bool}.get(name, torch.float32)
-        if t.dtype != want:
-            raise TypeError(f"painn_message_fused: {name} must be {want}, got {t.dtype}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
-        raise NotImplementedError("painn_message_fused has no backward kernel on CUDA yet")
+    _check_cuda_inputs("painn_message_fused", tensors, {"src": torch.int32, "mask": torch.bool})
     if src.dim() != 3:
         raise ValueError(f"painn_message_fused: src must be [B, N, K], got {tuple(src.shape)}")
     b, n, k = src.shape
@@ -121,23 +150,86 @@ def painn_message_fused(
         raise ValueError(f"painn_message_fused: weight must be [R>=2, 3H], got {tuple(weight.shape)}")
     r, f3 = weight.shape
     h = f3 // 3
-    expected = dict(xh=(b, n, f3), vec=(b, n, f3), dist=(b, n, k), mask=(b, n, k), unit=(b, n, k, 3), bias=(f3,))
-    for name, shape in expected.items():
-        if tuple(tensors[name].shape) != shape:
-            raise ValueError(f"painn_message_fused: {name} has shape {tuple(tensors[name].shape)}, want {shape}")
+    _check_shapes("painn_message_fused", tensors, dict(
+        xh=(b, n, f3), vec=(b, n, f3), dist=(b, n, k), mask=(b, n, k), unit=(b, n, k, 3), bias=(f3,)))
 
     dx = torch.empty((b, n, h), dtype=torch.float32, device=xh.device)
     dvec = torch.empty((b, n, 3, h), dtype=torch.float32, device=xh.device)
-    lib = _painn_message_fused_lib()
-    with torch.cuda.device(xh.device):
-        stream = torch.cuda.current_stream(xh.device).cuda_stream
-        err = lib.painn_message_fused_f32(
-            xh.data_ptr(), vec.data_ptr(), src.data_ptr(), dist.data_ptr(), mask.data_ptr(),
-            unit.data_ptr(), weight.data_ptr(), bias.data_ptr(), dx.data_ptr(), dvec.data_ptr(),
-            b, n, k, r, h, 1.0 / cutoff, int(envelope_exponent), stream,
-        )
-    if err != 0:
-        msg = lib.painn_message_fused_error_string(err).decode()
-        raise RuntimeError(f"painn_message_fused launch failed: {msg} (cudaError {err})")
-    launches["painn_message_fused"] += 1
+    lib = _library("painn_message_fused",
+                   [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    _launch(
+        "painn_message_fused", lib, xh.device,
+        xh.data_ptr(), vec.data_ptr(), src.data_ptr(), dist.data_ptr(), mask.data_ptr(),
+        unit.data_ptr(), weight.data_ptr(), bias.data_ptr(), dx.data_ptr(), dvec.data_ptr(),
+        b, n, k, r, h, 1.0 / cutoff, int(envelope_exponent),
+    )
     return dx, dvec
+
+
+def gemnet_quad_chain_reference(
+    n1: torch.Tensor,  # [B, N, U, Q, 3]
+    n2: torch.Tensor,  # [B, N, Q, K2, 3]
+    key1: torch.Tensor,  # [B, N, U] int
+    key2: torch.Tensor,  # [B, N, Q, K2] int
+    xm: torch.Tensor,  # [B, N, Q, K2, E]
+    qp: torch.Tensor,  # [B, N, U, S, Q, F]
+    num_spherical: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`gemnet_quad_chain` (the JAX
+    ``_quad_chain_ref``): the Legendre table ``[B, N, U, Q, K2, S]`` and
+    ``d2 [B, N, U, Q, S, E]`` are materialised."""
+    eps = 1e-9
+    n1h = n1 / torch.clamp(torch.linalg.norm(n1, dim=-1, keepdim=True), min=eps)
+    n2h = n2 / torch.clamp(torch.linalg.norm(n2, dim=-1, keepdim=True), min=eps)
+    cos = torch.clamp(torch.einsum("bnuqc,bnqkc->bnuqk", n1h, n2h), -1.0, 1.0)
+    k1 = key1[:, :, :, None, None]
+    keep = (k1 != key2[:, :, None, :, :]) & (k1 >= 0)
+    ps = [torch.ones_like(cos), cos]
+    for l in range(2, num_spherical):
+        ps.append(((2 * l - 1) * cos * ps[l - 1] - (l - 1) * ps[l - 2]) / l)
+    y = torch.stack([math.sqrt((2 * l + 1) / (4 * math.pi)) * ps[l] for l in range(num_spherical)], dim=-1)
+    y = torch.where(keep[..., None], y, torch.zeros_like(y))
+    d2 = torch.einsum("bnuqks,bnqke->bnuqse", y, xm)
+    return torch.einsum("bnusqf,bnuqse->bnufe", qp, d2)
+
+
+def gemnet_quad_chain(
+    n1: torch.Tensor,
+    n2: torch.Tensor,
+    key1: torch.Tensor,
+    key2: torch.Tensor,
+    xm: torch.Tensor,
+    qp: torch.Tensor,
+    num_spherical: int,
+) -> torch.Tensor:
+    """GemNet-OC's quadruplet consumer, fused: dihedral cosine, Legendre
+    basis, c==d exclusion from the integer image keys, the K2 contraction
+    against ``xm`` and the (S, Q) contraction against ``qp``, in one kernel
+    (``csrc/gemnet_quad_chain.cu``).
+
+    Shapes as :func:`gemnet_quad_chain_reference`; ``qp`` has the true U (no
+    padding).  Returns ``outer [B, N, U, F, E]`` f32 for the qint bilinear.
+    On the card: f32 tensors, int32 keys, contiguous, and no autograd (the
+    backward comes with training).
+    """
+    if n1.device.type == "cpu":
+        return gemnet_quad_chain_reference(n1, n2, key1, key2, xm, qp, num_spherical)
+    tensors = dict(n1=n1, n2=n2, key1=key1, key2=key2, xm=xm, qp=qp)
+    _check_cuda_inputs("gemnet_quad_chain", tensors, {"key1": torch.int32, "key2": torch.int32})
+    if n1.dim() != 5 or xm.dim() != 5 or qp.dim() != 6:
+        raise ValueError("gemnet_quad_chain: n1, xm and qp must be 5-, 5- and 6-dimensional")
+    b, n, u, q, _ = n1.shape
+    k2, e = xm.shape[3], xm.shape[4]
+    s, f = num_spherical, qp.shape[-1]
+    _check_shapes("gemnet_quad_chain", tensors, dict(
+        n1=(b, n, u, q, 3), n2=(b, n, q, k2, 3), key1=(b, n, u), key2=(b, n, q, k2), xm=(b, n, q, k2, e),
+        qp=(b, n, u, s, q, f)))
+
+    out = torch.empty((b, n, u, f, e), dtype=torch.float32, device=n1.device)
+    lib = _library("gemnet_quad_chain", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    _launch(
+        "gemnet_quad_chain", lib, n1.device,
+        n1.data_ptr(), n2.data_ptr(), key1.data_ptr(), key2.data_ptr(), xm.data_ptr(), qp.data_ptr(),
+        out.data_ptr(), b * n, u, q, k2, s, e, f,
+    )
+    return out

@@ -16,6 +16,9 @@ selection here is a stable ascending sort of d^2, which reproduces
 same d^2.  ``_two_stage_top_k`` was a TPU workaround for a slow top-k and has
 no counterpart.
 
+The same stable sort picks the Verlet candidate tables
+(:class:`CandidateTable`), so their slots come in ``lax.top_k``'s order too.
+
 Cell convention: rows of ``cell`` are the lattice vectors (a1, a2, a3), so
 cartesian = fractional @ cell.
 """
@@ -280,6 +283,102 @@ def radius_graph_pbc_incremental(
     d2 = d2_m.scatter(1, rows, d2_rows)
     fidx = fidx_m.scatter(1, rows, idx_rows)
     return _strip_batch(squeeze, _decode(pos, cell, offsets_int, d2, fidx))
+
+
+class CandidateTable(NamedTuple):
+    """Verlet candidate list for relaxation loops, ``[B, N, Kc]``.
+
+    Port of the JAX ``CandidateTable``.  Each target keeps its ``Kc`` nearest
+    periodic-image candidates from build time.  While every atom has moved by
+    at most ``disp`` since the build and ``4 * disp < margin`` (``margin`` =
+    the smallest ``d_Kc - d_K`` over full rows), the K nearest in-radius
+    images among the candidates equal the full build's
+    (:func:`refresh_from_candidates`); the relax loop rebuilds otherwise.
+    """
+
+    src: torch.Tensor  # [B, N, Kc] int32 source atom per candidate
+    cell_offsets: torch.Tensor  # [B, N, Kc, 3] int32
+    valid: torch.Tensor  # [B, N, Kc] bool (build-time pair validity)
+    pos0: torch.Tensor  # [B, N, 3] positions at build time
+    margin: torch.Tensor  # [B] min over full rows of d_Kc - d_K (inf if the table holds all)
+
+
+def candidate_topk(
+    pos: torch.Tensor,
+    cell: torch.Tensor,
+    atom_mask: torch.Tensor,
+    *,
+    k_cand: int,
+    max_neighbors: int,
+    reps: Tuple[int, int, int],
+) -> CandidateTable:
+    """The ``k_cand`` nearest periodic-image candidates per target atom, with
+    no radius cap (the cutoff is applied at refresh time)."""
+    squeeze, (pos, cell, atom_mask) = _with_batch(pos, cell, atom_mask)
+    b, n = pos.shape[:2]
+    offsets_int, offsets_cart = _offsets(reps, cell)
+    c = offsets_int.shape[0]
+    # tiny systems: the table holds every candidate; refresh still needs
+    # >= max_neighbors slots to select from
+    k_cand = max(min(k_cand, n * c), max_neighbors)
+    d2 = _pair_d2(pos, pos, offsets_cart)  # [B, N, N, C]
+    valid = atom_mask[:, :, None, None] & atom_mask[:, None, :, None] & (d2 > 1.0e-4)
+    big = torch.finfo(d2.dtype).max
+    d2_top, fidx = _smallest_k(torch.where(valid, d2, big).reshape(b, n, n * c), k_cand)
+    vmask = d2_top < big
+    d = torch.sqrt(torch.clamp(d2_top, min=0.0))
+    inf = torch.full((), float("inf"), dtype=d.dtype, device=d.device)
+    if k_cand < n * c:
+        # only full rows can have left a candidate out; padded targets and
+        # under-full rows do not bound the margin
+        full = vmask[..., -1] & atom_mask
+        margin = torch.where(full, d[..., -1] - d[..., max_neighbors - 1], inf).amin(dim=1)
+    else:  # the table holds every candidate: nothing can ever be left out
+        margin = inf.expand(b).clone()
+    src = torch.div(fidx, c, rounding_mode="floor").to(torch.int32)
+    table = CandidateTable(
+        src=torch.where(vmask, src, torch.zeros_like(src)),
+        cell_offsets=offsets_int[torch.remainder(fidx, c)],
+        valid=vmask,
+        pos0=pos,
+        margin=margin,
+    )
+    return _strip_batch(squeeze, table)
+
+
+def refresh_from_candidates(
+    pos: torch.Tensor,
+    cell: torch.Tensor,
+    cand: CandidateTable,
+    *,
+    radius: float,
+    max_neighbors: int,
+) -> NeighborList:
+    """Neighbour table at the current positions from cached candidates: the
+    same displacement formula and top-k order as :func:`radius_graph_pbc`,
+    restricted to the candidates, at O(N * Kc) cost."""
+    squeeze, (pos, cell) = _with_batch(pos, cell)
+    if squeeze:
+        cand = CandidateTable(*(t[None] for t in cand))
+    off_cart = cand.cell_offsets.to(pos.dtype) @ cell[:, None]  # [B, N, Kc, 3]
+    vec = _gather_rows(pos, cand.src) + off_cart - pos[:, :, None, :]
+    d2 = torch.sum(vec * vec, dim=-1)
+    big = torch.finfo(d2.dtype).max
+    ok = cand.valid & (d2 > 1.0e-4) & (d2 <= radius * radius)
+    d2_top, sel = _smallest_k(torch.where(ok, d2, big), max_neighbors)  # [B, N, K]
+    mask = d2_top < big
+    src = torch.gather(cand.src, 2, sel)
+    cell_offsets = torch.gather(cand.cell_offsets, 2, sel[..., None].expand(-1, -1, -1, 3))
+    v = torch.gather(vec, 2, sel[..., None].expand(-1, -1, -1, 3))
+    zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
+    nl = NeighborList(
+        src=torch.where(mask, src, torch.zeros_like(src)),
+        cell_offsets=cell_offsets,
+        vec=torch.where(mask[..., None], v, zero),
+        dist=torch.where(mask, torch.sqrt(torch.clamp(d2_top, min=0.0)), zero),
+        mask=mask,
+    )
+    return _strip_batch(squeeze, nl)
 
 
 def _to_frac(x: torch.Tensor, cell: torch.Tensor) -> torch.Tensor:

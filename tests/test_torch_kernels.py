@@ -1,21 +1,31 @@
-"""PyTorch port: the fused PaiNN message kernel and its plain version.
+"""PyTorch port: the Hopper kernels and their plain versions.
 
-The plain version is held against the JAX ``painn_message_fused`` (Pallas in
-interpret mode on the CPU).  Tests marked ``cuda`` hold the Hopper kernel
+Each plain version is held against its JAX function (Pallas in interpret
+mode on the CPU) and against the JAX package's own plain formulation.  Tests marked ``cuda`` hold the Hopper kernel
 against the plain version and skip without a card; they import no JAX, so on
 the card they run with ``python -m pytest --noconftest tests/test_torch_kernels.py -m cuda``.
 
-Tolerance 1e-4 (abs and rel): the R-term filter sums and K-term reductions
-are taken in another order than the Pallas kernel's f32 matmuls.
+Tolerances: 1e-4 (abs and rel) for the PaiNN message, whose R-term filter
+sums and K-term reductions are taken in another order than the Pallas
+kernel's f32 matmuls; atol 2e-4 (the JAX package's own quad-chain test) and
+rtol 1e-5 for the GemNet-OC quadruplet chain, whose outputs sum K2 x S x Q =
+1680 products of O(1) terms in another order.
 """
 import numpy as np
 import pytest
 import torch
 
 from adsorbdiff_tpu_torch.ops import kernels
-from adsorbdiff_tpu_torch.ops.kernels import painn_message_fused, painn_message_fused_reference
+from adsorbdiff_tpu_torch.ops.kernels import (
+    gemnet_quad_chain,
+    gemnet_quad_chain_reference,
+    painn_message_fused,
+    painn_message_fused_reference,
+)
 
 RAGGED = (2, 13, 10, 16, 64)  # b, n, k, r, h of tests/test_pallas_kernels.py:114
+QUAD = (1, 4, 30, 8, 30, 7, 16, 16)  # b, n, u, q, k2, s, e, f of tests/test_pallas_kernels.py:561
+QUAD_RAGGED = (2, 3, 12, 4, 13, 4, 8, 8)
 
 
 def _inputs(seed, b, n, k, r, h, cutoff=6.0):
@@ -114,3 +124,96 @@ def test_kernel_wrapper_raises_instead_of_falling_back(cuda_device):
         painn_message_fused(**dict(inputs, unit=inputs["unit"][..., :2].contiguous()), cutoff=6.0)
     with pytest.raises(NotImplementedError, match="backward"):
         painn_message_fused(**dict(inputs, weight=inputs["weight"].requires_grad_()), cutoff=6.0)
+
+
+def _quad_inputs(seed, b, n, u, q, k2, s, e, f, zero_rows=False):
+    """Random chain inputs with -1 main-edge keys (never match), keys drawn
+    from a small range so that c == d collisions are frequent, and, with
+    ``zero_rows``, zero n1/n2 rows (masked edges have unit = 0)."""
+    rng = np.random.default_rng(seed)
+    n1 = rng.normal(size=(b, n, u, q, 3)).astype(np.float32)
+    n2 = rng.normal(size=(b, n, q, k2, 3)).astype(np.float32)
+    if zero_rows:
+        n1[:, :, -2:] = 0.0
+        n2[:, :, :, -3:] = 0.0
+    key1 = rng.integers(0, 50, size=(b, n, u)).astype(np.int32)
+    key1[..., -3:] = -1
+    key2 = rng.integers(0, 50, size=(b, n, q, k2)).astype(np.int32)
+    return dict(
+        n1=n1, n2=n2, key1=key1, key2=key2,
+        xm=rng.normal(size=(b, n, q, k2, e)).astype(np.float32),
+        qp=rng.normal(size=(b, n, u, s, q, f)).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("zero_rows", [False, True], ids=["random", "zero-rows"])
+def test_quad_chain_reference_matches_jax(zero_rows):
+    """Against JAX ``_quad_chain_ref`` and the Pallas kernel in interpret mode."""
+    import jax.numpy as jnp
+
+    from adsorbdiff_tpu.ops.pallas_kernels import _quad_chain_ref
+    from adsorbdiff_tpu.ops.pallas_kernels import gemnet_quad_chain as jax_gemnet_quad_chain
+
+    s = QUAD[5]
+    inputs = _quad_inputs(5, *QUAD, zero_rows=zero_rows)
+    args = [jnp.asarray(inputs[k]) for k in ("n1", "n2", "key1", "key2", "xm", "qp")]
+    got = gemnet_quad_chain_reference(**_torch(inputs), num_spherical=s).numpy()
+    assert got.shape == (1, 4, 30, 16, 16)
+    np.testing.assert_allclose(got, np.asarray(_quad_chain_ref(*args, s)), atol=2e-4, rtol=1e-5)
+    np.testing.assert_allclose(got, np.asarray(jax_gemnet_quad_chain(*args, s, interpret=True)), atol=2e-4, rtol=1e-5)
+
+
+def test_quad_chain_reference_exclusions():
+    """-1 main keys give zero rows; equal keys drop exactly their (q, k) terms."""
+    inputs = _quad_inputs(6, *QUAD_RAGGED)
+    s = QUAD_RAGGED[5]
+    out = gemnet_quad_chain_reference(**_torch(inputs), num_spherical=s)
+    assert not out[:, :, -3:].any()
+    # a main edge whose key equals every in-edge key is excluded everywhere
+    collide = dict(inputs, key2=np.full_like(inputs["key2"], 7))
+    collide["key1"] = inputs["key1"].copy()
+    collide["key1"][:, :, 0] = 7
+    out_c = gemnet_quad_chain_reference(**_torch(collide), num_spherical=s)
+    assert not out_c[:, :, 0].any() and out_c[:, :, 1].abs().max() > 0
+
+
+def test_quad_chain_wrapper_on_cpu_runs_the_plain_version_and_counts_no_launch():
+    inputs = _torch(_quad_inputs(7, *QUAD_RAGGED))
+    before = kernels.launches["gemnet_quad_chain"]
+    got = gemnet_quad_chain(**inputs, num_spherical=QUAD_RAGGED[5])
+    torch.testing.assert_close(got, gemnet_quad_chain_reference(**inputs, num_spherical=QUAD_RAGGED[5]),
+                               rtol=0, atol=0)
+    assert kernels.launches["gemnet_quad_chain"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape", [QUAD, QUAD_RAGGED, (2, 80, 30, 8, 30, 7, 32, 32), (1, 2, 5, 1, 3, 3, 5, 7)],
+    ids=["jax-test", "ragged", "relax-width", "q1-odd-f"],
+)
+def test_quad_chain_kernel_matches_plain_version_on_card(cuda_device, shape):
+    """|kernel - plain| <= 1e-4 * max|plain| + 1e-5 (f32 sums in another order)."""
+    inputs = _torch(_quad_inputs(8, *shape, zero_rows=True), cuda_device)
+    s = shape[5]
+    before = kernels.launches["gemnet_quad_chain"]
+    got = gemnet_quad_chain(**inputs, num_spherical=s)
+    torch.cuda.synchronize()
+    assert kernels.launches["gemnet_quad_chain"] == before + 1
+    want = gemnet_quad_chain_reference(**inputs, num_spherical=s)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item() + 1e-5, err
+
+
+@pytest.mark.cuda
+def test_quad_chain_wrapper_raises_instead_of_falling_back(cuda_device):
+    inputs = _torch(_quad_inputs(9, *QUAD_RAGGED), cuda_device)
+    s = QUAD_RAGGED[5]
+    with pytest.raises(TypeError, match="key1 must be torch.int32"):
+        gemnet_quad_chain(**dict(inputs, key1=inputs["key1"].long()), num_spherical=s)
+    with pytest.raises(ValueError, match="contiguous"):
+        gemnet_quad_chain(**dict(inputs, xm=inputs["xm"].transpose(3, 4).contiguous().transpose(3, 4)),
+                          num_spherical=s)
+    with pytest.raises(ValueError, match="shape"):
+        gemnet_quad_chain(**inputs, num_spherical=s + 1)
+    with pytest.raises(NotImplementedError, match="backward"):
+        gemnet_quad_chain(**dict(inputs, qp=inputs["qp"].requires_grad_()), num_spherical=s)

@@ -149,3 +149,68 @@ def test_cell_reps_match_jax():
         assert pbc.auto_cell_reps(list(pos), list(cell), radius) == jpbc.auto_cell_reps(list(pos), list(cell), radius)
     assert pbc.auto_cell_reps(list(pos), list(cell), 12.0) == (2, 2, 0)  # the z-vacuum is pruned
     np.testing.assert_array_equal(pbc._offset_grid((1, 2, 0)), jpbc._offset_grid((1, 2, 0)))
+
+
+def _candidate_cases(rng):
+    """(pos, cell, mask, radius, k, reps, k_cand): a bench-like slab batch at
+    the relaxation graph's widths, and tests/test_pbc.py systems with padded
+    atoms (one small enough that the table holds every candidate)."""
+    pos, cell, mask, _ = _bench_like_batch()
+    yield pos, cell, mask, 12.0, 30, (2, 2, 0), 64
+    systems = [make_system(rng, n=14) for _ in range(2)]
+    spos = np.stack([p for p, _ in systems])
+    scell = np.stack([c for _, c in systems])
+    smask = np.ones((2, 14), bool)
+    smask[:, -2:] = False
+    reps = jpbc.compute_cell_reps(scell, 5.0)
+    yield spos, scell, smask, 5.0, 10, reps, 24
+    yield spos, scell, smask, 5.0, 10, reps, 10_000  # the table holds everything
+
+
+@pytest.mark.parametrize("case", [0, 1, 2], ids=["bench-slab", "small-systems", "all-candidates"])
+def test_candidate_refresh_matches_full_build_and_jax(rng, case):
+    """candidate_topk -> refresh_from_candidates after a move within the
+    margin equals the port's full build and JAX's refresh; margins equal JAX's."""
+    pos, cell, mask, radius, k, reps, k_cand = list(_candidate_cases(rng))[case]
+    cand = pbc.candidate_topk(_t(pos), _t(cell), _t(mask), k_cand=k_cand, max_neighbors=k, reps=reps)
+    cand_j = jpbc.candidate_topk_batched(jnp.asarray(pos), jnp.asarray(cell), jnp.asarray(mask),
+                                         k_cand=k_cand, max_neighbors=k, reps=reps)
+    margin = to_numpy(cand.margin)
+    np.testing.assert_allclose(margin, np.asarray(cand_j.margin), atol=1e-5)
+    assert (case == 2) == bool(np.isinf(margin).all())
+    # move every real atom by just under a quarter of the smallest finite margin
+    finite = margin[np.isfinite(margin)]
+    step = 0.24 * (finite.min() if finite.size else 1.0)
+    direction = rng.normal(size=pos.shape)
+    direction /= np.linalg.norm(direction, axis=-1, keepdims=True)
+    moved = (pos + step * direction * mask[..., None]).astype(np.float32)
+    got = pbc.refresh_from_candidates(_t(moved), _t(cell), cand, radius=radius, max_neighbors=k)
+    full = pbc.radius_graph_pbc(_t(moved), _t(cell), _t(mask), radius=radius, max_neighbors=k, reps=reps)
+    assert_same_neighbors(got, full)
+    want = jpbc.refresh_from_candidates_batched(jnp.asarray(moved), jnp.asarray(cell), cand_j,
+                                                radius=radius, max_neighbors=k)
+    assert_same_neighbors(got, want)
+
+
+def test_candidate_table_single_system_and_graph_dispatch(rng):
+    """An unbatched system gives the batched table's rows, and generate_graph
+    refreshes from a CandidateTable."""
+    from adsorbdiff_tpu_torch.data.schema import AtomsBatch
+    from adsorbdiff_tpu_torch.models.base import generate_graph, prepare_candidate_graph
+
+    pos, cell, mask, radius, k, reps, k_cand = list(_candidate_cases(rng))[1]
+    one = pbc.candidate_topk(_t(pos[0]), _t(cell[0]), _t(mask[0]), k_cand=k_cand, max_neighbors=k, reps=reps)
+    both = pbc.candidate_topk(_t(pos), _t(cell), _t(mask), k_cand=k_cand, max_neighbors=k, reps=reps)
+    for a, b in zip(one, both):
+        torch.testing.assert_close(a, b[0], rtol=0, atol=0)
+    b, n = mask.shape
+    zeros = torch.zeros((b, n), dtype=torch.int32)
+    batch = AtomsBatch(pos=_t(pos), atomic_numbers=zeros + 1, tags=zeros, fixed=zeros.bool(), cell=_t(cell),
+                       natoms=torch.from_numpy(mask.sum(1).astype(np.int32)), atom_mask=_t(mask),
+                       sid=torch.arange(b, dtype=torch.int32), fid=torch.zeros(b, dtype=torch.int32),
+                       energy=torch.zeros(b), y_relaxed=torch.zeros(b), pos_relaxed=_t(pos))
+    table = prepare_candidate_graph(batch, max_neighbors=k, cell_reps=reps, k_cand=k_cand)
+    nl, dist, unit = generate_graph(batch, cutoff=radius, max_neighbors=k, cell_reps=reps, static_graph=table)
+    nl_full, dist_full, unit_full = generate_graph(batch, cutoff=radius, max_neighbors=k, cell_reps=reps)
+    assert_same_neighbors(nl, nl_full, atol=0.0)
+    torch.testing.assert_close(dist, dist_full, rtol=0, atol=0)
