@@ -310,9 +310,7 @@ class GemNetOC(nn.Module):
     ``compute_dtype``, ``energy_encoding``, ``use_pallas=True`` (the masked
     Legendre kernel) and ``fused_trip=True`` (the triplet consumers through
     the quad-chain kernel).  ``fused_quad`` is accepted and ignored: the
-    quadruplet interaction always runs the kernel.  ``so3_denoising``,
-    ``sampling`` and ``max_ads`` only matter in denoising mode and are
-    ignored.
+    quadruplet interaction always runs the kernel.
     """
 
     def __init__(
@@ -356,11 +354,8 @@ class GemNetOC(nn.Module):
         symmetric_mp: bool = True,
         num_elements: int = 83,
         cell_reps: Tuple[int, int, int] = (2, 2, 1),
-        max_ads: int = 16,
         mode: str = "s2ef",
-        so3_denoising: bool = True,
         energy_encoding: Optional[str] = None,
-        sampling: bool = False,
         use_pallas: bool = False,
         fused_quad: bool = False,
         fused_trip: bool = False,
@@ -385,6 +380,7 @@ class GemNetOC(nn.Module):
         self.num_spherical = num_spherical
         self.num_blocks = num_blocks
         self.emb_size_rbf = emb_size_rbf
+        self.emb_size_quad_in, self.emb_size_sbf = emb_size_quad_in, emb_size_sbf  # the quad-chain kernel's E, F
         self.cutoff, self.cutoff_qint, self.cutoff_aeaint, self.cutoff_aint = cutoff, cutoff_qint, cutoff_aeaint, cutoff_aint
         self.max_neighbors = max_neighbors
         self.max_neighbors_qint = max_neighbors_qint

@@ -153,6 +153,8 @@ def painn_message_fused(
     _check_shapes("painn_message_fused", tensors, dict(
         xh=(b, n, f3), vec=(b, n, f3), dist=(b, n, k), mask=(b, n, k), unit=(b, n, k, 3), bias=(f3,)))
 
+    if b * n * h == 0:  # empty output: nothing to launch
+        return xh.new_empty((b, n, h)), xh.new_empty((b, n, 3, h))
     dx = torch.empty((b, n, h), dtype=torch.float32, device=xh.device)
     dvec = torch.empty((b, n, 3, h), dtype=torch.float32, device=xh.device)
     lib = _library("painn_message_fused",
@@ -225,6 +227,8 @@ def gemnet_quad_chain(
         n1=(b, n, u, q, 3), n2=(b, n, q, k2, 3), key1=(b, n, u), key2=(b, n, q, k2), xm=(b, n, q, k2, e),
         qp=(b, n, u, s, q, f)))
 
+    if b * n * u * f * e == 0:  # empty output: nothing to launch
+        return n1.new_empty((b, n, u, f, e))
     out = torch.empty((b, n, u, f, e), dtype=torch.float32, device=n1.device)
     lib = _library("gemnet_quad_chain", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     _launch(

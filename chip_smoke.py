@@ -288,7 +288,8 @@ def relax_path(device, gen, systems):
     model = GemNetOC(**GEMNET_KW, cell_reps=cell_reps, device=device, generator=gen)
     b, n = batch.batch_size, batch.max_atoms
     s = model.num_spherical
-    shape = (b, n, model.max_neighbors, model.max_neighbors_qint, model.max_neighbors, s, 32, 32)
+    shape = (b, n, model.max_neighbors, model.max_neighbors_qint, model.max_neighbors, s, model.emb_size_quad_in,
+             model.emb_size_sbf)
     inputs, out, err = check_quad_kernel(device, gen, shape)
     check_quad_kernel(device, gen, (2, 7, 12, 4, 13, 4, 8, 8))
     ms = cuda_ms(lambda: kernels.gemnet_quad_chain(**inputs, num_spherical=s), 20)

@@ -64,6 +64,26 @@ def test_tiny_matches_jax(jax_tiny, port_tiny, fused_quad):
     assert not to_numpy(got["forces"])[:, 20:].any()  # padded atoms
 
 
+@pytest.mark.parametrize(
+    "kw",
+    [dict(derive_subgraphs=False), dict(cutoff_qint=7.0, max_neighbors_aeaint=14)],
+    ids=["derive-off", "beyond-main-graph"],
+)
+def test_tiny_separate_subgraphs_match_jax(jax_tiny, port_tiny, kw):
+    """The aeaint and qint graphs built on their own: with derivation off, or
+    with a qint cutoff and an aeaint width beyond the main graph's (so
+    neither can be a K-prefix view of it)."""
+    batch, variables, _ = jax_tiny
+    want = jax.jit(JaxGemNetOC(**dict(TINY, **kw)).apply)(variables, batch)
+    model = GemNetOC(**dict(TINY, **kw), device="cpu")
+    assert not (model.derive_ae or model.derive_q)
+    model.load_state_dict(port_tiny.state_dict(), strict=True)
+    with torch.no_grad():
+        got = model(to_torch_batch(batch))
+    np.testing.assert_allclose(to_numpy(got["energy"]), np.asarray(want["energy"]), atol=5e-5, rtol=1e-4)
+    np.testing.assert_allclose(to_numpy(got["forces"]), np.asarray(want["forces"]), atol=5e-5, rtol=1e-4)
+
+
 def test_model_golden():
     """``tests/fixtures/model_goldens.npz`` (``gem_energy``/``gem_forces``, the
     JAX TINY model at PRNGKey(7) on ``make_batch(rng 77)``) through the port

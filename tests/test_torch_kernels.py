@@ -217,3 +217,16 @@ def test_quad_chain_wrapper_raises_instead_of_falling_back(cuda_device):
         gemnet_quad_chain(**inputs, num_spherical=s + 1)
     with pytest.raises(NotImplementedError, match="backward"):
         gemnet_quad_chain(**dict(inputs, qp=inputs["qp"].requires_grad_()), num_spherical=s)
+
+
+@pytest.mark.cuda
+def test_empty_outputs_launch_nothing(cuda_device):
+    """A call whose output is empty returns it without a launch, so the
+    launch counts rise only where a kernel runs."""
+    before = dict(kernels.launches)
+    dx, dvec = painn_message_fused(**_torch(_inputs(10, 0, 5, 4, 8, 16), cuda_device), cutoff=6.0)
+    assert dx.shape == (0, 5, 16) and dvec.shape == (0, 5, 3, 16)
+    shape = (1, 3, 0, 2, 4, 3, 5, 7)  # U = 0
+    out = gemnet_quad_chain(**_torch(_quad_inputs(10, *shape), cuda_device), num_spherical=shape[5])
+    assert out.shape == (1, 3, 0, 7, 5)
+    assert dict(kernels.launches) == before

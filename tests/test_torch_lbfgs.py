@@ -32,6 +32,9 @@ SMALL_GEMNET = dict(
     max_neighbors=8, max_neighbors_aeaint=6, max_neighbors_qint=4, cell_reps=(1, 1, 0),
 )
 RELAX_OPT = dict(steps=8, fmax=0.01, maxstep=0.04, memory=50, damping=1.0, alpha=70.0, k_cand=24)
+# 2 candidates past the main graph's 8 neighbours: its margin (~0.016 A here)
+# is spent within a few steps, so the loop rebuilds every table
+SEPARATE_K_CAND = 10
 
 
 def _quadratic(stiffness, target, xp):
@@ -133,6 +136,23 @@ def test_relaxation_engine_verlet_and_jax(gemnet_pair):
     want = JaxRelaxationEngine.from_model(jmodel, variables, RELAX_OPT).run(batch)
     np.testing.assert_allclose(to_numpy(verlet.traj_pos), np.asarray(want.traj_pos), atol=1e-4)
     assert verlet.nsteps == int(want.nsteps)
+
+
+def test_relaxation_engine_separate_subgraph_tables(gemnet_pair):
+    """With derivation off the model keeps Verlet tables for its aeaint and
+    qint graphs too; a small k_cand spends their margins, so the loop
+    rebuilds them, and Verlet on still gives Verlet off's result exactly."""
+    batch, _, _, derived = gemnet_pair
+    model = GemNetOC(**SMALL_GEMNET, derive_subgraphs=False, device="cpu")
+    model.load_state_dict(derived.state_dict(), strict=True)
+    tb = to_torch_batch(batch)
+    assert set(model.prepare_candidates(tb)) == {"main", "aeaint", "qint"}
+    opt = dict(RELAX_OPT, k_cand=SEPARATE_K_CAND)
+    verlet = RelaxationEngine.from_model(model, opt, device="cpu").run(tb)
+    full = RelaxationEngine.from_model(model, dict(opt, verlet_graph=False), device="cpu").run(tb)
+    assert verlet.rebuilds > 0
+    for name in ("traj_pos", "traj_energy", "traj_forces"):
+        torch.testing.assert_close(getattr(verlet, name), getattr(full, name), rtol=0, atol=0, msg=name)
 
 
 def test_relaxation_engine_needs_a_device_or_cpu(gemnet_pair):
