@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from adsorbdiff_tpu_torch.data.schema import AtomsBatch
-from adsorbdiff_tpu_torch.diffusion.schedules import ads_center
+from adsorbdiff_tpu_torch.diffusion.schedules import ads_center, draw
 from adsorbdiff_tpu_torch.ops.pbc import wrap_positions
 from adsorbdiff_tpu_torch.ops.rotation import axis_angle_to_matrix
 from adsorbdiff_tpu_torch.ops.segment import masked_mean
@@ -31,13 +31,6 @@ class SampleResult(NamedTuple):
     converged_at: torch.Tensor  # [] int32 step where updates froze (T if never)
 
 
-def _draw(shape, kind: str, generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
-    """Uniform or normal draws from ``generator`` (on its own device), moved to ``device``."""
-    gen_device = generator.device if generator is not None else device
-    fn = torch.rand if kind == "uniform" else torch.randn
-    return fn(shape, generator=generator, device=gen_device).to(device)
-
-
 def init_placement(
     batch: AtomsBatch, frac: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None
 ) -> AtomsBatch:
@@ -45,7 +38,7 @@ def init_placement(
     keeping each system's initial COM z.  ``frac [B, 3]`` in [0, 1) replaces
     the draw."""
     if frac is None:
-        frac = _draw((batch.batch_size, 3), "uniform", generator, batch.device)
+        frac = draw((batch.batch_size, 3), "uniform", generator, batch.device)
     com_noise = (frac.to(batch.pos)[:, None, :] @ batch.cell)[:, 0]  # row lattice
     com0 = ads_center(batch)
     com_noise = torch.cat([com_noise[:, :2], com0[:, 2:]], dim=1)
@@ -94,8 +87,8 @@ def reverse_diffusion(
         score_fn = lambda cur: base_score_fn(cur, static)  # noqa: E731
     if not ode:
         shape = (num_steps, batch.batch_size, 3)
-        noise = _draw(shape, "normal", generator, device) if noise is None else noise.to(batch.pos)
-        rot_noise = _draw(shape, "normal", generator, device) if rot_noise is None else rot_noise.to(batch.pos)
+        noise = draw(shape, "normal", generator, device) if noise is None else noise.to(batch.pos)
+        rot_noise = draw(shape, "normal", generator, device) if rot_noise is None else rot_noise.to(batch.pos)
 
     # schedule built in float64 and rounded to float32, as the JAX sampler does
     s = np.linspace(1.0, 0.0, num_steps + 1)[:-1]

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from adsorbdiff_tpu_torch.common.registry import registry
 from adsorbdiff_tpu_torch.data.schema import AtomsBatch
 from adsorbdiff_tpu_torch.device import DeviceLike, resolve_device
 from adsorbdiff_tpu_torch.models.base import derive_subgraph, generate_graph, prepare_candidate_graph
@@ -297,6 +298,7 @@ class InteractionBlock(nn.Module):
 # --------------------------------------------------------------------------
 # the model
 # --------------------------------------------------------------------------
+@registry.register_model("gemnet_oc")
 class GemNetOC(nn.Module):
     """GemNet-OC in s2ef mode; returns ``{"energy": [B], "forces": [B, N, 3]}``.
 

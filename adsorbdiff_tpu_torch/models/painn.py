@@ -12,8 +12,9 @@ so a reference ``.pt`` state dict loads with ``load_state_dict`` as it is, and
 The message block always runs :func:`adsorbdiff_tpu_torch.ops.kernels.
 painn_message_fused`, which recomputes the gaussian radial basis x polynomial
 envelope from the raw neighbour distances, as the JAX model's
-``use_pallas=True`` path does.  There is no switch: ``use_pallas`` is accepted
-for config compatibility and ignored.
+``use_pallas=True`` path does; under autograd its backward is the
+``painn_message_fused_bwd`` kernel, so training runs both.  There is no
+switch: ``use_pallas`` is accepted for config compatibility and ignored.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from adsorbdiff_tpu_torch.common.registry import registry
 from adsorbdiff_tpu_torch.data.schema import AtomsBatch
 from adsorbdiff_tpu_torch.device import DeviceLike, resolve_device
 from adsorbdiff_tpu_torch.models.base import generate_graph, prepare_static_graph
@@ -126,6 +128,7 @@ class PaiNNOutput(nn.Module):
         return vec[..., 0]  # [B, N, 3]
 
 
+@registry.register_model("painn")
 class PaiNN(nn.Module):
     """PaiNN trunk with the denoising heads.
 

@@ -21,7 +21,7 @@ from typing import Dict, Iterable, Optional
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-KERNELS = ("painn_message_fused", "gemnet_quad_chain")
+KERNELS = ("painn_message_fused", "painn_message_fused_bwd", "gemnet_quad_chain")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

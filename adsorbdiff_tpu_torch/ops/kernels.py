@@ -10,6 +10,10 @@ Counterpart of :mod:`adsorbdiff_tpu.ops.pallas_kernels`.  Each kernel has:
   CPU tests and for holding the kernel against on the card;
 - a launch count in :data:`launches`, raised by one where the wrapper
   launches the kernel and nowhere else.
+
+A kernel with a backward kernel is wrapped in a ``torch.autograd.Function``
+(:class:`PainnMessageFused`), which the forward wrapper routes through only
+when autograd needs a gradient.
 """
 from __future__ import annotations
 
@@ -24,6 +28,19 @@ from adsorbdiff_tpu_torch.ops import build
 
 # kernel name -> launches in this process; reset with ``launches.clear()``
 launches: "collections.Counter[str]" = collections.Counter()
+
+
+def message_basis(dist: torch.Tensor, r: int, cutoff: float, envelope_exponent: int) -> torch.Tensor:
+    """Gaussian radial basis x polynomial envelope ``[..., R]`` of the
+    message kernels, from the raw distances.  In r it is a unit-width
+    gaussian around ``d / cutoff * (R - 1)``, so at most 29 of the R values
+    per edge are not exactly 0 in f32; the kernels skip the rest."""
+    d = dist.float() * (1.0 / cutoff)
+    p = float(envelope_exponent)
+    env = 1 + (-(p + 1) * (p + 2) / 2) * d**p + p * (p + 2) * d ** (p + 1) + (-p * (p + 1) / 2) * d ** (p + 2)
+    env = torch.where(d < 1.0, env, torch.zeros_like(env))
+    offsets = torch.arange(r, device=d.device, dtype=torch.float32) / (r - 1)
+    return torch.exp(-0.5 * (r - 1) ** 2 * (d[..., None] - offsets) ** 2) * env[..., None]
 
 
 def painn_message_fused_reference(
@@ -44,12 +61,7 @@ def painn_message_fused_reference(
     b, n, k = src.shape
     r, f3 = weight.shape
     h = f3 // 3
-    d = dist.float() * (1.0 / cutoff)
-    p = float(envelope_exponent)
-    env = 1 + (-(p + 1) * (p + 2) / 2) * d**p + p * (p + 2) * d ** (p + 1) + (-p * (p + 1) / 2) * d ** (p + 2)
-    env = torch.where(d < 1.0, env, torch.zeros_like(env))
-    offsets = torch.arange(r, device=d.device, dtype=torch.float32) / (r - 1)
-    basis = torch.exp(-0.5 * (r - 1) ** 2 * (d[..., None] - offsets) ** 2) * env[..., None]
+    basis = message_basis(dist, r, cutoff, envelope_exponent)
     filt = (basis @ weight.float() + bias.float()) * mask[..., None].float()  # [B, N, K, 3H]
     idx = src.reshape(b, n * k, 1).long().expand(-1, -1, f3)
     xh_g = torch.gather(xh.float(), 1, idx).reshape(b, n, k, f3)
@@ -61,6 +73,52 @@ def painn_message_fused_reference(
         vec_g.reshape(b, n, k, 3, h) * g2[..., None, :], dim=2
     )
     return dx, dvec
+
+
+def painn_message_fused_bwd_reference(
+    xh: torch.Tensor,  # [B, N, 3H]
+    vec: torch.Tensor,  # [B, N, 3H]
+    src: torch.Tensor,  # [B, N, K] int
+    dist: torch.Tensor,  # [B, N, K]
+    mask: torch.Tensor,  # [B, N, K] bool
+    unit: torch.Tensor,  # [B, N, K, 3]
+    weight: torch.Tensor,  # [R, 3H]
+    bias: torch.Tensor,  # [3H]
+    dx_ct: torch.Tensor,  # [B, N, H] cotangent of dx
+    dvec_ct: torch.Tensor,  # [B, N, 3, H] cotangent of dvec
+    *,
+    cutoff: float,
+    envelope_exponent: int = 5,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`painn_message_fused_bwd`, written out
+    from the VJP formulas of the TPU kernel (``_painn_message_fused_bwd_kernel``),
+    not by autograd.  Returns ``(dxh [B, N, 3H], dvec [B, N, 3H], dW [R, 3H],
+    db [3H])``; the ``[B, N, K, 3H]`` edge tensors are materialised."""
+    b, n, k = src.shape
+    r, f3 = weight.shape
+    h = f3 // 3
+    inv_sqrt3 = 1.0 / math.sqrt(3.0)
+    basis = message_basis(dist, r, cutoff, envelope_exponent)  # [B, N, K, R]
+    m = mask[..., None].float()
+    filt = (basis @ weight.float() + bias.float()) * m  # [B, N, K, 3H]
+    idx = src.reshape(b, n * k, 1).long().expand(-1, -1, f3)
+    xh_g = torch.gather(xh.float(), 1, idx).reshape(b, n, k, f3)
+    vec_g = torch.gather(vec.float(), 1, idx).reshape(b, n, k, 3, h)
+    gdv = dvec_ct.float().reshape(b, n, 1, 3, h)  # target cotangent, broadcast over K
+    ghat = torch.cat([
+        dx_ct.float()[:, :, None, :].expand(b, n, k, h),
+        inv_sqrt3 * torch.sum(vec_g * gdv, dim=3),
+        torch.einsum("bnkd,bnkdh->bnkh", unit.float(), gdv.expand(b, n, k, 3, h)),
+    ], dim=-1)  # [B, N, K, 3H] cotangent of the gathered-times-filter product
+    g2 = xh_g[..., h : 2 * h] * filt[..., h : 2 * h] * inv_sqrt3
+    dvec_g = (g2[..., None, :] * gdv).reshape(b, n * k, f3)
+    dxh_g = (ghat * filt).reshape(b, n * k, f3)
+    dfil = ghat * xh_g * m  # cotangent of basis @ W + b
+    dxh = torch.zeros((b, n, f3), dtype=torch.float32, device=xh.device).scatter_add_(1, idx, dxh_g)
+    dvec = torch.zeros((b, n, f3), dtype=torch.float32, device=xh.device).scatter_add_(1, idx, dvec_g)
+    dw = basis.reshape(-1, r).t() @ dfil.reshape(-1, f3)
+    db = dfil.reshape(-1, f3).sum(0)
+    return dxh, dvec, dw, db
 
 
 def _library(name: str, argtypes) -> ctypes.CDLL:
@@ -80,7 +138,9 @@ def _library(name: str, argtypes) -> ctypes.CDLL:
 
 def _check_cuda_inputs(kernel: str, tensors: dict, dtypes: dict) -> None:
     """Raise unless every tensor is a contiguous tensor of ``dtypes`` (f32
-    where unnamed) on the first tensor's CUDA device, with no autograd."""
+    where unnamed) on the first tensor's CUDA device, and none needs a
+    gradient (a kernel with a backward is called from its autograd Function,
+    whose forward runs with autograd off)."""
     device = next(iter(tensors.values())).device
     if device.type != "cuda":
         raise ValueError(f"{kernel}: unsupported device {device}")
@@ -134,8 +194,20 @@ def painn_message_fused(
     (the transpose of a torch ``Linear(R, 3H).weight``).  Returns
     ``(dx [B, N, H] f32, dvec [B, N, 3, H] f32)`` before PaiNN's 1/sqrt(H)
     scale.  On the card: f32 only, contiguous inputs, ``src`` int32, ``mask``
-    bool, and no autograd (the backward kernel comes with training).
+    bool.  When autograd needs a gradient the call goes through
+    :class:`PainnMessageFused`, whose backward is
+    :func:`painn_message_fused_bwd`; without one (sampling, ``no_grad``) it
+    launches the forward kernel alone.
     """
+    tensors = (xh, vec, src, dist, mask, unit, weight, bias)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return PainnMessageFused.apply(*tensors, cutoff, envelope_exponent)
+    return _painn_message_fused_forward(*tensors, cutoff=cutoff, envelope_exponent=envelope_exponent)
+
+
+def _painn_message_fused_forward(
+    xh, vec, src, dist, mask, unit, weight, bias, *, cutoff: float, envelope_exponent: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
     if xh.device.type == "cpu":
         return painn_message_fused_reference(
             xh, vec, src, dist, mask, unit, weight, bias,
@@ -143,15 +215,7 @@ def painn_message_fused(
         )
     tensors = dict(xh=xh, vec=vec, src=src, dist=dist, mask=mask, unit=unit, weight=weight, bias=bias)
     _check_cuda_inputs("painn_message_fused", tensors, {"src": torch.int32, "mask": torch.bool})
-    if src.dim() != 3:
-        raise ValueError(f"painn_message_fused: src must be [B, N, K], got {tuple(src.shape)}")
-    b, n, k = src.shape
-    if weight.dim() != 2 or weight.shape[0] < 2 or weight.shape[1] % 3:
-        raise ValueError(f"painn_message_fused: weight must be [R>=2, 3H], got {tuple(weight.shape)}")
-    r, f3 = weight.shape
-    h = f3 // 3
-    _check_shapes("painn_message_fused", tensors, dict(
-        xh=(b, n, f3), vec=(b, n, f3), dist=(b, n, k), mask=(b, n, k), unit=(b, n, k, 3), bias=(f3,)))
+    b, n, k, r, h = _message_shape("painn_message_fused", tensors)
 
     if b * n * h == 0:  # empty output: nothing to launch
         return xh.new_empty((b, n, h)), xh.new_empty((b, n, 3, h))
@@ -166,6 +230,106 @@ def painn_message_fused(
         b, n, k, r, h, 1.0 / cutoff, int(envelope_exponent),
     )
     return dx, dvec
+
+
+def _message_shape(kernel: str, tensors: dict) -> Tuple[int, int, int, int, int]:
+    """``(B, N, K, R, H)`` of the message kernels' inputs, or raise."""
+    src, weight = tensors["src"], tensors["weight"]
+    if src.dim() != 3:
+        raise ValueError(f"{kernel}: src must be [B, N, K], got {tuple(src.shape)}")
+    b, n, k = src.shape
+    if weight.dim() != 2 or weight.shape[0] < 2 or weight.shape[1] % 3:
+        raise ValueError(f"{kernel}: weight must be [R>=2, 3H], got {tuple(weight.shape)}")
+    r, f3 = weight.shape
+    _check_shapes(kernel, tensors, dict(
+        xh=(b, n, f3), vec=(b, n, f3), dist=(b, n, k), mask=(b, n, k), unit=(b, n, k, 3), bias=(f3,)))
+    return b, n, k, r, f3 // 3
+
+
+def painn_message_fused_bwd(
+    xh: torch.Tensor,
+    vec: torch.Tensor,
+    src: torch.Tensor,
+    dist: torch.Tensor,
+    mask: torch.Tensor,
+    unit: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    dx_ct: torch.Tensor,
+    dvec_ct: torch.Tensor,
+    *,
+    cutoff: float,
+    envelope_exponent: int = 5,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """VJP of :func:`painn_message_fused` with respect to ``xh``, ``vec``,
+    ``weight`` and ``bias`` (``csrc/painn_message_fused_bwd.cu``): the filter
+    and the gathers are recomputed, the cotangents scattered to source rows.
+
+    Inputs as :func:`painn_message_fused` plus the cotangents ``dx_ct
+    [B, N, H]`` and ``dvec_ct [B, N, 3, H]``.  Returns ``(dxh [B, N, 3H],
+    dvec [B, N, 3H], dW [R, 3H], db [3H])``, f32.  On the card: the forward's
+    input rules, f32 contiguous cotangents and R <= 128.  The kernel adds
+    with atomics, so the order of its f32 sums changes from run to run.
+    """
+    if xh.device.type == "cpu":
+        return painn_message_fused_bwd_reference(
+            xh, vec, src, dist, mask, unit, weight, bias, dx_ct, dvec_ct,
+            cutoff=cutoff, envelope_exponent=envelope_exponent,
+        )
+    tensors = dict(xh=xh, vec=vec, src=src, dist=dist, mask=mask, unit=unit, weight=weight, bias=bias,
+                   dx_ct=dx_ct, dvec_ct=dvec_ct)
+    _check_cuda_inputs("painn_message_fused_bwd", tensors, {"src": torch.int32, "mask": torch.bool})
+    b, n, k, r, h = _message_shape("painn_message_fused_bwd", tensors)
+    _check_shapes("painn_message_fused_bwd", tensors, dict(dx_ct=(b, n, h), dvec_ct=(b, n, 3, h)))
+    if r > 128:
+        raise ValueError(f"painn_message_fused_bwd: the kernel holds R <= 128 radial functions, got {r}")
+
+    f3 = 3 * h
+    dxh = torch.zeros((b, n, f3), dtype=torch.float32, device=xh.device)
+    dvec = torch.zeros((b, n, f3), dtype=torch.float32, device=xh.device)
+    dw = torch.zeros((r, f3), dtype=torch.float32, device=xh.device)
+    db = torch.zeros((f3,), dtype=torch.float32, device=xh.device)
+    if b * n * k * h == 0:  # nothing to add: zero gradients, no launch
+        return dxh, dvec, dw, db
+    lib = _library("painn_message_fused_bwd",
+                   [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    _launch(
+        "painn_message_fused_bwd", lib, xh.device,
+        xh.data_ptr(), vec.data_ptr(), src.data_ptr(), dist.data_ptr(), mask.data_ptr(), unit.data_ptr(),
+        weight.data_ptr(), bias.data_ptr(), dx_ct.data_ptr(), dvec_ct.data_ptr(),
+        dxh.data_ptr(), dvec.data_ptr(), dw.data_ptr(), db.data_ptr(),
+        b, n, k, r, h, 1.0 / cutoff, int(envelope_exponent),
+    )
+    return dxh, dvec, dw, db
+
+
+class PainnMessageFused(torch.autograd.Function):
+    """:func:`painn_message_fused` with its backward kernel.
+
+    Gradients flow to ``xh``, ``vec``, ``weight`` and ``bias``.  ``src``,
+    ``dist``, ``mask`` and ``unit`` get none (``None``): the JAX contract
+    (``adsorbdiff_tpu/ops/pallas_kernels.py::_painn_fused_bwd``), under which
+    no loss differentiates through atom positions, so the geometry's
+    cotangents are zero by construction.  On CPU tensors forward and
+    backward are the plain versions.
+    """
+
+    @staticmethod
+    def forward(ctx, xh, vec, src, dist, mask, unit, weight, bias, cutoff, envelope_exponent):
+        ctx.save_for_backward(xh, vec, src, dist, mask, unit, weight, bias)
+        ctx.cutoff, ctx.envelope_exponent = cutoff, envelope_exponent
+        return _painn_message_fused_forward(
+            xh, vec, src, dist, mask, unit, weight, bias, cutoff=cutoff, envelope_exponent=envelope_exponent)
+
+    @staticmethod
+    def backward(ctx, dx_ct, dvec_ct):
+        xh, vec, src, dist, mask, unit, weight, bias = ctx.saved_tensors
+        dxh, dvec, dw, db = painn_message_fused_bwd(
+            xh, vec, src, dist, mask, unit, weight, bias, dx_ct.contiguous(), dvec_ct.contiguous(),
+            cutoff=ctx.cutoff, envelope_exponent=ctx.envelope_exponent,
+        )
+        return (dxh.to(xh.dtype), dvec.to(vec.dtype), None, None, None, None,
+                dw.to(weight.dtype), db.to(bias.dtype), None, None)
 
 
 def gemnet_quad_chain_reference(

@@ -31,27 +31,47 @@ Phases; any failure raises and the exit code is then non-zero:
    wrapper around the engine's energy/forces function.
 7. card vs CPU, GemNet-OC: one full-width forward at B=2, energy and forces
    within 1e-4 * max|cpu|.
-8. the kernels line, then the device line as the last line.
+8. training path: the painn_message_fused_bwd kernel against the plain VJP
+   at the training shape (a live B=48 neighbour table) and two ragged
+   shapes, |kernel - plain| <= 1e-4 * max|plain| + 1e-5 (atomics sum in
+   another order on every run); then DenoisingTrainer.train() for one epoch
+   of 31 steps at the painn_so3.yml + base.yml settings (B=48, AdamW at
+   1e-4, weight decay 1e-3, cosine LambdaLR with warm-up, clip 100, EMA
+   0.999; random weights from a seeded generator; max_epochs cut from 100
+   to 1) on bench systems written to shards in a temporary directory
+   (pos_relaxed = pos).  Launch counts are zeroed just before train() and
+   read at every step: exactly 6 forward and 6 backward launches per step.
+   Systems/s over the 30 steps after the first; every loss finite; params
+   and EMA moved; EMA != params.
+9. card vs CPU, one training step at B=2: loss, grad_norm and every
+   parameter's gradient within 1e-3 * max|cpu| of that tensor (f32 sums and
+   atomics in another order, through 6 layers forward and back).
+10. the kernels line, then the device line as the last line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
 import copy
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from adsorbdiff_tpu_torch.data.schema import System, collate
+from adsorbdiff_tpu_torch.data.store import write_shard
 from adsorbdiff_tpu_torch.device import resolve_device
+from adsorbdiff_tpu_torch.diffusion.schedules import draw_schedule
 from adsorbdiff_tpu_torch.models.base import generate_graph
 from adsorbdiff_tpu_torch.models.gemnet_oc import GemNetOC
 from adsorbdiff_tpu_torch.models.painn import PaiNN
 from adsorbdiff_tpu_torch.ops import build, kernels, pbc
 from adsorbdiff_tpu_torch.relaxation.lbfgs import make_mlff_energy_forces
 from adsorbdiff_tpu_torch.relaxation.ml_relaxation import DiffusionEngine, RelaxationEngine, make_score_fn
+from adsorbdiff_tpu_torch.train.trainer import DenoisingTrainer
 
 # NVIDIA H100 SXM data sheet: dense f32 outside the tensor cores, HBM3 rate
 F32_FLOPS = 67e12
@@ -71,6 +91,25 @@ GEMNET_KW = dict(
 RELAX_OPT = dict(steps=100, fmax=0.01, maxstep=0.04, memory=50, damping=1.0, alpha=70.0,
                  verlet_graph=True, k_cand=64)
 RELAX_BATCH = 8
+# configs/denoising/painn_so3.yml (model) over configs/denoising/base.yml (optim, task), as a dict: the card
+# machine may have no PyYAML.  Cut: max_epochs 100 -> 1 (one epoch of TRAIN_STEPS steps); no checkpoint or
+# validation inside the timed epoch.
+TRAIN_BATCH, TRAIN_STEPS = 48, 31
+TRAIN_CONFIG = dict(
+    trainer="denoising",
+    model=dict(name="painn", hidden_channels=512, num_layers=6, num_rbf=128, cutoff=12.0, max_neighbors=50,
+               so3_denoising=True, use_pallas=True, cell_reps="auto"),
+    optim=dict(batch_size=TRAIN_BATCH, eval_batch_size=TRAIN_BATCH, lr_initial=1e-4, optimizer="AdamW",
+               optimizer_params=dict(weight_decay=0.001), scheduler="LambdaLR",
+               scheduler_params=dict(lambda_type="cosine", warmup_factor=0.2, warmup_epochs=4, lr_min_factor=0.01),
+               max_epochs=1, clip_grad_norm=100, ema_decay=0.999, use_denoising_pos=True,
+               denoising_pos_params=dict(num_steps=100, ads_std_low=0.1, ads_std_high=10, rot_std_low=0.01,
+                                         rot_std_high=1.55),
+               eval_every=10**9, checkpoint_every=10**9),
+    task=dict(dataset="shards", train_on_free_atoms=True, eval_on_free_atoms=True, primary_metric="loss"),
+    logger="tensorboard", seed=0, identifier="smoke", print_every=100,
+)
+GRAD_RTOL = 1e-3
 
 
 def bench_systems(batch_size=16):
@@ -148,13 +187,24 @@ def message_inputs(gen, device, b, n, k, r, h, cutoff, nl=None, unit=None):
     return {name: t.to(device).contiguous() for name, t in cpu.items()}
 
 
-def message_bound_ms(inputs, outputs):
-    """The function's f32 operations on the valid edges (filter product 6RH,
-    gather-multiply, reductions and directional terms ~20H, gaussian basis
-    ~10R per edge) against its inputs and outputs moved once."""
-    r, f3 = inputs["weight"].shape
-    h = f3 // 3
-    flops = int(inputs["mask"].sum()) * (6 * r * h + 20 * h + 10 * r)
+def basis_rows(inputs, cutoff):
+    """(valid edges, their non-zero basis values): the basis is a unit-width
+    gaussian in r that underflows to exactly 0 in f32 beyond ~14.4 rows of
+    its centre, so the products need only these rows (what this run's data
+    needs, not the dense R per edge)."""
+    basis = kernels.message_basis(inputs["dist"], inputs["weight"].shape[0], cutoff, 5)
+    mask = inputs["mask"]
+    return int(mask.sum()), int((basis != 0).sum(-1)[mask].sum())
+
+
+def message_bound_ms(inputs, outputs, cutoff):
+    """The function's f32 operations on the valid edges (filter product 6H
+    per non-zero basis value, gather-multiply, reductions and directional
+    terms ~20H per edge, gaussian basis ~10 per non-zero value) against its
+    inputs and outputs moved once."""
+    h = inputs["weight"].shape[1] // 3
+    edges, rows = basis_rows(inputs, cutoff)
+    flops = 6 * h * rows + 20 * h * edges + 10 * rows
     return (*bound(flops, list(inputs.values()) + list(outputs)), flops)
 
 
@@ -165,6 +215,28 @@ def check_message_kernel(device, gen, shape, cutoff, nl=None, unit=None):
     want = kernels.painn_message_fused_reference(**inputs, cutoff=cutoff)
     err = check_close(f"painn_message_fused b,n,k,r,h={shape}", got, want)
     return inputs, got, err
+
+
+def message_bwd_bound_ms(inputs, cts, outputs, cutoff):
+    """The VJP's f32 operations on the valid edges (filter recompute and dW,
+    6H each per non-zero basis value; elementwise products and scatters ~30H
+    per edge; basis ~10 per non-zero value) against its inputs, cotangents
+    and outputs moved once."""
+    h = inputs["weight"].shape[1] // 3
+    edges, rows = basis_rows(inputs, cutoff)
+    flops = 12 * h * rows + 30 * h * edges + 10 * rows
+    return (*bound(flops, list(inputs.values()) + list(cts) + list(outputs)), flops)
+
+
+def check_message_bwd_kernel(device, gen, shape, cutoff, nl=None, unit=None):
+    b, n, _, _, h = shape
+    inputs = message_inputs(gen, device, *shape, cutoff, nl=nl, unit=unit)
+    cts = (torch.randn((b, n, h), generator=gen).to(device), torch.randn((b, n, 3, h), generator=gen).to(device))
+    got = kernels.painn_message_fused_bwd(**inputs, dx_ct=cts[0], dvec_ct=cts[1], cutoff=cutoff)
+    torch.cuda.synchronize()
+    want = kernels.painn_message_fused_bwd_reference(**inputs, dx_ct=cts[0], dvec_ct=cts[1], cutoff=cutoff)
+    err = check_close(f"painn_message_fused_bwd b,n,k,r,h={shape}", got, want)
+    return inputs, cts, got, err
 
 
 # --------------------------------------------------------------------------
@@ -222,9 +294,11 @@ def sampling_path(device, gen, systems):
         check_message_kernel(device, gen, ragged, 6.0)
     ms = cuda_ms(lambda: kernels.painn_message_fused(**inputs, cutoff=model.cutoff), 20)
     plain_ms = cuda_ms(lambda: kernels.painn_message_fused_reference(**inputs, cutoff=model.cutoff), 5)
-    bound_ms, bound_by, nbytes, flops = message_bound_ms(inputs, outputs)
-    print(f"[kernel] painn_message_fused at {main_shape}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP f32, {nbytes / 1e6:.2f} MB)", flush=True)
+    bound_ms, bound_by, nbytes, flops = message_bound_ms(inputs, outputs, model.cutoff)
+    edges, rows = basis_rows(inputs, model.cutoff)
+    print(f"[kernel] painn_message_fused at {main_shape} ({edges} valid edges, {rows / edges:.2f} non-zero basis "
+          f"values each): {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+          f"({flops / 1e9:.2f} GFLOP f32, {nbytes / 1e6:.2f} MB)", flush=True)
     del inputs, outputs
 
     # 4. 100-step ODE sampling at full width
@@ -361,6 +435,126 @@ def relax_path(device, gen, systems):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def write_training_shards(root, systems_per_split):
+    """bench systems (pos_relaxed = pos) in one shard per split."""
+    systems = bench_systems(sum(systems_per_split.values()))
+    paths, start = {}, 0
+    for split, count in systems_per_split.items():
+        write_shard(os.path.join(root, split), systems[start:start + count])
+        paths[split] = os.path.join(root, split + ".adshard.npz")
+        start += count
+    return paths
+
+
+def training_path(device, gen, root):
+    """Phases 8 and 9."""
+    paths = write_training_shards(root, {"train": TRAIN_BATCH * TRAIN_STEPS, "val": TRAIN_BATCH})
+    config = dict(copy.deepcopy(TRAIN_CONFIG), run_dir=root,
+                  dataset=[{"src": paths["train"]}, {"src": paths["val"]}])
+    trainer = DenoisingTrainer(config, device=device)
+    model = trainer.model
+    print(f"[train] painn_so3.yml + base.yml, cell_reps {tuple(model.cell_reps)} (auto), B={TRAIN_BATCH}, "
+          f"{len(trainer.train_batcher)} steps", flush=True)
+
+    # 8a. the backward kernel at the training shape, on a noised batch's live neighbour table
+    batch = next(iter(trainer.train_batcher)).to(device)
+    batch = batch.replace(pos=batch.pos_relaxed)
+    noised, _ = trainer.schedule_fn(batch, trainer.denoising_pos_params, torch.Generator(device=device).manual_seed(4))
+    nl, _, unit = generate_graph(noised, cutoff=model.cutoff, max_neighbors=model.max_neighbors,
+                                 cell_reps=model.cell_reps)
+    shape = (TRAIN_BATCH, 80, model.max_neighbors, 128, model.hidden_channels)
+    inputs, cts, outputs, err = check_message_bwd_kernel(device, gen, shape, model.cutoff, nl=nl, unit=unit)
+    for ragged in ((2, 13, 10, 16, 64), (1, 37, 45, 128, 192)):
+        check_message_bwd_kernel(device, gen, ragged, 6.0)
+    bwd = lambda: kernels.painn_message_fused_bwd(**inputs, dx_ct=cts[0], dvec_ct=cts[1], cutoff=model.cutoff)  # noqa: E731
+    ms = cuda_ms(bwd, 10)
+    plain_ms = cuda_ms(lambda: kernels.painn_message_fused_bwd_reference(
+        **inputs, dx_ct=cts[0], dvec_ct=cts[1], cutoff=model.cutoff), 2)
+    fwd_ms = cuda_ms(lambda: kernels.painn_message_fused(**inputs, cutoff=model.cutoff), 10)
+    bound_ms, bound_by, nbytes, flops = message_bwd_bound_ms(inputs, cts, outputs, model.cutoff)
+    edges, rows = basis_rows(inputs, model.cutoff)
+    print(f"[kernel] painn_message_fused_bwd at {shape} ({edges} valid edges, {rows / edges:.2f} non-zero basis "
+          f"values each): {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP f32, "
+          f"{nbytes / 1e6:.2f} MB); the forward kernel at the same shape {fwd_ms:.4f} ms", flush=True)
+    del inputs, cts, outputs
+
+    # 8b. one epoch of DenoisingTrainer.train(); counts zeroed just before, read at every step
+    p0 = [p.detach().clone() for p in trainer.params]
+    step_fn, per_step, losses, times = trainer.train_step, [], [], []
+
+    def counted(*args, **kwargs):
+        before = dict(kernels.launches)
+        aux = step_fn(*args, **kwargs)
+        per_step.append({k: kernels.launches[k] - before.get(k, 0) for k in kernels.launches})
+        losses.append(aux["loss"])
+        if len(per_step) == 1:  # the timed window opens after the first step
+            torch.cuda.synchronize()
+            times.append(time.perf_counter())
+        return aux
+
+    trainer.train_step = counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.launches.clear()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - times[0]
+    launches = dict(kernels.launches)
+    steps = len(per_step)
+    want = {"painn_message_fused": model.num_layers, "painn_message_fused_bwd": model.num_layers}
+    if steps != TRAIN_STEPS or any(s != want for s in per_step):
+        raise AssertionError(f"training launched {per_step}, want {want} in each of {TRAIN_STEPS} steps")
+    loss = torch.stack(losses).cpu()
+    if not torch.isfinite(loss).all():
+        raise AssertionError(f"non-finite training losses: {loss.tolist()}")
+    moved = max((p - q).abs().max().item() for p, q in zip(trainer.params, p0))
+    ema_moved = max((e - q).abs().max().item() for e, q in zip(trainer.ema, p0))
+    ema_gap = max((e - p).abs().max().item() for e, p in zip(trainer.ema, trainer.params))
+    if not (moved > 0 and ema_moved > 0 and ema_gap > 0):
+        raise AssertionError(f"params moved {moved}, EMA moved {ema_moved}, |EMA - params| {ema_gap}")
+    rate = (steps - 1) * TRAIN_BATCH / wall
+    print(f"[train] {steps} steps, B={TRAIN_BATCH} x 80 atoms: {rate:.2f} systems/s over the {steps - 1} steps after "
+          f"the first ({wall:.3f} s, {1e3 * wall / (steps - 1):.2f} ms per step), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB allocated, launches {launches}; loss "
+          f"{loss[0].item():.4f} -> {loss[-1].item():.4f}; max |param move| {moved:.3e}, |EMA move| {ema_moved:.3e}, "
+          f"|EMA - params| {ema_gap:.3e}", flush=True)
+    val = trainer.validate("val")["loss"]["metric"]
+    if not np.isfinite(val):
+        raise AssertionError(f"validation loss {val}")
+    print(f"[train] validation loss (EMA weights) {val:.4f}", flush=True)
+
+    # 9. card vs CPU, one training step at B=2
+    small = dict(copy.deepcopy(config), optim=dict(config["optim"], batch_size=2, eval_batch_size=2))
+    card, host = DenoisingTrainer(small, device=device), DenoisingTrainer(dict(small, cpu=True))
+    two = collate(bench_systems(2), max_atoms=80, device="cpu")
+    draws = draw_schedule(2, torch.device("cpu"), torch.Generator().manual_seed(6))
+    results = []
+    for tr, b in ((card, two.to(device)), (host, two)):
+        tr.init_state()
+        loss, aux = tr._loss_and_aux(b, draws._replace(**{k: getattr(draws, k).to(b.device) for k in draws._fields}),
+                                     None)
+        grads = torch.autograd.grad(loss, tr.params)
+        results.append((tr._finalize_train_step(loss, aux, list(grads)), [g.cpu() for g in grads]))
+    (card_aux, card_grads), (host_aux, host_grads) = results
+    names = [n for n, _ in host.model.named_parameters()]
+    worst = 0.0
+    for name, c, h in [("loss", card_aux["loss"].cpu()[None], host_aux["loss"][None]),
+                       ("grad_norm", card_aux["grad_norm"].cpu()[None], host_aux["grad_norm"][None])] + \
+            list(zip(names, card_grads, host_grads)):
+        e, limit = (c - h).abs().max().item(), GRAD_RTOL * h.abs().max().item()
+        if not (torch.isfinite(c).all() and e <= limit):
+            raise AssertionError(f"card vs CPU training step, {name}: max |diff| {e} > {limit}")
+        worst = max(worst, e / max(h.abs().max().item(), 1e-30))
+    print(f"[check] card vs CPU training step at B=2: loss {card_aux['loss'].item():.6f} / {host_aux['loss'].item():.6f}, "
+          f"grad_norm {card_aux['grad_norm'].item():.6f} / {host_aux['grad_norm'].item():.6f}; "
+          f"{len(names)} gradients, worst max|diff| / max|cpu| {worst:.3e} (limit {GRAD_RTOL})", flush=True)
+    return dict(name="painn_message_fused_bwd", source="adsorbdiff_tpu_torch/csrc/painn_message_fused_bwd.cu",
+                replaces="adsorbdiff_tpu/ops/pallas_kernels.py:566",
+                launches=launches["painn_message_fused_bwd"], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -384,18 +578,20 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
-    # 3-7. each path: its kernel against the plain version, the path, card vs CPU
+    # 3-9. each path: its kernel against the plain version, the path, card vs CPU
     systems = bench_systems()
     rows = [
         sampling_path(device, torch.Generator().manual_seed(0), systems),
         relax_path(device, torch.Generator().manual_seed(3), systems[:RELAX_BATCH]),
     ]
+    with tempfile.TemporaryDirectory() as root:
+        rows.append(training_path(device, torch.Generator().manual_seed(5), root))
 
-    # 8. results
+    # 10. results
     print(json.dumps({"kernels": [
         dict(name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"], launches=r["launches"],
              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-             bound_by=r["bound_by"], library_ms=None)  # no single PyTorch call computes either function
+             bound_by=r["bound_by"], library_ms=None)  # no single PyTorch call computes any of these functions
         for r in rows
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

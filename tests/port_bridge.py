@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from adsorbdiff_tpu_torch.data.schema import AtomsBatch as TorchAtomsBatch
+from adsorbdiff_tpu_torch.diffusion.schedules import ScheduleDraws
 
 BATCH_FIELDS = [f.name for f in dataclasses.fields(TorchAtomsBatch)]
 
@@ -50,3 +51,26 @@ def assert_same_neighbors(nl_torch, nl_jax, atol=1e-5):
     for key, (dist, vec) in want.items():
         np.testing.assert_allclose(got[key][0], dist, atol=atol, err_msg=str(key))
         np.testing.assert_allclose(got[key][1], vec, atol=atol, err_msg=str(key))
+
+
+def jax_schedule_draws(key, batch_size: int, so3: bool = True, device="cpu") -> ScheduleDraws:
+    """The draws a JAX schedule makes from ``key``, with its splits:
+    ``tr_so3_schedule`` (``k_t, k_tr, k_rot``; ``igso3.sample_vec`` splits
+    ``k_rot`` into the axis and the angle) or ``ads_com_gaussian_schedule``
+    (``k_t, k_tr``)."""
+    import jax
+
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(device)
+
+    if not so3:
+        k_t, k_tr = jax.random.split(key)
+        return ScheduleDraws(t(jax.random.uniform(k_t, (batch_size,))), t(jax.random.normal(k_tr, (batch_size, 3))))
+    k_t, k_tr, k_rot = jax.random.split(key, 3)
+    k_dir, k_om = jax.random.split(k_rot)
+    return ScheduleDraws(
+        t(jax.random.uniform(k_t, (batch_size,))),
+        t(jax.random.normal(k_tr, (batch_size, 3))),
+        t(jax.random.normal(k_dir, (batch_size, 3))),
+        t(jax.random.uniform(k_om, (batch_size,))),
+    )

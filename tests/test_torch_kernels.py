@@ -7,7 +7,8 @@ the card they run with ``python -m pytest --noconftest tests/test_torch_kernels.
 
 Tolerances: 1e-4 (abs and rel) for the PaiNN message, whose R-term filter
 sums and K-term reductions are taken in another order than the Pallas
-kernel's f32 matmuls; atol 2e-4 (the JAX package's own quad-chain test) and
+kernel's f32 matmuls; 2e-4 (abs and rel, the JAX package's own VJP test) for
+its gradients, whose dW and db sum over every edge of the batch; atol 2e-4 (the JAX package's own quad-chain test) and
 rtol 1e-5 for the GemNet-OC quadruplet chain, whose outputs sum K2 x S x Q =
 1680 products of O(1) terms in another order.
 """
@@ -20,10 +21,13 @@ from adsorbdiff_tpu_torch.ops.kernels import (
     gemnet_quad_chain,
     gemnet_quad_chain_reference,
     painn_message_fused,
+    painn_message_fused_bwd,
+    painn_message_fused_bwd_reference,
     painn_message_fused_reference,
 )
 
-RAGGED = (2, 13, 10, 16, 64)  # b, n, k, r, h of tests/test_pallas_kernels.py:114
+RAGGED = (2, 13, 10, 16, 64)  # b, n, k, r, h of tests/test_pallas_kernels.py:114 and :164
+GRAD_NAMES = ("xh", "vec", "weight", "bias")
 QUAD = (1, 4, 30, 8, 30, 7, 16, 16)  # b, n, u, q, k2, s, e, f of tests/test_pallas_kernels.py:561
 QUAD_RAGGED = (2, 3, 12, 4, 13, 4, 8, 8)
 
@@ -48,6 +52,92 @@ def _inputs(seed, b, n, k, r, h, cutoff=6.0):
 
 def _torch(inputs, device="cpu"):
     return {name: torch.from_numpy(v).to(device) for name, v in inputs.items()}
+
+
+def _cotangents(seed, b, n, h):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 1, (b, n, h)).astype(np.float32), rng.normal(0, 1, (b, n, 3, h)).astype(np.float32))
+
+
+def _jax_vjp(inputs, cts, exponent=5):
+    """Gradients of the JAX ``painn_message_fused`` (its Pallas backward
+    kernel in interpret mode) for xh, vec, weight, bias."""
+    import jax
+    import jax.numpy as jnp
+
+    from adsorbdiff_tpu.ops.pallas_kernels import painn_message_fused as jax_painn_message_fused
+
+    fixed = {k: jnp.asarray(inputs[k]) for k in ("src", "dist", "mask", "unit")}
+
+    def f(xh, vec, weight, bias):
+        return jax_painn_message_fused(xh, vec, fixed["src"], fixed["dist"], fixed["mask"], fixed["unit"],
+                                       weight, bias, cutoff=6.0, envelope_exponent=exponent, ti=4)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(inputs[k]) for k in GRAD_NAMES))
+    return [np.asarray(g) for g in vjp(tuple(jnp.asarray(c) for c in cts))]
+
+
+@pytest.mark.parametrize("exponent", [5, 6])
+def test_bwd_reference_matches_jax_vjp(exponent):
+    """The plain VJP against ``jax.vjp`` through the Pallas backward kernel."""
+    inputs = _inputs(11, *RAGGED, cutoff=7.0 / 1.2)  # dist up to 7 A, as tests/test_pallas_kernels.py:164
+    cts = _cotangents(12, *RAGGED[:2], RAGGED[4])
+    want = _jax_vjp(inputs, cts, exponent)
+    cx, cv = map(torch.from_numpy, cts)
+    got = painn_message_fused_bwd_reference(**_torch(inputs), dx_ct=cx, dvec_ct=cv, cutoff=6.0,
+                                            envelope_exponent=exponent)
+    assert [tuple(g.shape) for g in got] == [(2, 13, 192), (2, 13, 192), (16, 192), (192,)]
+    for g, w, name in zip(got, want, GRAD_NAMES):
+        np.testing.assert_allclose(g.numpy(), w.reshape(g.shape), atol=2e-4, rtol=2e-4, err_msg=name)
+
+
+def test_autograd_function_gradients_match_jax_and_plain_vjp():
+    """Autograd through ``painn_message_fused`` (its Function on CPU tensors)
+    gives the plain VJP exactly and JAX's gradients within 2e-4; the
+    geometry inputs get no gradient (the JAX contract)."""
+    inputs = _inputs(13, *RAGGED)
+    cts = _cotangents(14, *RAGGED[:2], RAGGED[4])
+    leaves = _torch(inputs)
+    for name in GRAD_NAMES + ("dist", "unit"):
+        leaves[name].requires_grad_(True)
+    dx, dv = painn_message_fused(**leaves, cutoff=6.0)
+    assert type(dx.grad_fn).__name__ == "PainnMessageFusedBackward"
+    ((dx * torch.from_numpy(cts[0])).sum() + (dv * torch.from_numpy(cts[1])).sum()).backward()
+    cx, cv = map(torch.from_numpy, cts)
+    plain = painn_message_fused_bwd_reference(**_torch(inputs), dx_ct=cx, dvec_ct=cv, cutoff=6.0)
+    want = _jax_vjp(inputs, cts)
+    for name, p, w in zip(GRAD_NAMES, plain, want):
+        got = leaves[name].grad
+        torch.testing.assert_close(got, p.reshape(got.shape), rtol=0, atol=0)
+        np.testing.assert_allclose(got.numpy(), w.reshape(got.shape), atol=2e-4, rtol=2e-4, err_msg=name)
+    assert leaves["dist"].grad is None and leaves["unit"].grad is None
+
+
+def test_autograd_reaches_the_linear_weight_through_its_transpose():
+    """PaiNN passes ``rbf_proj.weight.t().contiguous()``: the weight gradient
+    must arrive on the Linear's own ``[3H, R]`` weight."""
+    b, n, k, r, h = RAGGED
+    inputs = _torch(_inputs(15, *RAGGED))
+    lin = torch.nn.Linear(r, 3 * h)
+    dx, dv = painn_message_fused(**dict(inputs, weight=lin.weight.t().contiguous(), bias=lin.bias), cutoff=6.0)
+    cx, cv = map(torch.from_numpy, _cotangents(16, b, n, h))
+    ((dx * cx).sum() + (dv * cv).sum()).backward()
+    _, _, dw, db = painn_message_fused_bwd_reference(
+        **dict(inputs, weight=lin.weight.detach().t().contiguous(), bias=lin.bias.detach()), dx_ct=cx, dvec_ct=cv,
+        cutoff=6.0)
+    torch.testing.assert_close(lin.weight.grad, dw.t(), rtol=0, atol=0)
+    torch.testing.assert_close(lin.bias.grad, db, rtol=0, atol=0)
+
+
+def test_bwd_wrapper_on_cpu_runs_the_plain_version_and_counts_no_launch():
+    inputs = _torch(_inputs(17, *RAGGED))
+    cx, cv = map(torch.from_numpy, _cotangents(18, *RAGGED[:2], RAGGED[4]))
+    before = dict(kernels.launches)
+    got = painn_message_fused_bwd(**inputs, dx_ct=cx, dvec_ct=cv, cutoff=6.0)
+    want = painn_message_fused_bwd_reference(**inputs, dx_ct=cx, dvec_ct=cv, cutoff=6.0)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert dict(kernels.launches) == before
 
 
 @pytest.mark.parametrize("exponent", [5, 6])
@@ -122,8 +212,53 @@ def test_kernel_wrapper_raises_instead_of_falling_back(cuda_device):
         painn_message_fused(**dict(inputs, xh=inputs["xh"].transpose(0, 1).contiguous().transpose(0, 1)), cutoff=6.0)
     with pytest.raises(ValueError, match="shape"):
         painn_message_fused(**dict(inputs, unit=inputs["unit"][..., :2].contiguous()), cutoff=6.0)
-    with pytest.raises(NotImplementedError, match="backward"):
-        painn_message_fused(**dict(inputs, weight=inputs["weight"].requires_grad_()), cutoff=6.0)
+    with pytest.raises(ValueError, match="R <= 128"):
+        painn_message_fused_bwd(**dict(inputs, weight=torch.zeros((129, 3 * RAGGED[4]), device=cuda_device)),
+                                dx_ct=torch.zeros((2, 13, 64), device=cuda_device),
+                                dvec_ct=torch.zeros((2, 13, 3, 64), device=cuda_device), cutoff=6.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape", [RAGGED, (1, 7, 50, 128, 192), (3, 5, 3, 8, 128), (1, 5, 120, 128, 64), (48, 80, 50, 128, 512)],
+    ids=["ragged", "k50-h192", "k3", "k120", "training-width"],
+)
+def test_bwd_kernel_matches_plain_version_on_card(cuda_device, shape):
+    """|kernel - plain| <= 1e-4 * max|plain| + 1e-5 for dxh, dvec, dW and db
+    (atomics sum in another order on every run)."""
+    b, n, k, r, h = shape
+    inputs = _torch(_inputs(19, *shape), cuda_device)
+    cts = [torch.from_numpy(c).to(cuda_device) for c in _cotangents(20, b, n, h)]
+    before = kernels.launches["painn_message_fused_bwd"]
+    got = painn_message_fused_bwd(**inputs, dx_ct=cts[0], dvec_ct=cts[1], cutoff=6.0)
+    torch.cuda.synchronize()
+    assert kernels.launches["painn_message_fused_bwd"] == before + 1
+    want = painn_message_fused_bwd_reference(**inputs, dx_ct=cts[0], dvec_ct=cts[1], cutoff=6.0)
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        err = (g - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item() + 1e-5, (name, err)
+
+
+@pytest.mark.cuda
+def test_autograd_on_card_launches_forward_and_backward_kernels(cuda_device):
+    """One backward through the Function: one launch of each kernel, and the
+    gradients of the plain VJP within its tolerance."""
+    b, n, k, r, h = RAGGED
+    inputs = _torch(_inputs(21, *RAGGED), cuda_device)
+    for name in GRAD_NAMES:
+        inputs[name].requires_grad_(True)
+    cx, cv = (torch.from_numpy(c).to(cuda_device) for c in _cotangents(22, b, n, h))
+    before = dict(kernels.launches)
+    dx, dv = painn_message_fused(**inputs, cutoff=6.0)
+    ((dx * cx).sum() + (dv * cv).sum()).backward()
+    torch.cuda.synchronize()
+    assert kernels.launches["painn_message_fused"] == before.get("painn_message_fused", 0) + 1
+    assert kernels.launches["painn_message_fused_bwd"] == before.get("painn_message_fused_bwd", 0) + 1
+    plain = painn_message_fused_bwd_reference(**{k_: v.detach() for k_, v in inputs.items()}, dx_ct=cx, dvec_ct=cv,
+                                              cutoff=6.0)
+    for name, w in zip(GRAD_NAMES, plain):
+        g = inputs[name].grad.reshape(w.shape)
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() + 1e-5, name
 
 
 def _quad_inputs(seed, b, n, u, q, k2, s, e, f, zero_rows=False):
