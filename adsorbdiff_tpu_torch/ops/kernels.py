@@ -19,9 +19,11 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import math
-from typing import Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from adsorbdiff_tpu_torch.ops import build
@@ -401,3 +403,289 @@ def gemnet_quad_chain(
         out.data_ptr(), b * n, u, q, k2, s, e, f,
     )
     return out
+
+
+def s2_grid_silu_reference(h: torch.Tensor, to_grid_m: torch.Tensor, from_grid_m: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`s2_grid_silu`: the ``[..., G, C]``
+    grid tensor is materialised."""
+    g = torch.matmul(to_grid_m.float(), h.float())
+    return torch.matmul(from_grid_m.float(), torch.nn.functional.silu(g))
+
+
+def s2_grid_silu(h: torch.Tensor, to_grid_m: torch.Tensor, from_grid_m: torch.Tensor) -> torch.Tensor:
+    """EquiformerV2's S^2 grid activation ``from_grid_m @ silu(to_grid_m @ h)``
+    over the coefficient axis, fused (``csrc/s2_grid_silu.cu``): the grid
+    tensor never reaches device memory.
+
+    ``h [..., NC, C]`` truncated m-primary coefficients (any leading dims);
+    ``to_grid_m [G, NC]``, ``from_grid_m [NC, G]`` with the m-truncation
+    rescale folded in by the caller.  Returns a tensor like ``h``, f32.  On
+    the card: f32, contiguous, NC <= 32, no autograd (the backward kernel
+    comes with EquiformerV2 training).
+    """
+    if h.device.type == "cpu":
+        return s2_grid_silu_reference(h, to_grid_m, from_grid_m)
+    tensors = dict(h=h, to_grid_m=to_grid_m, from_grid_m=from_grid_m)
+    _check_cuda_inputs("s2_grid_silu", tensors, {})
+    if h.dim() < 2 or to_grid_m.dim() != 2:
+        raise ValueError("s2_grid_silu: h must be [..., NC, C] and to_grid_m [G, NC]")
+    nc, c = h.shape[-2:]
+    g = to_grid_m.shape[0]
+    _check_shapes("s2_grid_silu", tensors, dict(to_grid_m=(g, nc), from_grid_m=(nc, g)))
+    if nc > 32:
+        raise ValueError(f"s2_grid_silu: the kernel holds NC <= 32 coefficient rows, got {nc}")
+    out = torch.empty_like(h)
+    m = h.numel() // max(nc * c, 1)
+    if h.numel() == 0:  # empty output: nothing to launch
+        return out
+    lib = _library("s2_grid_silu", [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    _launch("s2_grid_silu", lib, h.device,
+            h.data_ptr(), to_grid_m.data_ptr(), from_grid_m.data_ptr(), out.data_ptr(), m, nc, c, g)
+    return out
+
+
+class AttnConv1Weights(NamedTuple):
+    """:func:`eqv2_attn_conv1`'s weights in the kernel's layout (the JAX
+    package's ``eqv2_attn_conv1`` repack, ``[in, out]`` row-major).
+
+    ``trunk``: ``wg [R, H]``, ``ws``, ``wt [Ed, H]`` (the gaussian, source and
+    target rows of ``dense_0``), ``b0``, ``ln0_scale``, ``ln0_bias [H]``,
+    ``w1 [H, H]``, ``b1``, ``ln1_scale``, ``ln1_bias [H]``, ``w2 [H, NG]`` and
+    ``b2 [NG]`` (the gate columns reordered into [s-half | t-half], each
+    half n-major per m-block), ``bm0 [extra + nb0 * c_out]`` (fc_m0's bias).
+    ``conv``: ``km0_s``, ``km0_t [nb0 * C, extra + nb0 * c_out]``, then per
+    |m| > 0 block ``kr_s``, ``ki_s``, ``kr_t``, ``ki_t [nb * C, nb * c_out]``
+    (each fc kernel's rows split into the source (c < C) and target (c >= C)
+    halves), all views of ``flat_conv``, the kernel's one buffer.
+    """
+
+    trunk: Tuple[torch.Tensor, ...]
+    conv: Tuple[torch.Tensor, ...]
+    flat_conv: torch.Tensor
+    n_blocks: Tuple[int, ...]
+    c_in: int
+    num_gauss: int
+
+
+def conv1_blocks(lmax: int, mmax: int) -> Tuple[int, ...]:
+    """Rows per m-block of the truncated m-primary layout, m = 0..mmax."""
+    return tuple(lmax + 1 - m for m in range(mmax + 1))
+
+
+@functools.lru_cache(maxsize=16)
+def _gate_perm(n_blocks: Tuple[int, ...], c: int, device: torch.device) -> torch.Tensor:
+    """Gate column order [s-half | t-half] from the radial trunk's
+    (block, n, 2C) interleaved columns, on ``device`` (copied once: a copy
+    from host memory on every call would wait for the card each time)."""
+    n_rad = 2 * sum(n_blocks) * c
+    perm = np.zeros(n_rad, np.int64)
+    half = n_rad // 2
+    oldoff = newoff = 0
+    for nb in n_blocks:
+        idx = np.arange(nb * c)
+        n_i, ch = idx // c, idx % c
+        perm[newoff + idx] = oldoff + n_i * 2 * c + ch
+        perm[half + newoff + idx] = oldoff + n_i * 2 * c + c + ch
+        oldoff += nb * 2 * c
+        newoff += nb * c
+    return torch.from_numpy(perm).to(device)
+
+
+def pack_attn_conv1(rad_params: Dict[str, Any], conv_params: Dict[str, Any], *, lmax: int, mmax: int,
+                    num_gauss: int, c_in: int) -> AttnConv1Weights:
+    """The repack of the JAX package's ``eqv2_attn_conv1``: ``rad_params``
+    is the RadialFunction tree (``dense_{0,1,2}`` ``kernel [in, out]`` and
+    ``bias``, ``ln_{0,1}`` ``scale`` and ``bias``), ``conv_params`` the SO2Conv
+    tree (``fc_m0`` ``kernel``/``bias``, ``fc_m{i}_{r,i}`` ``kernel``), as
+    tensors; ``c_in`` is the channel count of one message half."""
+    n_blocks = conv1_blocks(lmax, mmax)
+    w0 = rad_params["dense_0"]["kernel"]
+    e_dim = (w0.shape[0] - num_gauss) // 2
+    perm = _gate_perm(n_blocks, c_in, w0.device)
+    w2 = rad_params["dense_2"]["kernel"]
+    trunk = tuple(t.float().contiguous() for t in (
+        w0[:num_gauss], w0[num_gauss:num_gauss + e_dim], w0[num_gauss + e_dim:],
+        rad_params["dense_0"]["bias"], rad_params["ln_0"]["scale"], rad_params["ln_0"]["bias"],
+        rad_params["dense_1"]["kernel"], rad_params["dense_1"]["bias"],
+        rad_params["ln_1"]["scale"], rad_params["ln_1"]["bias"],
+        w2[:, perm], rad_params["dense_2"]["bias"][perm], conv_params["fc_m0"]["bias"],
+    ))
+
+    def split_st(k, nb):
+        k3 = k.reshape(nb, 2 * c_in, -1)
+        return k3[:, :c_in].reshape(nb * c_in, -1), k3[:, c_in:].reshape(nb * c_in, -1)
+
+    conv = list(split_st(conv_params["fc_m0"]["kernel"], n_blocks[0]))
+    for mi in range(1, len(n_blocks)):
+        kr_s, kr_t = split_st(conv_params[f"fc_m{mi}_r"]["kernel"], n_blocks[mi])
+        ki_s, ki_t = split_st(conv_params[f"fc_m{mi}_i"]["kernel"], n_blocks[mi])
+        conv += [kr_s, ki_s, kr_t, ki_t]
+    flat = torch.cat([k.float().reshape(-1) for k in conv])
+    views, off = [], 0
+    for k in conv:
+        views.append(flat[off:off + k.numel()].view(k.shape))
+        off += k.numel()
+    return AttnConv1Weights(trunk, tuple(views), flat, n_blocks, c_in, num_gauss)
+
+
+def _attn_conv1_packed_reference(dist, mask, emb_s, emb_t, msg_s, msg_t, w: AttnConv1Weights, *, cutoff: float,
+                                 width_scalar: float, c_out: int, extra: int) -> Tuple[torch.Tensor, ...]:
+    """Port of the JAX ``_attn_conv1_ref`` on flat ``[E]`` / ``[E, ...]``
+    inputs and packed weights.  Returns ``(extra [E, extra], m0 [E, nb0 *
+    c_out], then yp, yn [E, nb * c_out] per |m| > 0 block)``."""
+    wg, ws, wt, b0, ln0s, ln0b, w1, b1, ln1s, ln1b, w2, b2, bm0 = w.trunk
+    c_in, n_blocks, num_gauss = w.c_in, w.n_blocks, w.num_gauss
+    delta = cutoff / (num_gauss - 1)
+    coeff = -0.5 / (width_scalar * delta) ** 2
+    off = torch.arange(num_gauss, dtype=torch.float32, device=dist.device) * delta
+    gauss = torch.exp(coeff * (dist.float()[:, None] - off) ** 2) * mask.float()[:, None]
+
+    def ln_silu(h, s, b):
+        mu = torch.mean(h, dim=1, keepdim=True)
+        var = torch.mean((h - mu) ** 2, dim=1, keepdim=True)
+        return torch.nn.functional.silu((h - mu) * torch.rsqrt(var + 1e-6) * s + b)
+
+    y0 = ln_silu(gauss @ wg + emb_s.float() @ ws + emb_t.float() @ wt + b0, ln0s, ln0b)
+    y1 = ln_silu(y0 @ w1 + b1, ln1s, ln1b)
+    gates = y1 @ w2 + b2
+    half = sum(n_blocks) * c_in
+    goff = [0]
+    for nb in n_blocks:
+        goff.append(goff[-1] + nb * c_in)
+
+    def gated(msg, base):
+        msg = msg.float()
+        pieces = [msg[:, : n_blocks[0] * c_in] * gates[:, base : base + goff[1]]]
+        moff = n_blocks[0] * c_in
+        for mi in range(1, len(n_blocks)):
+            g = gates[:, base + goff[mi] : base + goff[mi + 1]]
+            width = n_blocks[mi] * c_in
+            pieces.append(msg[:, moff : moff + width] * g)
+            pieces.append(msg[:, moff + width : moff + 2 * width] * g)
+            moff += 2 * width
+        return pieces
+
+    gs, gt = gated(msg_s, 0), gated(msg_t, half)
+    conv = w.conv
+    y0c = gs[0] @ conv[0] + gt[0] @ conv[1] + bm0
+    outs = [y0c[:, :extra], y0c[:, extra:]]
+    wi = 2
+    for mi in range(1, len(n_blocks)):
+        xp_s, xn_s, xp_t, xn_t = gs[2 * mi - 1], gs[2 * mi], gt[2 * mi - 1], gt[2 * mi]
+        kr_s, ki_s, kr_t, ki_t = conv[wi : wi + 4]
+        wi += 4
+        outs.append(xp_s @ kr_s + xp_t @ kr_t - xn_s @ ki_s - xn_t @ ki_t)
+        outs.append(xp_s @ ki_s + xp_t @ ki_t + xn_s @ kr_s + xn_t @ kr_t)
+    return tuple(outs)
+
+
+def _attn_conv1_prepare(dist, emb_s, msg_s, rad_params, conv_params, *, lmax, mmax, num_gauss):
+    """(packed weights, leading dims, edges, n_act, C, emb dim) of a call."""
+    c = msg_s.shape[-1]
+    packed = pack_attn_conv1(rad_params, conv_params, lmax=lmax, mmax=mmax, num_gauss=num_gauss, c_in=c)
+    lead = tuple(dist.shape)
+    return packed, lead, math.prod(lead), msg_s.shape[-2], c, emb_s.shape[-1]
+
+
+def eqv2_attn_conv1_reference(
+    dist: torch.Tensor,  # [...] radii-offset edge distances
+    mask: torch.Tensor,  # [...] bool
+    emb_s: torch.Tensor,  # [..., Ed]
+    emb_t: torch.Tensor,  # [..., Ed]
+    msg_s: torch.Tensor,  # [..., n_act, C]
+    msg_t: torch.Tensor,  # [..., n_act, C]
+    rad_params: Dict[str, Any],
+    conv_params: Dict[str, Any],
+    *,
+    lmax: int,
+    mmax: int,
+    c_out: int,
+    extra: int,
+    num_gauss: int,
+    cutoff: float,
+    width_scalar: float = 2.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`eqv2_attn_conv1`: the gaussian basis,
+    the trunk activations and the ``[E, NG]`` gates are materialised."""
+    packed, lead, m, n_act, c, e_dim = _attn_conv1_prepare(
+        dist, emb_s, msg_s, rad_params, conv_params, lmax=lmax, mmax=mmax, num_gauss=num_gauss)
+    outs = _attn_conv1_packed_reference(
+        dist.reshape(m), mask.reshape(m), emb_s.reshape(m, e_dim), emb_t.reshape(m, e_dim),
+        msg_s.reshape(m, n_act * c), msg_t.reshape(m, n_act * c), packed,
+        cutoff=cutoff, width_scalar=width_scalar, c_out=c_out, extra=extra)
+    h = torch.cat([o.reshape(lead + (-1, c_out)) for o in outs[1:]], dim=-2)
+    return h, outs[0].reshape(lead + (extra,))
+
+
+def eqv2_attn_conv1(
+    dist: torch.Tensor,
+    mask: torch.Tensor,
+    emb_s: torch.Tensor,
+    emb_t: torch.Tensor,
+    msg_s: torch.Tensor,
+    msg_t: torch.Tensor,
+    rad_params: Dict[str, Any],
+    conv_params: Dict[str, Any],
+    *,
+    lmax: int,
+    mmax: int,
+    c_out: int,
+    extra: int,
+    num_gauss: int,
+    cutoff: float,
+    width_scalar: float = 2.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """EquiformerV2's attention front half, fused (``csrc/eqv2_attn_conv1.cu``):
+    gaussian distance basis -> radial trunk (Dense-LN-SiLU x2 -> Dense) ->
+    per-m gates -> the gated first SO(2) conv over the source and target
+    message halves.  The basis, the trunk activations and the gates never
+    reach device memory.
+
+    Shapes as :func:`eqv2_attn_conv1_reference`; ``rad_params`` and
+    ``conv_params`` as :func:`pack_attn_conv1` takes them (repacked on every
+    call).  Returns ``(h [..., n_act, c_out], extra_out [...,
+    extra])``, f32: h's rows in the truncated m-primary order, extra_out the
+    fc_m0 columns that precede h's.  On the card: f32 contiguous inputs,
+    ``mask`` bool, no autograd (EquiformerV2 training, with the conv1 VJP,
+    comes later).
+    """
+    if msg_s.device.type == "cpu":
+        return eqv2_attn_conv1_reference(
+            dist, mask, emb_s, emb_t, msg_s, msg_t, rad_params, conv_params, lmax=lmax, mmax=mmax, c_out=c_out,
+            extra=extra, num_gauss=num_gauss, cutoff=cutoff, width_scalar=width_scalar)
+    packed, lead, m, n_act, c, e_dim = _attn_conv1_prepare(
+        dist, emb_s, msg_s, rad_params, conv_params, lmax=lmax, mmax=mmax, num_gauss=num_gauss)
+    names = ("wg", "ws", "wt", "b0", "ln0_scale", "ln0_bias", "w1", "b1", "ln1_scale", "ln1_bias", "w2", "b2", "bm0")
+    tensors = dict(dist=dist, mask=mask, emb_s=emb_s, emb_t=emb_t, msg_s=msg_s, msg_t=msg_t,
+                   **dict(zip(names, packed.trunk)), wconv=packed.flat_conv)
+    _check_cuda_inputs("eqv2_attn_conv1", tensors, {"mask": torch.bool})
+    n_blocks = packed.n_blocks
+    if n_act != n_blocks[0] + 2 * sum(n_blocks[1:]):
+        raise ValueError(f"eqv2_attn_conv1: msg_s has {n_act} rows, lmax {lmax} / mmax {mmax} need "
+                         f"{n_blocks[0] + 2 * sum(n_blocks[1:])}")
+    hidden = packed.trunk[10].shape[0]
+    vec = (hidden,)
+    _check_shapes("eqv2_attn_conv1", tensors, dict(
+        mask=lead, emb_s=lead + (e_dim,), emb_t=lead + (e_dim,), msg_s=lead + (n_act, c), msg_t=lead + (n_act, c),
+        wg=(num_gauss, hidden), ws=(e_dim, hidden), wt=(e_dim, hidden), b0=vec, ln0_scale=vec, ln0_bias=vec,
+        w1=(hidden, hidden), b1=vec, ln1_scale=vec, ln1_bias=vec, w2=(hidden, 2 * sum(n_blocks) * c),
+        b2=(2 * sum(n_blocks) * c,), bm0=(extra + n_blocks[0] * c_out,)))
+    conv_shapes = [(n_blocks[0] * c, extra + n_blocks[0] * c_out)] * 2
+    for nb in n_blocks[1:]:
+        conv_shapes += [(nb * c, nb * c_out)] * 4
+    _check_shapes("eqv2_attn_conv1", {f"conv[{i}]": t for i, t in enumerate(packed.conv)},
+                  {f"conv[{i}]": shape for i, shape in enumerate(conv_shapes)})
+    extra_out = torch.empty(lead + (extra,), dtype=torch.float32, device=msg_s.device)
+    h = torch.empty(lead + (n_act, c_out), dtype=torch.float32, device=msg_s.device)
+    if m == 0:  # empty output: nothing to launch
+        return h, extra_out
+    lib = _library("eqv2_attn_conv1", [ctypes.c_void_p] * 22 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+    _launch(
+        "eqv2_attn_conv1", lib, msg_s.device,
+        *(t.data_ptr() for t in (dist, mask, emb_s, emb_t, msg_s, msg_t)), *(t.data_ptr() for t in packed.trunk),
+        packed.flat_conv.data_ptr(), extra_out.data_ptr(), h.data_ptr(),
+        m, num_gauss, e_dim, hidden, c, c_out, extra, (ctypes.c_int * len(n_blocks))(*n_blocks), len(n_blocks),
+        float(cutoff), float(width_scalar),
+    )
+    return h, extra_out

@@ -18,7 +18,8 @@ the host when the config says ``cpu: true``):
 
 Not ported (raise ``NotImplementedError``): S2EF training (``S2EFTrainer``),
 ``amp``, ``grad_accumulation_steps > 1``, ``ReduceLROnPlateau``,
-``run_relaxations``, several devices.
+``run_relaxations``, several devices, an EquiformerV2 model (its training
+needs backward kernels not ported yet).
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ from adsorbdiff_tpu_torch.data.store import ShardDataset
 from adsorbdiff_tpu_torch.device import DeviceLike, resolve_device
 from adsorbdiff_tpu_torch.diffusion.schedules import ScheduleDraws, ads_com_gaussian_schedule, tr_so3_schedule
 from adsorbdiff_tpu_torch.models import gemnet_oc, painn  # noqa: F401  (registers the models)
+from adsorbdiff_tpu_torch.models.equiformer_v2 import EquiformerV2
 from adsorbdiff_tpu_torch.ops.pbc import auto_cell_reps
 from adsorbdiff_tpu_torch.train import checkpoint as ckpt
 from adsorbdiff_tpu_torch.train.evaluator import Evaluator
@@ -437,6 +439,9 @@ class DenoisingTrainer(BaseTrainer):
         return "denoising" if "mode" not in self.model_cfg else None
 
     def __init__(self, config: dict, device: DeviceLike = None) -> None:
+        if issubclass(registry.get_model_class(config["model"].get("name", "painn")), EquiformerV2):
+            raise NotImplementedError("DenoisingTrainer on an equiformer_v2 model: EquiformerV2 training waits "
+                                      "for the _s2_act_bwd kernel and the conv1 VJP (ROADMAP B.4)")
         self.so3 = bool(config["model"].get("so3_denoising", False))
         super().__init__(config, device)
         self.denoising_pos_params = self.optim_cfg.get("denoising_pos_params", {}) or {}

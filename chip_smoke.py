@@ -46,7 +46,22 @@ Phases; any failure raises and the exit code is then non-zero:
 9. card vs CPU, one training step at B=2: loss, grad_norm and every
    parameter's gradient within 1e-3 * max|cpu| of that tensor (f32 sums and
    atomics in another order, through 6 layers forward and back).
-10. the kernels line, then the device line as the last line.
+10. EquiformerV2 kernels: s2_grid_silu and eqv2_attn_conv1 against their
+   plain versions on the card at the inputs the B=16 sampling path gives its
+   first attention block (captured from one forward) and at two ragged
+   shapes each (TINY widths of tests/test_equiformer_v2.py, E not a multiple
+   of the 16-edge tile), |kernel - plain| <= 1e-4 * max|plain| + 1e-5 per
+   output; times from CUDA events against their f32 bounds.
+11. EquiformerV2 sampling path: the eqv2_so3.yml widths (8 layers, 128
+   sphere channels, lmax 4 / mmax 2, grid 18, 600 gaussians, cutoff 12 A,
+   K=20; random weights from a seeded generator; cell_reps=(2,2,0),
+   max_ads=8) drives 100 ODE reverse-diffusion steps through DiffusionEngine
+   with the hoisted static graph on the 16 bench systems.  Launch counts are
+   zeroed just before and read just after: 10 launches of each kernel per
+   step (8 blocks + 2 force heads).  Finite outputs, slab atoms unmoved.
+12. card vs CPU, EquiformerV2: one full-width forward at B=2, both heads
+   within 1e-4 * max|cpu| (TF32 off).
+13. the kernels line, then the device line as the last line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -65,7 +80,9 @@ from adsorbdiff_tpu_torch.data.schema import System, collate
 from adsorbdiff_tpu_torch.data.store import write_shard
 from adsorbdiff_tpu_torch.device import resolve_device
 from adsorbdiff_tpu_torch.diffusion.schedules import draw_schedule
+from adsorbdiff_tpu_torch.models import equiformer_v2
 from adsorbdiff_tpu_torch.models.base import generate_graph
+from adsorbdiff_tpu_torch.models.equiformer_v2 import EquiformerV2
 from adsorbdiff_tpu_torch.models.gemnet_oc import GemNetOC
 from adsorbdiff_tpu_torch.models.painn import PaiNN
 from adsorbdiff_tpu_torch.ops import build, kernels, pbc
@@ -110,6 +127,15 @@ TRAIN_CONFIG = dict(
     logger="tensorboard", seed=0, identifier="smoke", print_every=100,
 )
 GRAD_RTOL = 1e-3
+# configs/denoising/eqv2_so3.yml, model block (use_pallas and use_pallas_conv1 are the port's only path);
+# cell_reps and max_ads as bench.py sets them for sampling
+EQV2_KW = dict(num_layers=8, sphere_channels=128, attn_hidden_channels=64, num_heads=8, attn_alpha_channels=64,
+               attn_value_channels=16, ffn_hidden_channels=128, lmax=4, mmax=2, grid_resolution=18,
+               edge_channels=128, cutoff=12.0, max_neighbors=20, max_num_elements=90, so3_denoising=True,
+               for_denoising=True, sampling=True, cell_reps=(2, 2, 0), max_ads=8)
+EQV2_PARAMS = PARAMS  # 100 ODE steps
+# tests/test_equiformer_v2.py TINY widths: (lmax, mmax, C per half, c_out, extra, gaussians, trunk width, cutoff)
+EQV2_TINY = (2, 1, 16, 16, 32, 16, 16, 6.0)
 
 
 def bench_systems(batch_size=16):
@@ -277,6 +303,191 @@ def check_quad_kernel(device, gen, shape):
     want = kernels.gemnet_quad_chain_reference(**inputs, num_spherical=s)
     err = check_close(f"gemnet_quad_chain b,n,u,q,k2,s,e,f={shape}", [got], [want])
     return inputs, got, err
+
+
+# --------------------------------------------------------------------------
+# EquiformerV2: s2_grid_silu and eqv2_attn_conv1
+# --------------------------------------------------------------------------
+def capture_first_calls(module, names, fn):
+    """Run ``fn()`` with ``module.<name>`` wrapped for each name so that the
+    first call's (args, kwargs) are recorded; returns them by name."""
+    seen, originals = {}, {name: getattr(module, name) for name in names}
+
+    def recorder(name):
+        def rec(*args, **kwargs):
+            seen.setdefault(name, (args, kwargs))
+            return originals[name](*args, **kwargs)
+        return rec
+
+    for name in names:
+        setattr(module, name, recorder(name))
+    try:
+        fn()
+    finally:
+        for name, orig in originals.items():
+            setattr(module, name, orig)
+    return seen
+
+
+def s2_bound_ms(h, to_m, from_m, out):
+    """2 x 2 G NC per (edge, channel) column for the two products and ~6 G
+    for the SiLU; h, both tables and out moved once."""
+    g, nc = to_m.shape
+    cols = h.numel() // nc
+    flops = cols * (4 * g * nc + 6 * g)
+    return (*bound(flops, [h, to_m, from_m, out]), flops)
+
+
+def check_s2_kernel(name, h, to_m, from_m):
+    got = kernels.s2_grid_silu(h, to_m, from_m)
+    torch.cuda.synchronize()
+    return got, check_close(f"s2_grid_silu {name} h{tuple(h.shape)}", [got], [kernels.s2_grid_silu_reference(h, to_m, from_m)])
+
+
+def conv1_inputs(gen, device, lmax, mmax, lead, c, c_out, extra, r, width, cutoff):
+    """Random edges (masked slots, distances past the cutoff), the weight
+    trees and the keyword arguments of eqv2_attn_conv1 at the given widths."""
+    nb = kernels.conv1_blocks(lmax, mmax)
+    n_act = nb[0] + 2 * sum(nb[1:])
+
+    def normal(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen) * scale
+
+    edges = dict(dist=torch.rand(lead, generator=gen) * 1.1 * cutoff, mask=torch.rand(lead, generator=gen) > 0.2,
+                 emb_s=normal(*lead, width), emb_t=normal(*lead, width),
+                 msg_s=normal(*lead, n_act, c), msg_t=normal(*lead, n_act, c))
+    n_rad = 2 * sum(nb) * c
+    rad = {"dense_0": {"kernel": normal(r + 2 * width, width, scale=0.2), "bias": normal(width, scale=0.1)},
+           "ln_0": {"scale": 1 + normal(width, scale=0.1), "bias": normal(width, scale=0.1)},
+           "dense_1": {"kernel": normal(width, width, scale=0.25), "bias": normal(width, scale=0.1)},
+           "ln_1": {"scale": 1 + normal(width, scale=0.1), "bias": normal(width, scale=0.1)},
+           "dense_2": {"kernel": normal(width, n_rad, scale=0.25), "bias": normal(n_rad, scale=0.1)}}
+    conv = {"fc_m0": {"kernel": normal(nb[0] * 2 * c, extra + nb[0] * c_out, scale=0.1),
+                      "bias": normal(extra + nb[0] * c_out, scale=0.1)}}
+    for mi in range(1, mmax + 1):
+        for part in ("r", "i"):
+            conv[f"fc_m{mi}_{part}"] = {"kernel": normal(nb[mi] * 2 * c, nb[mi] * c_out, scale=0.1)}
+    to_dev = lambda t: {k: to_dev(v) if isinstance(v, dict) else v.to(device) for k, v in t.items()}  # noqa: E731
+    kw = dict(lmax=lmax, mmax=mmax, c_out=c_out, extra=extra, num_gauss=r, cutoff=cutoff)
+    return [t.to(device).contiguous() for t in edges.values()] + [to_dev(rad), to_dev(conv)], kw
+
+
+def check_conv1_kernel(name, args, kw):
+    got = kernels.eqv2_attn_conv1(*args, **kw)
+    torch.cuda.synchronize()
+    want = kernels.eqv2_attn_conv1_reference(*args, **kw)
+    return got, check_close(f"eqv2_attn_conv1 {name} E={args[0].numel()}", got, want)
+
+
+def conv1_bound_ms(args, kw, outputs):
+    """Per edge: the trunk 2 H (R' + 2 Ed + H + NG) with R' the gaussian rows
+    that are not exactly 0 in f32 on this data (all R for the dense count),
+    ~20 H for the two LayerNorm+SiLU, NG gate multiplies, and the conv
+    products (m0: 2 x 2 n0 C (extra + n0 c_out); each |m| > 0 block: 2 halves
+    x 4 products x 2 nb C nb c_out); every input, packed weight and output
+    moved once.  Returns (ms, by, bytes, flops, dense flops, non-zero rows
+    per edge)."""
+    edges, (dist, mask) = args[:6], args[:2]
+    packed = kernels.pack_attn_conv1(*args[6:], lmax=kw["lmax"], mmax=kw["mmax"], num_gauss=kw["num_gauss"],
+                                     c_in=edges[4].shape[-1])
+    e = dist.numel()
+    r, width = packed.trunk[0].shape
+    e_dim, ng = packed.trunk[1].shape[0], packed.trunk[10].shape[1]
+    c, nb = packed.c_in, packed.n_blocks
+    c_out, extra = kw["c_out"], kw["extra"]
+    delta = kw["cutoff"] / (r - 1)
+    off = torch.arange(r, dtype=torch.float32, device=dist.device) * delta
+    gauss = torch.exp(-0.5 / (2.0 * delta) ** 2 * (dist.reshape(-1, 1) - off) ** 2) * mask.reshape(-1, 1)
+    rows = int((gauss != 0).sum())
+    conv = 4 * nb[0] * c * (extra + nb[0] * c_out) + sum(16 * n * c * n * c_out for n in nb[1:])
+    per_edge = 2 * width * (2 * e_dim + width + ng) + 20 * width + ng + conv
+    flops, dense = e * per_edge + 2 * width * rows, e * (per_edge + 2 * width * r)
+    tensors = list(edges) + list(packed.trunk) + [packed.flat_conv] + list(outputs)
+    return (*bound(flops, tensors), flops, dense, rows / e)
+
+
+@torch.no_grad()  # the EquiformerV2 kernels have no backward yet: autograd must not record
+def eqv2_path(device, gen, systems):
+    """Phases 10, 11 and 12."""
+    batch = collate(systems, max_atoms=80, device=device)
+    model = EquiformerV2(**EQV2_KW, device=device, generator=gen)
+    score_fn = make_score_fn(model)
+    static = model.prepare_static(batch)
+    calls = capture_first_calls(equiformer_v2, ("eqv2_attn_conv1", "s2_grid_silu"), lambda: score_fn(batch, static))
+
+    # 10a. s2_grid_silu at the first attention block's input, then ragged TINY shapes
+    h, to_m, from_m = calls["s2_grid_silu"][0]
+    s2_out, s2_err = check_s2_kernel("sampling", h, to_m, from_m)
+    tiny_to, tiny_from = (torch.from_numpy(t).to(device) for t in equiformer_v2.s2_act_matrices(*EQV2_TINY[:2], 16))
+    for lead in ((37,), (3, 11, 7)):
+        check_s2_kernel("ragged", torch.randn(lead + (tiny_to.shape[1], 16), generator=gen).to(device), tiny_to,
+                        tiny_from)
+    s2_ms = cuda_ms(lambda: kernels.s2_grid_silu(h, to_m, from_m), 20)
+    s2_plain_ms = cuda_ms(lambda: kernels.s2_grid_silu_reference(h, to_m, from_m), 5)
+    s2_bound, s2_by, s2_bytes, s2_flops = s2_bound_ms(h, to_m, from_m, s2_out)
+    print(f"[kernel] s2_grid_silu at h{tuple(h.shape)}: {s2_ms:.4f} ms, plain {s2_plain_ms:.4f} ms, bound "
+          f"{s2_bound:.4f} ms by {s2_by} ({s2_flops / 1e9:.2f} GFLOP f32, {s2_bytes / 1e6:.2f} MB)", flush=True)
+
+    # 10b. eqv2_attn_conv1 at the first attention block's inputs, then ragged TINY shapes
+    args, kw = calls["eqv2_attn_conv1"]
+    c1_out, c1_err = check_conv1_kernel("sampling", args, kw)
+    for lead in ((37,), (2, 13, 5)):
+        check_conv1_kernel("ragged", *conv1_inputs(gen, device, *EQV2_TINY[:2], lead, *EQV2_TINY[2:]))
+    c1_ms = cuda_ms(lambda: kernels.eqv2_attn_conv1(*args, **kw), 10)
+    c1_plain_ms = cuda_ms(lambda: kernels.eqv2_attn_conv1_reference(*args, **kw), 3)
+    c1_bound, c1_by, c1_bytes, c1_flops, c1_dense, nz_rows = conv1_bound_ms(args, kw, c1_out)
+    print(f"[kernel] eqv2_attn_conv1 at E={args[0].numel()} ({int(args[1].sum())} valid edges, {nz_rows:.2f} "
+          f"non-zero gaussian rows of {kw['num_gauss']} per edge): {c1_ms:.4f} ms, plain {c1_plain_ms:.4f} ms, bound "
+          f"{c1_bound:.4f} ms by {c1_by} ({c1_flops / 1e9:.2f} GFLOP f32; dense {c1_dense / 1e9:.2f} GFLOP = "
+          f"{c1_dense / F32_FLOPS * 1e3:.4f} ms; {c1_bytes / 1e6:.2f} MB)", flush=True)
+    del calls, h, s2_out, c1_out, args
+
+    # 11. 100-step ODE sampling at full width
+    engine = DiffusionEngine(score_fn, EQV2_PARAMS, static_fn=model.prepare_static, device=device)
+    DiffusionEngine(score_fn, dict(EQV2_PARAMS, num_steps=2), static_fn=model.prepare_static,
+                    device=device).run(batch, generator=torch.Generator(device=device).manual_seed(2))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    res = engine.run(batch, generator=torch.Generator(device=device).manual_seed(1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    steps = EQV2_PARAMS["num_steps"]
+    per_step = model.num_layers + 2  # every block and both force heads
+    want = {"s2_grid_silu": per_step * steps, "eqv2_attn_conv1": per_step * steps}
+    if launches != want:
+        raise AssertionError(f"EquiformerV2 sampling launched {launches}, want {want} ({per_step} per step)")
+    if res.traj_pos.shape != (steps + 1, 16, 80, 3) or not torch.isfinite(res.traj_pos).all():
+        raise AssertionError("EquiformerV2 sampled positions are not finite or have the wrong shape")
+    slab = ~batch.ads_mask
+    if not torch.equal(res.batch.pos[slab], batch.pos[slab]):
+        raise AssertionError("EquiformerV2 sampling moved slab atoms")
+    print(f"[eqv2] {steps}-step ODE sampling, B=16 x 80 atoms, eqv2_so3.yml widths: {wall:.3f} s wall, "
+          f"{steps * batch.batch_size / wall:.2f} system-steps/s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB allocated, launches {launches}, "
+          f"converged_at {int(res.converged_at)}", flush=True)
+    forward_ms = cuda_ms(lambda: score_fn(batch, static), 5)
+    print(f"[eqv2] one score forward (graph + {model.num_layers} blocks + 2 heads): {forward_ms:.3f} ms; {per_step} "
+          f"launches of each kernel at {c1_ms:.4f} + {s2_ms:.4f} ms = "
+          f"{100 * per_step * (c1_ms + s2_ms) / forward_ms:.1f}% of it", flush=True)
+
+    # 12. card vs CPU, whole model at B=2
+    small = collate(systems[:2], max_atoms=80, device=device)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    with torch.no_grad():
+        card = model(small)
+        host = cpu_model(small.to("cpu"))
+    check_model("EquiformerV2", zip(("force_block", "force_block2"), card, host))
+    return [
+        dict(name="s2_grid_silu", source="adsorbdiff_tpu_torch/csrc/s2_grid_silu.cu",
+             replaces="adsorbdiff_tpu/ops/pallas_kernels.py:903", launches=launches["s2_grid_silu"],
+             max_abs_err=s2_err, ms=s2_ms, plain_ms=s2_plain_ms, bound_ms=s2_bound, bound_by=s2_by),
+        dict(name="eqv2_attn_conv1", source="adsorbdiff_tpu_torch/csrc/eqv2_attn_conv1.cu",
+             replaces="adsorbdiff_tpu/ops/pallas_kernels.py:1252", launches=launches["eqv2_attn_conv1"],
+             max_abs_err=c1_err, ms=c1_ms, plain_ms=c1_plain_ms, bound_ms=c1_bound, bound_by=c1_by),
+    ]
 
 
 # --------------------------------------------------------------------------
@@ -578,7 +789,7 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
-    # 3-9. each path: its kernel against the plain version, the path, card vs CPU
+    # 3-12. each path: its kernels against the plain versions, the path, card vs CPU
     systems = bench_systems()
     rows = [
         sampling_path(device, torch.Generator().manual_seed(0), systems),
@@ -586,8 +797,9 @@ def main():
     ]
     with tempfile.TemporaryDirectory() as root:
         rows.append(training_path(device, torch.Generator().manual_seed(5), root))
+    rows += eqv2_path(device, torch.Generator().manual_seed(7), systems)
 
-    # 10. results
+    # 13. results
     print(json.dumps({"kernels": [
         dict(name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"], launches=r["launches"],
              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

@@ -34,28 +34,25 @@ from chip_smoke import MODEL_KW, PARAMS, bench_systems  # noqa: E402
 TOP_KERNELS = 15  # rows of the per-kernel table
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--steps", type=int, default=20)
-    args = ap.parse_args()
-
-    device = resolve_device(None)
+def profile_sampling(model, params: dict, steps: int, title: str) -> None:
+    """Profile ``steps`` ODE steps of ``model``'s DiffusionEngine on the 16
+    bench systems and print the per-step numbers (see the module docstring)."""
+    device = next(model.parameters()).device
     batch = collate(bench_systems(), max_atoms=80, device=device)
-    model = PaiNN(**MODEL_KW, device=device, generator=torch.Generator().manual_seed(0))
 
-    def engine(steps):
-        return DiffusionEngine(make_score_fn(model), dict(PARAMS, num_steps=steps),
-                               static_fn=model.prepare_static, device=device)
+    def engine(n):
+        return DiffusionEngine(make_score_fn(model), dict(params, num_steps=n), static_fn=model.prepare_static,
+                               device=device)
 
     gen = torch.Generator(device=device)
     engine(2).run(batch, generator=gen.manual_seed(0))  # warm-up: kernels built, allocator primed
     torch.cuda.synchronize()
     t0 = time.perf_counter()  # wall time with the profiler off
-    engine(args.steps).run(batch, generator=gen.manual_seed(1))
+    engine(steps).run(batch, generator=gen.manual_seed(1))
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine(args.steps).run(batch, generator=gen.manual_seed(1))
+        engine(steps).run(batch, generator=gen.manual_seed(1))
         torch.cuda.synchronize()
 
     # device-side events only (kernels, copies, sets); one stream, so no overlap
@@ -67,21 +64,29 @@ def main() -> None:
     busy_us = sum(us for _, us in by_name.values())
     if busy_us <= 0:
         raise RuntimeError("the profiler recorded no device time")
-    per_step = {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3 / args.steps,
-                "device_events": sum(c for c, _ in by_name.values()) / args.steps}
+    per_step = {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3 / steps,
+                "device_events": sum(c for c, _ in by_name.values()) / steps}
     per_step["idle_share"] = 1.0 - per_step["device_busy_ms"] / wall_ms
-    print(f"{torch.cuda.get_device_name(0)}; {args.steps} sampling steps (B=16, N=80, H=512, 6 layers, K=50)")
+    print(f"{torch.cuda.get_device_name(0)}; {steps} {title}")
     print(f"per step: wall {wall_ms:.3f} ms (profiler off), device busy {per_step['device_busy_ms']:.3f} ms "
           f"(profiler on), idle share {per_step['idle_share']:.3f}; {per_step['device_events']:.0f} device events "
           f"of {len(by_name)} kinds")
     top = []
     for name, (calls, us) in sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)[:TOP_KERNELS]:
-        row = {"name": name, "calls_per_step": calls / args.steps, "device_ms_per_step": us / 1e3 / args.steps,
+        row = {"name": name, "calls_per_step": calls / steps, "device_ms_per_step": us / 1e3 / steps,
                "share": us / busy_us}
         top.append(row)
         print(f"{row['share']:7.1%}  {row['device_ms_per_step']:9.4f} ms/step  {row['calls_per_step']:6.1f} calls/step  "
               f"{name[:100]}")
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "steps": args.steps, **per_step, "top": top}))
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "steps": steps, **per_step, "top": top}))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=20)
+    args = ap.parse_args()
+    model = PaiNN(**MODEL_KW, device=resolve_device(None), generator=torch.Generator().manual_seed(0))
+    profile_sampling(model, PARAMS, args.steps, "sampling steps (B=16, N=80, H=512, 6 layers, K=50)")
 
 
 if __name__ == "__main__":

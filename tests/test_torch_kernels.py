@@ -5,7 +5,10 @@ mode on the CPU) and against the JAX package's own plain formulation.  Tests mar
 against the plain version and skip without a card; they import no JAX, so on
 the card they run with ``python -m pytest --noconftest tests/test_torch_kernels.py -m cuda``.
 
-Tolerances: 1e-4 (abs and rel) for the PaiNN message, whose R-term filter
+Tolerances: 1e-5 (abs and rel, the JAX package's own test) for the S^2 grid
+activation; 1e-5 + 1e-5 * max|JAX| (abs) for the EquiformerV2 attention front
+half, whose 600-term basis products and ~1000-term conv sums are taken in
+another order; 1e-4 (abs and rel) for the PaiNN message, whose R-term filter
 sums and K-term reductions are taken in another order than the Pallas
 kernel's f32 matmuls; 2e-4 (abs and rel, the JAX package's own VJP test) for
 its gradients, whose dW and db sum over every edge of the batch; atol 2e-4 (the JAX package's own quad-chain test) and
@@ -18,12 +21,16 @@ import torch
 
 from adsorbdiff_tpu_torch.ops import kernels
 from adsorbdiff_tpu_torch.ops.kernels import (
+    eqv2_attn_conv1,
+    eqv2_attn_conv1_reference,
     gemnet_quad_chain,
     gemnet_quad_chain_reference,
     painn_message_fused,
     painn_message_fused_bwd,
     painn_message_fused_bwd_reference,
     painn_message_fused_reference,
+    s2_grid_silu,
+    s2_grid_silu_reference,
 )
 
 RAGGED = (2, 13, 10, 16, 64)  # b, n, k, r, h of tests/test_pallas_kernels.py:114 and :164
@@ -364,4 +371,202 @@ def test_empty_outputs_launch_nothing(cuda_device):
     shape = (1, 3, 0, 2, 4, 3, 5, 7)  # U = 0
     out = gemnet_quad_chain(**_torch(_quad_inputs(10, *shape), cuda_device), num_spherical=shape[5])
     assert out.shape == (1, 3, 0, 7, 5)
+    assert dict(kernels.launches) == before
+
+
+# --------------------------------------------------------------------------
+# EquiformerV2: s2_grid_silu and eqv2_attn_conv1
+# --------------------------------------------------------------------------
+def _s2_tables(lmax=4, mmax=2, res=18):
+    """The attention's effective grid matrices: m-primary columns, the
+    m-truncation rescale folded in."""
+    from adsorbdiff_tpu_torch.models.equiformer_v2 import s2_act_matrices
+
+    return s2_act_matrices(lmax, mmax, res)
+
+
+def test_s2_grid_silu_reference_matches_jax_kernel():
+    """At the shapes of tests/test_pallas_kernels.py:238-247, against the
+    Pallas kernel in interpret mode."""
+    import jax.numpy as jnp
+
+    from adsorbdiff_tpu.ops.pallas_kernels import s2_grid_silu as jax_s2_grid_silu
+
+    to_m, from_m = _s2_tables()
+    h = np.random.default_rng(0).normal(size=(3, 5, to_m.shape[1], 16)).astype(np.float32)
+    want = jax_s2_grid_silu(jnp.asarray(h), jnp.asarray(to_m), jnp.asarray(from_m), tile_m=128, interpret=True)
+    got = s2_grid_silu_reference(torch.from_numpy(h), torch.from_numpy(to_m), torch.from_numpy(from_m))
+    assert got.shape == h.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def test_s2_grid_silu_wrapper_on_cpu_runs_the_plain_version_and_counts_no_launch():
+    to_m, from_m = (torch.from_numpy(t) for t in _s2_tables(2, 1, 8))
+    h = torch.randn((2, 3, 4, to_m.shape[1], 5), generator=torch.Generator().manual_seed(1))
+    before = dict(kernels.launches)
+    torch.testing.assert_close(s2_grid_silu(h, to_m, from_m), s2_grid_silu_reference(h, to_m, from_m),
+                               rtol=0, atol=0)
+    assert dict(kernels.launches) == before
+
+
+# (lmax, mmax, lead, C per half, c_out, extra, R, emb/trunk width, cutoff)
+CONV1_TINY = (2, 1, (2, 5, 4), 16, 16, 32, 16, 16, 6.0)  # tests/test_equiformer_v2.py:11-29 widths
+CONV1_L4 = (4, 2, (3, 13), 8, 8, 12, 40, 16, 6.0)  # the production block structure (5, 4, 3), narrow
+
+
+def _conv1_inputs(seed, lmax, mmax, lead, c, c_out, extra, r, width, cutoff):
+    """Edge inputs with masked slots and distances past the cutoff, and the
+    RadialFunction / SO2Conv parameter trees (flax layouts) as numpy."""
+    rng = np.random.default_rng(seed)
+    nb = tuple(lmax + 1 - m for m in range(mmax + 1))
+    n_act = nb[0] + 2 * sum(nb[1:])
+
+    def normal(*shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    edges = dict(
+        dist=rng.uniform(0, 1.1 * cutoff, lead).astype(np.float32),
+        mask=rng.random(lead) > 0.2,
+        emb_s=normal(*lead, width), emb_t=normal(*lead, width),
+        msg_s=normal(*lead, n_act, c), msg_t=normal(*lead, n_act, c),
+    )
+    n_rad = 2 * sum(nb) * c
+    rad = {
+        "dense_0": {"kernel": normal(r + 2 * width, width, scale=0.2), "bias": normal(width, scale=0.1)},
+        "ln_0": {"scale": 1 + normal(width, scale=0.1), "bias": normal(width, scale=0.1)},
+        "dense_1": {"kernel": normal(width, width, scale=0.25), "bias": normal(width, scale=0.1)},
+        "ln_1": {"scale": 1 + normal(width, scale=0.1), "bias": normal(width, scale=0.1)},
+        "dense_2": {"kernel": normal(width, n_rad, scale=0.25), "bias": normal(n_rad, scale=0.1)},
+    }
+    conv = {"fc_m0": {"kernel": normal(nb[0] * 2 * c, extra + nb[0] * c_out, scale=0.1),
+                      "bias": normal(extra + nb[0] * c_out, scale=0.1)}}
+    for mi in range(1, mmax + 1):
+        for part in ("r", "i"):
+            conv[f"fc_m{mi}_{part}"] = {"kernel": normal(nb[mi] * 2 * c, nb[mi] * c_out, scale=0.1)}
+    kw = dict(lmax=lmax, mmax=mmax, c_out=c_out, extra=extra, num_gauss=r, cutoff=cutoff)
+    return edges, rad, conv, kw
+
+
+def _torch_tree(tree, device="cpu"):
+    return {k: _torch_tree(v, device) if isinstance(v, dict) else torch.from_numpy(v).to(device)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("case", [CONV1_TINY, CONV1_L4], ids=["tiny-l2m1", "l4m2"])
+def test_attn_conv1_reference_matches_jax_kernel(case):
+    """The plain version (weights repacked by the port) against the JAX
+    ``eqv2_attn_conv1``'s Pallas kernel in interpret mode."""
+    import jax.numpy as jnp
+
+    from adsorbdiff_tpu.ops.pallas_kernels import eqv2_attn_conv1 as jax_eqv2_attn_conv1
+
+    edges, rad, conv, kw = _conv1_inputs(30, *case)
+    jtree = lambda t: {k: jtree(v) if isinstance(v, dict) else jnp.asarray(v) for k, v in t.items()}  # noqa: E731
+    want_h, want_x = jax_eqv2_attn_conv1(*(jnp.asarray(edges[k]) for k in edges), jtree(rad), jtree(conv), **kw,
+                                         interpret=True)
+    got_h, got_x = eqv2_attn_conv1_reference(*(torch.from_numpy(edges[k]) for k in edges), _torch_tree(rad),
+                                             _torch_tree(conv), **kw)
+    assert got_h.shape == want_h.shape and got_x.shape == want_x.shape
+    for got, want in ((got_h, want_h), (got_x, want_x)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5 + 1e-5 * np.abs(want).max(), rtol=0)
+
+
+def test_attn_conv1_wrapper_on_cpu_runs_the_plain_version_and_counts_no_launch():
+    edges, rad, conv, kw = _conv1_inputs(31, *CONV1_TINY)
+    args = [torch.from_numpy(edges[k]) for k in edges] + [_torch_tree(rad), _torch_tree(conv)]
+    before = dict(kernels.launches)
+    got = eqv2_attn_conv1(*args, **kw)
+    want = eqv2_attn_conv1_reference(*args, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert dict(kernels.launches) == before
+
+
+def test_attn_conv1_masked_edges_still_get_outputs():
+    """A padded edge (mask 0) has a zero gaussian basis but its embeddings and
+    messages still flow: it gets the same output as any edge whose basis
+    underflows, and the attention zeroes it later."""
+    edges, rad, conv, kw = _conv1_inputs(32, *CONV1_TINY)
+    t = {k: torch.from_numpy(v) for k, v in edges.items()}
+    far = dict(t, dist=torch.full_like(t["dist"], 1e3), mask=torch.ones_like(t["mask"]))
+    off = dict(t, mask=torch.zeros_like(t["mask"]))
+    got_far = eqv2_attn_conv1_reference(**far, rad_params=_torch_tree(rad), conv_params=_torch_tree(conv), **kw)
+    got_off = eqv2_attn_conv1_reference(**off, rad_params=_torch_tree(rad), conv_params=_torch_tree(conv), **kw)
+    for a, b in zip(got_far, got_off):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert a.abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "lmax,mmax,shape",
+    [(4, 2, (3, 5, 19, 16)), (2, 1, (2, 24, 12, 7, 16)), (4, 2, (1, 80, 20, 19, 64)), (3, 3, (37, 16, 33)),
+     (1, 1, (5, 4, 1))],
+    ids=["jax-test", "tiny", "sampling-width", "ragged", "nc4-c1"],
+)
+def test_s2_grid_silu_kernel_matches_plain_version_on_card(cuda_device, lmax, mmax, shape):
+    """|kernel - plain| <= 1e-4 * max|plain| + 1e-5 (f32 sums in another order)."""
+    to_m, from_m = (torch.from_numpy(t).to(cuda_device) for t in _s2_tables(lmax, mmax, 18 if lmax == 4 else 8))
+    assert to_m.shape[1] == shape[-2]
+    h = torch.from_numpy(np.random.default_rng(33).normal(size=shape).astype(np.float32)).to(cuda_device)
+    before = kernels.launches["s2_grid_silu"]
+    got = s2_grid_silu(h, to_m, from_m)
+    torch.cuda.synchronize()
+    assert kernels.launches["s2_grid_silu"] == before + 1
+    want = s2_grid_silu_reference(h, to_m, from_m)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case",
+    [CONV1_TINY, CONV1_L4, (4, 2, (37,), 128, 64, 576, 600, 128, 12.0), (4, 2, (2, 40, 20), 128, 64, 576, 600, 128, 12.0),
+     (3, 1, (19,), 5, 3, 7, 9, 6, 4.0)],
+    ids=["tiny", "l4m2", "ragged-full-width", "sampling-width", "odd-widths"],
+)
+def test_attn_conv1_kernel_matches_plain_version_on_card(cuda_device, case):
+    """|kernel - plain| <= 1e-4 * max|plain| + 1e-5 per output."""
+    edges, rad, conv, kw = _conv1_inputs(34, *case)
+    args = [torch.from_numpy(edges[k]).to(cuda_device) for k in edges]
+    args += [_torch_tree(rad, cuda_device), _torch_tree(conv, cuda_device)]
+    before = kernels.launches["eqv2_attn_conv1"]
+    got = eqv2_attn_conv1(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches["eqv2_attn_conv1"] == before + 1
+    for g, w in zip(got, eqv2_attn_conv1_reference(*args, **kw)):
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() + 1e-5
+
+
+@pytest.mark.cuda
+def test_eqv2_kernel_wrappers_raise_instead_of_falling_back(cuda_device):
+    edges, rad, conv, kw = _conv1_inputs(35, *CONV1_TINY)
+    t = {k: torch.from_numpy(v).to(cuda_device) for k, v in edges.items()}
+    trees = dict(rad_params=_torch_tree(rad, cuda_device), conv_params=_torch_tree(conv, cuda_device))
+    with pytest.raises(TypeError, match="mask must be torch.bool"):
+        eqv2_attn_conv1(**dict(t, mask=t["mask"].float()), **trees, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        eqv2_attn_conv1(**dict(t, emb_t=t["emb_t"][:, :, :1].expand_as(t["emb_t"])), **trees, **kw)
+    with pytest.raises(ValueError, match="rows"):
+        eqv2_attn_conv1(**dict(t, msg_s=t["msg_s"][..., 1:, :].contiguous(), msg_t=t["msg_t"][..., 1:, :].contiguous()),
+                        **trees, **kw)
+    to_m, from_m = (torch.from_numpy(x).to(cuda_device) for x in _s2_tables(2, 1, 8))
+    with pytest.raises(ValueError, match="shape"):
+        s2_grid_silu(torch.zeros((4, 6, 3), device=cuda_device), to_m, from_m)
+    with pytest.raises(ValueError, match="NC <= 32"):
+        s2_grid_silu(torch.zeros((4, 33, 3), device=cuda_device), torch.zeros((10, 33), device=cuda_device),
+                     torch.zeros((33, 10), device=cuda_device))
+    with pytest.raises(NotImplementedError, match="backward"):
+        s2_grid_silu(torch.zeros((4, 7, 3), device=cuda_device, requires_grad=True), to_m, from_m)
+
+
+@pytest.mark.cuda
+def test_eqv2_empty_outputs_launch_nothing(cuda_device):
+    before = dict(kernels.launches)
+    to_m, from_m = (torch.from_numpy(x).to(cuda_device) for x in _s2_tables(2, 1, 8))
+    assert s2_grid_silu(torch.zeros((0, 7, 4), device=cuda_device), to_m, from_m).shape == (0, 7, 4)
+    edges, rad, conv, kw = _conv1_inputs(36, *CONV1_TINY[:2], (0,), *CONV1_TINY[3:])
+    h, x = eqv2_attn_conv1(*(torch.from_numpy(edges[k]).to(cuda_device) for k in edges),
+                           _torch_tree(rad, cuda_device), _torch_tree(conv, cuda_device), **kw)
+    assert h.shape == (0, 7, 16) and x.shape == (0, 32)
     assert dict(kernels.launches) == before

@@ -17,13 +17,16 @@ import torch
 
 from adsorbdiff_tpu.diffusion.sampler import init_placement as jax_init_placement
 from adsorbdiff_tpu.diffusion.sampler import reverse_diffusion as jax_reverse_diffusion
+from adsorbdiff_tpu.models.equiformer_v2 import EquiformerV2 as JaxEquiformerV2
 from adsorbdiff_tpu.models.painn import PaiNN as JaxPaiNN
 from adsorbdiff_tpu.relaxation.ml_relaxation import DiffusionEngine as JaxDiffusionEngine
 from adsorbdiff_tpu_torch.diffusion.sampler import init_placement, reverse_diffusion
+from adsorbdiff_tpu_torch.models.equiformer_v2 import EquiformerV2, eqv2_state_dict_from_jax
 from adsorbdiff_tpu_torch.models.painn import PaiNN, painn_state_dict_from_jax
 from adsorbdiff_tpu_torch.relaxation.ml_relaxation import DiffusionEngine, make_score_fn
 from tests.port_bridge import to_numpy, to_torch_batch
 from tests.test_diffusion import make_batch
+from tests.test_equiformer_v2 import TINY as EQV2_TINY
 
 PARAMS = dict(num_steps=10, ads_std_low=0.1, ads_std_high=10.0, rot_std_low=0.01, rot_std_high=1.55)
 MODEL_KW = dict(hidden_channels=32, num_layers=2, num_rbf=8, cutoff=6.0, max_neighbors=20,
@@ -120,6 +123,30 @@ def test_diffusion_engine_matches_jax(models):
     got = engine.run(to_torch_batch(batch), **jax_draws(key, batch.batch_size, PARAMS["num_steps"]))
     np.testing.assert_allclose(to_numpy(got.batch.pos), np.asarray(want.batch.pos), atol=1e-4)
     np.testing.assert_allclose(to_numpy(got.traj_pos), np.asarray(want.traj_pos), atol=1e-4)
+
+
+@pytest.mark.parametrize("ode", [True, False], ids=["ode", "sde"])
+def test_diffusion_engine_runs_eqv2_like_jax(ode):
+    """The EquiformerV2 slice end to end: a few steps of the tiny EqV2 score
+    model under DiffusionEngine, with the hoisted static graph and JAX's
+    draws, against the JAX engine on the JAX model (XLA path).  atol 2e-4 A:
+    with 3 steps from sigma 10 A a step moves the adsorbate by g^2 dt ~ 30
+    A^2 times the score, so the models' f32 round-off (~5e-7 of their
+    outputs) grows to ~1e-4 A in the positions."""
+    kw = dict(EQV2_TINY, cell_reps=(1, 1, 0), max_ads=8, sampling=True)
+    batch = make_batch(np.random.default_rng(10))
+    jmodel = JaxEquiformerV2(**kw)
+    variables = jax.tree.map(np.asarray, dict(jmodel.init(jax.random.PRNGKey(11), batch)))
+    model = EquiformerV2(**kw, device="cpu")
+    model.load_state_dict(eqv2_state_dict_from_jax(variables))
+    params = dict(PARAMS, num_steps=3, ode=ode)
+    key = jax.random.PRNGKey(12)
+    want = JaxDiffusionEngine(_jax_score_fn(jmodel, variables), params, static_fn=jmodel.prepare_static).run(batch, key)
+    engine = DiffusionEngine(make_score_fn(model), params, static_fn=model.prepare_static, device="cpu")
+    got = engine.run(to_torch_batch(batch), **jax_draws(key, batch.batch_size, params["num_steps"]))
+    assert got.traj_pos.shape == (4,) + tuple(batch.pos.shape)
+    np.testing.assert_allclose(to_numpy(got.traj_pos), np.asarray(want.traj_pos), atol=2e-4)
+    np.testing.assert_allclose(to_numpy(got.batch.pos), np.asarray(want.batch.pos), atol=2e-4)
 
 
 def test_diffusion_engine_generator_draws_are_reproducible(models):
