@@ -63,7 +63,11 @@ def load_config(path: str, files_previously_included: Sequence[str] = ()):
 
     Include cycles raise; later files win over earlier includes; the main
     file wins over all includes (reference semantics, ref: utils.py:376-415).
-    Returns ``(config, duplicates_warning, duplicates_error)``.
+    Returns ``(config, duplicates_warning, duplicates_error)``: a key that two
+    includes both set is an error, a key of the main file that overrides an
+    include a warning, as in the reference.  (The JAX package files the
+    latter as an error too, so its ``build_config`` refuses
+    ``configs/denoising/eqv2_so3.yml``, whose ``optim`` overrides base.yml's.)
     """
     import yaml
 
@@ -87,11 +91,11 @@ def load_config(path: str, files_previously_included: Sequence[str] = ()):
         inc_path = inc if os.path.isabs(inc) else os.path.join(base_dir, inc)
         inc_cfg, w, e = load_config(inc_path, seen)
         config, dups = merge_dicts(config, inc_cfg)
-        dup_warn += w + dups
-        dup_err += e
+        dup_warn += w
+        dup_err += e + dups
 
     config, dups = merge_dicts(config, direct)
-    dup_err += dups
+    dup_warn += dups
     return config, dup_warn, dup_err
 
 

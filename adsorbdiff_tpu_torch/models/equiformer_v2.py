@@ -10,13 +10,29 @@ so3`; every attention block runs two Hopper kernels, as the JAX model's
 
 - :func:`adsorbdiff_tpu_torch.ops.kernels.eqv2_attn_conv1` (gaussian basis ->
   radial trunk -> per-m gates -> gated first SO(2) conv), fed the radii-offset,
-  clamped distances;
+  clamped distances; its VJP recomputes the plain version;
 - :func:`adsorbdiff_tpu_torch.ops.kernels.s2_grid_silu` (the separable S^2
   activation on the l > 0 rows, the m-truncation rescale folded into the grid
-  matrices).
+  matrices), whose backward is the ``s2_grid_silu_bwd`` kernel.
 
-There is no switch: ``use_pallas`` and ``use_pallas_conv1`` are accepted for
-config compatibility and ignored.  Parameter names follow the JAX module tree
+There is no switch for those: ``use_pallas`` and ``use_pallas_conv1`` are
+accepted for config compatibility and ignored.  ``use_pallas_rotate=True``
+runs every edge-frame rotation (the edge-degree embedding, each attention's
+source half, target half and value rotation back, so also the force heads)
+through :func:`adsorbdiff_tpu_torch.ops.kernels.eqv2_edge_rotate` /
+``eqv2_gather_rotate_to``, forward and backward; off (the published config's
+choice, as in JAX) the decomposed chain of :mod:`so3` runs in plain PyTorch.
+
+Training: the drop regularisers (post-softmax ``alpha_drop`` in the
+transformer blocks' attention; per-graph ``drop_path_rate`` and
+per-(graph, node, channel) ``proj_drop`` on both residual branches) apply
+only in a train-mode forward, i.e. while ``nn.Module.training`` is True.  The
+constructor's ``training`` argument sets that flag (``model.train()`` and
+``model.eval()`` switch it later), so the default model is in eval mode and
+draws nothing.  A train-mode forward with a non-zero rate takes its masks
+from the ``dropout_generator`` the caller passes, never from the global RNG.
+
+Parameter names follow the JAX module tree
 (``blocks.3.attn.so2_conv_1.fc_m0.weight`` for flax's
 ``attn_3/so2_conv_1/fc_m0/kernel``), not the AdsorbDiff reference's: the JAX
 package keeps its SO(2) and radial weights in another basis and layout than
@@ -25,11 +41,8 @@ so a reference ``.pt`` would not load into these names.
 :func:`eqv2_state_dict_from_jax` converts a JAX variable tree with plain
 transposes.
 
-Not ported yet (raise ``NotImplementedError``): ``use_pallas_rotate=True``
-(ROADMAP B.6), ``compute_dtype="bfloat16"``, ``grid_mode="e3nn"`` (reference
-checkpoint imports, ROADMAP item 13) and the drop regularisers
-(``training=True`` with a non-zero ``alpha_drop``, ``drop_path_rate`` or
-``proj_drop``: EquiformerV2 training comes with the ``_s2_act_bwd`` kernel).
+Not ported yet (raise ``NotImplementedError``): ``compute_dtype="bfloat16"``
+and ``grid_mode="e3nn"`` (reference checkpoint imports, ROADMAP item 13).
 """
 from __future__ import annotations
 
@@ -55,7 +68,7 @@ from adsorbdiff_tpu_torch.models.so3 import (
     rotate_to_edge_m,
     s2_grid_matrices,
 )
-from adsorbdiff_tpu_torch.ops.kernels import eqv2_attn_conv1, s2_grid_silu
+from adsorbdiff_tpu_torch.ops.kernels import eqv2_attn_conv1, eqv2_edge_rotate, eqv2_gather_rotate_to, s2_grid_silu
 from adsorbdiff_tpu_torch.ops.pbc import CandidateTable, NeighborList, StaticGraphPart
 
 # Reference constants (the JAX package's equiformer_v2.py:75-77)
@@ -97,6 +110,24 @@ def gather_nodes(a: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     b = src.shape[0]
     batch = torch.arange(b, device=src.device)[:, None, None]
     return a[batch, src.long()]
+
+
+def bernoulli_keep(generator: Optional[torch.Generator], keep: float, shape: Tuple[int, ...],
+                   device: torch.device) -> torch.Tensor:
+    """A drop mask: True with probability ``keep``, drawn from ``generator``
+    (the JAX model's ``jax.random.bernoulli(rng, keep, shape)``; the two
+    frameworks draw different bits from one seed)."""
+    if generator is None:
+        raise ValueError("a train-mode EquiformerV2 forward with drop rates needs a dropout_generator")
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
+def _drop(y: torch.Tensor, rate: float, shape: Tuple[int, ...], generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``y`` times a keep mask of ``shape`` over ``1 - rate`` (no draw for rate 0)."""
+    if rate <= 0.0:
+        return y
+    keep = 1.0 - rate
+    return y * bernoulli_keep(generator, keep, shape, y.device).to(y.dtype) / keep
 
 
 def _jax_dense(linear: nn.Linear) -> Dict[str, torch.Tensor]:
@@ -278,14 +309,17 @@ class GridMLPFFN(nn.Module):
 class SO2Attention(nn.Module):
     """SO2EquivariantGraphAttention, the published wiring: per-block atom-pair
     embeddings -> :func:`eqv2_attn_conv1` -> [alpha | gating scalars] ->
-    :func:`s2_grid_silu` -> internal SO2Conv -> alpha-weighted heads -> rotate
-    back (+ m-truncation rescale) -> sum over neighbours -> SO3Linear."""
+    :func:`s2_grid_silu` -> internal SO2Conv -> alpha-weighted heads (the
+    weights dropped at ``alpha_drop`` in train mode) -> rotate back
+    (+ m-truncation rescale) -> sum over neighbours -> SO3Linear."""
 
     def __init__(self, lmax: int, mmax: int, channels: int, attn_hidden: int, num_heads: int, attn_alpha: int,
                  attn_value: int, c_out: int, max_num_elements: int, rad_channels: Tuple[int, ...],
-                 grid_res: int = 18, cutoff: float = 12.0, num_gauss: int = 600) -> None:
+                 grid_res: int = 18, cutoff: float = 12.0, num_gauss: int = 600, alpha_drop: float = 0.0,
+                 use_pallas_rotate: bool = False) -> None:
         super().__init__()
         self.lmax, self.mmax = lmax, mmax
+        self.alpha_drop, self.use_pallas_rotate = alpha_drop, use_pallas_rotate
         self.num_heads, self.attn_alpha, self.attn_value = num_heads, attn_alpha, attn_value
         self.attn_hidden = attn_hidden
         self.cutoff, self.num_gauss = cutoff, num_gauss
@@ -306,13 +340,18 @@ class SO2Attention(nn.Module):
         self.register_buffer("rescale_out", torch.from_numpy(m_trunc_rescale(lmax, mmax)), persistent=False)
 
     def forward(self, x: torch.Tensor, z: torch.Tensor, z_src: torch.Tensor, nl: NeighborList,
-                gamma: torch.Tensor, beta: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
+                gamma: torch.Tensor, beta: torch.Tensor, dist: torch.Tensor,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         emb_s = self.source_embedding(z_src)
         emb_t = self.target_embedding(z)[:, :, None, :].expand_as(emb_s).contiguous()
-        # the source half from gathered rows; the target half rotates from the
-        # node table and reaches the edges at the rotation's first stage
-        msg_s = rotate_to_edge_m(gather_nodes(x, nl.src), gamma, beta, self.lmax, self.mmax)
-        msg_t = rotate_to_edge_m(x[:, :, None], gamma, beta, self.lmax, self.mmax)
+        # the source half from the source rows; the target half rotates from
+        # the node table, shared by the K edges of each target
+        if self.use_pallas_rotate:
+            msg_s = eqv2_gather_rotate_to(x, nl.src, gamma, beta, self.lmax, self.mmax)
+            msg_t = eqv2_edge_rotate(x[:, :, None], gamma, beta, self.lmax, self.mmax, direction="to")
+        else:
+            msg_s = rotate_to_edge_m(gather_nodes(x, nl.src), gamma, beta, self.lmax, self.mmax)
+            msg_t = rotate_to_edge_m(x[:, :, None], gamma, beta, self.lmax, self.mmax)
         rad, conv = self.so2_conv_1.jax_trees()
         h, x0_extra = eqv2_attn_conv1(
             dist, nl.mask, emb_s, emb_t, msg_s, msg_t, rad, conv, lmax=self.lmax, mmax=self.mmax,
@@ -332,9 +371,15 @@ class SO2Attention(nn.Module):
         mask = nl.mask[..., None]
         logits = torch.where(mask, logits, torch.full_like(logits, -1e9))
         attn = torch.where(mask, torch.softmax(logits, dim=2), torch.zeros_like(logits))
+        if self.training:
+            attn = _drop(attn, self.alpha_drop, tuple(attn.shape), dropout_generator)
 
         v = v * attn.repeat_interleave(self.attn_value, dim=-1)[..., None, :]
-        v_rot = rotate_from_edge_m(v, gamma, beta, self.lmax, self.mmax) * self.rescale_out[:, None]
+        if self.use_pallas_rotate:
+            v_rot = eqv2_edge_rotate(v, gamma, beta, self.lmax, self.mmax, direction="from", n_sel=v.shape[-2])
+        else:
+            v_rot = rotate_from_edge_m(v, gamma, beta, self.lmax, self.mmax)
+        v_rot = v_rot * self.rescale_out[:, None]
         v_rot = torch.where(mask[..., None], v_rot, torch.zeros_like(v_rot))
         return self.proj(v_rot.sum(dim=2))
 
@@ -367,7 +412,11 @@ class EquiformerV2(nn.Module):
     ``use_atom_edge_embedding``, ``use_pallas`` and ``use_pallas_conv1`` are
     accepted for config compatibility and change nothing, as in the JAX
     model (the first) or because the kernels always run (the others).
-    ``training=True`` with zero drop rates is the eval forward.
+    ``use_pallas_rotate`` routes the edge-frame rotations through the
+    rotation kernel.  ``training`` sets ``nn.Module.training`` (see the
+    module docstring): in train mode a forward with a non-zero
+    ``alpha_drop``, ``drop_path_rate`` or ``proj_drop`` draws its masks from
+    ``forward``'s ``dropout_generator``; with zero rates it is the eval forward.
     """
 
     def __init__(
@@ -413,18 +462,12 @@ class EquiformerV2(nn.Module):
     ) -> None:
         super().__init__()
         device = resolve_device(device)
-        if use_pallas_rotate:
-            raise NotImplementedError("EquiformerV2 use_pallas_rotate=True: the eqv2_edge_rotate kernel is not "
-                                      "ported yet (ROADMAP B.6)")
         if compute_dtype is not None:
             raise NotImplementedError(f"EquiformerV2 compute_dtype={compute_dtype!r} (bf16) is not ported yet "
                                       "(ROADMAP item 12)")
         if grid_mode != "gauss":
             raise NotImplementedError(f"EquiformerV2 grid_mode={grid_mode!r} serves reference-checkpoint imports, "
                                       "not ported yet (ROADMAP item 13)")
-        if training and max(alpha_drop, drop_path_rate, proj_drop) > 0.0:
-            raise NotImplementedError("EquiformerV2 training with drop rates is not ported yet (ROADMAP B.4: "
-                                      "EquiformerV2 training)")
         if mode not in ("denoising", "s2ef"):
             raise ValueError(f"unknown EquiformerV2 mode {mode!r}")
         if energy_encoding not in (None, "scalar"):
@@ -447,15 +490,18 @@ class EquiformerV2(nn.Module):
         self.max_ads = max_ads
         self.avg_degree = avg_degree
         self.avg_num_nodes = avg_num_nodes
+        self.drop_path_rate, self.proj_drop = drop_path_rate, proj_drop
+        self.use_pallas_rotate = use_pallas_rotate
+        self.has_drops = max(alpha_drop, drop_path_rate, proj_drop) > 0.0
 
         c = sphere_channels
         rad = (num_distance_basis + 2 * edge_channels, edge_channels, edge_channels)
         n0 = m_primary_order(lmax, mmax)[1][0][1]
 
-        def attention(c_out):
+        def attention(c_out, alpha_drop=0.0):  # the force heads drop nothing, as in JAX
             return SO2Attention(lmax, mmax, c, attn_hidden_channels, num_heads, attn_alpha_channels,
                                 attn_value_channels, c_out, max_num_elements, rad, grid_resolution, cutoff,
-                                num_distance_basis)
+                                num_distance_basis, alpha_drop, use_pallas_rotate)
 
         self.sphere_embedding = nn.Embedding(max_num_elements, c)
         if energy_encoding == "scalar":
@@ -464,7 +510,8 @@ class EquiformerV2(nn.Module):
         self.edge_degree_target_embedding = nn.Embedding(max_num_elements, edge_channels)
         self.edge_degree_rad_func = RadialFunction(rad + (n0 * c,))
         self.blocks = nn.ModuleList(
-            TransBlock(lmax, c, attention(c), ffn_hidden_channels, grid_resolution) for _ in range(num_layers))
+            TransBlock(lmax, c, attention(c, alpha_drop), ffn_hidden_channels, grid_resolution)
+            for _ in range(num_layers))
         self.norm_final = EquivariantLayerNormSH(lmax, c)
         self.force_block = attention(1)
         if mode == "s2ef":
@@ -477,6 +524,7 @@ class EquiformerV2(nn.Module):
         self.register_buffer("rescale", torch.from_numpy(m_trunc_rescale(lmax, mmax)), persistent=False)
         self.reset_parameters(generator)
         self.to(device)
+        self.train(training)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """flax's default inits: lecun-normal Dense kernels and zero biases,
@@ -520,7 +568,16 @@ class EquiformerV2(nn.Module):
         return prepare_candidate_graph(batch, max_neighbors=self.max_neighbors, cell_reps=self.cell_reps,
                                        k_cand=k_cand)
 
-    def forward(self, batch: AtomsBatch, static_graph=None):
+    def _branch_drop(self, y: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Residual-branch regularisation of a train-mode forward: per-graph
+        drop path, then per-(graph, node, channel) projection drop."""
+        if not self.training:
+            return y
+        b, n, _, c = y.shape
+        y = _drop(y, self.drop_path_rate, (b, 1, 1, 1), generator)
+        return _drop(y, self.proj_drop, (b, n, 1, c), generator)
+
+    def forward(self, batch: AtomsBatch, static_graph=None, dropout_generator: Optional[torch.Generator] = None):
         dim = (self.lmax + 1) ** 2
         nl, dist, unit = generate_graph(
             batch, cutoff=self.cutoff, max_neighbors=self.max_neighbors, cell_reps=self.cell_reps,
@@ -551,14 +608,19 @@ class EquiformerV2(nn.Module):
         emb_t = self.edge_degree_target_embedding(z)[:, :, None, :].expand_as(emb_s)
         deg = self.edge_degree_rad_func(torch.cat([edge_gauss, emb_s, emb_t], dim=-1))
         deg = deg.unflatten(-1, (-1, self.sphere_channels))
-        deg_full = rotate_from_edge_m(deg, gamma, beta, self.lmax, self.mmax) * self.rescale[:, None]
+        if self.use_pallas_rotate:
+            deg_full = eqv2_edge_rotate(deg, gamma, beta, self.lmax, self.mmax, direction="from", n_sel=deg.shape[-2])
+        else:
+            deg_full = rotate_from_edge_m(deg, gamma, beta, self.lmax, self.mmax)
+        deg_full = deg_full * self.rescale[:, None]
         deg_full = torch.where(mask[..., None, None], deg_full, torch.zeros_like(deg_full))
         x = x + deg_full.sum(dim=2) / self.avg_degree
 
         atoms = batch.atom_mask[..., None, None]
         for blk in self.blocks:
-            x = x + blk.attn(blk.norm_attn(x), z, z_src, nl, gamma, beta, dist)
-            x = x + blk.ffn(blk.norm_ffn(x))
+            y = blk.attn(blk.norm_attn(x), z, z_src, nl, gamma, beta, dist, dropout_generator)
+            x = x + self._branch_drop(y, dropout_generator)
+            x = x + self._branch_drop(blk.ffn(blk.norm_ffn(x)), dropout_generator)
             x = torch.where(atoms, x, torch.zeros_like(x))
         x = self.norm_final(x)
 

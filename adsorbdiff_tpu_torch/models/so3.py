@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -164,6 +164,45 @@ def _rot_decomp_mats(lmax: int, mmax: int, n_rows: int):
     return swap_mat, jt2, pj2, (m_row_m, sign_m), (m_row, sign), jtp2, j2, n_act
 
 
+@functools.lru_cache(maxsize=32)
+def edge_rot_consts(lmax: int, mmax: int, n_sel: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The constants of the fused edge-frame rotation kernel
+    (``csrc/eqv2_edge_rotate.cu``), the port's counterpart of the JAX
+    package's ``pallas_kernels.py::_edge_rot_consts``.
+
+    The kernel runs the chain ``P_sel J Dz(beta) J^T Dz(gamma)`` ("to") or
+    its transpose ("from": the same constants, the angles negated) on the
+    l-primary rows.  Returns:
+
+    - ``j_blocks``: J's diagonal blocks, block l a ``(2l+1) x (2l+1)``
+      row-major matrix, concatenated over l = 0..lmax (J is block diagonal
+      over l; the off-block entries are exactly zero);
+    - ``sign [dim]`` f32: the Dz sign of each row (:func:`zrot_swap_sign`; the
+      row's |m| and its (l, -m) partner follow from the l-primary index
+      ``l^2 + l + m``, and the kernel takes them from there);
+    - ``row [dim]`` int32: for each l-primary row i the truncated m-primary
+      row r < ``n_sel`` with ``order[r] == i`` (the selection ``P_sel``), or
+      -1: the rows "to" writes and "from" reads.
+
+    The TPU version's ``[2 dp, dp]`` stacking with the swapped copy, its
+    (8, 128) padding and its one-hot cos/sin expanders were Mosaic layout
+    rules; the kernel mixes the +-m partners and makes cos/sin(m t) in
+    registers instead.
+    """
+    dim = (lmax + 1) ** 2
+    m_row, swap, sign = zrot_swap_sign(lmax)
+    for l in range(lmax + 1):  # the layout the kernel assumes
+        for m in range(-l, l + 1):
+            i = l * l + l + m
+            assert m_row[i] == abs(m) and swap[i] == l * l + l - m
+    j = np.asarray(get_J_matrix(lmax), np.float32)
+    j_blocks = np.concatenate([j[l * l:(l + 1) ** 2, l * l:(l + 1) ** 2].reshape(-1) for l in range(lmax + 1)])
+    order = m_primary_order(lmax, mmax)[0]
+    row = np.full(dim, -1, np.int32)
+    row[order[:n_sel]] = np.arange(n_sel, dtype=np.int32)
+    return j_blocks.astype(np.float32), sign.astype(np.float32), row
+
+
 @functools.lru_cache(maxsize=8)
 def n_act_rows(lmax: int, mmax: int) -> int:
     """Number of active rows in the truncated m-primary layout."""
@@ -278,12 +317,22 @@ def _cs(angle: torch.Tensor, m_row: np.ndarray, sign: np.ndarray) -> Tuple[torch
     return torch.cos(a)[..., None], (torch.sin(a) * device_table(sign, angle.device))[..., None]
 
 
-def rotate_to_edge_m(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, lmax: int, mmax: int) -> torch.Tensor:
+@functools.lru_cache(maxsize=32)
+def _pj_rows(lmax: int, mmax: int, n_rows: int) -> np.ndarray:
+    """``P J`` on the first ``n_rows`` m-primary rows, ``[n_rows, dim]`` (the
+    leading rows of ``_rot_decomp_mats``'s ``pj2`` where ``n_rows <= n_act``)."""
+    order = m_primary_order(lmax, mmax)[0]
+    return np.ascontiguousarray(np.asarray(get_J_matrix(lmax), np.float32)[order[:n_rows], :])
+
+
+def rotate_to_edge_m(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, lmax: int, mmax: int,
+                     n_rows: Optional[int] = None) -> torch.Tensor:
     """The truncated m-primary edge-frame rotation ``P D(R_e)`` of ``x [...,
-    (L)^2, C]`` -> ``[..., n_act, C]``.  ``gamma``/``beta`` broadcast against
-    x's leading dims; a node-level x with a singleton neighbour axis is
-    broadcast to the edges at the first elementwise stage."""
-    _, jt2, pj2, _, (m_row, sign), _, _, n_act = _rot_decomp_mats(lmax, mmax, n_act_rows(lmax, mmax))
+    (L)^2, C]`` -> its first ``n_rows`` (default n_act) rows ``[..., n_rows,
+    C]``.  ``gamma``/``beta`` broadcast against x's leading dims; a
+    node-level x with a singleton neighbour axis is broadcast to the edges at
+    the first elementwise stage."""
+    _, jt2, _, _, (m_row, sign), _, _, n_act = _rot_decomp_mats(lmax, mmax, n_act_rows(lmax, mmax))
     swap = zrot_swap_sign(lmax)[1]
     dev = x.device
     dim = x.shape[-2]
@@ -293,7 +342,7 @@ def rotate_to_edge_m(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, l
     t1 = x * cg + xs * sg  # Dz(gamma)
     t2 = torch.matmul(device_table(jt2, dev), t1)
     t3 = t2[..., :dim, :] * cb + t2[..., dim:, :] * sb  # Dz(beta)
-    return torch.matmul(device_table(pj2, dev)[:n_act], t3)
+    return torch.matmul(device_table(_pj_rows(lmax, mmax, n_act if n_rows is None else n_rows), dev), t3)
 
 
 def rotate_from_edge_m(v: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, lmax: int, mmax: int) -> torch.Tensor:

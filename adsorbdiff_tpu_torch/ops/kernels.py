@@ -11,9 +11,11 @@ Counterpart of :mod:`adsorbdiff_tpu.ops.pallas_kernels`.  Each kernel has:
 - a launch count in :data:`launches`, raised by one where the wrapper
   launches the kernel and nowhere else.
 
-A kernel with a backward kernel is wrapped in a ``torch.autograd.Function``
-(:class:`PainnMessageFused`), which the forward wrapper routes through only
-when autograd needs a gradient.
+A kernel with a backward is wrapped in a ``torch.autograd.Function``
+(:class:`PainnMessageFused`, :class:`S2GridSilu`, :class:`EqV2AttnConv1`,
+:class:`EqV2EdgeRotate`), which the forward wrapper routes through only when
+autograd needs a gradient.  On CPU tensors a Function's forward and backward
+are the plain versions, so the CPU tests reach its backward too.
 """
 from __future__ import annotations
 
@@ -21,11 +23,12 @@ import collections
 import ctypes
 import functools
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from adsorbdiff_tpu_torch.models import so3
 from adsorbdiff_tpu_torch.ops import build
 
 # kernel name -> launches in this process; reset with ``launches.clear()``
@@ -412,6 +415,30 @@ def s2_grid_silu_reference(h: torch.Tensor, to_grid_m: torch.Tensor, from_grid_m
     return torch.matmul(from_grid_m.float(), torch.nn.functional.silu(g))
 
 
+def s2_grid_silu_bwd_reference(h: torch.Tensor, dy: torch.Tensor, to_grid_m: torch.Tensor,
+                               from_grid_m: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`s2_grid_silu_bwd`: the ``[..., G, C]``
+    grid tensors ``g`` and ``dg`` are materialised."""
+    to_m, from_m = to_grid_m.float(), from_grid_m.float()
+    g = torch.matmul(to_m, h.float())
+    s = torch.sigmoid(g)
+    dg = torch.matmul(from_m.t(), dy.float()) * (s * (1.0 + g * (1.0 - s)))
+    return torch.matmul(to_m.t(), dg)
+
+
+def _s2_shape(kernel: str, tensors: dict) -> Tuple[int, int, int, int]:
+    """``(M, NC, C, G)`` of the S^2 kernels' inputs, or raise."""
+    h, to_grid_m = tensors["h"], tensors["to_grid_m"]
+    if h.dim() < 2 or to_grid_m.dim() != 2:
+        raise ValueError(f"{kernel}: h must be [..., NC, C] and to_grid_m [G, NC]")
+    nc, c = h.shape[-2:]
+    g = to_grid_m.shape[0]
+    _check_shapes(kernel, tensors, dict(to_grid_m=(g, nc), from_grid_m=(nc, g)))
+    if nc > 32:
+        raise ValueError(f"{kernel}: the kernel holds NC <= 32 coefficient rows, got {nc}")
+    return h.numel() // max(nc * c, 1), nc, c, g
+
+
 def s2_grid_silu(h: torch.Tensor, to_grid_m: torch.Tensor, from_grid_m: torch.Tensor) -> torch.Tensor:
     """EquiformerV2's S^2 grid activation ``from_grid_m @ silu(to_grid_m @ h)``
     over the coefficient axis, fused (``csrc/s2_grid_silu.cu``): the grid
@@ -420,28 +447,73 @@ def s2_grid_silu(h: torch.Tensor, to_grid_m: torch.Tensor, from_grid_m: torch.Te
     ``h [..., NC, C]`` truncated m-primary coefficients (any leading dims);
     ``to_grid_m [G, NC]``, ``from_grid_m [NC, G]`` with the m-truncation
     rescale folded in by the caller.  Returns a tensor like ``h``, f32.  On
-    the card: f32, contiguous, NC <= 32, no autograd (the backward kernel
-    comes with EquiformerV2 training).
+    the card: f32, contiguous, NC <= 32.  When autograd needs a gradient of
+    ``h`` the call goes through :class:`S2GridSilu`, whose backward is
+    :func:`s2_grid_silu_bwd`.
     """
+    if torch.is_grad_enabled() and h.requires_grad:
+        return S2GridSilu.apply(h, to_grid_m, from_grid_m)
+    return _s2_grid_silu_forward(h, to_grid_m, from_grid_m)
+
+
+def _s2_grid_silu_forward(h, to_grid_m, from_grid_m) -> torch.Tensor:
     if h.device.type == "cpu":
         return s2_grid_silu_reference(h, to_grid_m, from_grid_m)
     tensors = dict(h=h, to_grid_m=to_grid_m, from_grid_m=from_grid_m)
     _check_cuda_inputs("s2_grid_silu", tensors, {})
-    if h.dim() < 2 or to_grid_m.dim() != 2:
-        raise ValueError("s2_grid_silu: h must be [..., NC, C] and to_grid_m [G, NC]")
-    nc, c = h.shape[-2:]
-    g = to_grid_m.shape[0]
-    _check_shapes("s2_grid_silu", tensors, dict(to_grid_m=(g, nc), from_grid_m=(nc, g)))
-    if nc > 32:
-        raise ValueError(f"s2_grid_silu: the kernel holds NC <= 32 coefficient rows, got {nc}")
+    m, nc, c, g = _s2_shape("s2_grid_silu", tensors)
     out = torch.empty_like(h)
-    m = h.numel() // max(nc * c, 1)
     if h.numel() == 0:  # empty output: nothing to launch
         return out
     lib = _library("s2_grid_silu", [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     _launch("s2_grid_silu", lib, h.device,
             h.data_ptr(), to_grid_m.data_ptr(), from_grid_m.data_ptr(), out.data_ptr(), m, nc, c, g)
     return out
+
+
+def s2_grid_silu_bwd(h: torch.Tensor, dy: torch.Tensor, to_grid_m: torch.Tensor,
+                     from_grid_m: torch.Tensor) -> torch.Tensor:
+    """VJP of :func:`s2_grid_silu` with respect to ``h``
+    (``csrc/s2_grid_silu_bwd.cu``): ``dh = to^T @ (silu'(g) * (from^T @ dy))``
+    with ``g = to @ h`` recomputed; neither grid tensor reaches device memory.
+
+    ``h`` and ``dy`` ``[..., NC, C]``, the tables as :func:`s2_grid_silu`
+    takes them.  Returns ``dh`` like ``h``, f32.  On the card: the forward's
+    input rules for both ``h`` and ``dy``.  Each column is written by one
+    thread (no atomics): the result repeats bit for bit.
+    """
+    if h.device.type == "cpu":
+        return s2_grid_silu_bwd_reference(h, dy, to_grid_m, from_grid_m)
+    tensors = dict(h=h, dy=dy, to_grid_m=to_grid_m, from_grid_m=from_grid_m)
+    _check_cuda_inputs("s2_grid_silu_bwd", tensors, {})
+    m, nc, c, g = _s2_shape("s2_grid_silu_bwd", tensors)
+    _check_shapes("s2_grid_silu_bwd", tensors, dict(dy=tuple(h.shape)))
+    dh = torch.empty_like(h)
+    if h.numel() == 0:  # empty output: nothing to launch
+        return dh
+    lib = _library("s2_grid_silu_bwd",
+                   [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    _launch("s2_grid_silu_bwd", lib, h.device, h.data_ptr(), dy.data_ptr(), to_grid_m.data_ptr(),
+            from_grid_m.data_ptr(), dh.data_ptr(), m, nc, c, g)
+    return dh
+
+
+class S2GridSilu(torch.autograd.Function):
+    """:func:`s2_grid_silu` with its backward kernel :func:`s2_grid_silu_bwd`.
+
+    The gradient flows to ``h`` only: the grid tables are static and get none
+    (``None``), the JAX contract (``pallas_kernels.py::_s2_act_bwd``).
+    """
+
+    @staticmethod
+    def forward(ctx, h, to_grid_m, from_grid_m):
+        ctx.save_for_backward(h, to_grid_m, from_grid_m)
+        return _s2_grid_silu_forward(h, to_grid_m, from_grid_m)
+
+    @staticmethod
+    def backward(ctx, dy):
+        h, to_grid_m, from_grid_m = ctx.saved_tensors
+        return s2_grid_silu_bwd(h, dy.contiguous(), to_grid_m, from_grid_m).to(h.dtype), None, None
 
 
 class AttnConv1Weights(NamedTuple):
@@ -646,9 +718,68 @@ def eqv2_attn_conv1(
     call).  Returns ``(h [..., n_act, c_out], extra_out [...,
     extra])``, f32: h's rows in the truncated m-primary order, extra_out the
     fc_m0 columns that precede h's.  On the card: f32 contiguous inputs,
-    ``mask`` bool, no autograd (EquiformerV2 training, with the conv1 VJP,
-    comes later).
+    ``mask`` bool.  When autograd needs a gradient the call goes through
+    :class:`EqV2AttnConv1`, whose backward recomputes the plain version.
     """
+    kw = dict(lmax=lmax, mmax=mmax, c_out=c_out, extra=extra, num_gauss=num_gauss, cutoff=cutoff,
+              width_scalar=width_scalar)
+    keys, leaves = _flatten_trees(rad_params, conv_params)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (emb_s, emb_t, msg_s, msg_t, *leaves)):
+        return EqV2AttnConv1.apply(kw, keys, dist, mask, emb_s, emb_t, msg_s, msg_t, *leaves)
+    return _eqv2_attn_conv1_forward(dist, mask, emb_s, emb_t, msg_s, msg_t, rad_params, conv_params, **kw)
+
+
+def _flatten_trees(rad_params: Dict[str, Any], conv_params: Dict[str, Any]):
+    """((tree, module, leaf) keys, tensors) of the two weight trees, in a fixed order."""
+    keys = [(tree, mod, leaf) for tree, params in (("rad", rad_params), ("conv", conv_params))
+            for mod in sorted(params) for leaf in sorted(params[mod])]
+    trees = {"rad": rad_params, "conv": conv_params}
+    return tuple(keys), [trees[tree][mod][leaf] for tree, mod, leaf in keys]
+
+
+def _unflatten_trees(keys, leaves) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    trees: Dict[str, Dict[str, Any]] = {"rad": {}, "conv": {}}
+    for (tree, mod, leaf), t in zip(keys, leaves):
+        trees[tree].setdefault(mod, {})[leaf] = t
+    return trees["rad"], trees["conv"]
+
+
+class EqV2AttnConv1(torch.autograd.Function):
+    """:func:`eqv2_attn_conv1` with its VJP.
+
+    The backward recomputes the plain version (:func:`eqv2_attn_conv1_reference`)
+    under autograd and differentiates it, as the JAX package's
+    ``_attn_conv1_bwd`` differentiates ``_attn_conv1_ref``: the TPU kernel has
+    no backward kernel of its own.  The recompute starts from the weight
+    trees as the caller passed them (the module's parameters or views of
+    them), so the gradients reach those and not the kernel's packed copy.
+    Gradients flow to the embeddings, both message halves and every weight;
+    ``dist`` gets zeros and ``mask`` none (the geometry contract of
+    ``pallas_kernels.py::_attn_conv1_bwd``).  A half that the caller expanded
+    over K gets its gradient per edge; autograd sums it back over K.
+    """
+
+    @staticmethod
+    def forward(ctx, kw, keys, dist, mask, emb_s, emb_t, msg_s, msg_t, *leaves):
+        ctx.kw, ctx.keys = kw, keys
+        ctx.save_for_backward(dist, mask, emb_s, emb_t, msg_s, msg_t, *leaves)
+        rad, conv = _unflatten_trees(keys, leaves)
+        return _eqv2_attn_conv1_forward(dist, mask, emb_s, emb_t, msg_s, msg_t, rad, conv, **kw)
+
+    @staticmethod
+    def backward(ctx, dh, dx):
+        dist, mask, *inputs = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(True) for t in inputs]
+        with torch.enable_grad():
+            rad, conv = _unflatten_trees(ctx.keys, inputs[4:])
+            outs = eqv2_attn_conv1_reference(dist, mask, *inputs[:4], rad, conv, **ctx.kw)
+            grads = torch.autograd.grad(outs, inputs, (dh, dx), allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g for t, g in zip(inputs, grads)]
+        return (None, None, torch.zeros_like(dist), None, *grads)
+
+
+def _eqv2_attn_conv1_forward(dist, mask, emb_s, emb_t, msg_s, msg_t, rad_params, conv_params, *, lmax, mmax, c_out,
+                             extra, num_gauss, cutoff, width_scalar):
     if msg_s.device.type == "cpu":
         return eqv2_attn_conv1_reference(
             dist, mask, emb_s, emb_t, msg_s, msg_t, rad_params, conv_params, lmax=lmax, mmax=mmax, c_out=c_out,
@@ -689,3 +820,149 @@ def eqv2_attn_conv1(
         float(cutoff), float(width_scalar),
     )
     return h, extra_out
+
+
+def _gather_rows(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``x [B, N, ...]`` at ``src [B, N, K]`` -> ``[B, N, K, ...]``."""
+    return x[torch.arange(src.shape[0], device=src.device)[:, None, None], src.long()]
+
+
+def eqv2_edge_rotate_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, lmax: int, mmax: int, *,
+                               direction: str, n_sel: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`eqv2_edge_rotate`: the decomposed chain
+    of :mod:`adsorbdiff_tpu_torch.models.so3` (``rotate_to_edge_m`` /
+    ``rotate_from_edge_m``), whose ``[..., 2 dim, C]`` stages are materialised."""
+    n_sel = so3.n_act_rows(lmax, mmax) if n_sel is None else n_sel
+    if direction == "to":
+        return so3.rotate_to_edge_m(x, gamma, beta, lmax, mmax, n_rows=n_sel)
+    if direction != "from":
+        raise ValueError(f"unknown rotation direction {direction!r}")
+    if x.shape[-2] != n_sel:
+        raise ValueError(f"eqv2_edge_rotate: direction 'from' takes n_sel = {n_sel} rows, got {x.shape[-2]}")
+    return so3.rotate_from_edge_m(x, gamma, beta, lmax, mmax)
+
+
+def eqv2_gather_rotate_to_reference(x: torch.Tensor, src: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                                    lmax: int, mmax: int, *, n_sel: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`eqv2_gather_rotate_to`: the gathered
+    ``[B, N, K, dim, C]`` rows, then :func:`eqv2_edge_rotate_reference`."""
+    return eqv2_edge_rotate_reference(_gather_rows(x, src), gamma, beta, lmax, mmax, direction="to", n_sel=n_sel)
+
+
+def eqv2_edge_rotate(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, lmax: int, mmax: int, *,
+                     direction: str, n_sel: Optional[int] = None) -> torch.Tensor:
+    """EquiformerV2's truncated edge-frame Wigner rotation, fused
+    (``csrc/eqv2_edge_rotate.cu``): the chain's intermediates never reach
+    device memory.
+
+    ``direction="to"``: ``x [..., (lmax+1)^2, C]`` -> the first ``n_sel``
+    truncated m-primary edge-frame rows ``[..., n_sel, C]`` (as
+    ``so3.rotate_to_edge_m``); ``direction="from"``: ``x [..., n_sel, C]`` ->
+    ``[..., (lmax+1)^2, C]`` (as ``so3.rotate_from_edge_m``).  ``n_sel``
+    defaults to the active-row count.  ``gamma``/``beta`` are the per-edge
+    angles ``[...]``; x's leading dims equal theirs, or equal them with a 1
+    on the last axis (a node row shared by its K edges, read by index: the
+    K-broadcast copy never exists).  Returns f32 with the angles' leading
+    dims.  On the card: f32 contiguous x and angles, lmax <= 6.  When
+    autograd needs a gradient the call goes through :class:`EqV2EdgeRotate`.
+    """
+    return _rotate(x, None, gamma, beta, lmax, mmax, direction, n_sel)
+
+
+def eqv2_gather_rotate_to(x: torch.Tensor, src: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, lmax: int,
+                          mmax: int, *, n_sel: Optional[int] = None) -> torch.Tensor:
+    """The source-node gather fused into the rotation: ``x [B, N, dim, C]``
+    node coefficients, ``src [B, N, K]`` int32 neighbour indices; returns
+    ``eqv2_edge_rotate(x[b, src[b, n, k]], gamma, beta, ..., direction="to")``
+    ``[B, N, K, n_sel, C]``, the kernel reading the source rows by index (no
+    gathered copy exists).  Its VJP scatters the dual rotation's per-edge
+    rows back to the source nodes (``index_add_``)."""
+    return _rotate(x, src, gamma, beta, lmax, mmax, "to", n_sel)
+
+
+def _rotate(x, src, gamma, beta, lmax, mmax, direction, n_sel):
+    n_sel = so3.n_act_rows(lmax, mmax) if n_sel is None else int(n_sel)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return EqV2EdgeRotate.apply(x, src, gamma, beta, lmax, mmax, direction, n_sel)
+    return _rotate_forward(x, src, gamma, beta, lmax, mmax, direction, n_sel)
+
+
+def _rotate_forward(x, src, gamma, beta, lmax, mmax, direction, n_sel) -> torch.Tensor:
+    if x.device.type == "cpu":
+        if src is not None:
+            return eqv2_gather_rotate_to_reference(x, src, gamma, beta, lmax, mmax, n_sel=n_sel)
+        return eqv2_edge_rotate_reference(x, gamma, beta, lmax, mmax, direction=direction, n_sel=n_sel)
+    kernel = "eqv2_edge_rotate"
+    tensors = dict(x=x, gamma=gamma, beta=beta, **({} if src is None else {"src": src}))
+    _check_cuda_inputs(kernel, tensors, {"src": torch.int32})
+    if direction not in ("to", "from"):
+        raise ValueError(f"unknown rotation direction {direction!r}")
+    dim = (lmax + 1) ** 2
+    if not 1 <= lmax <= 6:
+        raise ValueError(f"{kernel}: the kernel takes 1 <= lmax <= 6, got {lmax}")
+    if not 0 < n_sel <= dim:
+        raise ValueError(f"{kernel}: n_sel must be in [1, {dim}], got {n_sel}")
+    n_in, n_out = (dim, n_sel) if direction == "to" else (n_sel, dim)
+    lead = tuple(gamma.shape)
+    c = x.shape[-1]
+    _check_shapes(kernel, tensors, {"beta": lead})
+    kdiv, nk, n_nodes = 1, 1, 1
+    if src is not None:
+        if len(lead) != 3 or x.dim() != 4:
+            raise ValueError(f"{kernel}: the gather takes x [B, N, dim, C] and src [B, N, K]")
+        b, n, k = lead
+        _check_shapes(kernel, tensors, {"src": lead, "x": (b, x.shape[1], n_in, c)})
+        nk, n_nodes = n * k, x.shape[1]
+    elif tuple(x.shape[:-2]) == lead[:-1] + (1,) and lead[-1] != 1:
+        kdiv = lead[-1]  # a node row shared by the K edges of its target
+        _check_shapes(kernel, tensors, {"x": lead[:-1] + (1, n_in, c)})
+    else:
+        _check_shapes(kernel, tensors, {"x": lead + (n_in, c)})
+    out = torch.empty(lead + (n_out, c), dtype=torch.float32, device=x.device)
+    e = math.prod(lead)
+    if e * c == 0:  # empty output: nothing to launch
+        return out
+    j_blocks, sign, row = so3.edge_rot_consts(lmax, mmax, n_sel)  # contiguous host arrays, cached
+    lib = _library(kernel, [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
+    _launch(kernel, lib, x.device, x.data_ptr(), None if src is None else src.data_ptr(), gamma.data_ptr(),
+            beta.data_ptr(), out.data_ptr(), e, c, n_in, n_out, kdiv, nk, n_nodes, lmax, int(direction == "to"),
+            j_blocks.ctypes.data, sign.ctypes.data, row.ctypes.data)
+    return out
+
+
+class EqV2EdgeRotate(torch.autograd.Function):
+    """:func:`eqv2_edge_rotate` / :func:`eqv2_gather_rotate_to` with their VJP.
+
+    The rotation is linear in x and Dz(t)^T = Dz(-t), so the VJP of one
+    direction is the other direction at the same angles
+    (``pallas_kernels.py::_edge_rot_bwd``): one launch of the same kernel on
+    the per-edge cotangent.  A node row shared by K edges then sums its K
+    rows; the gather variant adds each edge's row to its source node
+    (``index_add_``, outside the kernel as the one-hot gather's transpose was
+    outside the TPU kernel).  The angles get no gradient (the geometry
+    contract: score losses never differentiate through positions).
+    """
+
+    @staticmethod
+    def forward(ctx, x, src, gamma, beta, lmax, mmax, direction, n_sel):
+        ctx.save_for_backward(src, gamma, beta)
+        ctx.meta = (lmax, mmax, direction, n_sel, tuple(x.shape), x.dtype)
+        return _rotate_forward(x, src, gamma, beta, lmax, mmax, direction, n_sel)
+
+    @staticmethod
+    def backward(ctx, ct):
+        src, gamma, beta = ctx.saved_tensors
+        lmax, mmax, direction, n_sel, x_shape, dtype = ctx.meta
+        dual = "from" if direction == "to" else "to"
+        d = _rotate_forward(ct.contiguous(), None, gamma, beta, lmax, mmax, dual, n_sel)
+        if src is not None:
+            b, n = x_shape[:2]
+            idx = (torch.arange(b, device=src.device)[:, None, None] * n + src.long()).reshape(-1)
+            dx = torch.zeros((b * n,) + x_shape[2:], dtype=d.dtype, device=d.device)
+            dx = dx.index_add_(0, idx, d.reshape((-1,) + x_shape[2:])).reshape(x_shape)
+        elif tuple(d.shape) != x_shape:
+            dx = d.sum(dim=-3, keepdim=True)  # the K edges of a shared node row
+        else:
+            dx = d
+        return dx.to(dtype), None, None, None, None, None, None, None

@@ -14,16 +14,21 @@ the host when the config says ``cpu: true``):
   exactly unchanged through device-side masks, so no step reads the device.
   Params, moments and EMA each live in one flat buffer (every parameter a
   view of it), so the update is ~30 launches whatever the model's size;
-- losses drain to the host in one read per logging window.
+- losses drain to the host in one read per logging window;
+- a model with drop regularisers (EquiformerV2) is built in train mode and
+  draws its masks from a per-step dropout generator seeded from
+  (seed, step), separate from the noise generator, so the noise does not
+  change when drops are on (JAX's ``fold_in(key, 1)``); the EMA copy, which
+  validation and score prediction run, is in eval mode and draws nothing.
 
 Not ported (raise ``NotImplementedError``): S2EF training (``S2EFTrainer``),
 ``amp``, ``grad_accumulation_steps > 1``, ``ReduceLROnPlateau``,
-``run_relaxations``, several devices, an EquiformerV2 model (its training
-needs backward kernels not ported yet).
+``run_relaxations``, several devices.
 """
 from __future__ import annotations
 
 import copy
+import inspect
 import logging
 import math
 import os
@@ -41,8 +46,7 @@ from adsorbdiff_tpu_torch.data.schema import AtomsBatch
 from adsorbdiff_tpu_torch.data.store import ShardDataset
 from adsorbdiff_tpu_torch.device import DeviceLike, resolve_device
 from adsorbdiff_tpu_torch.diffusion.schedules import ScheduleDraws, ads_com_gaussian_schedule, tr_so3_schedule
-from adsorbdiff_tpu_torch.models import gemnet_oc, painn  # noqa: F401  (registers the models)
-from adsorbdiff_tpu_torch.models.equiformer_v2 import EquiformerV2
+from adsorbdiff_tpu_torch.models import equiformer_v2, gemnet_oc, painn  # noqa: F401  (registers the models)
 from adsorbdiff_tpu_torch.ops.pbc import auto_cell_reps
 from adsorbdiff_tpu_torch.train import checkpoint as ckpt
 from adsorbdiff_tpu_torch.train.evaluator import Evaluator
@@ -56,9 +60,18 @@ _CONFIG_ONLY_KEYS = ("name", "scale_file", "regress_forces", "direct_forces", "u
 
 
 def _model_from_config(model_cfg: dict, *, mode: Optional[str], device: torch.device,
-                       generator: torch.Generator) -> torch.nn.Module:
+                       generator: torch.Generator, training: bool = False) -> torch.nn.Module:
+    """The configured model; ``training`` builds it in train mode where the
+    class has drop regularisers (a ``training`` argument), and the drop-rate
+    keys are dropped for a class without them (the JAX trainer's rules)."""
     cfg = {k: v for k, v in model_cfg.items() if k not in _CONFIG_ONLY_KEYS}
     cls = registry.get_model_class(model_cfg.get("name", "painn"))
+    accepted = inspect.signature(cls).parameters
+    for key in ("alpha_drop", "drop_path_rate", "proj_drop", "training"):
+        if key not in accepted:
+            cfg.pop(key, None)
+    if "training" in accepted:
+        cfg["training"] = training
     if mode is not None:
         cfg["mode"] = mode
     if "cell_reps" in cfg:
@@ -93,6 +106,13 @@ def _step_generator(device: torch.device, seed: int, step: int) -> torch.Generat
     return torch.Generator(device=device).manual_seed(int(seed) * 1_000_003 + int(step))
 
 
+def _dropout_generator(device: torch.device, seed: int, step: int) -> torch.Generator:
+    """The drop-mask generator of one step: seeded from (seed, step) and a
+    stream tag of its own, so it never shares a seed with the noise."""
+    state = np.random.SeedSequence([int(seed), int(step), 1]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
 class BaseTrainer:
     """Datasets, model, optimiser state, checkpoints and the training loop."""
 
@@ -122,8 +142,10 @@ class BaseTrainer:
 
         self._datasets(config)  # before the model: cell_reps: auto reads the data
         self._resolve_auto_cell_reps()
+        # the model trains in train mode (drops on where it has them); the EMA
+        # copy made from it in init_state runs in eval mode
         self.model = _model_from_config(self.model_cfg, mode=self._model_mode(), device=self.device,
-                                        generator=torch.Generator().manual_seed(self.seed))
+                                        generator=torch.Generator().manual_seed(self.seed), training=True)
         self._normalizers(config)
         self._optimizer()
         self.initialized = False
@@ -217,11 +239,17 @@ class BaseTrainer:
 
     def init_state(self) -> None:
         """Fresh optimiser state (zero moments, count 0) and EMA = params.
-        The EMA lives in a copy of the model (:attr:`ema_module`), whose
-        parameters the update writes in place."""
+        The EMA lives in an eval-mode copy of the model (:attr:`ema_module`),
+        whose parameters the update writes in place; :attr:`sampling_module`
+        is the same module with ``sampling`` on (energy conditioning zeroed),
+        sharing its parameters, as the JAX trainer's sampling model."""
         with torch.no_grad():
             self._flat = _flatten_parameters(self.model)
-            self.ema_module = copy.deepcopy(self.model).requires_grad_(False)
+            self.ema_module = copy.deepcopy(self.model).requires_grad_(False).eval()
+            self.sampling_module = self.ema_module
+            if getattr(self.ema_module, "sampling", True) is False:
+                self.sampling_module = copy.copy(self.ema_module)  # shares the parameters and buffers
+                self.sampling_module.sampling = True
             self._ema_flat = _flatten_parameters(self.ema_module)
             self._mu_flat = torch.zeros_like(self._flat)
             self._nu_flat = torch.zeros_like(self._flat)
@@ -270,17 +298,20 @@ class BaseTrainer:
 
     # ------------------------------------------------------------ the update
     def _loss_and_aux(self, batch: AtomsBatch, draws: Optional[ScheduleDraws],
-                      generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                      generator: Optional[torch.Generator], dropout_generator: Optional[torch.Generator] = None,
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         raise NotImplementedError
 
     def train_step(self, batch: AtomsBatch, draws: Optional[ScheduleDraws] = None,
-                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                   generator: Optional[torch.Generator] = None,
+                   dropout_generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """One optimiser step on ``batch`` (on the trainer's device); the
-        noise comes from ``draws`` or ``generator``.  Returns device scalars
-        ``loss`` (and its parts) and ``grad_norm`` (before clipping)."""
+        noise comes from ``draws`` or ``generator``, a model's drop masks
+        from ``dropout_generator``.  Returns device scalars ``loss`` (and
+        its parts) and ``grad_norm`` (before clipping)."""
         if not self.initialized:
             self.init_state()
-        loss, aux = self._loss_and_aux(batch, draws, generator)
+        loss, aux = self._loss_and_aux(batch, draws, generator, dropout_generator)
         params = self.params
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
@@ -388,7 +419,10 @@ class BaseTrainer:
             for i, batch in self._batches(self.train_batcher, skip=self.step % n_iter, depth=prefetch_depth):
                 self.epoch = epoch + (i + 1) / n_iter
                 self.step = epoch * n_iter + i + 1
-                aux = self.train_step(batch, generator=_step_generator(self.device, self.seed, self.step))
+                drops = getattr(self.model, "has_drops", False)
+                aux = self.train_step(batch, generator=_step_generator(self.device, self.seed, self.step),
+                                      dropout_generator=_dropout_generator(self.device, self.seed, self.step)
+                                      if drops else None)
                 pending.append(aux["loss"])
 
                 if self.step % print_every == 0 or i == 0 or i == n_iter - 1:
@@ -439,23 +473,20 @@ class DenoisingTrainer(BaseTrainer):
         return "denoising" if "mode" not in self.model_cfg else None
 
     def __init__(self, config: dict, device: DeviceLike = None) -> None:
-        if issubclass(registry.get_model_class(config["model"].get("name", "painn")), EquiformerV2):
-            raise NotImplementedError("DenoisingTrainer on an equiformer_v2 model: EquiformerV2 training waits "
-                                      "for the _s2_act_bwd kernel and the conv1 VJP (ROADMAP B.4)")
         self.so3 = bool(config["model"].get("so3_denoising", False))
         super().__init__(config, device)
         self.denoising_pos_params = self.optim_cfg.get("denoising_pos_params", {}) or {}
         self.schedule_fn = tr_so3_schedule if self.so3 else ads_com_gaussian_schedule
 
-    def _denoising_loss(self, model, batch, draws, generator):
+    def _denoising_loss(self, model, batch, draws, generator, dropout_generator=None):
         batch = batch.replace(pos=batch.pos_relaxed)  # noise the relaxed structure
         noised, targets = self.schedule_fn(batch, self.denoising_pos_params, generator, draws=draws)
-        out = model(noised)
+        out = model(noised) if dropout_generator is None else model(noised, dropout_generator=dropout_generator)
         out1, out2 = out if self.so3 else (out, None)
         return denoising_loss(out1, out2, noised, targets)
 
-    def _loss_and_aux(self, batch, draws, generator):
-        return self._denoising_loss(self.model, batch, draws, generator)
+    def _loss_and_aux(self, batch, draws, generator, dropout_generator=None):
+        return self._denoising_loss(self.model, batch, draws, generator, dropout_generator)
 
     @torch.no_grad()
     def validate(self, split: str = "val") -> dict:
@@ -484,7 +515,7 @@ class DenoisingTrainer(BaseTrainer):
         return self.score_fn(batch)
 
     def score_fn(self, batch: AtomsBatch, static_graph=None):
-        out = self.ema_module(batch, static_graph)
+        out = self.sampling_module(batch, static_graph)
         out1, out2 = out if self.so3 else (out, None)
         if out2 is not None:
             out2 = torch.where(batch.fixed[..., None], torch.zeros_like(out2), out2)

@@ -61,7 +61,36 @@ Phases; any failure raises and the exit code is then non-zero:
    step (8 blocks + 2 force heads).  Finite outputs, slab atoms unmoved.
 12. card vs CPU, EquiformerV2: one full-width forward at B=2, both heads
    within 1e-4 * max|cpu| (TF32 off).
-13. the kernels line, then the device line as the last line.
+13. EquiformerV2 backward kernels against their plain versions on the card,
+   |kernel - plain| <= 1e-4 * max|plain| + 1e-5: eqv2_edge_rotate in every
+   form the model runs, at the B=16 sampling graph (to on gathered rows, to
+   on the node-level target half, from with n_sel 19 and with n_sel 5, the
+   gather variant eqv2_gather_rotate_to), each form's VJP against autograd
+   of the plain chain, and two ragged TINY shapes; s2_grid_silu_bwd at the
+   first attention block's input of a B=12 training forward and two ragged
+   TINY shapes; times from CUDA events against their f32 bounds; the conv1
+   VJP (a plain recompute, no kernel of its own) timed at that shape.
+14. EquiformerV2 training path: DenoisingTrainer.train() for one epoch at
+   the eqv2_so3.yml + base.yml settings (the model block above with
+   cell_reps auto; B=12, AdamW at 4e-4, weight decay 1e-3, cosine LambdaLR
+   with warm-up, clip 100, EMA 0.999; random weights from a seeded
+   generator; max_epochs cut from 100 to 1, of 20 steps) on bench systems
+   written to shards.  Launch counts are zeroed just before train() and read
+   at every step: exactly 10 s2_grid_silu, 10 eqv2_attn_conv1 and 10
+   s2_grid_silu_bwd launches per step, no eqv2_edge_rotate (the option is
+   off in the config).  Every loss finite; params and EMA moved; EMA !=
+   params; validation loss finite; systems/s over the steps after the first.
+15. card vs CPU, one EquiformerV2 training step at B=2: loss, grad_norm and
+   every parameter's gradient within 1e-3 * max|cpu| of that tensor.
+16. use_pallas_rotate: one B=16 forward with the option on against the same
+   weights with it off, both heads within 1e-4 * max|off|, and one B=12
+   training step on against off, every gradient within 1e-3 * max|off|.
+   Launch counts are zeroed just before each and read just after: 31
+   eqv2_edge_rotate launches per forward (the edge-degree embedding, then
+   source half, target half and value rotation in each of 8 blocks and 2
+   force heads) and 31 in the backward (one dual rotation each); the
+   forward's ms with the option on and off.
+17. the kernels line, then the device line as the last line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -84,11 +113,12 @@ from adsorbdiff_tpu_torch.models import equiformer_v2
 from adsorbdiff_tpu_torch.models.base import generate_graph
 from adsorbdiff_tpu_torch.models.equiformer_v2 import EquiformerV2
 from adsorbdiff_tpu_torch.models.gemnet_oc import GemNetOC
+from adsorbdiff_tpu_torch.models import so3
 from adsorbdiff_tpu_torch.models.painn import PaiNN
 from adsorbdiff_tpu_torch.ops import build, kernels, pbc
 from adsorbdiff_tpu_torch.relaxation.lbfgs import make_mlff_energy_forces
 from adsorbdiff_tpu_torch.relaxation.ml_relaxation import DiffusionEngine, RelaxationEngine, make_score_fn
-from adsorbdiff_tpu_torch.train.trainer import DenoisingTrainer
+from adsorbdiff_tpu_torch.train.trainer import DenoisingTrainer, _model_from_config
 
 # NVIDIA H100 SXM data sheet: dense f32 outside the tensor cores, HBM3 rate
 F32_FLOPS = 67e12
@@ -134,6 +164,16 @@ EQV2_KW = dict(num_layers=8, sphere_channels=128, attn_hidden_channels=64, num_h
                edge_channels=128, cutoff=12.0, max_neighbors=20, max_num_elements=90, so3_denoising=True,
                for_denoising=True, sampling=True, cell_reps=(2, 2, 0), max_ads=8)
 EQV2_PARAMS = PARAMS  # 100 ODE steps
+# configs/denoising/eqv2_so3.yml (model, optim) over configs/denoising/base.yml, as a dict.  Cut: max_epochs
+# 100 -> 1 (one epoch of EQV2_TRAIN_STEPS steps); no checkpoint or validation inside the timed epoch.
+EQV2_TRAIN_BATCH, EQV2_TRAIN_STEPS, EQV2_EVAL_BATCH = 12, 20, 16
+EQV2_TRAIN_CONFIG = dict(
+    TRAIN_CONFIG,
+    model=dict({k: v for k, v in EQV2_KW.items() if k not in ("sampling", "cell_reps", "max_ads")},
+               name="equiformer_v2", use_pallas=True, use_pallas_conv1=True, cell_reps="auto"),
+    optim=dict(TRAIN_CONFIG["optim"], batch_size=EQV2_TRAIN_BATCH, eval_batch_size=EQV2_EVAL_BATCH, lr_initial=4e-4),
+    identifier="smoke_eqv2",
+)
 # tests/test_equiformer_v2.py TINY widths: (lmax, mmax, C per half, c_out, extra, gaussians, trunk width, cutoff)
 EQV2_TINY = (2, 1, 16, 16, 32, 16, 16, 6.0)
 
@@ -406,9 +446,108 @@ def conv1_bound_ms(args, kw, outputs):
     return (*bound(flops, tensors), flops, dense, rows / e)
 
 
-@torch.no_grad()  # the EquiformerV2 kernels have no backward yet: autograd must not record
+def s2_bwd_bound_ms(h, dy, to_m, from_m, out):
+    """3 x 2 G NC per (edge, channel) column for the three products (g
+    recomputed, dg, dh) and ~10 G for the sigmoid and silu'; h, dy, both
+    tables and dh moved once."""
+    g, nc = to_m.shape
+    cols = h.numel() // nc
+    flops = cols * (6 * g * nc + 10 * g)
+    return (*bound(flops, [h, dy, to_m, from_m, out]), flops)
+
+
+def rotate_bound_ms(lmax, mmax, n_sel, inputs, out):
+    """Per (edge, channel) column: the full block product, 2 sum_l (2l+1)^2;
+    the other one on the selected rows only, 2 sum_r (2 l_r + 1); two Dz
+    stages, 4 FLOP per |m| > 0 row each; per edge, 2 x lmax sincos (~20
+    FLOP each).  Every input (a node table once, however many edges read
+    it) and out moved once."""
+    dim = (lmax + 1) ** 2
+    j_blocks, _, row = so3.edge_rot_consts(lmax, mmax, n_sel)
+    l_of = np.floor(np.sqrt(np.arange(dim))).astype(int)
+    selected = int((2 * l_of[row >= 0] + 1).sum())
+    c = out.shape[-1]
+    edges = out.numel() // (out.shape[-2] * c)
+    flops = edges * c * (2 * j_blocks.size + 2 * selected + 8 * (dim - lmax - 1)) + edges * 40 * lmax
+    return (*bound(flops, list(inputs) + [out]), flops)
+
+
+def check_rotations(device, gen, batch, model):
+    """Phase 13a: eqv2_edge_rotate in every form the model runs, at the
+    batch's live graph and the model's widths, and each form's VJP against
+    autograd of the plain chain; then ragged TINY shapes.  Returns the
+    kernels-line row, timed over one attention block's three rotations
+    (source half gathered, target half, value rotation back)."""
+    nl, _, unit = generate_graph(batch, cutoff=model.cutoff, max_neighbors=model.max_neighbors,
+                                 cell_reps=model.cell_reps)
+    gamma, beta = so3.edge_euler_angles(unit)
+    lmax, mmax, c = model.lmax, model.mmax, model.sphere_channels
+    b, n, k = nl.src.shape
+    dim, n_act, n0 = (lmax + 1) ** 2, so3.n_act_rows(lmax, mmax), lmax + 1
+    x = torch.randn((b, n, dim, c), generator=gen).to(device)
+    x_edge = equiformer_v2.gather_nodes(x, nl.src).contiguous()
+    v = torch.randn((b, n, k, n_act, c), generator=gen).to(device)
+    deg = torch.randn((b, n, k, n0, c), generator=gen).to(device)
+    def rotate(direction, n_sel=None, node=False):
+        return lambda fn, t: fn(t[:, :, None] if node else t, gamma, beta, lmax, mmax, direction=direction,
+                                n_sel=n_sel)
+
+    forms = [  # (name, input, apply(fn, input), n_sel, kernel, plain)
+        ("to, gathered rows", x_edge, rotate("to"), n_act, kernels.eqv2_edge_rotate,
+         kernels.eqv2_edge_rotate_reference),
+        ("to, node-level target half", x, rotate("to", node=True), n_act, kernels.eqv2_edge_rotate,
+         kernels.eqv2_edge_rotate_reference),
+        ("from, n_sel 19", v, rotate("from", n_act), n_act, kernels.eqv2_edge_rotate,
+         kernels.eqv2_edge_rotate_reference),
+        ("from, n_sel 5", deg, rotate("from", n0), n0, kernels.eqv2_edge_rotate, kernels.eqv2_edge_rotate_reference),
+        ("eqv2_gather_rotate_to", x, lambda fn, t: fn(t, nl.src, gamma, beta, lmax, mmax), n_act,
+         kernels.eqv2_gather_rotate_to, kernels.eqv2_gather_rotate_to_reference),
+    ]
+    err, times = 0.0, {}
+    for name, inp, apply, n_sel, kernel, plain in forms:
+        got = apply(kernel, inp)
+        torch.cuda.synchronize()
+        err = max(err, check_close(f"eqv2_edge_rotate {name} x{tuple(inp.shape)} -> {tuple(got.shape)}", [got],
+                                   [apply(plain, inp)]))
+        ms, plain_ms = cuda_ms(lambda: apply(kernel, inp), 10), cuda_ms(lambda: apply(plain, inp), 3)
+        extra = [nl.src] if kernel is kernels.eqv2_gather_rotate_to else []
+        bound_ms, by, nbytes, flops = rotate_bound_ms(lmax, mmax, n_sel, [inp, gamma, beta] + extra, got)
+        times[name] = (ms, plain_ms, bound_ms)
+        print(f"[kernel] eqv2_edge_rotate {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+              f"{by} ({flops / 1e9:.2f} GFLOP f32, {nbytes / 1e6:.2f} MB)", flush=True)
+        # the VJP: the dual rotation (then the K sum or the scatter to the sources) against autograd of the plain chain
+        with torch.enable_grad():
+            w = torch.randn(got.shape, generator=gen).to(device)
+            dual = []
+            for fn in (kernel, plain):
+                leaf = inp.clone().requires_grad_(True)
+                dual.append(torch.autograd.grad((apply(fn, leaf) * w).sum(), leaf)[0])
+            torch.cuda.synchronize()
+            err = max(err, check_close(f"eqv2_edge_rotate VJP of {name}", [dual[0]], [dual[1]]))
+        del got, w, dual
+    tiny_l, tiny_m = EQV2_TINY[:2]
+    tiny_dim, tiny_act = (tiny_l + 1) ** 2, so3.n_act_rows(tiny_l, tiny_m)
+    for lead in ((37,), (3, 11, 7)):
+        g_t, b_t = (torch.rand(lead, generator=gen).to(device) * np.pi for _ in range(2))
+        for direction, rows in (("to", tiny_dim), ("from", tiny_act)):
+            t = torch.randn(lead + (rows, 16), generator=gen).to(device)
+            args = (t, g_t, b_t, tiny_l, tiny_m)
+            check_close(f"eqv2_edge_rotate {direction} ragged x{tuple(t.shape)}",
+                        [kernels.eqv2_edge_rotate(*args, direction=direction)],
+                        [kernels.eqv2_edge_rotate_reference(*args, direction=direction)])
+    # one attention block's rotations: gathered source half, target half, value rotation back
+    block = [times[name] for name in ("eqv2_gather_rotate_to", "to, node-level target half", "from, n_sel 19")]
+    ms, plain_ms, bound_ms = (sum(t[i] for t in block) for i in range(3))
+    print(f"[kernel] eqv2_edge_rotate, one attention block's three rotations at E={gamma.numel()}: {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by bytes", flush=True)
+    return dict(name="eqv2_edge_rotate", source="adsorbdiff_tpu_torch/csrc/eqv2_edge_rotate.cu",
+                replaces="adsorbdiff_tpu/ops/pallas_kernels.py:1079", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes")
+
+
+@torch.no_grad()  # the sampling path: no autograd
 def eqv2_path(device, gen, systems):
-    """Phases 10, 11 and 12."""
+    """Phases 10, 11, 12, 13a and 16a."""
     batch = collate(systems, max_atoms=80, device=device)
     model = EquiformerV2(**EQV2_KW, device=device, generator=gen)
     score_fn = make_score_fn(model)
@@ -441,6 +580,9 @@ def eqv2_path(device, gen, systems):
           f"{c1_bound:.4f} ms by {c1_by} ({c1_flops / 1e9:.2f} GFLOP f32; dense {c1_dense / 1e9:.2f} GFLOP = "
           f"{c1_dense / F32_FLOPS * 1e3:.4f} ms; {c1_bytes / 1e6:.2f} MB)", flush=True)
     del calls, h, s2_out, c1_out, args
+
+    # 13a. eqv2_edge_rotate in every form at the sampling graph, and its VJPs
+    rot_row = check_rotations(device, gen, batch, model)
 
     # 11. 100-step ODE sampling at full width
     engine = DiffusionEngine(score_fn, EQV2_PARAMS, static_fn=model.prepare_static, device=device)
@@ -480,7 +622,25 @@ def eqv2_path(device, gen, systems):
         card = model(small)
         host = cpu_model(small.to("cpu"))
     check_model("EquiformerV2", zip(("force_block", "force_block2"), card, host))
-    return [
+    del cpu_model, card, host
+
+    # 16a. use_pallas_rotate on against off, one full-width forward at B=16
+    rotate_model = EquiformerV2(**EQV2_KW, use_pallas_rotate=True, device=device)
+    rotate_model.load_state_dict(model.state_dict())
+    kernels.launches.clear()
+    on = rotate_model(batch, static)
+    torch.cuda.synchronize()
+    launches_on = dict(kernels.launches)
+    per_forward = 1 + 3 * per_step
+    if launches_on.get("eqv2_edge_rotate") != per_forward:
+        raise AssertionError(f"use_pallas_rotate forward launched {launches_on}, want eqv2_edge_rotate x{per_forward}")
+    check_model("EquiformerV2 use_pallas_rotate on vs off", zip(("force_block", "force_block2"), on,
+                                                                model(batch, static)), device_ref=True)
+    on_ms = cuda_ms(lambda: rotate_model(batch, static), 5)
+    off_ms = cuda_ms(lambda: model(batch, static), 5)
+    print(f"[eqv2] use_pallas_rotate, one B=16 forward with the hoisted graph: on {on_ms:.3f} ms ({per_forward} "
+          f"rotation launches), off {off_ms:.3f} ms (the plain decomposed chain)", flush=True)
+    return rot_row, [
         dict(name="s2_grid_silu", source="adsorbdiff_tpu_torch/csrc/s2_grid_silu.cu",
              replaces="adsorbdiff_tpu/ops/pallas_kernels.py:903", launches=launches["s2_grid_silu"],
              max_abs_err=s2_err, ms=s2_ms, plain_ms=s2_plain_ms, bound_ms=s2_bound, bound_by=s2_by),
@@ -555,15 +715,18 @@ def sampling_path(device, gen, systems):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def check_model(model_name, pairs):
-    """Card against CPU outputs: finite and within 1e-4 * max|cpu|."""
+def check_model(model_name, pairs, device_ref=False):
+    """Card against CPU outputs (or against a second card run): finite and
+    within 1e-4 * max|reference|."""
+    what = "" if device_ref else "card vs CPU "
     for name, c, h in pairs:
-        e = (c.cpu() - h).abs().max().item()
+        h = h if device_ref else h.to(c.device)
+        e = (c - h).abs().max().item()
         limit = MODEL_RTOL * h.abs().max().item()
         if not (torch.isfinite(c).all() and e <= limit):
-            raise AssertionError(f"card vs CPU {model_name} {name}: max |diff| {e} > {limit}")
-        print(f"[check] card vs CPU {model_name} {name}: max |diff| {e:.3e} "
-              f"(limit {MODEL_RTOL} * max|cpu| = {limit:.3e})", flush=True)
+            raise AssertionError(f"{what}{model_name} {name}: max |diff| {e} > {limit}")
+        print(f"[check] {what}{model_name} {name}: max |diff| {e:.3e} "
+              f"(limit {MODEL_RTOL} * max|reference| = {limit:.3e})", flush=True)
 
 
 def relax_path(device, gen, systems):
@@ -657,6 +820,96 @@ def write_training_shards(root, systems_per_split):
     return paths
 
 
+def check_grads(what, pairs):
+    """Every (name, got, want) within 1e-3 * max|want| and finite; returns
+    the worst max|diff| / max|want|."""
+    worst = 0.0
+    for name, c, h in pairs:
+        e, limit = (c - h).abs().max().item(), GRAD_RTOL * h.abs().max().item()
+        if not (torch.isfinite(c).all() and e <= limit):
+            raise AssertionError(f"{what}, {name}: max |diff| {e} > {limit}")
+        worst = max(worst, e / max(h.abs().max().item(), 1e-30))
+    return worst
+
+
+def check_training_step(config, device, model_name):
+    """One training step at B=2 on the card against the same step on the
+    CPU: loss, grad_norm and every parameter's gradient."""
+    small = dict(copy.deepcopy(config), optim=dict(config["optim"], batch_size=2, eval_batch_size=2))
+    card, host = DenoisingTrainer(small, device=device), DenoisingTrainer(dict(small, cpu=True))
+    two = collate(bench_systems(2), max_atoms=80, device="cpu")
+    draws = draw_schedule(2, torch.device("cpu"), torch.Generator().manual_seed(6))
+    results = []
+    for tr, b in ((card, two.to(device)), (host, two)):
+        tr.init_state()
+        loss, aux = tr._loss_and_aux(b, draws._replace(**{k: getattr(draws, k).to(b.device) for k in draws._fields}),
+                                     None)
+        grads = torch.autograd.grad(loss, tr.params)
+        results.append((tr._finalize_train_step(loss, aux, list(grads)), [g.cpu() for g in grads]))
+    (card_aux, card_grads), (host_aux, host_grads) = results
+    names = [n for n, _ in host.model.named_parameters()]
+    worst = check_grads(f"card vs CPU {model_name} training step", [
+        ("loss", card_aux["loss"].cpu()[None], host_aux["loss"][None]),
+        ("grad_norm", card_aux["grad_norm"].cpu()[None], host_aux["grad_norm"][None]),
+    ] + list(zip(names, card_grads, host_grads)))
+    print(f"[check] card vs CPU {model_name} training step at B=2: loss {card_aux['loss'].item():.6f} / "
+          f"{host_aux['loss'].item():.6f}, grad_norm {card_aux['grad_norm'].item():.6f} / "
+          f"{host_aux['grad_norm'].item():.6f}; {len(names)} gradients, worst max|diff| / max|cpu| {worst:.3e} "
+          f"(limit {GRAD_RTOL})", flush=True)
+
+
+def train_one_epoch(trainer, steps, want):
+    """trainer.train() with the launch counts zeroed just before and read at
+    every step (each step must launch exactly ``want``); every loss finite,
+    params and EMA moved, EMA != params.  Returns (launches, systems/s over
+    the steps after the first, wall s, losses, peak MiB)."""
+    p0 = [p.detach().clone() for p in trainer.params]
+    step_fn, per_step, losses, times = trainer.train_step, [], [], []
+
+    def counted(*args, **kwargs):
+        before = dict(kernels.launches)
+        aux = step_fn(*args, **kwargs)
+        per_step.append({k: kernels.launches[k] - before.get(k, 0) for k in kernels.launches
+                         if kernels.launches[k] != before.get(k, 0)})
+        losses.append(aux["loss"])
+        if len(per_step) == 1:  # the timed window opens after the first step
+            torch.cuda.synchronize()
+            times.append(time.perf_counter())
+        return aux
+
+    trainer.train_step = counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.launches.clear()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - times[0]
+    del trainer.train_step
+    launches = dict(kernels.launches)
+    if len(per_step) != steps or any(s != want for s in per_step):
+        raise AssertionError(f"training launched {per_step}, want {want} in each of {steps} steps")
+    loss = torch.stack(losses).cpu()
+    if not torch.isfinite(loss).all():
+        raise AssertionError(f"non-finite training losses: {loss.tolist()}")
+    moved = max((p - q).abs().max().item() for p, q in zip(trainer.params, p0))
+    ema_moved = max((e - q).abs().max().item() for e, q in zip(trainer.ema, p0))
+    ema_gap = max((e - p).abs().max().item() for e, p in zip(trainer.ema, trainer.params))
+    if not (moved > 0 and ema_moved > 0 and ema_gap > 0):
+        raise AssertionError(f"params moved {moved}, EMA moved {ema_moved}, |EMA - params| {ema_gap}")
+    batch = trainer.optim_cfg["batch_size"]
+    rate = (steps - 1) * batch / wall
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f"[train] {steps} steps, B={batch} x 80 atoms: {rate:.2f} systems/s over the {steps - 1} steps after "
+          f"the first ({wall:.3f} s, {1e3 * wall / (steps - 1):.2f} ms per step), peak {peak:.1f} MiB allocated, "
+          f"launches {launches}; loss {loss[0].item():.4f} -> {loss[-1].item():.4f}; max |param move| {moved:.3e}, "
+          f"|EMA move| {ema_moved:.3e}, |EMA - params| {ema_gap:.3e}", flush=True)
+    val = trainer.validate("val")["loss"]["metric"]
+    if not np.isfinite(val):
+        raise AssertionError(f"validation loss {val}")
+    print(f"[train] validation loss (EMA weights) {val:.4f}", flush=True)
+    return launches
+
+
 def training_path(device, gen, root):
     """Phases 8 and 9."""
     paths = write_training_shards(root, {"train": TRAIN_BATCH * TRAIN_STEPS, "val": TRAIN_BATCH})
@@ -691,79 +944,107 @@ def training_path(device, gen, root):
     del inputs, cts, outputs
 
     # 8b. one epoch of DenoisingTrainer.train(); counts zeroed just before, read at every step
-    p0 = [p.detach().clone() for p in trainer.params]
-    step_fn, per_step, losses, times = trainer.train_step, [], [], []
-
-    def counted(*args, **kwargs):
-        before = dict(kernels.launches)
-        aux = step_fn(*args, **kwargs)
-        per_step.append({k: kernels.launches[k] - before.get(k, 0) for k in kernels.launches})
-        losses.append(aux["loss"])
-        if len(per_step) == 1:  # the timed window opens after the first step
-            torch.cuda.synchronize()
-            times.append(time.perf_counter())
-        return aux
-
-    trainer.train_step = counted
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.launches.clear()
-    trainer.train()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - times[0]
-    launches = dict(kernels.launches)
-    steps = len(per_step)
-    want = {"painn_message_fused": model.num_layers, "painn_message_fused_bwd": model.num_layers}
-    if steps != TRAIN_STEPS or any(s != want for s in per_step):
-        raise AssertionError(f"training launched {per_step}, want {want} in each of {TRAIN_STEPS} steps")
-    loss = torch.stack(losses).cpu()
-    if not torch.isfinite(loss).all():
-        raise AssertionError(f"non-finite training losses: {loss.tolist()}")
-    moved = max((p - q).abs().max().item() for p, q in zip(trainer.params, p0))
-    ema_moved = max((e - q).abs().max().item() for e, q in zip(trainer.ema, p0))
-    ema_gap = max((e - p).abs().max().item() for e, p in zip(trainer.ema, trainer.params))
-    if not (moved > 0 and ema_moved > 0 and ema_gap > 0):
-        raise AssertionError(f"params moved {moved}, EMA moved {ema_moved}, |EMA - params| {ema_gap}")
-    rate = (steps - 1) * TRAIN_BATCH / wall
-    print(f"[train] {steps} steps, B={TRAIN_BATCH} x 80 atoms: {rate:.2f} systems/s over the {steps - 1} steps after "
-          f"the first ({wall:.3f} s, {1e3 * wall / (steps - 1):.2f} ms per step), peak "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB allocated, launches {launches}; loss "
-          f"{loss[0].item():.4f} -> {loss[-1].item():.4f}; max |param move| {moved:.3e}, |EMA move| {ema_moved:.3e}, "
-          f"|EMA - params| {ema_gap:.3e}", flush=True)
-    val = trainer.validate("val")["loss"]["metric"]
-    if not np.isfinite(val):
-        raise AssertionError(f"validation loss {val}")
-    print(f"[train] validation loss (EMA weights) {val:.4f}", flush=True)
+    launches = train_one_epoch(trainer, TRAIN_STEPS, {"painn_message_fused": model.num_layers,
+                                                      "painn_message_fused_bwd": model.num_layers})
 
     # 9. card vs CPU, one training step at B=2
-    small = dict(copy.deepcopy(config), optim=dict(config["optim"], batch_size=2, eval_batch_size=2))
-    card, host = DenoisingTrainer(small, device=device), DenoisingTrainer(dict(small, cpu=True))
-    two = collate(bench_systems(2), max_atoms=80, device="cpu")
-    draws = draw_schedule(2, torch.device("cpu"), torch.Generator().manual_seed(6))
-    results = []
-    for tr, b in ((card, two.to(device)), (host, two)):
-        tr.init_state()
-        loss, aux = tr._loss_and_aux(b, draws._replace(**{k: getattr(draws, k).to(b.device) for k in draws._fields}),
-                                     None)
-        grads = torch.autograd.grad(loss, tr.params)
-        results.append((tr._finalize_train_step(loss, aux, list(grads)), [g.cpu() for g in grads]))
-    (card_aux, card_grads), (host_aux, host_grads) = results
-    names = [n for n, _ in host.model.named_parameters()]
-    worst = 0.0
-    for name, c, h in [("loss", card_aux["loss"].cpu()[None], host_aux["loss"][None]),
-                       ("grad_norm", card_aux["grad_norm"].cpu()[None], host_aux["grad_norm"][None])] + \
-            list(zip(names, card_grads, host_grads)):
-        e, limit = (c - h).abs().max().item(), GRAD_RTOL * h.abs().max().item()
-        if not (torch.isfinite(c).all() and e <= limit):
-            raise AssertionError(f"card vs CPU training step, {name}: max |diff| {e} > {limit}")
-        worst = max(worst, e / max(h.abs().max().item(), 1e-30))
-    print(f"[check] card vs CPU training step at B=2: loss {card_aux['loss'].item():.6f} / {host_aux['loss'].item():.6f}, "
-          f"grad_norm {card_aux['grad_norm'].item():.6f} / {host_aux['grad_norm'].item():.6f}; "
-          f"{len(names)} gradients, worst max|diff| / max|cpu| {worst:.3e} (limit {GRAD_RTOL})", flush=True)
+    check_training_step(config, device, "PaiNN")
     return dict(name="painn_message_fused_bwd", source="adsorbdiff_tpu_torch/csrc/painn_message_fused_bwd.cu",
                 replaces="adsorbdiff_tpu/ops/pallas_kernels.py:566",
                 launches=launches["painn_message_fused_bwd"], max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def eqv2_training_path(device, gen, root):
+    """Phases 13b, 14, 15 and 16b."""
+    paths = write_training_shards(root, {"train": EQV2_TRAIN_BATCH * EQV2_TRAIN_STEPS, "val": EQV2_EVAL_BATCH})
+    config = dict(copy.deepcopy(EQV2_TRAIN_CONFIG), run_dir=root, dataset=[{"src": paths["train"]}, {"src": paths["val"]}])
+    trainer = DenoisingTrainer(config, device=device)
+    model = trainer.model
+    per_step = model.num_layers + 2
+    print(f"[eqv2-train] eqv2_so3.yml + base.yml, cell_reps {tuple(model.cell_reps)} (auto), B={EQV2_TRAIN_BATCH}, "
+          f"{len(trainer.train_batcher)} steps", flush=True)
+
+    # 13b. s2_grid_silu_bwd at the first attention block's input of a training forward, then ragged TINY shapes
+    batch = next(iter(trainer.train_batcher)).to(device)
+    batch = batch.replace(pos=batch.pos_relaxed)
+    noised, _ = trainer.schedule_fn(batch, trainer.denoising_pos_params, torch.Generator(device=device).manual_seed(4))
+    with torch.no_grad():
+        calls = capture_first_calls(equiformer_v2, ("s2_grid_silu", "eqv2_attn_conv1"), lambda: model(noised))
+    h, to_m, from_m = calls["s2_grid_silu"][0]
+    dy = torch.randn(h.shape, generator=gen).to(device)
+
+    def check_s2_bwd(name, h, dy, to_m, from_m):
+        got = kernels.s2_grid_silu_bwd(h, dy, to_m, from_m)
+        torch.cuda.synchronize()
+        return got, check_close(f"s2_grid_silu_bwd {name} h{tuple(h.shape)}", [got],
+                                [kernels.s2_grid_silu_bwd_reference(h, dy, to_m, from_m)])
+
+    out, s2b_err = check_s2_bwd("training", h, dy, to_m, from_m)
+    if not torch.equal(kernels.s2_grid_silu_bwd(h, dy, to_m, from_m), out):
+        raise AssertionError("s2_grid_silu_bwd does not repeat bit for bit")
+    tiny_to, tiny_from = (torch.from_numpy(t).to(device) for t in equiformer_v2.s2_act_matrices(*EQV2_TINY[:2], 16))
+    for lead in ((37,), (3, 11, 7)):
+        shape = lead + (tiny_to.shape[1], 16)
+        check_s2_bwd("ragged", torch.randn(shape, generator=gen).to(device), torch.randn(shape, generator=gen).to(device),
+                     tiny_to, tiny_from)
+    s2b_ms = cuda_ms(lambda: kernels.s2_grid_silu_bwd(h, dy, to_m, from_m), 20)
+    s2b_plain_ms = cuda_ms(lambda: kernels.s2_grid_silu_bwd_reference(h, dy, to_m, from_m), 5)
+    s2b_bound, s2b_by, s2b_bytes, s2b_flops = s2_bwd_bound_ms(h, dy, to_m, from_m, out)
+    print(f"[kernel] s2_grid_silu_bwd at h{tuple(h.shape)}: {s2b_ms:.4f} ms, plain {s2b_plain_ms:.4f} ms, bound "
+          f"{s2b_bound:.4f} ms by {s2b_by} ({s2b_flops / 1e9:.2f} GFLOP f32, {s2b_bytes / 1e6:.2f} MB)", flush=True)
+
+    # the conv1 VJP: a plain recompute (the TPU kernel has no backward body either), timed at this shape
+    args, kw = calls["eqv2_attn_conv1"]
+    dist, mask, *edge_inputs = (t.detach().clone() for t in args[:6])
+    edge_inputs = [t.requires_grad_(True) for t in edge_inputs]
+    trees = [{m: {k: v.detach().clone().requires_grad_(True) for k, v in mod.items()} for m, mod in tree.items()}
+             for tree in args[6:]]
+    leaves = edge_inputs + [v for tree in trees for mod in tree.values() for v in mod.values()]
+    outs = kernels.eqv2_attn_conv1(dist, mask, *edge_inputs, *trees, **kw)
+    cts = [torch.randn(o.shape, generator=gen).to(device) for o in outs]
+    vjp_ms = cuda_ms(lambda: torch.autograd.grad(outs, leaves, cts, retain_graph=True), 3)
+    print(f"[kernel] eqv2_attn_conv1 VJP (plain recompute under autograd) at E={dist.numel()}: {vjp_ms:.4f} ms",
+          flush=True)
+    del calls, h, dy, out, args, outs, cts, leaves, edge_inputs, trees, noised
+
+    # 14. one epoch of DenoisingTrainer.train(); counts zeroed just before, read at every step
+    want = {"s2_grid_silu": per_step, "eqv2_attn_conv1": per_step, "s2_grid_silu_bwd": per_step}
+    launches = train_one_epoch(trainer, EQV2_TRAIN_STEPS, want)
+
+    # 15. card vs CPU, one training step at B=2
+    check_training_step(config, device, "EquiformerV2")
+
+    # 16b. use_pallas_rotate on against off: one B=12 training step, every gradient
+    on_model = _model_from_config(dict(trainer.model_cfg, use_pallas_rotate=True), mode=trainer._model_mode(),
+                                  device=device, generator=torch.Generator(), training=True)
+    on_model.load_state_dict(model.state_dict())
+    draws = draw_schedule(EQV2_TRAIN_BATCH, device, torch.Generator(device=device).manual_seed(8))
+    steps = {}
+    for label, m in (("off", model), ("on", on_model)):
+        kernels.launches.clear()
+        loss, _ = trainer._denoising_loss(m, batch, draws, None)
+        torch.cuda.synchronize()
+        fwd = dict(kernels.launches)
+        kernels.launches.clear()
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        torch.cuda.synchronize()
+        steps[label] = (loss.detach(), grads, fwd, dict(kernels.launches))
+    rot_fwd, rot_bwd = (steps["on"][i].get("eqv2_edge_rotate", 0) for i in (2, 3))
+    if (rot_fwd, rot_bwd) != (1 + 3 * per_step,) * 2 or "eqv2_edge_rotate" in {**steps["off"][2], **steps["off"][3]}:
+        raise AssertionError(f"use_pallas_rotate training step launched {steps['on'][2:]} (off: {steps['off'][2:]}), "
+                             f"want eqv2_edge_rotate x{1 + 3 * per_step} forward and backward")
+    names = [n for n, _ in on_model.named_parameters()]
+    worst = check_grads("use_pallas_rotate on vs off training step", [("loss", steps["on"][0][None], steps["off"][0][None])]
+                        + list(zip(names, steps["on"][1], steps["off"][1])))
+    print(f"[check] use_pallas_rotate on vs off, one B={EQV2_TRAIN_BATCH} training step: loss "
+          f"{steps['on'][0].item():.6f} / {steps['off'][0].item():.6f}; {len(names)} gradients, worst max|diff| / "
+          f"max|off| {worst:.3e} (limit {GRAD_RTOL}); launches forward {steps['on'][2]}, backward {steps['on'][3]}",
+          flush=True)
+    row = dict(name="s2_grid_silu_bwd", source="adsorbdiff_tpu_torch/csrc/s2_grid_silu_bwd.cu",
+               replaces="adsorbdiff_tpu/ops/pallas_kernels.py:919", launches=launches["s2_grid_silu_bwd"],
+               max_abs_err=s2b_err, ms=s2b_ms, plain_ms=s2b_plain_ms, bound_ms=s2b_bound, bound_by=s2b_by)
+    return row, rot_fwd + rot_bwd
 
 
 def main():
@@ -789,7 +1070,7 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
-    # 3-12. each path: its kernels against the plain versions, the path, card vs CPU
+    # 3-16. each path: its kernels against the plain versions, the path, card vs CPU
     systems = bench_systems()
     rows = [
         sampling_path(device, torch.Generator().manual_seed(0), systems),
@@ -797,9 +1078,13 @@ def main():
     ]
     with tempfile.TemporaryDirectory() as root:
         rows.append(training_path(device, torch.Generator().manual_seed(5), root))
-    rows += eqv2_path(device, torch.Generator().manual_seed(7), systems)
+    rotate_row, eqv2_rows = eqv2_path(device, torch.Generator().manual_seed(7), systems)
+    rows += eqv2_rows
+    with tempfile.TemporaryDirectory() as root:
+        s2_bwd_row, rotate_row["launches"] = eqv2_training_path(device, torch.Generator().manual_seed(9), root)
+    rows += [s2_bwd_row, rotate_row]
 
-    # 13. results
+    # 17. results
     print(json.dumps({"kernels": [
         dict(name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"], launches=r["launches"],
              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

@@ -1,15 +1,17 @@
 """Where the time of one PyTorch-port training step goes, on one NVIDIA card.
 
-Runs the chip_smoke.py training path (DenoisingTrainer.train() at the
-painn_so3.yml + base.yml settings, B=48 bench systems written to shards in a
-temporary directory) for one epoch of a few steps and prints:
+Runs a chip_smoke.py training path (DenoisingTrainer.train() at the
+painn_so3.yml + base.yml settings, B=48, or with ``--model eqv2`` at the
+eqv2_so3.yml + base.yml settings, B=12; ``--rotate`` turns the EquiformerV2
+rotation kernel on) on bench systems written to shards in a temporary
+directory, for one epoch of a few steps, and prints:
 
 - the wall time per step (an epoch with the profiler off, after a warm-up
   step), the card's busy time per step (the sum of all device-side events of
   a profiled epoch of the same steps) and the idle share;
 - the device kernels with the most time, with their share of busy time.
 
-    python scripts/profile_torch_train.py [--steps 10]
+    python scripts/profile_torch_train.py [--model painn|eqv2] [--rotate] [--steps 10]
 
 The last line is one JSON object with the same numbers.
 """
@@ -29,21 +31,37 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from adsorbdiff_tpu_torch.device import resolve_device  # noqa: E402
 from adsorbdiff_tpu_torch.train.trainer import DenoisingTrainer  # noqa: E402
-from chip_smoke import TRAIN_BATCH, TRAIN_CONFIG, write_training_shards  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    EQV2_TRAIN_BATCH,
+    EQV2_TRAIN_CONFIG,
+    TRAIN_BATCH,
+    TRAIN_CONFIG,
+    write_training_shards,
+)
 
 TOP_KERNELS = 15  # rows of the per-kernel table
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=("painn", "eqv2"), default="painn")
+    ap.add_argument("--rotate", action="store_true", help="EquiformerV2 with use_pallas_rotate: True")
     ap.add_argument("--steps", type=int, default=10)
     args = ap.parse_args()
+    if args.model == "painn":
+        batch_size, config = TRAIN_BATCH, copy.deepcopy(TRAIN_CONFIG)
+        what = f"B={batch_size}, N=80, H=512, 6 layers, K=50"
+    else:
+        batch_size, config = EQV2_TRAIN_BATCH, copy.deepcopy(EQV2_TRAIN_CONFIG)
+        config["model"]["use_pallas_rotate"] = args.rotate
+        what = (f"EquiformerV2, B={batch_size}, N=80, 8 layers, C=128, lmax 4 / mmax 2, K=20, use_pallas_rotate "
+                f"{args.rotate}")
 
     device = resolve_device(None)
     with tempfile.TemporaryDirectory() as root:
-        paths = write_training_shards(root, {"train": TRAIN_BATCH * args.steps})
-        trainer = DenoisingTrainer(dict(copy.deepcopy(TRAIN_CONFIG), run_dir=root, logger=None,
-                                        dataset=[{"src": paths["train"]}]), device=device)
+        paths = write_training_shards(root, {"train": batch_size * args.steps})
+        trainer = DenoisingTrainer(dict(config, run_dir=root, logger=None, dataset=[{"src": paths["train"]}]),
+                                   device=device)
         batch = next(iter(trainer.train_batcher)).to(device)
         trainer.train_step(batch, generator=torch.Generator(device=device).manual_seed(0))  # warm-up
         torch.cuda.synchronize()
@@ -67,8 +85,7 @@ def main() -> None:
     per_step = {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3 / args.steps,
                 "device_events": sum(c for c, _ in by_name.values()) / args.steps}
     per_step["idle_share"] = 1.0 - per_step["device_busy_ms"] / wall_ms
-    print(f"{torch.cuda.get_device_name(0)}; {args.steps} training steps (B={TRAIN_BATCH}, N=80, H=512, 6 layers, "
-          f"K=50)")
+    print(f"{torch.cuda.get_device_name(0)}; {args.steps} training steps ({what})")
     print(f"per step: wall {wall_ms:.3f} ms (profiler off), device busy {per_step['device_busy_ms']:.3f} ms "
           f"(profiler on; side-stream copies may overlap), idle share {per_step['idle_share']:.3f}; "
           f"{per_step['device_events']:.0f} device events of {len(by_name)} kinds")
@@ -79,7 +96,8 @@ def main() -> None:
         top.append(row)
         print(f"{row['share']:7.1%}  {row['device_ms_per_step']:9.4f} ms/step  {row['calls_per_step']:6.1f} calls/step  "
               f"{name[:100]}")
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "steps": args.steps, **per_step, "top": top}))
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "model": args.model, "rotate": args.rotate,
+                      "steps": args.steps, **per_step, "top": top}))
 
 
 if __name__ == "__main__":

@@ -6,9 +6,11 @@ against the plain version and skip without a card; they import no JAX, so on
 the card they run with ``python -m pytest --noconftest tests/test_torch_kernels.py -m cuda``.
 
 Tolerances: 1e-5 (abs and rel, the JAX package's own test) for the S^2 grid
-activation; 1e-5 + 1e-5 * max|JAX| (abs) for the EquiformerV2 attention front
-half, whose 600-term basis products and ~1000-term conv sums are taken in
-another order; 1e-4 (abs and rel) for the PaiNN message, whose R-term filter
+activation and 2e-5 (the JAX package's own VJP test) for its backward; 2e-6
+(abs, the JAX package's own rotation test) for the edge-frame rotation and
+its VJPs; 1e-5 + 1e-5 * max|JAX| (abs) for the EquiformerV2 attention front
+half and its gradients, whose 600-term basis products and ~1000-term conv
+sums are taken in another order; 1e-4 (abs and rel) for the PaiNN message, whose R-term filter
 sums and K-term reductions are taken in another order than the Pallas
 kernel's f32 matmuls; 2e-4 (abs and rel, the JAX package's own VJP test) for
 its gradients, whose dW and db sum over every edge of the batch; atol 2e-4 (the JAX package's own quad-chain test) and
@@ -23,6 +25,10 @@ from adsorbdiff_tpu_torch.ops import kernels
 from adsorbdiff_tpu_torch.ops.kernels import (
     eqv2_attn_conv1,
     eqv2_attn_conv1_reference,
+    eqv2_edge_rotate,
+    eqv2_edge_rotate_reference,
+    eqv2_gather_rotate_to,
+    eqv2_gather_rotate_to_reference,
     gemnet_quad_chain,
     gemnet_quad_chain_reference,
     painn_message_fused,
@@ -30,6 +36,8 @@ from adsorbdiff_tpu_torch.ops.kernels import (
     painn_message_fused_bwd_reference,
     painn_message_fused_reference,
     s2_grid_silu,
+    s2_grid_silu_bwd,
+    s2_grid_silu_bwd_reference,
     s2_grid_silu_reference,
 )
 
@@ -556,8 +564,17 @@ def test_eqv2_kernel_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="NC <= 32"):
         s2_grid_silu(torch.zeros((4, 33, 3), device=cuda_device), torch.zeros((10, 33), device=cuda_device),
                      torch.zeros((33, 10), device=cuda_device))
-    with pytest.raises(NotImplementedError, match="backward"):
-        s2_grid_silu(torch.zeros((4, 7, 3), device=cuda_device, requires_grad=True), to_m, from_m)
+    with pytest.raises(ValueError, match="shape"):
+        s2_grid_silu_bwd(torch.zeros((4, 7, 3), device=cuda_device), torch.zeros((4, 7, 2), device=cuda_device),
+                         to_m, from_m)
+    angles = torch.zeros((2, 3, 4), device=cuda_device)
+    with pytest.raises(ValueError, match="lmax"):
+        eqv2_edge_rotate(torch.zeros((2, 3, 4, 64, 5), device=cuda_device), angles, angles, 7, 1, direction="to")
+    with pytest.raises(TypeError, match="src must be torch.int32"):
+        eqv2_gather_rotate_to(torch.zeros((2, 3, 9, 5), device=cuda_device),
+                              torch.zeros((2, 3, 4), dtype=torch.int64, device=cuda_device), angles, angles, 2, 1)
+    with pytest.raises(ValueError, match="shape"):
+        eqv2_edge_rotate(torch.zeros((2, 2, 4, 9, 5), device=cuda_device), angles, angles, 2, 1, direction="to")
 
 
 @pytest.mark.cuda
@@ -570,3 +587,295 @@ def test_eqv2_empty_outputs_launch_nothing(cuda_device):
                            _torch_tree(rad, cuda_device), _torch_tree(conv, cuda_device), **kw)
     assert h.shape == (0, 7, 16) and x.shape == (0, 32)
     assert dict(kernels.launches) == before
+
+
+# --------------------------------------------------------------------------
+# EquiformerV2 training: the S^2 backward, the conv1 VJP, the edge rotation
+# --------------------------------------------------------------------------
+def test_s2_grid_silu_bwd_reference_matches_jax_grad():
+    """dh of sum(s2_grid_silu(h) * w) against jax.grad through the Pallas
+    kernel's custom VJP in interpret mode (tests/test_pallas_kernels.py:229-260)."""
+    import jax
+    import jax.numpy as jnp
+
+    from adsorbdiff_tpu.ops.pallas_kernels import s2_grid_silu as jax_s2_grid_silu
+
+    to_m, from_m = _s2_tables()
+    rng = np.random.default_rng(40)
+    h = rng.normal(size=(3, 5, to_m.shape[1], 16)).astype(np.float32)
+    w = rng.normal(size=h.shape).astype(np.float32)
+    want = jax.grad(lambda x: jnp.sum(jax_s2_grid_silu(x, jnp.asarray(to_m), jnp.asarray(from_m), tile_m=128,
+                                                       interpret=True) * w))(jnp.asarray(h))
+    got = s2_grid_silu_bwd_reference(*(torch.from_numpy(t) for t in (h, w, to_m, from_m)))
+    assert got.shape == h.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
+def test_s2_grid_silu_autograd_on_cpu_runs_the_plain_backward():
+    """The Function's backward on CPU tensors is the plain VJP, equal to
+    autograd through the plain forward; the tables get no gradient and no
+    launch is counted."""
+    to_m, from_m = (torch.from_numpy(t) for t in _s2_tables(2, 1, 8))
+    gen = torch.Generator().manual_seed(41)
+    h = torch.randn((2, 3, 4, to_m.shape[1], 5), generator=gen, requires_grad=True)
+    w = torch.randn(h.shape, generator=gen)
+    before = dict(kernels.launches)
+    (got,) = torch.autograd.grad((s2_grid_silu(h, to_m, from_m) * w).sum(), h)
+    (want,) = torch.autograd.grad((s2_grid_silu_reference(h, to_m, from_m) * w).sum(), h)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got, s2_grid_silu_bwd(h.detach(), w, to_m, from_m), rtol=0, atol=0)
+    tables = [t.clone().requires_grad_(True) for t in (to_m, from_m)]
+    out = kernels.S2GridSilu.apply(h, *tables)
+    assert torch.autograd.grad(out.sum(), tables, allow_unused=True) == (None, None)
+    assert dict(kernels.launches) == before
+
+
+def _jax_tree(tree):
+    import jax.numpy as jnp
+
+    return {k: _jax_tree(v) if isinstance(v, dict) else jnp.asarray(v) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("case", [CONV1_TINY, CONV1_L4], ids=["tiny-l2m1", "l4m2"])
+def test_attn_conv1_vjp_matches_jax_grad(case):
+    """Gradients of sum(h * wh) + sum(extra * wx) with respect to the
+    embeddings, both message halves and every weight, through the Function's
+    backward (the plain recompute) on the CPU, against jax.grad through the
+    JAX eqv2_attn_conv1 (Pallas forward in interpret mode, its XLA-recompute
+    VJP); dist gets a zero gradient."""
+    import jax
+    import jax.numpy as jnp
+
+    from adsorbdiff_tpu.ops.pallas_kernels import eqv2_attn_conv1 as jax_eqv2_attn_conv1
+
+    edges, rad, conv, kw = _conv1_inputs(42, *case)
+    rng = np.random.default_rng(43)
+    n_act = edges["msg_s"].shape[-2]
+    wh = rng.normal(size=edges["dist"].shape + (n_act, kw["c_out"])).astype(np.float32)
+    wx = rng.normal(size=edges["dist"].shape + (kw["extra"],)).astype(np.float32)
+    names = ("emb_s", "emb_t", "msg_s", "msg_t")
+
+    def jax_loss(diff):
+        h, x = jax_eqv2_attn_conv1(jnp.asarray(edges["dist"]), jnp.asarray(edges["mask"]), *(diff[k] for k in names),
+                                   diff["rad"], diff["conv"], **kw, interpret=True)
+        return jnp.sum(h * wh) + jnp.sum(x * wx)
+
+    want = jax.grad(jax_loss)({**{k: jnp.asarray(edges[k]) for k in names}, "rad": _jax_tree(rad),
+                              "conv": _jax_tree(conv)})
+
+    t = {k: torch.from_numpy(v).requires_grad_(k != "mask") for k, v in edges.items()}
+    rad_t, conv_t = _torch_tree(rad), _torch_tree(conv)
+    leaves = [v for tree in (rad_t, conv_t) for mod in tree.values() for v in mod.values()]
+    for v in leaves:
+        v.requires_grad_(True)
+    h, x = eqv2_attn_conv1(*t.values(), rad_t, conv_t, **kw)
+    loss = (h * torch.from_numpy(wh)).sum() + (x * torch.from_numpy(wx)).sum()
+    grads = torch.autograd.grad(loss, [t[k] for k in ("dist",) + names] + leaves)
+    assert not grads[0].any()  # dist: the geometry contract
+    got = dict(zip(names, grads[1:5]))
+    got.update({("rad", m, l): g for (m, l), g in zip(
+        [(m, l) for m in rad_t for l in rad_t[m]], grads[5:5 + sum(len(v) for v in rad_t.values())])})
+    got.update({("conv", m, l): g for (m, l), g in zip(
+        [(m, l) for m in conv_t for l in conv_t[m]], grads[5 + sum(len(v) for v in rad_t.values()):])})
+    pairs = [(got[k], want[k]) for k in names]
+    pairs += [(got[("rad", m, l)], want["rad"][m][l]) for m in rad for l in rad[m]]
+    pairs += [(got[("conv", m, l)], want["conv"][m][l]) for m in conv for l in conv[m]]
+    for g, w in pairs:
+        w = np.asarray(w)
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-5 + 1e-5 * np.abs(w).max(), rtol=0)
+
+
+# (lmax, mmax): the production layout and the TINY test model's
+ROTATE_LAYOUTS = [(4, 2), (2, 1)]
+# (name, direction, input rows: "dim" or "n_act" or an int, node-level input)
+ROTATE_CASES = [("to", "to", "dim", False), ("to-node", "to", "dim", True), ("from", "from", "n_act", False),
+                ("from-n0", "from", "n0", False)]
+
+
+def _rotate_inputs(seed, lmax, mmax, rows, node, b=2, n=5, k=4, c=16):
+    """(x, gamma, beta, n_sel) as numpy: angles over their whole range."""
+    from adsorbdiff_tpu_torch.models import so3
+
+    rng = np.random.default_rng(seed)
+    dim, n_act = (lmax + 1) ** 2, so3.n_act_rows(lmax, mmax)
+    n_rows = {"dim": dim, "n_act": n_act, "n0": lmax + 1}[rows]
+    x = rng.normal(size=(b, n, 1 if node else k, n_rows, c)).astype(np.float32)
+    gamma = rng.uniform(-np.pi, np.pi, (b, n, k)).astype(np.float32)
+    beta = rng.uniform(0, np.pi, (b, n, k)).astype(np.float32)
+    return x, gamma, beta, (n_act if rows == "dim" else n_rows)
+
+
+@pytest.mark.parametrize("lmax,mmax", ROTATE_LAYOUTS, ids=["l4m2", "l2m1"])
+@pytest.mark.parametrize("name,direction,rows,node", ROTATE_CASES, ids=[c[0] for c in ROTATE_CASES])
+def test_edge_rotate_reference_and_vjp_match_jax_kernel(lmax, mmax, name, direction, rows, node):
+    """The plain version against the JAX eqv2_edge_rotate's Pallas kernel in
+    interpret mode, and the Function's VJP (the dual direction, plain on the
+    CPU) against jax.grad through the kernel's custom VJP
+    (tests/test_pallas_kernels.py:263-320), atol 2e-6."""
+    import jax
+    import jax.numpy as jnp
+
+    from adsorbdiff_tpu.ops.pallas_kernels import eqv2_edge_rotate as jax_rotate
+
+    x, gamma, beta, n_sel = _rotate_inputs(44, lmax, mmax, rows, node)
+    kw = dict(direction=direction, n_sel=n_sel)
+    want = jax_rotate(jnp.asarray(x), gamma, beta, lmax, mmax, **kw, interpret=True)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    tg, tb = torch.from_numpy(gamma), torch.from_numpy(beta)
+    got = eqv2_edge_rotate(xt, tg, tb, lmax, mmax, **kw)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=2e-6)
+    np.testing.assert_array_equal(got.detach().numpy(),
+                                  eqv2_edge_rotate_reference(xt.detach(), tg, tb, lmax, mmax, **kw).numpy())
+
+    w = np.random.default_rng(45).normal(size=want.shape).astype(np.float32)
+    want_dx = jax.grad(lambda a: jnp.sum(jax_rotate(a, gamma, beta, lmax, mmax, **kw, interpret=True) * w))(
+        jnp.asarray(x))
+    (dx,) = torch.autograd.grad((got * torch.from_numpy(w)).sum(), xt)
+    assert dx.shape == x.shape
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want_dx), atol=2e-6)
+
+
+@pytest.mark.parametrize("lmax,mmax", ROTATE_LAYOUTS, ids=["l4m2", "l2m1"])
+@pytest.mark.parametrize("n_sel", ["n_act", 5], ids=["n_act", "n_sel5"])
+def test_gather_rotate_to_reference_and_vjp_match_jax_kernel(lmax, mmax, n_sel):
+    """The gather variant: plain version and VJP (the dual rotation, then
+    index_add_ over src) against the JAX eqv2_gather_rotate_to in interpret
+    mode, atol 2e-6."""
+    import jax
+    import jax.numpy as jnp
+
+    from adsorbdiff_tpu.models.so3 import n_act_rows
+    from adsorbdiff_tpu.ops.pallas_kernels import eqv2_gather_rotate_to as jax_gather_rotate
+
+    rng = np.random.default_rng(46)
+    b, n, k, c, dim = 2, 6, 4, 8, (lmax + 1) ** 2
+    n_sel = n_act_rows(lmax, mmax) if n_sel == "n_act" else n_sel
+    x = rng.normal(size=(b, n, dim, c)).astype(np.float32)
+    src = rng.integers(0, n, (b, n, k)).astype(np.int32)
+    gamma = rng.uniform(-np.pi, np.pi, (b, n, k)).astype(np.float32)
+    beta = rng.uniform(0, np.pi, (b, n, k)).astype(np.float32)
+    want = jax_gather_rotate(jnp.asarray(x), jnp.asarray(src), gamma, beta, lmax, mmax, n_sel=n_sel, interpret=True)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    args = (torch.from_numpy(src), torch.from_numpy(gamma), torch.from_numpy(beta), lmax, mmax)
+    got = eqv2_gather_rotate_to(xt, *args, n_sel=n_sel)
+    assert got.shape == want.shape == (b, n, k, n_sel, c)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=2e-6)
+    np.testing.assert_array_equal(got.detach().numpy(),
+                                  eqv2_gather_rotate_to_reference(xt.detach(), *args, n_sel=n_sel).numpy())
+    w = rng.normal(size=want.shape).astype(np.float32)
+    want_dx = jax.grad(lambda a: jnp.sum(jax_gather_rotate(a, jnp.asarray(src), gamma, beta, lmax, mmax,
+                                                           n_sel=n_sel, interpret=True) * w))(jnp.asarray(x))
+    (dx,) = torch.autograd.grad((got * torch.from_numpy(w)).sum(), xt)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want_dx), atol=2e-6)
+
+
+def test_edge_rotate_wrappers_on_cpu_count_no_launch_and_give_angles_no_gradient():
+    x, gamma, beta, n_sel = _rotate_inputs(47, 2, 1, "dim", False)
+    xt, tg, tb = (torch.from_numpy(t).requires_grad_(True) for t in (x, gamma, beta))
+    before = dict(kernels.launches)
+    out = eqv2_edge_rotate(xt, tg, tb, 2, 1, direction="to")
+    out = eqv2_edge_rotate(out, tg, tb, 2, 1, direction="from")
+    assert out.shape == x.shape
+    grads = torch.autograd.grad(out.sum(), (xt, tg, tb), allow_unused=True)
+    assert grads[0] is not None and grads[1] is None and grads[2] is None
+    assert dict(kernels.launches) == before
+    with pytest.raises(ValueError, match="n_sel"):
+        eqv2_edge_rotate(xt.detach(), tg, tb, 2, 1, direction="from")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "lmax,mmax,shape",
+    [(4, 2, (3, 5, 19, 16)), (2, 1, (2, 24, 12, 7, 16)), (4, 2, (12, 80, 20, 19, 64)), (3, 3, (37, 16, 33)),
+     (1, 1, (5, 4, 1))],
+    ids=["jax-test", "tiny", "training-width", "ragged", "nc4-c1"],
+)
+def test_s2_grid_silu_bwd_kernel_matches_plain_version_on_card(cuda_device, lmax, mmax, shape):
+    """|kernel - plain| <= 1e-4 * max|plain| + 1e-5 (f32 sums in another
+    order); the kernel's result repeats bit for bit."""
+    to_m, from_m = (torch.from_numpy(t).to(cuda_device) for t in _s2_tables(lmax, mmax, 18 if lmax == 4 else 8))
+    rng = np.random.default_rng(48)
+    h, dy = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device) for _ in range(2))
+    before = kernels.launches["s2_grid_silu_bwd"]
+    got = s2_grid_silu_bwd(h, dy, to_m, from_m)
+    torch.cuda.synchronize()
+    assert kernels.launches["s2_grid_silu_bwd"] == before + 1
+    want = s2_grid_silu_bwd_reference(h, dy, to_m, from_m)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-5
+    assert torch.equal(s2_grid_silu_bwd(h, dy, to_m, from_m), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lmax,mmax", ROTATE_LAYOUTS + [(3, 3), (6, 2)], ids=["l4m2", "l2m1", "l3m3", "l6m2"])
+@pytest.mark.parametrize("name,direction,rows,node", ROTATE_CASES, ids=[c[0] for c in ROTATE_CASES])
+def test_edge_rotate_kernel_matches_plain_version_on_card(cuda_device, lmax, mmax, name, direction, rows, node):
+    """Forward and VJP, |kernel - plain| <= 1e-4 * max|plain| + 1e-5, the VJP
+    against autograd of the plain chain."""
+    x, gamma, beta, n_sel = _rotate_inputs(49, lmax, mmax, rows, node, b=3, n=7, k=5, c=33)
+    xt, tg, tb = (torch.from_numpy(t).to(cuda_device) for t in (x, gamma, beta))
+    kw = dict(direction=direction, n_sel=n_sel)
+    before = kernels.launches["eqv2_edge_rotate"]
+    xg = xt.clone().requires_grad_(True)
+    got = eqv2_edge_rotate(xg, tg, tb, lmax, mmax, **kw)
+    w = torch.randn(got.shape, generator=torch.Generator().manual_seed(50)).to(cuda_device)
+    (dx,) = torch.autograd.grad((got * w).sum(), xg)
+    torch.cuda.synchronize()
+    assert kernels.launches["eqv2_edge_rotate"] == before + 2
+    xr = xt.clone().requires_grad_(True)
+    want = eqv2_edge_rotate_reference(xr, tg, tb, lmax, mmax, **kw)
+    (want_dx,) = torch.autograd.grad((want * w).sum(), xr)
+    for g, ref in ((got, want), (dx, want_dx)):
+        assert g.shape == ref.shape
+        assert (g - ref).abs().max().item() <= 1e-4 * ref.abs().max().item() + 1e-5
+
+
+@pytest.mark.cuda
+def test_gather_rotate_kernel_matches_plain_version_on_card(cuda_device):
+    rng = np.random.default_rng(51)
+    b, n, k, c, lmax, mmax = 2, 40, 20, 128, 4, 2
+    x = torch.from_numpy(rng.normal(size=(b, n, 25, c)).astype(np.float32)).to(cuda_device)
+    src = torch.from_numpy(rng.integers(0, n, (b, n, k)).astype(np.int32)).to(cuda_device)
+    gamma = torch.from_numpy(rng.uniform(-np.pi, np.pi, (b, n, k)).astype(np.float32)).to(cuda_device)
+    beta = torch.from_numpy(rng.uniform(0, np.pi, (b, n, k)).astype(np.float32)).to(cuda_device)
+    xg = x.clone().requires_grad_(True)
+    got = eqv2_gather_rotate_to(xg, src, gamma, beta, lmax, mmax)
+    w = torch.randn(got.shape, generator=torch.Generator().manual_seed(52)).to(cuda_device)
+    (dx,) = torch.autograd.grad((got * w).sum(), xg)
+    xr = x.clone().requires_grad_(True)
+    want = eqv2_gather_rotate_to_reference(xr, src, gamma, beta, lmax, mmax)
+    (want_dx,) = torch.autograd.grad((want * w).sum(), xr)
+    for g, ref in ((got, want), (dx, want_dx)):
+        assert (g - ref).abs().max().item() <= 1e-4 * ref.abs().max().item() + 1e-5
+
+
+@pytest.mark.cuda
+def test_eqv2_autograd_on_card_launches_the_backward_kernels(cuda_device):
+    """s2_grid_silu with a gradient: one forward and one backward launch;
+    eqv2_attn_conv1: one forward launch, its VJP a plain recompute (no
+    launch), gradients equal to autograd of the plain version."""
+    to_m, from_m = (torch.from_numpy(t).to(cuda_device) for t in _s2_tables())
+    h = torch.randn((40, 20, to_m.shape[1], 16), generator=torch.Generator().manual_seed(53)).to(cuda_device)
+    h.requires_grad_(True)
+    before = dict(kernels.launches)
+    (dh,) = torch.autograd.grad(s2_grid_silu(h, to_m, from_m).square().sum(), h)
+    torch.cuda.synchronize()
+    assert kernels.launches["s2_grid_silu"] == before.get("s2_grid_silu", 0) + 1
+    assert kernels.launches["s2_grid_silu_bwd"] == before.get("s2_grid_silu_bwd", 0) + 1
+    (want,) = torch.autograd.grad(s2_grid_silu_reference(h, to_m, from_m).square().sum(), h)
+    assert (dh - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-5
+
+    edges, rad, conv, kw = _conv1_inputs(54, *CONV1_L4)
+    t = {k: torch.from_numpy(v).to(cuda_device).requires_grad_(k not in ("mask", "dist")) for k, v in edges.items()}
+    trees = [_torch_tree(rad, cuda_device), _torch_tree(conv, cuda_device)]
+    leaves = [v.requires_grad_(True) for tree in trees for mod in tree.values() for v in mod.values()]
+    inputs = [t[k] for k in ("emb_s", "emb_t", "msg_s", "msg_t")] + leaves
+    before = kernels.launches["eqv2_attn_conv1"]
+    got = torch.autograd.grad(sum(o.square().sum() for o in eqv2_attn_conv1(*t.values(), *trees, **kw)), inputs)
+    torch.cuda.synchronize()
+    assert kernels.launches["eqv2_attn_conv1"] == before + 1
+    want = torch.autograd.grad(sum(o.square().sum() for o in eqv2_attn_conv1_reference(*t.values(), *trees, **kw)),
+                               inputs)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= 1e-3 * w.abs().max().item() + 1e-5

@@ -139,3 +139,41 @@ def test_device_table_is_copied_once():
     a = so3.device_table(table, torch.device("cpu"))
     assert so3.device_table(table, torch.device("cpu")) is a
     assert so3.device_table(table, torch.device("cpu"), torch.float64).dtype == torch.float64
+
+
+@pytest.mark.parametrize("lmax,mmax", LM)
+@pytest.mark.parametrize("n_sel", ["n_act", "n0", "dim"])
+def test_edge_rot_consts_hold_the_jax_kernel_constants(lmax, mmax, n_sel):
+    """The rotation kernel's constants (J's diagonal blocks, the Dz signs,
+    the P_sel row map) rebuild every matrix of the JAX package's
+    ``_edge_rot_consts`` bit for bit, in both directions."""
+    from adsorbdiff_tpu.ops.pallas_kernels import _edge_rot_consts
+
+    dim = (lmax + 1) ** 2
+    n_sel = {"n_act": so3.n_act_rows(lmax, mmax), "n0": lmax + 1, "dim": dim}[n_sel]
+    j_blocks, sign, row = so3.edge_rot_consts(lmax, mmax, n_sel)
+    j = np.zeros((dim, dim), np.float32)
+    off = 0
+    for l in range(lmax + 1):
+        n = 2 * l + 1
+        j[l * l:l * l + n, l * l:l * l + n] = j_blocks[off:off + n * n].reshape(n, n)
+        off += n * n
+    assert off == j_blocks.size
+    l_of = np.concatenate([np.full(2 * l + 1, l) for l in range(lmax + 1)])
+    m_of = np.concatenate([np.arange(-l, l + 1) for l in range(lmax + 1)])
+    swap = l_of**2 + l_of - m_of
+    psel = np.zeros((n_sel, dim), np.float32)
+    psel[row[row >= 0], np.nonzero(row >= 0)[0]] = 1.0
+    assert (row >= 0).sum() == n_sel
+    for direction in ("to", "from"):
+        s1, s2, s3, expc, exps, dp = _edge_rot_consts(lmax, mmax, n_sel, direction)
+        np.testing.assert_array_equal(expc[:dim].argmax(1), np.abs(m_of))
+        np.testing.assert_array_equal(exps[:dim].sum(1), sign if direction == "to" else -sign)
+        if direction == "to":
+            np.testing.assert_array_equal(s2[:dim, :dim], j.T)
+            np.testing.assert_array_equal(s2[dp:dp + dim, :dim], j.T[swap])
+            np.testing.assert_array_equal(s3[:n_sel, :dim], psel @ j)
+        else:
+            np.testing.assert_array_equal(s1[:dim, :n_sel], (psel @ j).T)
+            np.testing.assert_array_equal(s2[:dim, :dim], j)
+            np.testing.assert_array_equal(s2[dp:dp + dim, :dim], j[swap])

@@ -141,3 +141,24 @@ def test_config_includes_and_overrides_match_jax():
     assert cfg["dataset"] == [{"src": "data/train"}, {"src": "/v"}] and cfg["optim"]["batch_size"] == 8
     assert cfg["optim"]["lr_initial"] == 1e-4 and cfg["model"]["cell_reps"] == "auto"
     assert dups == ["dataset.1.src", "optim.batch_size"]
+
+
+def test_config_main_file_overrides_its_includes_with_a_warning(tmp_path):
+    """eqv2_so3.yml sets optim keys that base.yml sets too: the main file
+    wins with a warning (the reference's rule), so the port's CLI loads it
+    and eqv2_conditional.yml; two includes that set one key are an error.
+    The JAX package files the main file's overrides as errors and its
+    build_config refuses these two configs."""
+    for name in ("eqv2_so3.yml", "eqv2_conditional.yml"):
+        path = os.path.join(REPO, "configs/denoising", name)
+        cfg, warn, err = load_config(path)
+        assert warn == ["optim.batch_size", "optim.eval_batch_size", "optim.lr_initial"] and err == []
+        assert cfg["optim"]["batch_size"] == 12 and cfg["optim"]["lr_initial"] == 4e-4
+        assert cfg["optim"]["clip_grad_norm"] == 100 and cfg["model"]["cell_reps"] == "auto"
+        assert ("energy_encoding" in cfg["model"]) == (name == "eqv2_conditional.yml")
+        assert jax_load_config(path)[2] == warn
+    (tmp_path / "a.yml").write_text("optim:\n  lr: 0.1\n")
+    (tmp_path / "b.yml").write_text("optim:\n  lr: 0.2\n")
+    (tmp_path / "main.yml").write_text("includes:\n  - a.yml\n  - b.yml\n")
+    cfg, warn, err = load_config(str(tmp_path / "main.yml"))
+    assert cfg["optim"]["lr"] == 0.2 and err == ["optim.lr"] and warn == []
