@@ -4,24 +4,26 @@ spherical harmonics, in PyTorch.
 Port of :mod:`adsorbdiff_tpu.models.equiformer_v2` on the dense padded
 ``[B, N, K]`` neighbour table: node features are real-SH coefficient tensors
 ``[B, N, (lmax+1)^2, C]``; edges rotate into the truncated m-primary edge
-frame with the decomposed Wigner chain of :mod:`adsorbdiff_tpu_torch.models.
-so3`; every attention block runs two Hopper kernels, as the JAX model's
-``use_pallas=True, use_pallas_conv1=True`` branch does:
+frame of :mod:`adsorbdiff_tpu_torch.models.so3`; every attention block runs
+three Hopper kernels, as the JAX model's
+``use_pallas=True, use_pallas_conv1=True, use_pallas_rotate=True`` branch
+does:
 
 - :func:`adsorbdiff_tpu_torch.ops.kernels.eqv2_attn_conv1` (gaussian basis ->
   radial trunk -> per-m gates -> gated first SO(2) conv), fed the radii-offset,
   clamped distances; its VJP recomputes the plain version;
 - :func:`adsorbdiff_tpu_torch.ops.kernels.s2_grid_silu` (the separable S^2
   activation on the l > 0 rows, the m-truncation rescale folded into the grid
-  matrices), whose backward is the ``s2_grid_silu_bwd`` kernel.
+  matrices), whose backward is the ``s2_grid_silu_bwd`` kernel;
+- :func:`adsorbdiff_tpu_torch.ops.kernels.eqv2_edge_rotate` /
+  ``eqv2_gather_rotate_to`` (every edge-frame rotation: each attention's
+  source half, target half and value rotation back, and the edge-degree
+  embedding's), whose VJP is the same kernel in the dual direction.  On the
+  card it is faster than the decomposed chain of :mod:`so3` (the kernel's
+  plain version, which the JAX package's XLA path runs).
 
-There is no switch for those: ``use_pallas`` and ``use_pallas_conv1`` are
-accepted for config compatibility and ignored.  ``use_pallas_rotate=True``
-runs every edge-frame rotation (the edge-degree embedding, each attention's
-source half, target half and value rotation back, so also the force heads)
-through :func:`adsorbdiff_tpu_torch.ops.kernels.eqv2_edge_rotate` /
-``eqv2_gather_rotate_to``, forward and backward; off (the published config's
-choice, as in JAX) the decomposed chain of :mod:`so3` runs in plain PyTorch.
+There is no switch for those: ``use_pallas``, ``use_pallas_conv1`` and
+``use_pallas_rotate`` are accepted for config compatibility and ignored.
 
 Training: the drop regularisers (post-softmax ``alpha_drop`` in the
 transformer blocks' attention; per-graph ``drop_path_rate`` and
@@ -64,8 +66,6 @@ from adsorbdiff_tpu_torch.models.so3 import (
     l1_coeffs_to_vector,
     m_primary_order,
     m_trunc_rescale,
-    rotate_from_edge_m,
-    rotate_to_edge_m,
     s2_grid_matrices,
 )
 from adsorbdiff_tpu_torch.ops.kernels import eqv2_attn_conv1, eqv2_edge_rotate, eqv2_gather_rotate_to, s2_grid_silu
@@ -315,11 +315,10 @@ class SO2Attention(nn.Module):
 
     def __init__(self, lmax: int, mmax: int, channels: int, attn_hidden: int, num_heads: int, attn_alpha: int,
                  attn_value: int, c_out: int, max_num_elements: int, rad_channels: Tuple[int, ...],
-                 grid_res: int = 18, cutoff: float = 12.0, num_gauss: int = 600, alpha_drop: float = 0.0,
-                 use_pallas_rotate: bool = False) -> None:
+                 grid_res: int = 18, cutoff: float = 12.0, num_gauss: int = 600, alpha_drop: float = 0.0) -> None:
         super().__init__()
         self.lmax, self.mmax = lmax, mmax
-        self.alpha_drop, self.use_pallas_rotate = alpha_drop, use_pallas_rotate
+        self.alpha_drop = alpha_drop
         self.num_heads, self.attn_alpha, self.attn_value = num_heads, attn_alpha, attn_value
         self.attn_hidden = attn_hidden
         self.cutoff, self.num_gauss = cutoff, num_gauss
@@ -346,12 +345,8 @@ class SO2Attention(nn.Module):
         emb_t = self.target_embedding(z)[:, :, None, :].expand_as(emb_s).contiguous()
         # the source half from the source rows; the target half rotates from
         # the node table, shared by the K edges of each target
-        if self.use_pallas_rotate:
-            msg_s = eqv2_gather_rotate_to(x, nl.src, gamma, beta, self.lmax, self.mmax)
-            msg_t = eqv2_edge_rotate(x[:, :, None], gamma, beta, self.lmax, self.mmax, direction="to")
-        else:
-            msg_s = rotate_to_edge_m(gather_nodes(x, nl.src), gamma, beta, self.lmax, self.mmax)
-            msg_t = rotate_to_edge_m(x[:, :, None], gamma, beta, self.lmax, self.mmax)
+        msg_s = eqv2_gather_rotate_to(x, nl.src, gamma, beta, self.lmax, self.mmax)
+        msg_t = eqv2_edge_rotate(x[:, :, None], gamma, beta, self.lmax, self.mmax, direction="to")
         rad, conv = self.so2_conv_1.jax_trees()
         h, x0_extra = eqv2_attn_conv1(
             dist, nl.mask, emb_s, emb_t, msg_s, msg_t, rad, conv, lmax=self.lmax, mmax=self.mmax,
@@ -375,10 +370,7 @@ class SO2Attention(nn.Module):
             attn = _drop(attn, self.alpha_drop, tuple(attn.shape), dropout_generator)
 
         v = v * attn.repeat_interleave(self.attn_value, dim=-1)[..., None, :]
-        if self.use_pallas_rotate:
-            v_rot = eqv2_edge_rotate(v, gamma, beta, self.lmax, self.mmax, direction="from", n_sel=v.shape[-2])
-        else:
-            v_rot = rotate_from_edge_m(v, gamma, beta, self.lmax, self.mmax)
+        v_rot = eqv2_edge_rotate(v, gamma, beta, self.lmax, self.mmax, direction="from", n_sel=v.shape[-2])
         v_rot = v_rot * self.rescale_out[:, None]
         v_rot = torch.where(mask[..., None], v_rot, torch.zeros_like(v_rot))
         return self.proj(v_rot.sum(dim=2))
@@ -409,11 +401,10 @@ class EquiformerV2(nn.Module):
     ``device``: the CUDA card unless ``"cpu"`` is passed (raises without a
     card).  ``generator``: seeds the initial weights (flax's default init
     distributions); weights are usually loaded afterwards.
-    ``use_atom_edge_embedding``, ``use_pallas`` and ``use_pallas_conv1`` are
-    accepted for config compatibility and change nothing, as in the JAX
-    model (the first) or because the kernels always run (the others).
-    ``use_pallas_rotate`` routes the edge-frame rotations through the
-    rotation kernel.  ``training`` sets ``nn.Module.training`` (see the
+    ``use_atom_edge_embedding``, ``use_pallas``, ``use_pallas_conv1`` and
+    ``use_pallas_rotate`` are accepted for config compatibility and change
+    nothing, as in the JAX model (the first) or because the kernels always
+    run (the others).  ``training`` sets ``nn.Module.training`` (see the
     module docstring): in train mode a forward with a non-zero
     ``alpha_drop``, ``drop_path_rate`` or ``proj_drop`` draws its masks from
     ``forward``'s ``dropout_generator``; with zero rates it is the eval forward.
@@ -454,7 +445,7 @@ class EquiformerV2(nn.Module):
         proj_drop: float = 0.0,
         training: bool = False,
         use_pallas: Optional[bool] = None,
-        use_pallas_rotate: bool = False,
+        use_pallas_rotate: Optional[bool] = None,
         use_pallas_conv1: Optional[bool] = None,
         compute_dtype: Optional[str] = None,
         device: DeviceLike = None,
@@ -491,7 +482,6 @@ class EquiformerV2(nn.Module):
         self.avg_degree = avg_degree
         self.avg_num_nodes = avg_num_nodes
         self.drop_path_rate, self.proj_drop = drop_path_rate, proj_drop
-        self.use_pallas_rotate = use_pallas_rotate
         self.has_drops = max(alpha_drop, drop_path_rate, proj_drop) > 0.0
 
         c = sphere_channels
@@ -501,7 +491,7 @@ class EquiformerV2(nn.Module):
         def attention(c_out, alpha_drop=0.0):  # the force heads drop nothing, as in JAX
             return SO2Attention(lmax, mmax, c, attn_hidden_channels, num_heads, attn_alpha_channels,
                                 attn_value_channels, c_out, max_num_elements, rad, grid_resolution, cutoff,
-                                num_distance_basis, alpha_drop, use_pallas_rotate)
+                                num_distance_basis, alpha_drop)
 
         self.sphere_embedding = nn.Embedding(max_num_elements, c)
         if energy_encoding == "scalar":
@@ -608,10 +598,7 @@ class EquiformerV2(nn.Module):
         emb_t = self.edge_degree_target_embedding(z)[:, :, None, :].expand_as(emb_s)
         deg = self.edge_degree_rad_func(torch.cat([edge_gauss, emb_s, emb_t], dim=-1))
         deg = deg.unflatten(-1, (-1, self.sphere_channels))
-        if self.use_pallas_rotate:
-            deg_full = eqv2_edge_rotate(deg, gamma, beta, self.lmax, self.mmax, direction="from", n_sel=deg.shape[-2])
-        else:
-            deg_full = rotate_from_edge_m(deg, gamma, beta, self.lmax, self.mmax)
+        deg_full = eqv2_edge_rotate(deg, gamma, beta, self.lmax, self.mmax, direction="from", n_sel=deg.shape[-2])
         deg_full = deg_full * self.rescale[:, None]
         deg_full = torch.where(mask[..., None, None], deg_full, torch.zeros_like(deg_full))
         x = x + deg_full.sum(dim=2) / self.avg_degree

@@ -240,16 +240,10 @@ class BaseTrainer:
     def init_state(self) -> None:
         """Fresh optimiser state (zero moments, count 0) and EMA = params.
         The EMA lives in an eval-mode copy of the model (:attr:`ema_module`),
-        whose parameters the update writes in place; :attr:`sampling_module`
-        is the same module with ``sampling`` on (energy conditioning zeroed),
-        sharing its parameters, as the JAX trainer's sampling model."""
+        whose parameters the update writes in place."""
         with torch.no_grad():
             self._flat = _flatten_parameters(self.model)
             self.ema_module = copy.deepcopy(self.model).requires_grad_(False).eval()
-            self.sampling_module = self.ema_module
-            if getattr(self.ema_module, "sampling", True) is False:
-                self.sampling_module = copy.copy(self.ema_module)  # shares the parameters and buffers
-                self.sampling_module.sampling = True
             self._ema_flat = _flatten_parameters(self.ema_module)
             self._mu_flat = torch.zeros_like(self._flat)
             self._nu_flat = torch.zeros_like(self._flat)
@@ -515,7 +509,9 @@ class DenoisingTrainer(BaseTrainer):
         return self.score_fn(batch)
 
     def score_fn(self, batch: AtomsBatch, static_graph=None):
-        out = self.sampling_module(batch, static_graph)
+        """The EMA model as the sampler calls it: energy conditioning zeroed,
+        as the JAX trainer's sampling model (``sampling=True``) does."""
+        out = self.ema_module(batch.replace(energy=torch.zeros_like(batch.energy)), static_graph)
         out1, out2 = out if self.so3 else (out, None)
         if out2 is not None:
             out2 = torch.where(batch.fixed[..., None], torch.zeros_like(out2), out2)

@@ -57,8 +57,11 @@ Phases; any failure raises and the exit code is then non-zero:
    K=20; random weights from a seeded generator; cell_reps=(2,2,0),
    max_ads=8) drives 100 ODE reverse-diffusion steps through DiffusionEngine
    with the hoisted static graph on the 16 bench systems.  Launch counts are
-   zeroed just before and read just after: 10 launches of each kernel per
-   step (8 blocks + 2 force heads).  Finite outputs, slab atoms unmoved.
+   zeroed just before and read just after: 10 launches of s2_grid_silu and
+   of eqv2_attn_conv1 per step (8 blocks + 2 force heads) and 31 of
+   eqv2_edge_rotate (the edge-degree embedding, then source half, target
+   half and value rotation back in each of the 10 attentions).  Finite
+   outputs, slab atoms unmoved.
 12. card vs CPU, EquiformerV2: one full-width forward at B=2, both heads
    within 1e-4 * max|cpu| (TF32 off).
 13. EquiformerV2 backward kernels against their plain versions on the card,
@@ -76,21 +79,19 @@ Phases; any failure raises and the exit code is then non-zero:
    with warm-up, clip 100, EMA 0.999; random weights from a seeded
    generator; max_epochs cut from 100 to 1, of 20 steps) on bench systems
    written to shards.  Launch counts are zeroed just before train() and read
-   at every step: exactly 10 s2_grid_silu, 10 eqv2_attn_conv1 and 10
-   s2_grid_silu_bwd launches per step, no eqv2_edge_rotate (the option is
-   off in the config).  Every loss finite; params and EMA moved; EMA !=
-   params; validation loss finite; systems/s over the steps after the first.
+   at every step: exactly 10 s2_grid_silu, 10 eqv2_attn_conv1, 10
+   s2_grid_silu_bwd and 31 + 31 eqv2_edge_rotate launches per step (each
+   forward rotation and its dual in the backward).  Every loss finite;
+   params and EMA moved; EMA != params; validation loss finite; systems/s
+   over the steps after the first.
 15. card vs CPU, one EquiformerV2 training step at B=2: loss, grad_norm and
-   every parameter's gradient within 1e-3 * max|cpu| of that tensor.
-16. use_pallas_rotate: one B=16 forward with the option on against the same
-   weights with it off, both heads within 1e-4 * max|off|, and one B=12
-   training step on against off, every gradient within 1e-3 * max|off|.
-   Launch counts are zeroed just before each and read just after: 31
-   eqv2_edge_rotate launches per forward (the edge-degree embedding, then
-   source half, target half and value rotation in each of 8 blocks and 2
-   force heads) and 31 in the backward (one dual rotation each); the
-   forward's ms with the option on and off.
-17. the kernels line, then the device line as the last line.
+   every parameter's gradient within 1e-3 * max|cpu| of that tensor (the
+   CPU runs every kernel's plain version, the rotations' decomposed chain
+   included).
+16. the kernels line, then the device line as the last line.  A row's ms,
+   plain_ms and bound_ms are per launch; eqv2_edge_rotate's are the mean
+   over the four forms in the proportions one forward launches them, and
+   its launches are the EquiformerV2 sampling run's.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -118,7 +119,7 @@ from adsorbdiff_tpu_torch.models.painn import PaiNN
 from adsorbdiff_tpu_torch.ops import build, kernels, pbc
 from adsorbdiff_tpu_torch.relaxation.lbfgs import make_mlff_energy_forces
 from adsorbdiff_tpu_torch.relaxation.ml_relaxation import DiffusionEngine, RelaxationEngine, make_score_fn
-from adsorbdiff_tpu_torch.train.trainer import DenoisingTrainer, _model_from_config
+from adsorbdiff_tpu_torch.train.trainer import DenoisingTrainer
 
 # NVIDIA H100 SXM data sheet: dense f32 outside the tensor cores, HBM3 rate
 F32_FLOPS = 67e12
@@ -157,7 +158,7 @@ TRAIN_CONFIG = dict(
     logger="tensorboard", seed=0, identifier="smoke", print_every=100,
 )
 GRAD_RTOL = 1e-3
-# configs/denoising/eqv2_so3.yml, model block (use_pallas and use_pallas_conv1 are the port's only path);
+# configs/denoising/eqv2_so3.yml, model block (the port ignores its use_pallas* switches: the kernels always run);
 # cell_reps and max_ads as bench.py sets them for sampling
 EQV2_KW = dict(num_layers=8, sphere_channels=128, attn_hidden_channels=64, num_heads=8, attn_alpha_channels=64,
                attn_value_channels=16, ffn_hidden_channels=128, lmax=4, mmax=2, grid_resolution=18,
@@ -476,8 +477,8 @@ def check_rotations(device, gen, batch, model):
     """Phase 13a: eqv2_edge_rotate in every form the model runs, at the
     batch's live graph and the model's widths, and each form's VJP against
     autograd of the plain chain; then ragged TINY shapes.  Returns the
-    kernels-line row, timed over one attention block's three rotations
-    (source half gathered, target half, value rotation back)."""
+    kernels-line row, its times per launch: the mean over the forms in the
+    proportions one forward launches them."""
     nl, _, unit = generate_graph(batch, cutoff=model.cutoff, max_neighbors=model.max_neighbors,
                                  cell_reps=model.cell_reps)
     gamma, beta = so3.edge_euler_angles(unit)
@@ -535,10 +536,14 @@ def check_rotations(device, gen, batch, model):
             check_close(f"eqv2_edge_rotate {direction} ragged x{tuple(t.shape)}",
                         [kernels.eqv2_edge_rotate(*args, direction=direction)],
                         [kernels.eqv2_edge_rotate_reference(*args, direction=direction)])
-    # one attention block's rotations: gathered source half, target half, value rotation back
-    block = [times[name] for name in ("eqv2_gather_rotate_to", "to, node-level target half", "from, n_sel 19")]
-    ms, plain_ms, bound_ms = (sum(t[i] for t in block) for i in range(3))
-    print(f"[kernel] eqv2_edge_rotate, one attention block's three rotations at E={gamma.numel()}: {ms:.4f} ms, plain "
+    # per launch, weighted as one forward launches them: per attention the gathered source half, the target
+    # half and the value rotation back; the edge-degree embedding once
+    attn = model.num_layers + 2
+    mix = {"eqv2_gather_rotate_to": attn, "to, node-level target half": attn, "from, n_sel 19": attn,
+           "from, n_sel 5": 1}
+    ms, plain_ms, bound_ms = (sum(n * times[name][i] for name, n in mix.items()) / sum(mix.values())
+                              for i in range(3))
+    print(f"[kernel] eqv2_edge_rotate per launch at E={gamma.numel()}, weighted {mix}: {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by bytes", flush=True)
     return dict(name="eqv2_edge_rotate", source="adsorbdiff_tpu_torch/csrc/eqv2_edge_rotate.cu",
                 replaces="adsorbdiff_tpu/ops/pallas_kernels.py:1079", max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -547,7 +552,7 @@ def check_rotations(device, gen, batch, model):
 
 @torch.no_grad()  # the sampling path: no autograd
 def eqv2_path(device, gen, systems):
-    """Phases 10, 11, 12, 13a and 16a."""
+    """Phases 10, 11, 12 and 13a."""
     batch = collate(systems, max_atoms=80, device=device)
     model = EquiformerV2(**EQV2_KW, device=device, generator=gen)
     score_fn = make_score_fn(model)
@@ -598,7 +603,8 @@ def eqv2_path(device, gen, systems):
     launches = dict(kernels.launches)
     steps = EQV2_PARAMS["num_steps"]
     per_step = model.num_layers + 2  # every block and both force heads
-    want = {"s2_grid_silu": per_step * steps, "eqv2_attn_conv1": per_step * steps}
+    want = {"s2_grid_silu": per_step * steps, "eqv2_attn_conv1": per_step * steps,
+            "eqv2_edge_rotate": (1 + 3 * per_step) * steps}
     if launches != want:
         raise AssertionError(f"EquiformerV2 sampling launched {launches}, want {want} ({per_step} per step)")
     if res.traj_pos.shape != (steps + 1, 16, 80, 3) or not torch.isfinite(res.traj_pos).all():
@@ -611,9 +617,10 @@ def eqv2_path(device, gen, systems):
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB allocated, launches {launches}, "
           f"converged_at {int(res.converged_at)}", flush=True)
     forward_ms = cuda_ms(lambda: score_fn(batch, static), 5)
+    kernel_ms = per_step * (c1_ms + s2_ms) + (1 + 3 * per_step) * rot_row["ms"]
     print(f"[eqv2] one score forward (graph + {model.num_layers} blocks + 2 heads): {forward_ms:.3f} ms; {per_step} "
-          f"launches of each kernel at {c1_ms:.4f} + {s2_ms:.4f} ms = "
-          f"{100 * per_step * (c1_ms + s2_ms) / forward_ms:.1f}% of it", flush=True)
+          f"launches each of eqv2_attn_conv1 and s2_grid_silu at {c1_ms:.4f} + {s2_ms:.4f} ms and {1 + 3 * per_step} "
+          f"of eqv2_edge_rotate at {rot_row['ms']:.4f} ms = {100 * kernel_ms / forward_ms:.1f}% of it", flush=True)
 
     # 12. card vs CPU, whole model at B=2
     small = collate(systems[:2], max_atoms=80, device=device)
@@ -623,30 +630,15 @@ def eqv2_path(device, gen, systems):
         host = cpu_model(small.to("cpu"))
     check_model("EquiformerV2", zip(("force_block", "force_block2"), card, host))
     del cpu_model, card, host
-
-    # 16a. use_pallas_rotate on against off, one full-width forward at B=16
-    rotate_model = EquiformerV2(**EQV2_KW, use_pallas_rotate=True, device=device)
-    rotate_model.load_state_dict(model.state_dict())
-    kernels.launches.clear()
-    on = rotate_model(batch, static)
-    torch.cuda.synchronize()
-    launches_on = dict(kernels.launches)
-    per_forward = 1 + 3 * per_step
-    if launches_on.get("eqv2_edge_rotate") != per_forward:
-        raise AssertionError(f"use_pallas_rotate forward launched {launches_on}, want eqv2_edge_rotate x{per_forward}")
-    check_model("EquiformerV2 use_pallas_rotate on vs off", zip(("force_block", "force_block2"), on,
-                                                                model(batch, static)), device_ref=True)
-    on_ms = cuda_ms(lambda: rotate_model(batch, static), 5)
-    off_ms = cuda_ms(lambda: model(batch, static), 5)
-    print(f"[eqv2] use_pallas_rotate, one B=16 forward with the hoisted graph: on {on_ms:.3f} ms ({per_forward} "
-          f"rotation launches), off {off_ms:.3f} ms (the plain decomposed chain)", flush=True)
-    return rot_row, [
+    rot_row["launches"] = launches["eqv2_edge_rotate"]
+    return [
         dict(name="s2_grid_silu", source="adsorbdiff_tpu_torch/csrc/s2_grid_silu.cu",
              replaces="adsorbdiff_tpu/ops/pallas_kernels.py:903", launches=launches["s2_grid_silu"],
              max_abs_err=s2_err, ms=s2_ms, plain_ms=s2_plain_ms, bound_ms=s2_bound, bound_by=s2_by),
         dict(name="eqv2_attn_conv1", source="adsorbdiff_tpu_torch/csrc/eqv2_attn_conv1.cu",
              replaces="adsorbdiff_tpu/ops/pallas_kernels.py:1252", launches=launches["eqv2_attn_conv1"],
              max_abs_err=c1_err, ms=c1_ms, plain_ms=c1_plain_ms, bound_ms=c1_bound, bound_by=c1_by),
+        rot_row,
     ]
 
 
@@ -715,17 +707,15 @@ def sampling_path(device, gen, systems):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def check_model(model_name, pairs, device_ref=False):
-    """Card against CPU outputs (or against a second card run): finite and
-    within 1e-4 * max|reference|."""
-    what = "" if device_ref else "card vs CPU "
+def check_model(model_name, pairs):
+    """Card against CPU outputs: finite and within 1e-4 * max|cpu|."""
     for name, c, h in pairs:
-        h = h if device_ref else h.to(c.device)
+        h = h.to(c.device)
         e = (c - h).abs().max().item()
         limit = MODEL_RTOL * h.abs().max().item()
         if not (torch.isfinite(c).all() and e <= limit):
-            raise AssertionError(f"{what}{model_name} {name}: max |diff| {e} > {limit}")
-        print(f"[check] {what}{model_name} {name}: max |diff| {e:.3e} "
+            raise AssertionError(f"card vs CPU {model_name} {name}: max |diff| {e} > {limit}")
+        print(f"[check] card vs CPU {model_name} {name}: max |diff| {e:.3e} "
               f"(limit {MODEL_RTOL} * max|reference| = {limit:.3e})", flush=True)
 
 
@@ -956,7 +946,7 @@ def training_path(device, gen, root):
 
 
 def eqv2_training_path(device, gen, root):
-    """Phases 13b, 14, 15 and 16b."""
+    """Phases 13b, 14 and 15."""
     paths = write_training_shards(root, {"train": EQV2_TRAIN_BATCH * EQV2_TRAIN_STEPS, "val": EQV2_EVAL_BATCH})
     config = dict(copy.deepcopy(EQV2_TRAIN_CONFIG), run_dir=root, dataset=[{"src": paths["train"]}, {"src": paths["val"]}])
     trainer = DenoisingTrainer(config, device=device)
@@ -1009,42 +999,15 @@ def eqv2_training_path(device, gen, root):
     del calls, h, dy, out, args, outs, cts, leaves, edge_inputs, trees, noised
 
     # 14. one epoch of DenoisingTrainer.train(); counts zeroed just before, read at every step
-    want = {"s2_grid_silu": per_step, "eqv2_attn_conv1": per_step, "s2_grid_silu_bwd": per_step}
+    want = {"s2_grid_silu": per_step, "eqv2_attn_conv1": per_step, "s2_grid_silu_bwd": per_step,
+            "eqv2_edge_rotate": 2 * (1 + 3 * per_step)}
     launches = train_one_epoch(trainer, EQV2_TRAIN_STEPS, want)
 
     # 15. card vs CPU, one training step at B=2
     check_training_step(config, device, "EquiformerV2")
-
-    # 16b. use_pallas_rotate on against off: one B=12 training step, every gradient
-    on_model = _model_from_config(dict(trainer.model_cfg, use_pallas_rotate=True), mode=trainer._model_mode(),
-                                  device=device, generator=torch.Generator(), training=True)
-    on_model.load_state_dict(model.state_dict())
-    draws = draw_schedule(EQV2_TRAIN_BATCH, device, torch.Generator(device=device).manual_seed(8))
-    steps = {}
-    for label, m in (("off", model), ("on", on_model)):
-        kernels.launches.clear()
-        loss, _ = trainer._denoising_loss(m, batch, draws, None)
-        torch.cuda.synchronize()
-        fwd = dict(kernels.launches)
-        kernels.launches.clear()
-        grads = torch.autograd.grad(loss, list(m.parameters()))
-        torch.cuda.synchronize()
-        steps[label] = (loss.detach(), grads, fwd, dict(kernels.launches))
-    rot_fwd, rot_bwd = (steps["on"][i].get("eqv2_edge_rotate", 0) for i in (2, 3))
-    if (rot_fwd, rot_bwd) != (1 + 3 * per_step,) * 2 or "eqv2_edge_rotate" in {**steps["off"][2], **steps["off"][3]}:
-        raise AssertionError(f"use_pallas_rotate training step launched {steps['on'][2:]} (off: {steps['off'][2:]}), "
-                             f"want eqv2_edge_rotate x{1 + 3 * per_step} forward and backward")
-    names = [n for n, _ in on_model.named_parameters()]
-    worst = check_grads("use_pallas_rotate on vs off training step", [("loss", steps["on"][0][None], steps["off"][0][None])]
-                        + list(zip(names, steps["on"][1], steps["off"][1])))
-    print(f"[check] use_pallas_rotate on vs off, one B={EQV2_TRAIN_BATCH} training step: loss "
-          f"{steps['on'][0].item():.6f} / {steps['off'][0].item():.6f}; {len(names)} gradients, worst max|diff| / "
-          f"max|off| {worst:.3e} (limit {GRAD_RTOL}); launches forward {steps['on'][2]}, backward {steps['on'][3]}",
-          flush=True)
-    row = dict(name="s2_grid_silu_bwd", source="adsorbdiff_tpu_torch/csrc/s2_grid_silu_bwd.cu",
+    return dict(name="s2_grid_silu_bwd", source="adsorbdiff_tpu_torch/csrc/s2_grid_silu_bwd.cu",
                replaces="adsorbdiff_tpu/ops/pallas_kernels.py:919", launches=launches["s2_grid_silu_bwd"],
                max_abs_err=s2b_err, ms=s2b_ms, plain_ms=s2b_plain_ms, bound_ms=s2b_bound, bound_by=s2b_by)
-    return row, rot_fwd + rot_bwd
 
 
 def main():
@@ -1070,7 +1033,7 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
-    # 3-16. each path: its kernels against the plain versions, the path, card vs CPU
+    # 3-15. each path: its kernels against the plain versions, the path, card vs CPU
     systems = bench_systems()
     rows = [
         sampling_path(device, torch.Generator().manual_seed(0), systems),
@@ -1078,13 +1041,11 @@ def main():
     ]
     with tempfile.TemporaryDirectory() as root:
         rows.append(training_path(device, torch.Generator().manual_seed(5), root))
-    rotate_row, eqv2_rows = eqv2_path(device, torch.Generator().manual_seed(7), systems)
-    rows += eqv2_rows
+    rows += eqv2_path(device, torch.Generator().manual_seed(7), systems)
     with tempfile.TemporaryDirectory() as root:
-        s2_bwd_row, rotate_row["launches"] = eqv2_training_path(device, torch.Generator().manual_seed(9), root)
-    rows += [s2_bwd_row, rotate_row]
+        rows.append(eqv2_training_path(device, torch.Generator().manual_seed(9), root))
 
-    # 17. results
+    # 16. results
     print(json.dumps({"kernels": [
         dict(name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"], launches=r["launches"],
              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

@@ -2,16 +2,15 @@
 
 Runs a chip_smoke.py training path (DenoisingTrainer.train() at the
 painn_so3.yml + base.yml settings, B=48, or with ``--model eqv2`` at the
-eqv2_so3.yml + base.yml settings, B=12; ``--rotate`` turns the EquiformerV2
-rotation kernel on) on bench systems written to shards in a temporary
-directory, for one epoch of a few steps, and prints:
+eqv2_so3.yml + base.yml settings, B=12) on bench systems written to shards
+in a temporary directory, for one epoch of a few steps, and prints:
 
 - the wall time per step (an epoch with the profiler off, after a warm-up
   step), the card's busy time per step (the sum of all device-side events of
   a profiled epoch of the same steps) and the idle share;
 - the device kernels with the most time, with their share of busy time.
 
-    python scripts/profile_torch_train.py [--model painn|eqv2] [--rotate] [--steps 10]
+    python scripts/profile_torch_train.py [--model painn|eqv2] [--steps 10]
 
 The last line is one JSON object with the same numbers.
 """
@@ -45,7 +44,6 @@ TOP_KERNELS = 15  # rows of the per-kernel table
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=("painn", "eqv2"), default="painn")
-    ap.add_argument("--rotate", action="store_true", help="EquiformerV2 with use_pallas_rotate: True")
     ap.add_argument("--steps", type=int, default=10)
     args = ap.parse_args()
     if args.model == "painn":
@@ -53,9 +51,7 @@ def main() -> None:
         what = f"B={batch_size}, N=80, H=512, 6 layers, K=50"
     else:
         batch_size, config = EQV2_TRAIN_BATCH, copy.deepcopy(EQV2_TRAIN_CONFIG)
-        config["model"]["use_pallas_rotate"] = args.rotate
-        what = (f"EquiformerV2, B={batch_size}, N=80, 8 layers, C=128, lmax 4 / mmax 2, K=20, use_pallas_rotate "
-                f"{args.rotate}")
+        what = f"EquiformerV2, B={batch_size}, N=80, 8 layers, C=128, lmax 4 / mmax 2, K=20"
 
     device = resolve_device(None)
     with tempfile.TemporaryDirectory() as root:
@@ -96,7 +92,7 @@ def main() -> None:
         top.append(row)
         print(f"{row['share']:7.1%}  {row['device_ms_per_step']:9.4f} ms/step  {row['calls_per_step']:6.1f} calls/step  "
               f"{name[:100]}")
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "model": args.model, "rotate": args.rotate,
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "model": args.model,
                       "steps": args.steps, **per_step, "top": top}))
 
 

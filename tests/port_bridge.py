@@ -6,12 +6,25 @@ package.
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 from adsorbdiff_tpu_torch.data.schema import AtomsBatch as TorchAtomsBatch
 from adsorbdiff_tpu_torch.diffusion.schedules import ScheduleDraws
 
 BATCH_FIELDS = [f.name for f in dataclasses.fields(TorchAtomsBatch)]
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread for each test of a module that imports this
+    fixture.  The port's tests run tiny shapes, and test processes share the
+    host's cores: with torch's default of one thread per core each, they
+    wait on each other, and a test of a few seconds takes a minute."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def to_torch_batch(jax_batch, device="cpu") -> TorchAtomsBatch:

@@ -1,12 +1,12 @@
 """PyTorch port: the whole EquiformerV2 against the JAX model, the pinned
 goldens, padding, equivariance, training (parameter gradients, the drop
-regularisers, the rotation kernel's option) and the options not ported yet.
+regularisers, the JAX model's rotation kernel) and the options not ported yet.
 
 The JAX model runs the S^2 activation through its Pallas kernel in interpret
 mode (``use_pallas=True``, patched as ``tests/test_pallas_kernels.py:338-351``
 does) and the first SO(2) conv on the XLA path (``use_pallas_conv1=False``,
 the path ``tests/test_pallas_kernels.py:357-395`` holds the conv1 kernel to);
-the port always runs its two kernels' plain versions on the CPU.  Tolerance
+the port always runs its kernels' plain versions on the CPU.  Tolerance
 atol 5e-5, rtol 1e-4: the one the JAX package uses between its own two paths
 (``tests/test_pallas_kernels.py:352``); parameter gradients atol 1e-5, rtol
 1e-3, its gradient test's (``tests/test_pallas_kernels.py:398-435``).
@@ -32,6 +32,7 @@ from tests.port_bridge import to_numpy, to_torch_batch
 from tests.test_equiformer_v2 import TINY
 from tests.test_model_goldens import GOLDEN
 from tests.test_painn import make_batch
+from tests.port_bridge import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(atol=5e-5, rtol=1e-4)
 
@@ -202,7 +203,7 @@ def test_denoising_trainer_on_equiformer_v2_raises(tmp_path):
 
 
 # --------------------------------------------------------------------------
-# training: parameter gradients, drops, the rotation kernel's option
+# training: parameter gradients, drops, the JAX model's rotation kernel
 # --------------------------------------------------------------------------
 def _jax_loss_grads(model, variables, batch, rngs=None):
     """(outputs, gradient tree) of sum over the heads of mean(f^2)."""
@@ -235,33 +236,26 @@ def _interpret_kernels(monkeypatch, names):
 
 
 GRAD_TOL = dict(atol=1e-5, rtol=1e-3)
-GRAD_CASES = {  # (JAX kernel options, port options, model options)
-    "xla": (dict(), dict(), dict()),
-    "xla-rotate": (dict(use_pallas_rotate=True), dict(use_pallas_rotate=True), dict()),
-    "pallas": (dict(use_pallas=True, use_pallas_conv1=True), dict(), dict()),
-    "pallas-rotate": (dict(use_pallas=True, use_pallas_conv1=True, use_pallas_rotate=True),
-                      dict(use_pallas_rotate=True), dict()),
-    "conditional": (dict(), dict(), dict(energy_encoding="scalar")),
-}
+GRAD_CASES = {"xla": dict(), "conditional": dict(energy_encoding="scalar")}  # model options
 
 
 @pytest.mark.parametrize("case", list(GRAD_CASES), ids=list(GRAD_CASES))
-def test_eqv2_parameter_gradients_match_jax(monkeypatch, case):
-    """Both heads; the JAX model on its XLA path or with its Pallas kernels
-    (S^2, conv1, rotation) in interpret mode, the port with the rotation
-    kernel's option off or on (its plain versions on the CPU) and, for the
-    conditional model, ``batch.energy`` feeding the energy embedding."""
-    jax_kw, port_kw, model_kw = GRAD_CASES[case]
-    kw = dict(MODES["denoising-two-heads"], **model_kw)
-    _interpret_kernels(monkeypatch, ("s2_grid_silu", "eqv2_attn_conv1", "eqv2_edge_rotate", "eqv2_gather_rotate_to"))
+def test_eqv2_parameter_gradients_match_jax(case):
+    """Both heads; the JAX model on its XLA path (its Pallas kernels'
+    gradients are held to that path by ``tests/test_pallas_kernels.py:
+    398-435``, its rotation kernel's against the port by the drops test
+    below, every kernel's VJP against the port's by
+    ``tests/test_torch_kernels.py``) and, for the conditional model,
+    ``batch.energy`` feeding the energy embedding."""
+    kw = dict(MODES["denoising-two-heads"], **GRAD_CASES[case])
     variables = jax_init(kw)
     batch = make_batch(np.random.default_rng(12))
-    want_out, want = _jax_loss_grads(JaxEquiformerV2(**TINY, **kw, **jax_kw), variables, batch)
-    got_out, got = _port_loss_grads(port(dict(kw, **port_kw), variables), to_torch_batch(batch))
+    want_out, want = _jax_loss_grads(JaxEquiformerV2(**TINY, **kw), variables, batch)
+    got_out, got = _port_loss_grads(port(kw, variables), to_torch_batch(batch))
     for g, w in zip(_outputs(got_out), _outputs(want_out)):
         np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), **TOL)
     _assert_grads_match(got, want, **GRAD_TOL)
-    if model_kw.get("energy_encoding"):
+    if "energy_encoding" in kw:
         assert np.abs(want["energy_embedding"]["kernel"]).max() > 0  # the energies reach the loss
 
 
@@ -273,7 +267,9 @@ def test_eqv2_drops_match_jax_with_injected_masks(monkeypatch, rotate):
     """A train-mode forward and its gradients with all three drop rates on:
     the same masks, made with numpy, go into both models in the order of
     their draws (per block: the attention's alpha drop, then drop path and
-    projection drop on the attention branch, then on the FFN branch)."""
+    projection drop on the attention branch, then on the FFN branch).  The
+    JAX model rotates by its XLA chain or by its rotation kernel in
+    interpret mode."""
     kw = dict(MODES["denoising-two-heads"], **DROPS)
     variables = jax_init(kw)
     batch = make_batch(np.random.default_rng(13))
@@ -299,7 +295,7 @@ def test_eqv2_drops_match_jax_with_injected_masks(monkeypatch, rotate):
         return torch.from_numpy(mask).to(device)
 
     monkeypatch.setattr(port_eqv2, "bernoulli_keep", port_bernoulli)
-    model = port(dict(kw, training=True, use_pallas_rotate=rotate), variables)
+    model = port(dict(kw, training=True), variables)
     got_out, got = _port_loss_grads(model, to_torch_batch(batch), dropout_generator=torch.Generator().manual_seed(0))
     assert next(replay, None) is None
     for g, w in zip(_outputs(got_out), _outputs(want_out)):
@@ -327,14 +323,16 @@ def test_drop_rates_act_only_in_train_mode(option):
 
 
 def test_pallas_rotate_option_is_the_plain_chain_on_the_cpu():
-    """``use_pallas_rotate`` changes no parameter name and, on the CPU (the
-    kernel's plain version), not the outputs either; no launch is counted."""
+    """``use_pallas_rotate`` (like ``use_pallas`` and ``use_pallas_conv1``)
+    is accepted for config compatibility and changes nothing: no parameter
+    name, no output.  On the CPU the rotations run the kernel's plain
+    version, the decomposed chain; no launch is counted."""
     variables = jax_init(MODES["denoising-two-heads"])
     batch = to_torch_batch(make_batch(np.random.default_rng(16)))
     before = dict(kernels.launches)
     with torch.no_grad():
         on = port(dict(MODES["denoising-two-heads"], use_pallas_rotate=True), variables)(batch)
-        off = port(MODES["denoising-two-heads"], variables)(batch)
+        off = port(dict(MODES["denoising-two-heads"], use_pallas_rotate=False), variables)(batch)
     for a, b in zip(on, off):
-        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6, rtol=1e-5)
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert dict(kernels.launches) == before

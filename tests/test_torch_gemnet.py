@@ -33,6 +33,7 @@ from tests.test_torch_import import (
     GEMNET_ORACLE_KW,
     _gemnet_oracle_system,
 )
+from tests.port_bridge import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -16,6 +16,7 @@ import torch
 
 from adsorbdiff_tpu.ops import igso3 as jax_igso3
 from adsorbdiff_tpu_torch.ops import igso3
+from tests.port_bridge import one_torch_thread  # noqa: F401  (autouse)
 
 # eps 0.01 and 2.0 (the grid's ends), values inside the rows where both
 # expected-score-norm tables agree, and random values across the range

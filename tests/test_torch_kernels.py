@@ -40,6 +40,7 @@ from adsorbdiff_tpu_torch.ops.kernels import (
     s2_grid_silu_bwd_reference,
     s2_grid_silu_reference,
 )
+from tests.port_bridge import one_torch_thread  # noqa: F401  (autouse)
 
 RAGGED = (2, 13, 10, 16, 64)  # b, n, k, r, h of tests/test_pallas_kernels.py:114 and :164
 GRAD_NAMES = ("xh", "vec", "weight", "bias")

@@ -23,6 +23,7 @@ from adsorbdiff_tpu_torch.relaxation.ml_relaxation import RelaxationEngine
 from tests.port_bridge import to_numpy, to_torch_batch
 from tests.test_painn import make_batch as slab_batch
 from tests.test_relaxation import make_batch
+from tests.port_bridge import one_torch_thread  # noqa: F401  (autouse)
 
 # the GemNet-OC of tests/test_relaxation.py::test_lbfgs_verlet_graph_parity
 # with an edge width that differs from the atom width: at equal widths the

@@ -20,6 +20,7 @@ from adsorbdiff_tpu_torch.models.layers import RadialBasis
 from adsorbdiff_tpu_torch.models.painn import PaiNN, painn_state_dict_from_jax
 from tests.port_bridge import to_numpy, to_torch_batch
 from tests.test_painn import MODEL_KW, make_batch
+from tests.port_bridge import one_torch_thread  # noqa: F401  (autouse)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "painn_golden.npz")
 FIXTURE_KW = dict(hidden_channels=32, num_layers=2, num_rbf=8, cutoff=6.0, max_neighbors=32, cell_reps=(1, 1, 0))

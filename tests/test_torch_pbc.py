@@ -13,6 +13,7 @@ from adsorbdiff_tpu.ops import pbc as jpbc
 from adsorbdiff_tpu_torch.ops import pbc
 from tests.port_bridge import assert_same_neighbors, to_numpy
 from tests.test_pbc import make_system
+from tests.port_bridge import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _t(a):

@@ -7,6 +7,7 @@ import torch
 from adsorbdiff_tpu.ops.rotation import axis_angle_to_matrix as jax_axis_angle_to_matrix
 from adsorbdiff_tpu.ops.rotation import axis_angle_to_quaternion as jax_axis_angle_to_quaternion
 from adsorbdiff_tpu_torch.ops.rotation import axis_angle_to_matrix, axis_angle_to_quaternion
+from tests.port_bridge import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _axis_angles(scale):

@@ -27,6 +27,7 @@ from adsorbdiff_tpu_torch.relaxation.ml_relaxation import DiffusionEngine, make_
 from tests.port_bridge import to_numpy, to_torch_batch
 from tests.test_diffusion import make_batch
 from tests.test_equiformer_v2 import TINY as EQV2_TINY
+from tests.port_bridge import one_torch_thread  # noqa: F401  (autouse)
 
 PARAMS = dict(num_steps=10, ads_std_low=0.1, ads_std_high=10.0, rot_std_low=0.01, rot_std_high=1.55)
 MODEL_KW = dict(hidden_channels=32, num_layers=2, num_rbf=8, cutoff=6.0, max_neighbors=20,

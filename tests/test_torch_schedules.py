@@ -16,6 +16,7 @@ from adsorbdiff_tpu.diffusion.schedules import tr_so3_schedule as jax_tr_so3
 from adsorbdiff_tpu_torch.diffusion.schedules import ads_com_gaussian_schedule, tr_so3_schedule
 from tests.port_bridge import jax_schedule_draws, to_numpy, to_torch_batch
 from tests.test_painn import make_batch
+from tests.port_bridge import one_torch_thread  # noqa: F401  (autouse)
 
 PARAMS = dict(ads_std_low=0.1, ads_std_high=10.0, rot_std_low=0.01, rot_std_high=1.55)  # configs/denoising/base.yml
 

@@ -12,6 +12,7 @@ from adsorbdiff_tpu.ops.segment import masked_mean as jax_masked_mean
 from adsorbdiff_tpu_torch.data.schema import System, collate, uncollate
 from adsorbdiff_tpu_torch.ops.segment import masked_max, masked_mean
 from tests.port_bridge import BATCH_FIELDS, to_numpy
+from tests.port_bridge import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _systems(rng, cls, n_systems=3, with_forces=True):

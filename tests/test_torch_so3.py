@@ -14,6 +14,7 @@ import torch
 from adsorbdiff_tpu.models import so3 as jso3
 from adsorbdiff_tpu_torch.models import so3
 from adsorbdiff_tpu_torch.ops.kernels import conv1_blocks
+from tests.port_bridge import one_torch_thread  # noqa: F401  (autouse)
 
 LM = [(4, 2), (2, 1), (3, 3)]
 

@@ -23,6 +23,7 @@ from adsorbdiff_tpu_torch.data.prefetch import Prefetcher, to_device
 from adsorbdiff_tpu_torch.data.schema import System
 from adsorbdiff_tpu_torch.data.store import ShardDataset, write_shard
 from tests.port_bridge import BATCH_FIELDS, to_numpy
+from tests.port_bridge import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIELDS = ("pos", "atomic_numbers", "tags", "fixed", "pos_relaxed", "forces", "cell", "sid", "fid", "energy",

@@ -39,6 +39,7 @@ from adsorbdiff_tpu_torch.train.trainer import DenoisingTrainer
 from tests.port_bridge import jax_schedule_draws, to_torch_batch
 from tests.test_equiformer_v2 import TINY as EQV2_TINY
 from tests.test_trainer import config_for, make_dataset
+from tests.port_bridge import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
