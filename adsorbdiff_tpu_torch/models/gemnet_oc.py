@@ -18,9 +18,13 @@ stores ``[R, S, F]``, and its forward reads the coefficient of
 state dict.
 
 The quadruplet interaction always runs :func:`adsorbdiff_tpu_torch.ops.
-kernels.gemnet_quad_chain`, the JAX model's ``fused_quad=True`` path; there is
-no switch, and ``fused_quad`` is accepted for config compatibility and
-ignored.  Its c == d exclusion compares integer image keys (:func:`_img_key`),
+kernels.gemnet_quad_chain`, the JAX model's ``fused_quad=True`` path, and the
+e2e, a2e and e2a triplet bases always come from :func:`adsorbdiff_tpu_torch.
+ops.kernels.gemnet_cbf_basis` (the masked Legendre kernel; the JAX model's
+``use_pallas=True`` path for the first two, and the same function for the
+third, which JAX leaves to XLA).  There is no switch: ``fused_quad`` and
+``use_pallas`` are accepted for config compatibility and ignored.  The
+quadruplet's c == d exclusion compares integer image keys (:func:`_img_key`),
 which the port packs in base 64: exact wherever the JAX package's base-16
 key is exact, and still injective where that one collides (offsets past 7).
 """
@@ -39,7 +43,7 @@ from adsorbdiff_tpu_torch.device import DeviceLike, resolve_device
 from adsorbdiff_tpu_torch.models.base import derive_subgraph, generate_graph, prepare_candidate_graph
 from adsorbdiff_tpu_torch.models.layers import AtomEmbedding, RadialBasis, ScaleFactor, scaled_silu
 from adsorbdiff_tpu_torch.ops import pbc
-from adsorbdiff_tpu_torch.ops.kernels import gemnet_quad_chain
+from adsorbdiff_tpu_torch.ops.kernels import gemnet_cbf_basis, gemnet_quad_chain, legendre_y_l0
 
 INV_SQRT_2 = 1 / math.sqrt(2.0)
 KEY_BASE, KEY_BIAS = 64, 32  # _img_key digits: offsets in [-32, 31]
@@ -80,15 +84,6 @@ class MLPStack(nn.Sequential):
     def __init__(self, d_in: int, units: int, n_hidden: int, dense_in: bool = True) -> None:
         layers = [DenseLayer(d_in, units)] if dense_in else []
         super().__init__(*layers, *(ResidualLayer(units) for _ in range(n_hidden)))
-
-
-def legendre_y_l0(cos_theta: torch.Tensor, num: int) -> torch.Tensor:
-    """Real spherical harmonics ``Y_l^0 = sqrt((2l+1)/4pi) P_l(cos)``,
-    l = 0..num-1, stacked on a new last axis."""
-    ps = [torch.ones_like(cos_theta), cos_theta]
-    for l in range(2, num):
-        ps.append(((2 * l - 1) * cos_theta * ps[l - 1] - (l - 1) * ps[l - 2]) / l)
-    return torch.stack([math.sqrt((2 * l + 1) / (4 * math.pi)) * ps[l] for l in range(num)], dim=-1)
 
 
 class BasisEmbedding(nn.Module):
@@ -309,10 +304,10 @@ class GemNetOC(nn.Module):
     factors 1); weights are usually loaded afterwards.
 
     Not ported yet (raise ``NotImplementedError``): ``mode="denoising"``,
-    ``compute_dtype``, ``energy_encoding``, ``use_pallas=True`` (the masked
-    Legendre kernel) and ``fused_trip=True`` (the triplet consumers through
-    the quad-chain kernel).  ``fused_quad`` is accepted and ignored: the
-    quadruplet interaction always runs the kernel.
+    ``compute_dtype``, ``energy_encoding`` and ``fused_trip=True`` (the
+    triplet consumers through the quad-chain kernel).  ``fused_quad`` and
+    ``use_pallas`` are accepted and ignored: the quadruplet interaction and
+    the triplet bases always run their kernels.
     """
 
     def __init__(
@@ -372,7 +367,6 @@ class GemNetOC(nn.Module):
             ("mode", mode, "s2ef"),
             ("compute_dtype", compute_dtype, None),
             ("energy_encoding", energy_encoding, None),
-            ("use_pallas", use_pallas, False),
             ("fused_trip", fused_trip, False),
         ):
             if value != default:
@@ -519,8 +513,8 @@ class GemNetOC(nn.Module):
         k1 = nl.src.shape[2]
         not_self = ~torch.eye(k1, dtype=torch.bool, device=emask.device)[None, None]
         trip_mask_e2e = emask[:, :, :, None] & emask[:, :, None, :] & not_self
-        cos_cab = _cos_clamped(unit[:, :, :, None, :], unit[:, :, None, :, :])
-        cbf_e2e = torch.where(trip_mask_e2e[..., None], legendre_y_l0(cos_cab, s), 0.0)  # [B,N,K1,K1,S]
+        unit = unit.contiguous()
+        cbf_e2e = gemnet_cbf_basis(unit, unit, trip_mask_e2e.contiguous(), s)  # [B,N,S,K1,K1], mask folded
         radw_tint = self.mlp_cbf_tint(rad_main, radw_only=True)  # [B,N,K1,F,S]
         rad_e2e = self.mlp_rbf_tint(rad_main)
 
@@ -568,16 +562,15 @@ class GemNetOC(nn.Module):
                 nl.src[:, :, :, None], nl.cell_offsets[:, :, :, None, :],
             )  # [B,N,K1,Kae]
             rad_ae = self.radial_basis_aeaint(dist_ae)
+            unit_ae = unit_ae.contiguous()
         if self.atom_edge_interaction:
             trip_mask_a2e = emask[:, :, :, None] & nl_ae.mask[:, :, None, :] & ~same_ae
-            cos_a2e = _cos_clamped(unit[:, :, :, None, :], unit_ae[:, :, None, :, :])
-            cbf_a2e = torch.where(trip_mask_a2e[..., None], legendre_y_l0(cos_a2e, s), 0.0)  # [B,N,K1,Kae,S]
+            cbf_a2e = gemnet_cbf_basis(unit, unit_ae, trip_mask_a2e.contiguous(), s)  # [B,N,S,K1,Kae]
             radw_aeint = self.mlp_cbf_aeint(rad_main, radw_only=True)  # [B,N,K1,F,S]
             rad_a2e = self.mlp_rbf_aeint(rad_ae)
         if self.edge_atom_interaction:
-            cos_e2a = _cos_clamped(unit_ae[:, :, :, None, :], unit[:, :, None, :, :])
             trip_mask_e2a = nl_ae.mask[:, :, :, None] & emask[:, :, None, :] & ~same_ae.transpose(2, 3)
-            cbf_e2a = torch.where(trip_mask_e2a[..., None], legendre_y_l0(cos_e2a, s), 0.0)  # [B,N,Kae,K1,S]
+            cbf_e2a = gemnet_cbf_basis(unit_ae, unit, trip_mask_e2a.contiguous(), s)  # [B,N,S,Kae,K1]
             radw_eaint = self.mlp_cbf_eaint(rad_ae, radw_only=True)  # [B,N,Kae,F,S]
             rad_e2a = self.mlp_rbf_eaint(rad_main)
 
@@ -631,7 +624,7 @@ class GemNetOC(nn.Module):
             # e2e triplets
             ti = blk.trip_interaction
             x_ba = ti.down_projection(ti.scale_rbf(ti.dense_ba(m) * ti.mlp_rbf(rad_e2e)))
-            d_t = torch.einsum("bnuks,bnke->bnuse", cbf_e2e, x_ba)
+            d_t = torch.einsum("bnsuk,bnke->bnuse", cbf_e2e, x_ba)
             outer_t = torch.einsum("bnufs,bnuse->bnufe", radw_tint, d_t)
             x = x_skip + up(ti, ti.scale_cbf_sum(ti.mlp_cbf(outer_t)))
 
@@ -649,7 +642,7 @@ class GemNetOC(nn.Module):
                 ai = blk.atom_edge_interaction
                 x_h = _gather_rows(ai.dense_ba(h), nl_ae.src)  # [B,N,Kae,A]
                 x_h = ai.down_projection(ai.scale_rbf(x_h * ai.mlp_rbf(rad_a2e)))
-                d_ae = torch.einsum("bnuks,bnke->bnuse", cbf_a2e, x_h)
+                d_ae = torch.einsum("bnsuk,bnke->bnuse", cbf_a2e, x_h)
                 outer_ae = torch.einsum("bnufs,bnuse->bnufe", radw_aeint, d_ae)
                 x = x + up(ai, ai.scale_cbf_sum(ai.mlp_cbf(outer_ae)))
             x = x * (1 / math.sqrt(n_eint))
@@ -659,7 +652,7 @@ class GemNetOC(nn.Module):
             if self.edge_atom_interaction:
                 ei = blk.edge_atom_interaction
                 x_m = ei.down_projection(ei.scale_rbf(ei.dense_ba(m) * ei.mlp_rbf(rad_e2a)))
-                d_ea = torch.einsum("bnaks,bnke->bnase", cbf_e2a, x_m)  # [B,N,Kae,S,Ti]
+                d_ea = torch.einsum("bnsak,bnke->bnase", cbf_e2a, x_m)  # [B,N,Kae,S,Ti]
                 outer_ea = torch.einsum("bnafs,bnase->bnfe", radw_eaint, d_ea)
                 h_new = h_new + ei.up_projection_ca(ei.scale_cbf_sum(ei.mlp_cbf(outer_ea)))
 

@@ -349,17 +349,10 @@ def gemnet_quad_chain_reference(
     """Plain PyTorch version of :func:`gemnet_quad_chain` (the JAX
     ``_quad_chain_ref``): the Legendre table ``[B, N, U, Q, K2, S]`` and
     ``d2 [B, N, U, Q, S, E]`` are materialised."""
-    eps = 1e-9
-    n1h = n1 / torch.clamp(torch.linalg.norm(n1, dim=-1, keepdim=True), min=eps)
-    n2h = n2 / torch.clamp(torch.linalg.norm(n2, dim=-1, keepdim=True), min=eps)
-    cos = torch.clamp(torch.einsum("bnuqc,bnqkc->bnuqk", n1h, n2h), -1.0, 1.0)
+    cos = torch.clamp(torch.einsum("bnuqc,bnqkc->bnuqk", _unit_rows(n1), _unit_rows(n2)), -1.0, 1.0)
     k1 = key1[:, :, :, None, None]
     keep = (k1 != key2[:, :, None, :, :]) & (k1 >= 0)
-    ps = [torch.ones_like(cos), cos]
-    for l in range(2, num_spherical):
-        ps.append(((2 * l - 1) * cos * ps[l - 1] - (l - 1) * ps[l - 2]) / l)
-    y = torch.stack([math.sqrt((2 * l + 1) / (4 * math.pi)) * ps[l] for l in range(num_spherical)], dim=-1)
-    y = torch.where(keep[..., None], y, torch.zeros_like(y))
+    y = _masked_legendre(cos, keep, num_spherical, dim=-1)
     d2 = torch.einsum("bnuqks,bnqke->bnuqse", y, xm)
     return torch.einsum("bnusqf,bnuqse->bnufe", qp, d2)
 
@@ -405,6 +398,152 @@ def gemnet_quad_chain(
         n1.data_ptr(), n2.data_ptr(), key1.data_ptr(), key2.data_ptr(), xm.data_ptr(), qp.data_ptr(),
         out.data_ptr(), b * n, u, q, k2, s, e, f,
     )
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def _legendre_coefs(num_spherical: int) -> np.ndarray:
+    """``sqrt((2l+1)/4pi)``, l = 0..S-1, in double and rounded to f32 once,
+    as ``math.sqrt`` times an f32 array is (cached: read-only)."""
+    coef = np.array([math.sqrt((2 * l + 1) / (4 * math.pi)) for l in range(num_spherical)], np.float32)
+    coef.setflags(write=False)
+    return coef
+
+
+def legendre_y_l0(cos: torch.Tensor, num_spherical: int, dim: int = -1) -> torch.Tensor:
+    """Real spherical harmonics ``Y_l^0 = sqrt((2l+1)/4pi) P_l(cos)``, l =
+    0..S-1, stacked on a new axis at ``dim`` (the recurrence of
+    ``pallas_kernels.py:1630-1632``; the plain versions and GemNet-OC's
+    quadruplet bases share it)."""
+    ps = [torch.ones_like(cos), cos]
+    for l in range(2, num_spherical):
+        ps.append(((2 * l - 1) * cos * ps[l - 1] - (l - 1) * ps[l - 2]) / l)
+    return torch.stack([float(c) * p for c, p in zip(_legendre_coefs(num_spherical), ps)], dim=dim)
+
+
+def _masked_legendre(cos: torch.Tensor, keep: torch.Tensor, num_spherical: int, dim: int) -> torch.Tensor:
+    """:func:`legendre_y_l0` at ``dim``, zero where ``keep`` is False."""
+    y = legendre_y_l0(cos, num_spherical, dim)
+    return torch.where(keep.unsqueeze(dim), y, torch.zeros((), dtype=y.dtype, device=y.device))
+
+
+def _unit_rows(x: torch.Tensor) -> torch.Tensor:
+    """Rows over ``v / max(|v|, 1e-9)`` (the dihedral bases' normalisation)."""
+    return x / torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True), min=1e-9)
+
+
+def masked_legendre_cos_reference(a: torch.Tensor, bt: torch.Tensor, keep: torch.Tensor,
+                                  num_spherical: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`masked_legendre_cos`: ``a [G, M, C]``,
+    ``bt [G, C, K]``, ``keep [G, M, K]`` bool -> ``[G, S, M, K]``."""
+    cos = torch.clamp(torch.matmul(a.float(), bt.float()), -1.0, 1.0)
+    return _masked_legendre(cos, keep, num_spherical, dim=1)
+
+
+def gemnet_cbf_basis_reference(u: torch.Tensor, v: torch.Tensor, keep: torch.Tensor,
+                               num_spherical: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`gemnet_cbf_basis`: ``u [B, N, M, 3]``,
+    ``v [B, N, K, 3]`` unit rows (zero rows give cos 0), ``keep [B, N, M, K]``
+    -> ``[B, N, S, M, K]``."""
+    cos = torch.clamp(torch.einsum("bnmc,bnkc->bnmk", u.float(), v.float()), -1.0, 1.0)
+    return _masked_legendre(cos, keep, num_spherical, dim=2)
+
+
+def gemnet_quad_basis_reference(n1: torch.Tensor, n2: torch.Tensor, keep: torch.Tensor,
+                                num_spherical: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`gemnet_quad_basis`: ``n1 [B, N, K1,
+    Kq, 3]``, ``n2 [B, N, Kq, K2, 3]`` (normalised here, eps 1e-9), ``keep
+    [B, N, K1, Kq, K2]`` -> ``[B, N, S, Kq, K1, K2]``."""
+    cos = torch.einsum("bnuqc,bnqkc->bnquk", _unit_rows(n1.float()), _unit_rows(n2.float()))
+    return _masked_legendre(torch.clamp(cos, -1.0, 1.0), keep.permute(0, 1, 3, 2, 4), num_spherical, dim=2)
+
+
+def _legendre_launch(tensors: dict, out: torch.Tensor, outer: int, q: int, m: int, k: int, s: int,
+                     normalize: bool, strides: Tuple[int, ...]) -> None:
+    """Launch ``csrc/masked_legendre_cos.cu`` on ``outer x q`` cells of
+    ``m x k`` columns, every operand addressed through ``strides`` (a: outer,
+    q, m; b: outer, q, k, component; keep: outer, q, m; y: outer, q, l, m)."""
+    _check_cuda_inputs("masked_legendre_cos", tensors, {"keep": torch.bool})
+    if not 1 <= s <= 16:
+        raise ValueError(f"masked_legendre_cos: the kernel holds 1 <= S <= 16 levels, got {s}")
+    if 12 * (m + k) > 227 * 1024:
+        raise ValueError(f"masked_legendre_cos: M + K = {m + k} rows exceed the shared memory")
+    if out.numel() == 0:  # empty output: nothing to launch
+        return
+    lib = _library("masked_legendre_cos", [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 3)
+    a, b, keep = tensors["a"], tensors["b"], tensors["keep"]
+    strides_c = (ctypes.c_longlong * 14)(*strides)
+    coef = _legendre_coefs(s)
+    _launch("masked_legendre_cos", lib, a.device, a.data_ptr(), b.data_ptr(), keep.data_ptr(), out.data_ptr(),
+            outer, q, m, k, s, int(normalize), ctypes.addressof(strides_c), coef.ctypes.data)
+
+
+def masked_legendre_cos(a: torch.Tensor, bt: torch.Tensor, keep: torch.Tensor, num_spherical: int) -> torch.Tensor:
+    """``y[g, l, m, k] = sqrt((2l+1)/4pi) P_l(clip(<a[g,m,:], bt[g,:,k]>, -1, 1))
+    * keep[g, m, k]`` (``csrc/masked_legendre_cos.cu``), f32, forward only.
+
+    ``a [G, M, C]``, ``bt [G, C, K]``, ``keep [G, M, K]`` -> ``[G, S, M, K]``.
+    On the card: C = 3, f32 vectors, bool ``keep``, contiguous, S <= 16 and
+    no autograd (the TPU kernel is forward-only too; GemNet-OC S2EF training
+    will bring the VJP)."""
+    if a.device.type == "cpu":
+        return masked_legendre_cos_reference(a, bt, keep, num_spherical)
+    g, m, c = a.shape
+    k = bt.shape[2]
+    if c != 3:
+        raise ValueError(f"masked_legendre_cos: the kernel takes C = 3 components, got {c}")
+    tensors = dict(a=a, b=bt, keep=keep)
+    _check_shapes("masked_legendre_cos", tensors, dict(b=(g, 3, k), keep=(g, m, k)))
+    s = num_spherical
+    out = torch.empty((g, s, m, k), dtype=torch.float32, device=a.device)
+    _legendre_launch(tensors, out, g, 1, m, k, s, False,
+                     (m * 3, 0, 3, 3 * k, 0, 1, k, m * k, 0, k, s * m * k, 0, m * k, k))
+    return out
+
+
+def gemnet_cbf_basis(u: torch.Tensor, v: torch.Tensor, keep: torch.Tensor, num_spherical: int) -> torch.Tensor:
+    """GemNet-OC's masked triplet basis over the angles between unit edge
+    vectors (:func:`masked_legendre_cos` with one (b, n) row per cell).
+
+    ``u [B, N, M, 3]``, ``v [B, N, K, 3]`` unit rows (zero rows, padded edges,
+    give cos 0), ``keep [B, N, M, K]`` bool -> ``[B, N, S, M, K]`` f32.  On the
+    card: as :func:`masked_legendre_cos`; launches counted under
+    ``masked_legendre_cos``."""
+    if u.device.type == "cpu":
+        return gemnet_cbf_basis_reference(u, v, keep, num_spherical)
+    b, n, m, _ = u.shape
+    k = v.shape[2]
+    tensors = dict(a=u, b=v, keep=keep)
+    _check_shapes("gemnet_cbf_basis", tensors, dict(a=(b, n, m, 3), b=(b, n, k, 3), keep=(b, n, m, k)))
+    s = num_spherical
+    out = torch.empty((b, n, s, m, k), dtype=torch.float32, device=u.device)
+    _legendre_launch(tensors, out, b * n, 1, m, k, s, False,
+                     (m * 3, 0, 3, k * 3, 0, 3, 1, m * k, 0, k, s * m * k, 0, m * k, k))
+    return out
+
+
+def gemnet_quad_basis(n1: torch.Tensor, n2: torch.Tensor, keep: torch.Tensor, num_spherical: int) -> torch.Tensor:
+    """GemNet-OC's masked dihedral basis (:func:`masked_legendre_cos` with one
+    (b, n, q) row per cell): ``y[b, n, l, q, u, k] = coef[l] P_l(clip(<n1h[u, q],
+    n2h[q, k]>)) keep[u, q, k]`` with ``n1h``/``n2h`` the cross products
+    normalised in the kernel (eps 1e-9).
+
+    ``n1 [B, N, K1, Kq, 3]``, ``n2 [B, N, Kq, K2, 3]``, ``keep [B, N, K1, Kq,
+    K2]`` bool -> ``[B, N, S, Kq, K1, K2]`` f32, written in that layout by the
+    kernel.  On the card: as :func:`masked_legendre_cos`."""
+    if n1.device.type == "cpu":
+        return gemnet_quad_basis_reference(n1, n2, keep, num_spherical)
+    b, n, k1, kq, _ = n1.shape
+    k2 = n2.shape[3]
+    tensors = dict(a=n1, b=n2, keep=keep)
+    _check_shapes("gemnet_quad_basis", tensors, dict(a=(b, n, k1, kq, 3), b=(b, n, kq, k2, 3),
+                                                     keep=(b, n, k1, kq, k2)))
+    s = num_spherical
+    out = torch.empty((b, n, s, kq, k1, k2), dtype=torch.float32, device=n1.device)
+    _legendre_launch(tensors, out, b * n, kq, k1, k2, s, True,
+                     (k1 * kq * 3, 3, kq * 3, kq * k2 * 3, k2 * 3, 3, 1, k1 * kq * k2, k2, kq * k2,
+                      s * kq * k1 * k2, k1 * k2, kq * k1 * k2, k2))
     return out
 
 

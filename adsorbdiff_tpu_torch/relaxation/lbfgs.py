@@ -53,6 +53,18 @@ def _tables(cand) -> list:
     return []
 
 
+def need_rebuild(pos: torch.Tensor, atom_mask: torch.Tensor, cand) -> torch.Tensor:
+    """Device bool: whether any Verlet candidate table in ``cand`` has spent
+    its displacement margin (``4 * max displacement >= margin`` in some
+    system) at positions ``pos``."""
+    need = torch.zeros((), dtype=torch.bool, device=pos.device)
+    for t in _tables(cand):
+        d2 = torch.sum((pos - t.pos0) ** 2, dim=-1)  # [B, N]
+        disp = torch.sqrt(masked_max(d2, atom_mask, dim=1))  # [B]
+        need = need | torch.any(4.0 * disp >= t.margin)
+    return need
+
+
 def lbfgs_relax(
     energy_forces_fn: EnergyForcesFn,
     batch: AtomsBatch,
@@ -89,14 +101,6 @@ def lbfgs_relax(
         else:
             e, f = energy_forces_fn(batch.replace(pos=pos), cand)
         return e, torch.where(atom3, f, 0.0)
-
-    def need_rebuild(pos, cand) -> torch.Tensor:
-        need = torch.zeros((), dtype=torch.bool, device=device)
-        for t in _tables(cand):
-            d2 = torch.sum((pos - t.pos0) ** 2, dim=-1)  # [B, N]
-            disp = torch.sqrt(masked_max(d2, batch.atom_mask, dim=1))  # [B]
-            need = need | torch.any(4.0 * disp >= t.margin)
-        return need
 
     pos = batch.pos
     r0 = torch.zeros(d, dtype=dtype, device=device)
@@ -162,7 +166,7 @@ def lbfgs_relax(
 
         # the step's one host read: convergence, and whether the candidate
         # tables must be rebuilt for the next positions
-        converged_now, rebuild = torch.stack([all_converged, need_rebuild(pos, cand)]).tolist()
+        converged_now, rebuild = torch.stack([all_converged, need_rebuild(pos, batch.atom_mask, cand)]).tolist()
         if converged_now and frozen_at >= steps:
             frozen_at = it
         if early and frozen_at < steps:
@@ -209,3 +213,17 @@ def make_mlff_energy_forces(model: torch.nn.Module) -> EnergyForcesFn:
         return out["energy"], torch.where(batch.fixed[..., None], 0.0, out["forces"])
 
     return fn
+
+
+def candidate_fn_for(model: torch.nn.Module, relax_opt: Optional[dict] = None) -> Optional[Callable]:
+    """The Verlet candidate-table builder that ``relax_opt`` asks of
+    ``model``: ``relax_opt["verlet_graph"]`` (default True) keeps the
+    neighbour tables as candidate lists (``model.prepare_candidates``)
+    refreshed every step and rebuilt once the displacement margin is spent;
+    ``relax_opt["k_cand"]`` (default 64) sizes the pool.  ``None`` when
+    switched off or when the model builds no candidates."""
+    opt = relax_opt or {}
+    if not bool(opt.get("verlet_graph", True)) or not hasattr(model, "prepare_candidates"):
+        return None
+    k_cand = int(opt.get("k_cand", 64))
+    return lambda batch: model.prepare_candidates(batch, k_cand)

@@ -517,6 +517,15 @@ class DenoisingTrainer(BaseTrainer):
             out2 = torch.where(batch.fixed[..., None], torch.zeros_like(out2), out2)
         return out1, out2
 
+    def sampling_static_fn(self):
+        """``batch -> static graph`` of the sampling loop (the EMA model's
+        ``prepare_static``), or None with ``task.incremental_graph: false``."""
+        if not self.task_cfg.get("incremental_graph", True):
+            return None
+        if not self.initialized:
+            self.init_state()
+        return getattr(self.ema_module, "prepare_static", None)
+
 
 @registry.register_trainer("s2ef")
 @registry.register_trainer("ocp")

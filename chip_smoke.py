@@ -11,7 +11,11 @@ Phases; any failure raises and the exit code is then non-zero:
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, at its main path's shape and at ragged shapes, with
    |kernel - plain| <= 1e-4 * max|plain| + 1e-5 (f32 sums in another order);
-   times from CUDA events after warm-up.
+   times from CUDA events after warm-up.  masked_legendre_cos (phase 3c):
+   gemnet_cbf_basis at the e2e, a2e and e2a inputs one B=8 GemNet-OC forward
+   gives it, gemnet_quad_basis at [8, 80, 30, 8, 30] with S=7, and ragged
+   shapes (M, K not multiples of 32, zero rows, an all-false keep), each
+   against its plain version; times per launch against a bytes bound.
 4. sampling path: PaiNN at the painn_so3.yml widths (H=512, 6 layers, 128
    RBF, cutoff 12 A, K=50; random weights from a seeded generator) drives 100
    ODE reverse-diffusion steps through DiffusionEngine with the hoisted
@@ -20,15 +24,20 @@ Phases; any failure raises and the exit code is then non-zero:
 5. card vs CPU, PaiNN: one full-width forward at B=2 on the card against the
    same forward on the CPU (plain versions), |card - cpu| <= 1e-4 * max|cpu|
    (f32 matmuls and sums in another order, over 6 layers; tight enough that
-   TF32 or bf16 products, ~1e-3 relative each, would fail it).
+   TF32 or bf16 products, ~1e-3 relative each, would fail it).  Printed
+   before the check: both sides' max |output|, whether the card's and the
+   CPU's B=2 neighbour tables agree exactly (if not, how many slots differ
+   and the largest distance among them), and a second CPU forward against
+   the first.
 6. relaxation path: GemNet-OC at the gemnet_relax.yml widths (4 blocks, atom
    256, edge 512, 128 RBF, 7 spherical, cutoff 12 A, 30/8/20 neighbours, all
    interactions; random weights from a seeded generator; cell_reps from
    auto_cell_reps) relaxes 8 of the bench systems with RelaxationEngine at
    the published relax_opt and the Verlet graph on, for 100 L-BFGS steps
    (cut from 300).  Launch counts are zeroed just before and read just
-   after: 4 quad-chain launches per model forward, forwards counted by a
-   wrapper around the engine's energy/forces function.
+   after: per model forward 4 gemnet_quad_chain launches (one per block) and
+   3 masked_legendre_cos (the e2e, a2e and e2a triplet bases), forwards
+   counted by a wrapper around the engine's energy/forces function.
 7. card vs CPU, GemNet-OC: one full-width forward at B=2, energy and forces
    within 1e-4 * max|cpu|.
 8. training path: the painn_message_fused_bwd kernel against the plain VJP
@@ -88,14 +97,34 @@ Phases; any failure raises and the exit code is then non-zero:
    every parameter's gradient within 1e-3 * max|cpu| of that tensor (the
    CPU runs every kernel's plain version, the rotations' decomposed chain
    included).
-16. the kernels line, then the device line as the last line.  A row's ms,
+16. the main path end to end: run_pipeline once, nsites 1, on the 16 bench
+   systems written to a shard in a temporary directory.  Sampler: a
+   DenoisingTrainer at the painn_so3.yml widths (random weights from its
+   seed, cell_reps (2, 2, 0) and max_ads 8 as bench.py sets them), 100 ODE
+   steps at B=16.  Relaxer: a GemNet-OC at the gemnet_relax.yml widths
+   (random weights from a seeded generator) behind a small relax-trainer
+   object; relax_opt as published with 8 slots and continuous unset, so
+   "auto" picks the slot-refill engine; fmax 0.01; relaxation_steps cut from
+   300 to 100 (random weights never converge, so every system runs its
+   budget).  Synthetic DFT targets, one per sid.  Launch counts are zeroed
+   just before run_pipeline and read just after: 600 painn_message_fused
+   while sampling, and per GemNet-OC forward 4 + 3 while relaxing.  Checks:
+   one sampled and one relaxed trajectory per sid; every relaxed frame
+   finite with fixed atoms where the converted input has them; each relaxed
+   trajectory's last frame is its RelaxedSystem (energy, positions, frame
+   count).  Prints wall time per stage, relax system-steps/s, the success
+   rate and the per-system anomaly flags.
+17. the kernels line, then the device line as the last line.  A row's ms,
    plain_ms and bound_ms are per launch; eqv2_edge_rotate's are the mean
    over the four forms in the proportions one forward launches them, and
-   its launches are the EquiformerV2 sampling run's.
+   its launches are the EquiformerV2 sampling run's; masked_legendre_cos's
+   are the mean over the three triplet bases, and its launches are the
+   relaxation path's.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -107,18 +136,21 @@ import numpy as np
 import torch
 
 from adsorbdiff_tpu_torch.data.schema import System, collate
-from adsorbdiff_tpu_torch.data.store import write_shard
+from adsorbdiff_tpu_torch import eval_tools, pipeline
+from adsorbdiff_tpu_torch.data.store import ShardDataset, write_shard
 from adsorbdiff_tpu_torch.device import resolve_device
 from adsorbdiff_tpu_torch.diffusion.schedules import draw_schedule
-from adsorbdiff_tpu_torch.models import equiformer_v2
+from adsorbdiff_tpu_torch.models import equiformer_v2, gemnet_oc
 from adsorbdiff_tpu_torch.models.base import generate_graph
 from adsorbdiff_tpu_torch.models.equiformer_v2 import EquiformerV2
 from adsorbdiff_tpu_torch.models.gemnet_oc import GemNetOC
 from adsorbdiff_tpu_torch.models import so3
 from adsorbdiff_tpu_torch.models.painn import PaiNN
 from adsorbdiff_tpu_torch.ops import build, kernels, pbc
-from adsorbdiff_tpu_torch.relaxation.lbfgs import make_mlff_energy_forces
+from adsorbdiff_tpu_torch.relaxation.continuous import ContinuousRelaxationEngine
+from adsorbdiff_tpu_torch.relaxation.lbfgs import candidate_fn_for, make_mlff_energy_forces
 from adsorbdiff_tpu_torch.relaxation.ml_relaxation import DiffusionEngine, RelaxationEngine, make_score_fn
+from adsorbdiff_tpu_torch.runtime.trajectory import SUFFIX, Trajectory
 from adsorbdiff_tpu_torch.train.trainer import DenoisingTrainer
 
 # NVIDIA H100 SXM data sheet: dense f32 outside the tensor cores, HBM3 rate
@@ -139,6 +171,12 @@ GEMNET_KW = dict(
 RELAX_OPT = dict(steps=100, fmax=0.01, maxstep=0.04, memory=50, damping=1.0, alpha=70.0,
                  verlet_graph=True, k_cand=64)
 RELAX_BATCH = 8
+# run_pipeline's relaxer: gemnet_relax.yml's relax_opt as published (continuous unset: auto picks the slot-refill
+# engine at fmax 0.01; run_pipeline writes the trajectories under its out_dir) with 8 slots; relaxation_steps cut
+# from 300 as above.  Energies denormalised by the config's dataset block.
+PIPELINE_RELAX_OPT = dict(maxstep=0.04, memory=50, damping=1.0, alpha=70.0, slots=8)
+PIPELINE_STEPS = 100
+GEMNET_TARGET_MEAN, GEMNET_TARGET_STD = -0.7554450631141663, 2.887317180633545
 # configs/denoising/painn_so3.yml (model) over configs/denoising/base.yml (optim, task), as a dict: the card
 # machine may have no PyYAML.  Cut: max_epochs 100 -> 1 (one epoch of TRAIN_STEPS steps); no checkpoint or
 # validation inside the timed epoch.
@@ -213,7 +251,10 @@ def bound(flops, tensors):
     """Least time on this card: the f32 operations at the f32 peak against
     every given tensor moved once at the HBM rate.  Returns (ms, what sets
     it, bytes)."""
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    sizes = {}  # one entry per storage: a tensor passed twice (u is v) moves once
+    for t in tensors:
+        sizes[t.data_ptr()] = max(sizes.get(t.data_ptr(), 0), t.numel() * t.element_size())
+    nbytes = sum(sizes.values())
     t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), nbytes
 
@@ -344,6 +385,113 @@ def check_quad_kernel(device, gen, shape):
     want = kernels.gemnet_quad_chain_reference(**inputs, num_spherical=s)
     err = check_close(f"gemnet_quad_chain b,n,u,q,k2,s,e,f={shape}", [got], [want])
     return inputs, got, err
+
+
+# --------------------------------------------------------------------------
+# masked_legendre_cos (gemnet_cbf_basis, gemnet_quad_basis)
+# --------------------------------------------------------------------------
+def capture_calls(module, name, fn):
+    """Run ``fn()`` with ``module.<name>`` wrapped; returns every call's
+    positional arguments, in order."""
+    seen, original = [], getattr(module, name)
+
+    def rec(*args):
+        seen.append(args)
+        return original(*args)
+
+    setattr(module, name, rec)
+    try:
+        fn()
+    finally:
+        setattr(module, name, original)
+    return seen
+
+
+def legendre_inputs(gen, device, a_shape, b_shape, keep_shape, unit, keep_all=None):
+    """3-vector rows (unit for the triplet bases, raw cross products for the
+    dihedral one) with exact-zero rows as masked edges give, and a random or
+    all-false ``keep``."""
+    a, b = torch.randn(a_shape + (3,), generator=gen), torch.randn(b_shape + (3,), generator=gen)
+    if unit:
+        a, b = a / a.norm(dim=-1, keepdim=True), b / b.norm(dim=-1, keepdim=True)
+    a[0, 0, 0] = 0.0
+    b[-1, -1, -1] = 0.0
+    keep = torch.rand(keep_shape, generator=gen) > 0.3 if keep_all is None else torch.full(keep_shape, keep_all)
+    return [t.to(device).contiguous() for t in (a, b, keep)]
+
+
+def legendre_bound_ms(inputs, out, s):
+    """Per (m, k) column: the dot and the clip ~7, the recurrence ~4 per
+    level, the coefficient and the mask 2 per level (the dihedral basis's
+    normalisation, ~12 per row, is left out); every input once, out once."""
+    flops = out.numel() // s * (6 * s + 7)
+    return (*bound(flops, list(inputs) + [out]), flops)
+
+
+def check_legendre(name, fn, plain, args, s):
+    got = fn(*args, s)
+    torch.cuda.synchronize()
+    shapes = " ".join(str(tuple(t.shape)) for t in args)
+    return got, check_close(f"{name} {shapes} S={s}", [got], [plain(*args, s)])
+
+
+def legendre_checks(device, gen, model, batch):
+    """Phase 3c: the three triplet bases at the inputs one forward of
+    ``model`` on ``batch`` gives them, the dihedral basis at the relaxation
+    shape, and ragged shapes; returns the kernels-line row (times per launch,
+    the mean over the three triplet bases a forward launches)."""
+    s = model.num_spherical
+    with torch.no_grad():
+        calls = capture_calls(gemnet_oc, "gemnet_cbf_basis", lambda: model(batch))
+    if len(calls) != 3:
+        raise AssertionError(f"one GemNet-OC forward called gemnet_cbf_basis {len(calls)} times, want 3")
+    err, times, bys = 0.0, [], []
+    for form, (u, v, keep, _) in zip(("e2e", "a2e", "e2a"), calls):
+        out, e = check_legendre(f"gemnet_cbf_basis {form}", kernels.gemnet_cbf_basis,
+                                kernels.gemnet_cbf_basis_reference, (u, v, keep), s)
+        err = max(err, e)
+        ms = cuda_ms(lambda: kernels.gemnet_cbf_basis(u, v, keep, s), 20)
+        plain_ms = cuda_ms(lambda: kernels.gemnet_cbf_basis_reference(u, v, keep, s), 5)
+        bound_ms, by, nbytes, flops = legendre_bound_ms((u, v, keep), out, s)
+        times.append((ms, plain_ms, bound_ms))
+        bys.append(by)
+        print(f"[kernel] masked_legendre_cos as gemnet_cbf_basis {form} at u{tuple(u.shape)} v{tuple(v.shape)}: "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {by} ({flops / 1e9:.3f} GFLOP f32, "
+              f"{nbytes / 1e6:.2f} MB)", flush=True)
+    del calls, out
+    b, n = batch.batch_size, batch.max_atoms
+    k1, kq = model.max_neighbors, model.max_neighbors_qint
+    quad = legendre_inputs(gen, device, (b, n, k1, kq), (b, n, kq, k1), (b, n, k1, kq, k1), unit=False)
+    out, e = check_legendre("gemnet_quad_basis", kernels.gemnet_quad_basis, kernels.gemnet_quad_basis_reference,
+                            quad, s)
+    err = max(err, e)
+    q_ms = cuda_ms(lambda: kernels.gemnet_quad_basis(*quad, s), 20)
+    q_plain_ms = cuda_ms(lambda: kernels.gemnet_quad_basis_reference(*quad, s), 5)
+    q_bound, q_by, q_bytes, _ = legendre_bound_ms(quad, out, s)
+    print(f"[kernel] masked_legendre_cos as gemnet_quad_basis at n1{tuple(quad[0].shape)}: {q_ms:.4f} ms, plain "
+          f"{q_plain_ms:.4f} ms, bound {q_bound:.4f} ms by {q_by} ({q_bytes / 1e6:.2f} MB)", flush=True)
+    del quad, out
+    # ragged: M and K not multiples of 32, zero rows, an all-false keep; the plain-interface wrapper
+    for lead, m, k, keep_all in (((3, 5), 29, 13, None), ((2, 3), 33, 1, False)):
+        args = legendre_inputs(gen, device, lead + (m,), lead + (k,), lead + (m, k), unit=True, keep_all=keep_all)
+        check_legendre("gemnet_cbf_basis ragged", kernels.gemnet_cbf_basis, kernels.gemnet_cbf_basis_reference,
+                       args, 7)
+        flat = (args[0].reshape(-1, m, 3), args[1].reshape(-1, k, 3).transpose(1, 2).contiguous(),
+                args[2].reshape(-1, m, k))
+        check_legendre("masked_legendre_cos ragged", kernels.masked_legendre_cos,
+                       kernels.masked_legendre_cos_reference, flat, 5)
+    for keep_all in (None, False):
+        args = legendre_inputs(gen, device, (2, 3, 13, 5), (2, 3, 5, 29), (2, 3, 13, 5, 29), unit=False,
+                               keep_all=keep_all)
+        check_legendre("gemnet_quad_basis ragged", kernels.gemnet_quad_basis, kernels.gemnet_quad_basis_reference,
+                       args, 4)
+    ms, plain_ms, bound_ms = (sum(t[i] for t in times) / len(times) for i in range(3))
+    by = "bytes" if set(bys) == {"bytes"} else "operations"
+    print(f"[kernel] masked_legendre_cos per launch (mean of e2e, a2e, e2a): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms by {by}", flush=True)
+    return dict(name="masked_legendre_cos", source="adsorbdiff_tpu_torch/csrc/masked_legendre_cos.cu",
+                replaces="adsorbdiff_tpu/ops/pallas_kernels.py:1613", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by)
 
 
 # --------------------------------------------------------------------------
@@ -694,17 +842,70 @@ def sampling_path(device, gen, systems):
     print(f"[sample] one score forward (graph + 6 layers + heads): {forward_ms:.3f} ms; "
           f"6 kernel launches at {ms:.4f} ms = {100 * 6 * ms / forward_ms:.1f}% of it", flush=True)
 
-    # 5. card vs CPU, whole model at B=2
+    # 5. card vs CPU, whole model at B=2, with what tells a host fault from a machine-dependent CPU path
     small = collate(systems[:2], max_atoms=80, device=device)
     cpu_model = copy.deepcopy(model).to("cpu")
+    inputs = [small.to("cpu"), small.to("cpu")]
     with torch.no_grad():
         card = model(small)
-        host = cpu_model(small.to("cpu"))
+        (host, trace), (host2, trace2) = (traced_forward(cpu_model, b) for b in inputs)
+    painn_diagnostics(model, small, card, host, host2)
+    same_inputs = all(torch.equal(getattr(inputs[0], f.name), getattr(inputs[1], f.name))
+                      for f in dataclasses.fields(inputs[0]) if getattr(inputs[0], f.name) is not None)
+    differ = [(name, (a.float() - b.float()).abs().max().item()) for (name, a), (_, b) in zip(trace, trace2)
+              if not torch.equal(a, b)]
+    print(f"[check] PaiNN B=2 the two CPU forwards: inputs equal {same_inputs}; {len(differ)} of {len(trace)} "
+          f"recorded outputs differ" + (f", the first {differ[:3]}" if differ else ""), flush=True)
     check_model("PaiNN", zip(("out_forces", "out_forces2"), card, host))
     return dict(name="painn_message_fused", source="adsorbdiff_tpu_torch/csrc/painn_message_fused.cu",
                 replaces="adsorbdiff_tpu/ops/pallas_kernels.py:336",
                 launches=launches["painn_message_fused"], max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def traced_forward(module, batch):
+    """``module(batch)`` with every submodule's output, and the neighbour
+    table the first message layer receives, recorded in call order: where
+    two runs part, the first record that differs names the step."""
+    trace, handles = [], []
+
+    def hook(name):
+        def record(_, args, out):
+            if name == "message_layers.0":
+                trace.extend((f"graph.{f}", getattr(args[2], f).clone()) for f in ("src", "dist", "mask"))
+            trace.append((name, (out[0] if isinstance(out, tuple) else out).clone()))
+        return record
+
+    for name, mod in module.named_modules():
+        if name:
+            handles.append(mod.register_forward_hook(hook(name)))
+    try:
+        return module(batch), trace
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def painn_diagnostics(model, small, card, host, host2):
+    """Phase 5's evidence, printed before its check: both sides' max |output|,
+    whether the card's and the CPU's B=2 neighbour tables agree exactly (and
+    where not, how many slots differ and the largest distance among them),
+    and a second CPU forward against the first."""
+    for name, c, h, h2 in zip(("out_forces", "out_forces2"), card, host, host2):
+        print(f"[check] PaiNN B=2 {name}: max |card| {c.abs().max().item():.6f}, max |cpu| "
+              f"{h.abs().max().item():.6f}; second CPU forward vs first: max |diff| "
+              f"{(h2 - h).abs().max().item():.3e}", flush=True)
+    kw = dict(cutoff=model.cutoff, max_neighbors=model.max_neighbors, cell_reps=model.cell_reps)
+    nl_card = generate_graph(small, **kw)[0]
+    nl_cpu = generate_graph(small.to("cpu"), **kw)[0]
+    src, mask = nl_card.src.cpu(), nl_card.mask.cpu()
+    same_src, same_mask = torch.equal(src, nl_cpu.src), torch.equal(mask, nl_cpu.mask)
+    line = f"[check] PaiNN B=2 neighbour tables card vs CPU: src equal {same_src}, mask equal {same_mask}"
+    if not (same_src and same_mask):
+        differ = (src != nl_cpu.src) | (mask != nl_cpu.mask)
+        far = torch.maximum(nl_card.dist.cpu()[differ], nl_cpu.dist[differ]).max().item()
+        line += f"; {int(differ.sum())} slots differ, the largest distance among them {far:.6f} A"
+    print(line, flush=True)
 
 
 def check_model(model_name, pairs):
@@ -719,8 +920,14 @@ def check_model(model_name, pairs):
               f"(limit {MODEL_RTOL} * max|reference| = {limit:.3e})", flush=True)
 
 
+def gemnet_launches(model, forwards):
+    """What ``forwards`` GemNet-OC forwards launch: one quad chain per block
+    and the three triplet bases (e2e, a2e, e2a)."""
+    return {"gemnet_quad_chain": model.num_blocks * forwards, "masked_legendre_cos": 3 * forwards}
+
+
 def relax_path(device, gen, systems):
-    """Phases 3 (gemnet_quad_chain), 6 and 7."""
+    """Phases 3 (gemnet_quad_chain, masked_legendre_cos), 6 and 7."""
     cell_reps = pbc.auto_cell_reps([s.pos for s in systems], [s.cell for s in systems], GEMNET_KW["cutoff"])
     batch = collate(systems, max_atoms=80, device=device)
     model = GemNetOC(**GEMNET_KW, cell_reps=cell_reps, device=device, generator=gen)
@@ -737,6 +944,7 @@ def relax_path(device, gen, systems):
           f"by {bound_by} ({flops / 1e9:.2f} GFLOP f32 = {flops / F32_FLOPS * 1e3:.4f} ms, {nbytes / 1e6:.2f} MB = "
           f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)", flush=True)
     del inputs, out
+    legendre_row = legendre_checks(device, gen, model, batch)
 
     # 6. 100 L-BFGS steps at full width
     print(f"[relax] GemNet-OC gemnet_relax.yml widths, cell_reps {cell_reps} (auto_cell_reps), "
@@ -760,10 +968,9 @@ def relax_path(device, gen, systems):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.launches)
-    want_launches = model.num_blocks * forwards
-    if launches.get("gemnet_quad_chain", 0) != want_launches:
-        raise AssertionError(f"relaxation path launched {launches}, want gemnet_quad_chain x{want_launches} "
-                             f"({model.num_blocks} blocks x {forwards} forwards)")
+    want_launches = gemnet_launches(model, forwards)
+    if launches != want_launches:
+        raise AssertionError(f"relaxation path launched {launches}, want {want_launches} ({forwards} forwards)")
     for name in ("traj_pos", "traj_energy", "traj_forces", "energy", "forces"):
         if not torch.isfinite(getattr(res, name)).all():
             raise AssertionError(f"relaxation {name} is not finite")
@@ -782,9 +989,10 @@ def relax_path(device, gen, systems):
     fn = make_mlff_energy_forces(model)
     cand = model.prepare_candidates(batch, RELAX_OPT["k_cand"])
     forward_ms = cuda_ms(lambda: fn(batch, cand), 5)
+    kernel_ms = model.num_blocks * ms + 3 * legendre_row["ms"]
     print(f"[relax] one model forward (Verlet refresh + 4 blocks + heads): {forward_ms:.3f} ms; "
-          f"{model.num_blocks} kernel launches at {ms:.4f} ms = {100 * model.num_blocks * ms / forward_ms:.1f}% "
-          f"of it", flush=True)
+          f"{model.num_blocks} gemnet_quad_chain launches at {ms:.4f} ms and 3 masked_legendre_cos at "
+          f"{legendre_row['ms']:.4f} ms = {100 * kernel_ms / forward_ms:.1f}% of it", flush=True)
 
     # 7. card vs CPU, whole model at B=2
     small = collate(systems[:2], max_atoms=80, device=device)
@@ -793,10 +1001,12 @@ def relax_path(device, gen, systems):
         card = model(small)
         host = cpu_model(small.to("cpu"))
     check_model("GemNet-OC", ((name, card[name], host[name]) for name in ("energy", "forces")))
-    return dict(name="gemnet_quad_chain", source="adsorbdiff_tpu_torch/csrc/gemnet_quad_chain.cu",
-                replaces="adsorbdiff_tpu/ops/pallas_kernels.py:1728",
-                launches=launches["gemnet_quad_chain"], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    legendre_row["launches"] = launches["masked_legendre_cos"]
+    return [dict(name="gemnet_quad_chain", source="adsorbdiff_tpu_torch/csrc/gemnet_quad_chain.cu",
+                 replaces="adsorbdiff_tpu/ops/pallas_kernels.py:1728",
+                 launches=launches["gemnet_quad_chain"], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by),
+            legendre_row]
 
 
 def write_training_shards(root, systems_per_split):
@@ -1010,6 +1220,144 @@ def eqv2_training_path(device, gen, root):
                max_abs_err=s2b_err, ms=s2b_ms, plain_ms=s2b_plain_ms, bound_ms=s2b_bound, bound_by=s2b_by)
 
 
+class GemNetRelaxer:
+    """The relax trainer as run_pipeline uses it (S2EF training is not ported
+    yet): a GemNet-OC's energies, denormalised by gemnet_relax.yml's
+    target_mean/target_std, its forces, and its Verlet candidate tables."""
+
+    def __init__(self, model):
+        self.model = model
+        self.forwards = 0
+        fn = make_mlff_energy_forces(model)
+
+        def energy_forces_fn(batch, static_graph=None):
+            self.forwards += 1
+            energy, forces = fn(batch, static_graph)
+            return energy * GEMNET_TARGET_STD + GEMNET_TARGET_MEAN, forces
+
+        self.energy_forces_fn = energy_forces_fn
+
+    def relax_candidate_fn(self, relax_opt=None):
+        return candidate_fn_for(self.model, relax_opt)
+
+
+def timed_calls(owner, name, record):
+    """Wrap ``owner.<name>`` so that each call appends (name, start, end,
+    result, launch counts at its start, its first argument) to ``record``,
+    the card synchronised on both sides; returns the original."""
+    original = getattr(owner, name)
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        counts = dict(kernels.launches)
+        t = time.perf_counter()
+        out = original(*args, **kwargs)
+        torch.cuda.synchronize()
+        record.append((name, t, time.perf_counter(), out, counts, args[0]))
+        return out
+
+    setattr(owner, name, timed)
+    return original
+
+
+def pipeline_path(device, gen, systems, root):
+    """Phase 16: run_pipeline once, sample -> convert -> relax -> score."""
+    write_shard(os.path.join(root, "relax_input"), systems)
+    sampler_cfg = dict(copy.deepcopy(TRAIN_CONFIG), run_dir=root, identifier="smoke_pipeline", logger=None,
+                       model=dict(TRAIN_CONFIG["model"], cell_reps=MODEL_KW["cell_reps"],
+                                  max_ads=MODEL_KW["max_ads"]))
+    sampler = DenoisingTrainer(sampler_cfg, device=device)
+    cell_reps = pbc.auto_cell_reps([s.pos for s in systems], [s.cell for s in systems], GEMNET_KW["cutoff"])
+    relaxer = GemNetRelaxer(GemNetOC(**GEMNET_KW, cell_reps=cell_reps, device=device, generator=gen))
+    rng = np.random.default_rng(11)
+    dft = {str(s.sid): float(rng.normal(-1.0, 1.0)) for s in systems}  # synthetic DFT minima, one per sid
+    out_dir = os.path.join(root, "out")
+    print(f"[pipeline] sampler painn_so3.yml widths, {PARAMS['num_steps']} ODE steps, B={len(systems)}; relaxer "
+          f"GemNet-OC gemnet_relax.yml widths, cell_reps {cell_reps}; relax_opt {PIPELINE_RELAX_OPT}, "
+          f"{PIPELINE_STEPS} steps, fmax 0.01; {len(systems)} bench systems, nsites 1", flush=True)
+
+    record = []
+    wrapped = ((pipeline, "sampled_trajs_to_dataset"), (ContinuousRelaxationEngine, "run_dataset"),
+               (pipeline, "success_rate"))
+    originals = [(owner, name, timed_calls(owner, name, record)) for owner, name in wrapped]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    try:
+        rate = pipeline.run_pipeline(sampler, relaxer, {"src": os.path.join(root, "relax_input.adshard.npz")},
+                                     out_dir, nsites=1, denoising_pos_params=PARAMS,
+                                     relax_opt=dict(PIPELINE_RELAX_OPT), relaxation_steps=PIPELINE_STEPS,
+                                     relaxation_fmax=0.01, dft_targets=dft, batch_size=len(systems))
+    finally:
+        for owner, name, original in originals:
+            setattr(owner, name, original)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = dict(kernels.launches)
+    calls = {name: rest for name, *rest in record}
+    if sorted(calls) != ["run_dataset", "sampled_trajs_to_dataset", "success_rate"] or len(record) != 3:
+        raise AssertionError(f"the pipeline made the calls {[r[0] for r in record]}: want one conversion, one "
+                             f"continuous relaxation (relax_opt continuous unset: auto) and one success rate")
+    t_convert, t_relax, t_score = (calls[k][:2] for k in ("sampled_trajs_to_dataset", "run_dataset",
+                                                         "success_rate"))
+    stages = dict(sample=t_convert[0] - t0, convert=t_convert[1] - t_convert[0], relax=t_relax[1] - t_relax[0],
+                  score=t_score[1] - t_score[0], total=t_end - t0)
+
+    # launch counts: the whole run, the sampling stage, the relaxation stage
+    steps = PARAMS["num_steps"]
+    sample_launches = calls["sampled_trajs_to_dataset"][3]
+    relax_launches = {k: v - calls["run_dataset"][3].get(k, 0) for k, v in calls["success_rate"][3].items()
+                      if v != calls["run_dataset"][3].get(k, 0)}
+    want_sample = {"painn_message_fused": sampler.model.num_layers * steps}
+    want_relax = gemnet_launches(relaxer.model, relaxer.forwards)
+    if sample_launches != want_sample or relax_launches != want_relax or launches != {**want_sample, **want_relax}:
+        raise AssertionError(f"pipeline launched {launches} (sampling {sample_launches}, want {want_sample}; "
+                             f"relaxation {relax_launches}, want {want_relax} for {relaxer.forwards} forwards)")
+
+    # trajectories: one sampled and one relaxed per sid; relaxed frames finite with fixed atoms unmoved, the last
+    # frame the RelaxedSystem
+    results = calls["run_dataset"][2]
+    sids = sorted(s.sid for s in systems)
+    step_dir = os.path.join(out_dir, "0")
+    converted = ShardDataset({"src": os.path.join(step_dir, "final_struct.adshard.npz")})
+    inputs = {converted[i].sid: converted[i] for i in range(len(converted))}
+    flags = {}
+    for stage in ("sampled", "relaxations"):
+        names = sorted(os.listdir(os.path.join(step_dir, stage)))
+        if names != sorted(f"{sid}{SUFFIX}" for sid in sids):
+            raise AssertionError(f"{stage}: files {names}, want one per sid {sids}")
+    for sid in sids:
+        sampled = Trajectory.load(os.path.join(step_dir, "sampled", f"{sid}{SUFFIX}"))
+        if len(sampled) != steps + 1 or not np.isfinite(sampled.positions).all():
+            raise AssertionError(f"sampled trajectory {sid}: {len(sampled)} frames or non-finite positions")
+        traj = Trajectory.load(os.path.join(step_dir, "relaxations", f"{sid}{SUFFIX}"))
+        res = results[sid]
+        if not all(np.isfinite(x).all() for x in (traj.positions, traj.energy, traj.forces)):
+            raise AssertionError(f"relaxed trajectory {sid} holds non-finite values")
+        fixed = traj.fixed
+        if not (fixed.any() and (traj.positions[:, fixed] == inputs[sid].pos[fixed]).all()):
+            raise AssertionError(f"relaxed trajectory {sid} moved fixed atoms")
+        if len(traj) != res.nsteps + 1 or float(traj.energy[-1]) != res.energy or not np.array_equal(
+                traj.positions[-1], res.pos):
+            raise AssertionError(f"relaxed trajectory {sid}: {len(traj)} frames, last energy {traj.energy[-1]}; "
+                                 f"RelaxedSystem nsteps {res.nsteps}, energy {res.energy}")
+        flags[sid] = [int(x) for x in eval_tools.anomalous_structure(traj)]
+    rate_again, per_system = calls["success_rate"][2]
+    if rate is None or rate != rate_again or not 0.0 <= rate <= 1.0:
+        raise AssertionError(f"success rate {rate} (the scorer's {rate_again})")
+    system_steps = sum(r.nsteps for r in results.values())
+    engine = calls["run_dataset"][4]
+    print(f"[pipeline] wall per stage (s): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()), flush=True)
+    print(f"[pipeline] relaxation: {len(results)} systems, {system_steps} L-BFGS system-steps in {stages['relax']:.3f} "
+          f"s = {system_steps / stages['relax']:.2f} relax system-steps/s; {relaxer.forwards} GemNet-OC forwards of "
+          f"{PIPELINE_RELAX_OPT['slots']} slots ({relaxer.forwards * PIPELINE_RELAX_OPT['slots'] / stages['relax']:.2f} "
+          f"slot-steps/s); {engine.host_reads} host reads; {sum(r.converged for r in results.values())} converged; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB allocated; launches {launches}", flush=True)
+    print(f"[pipeline] success rate {rate:.4f}; per system {per_system}; anomaly flags (dissociated, desorbed, "
+          f"surface changed, intercalated) {flags}", flush=True)
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -1033,19 +1381,19 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
-    # 3-15. each path: its kernels against the plain versions, the path, card vs CPU
+    # 3-16. each path: its kernels against the plain versions, the path, card vs CPU; then the pipeline
     systems = bench_systems()
-    rows = [
-        sampling_path(device, torch.Generator().manual_seed(0), systems),
-        relax_path(device, torch.Generator().manual_seed(3), systems[:RELAX_BATCH]),
-    ]
+    rows = [sampling_path(device, torch.Generator().manual_seed(0), systems)]
+    rows += relax_path(device, torch.Generator().manual_seed(3), systems[:RELAX_BATCH])
     with tempfile.TemporaryDirectory() as root:
         rows.append(training_path(device, torch.Generator().manual_seed(5), root))
     rows += eqv2_path(device, torch.Generator().manual_seed(7), systems)
     with tempfile.TemporaryDirectory() as root:
         rows.append(eqv2_training_path(device, torch.Generator().manual_seed(9), root))
+    with tempfile.TemporaryDirectory() as root:
+        pipeline_path(device, torch.Generator().manual_seed(13), systems, root)
 
-    # 16. results
+    # 17. results
     print(json.dumps({"kernels": [
         dict(name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"], launches=r["launches"],
              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

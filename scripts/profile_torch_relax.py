@@ -8,7 +8,9 @@ batched L-BFGS at the published relax_opt with the Verlet graph on) under
 - the wall time per step (a run with the profiler off), the card's busy
   time per step (the sum of all device-side events of a profiled run of the
   same steps) and the idle share;
-- the device kernels with the most time, with their share of busy time.
+- the device kernels with the most time, with their share of busy time,
+  then the port's hand-written kernels (``ops/build.py::KERNELS``) with their
+  device time per launch.
 
 Per-step numbers divide a whole ``RelaxationEngine.run`` by ``--steps``: it
 holds ``--steps`` model forwards, the final forward, the first candidate
@@ -33,7 +35,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from adsorbdiff_tpu_torch.data.schema import collate  # noqa: E402
 from adsorbdiff_tpu_torch.device import resolve_device  # noqa: E402
 from adsorbdiff_tpu_torch.models.gemnet_oc import GemNetOC  # noqa: E402
-from adsorbdiff_tpu_torch.ops import pbc  # noqa: E402
+from adsorbdiff_tpu_torch.ops import build, pbc  # noqa: E402
 from adsorbdiff_tpu_torch.relaxation.ml_relaxation import RelaxationEngine  # noqa: E402
 from chip_smoke import GEMNET_KW, RELAX_BATCH, RELAX_OPT, bench_systems  # noqa: E402
 
@@ -86,7 +88,14 @@ def main() -> None:
         top.append(row)
         print(f"{row['share']:7.1%}  {row['device_ms_per_step']:9.4f} ms/step  {row['calls_per_step']:6.1f} calls/step  "
               f"{name[:100]}")
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "steps": args.steps, **per_step, "top": top}))
+    ours = []
+    for name, (calls, us) in sorted(by_name.items()):
+        if any(k in name for k in build.KERNELS):
+            ours.append({"name": name, "calls_per_step": calls / args.steps, "device_ms_per_launch": us / 1e3 / calls})
+            print(f"hand-written: {ours[-1]['device_ms_per_launch']:.4f} ms per launch, {calls / args.steps:.1f} "
+                  f"calls/step  {name[:100]}")
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "steps": args.steps, **per_step, "top": top,
+                      "hand_written": ours}))
 
 
 if __name__ == "__main__":

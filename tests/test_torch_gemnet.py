@@ -1,8 +1,9 @@
 """PyTorch port: GemNet-OC (s2ef) against the JAX model and the reference oracle.
 
-The port's quadruplet interaction always runs ``gemnet_quad_chain`` (on the
-CPU: its plain version); the JAX model is run both with its fused kernel
-(Pallas in interpret mode) and with its unfused einsum chain.
+The port's quadruplet interaction always runs ``gemnet_quad_chain`` and its
+triplet bases ``gemnet_cbf_basis`` (on the CPU: their plain versions); the
+JAX model is run with its fused quad kernel and with its unfused einsum
+chain, each with and without ``use_pallas`` (Pallas in interpret mode).
 
 Tolerances: energy and forces atol 5e-5 / rtol 1e-4 against JAX (f32 sums
 over 2 blocks of dense, triplet and quadruplet contractions taken in another
@@ -47,6 +48,26 @@ def jax_tiny():
 
 
 @pytest.fixture(scope="module")
+def jax_tiny_pallas(jax_tiny):
+    """The JAX TINY model with ``use_pallas=True`` (its masked Legendre
+    kernels in interpret mode, patched as tests/test_pallas_kernels.py:486
+    does), fused and unfused quad, on the same weights."""
+    import functools
+
+    import adsorbdiff_tpu.ops.pallas_kernels as pk
+
+    batch, variables, _ = jax_tiny
+    orig_q, orig_c = pk.gemnet_quad_basis, pk.gemnet_cbf_basis
+    pk.gemnet_quad_basis = functools.partial(orig_q, interpret=True)
+    pk.gemnet_cbf_basis = functools.partial(orig_c, interpret=True)
+    try:
+        return {fused: jax.jit(JaxGemNetOC(**TINY, use_pallas=True, fused_quad=fused).apply)(variables, batch)
+                for fused in (False, True)}
+    finally:
+        pk.gemnet_quad_basis, pk.gemnet_cbf_basis = orig_q, orig_c
+
+
+@pytest.fixture(scope="module")
 def port_tiny(jax_tiny):
     _, variables, _ = jax_tiny
     model = GemNetOC(**TINY, device="cpu")
@@ -63,6 +84,29 @@ def test_tiny_matches_jax(jax_tiny, port_tiny, fused_quad):
     np.testing.assert_allclose(to_numpy(got["energy"]), np.asarray(want["energy"]), atol=5e-5, rtol=1e-4)
     np.testing.assert_allclose(to_numpy(got["forces"]), np.asarray(want["forces"]), atol=5e-5, rtol=1e-4)
     assert not to_numpy(got["forces"])[:, 20:].any()  # padded atoms
+
+
+@pytest.mark.parametrize("fused_quad", [False, True], ids=["jax-pallas-quad-basis", "jax-fused-quad"])
+def test_tiny_matches_jax_use_pallas(jax_tiny, jax_tiny_pallas, port_tiny, fused_quad):
+    """Against JAX ``GemNetOC(use_pallas=True)``: its e2e and a2e bases from
+    ``gemnet_cbf_basis`` (and, unfused, the dihedral basis from
+    ``gemnet_quad_basis``) in interpret mode; the port's three triplet bases
+    come from its own ``gemnet_cbf_basis`` (the plain version on the CPU)."""
+    with torch.no_grad():
+        got = port_tiny(to_torch_batch(jax_tiny[0]))
+    want = jax_tiny_pallas[fused_quad]
+    np.testing.assert_allclose(to_numpy(got["energy"]), np.asarray(want["energy"]), atol=5e-5, rtol=1e-4)
+    np.testing.assert_allclose(to_numpy(got["forces"]), np.asarray(want["forces"]), atol=5e-5, rtol=1e-4)
+
+
+def test_use_pallas_is_accepted_and_changes_nothing(jax_tiny, port_tiny):
+    model = GemNetOC(**TINY, use_pallas=True, device="cpu")
+    model.load_state_dict(port_tiny.state_dict(), strict=True)
+    batch = to_torch_batch(jax_tiny[0])
+    with torch.no_grad():
+        got, want = model(batch), port_tiny(batch)
+    for key in ("energy", "forces"):
+        torch.testing.assert_close(got[key], want[key], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize(
@@ -164,6 +208,6 @@ def test_wide_image_key_is_exact_at_cell_reps_4():
 
 def test_unported_options_raise():
     for kw in (dict(mode="denoising"), dict(compute_dtype="bfloat16"), dict(energy_encoding="scalar"),
-               dict(use_pallas=True), dict(fused_trip=True)):
+               dict(fused_trip=True)):
         with pytest.raises(NotImplementedError):
             GemNetOC(**TINY, **kw, device="cpu")

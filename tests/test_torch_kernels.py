@@ -15,7 +15,8 @@ sums and K-term reductions are taken in another order than the Pallas
 kernel's f32 matmuls; 2e-4 (abs and rel, the JAX package's own VJP test) for
 its gradients, whose dW and db sum over every edge of the batch; atol 2e-4 (the JAX package's own quad-chain test) and
 rtol 1e-5 for the GemNet-OC quadruplet chain, whose outputs sum K2 x S x Q =
-1680 products of O(1) terms in another order.
+1680 products of O(1) terms in another order; 1e-5 (abs and rel, the JAX
+package's own quad-basis test) for the masked Legendre bases.
 """
 import numpy as np
 import pytest
@@ -880,3 +881,147 @@ def test_eqv2_autograd_on_card_launches_the_backward_kernels(cuda_device):
                                inputs)
     for g, w in zip(got, want):
         assert (g - w).abs().max().item() <= 1e-3 * w.abs().max().item() + 1e-5
+
+
+# --------------------------------------------------------------------------
+# GemNet-OC: masked_legendre_cos (gemnet_cbf_basis, gemnet_quad_basis)
+# --------------------------------------------------------------------------
+QUAD_BASIS = (2, 4, 6, 3, 6, 7)  # b, n, k1, kq, k2, s of tests/test_pallas_kernels.py:448
+CBF = (2, 4, 7, 5, 7)  # b, n, m, k, s
+
+
+def _cbf_inputs(seed, b, n, m, k, s, keep_all=None):
+    """Unit rows with a few exact-zero (padded) rows; ``keep_all`` forces the
+    mask (False: all-false, as a row with no valid triplet)."""
+    rng = np.random.default_rng(seed)
+
+    def unit(*shape):
+        x = rng.normal(size=shape + (3,))
+        return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+    u, v = unit(b, n, m), unit(b, n, k)
+    u[0, 0, 0] = 0.0
+    v[-1, -1, -2:] = 0.0
+    keep = rng.random((b, n, m, k)) > 0.3 if keep_all is None else np.full((b, n, m, k), keep_all)
+    return u, v, keep
+
+
+def _quad_basis_inputs(seed, b, n, k1, kq, k2, s, keep_all=None):
+    """Cross products (not unit) with exact-zero rows, as masked edges give."""
+    rng = np.random.default_rng(seed)
+    n1 = rng.normal(size=(b, n, k1, kq, 3)).astype(np.float32)
+    n2 = rng.normal(size=(b, n, kq, k2, 3)).astype(np.float32)
+    n1[0, 0, 0] = 0.0
+    n2[-1, -1, 1, 3 % k2] = 0.0
+    keep = rng.random((b, n, k1, kq, k2)) > 0.3 if keep_all is None else np.full((b, n, k1, kq, k2), keep_all)
+    return n1, n2, keep
+
+
+@pytest.mark.parametrize("keep_all", [None, False], ids=["random-keep", "all-false-keep"])
+def test_legendre_bases_reference_match_jax_kernel(keep_all):
+    """gemnet_cbf_basis_reference, gemnet_quad_basis_reference and
+    masked_legendre_cos_reference against the JAX functions (Pallas in
+    interpret mode), with zero rows, at atol 1e-5 / rtol 1e-5 (the JAX
+    package's own test, tests/test_pallas_kernels.py:439-467)."""
+    import jax.numpy as jnp
+
+    from adsorbdiff_tpu.ops import pallas_kernels as pk
+
+    b, n, m, k, s = CBF
+    u, v, keep = _cbf_inputs(21, *CBF, keep_all=keep_all)
+    got = kernels.gemnet_cbf_basis_reference(*(torch.from_numpy(x) for x in (u, v, keep)), s).numpy()
+    assert got.shape == (b, n, s, m, k)
+    want = np.asarray(pk.gemnet_cbf_basis(jnp.asarray(u), jnp.asarray(v), jnp.asarray(keep), s, interpret=True))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+    a, bt, kg = u.reshape(b * n, m, 3), np.swapaxes(v.reshape(b * n, k, 3), 1, 2).copy(), keep.reshape(b * n, m, k)
+    got = kernels.masked_legendre_cos_reference(*(torch.from_numpy(x) for x in (a, bt, kg)), s).numpy()
+    want = np.asarray(pk.masked_legendre_cos(jnp.asarray(a), jnp.asarray(bt), jnp.asarray(kg), s, interpret=True))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+    s = QUAD_BASIS[5]
+    n1, n2, qkeep = _quad_basis_inputs(22, *QUAD_BASIS, keep_all=keep_all)
+    got = kernels.gemnet_quad_basis_reference(*(torch.from_numpy(x) for x in (n1, n2, qkeep)), s).numpy()
+    assert got.shape == (2, 4, s, 3, 6, 6)
+    want = np.asarray(pk.gemnet_quad_basis(jnp.asarray(n1), jnp.asarray(n2), jnp.asarray(qkeep), s, interpret=True))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    if keep_all is False:
+        assert not got.any()
+
+
+def test_legendre_reference_matches_jax_legendre_y_l0():
+    """The triplet basis against the JAX model's own XLA formulation
+    (``legendre_y_l0`` of the clipped cosine, mask folded), moved to the
+    kernel's [B, N, S, M, K] layout."""
+    import jax.numpy as jnp
+
+    from adsorbdiff_tpu.models.gemnet_oc import _cos_clamped, legendre_y_l0
+
+    u, v, keep = _cbf_inputs(23, *CBF)
+    s = CBF[4]
+    cos = _cos_clamped(jnp.asarray(u)[:, :, :, None, :], jnp.asarray(v)[:, :, None, :, :])
+    want = np.moveaxis(np.asarray(jnp.where(jnp.asarray(keep)[..., None], legendre_y_l0(cos, s), 0.0)), -1, 2)
+    got = kernels.gemnet_cbf_basis_reference(*(torch.from_numpy(x) for x in (u, v, keep)), s).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_legendre_wrappers_on_cpu_run_the_plain_version_and_count_no_launch():
+    u, v, keep = (torch.from_numpy(x) for x in _cbf_inputs(24, *CBF))
+    n1, n2, qkeep = (torch.from_numpy(x) for x in _quad_basis_inputs(25, *QUAD_BASIS))
+    before = kernels.launches["masked_legendre_cos"]
+    torch.testing.assert_close(kernels.gemnet_cbf_basis(u, v, keep, 7),
+                               kernels.gemnet_cbf_basis_reference(u, v, keep, 7), rtol=0, atol=0)
+    torch.testing.assert_close(kernels.gemnet_quad_basis(n1, n2, qkeep, 7),
+                               kernels.gemnet_quad_basis_reference(n1, n2, qkeep, 7), rtol=0, atol=0)
+    assert kernels.launches["masked_legendre_cos"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,keep_all",
+    [((8, 80, 30, 30, 7), None), ((8, 80, 30, 20, 7), None), ((3, 5, 29, 13, 7), None), ((2, 3, 33, 1, 4), False)],
+    ids=["e2e-relax", "a2e-relax", "ragged", "ragged-all-false"],
+)
+def test_cbf_basis_kernel_matches_plain_version_on_card(cuda_device, shape, keep_all):
+    """|kernel - plain| <= 1e-4 * max|plain| + 1e-5 (f32 dot and recurrence
+    contracted into other FMAs); one launch per call."""
+    u, v, keep = (torch.from_numpy(x).to(cuda_device) for x in _cbf_inputs(26, *shape, keep_all=keep_all))
+    s = shape[4]
+    before = kernels.launches["masked_legendre_cos"]
+    got = kernels.gemnet_cbf_basis(u, v, keep, s)
+    torch.cuda.synchronize()
+    assert kernels.launches["masked_legendre_cos"] == before + 1
+    want = kernels.gemnet_cbf_basis_reference(u, v, keep, s)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-5
+    a, bt = u.reshape(-1, shape[2], 3), v.reshape(-1, shape[3], 3).transpose(1, 2).contiguous()
+    kg = keep.reshape(-1, shape[2], shape[3])
+    torch.testing.assert_close(kernels.masked_legendre_cos(a, bt, kg, s), got.reshape(-1, s, shape[2], shape[3]),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 80, 30, 8, 30, 7), (2, 3, 13, 5, 29, 4), QUAD_BASIS],
+                         ids=["relax", "ragged", "jax-test"])
+def test_quad_basis_kernel_matches_plain_version_on_card(cuda_device, shape):
+    n1, n2, keep = (torch.from_numpy(x).to(cuda_device) for x in _quad_basis_inputs(27, *shape))
+    s = shape[5]
+    got = kernels.gemnet_quad_basis(n1, n2, keep, s)
+    torch.cuda.synchronize()
+    want = kernels.gemnet_quad_basis_reference(n1, n2, keep, s)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-5
+
+
+@pytest.mark.cuda
+def test_legendre_wrappers_raise_instead_of_falling_back(cuda_device):
+    u, v, keep = (torch.from_numpy(x).to(cuda_device) for x in _cbf_inputs(28, *CBF))
+    with pytest.raises(TypeError, match="keep must be torch.bool"):
+        kernels.gemnet_cbf_basis(u, v, keep.float(), 7)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.gemnet_cbf_basis(u, v, keep.transpose(2, 3).contiguous().transpose(2, 3), 7)
+    with pytest.raises(NotImplementedError, match="backward"):
+        kernels.gemnet_cbf_basis(u.clone().requires_grad_(), v, keep, 7)
+    with pytest.raises(ValueError, match="levels"):
+        kernels.gemnet_cbf_basis(u, v, keep, 17)
+    before = kernels.launches["masked_legendre_cos"]
+    empty = kernels.gemnet_cbf_basis(u[:, :, :0].contiguous(), v, keep[:, :, :0].contiguous(), 7)
+    assert empty.shape == (2, 4, 7, 0, 5) and kernels.launches["masked_legendre_cos"] == before

@@ -156,11 +156,16 @@ def test_relaxation_engine_separate_subgraph_tables(gemnet_pair):
         torch.testing.assert_close(getattr(verlet, name), getattr(full, name), rtol=0, atol=0, msg=name)
 
 
-def test_relaxation_engine_needs_a_device_or_cpu(gemnet_pair):
+def test_relaxation_engine_needs_a_device_or_cpu(gemnet_pair, tmp_path):
+    """Without a card the engine raises unless given the CPU, and on the CPU
+    it writes one trajectory per system of the batch."""
     model = gemnet_pair[3]
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RelaxationEngine.from_model(model, RELAX_OPT)
-    with pytest.raises(NotImplementedError, match="trajectory"):
-        RelaxationEngine.from_model(model, RELAX_OPT, device="cpu").run(to_torch_batch(gemnet_pair[0]), traj_dir="x")
+    engine = RelaxationEngine.from_model(model, dict(RELAX_OPT, steps=2), device="cpu")
+    tb = to_torch_batch(gemnet_pair[0])
+    engine.run(tb, traj_dir=str(tmp_path))
+    engine.flush()
+    assert len(list(tmp_path.glob("*.adtraj.npz"))) == len(set(tb.sid.tolist()))

@@ -163,8 +163,13 @@ def test_diffusion_engine_generator_draws_are_reproducible(models):
 
 
 def test_diffusion_engine_unported_paths_raise(tmp_path):
+    """Langevin sampling still raises; trajectory writing is ported, so a
+    ``traj_dir`` run writes one file per system instead of raising."""
     with pytest.raises(NotImplementedError):
         DiffusionEngine(lambda b: None, PARAMS, sampler="langevin", device="cpu")
-    engine = DiffusionEngine(lambda b: None, PARAMS, device="cpu")
-    with pytest.raises(NotImplementedError, match="trajectory"):
-        engine.run(to_torch_batch(make_batch(np.random.default_rng(9))), traj_dir=str(tmp_path))
+    engine = DiffusionEngine(lambda cur: (torch.zeros_like(cur.pos), torch.zeros_like(cur.pos)),
+                             dict(PARAMS, num_steps=2), device="cpu")
+    batch = to_torch_batch(make_batch(np.random.default_rng(9)))
+    engine.run(batch, torch.Generator().manual_seed(0), traj_dir=str(tmp_path))
+    engine.flush()
+    assert len(list(tmp_path.glob("*.adtraj.npz"))) == len(set(batch.sid.tolist()))
