@@ -11,8 +11,8 @@ import argparse
 def get_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="adsorbdiff_tpu_torch")
     parser.add_argument(
-        "--mode", choices=["train", "validate"], required=True,
-        help="Train the model, or validate a checkpoint",
+        "--mode", choices=["train", "validate", "predict", "run-relaxations"], required=True,
+        help="Train the model, validate or predict with a checkpoint, or sample the relax dataset from one",
     )
     parser.add_argument("--config-yml", required=True, type=str,
                         help="Path to a config file listing data, model, optim parameters.")

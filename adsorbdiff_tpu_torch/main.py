@@ -1,7 +1,15 @@
-"""Command line: train or validate on the CUDA card (``--cpu``: on the host).
+"""Command line: train, validate, predict or run relaxations on the CUDA card
+(``--cpu``: on the host).
 
     python -m adsorbdiff_tpu_torch.main --mode train \
         --config-yml configs/denoising/painn_so3.yml --dataset.0.src=train.adshard.npz [--cpu]
+    python -m adsorbdiff_tpu_torch.main --mode run-relaxations \
+        --config-yml configs/denoising/gemnet_so3.yml --checkpoint checkpoints/run/checkpoint \
+        --task.relax_dataset.src=relax.adshard.npz --task.write_pos=True [--cpu]
+
+``predict`` writes the EMA model's scores over the validation set (else the
+relax set) to ``results/<identifier>/predictions.npz``; ``run-relaxations``
+samples ``task.relax_dataset`` by reverse diffusion from a checkpoint.
 
 Dotted overrides (``--optim.batch_size=8``) merge into the config; a list
 entry is named by its index (``--dataset.0.src=...``).  Sweeps and cluster

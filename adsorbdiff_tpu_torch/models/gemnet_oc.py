@@ -2,9 +2,12 @@
 
 Port of :mod:`adsorbdiff_tpu.models.gemnet_oc` in ``mode="s2ef"`` (energy and
 direct forces), the relaxation model of ``configs/relaxation/gemnet_oc/
-gemnet_relax.yml``, on the dense padded layout: every graph is a ``[B, N, K]``
-neighbour table, triplets and quadruplets are masked dense tensors, and every
-aggregation is an einsum over fixed axes.
+gemnet_relax.yml``, and in ``mode="denoising"`` (the direct-force head as a
+translation score, with ``so3_denoising`` a second head as the rotation
+score), the score model of ``configs/denoising/gemnet_so3.yml``.  It keeps
+the dense padded layout: every graph is a ``[B, N, K]`` neighbour table,
+triplets and quadruplets are masked dense tensors, and every aggregation is
+an einsum over fixed axes.
 
 Module, parameter and buffer names are the AdsorbDiff reference's (the names
 ``tests/torch_ref_gemnet.py`` uses and ``train/torch_import.py`` maps), so a
@@ -40,8 +43,9 @@ from torch import nn
 from adsorbdiff_tpu_torch.common.registry import registry
 from adsorbdiff_tpu_torch.data.schema import AtomsBatch
 from adsorbdiff_tpu_torch.device import DeviceLike, resolve_device
-from adsorbdiff_tpu_torch.models.base import derive_subgraph, generate_graph, prepare_candidate_graph
-from adsorbdiff_tpu_torch.models.layers import AtomEmbedding, RadialBasis, ScaleFactor, scaled_silu
+from adsorbdiff_tpu_torch.models.base import (derive_subgraph, generate_graph, prepare_candidate_graph,
+                                              prepare_static_graph)
+from adsorbdiff_tpu_torch.models.layers import AtomEmbedding, RadialBasis, ScaleFactor, lecun_normal_, scaled_silu
 from adsorbdiff_tpu_torch.ops import pbc
 from adsorbdiff_tpu_torch.ops.kernels import gemnet_cbf_basis, gemnet_quad_chain, legendre_y_l0
 
@@ -295,19 +299,28 @@ class InteractionBlock(nn.Module):
 # --------------------------------------------------------------------------
 @registry.register_model("gemnet_oc")
 class GemNetOC(nn.Module):
-    """GemNet-OC in s2ef mode; returns ``{"energy": [B], "forces": [B, N, 3]}``.
+    """GemNet-OC.  ``mode="s2ef"`` returns ``{"energy": [B], "forces": [B, N,
+    3]}``; ``mode="denoising"`` returns the forces head ``[B, N, 3]`` as the
+    translation score, and with ``so3_denoising`` (the default) also a second
+    head's ``[B, N, 3]`` (``out_mlp_F_so3``, ``out_forces_so3``) as the
+    rotation score.  The energy head's weights exist in both modes, as in
+    JAX; in denoising mode its output is not computed.
 
     Hyperparameters and defaults are the JAX model's (``gemnet_relax.yml``
-    widths).  ``device``: the CUDA card unless ``"cpu"`` is passed (raises
-    without a card).  ``generator`` seeds the initial weights (orthogonal
-    Dense and basis weights, embeddings uniform in [-sqrt(3), sqrt(3)], scale
-    factors 1); weights are usually loaded afterwards.
+    widths).  ``energy_encoding="scalar"`` adds a ``Dense(1 -> A)`` of the
+    system's energy (``energy_embedding``) to every atom embedding, zeroed
+    with ``sampling=True``.  ``max_ads`` bounds the adsorbate atoms that an
+    incremental graph rebuilds (:meth:`prepare_static`).  ``device``: the
+    CUDA card unless ``"cpu"`` is passed (raises without a card).
+    ``generator`` seeds the initial weights (orthogonal Dense and basis
+    weights, embeddings uniform in [-sqrt(3), sqrt(3)], the energy embedding
+    lecun-normal as flax's Dense, scale factors 1); weights are usually
+    loaded afterwards.
 
-    Not ported yet (raise ``NotImplementedError``): ``mode="denoising"``,
-    ``compute_dtype``, ``energy_encoding`` and ``fused_trip=True`` (the
-    triplet consumers through the quad-chain kernel).  ``fused_quad`` and
-    ``use_pallas`` are accepted and ignored: the quadruplet interaction and
-    the triplet bases always run their kernels.
+    Not ported yet (raise ``NotImplementedError``): ``compute_dtype`` and
+    ``fused_trip=True`` (the triplet consumers through the quad-chain
+    kernel).  ``fused_quad`` and ``use_pallas`` are accepted and ignored: the
+    quadruplet interaction and the triplet bases always run their kernels.
     """
 
     def __init__(
@@ -351,8 +364,11 @@ class GemNetOC(nn.Module):
         symmetric_mp: bool = True,
         num_elements: int = 83,
         cell_reps: Tuple[int, int, int] = (2, 2, 1),
+        max_ads: int = 16,
         mode: str = "s2ef",
+        so3_denoising: bool = True,
         energy_encoding: Optional[str] = None,
+        sampling: bool = False,
         use_pallas: bool = False,
         fused_quad: bool = False,
         fused_trip: bool = False,
@@ -363,14 +379,13 @@ class GemNetOC(nn.Module):
     ) -> None:
         super().__init__()
         device = resolve_device(device)
-        for name, value, default in (
-            ("mode", mode, "s2ef"),
-            ("compute_dtype", compute_dtype, None),
-            ("energy_encoding", energy_encoding, None),
-            ("fused_trip", fused_trip, False),
-        ):
+        for name, value, default in (("compute_dtype", compute_dtype, None), ("fused_trip", fused_trip, False)):
             if value != default:
                 raise NotImplementedError(f"GemNetOC {name}={value!r} is not ported yet")
+        if mode not in ("s2ef", "denoising"):
+            raise ValueError(f"GemNetOC mode must be 's2ef' or 'denoising', got {mode!r}")
+        if energy_encoding not in (None, "scalar"):
+            raise ValueError(f"GemNetOC energy_encoding must be None or 'scalar', got {energy_encoding!r}")
         if 2 * max(cell_reps) >= KEY_BIAS:
             raise ValueError(f"cell_reps {cell_reps} too large for the image keys (summed offsets must be < 32)")
         self.num_spherical = num_spherical
@@ -389,6 +404,10 @@ class GemNetOC(nn.Module):
         self.qint_tags = tuple(int(t) for t in qint_tags)
         self.symmetric_mp = symmetric_mp
         self.cell_reps = tuple(int(r) for r in cell_reps)
+        self.max_ads = max_ads
+        self.mode = mode
+        self.so3_denoising = mode == "denoising" and so3_denoising
+        self.sampling = sampling
         self.derive_ae = derive_subgraphs and cutoff_aeaint <= cutoff and max_neighbors_aeaint <= max_neighbors
         self.derive_q = derive_subgraphs and cutoff_qint <= cutoff and max_neighbors_qint <= max_neighbors
 
@@ -402,6 +421,8 @@ class GemNetOC(nn.Module):
         self.radial_basis_aint = radial(cutoff_aint)
 
         self.atom_emb = AtomEmbedding(emb_size_atom, num_elements)
+        if energy_encoding == "scalar":
+            self.energy_embedding = nn.Linear(1, emb_size_atom)
         self.edge_emb = EdgeEmbedding(emb_size_atom, r, emb_size_edge)
         self.mlp_rbf_h = DenseLayer(r, emb_size_rbf, activation=False)
         self.mlp_rbf_out = DenseLayer(r, emb_size_rbf, activation=False)
@@ -442,15 +463,22 @@ class GemNetOC(nn.Module):
         self.out_energy = DenseLayer(emb_size_atom, 1, activation=False)
         self.out_mlp_F = MLPStack(emb_size_edge * (num_blocks + 1), emb_size_edge, num_global_out_layers)
         self.out_forces = DenseLayer(emb_size_edge, 1, activation=False)
+        if self.so3_denoising:
+            self.out_mlp_F_so3 = MLPStack(emb_size_edge * (num_blocks + 1), emb_size_edge, num_global_out_layers)
+            self.out_forces_so3 = DenseLayer(emb_size_edge, 1, activation=False)
         self.reset_parameters(generator)
         self.to(device)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """The JAX model's init: orthogonal Dense and basis weights,
-        embeddings uniform in [-sqrt(3), sqrt(3)]; scale factors 1."""
+        embeddings uniform in [-sqrt(3), sqrt(3)], the energy embedding
+        flax's default Dense init; scale factors 1."""
         with torch.no_grad():
             for module in self.modules():
-                if isinstance(module, nn.Linear):
+                if module is getattr(self, "energy_embedding", None):
+                    lecun_normal_(module.weight, generator)
+                    module.bias.zero_()
+                elif isinstance(module, nn.Linear):
                     nn.init.orthogonal_(module.weight, generator=generator)
                 elif isinstance(module, BasisEmbedding):
                     w = module.weight
@@ -459,25 +487,33 @@ class GemNetOC(nn.Module):
                     u = torch.rand(module.weight.shape, generator=generator, dtype=module.weight.dtype)
                     module.weight.copy_((2 * u - 1) * math.sqrt(3.0))
 
+    def _own_graphs(self) -> Dict[str, Tuple[float, int]]:
+        """``{name: (cutoff, max_neighbors)}`` of the graphs built on their
+        own; a derived subgraph is a K-prefix view of the main table."""
+        out = {"main": (self.cutoff, self.max_neighbors)}
+        if not self.derive_ae:
+            out["aeaint"] = (self.cutoff_aeaint, self.max_neighbors_aeaint)
+        if not self.derive_q:
+            out["qint"] = (self.cutoff_qint, self.max_neighbors_qint)
+        return out
+
     def prepare_candidates(self, batch: AtomsBatch, k_cand: int = 64) -> Dict[str, pbc.CandidateTable]:
         """Verlet candidate tables for a relaxation loop, keyed like the
         graphs; derived subgraphs need none of their own."""
-        def table(max_neighbors):
-            return prepare_candidate_graph(batch, max_neighbors=max_neighbors, cell_reps=self.cell_reps,
-                                           k_cand=k_cand)
+        return {name: prepare_candidate_graph(batch, max_neighbors=k, cell_reps=self.cell_reps, k_cand=k_cand)
+                for name, (_, k) in self._own_graphs().items()}
 
-        out = {"main": table(self.max_neighbors)}
-        if not self.derive_ae:
-            out["aeaint"] = table(self.max_neighbors_aeaint)
-        if not self.derive_q:
-            out["qint"] = table(self.max_neighbors_qint)
-        return out
+    def prepare_static(self, batch: AtomsBatch) -> Dict[str, pbc.StaticGraphPart]:
+        """Slab-slab neighbour candidates of every graph built on its own,
+        hoisted out of a sampling loop (only adsorbate atoms move)."""
+        return {name: prepare_static_graph(batch, cutoff=c, max_neighbors=k, cell_reps=self.cell_reps)
+                for name, (c, k) in self._own_graphs().items()}
 
     def _graph(self, batch, sg, name, cutoff, max_neighbors):
         return generate_graph(batch, cutoff=cutoff, max_neighbors=max_neighbors, cell_reps=self.cell_reps,
-                              static_graph=sg.get(name))
+                              static_graph=sg.get(name), max_ads=self.max_ads)
 
-    def forward(self, batch: AtomsBatch, static_graph: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
+    def forward(self, batch: AtomsBatch, static_graph: Optional[Dict[str, Any]] = None):
         if batch.max_atoms >= 8192:
             raise ValueError("GemNetOC's image keys need fewer than 8192 atoms per system")
         sg = static_graph or {}
@@ -593,6 +629,9 @@ class GemNetOC(nn.Module):
 
         # ---------------- embeddings -----------------------------------------
         h = self.atom_emb(batch.atomic_numbers)  # [B,N,A]
+        if hasattr(self, "energy_embedding"):
+            e = torch.zeros_like(batch.energy) if self.sampling else batch.energy
+            h = h + self.energy_embedding(e[:, None].to(h.dtype))[:, None, :]
         m = torch.where(emask[..., None], self.edge_emb(h, rad_main, nl.src), 0.0)  # [B,N,K1,E]
         xs_e, xs_f = [], []
         xe, xf = self.out_blocks[0](h, m, basis_output, emask)
@@ -690,16 +729,23 @@ class GemNetOC(nn.Module):
             xs_f.append(xf)
 
         # ---------------- global output --------------------------------------
+        x_f = torch.cat(xs_f, dim=-1)
+
+        def force_head(mlp, dense):
+            f_st = dense(mlp(x_f))[..., 0]  # [B,N,K1]
+            f_st = torch.where(emask, f_st, 0.0)
+            # F_target += F_st * (source -> target) = F_st * -unit
+            forces = torch.sum(f_st[..., None] * -unit, dim=2)
+            return torch.where(batch.atom_mask[..., None], forces, 0.0)
+
+        forces = force_head(self.out_mlp_F, self.out_forces)
+        if self.mode == "denoising":
+            return (forces, force_head(self.out_mlp_F_so3, self.out_forces_so3)) if self.so3_denoising else forces
         e_atom = self.out_energy(self.out_mlp_E(torch.cat(xs_e, dim=-1)))[..., 0]
         e_atom = torch.where(batch.atom_mask, e_atom, 0.0)
         energy = torch.sum(e_atom, dim=1)
         if not self.extensive:
             energy = energy / torch.clamp(torch.sum(batch.atom_mask, dim=1), min=1)
-        f_st = self.out_forces(self.out_mlp_F(torch.cat(xs_f, dim=-1)))[..., 0]  # [B,N,K1]
-        f_st = torch.where(emask, f_st, 0.0)
-        # F_target += F_st * (source -> target) = F_st * -unit
-        forces = torch.sum(f_st[..., None] * -unit, dim=2)
-        forces = torch.where(batch.atom_mask[..., None], forces, 0.0)
         return {"energy": energy, "forces": forces}
 
 
@@ -773,6 +819,9 @@ def gemnet_state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Ten
         "int_block_0_tint_bilinear", "int_block_0_tint_down")
 
     put("atom_emb.embeddings.weight", params["atom_emb"]["embeddings"])
+    if "energy_embedding" in params:
+        put("energy_embedding.weight", np.asarray(params["energy_embedding"]["kernel"]).T)
+        put("energy_embedding.bias", params["energy_embedding"]["bias"])
     lin("edge_emb.dense", params["edge_emb"]["Dense_0"])
     for nm in ("mlp_rbf_h", "mlp_rbf_out", "mlp_rbf_tint", "mlp_rbf_qint", "mlp_rbf_aeint", "mlp_rbf_eaint"):
         if nm in params:
@@ -842,8 +891,11 @@ def gemnet_state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Ten
     for r in range(_count(params, "out_mlp_E_")):
         residual(f"out_mlp_E.{1 + r}", params[f"out_mlp_E_{r}"])
     put("out_energy.linear.weight", np.asarray(params["out_energy"]["kernel"]).T)
-    mlp("out_mlp_F", "out_mlp_F_in")
-    for r in range(_count(params, "out_mlp_F_")):
-        residual(f"out_mlp_F.{1 + r}", params[f"out_mlp_F_{r}"])
-    put("out_forces.linear.weight", np.asarray(params["out_forces"]["kernel"]).T)
+    for tag in ("", "_so3"):  # the forces head; in denoising mode with so3_denoising, the rotation head
+        if f"out_mlp_F_in{tag}" not in params:
+            continue
+        mlp(f"out_mlp_F{tag}", f"out_mlp_F_in{tag}")
+        for r in range(_count(params, f"out_mlp_F{tag}_")):
+            residual(f"out_mlp_F{tag}.{1 + r}", params[f"out_mlp_F{tag}_{r}"])
+        put(f"out_forces{tag}.linear.weight", np.asarray(params[f"out_forces{tag}"]["kernel"]).T)
     return sd

@@ -140,11 +140,16 @@ class PaiNN(nn.Module):
     card).  ``generator``: seeds the initial weights (flax's default init
     distributions); weights are usually loaded afterwards.
 
-    Not ported yet (raise ``NotImplementedError``): ``mode="s2ef"``,
-    ``compute_dtype="bfloat16"``, ``tag_based_z``, ``energy_encoding``.
-    ``sampling`` and ``use_pallas`` are accepted for config compatibility and
-    change nothing: ``sampling`` only zeroes the energy conditioning, and the
-    message block always runs the fused kernel.
+    ``energy_encoding="scalar"`` adds a ``Dense(1 -> H)`` of the system's
+    energy (``energy_embedding``) to every atom's features, zeroed with
+    ``sampling=True`` (the JAX model wires in what the reference computes and
+    drops).  ``tag_based_z`` remaps slab (tag < 2) H, C, N and O to Z + 100,
+    with a table of ``num_elements + 100`` rows (the reference's intended
+    remap).  ``use_pallas`` is accepted for config compatibility and ignored:
+    the message block always runs the fused kernel.
+
+    Not ported yet (raise ``NotImplementedError``): ``mode="s2ef"``, which
+    waits for S2EF training, and ``compute_dtype="bfloat16"``.
     """
 
     def __init__(
@@ -171,14 +176,11 @@ class PaiNN(nn.Module):
     ) -> None:
         super().__init__()
         device = resolve_device(device)
-        for name, value, default in (
-            ("mode", mode, "denoising"),
-            ("compute_dtype", compute_dtype, None),
-            ("tag_based_z", tag_based_z, False),
-            ("energy_encoding", energy_encoding, None),
-        ):
+        for name, value, default in (("mode", mode, "denoising"), ("compute_dtype", compute_dtype, None)):
             if value != default:
                 raise NotImplementedError(f"PaiNN {name}={value!r} is not ported yet")
+        if energy_encoding not in (None, "scalar"):
+            raise ValueError(f"PaiNN energy_encoding must be None or 'scalar', got {energy_encoding!r}")
         rbf_name = (rbf or {"name": "gaussian"}).get("name", "gaussian")
         env = envelope or {"name": "polynomial", "exponent": 5}
         if rbf_name != "gaussian" or env.get("name", "polynomial") != "polynomial":
@@ -193,10 +195,14 @@ class PaiNN(nn.Module):
         self.so3_denoising = so3_denoising
         self.cell_reps = tuple(int(r) for r in cell_reps)
         self.max_ads = max_ads
+        self.sampling = sampling
+        self.tag_based_z = tag_based_z
         exponent = int(env.get("exponent", 5))
 
         h = hidden_channels
-        self.atom_emb = AtomEmbedding(h, num_elements)
+        self.atom_emb = AtomEmbedding(h, num_elements + (100 if tag_based_z else 0))
+        if energy_encoding == "scalar":
+            self.energy_embedding = nn.Linear(1, h)
         self.message_layers = nn.ModuleList(
             PaiNNMessage(h, num_rbf, cutoff=cutoff, envelope_exponent=exponent) for _ in range(num_layers)
         )
@@ -236,7 +242,14 @@ class PaiNN(nn.Module):
             batch, cutoff=self.cutoff, max_neighbors=self.max_neighbors, cell_reps=self.cell_reps,
             static_graph=static_graph, max_ads=self.max_ads,
         )
-        x = self.atom_emb(batch.atomic_numbers)  # [B, N, H]
+        z = batch.atomic_numbers
+        if self.tag_based_z:
+            cnho = (z == 1) | (z == 6) | (z == 7) | (z == 8)
+            z = torch.where((batch.tags < 2) & cnho, z + 100, z)
+        x = self.atom_emb(z)  # [B, N, H]
+        if hasattr(self, "energy_embedding"):
+            e = torch.zeros_like(batch.energy) if self.sampling else batch.energy
+            x = x + self.energy_embedding(e[:, None].to(x.dtype))[:, None, :]
         vec = torch.zeros(x.shape[:2] + (3, self.hidden_channels), dtype=x.dtype, device=x.device)
         inv_sqrt_2 = 1 / math.sqrt(2.0)
         for i in range(self.num_layers):
@@ -277,6 +290,8 @@ def painn_state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tens
             put(dest + ".bias", node["bias"])
 
     put("atom_emb.embeddings.weight", params["AtomEmbedding_0"]["embeddings"])
+    if "energy_embedding" in params:
+        lin("energy_embedding", params["energy_embedding"])
     num_layers = sum(1 for k in params if k.startswith("message_"))
     for i in range(num_layers):
         msg, upd = params[f"message_{i}"], params[f"update_{i}"]

@@ -3,14 +3,17 @@
 Each ``csrc/<name>.cu`` exports a plain C function and is compiled on its own
 into ``adsorbdiff_tpu_torch/_build/lib<name>-<hash>.so`` (the directory is
 git-ignored), then loaded with ``ctypes``: no PyTorch headers, so a build
-takes seconds.  The hash covers the source and the flags, so an edited source
-is rebuilt and a stale library is never loaded.  Nothing is built at import:
-only when a CUDA tensor reaches a kernel wrapper, or when a caller asks for
-:func:`build`.  A failed build raises with the compiler's output.
+takes seconds.  A source may include the shared headers ``csrc/*.cuh``.  The
+hash covers the source, every shared header and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded.  Nothing is
+built at import: only when a CUDA tensor reaches a kernel wrapper, or when a
+caller asks for :func:`build`.  A failed build raises with the compiler's
+output.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -22,7 +25,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 KERNELS = ("painn_message_fused", "painn_message_fused_bwd", "gemnet_quad_chain", "s2_grid_silu",
-           "eqv2_attn_conv1", "s2_grid_silu_bwd", "eqv2_edge_rotate", "masked_legendre_cos")
+           "eqv2_attn_conv1", "s2_grid_silu_bwd", "eqv2_edge_rotate", "masked_legendre_cos",
+           "painn_message_consumer", "fused_rbf_filter")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -43,9 +47,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    digest = hashlib.sha256()
+    for path in [os.path.join(CSRC_DIR, name + ".cu")] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:

@@ -6,8 +6,9 @@ Counterpart of :mod:`adsorbdiff_tpu.ops.pallas_kernels`.  Each kernel has:
   inputs, allocates the outputs and, on a CUDA tensor, launches the kernel
   (built from ``csrc/`` on first use) or raises.  On a CPU tensor it calls the
   plain version: that is the only way the plain version is reached;
-- a plain PyTorch version (``*_reference``) with the same signature, for the
-  CPU tests and for holding the kernel against on the card;
+- a plain PyTorch version (``*_reference``) with the same signature (less
+  the consumers' ``ti``, which sets only the launch), for the CPU tests and for
+  holding the kernel against on the card;
 - a launch count in :data:`launches`, raised by one where the wrapper
   launches the kernel and nowhere else.
 
@@ -48,6 +49,49 @@ def message_basis(dist: torch.Tensor, r: int, cutoff: float, envelope_exponent: 
     return torch.exp(-0.5 * (r - 1) ** 2 * (d[..., None] - offsets) ** 2) * env[..., None]
 
 
+def fused_rbf_filter_reference(
+    dist: torch.Tensor,  # [..., K]
+    mask: torch.Tensor,  # [..., K] bool
+    weights: torch.Tensor,  # [R, F]
+    bias: torch.Tensor,  # [F]
+    *,
+    cutoff: float,
+    envelope_exponent: int = 5,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_rbf_filter`: the masked edge
+    filters ``(basis @ W + b) * mask`` ``[..., K, F]``, with the whole
+    ``[..., K, R]`` basis materialised.  It is also the filter of the plain
+    message versions."""
+    basis = message_basis(dist, weights.shape[0], cutoff, envelope_exponent)
+    return (basis @ weights.float() + bias.float()) * mask[..., None].float()
+
+
+def painn_message_consumer_reference(
+    dist: torch.Tensor,  # [..., K]
+    mask: torch.Tensor,  # [..., K] bool
+    unit: torch.Tensor,  # [..., K, 3]
+    xh_gathered: torch.Tensor,  # [..., K, 3H]
+    vec_gathered: torch.Tensor,  # [..., K, 3H] (vec [..., K, 3, H] flattened)
+    weights: torch.Tensor,  # [R, 3H]
+    bias: torch.Tensor,  # [3H]
+    *,
+    cutoff: float,
+    envelope_exponent: int = 5,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`painn_message_consumer` (and of its
+    tiled form): ``(dx [..., H], dvec [..., 3, H])``, with the whole
+    ``[..., K, 3H]`` filter materialised."""
+    h = weights.shape[1] // 3
+    filt = fused_rbf_filter_reference(dist, mask, weights, bias, cutoff=cutoff, envelope_exponent=envelope_exponent)
+    g = xh_gathered.float() * filt
+    g1, g2, g3 = g[..., :h], g[..., h : 2 * h] * (1.0 / math.sqrt(3.0)), g[..., 2 * h :]
+    dx = torch.sum(g1, dim=-2)
+    dvec = torch.einsum("...kd,...kh->...dh", unit.float(), g3) + torch.sum(
+        vec_gathered.float().unflatten(-1, (3, h)) * g2[..., None, :], dim=-3
+    )
+    return dx, dvec
+
+
 def painn_message_fused_reference(
     xh: torch.Tensor,  # [B, N, 3H]
     vec: torch.Tensor,  # [B, N, 3H] (vec [B, N, 3, H] flattened)
@@ -61,23 +105,16 @@ def painn_message_fused_reference(
     cutoff: float,
     envelope_exponent: int = 5,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of :func:`painn_message_fused`: the whole
-    ``[B, N, K, 3H]`` filter and gathered features are materialised."""
+    """Plain PyTorch version of :func:`painn_message_fused`: the gather, then
+    :func:`painn_message_consumer_reference` (the whole ``[B, N, K, 3H]``
+    filter and gathered features are materialised)."""
     b, n, k = src.shape
-    r, f3 = weight.shape
-    h = f3 // 3
-    basis = message_basis(dist, r, cutoff, envelope_exponent)
-    filt = (basis @ weight.float() + bias.float()) * mask[..., None].float()  # [B, N, K, 3H]
+    f3 = weight.shape[1]
     idx = src.reshape(b, n * k, 1).long().expand(-1, -1, f3)
     xh_g = torch.gather(xh.float(), 1, idx).reshape(b, n, k, f3)
     vec_g = torch.gather(vec.float(), 1, idx).reshape(b, n, k, f3)
-    g = xh_g * filt
-    g1, g2, g3 = g[..., :h], g[..., h : 2 * h] * (1.0 / math.sqrt(3.0)), g[..., 2 * h :]
-    dx = torch.sum(g1, dim=2)
-    dvec = torch.einsum("bnkd,bnkh->bndh", unit.float(), g3) + torch.sum(
-        vec_g.reshape(b, n, k, 3, h) * g2[..., None, :], dim=2
-    )
-    return dx, dvec
+    return painn_message_consumer_reference(dist, mask, unit, xh_g, vec_g, weight, bias, cutoff=cutoff,
+                                            envelope_exponent=envelope_exponent)
 
 
 def painn_message_fused_bwd_reference(
@@ -167,16 +204,17 @@ def _check_shapes(kernel: str, tensors: dict, expected: dict) -> None:
             raise ValueError(f"{kernel}: {name} has shape {tuple(tensors[name].shape)}, want {shape}")
 
 
-def _launch(kernel: str, lib: ctypes.CDLL, device: torch.device, *args) -> None:
+def _launch(kernel: str, lib: ctypes.CDLL, device: torch.device, *args, count_as: Optional[str] = None) -> None:
     """Call ``<kernel>_f32(*args, stream)`` on the current stream of
-    ``device``; raise on a non-zero cudaError, else count the launch."""
+    ``device``; raise on a non-zero cudaError, else count the launch under
+    ``count_as`` (default ``kernel``)."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, kernel + "_f32")(*args, stream)
     if err != 0:
         msg = getattr(lib, kernel + "_error_string")(err).decode()
         raise RuntimeError(f"{kernel} launch failed: {msg} (cudaError {err})")
-    launches[kernel] += 1
+    launches[count_as or kernel] += 1
 
 
 def painn_message_fused(
@@ -243,9 +281,7 @@ def _message_shape(kernel: str, tensors: dict) -> Tuple[int, int, int, int, int]
     if src.dim() != 3:
         raise ValueError(f"{kernel}: src must be [B, N, K], got {tuple(src.shape)}")
     b, n, k = src.shape
-    if weight.dim() != 2 or weight.shape[0] < 2 or weight.shape[1] % 3:
-        raise ValueError(f"{kernel}: weight must be [R>=2, 3H], got {tuple(weight.shape)}")
-    r, f3 = weight.shape
+    r, f3 = _filter_weights(kernel, weight)
     _check_shapes(kernel, tensors, dict(
         xh=(b, n, f3), vec=(b, n, f3), dist=(b, n, k), mask=(b, n, k), unit=(b, n, k, 3), bias=(f3,)))
     return b, n, k, r, f3 // 3
@@ -335,6 +371,133 @@ class PainnMessageFused(torch.autograd.Function):
         )
         return (dxh.to(xh.dtype), dvec.to(vec.dtype), None, None, None, None,
                 dw.to(weight.dtype), db.to(bias.dtype), None, None)
+
+
+def painn_message_consumer(
+    dist: torch.Tensor,
+    mask: torch.Tensor,
+    unit: torch.Tensor,
+    xh_gathered: torch.Tensor,
+    vec_gathered: torch.Tensor,
+    weights: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    cutoff: float,
+    envelope_exponent: int = 5,
+    ti: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """PaiNN message on features gathered beforehand
+    (``csrc/painn_message_consumer.cu``): radial filter, multiply,
+    K-reduction and directional term, as :func:`painn_message_fused` computes
+    them after its gather.
+
+    ``dist``, ``mask`` ``[M, K]``, ``unit`` ``[M, K, 3]``, ``xh_gathered``,
+    ``vec_gathered`` ``[M, K, 3H]``, ``weights`` ``[R, 3H]``, ``bias``
+    ``[3H]``.  Returns ``(dx [M, H], dvec [M, 3, H])`` f32, before PaiNN's
+    1/sqrt(H) scale.  ``ti`` targets per block (M need not be a multiple).
+    On the card: f32 contiguous inputs, ``mask`` bool, no gradient (the JAX
+    function has no VJP either).  No model calls it.
+    """
+    return _consumer("painn_message_consumer", dist, mask, unit, xh_gathered, vec_gathered, weights, bias,
+                     cutoff, envelope_exponent, ti)
+
+
+def painn_message_consumer_tiled(
+    dist: torch.Tensor,
+    mask: torch.Tensor,
+    unit: torch.Tensor,
+    xh_gathered: torch.Tensor,
+    vec_gathered: torch.Tensor,
+    weights: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    cutoff: float,
+    envelope_exponent: int = 5,
+    ti: int = 8,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`painn_message_consumer` with ``ti`` targets per block (default
+    8), the counterpart of the JAX multi-target kernel; one source serves
+    both, and its launches count under this name."""
+    return _consumer("painn_message_consumer_tiled", dist, mask, unit, xh_gathered, vec_gathered, weights, bias,
+                     cutoff, envelope_exponent, ti)
+
+
+def _consumer(name, dist, mask, unit, xh_gathered, vec_gathered, weights, bias, cutoff, envelope_exponent, ti):
+    if dist.device.type == "cpu":
+        return painn_message_consumer_reference(dist, mask, unit, xh_gathered, vec_gathered, weights, bias,
+                                                cutoff=cutoff, envelope_exponent=envelope_exponent)
+    tensors = dict(dist=dist, mask=mask, unit=unit, xh_gathered=xh_gathered, vec_gathered=vec_gathered,
+                   weights=weights, bias=bias)
+    _check_cuda_inputs(name, tensors, {"mask": torch.bool})
+    if dist.dim() != 2:
+        raise ValueError(f"{name}: dist must be [M, K], got {tuple(dist.shape)}")
+    m, k = dist.shape
+    r, f3 = _filter_weights(name, weights)
+    _check_shapes(name, tensors, dict(mask=(m, k), unit=(m, k, 3), xh_gathered=(m, k, f3), vec_gathered=(m, k, f3),
+                                      bias=(f3,)))
+    if int(ti) < 1:
+        raise ValueError(f"{name}: ti must be >= 1, got {ti}")
+    h = f3 // 3
+    dx = torch.empty((m, h), dtype=torch.float32, device=dist.device)
+    dvec = torch.empty((m, 3, h), dtype=torch.float32, device=dist.device)
+    if m * h == 0:  # empty output: nothing to launch
+        return dx, dvec
+    lib = _library("painn_message_consumer",
+                   [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    _launch(
+        "painn_message_consumer", lib, dist.device,
+        dist.data_ptr(), mask.data_ptr(), unit.data_ptr(), xh_gathered.data_ptr(), vec_gathered.data_ptr(),
+        weights.data_ptr(), bias.data_ptr(), dx.data_ptr(), dvec.data_ptr(),
+        m, k, r, h, int(ti), 1.0 / cutoff, int(envelope_exponent), count_as=name,
+    )
+    return dx, dvec
+
+
+def _filter_weights(kernel: str, weights: torch.Tensor) -> Tuple[int, int]:
+    """``(R, 3H)`` of a message kernel's filter weights, or raise."""
+    if weights.dim() != 2 or weights.shape[0] < 2 or weights.shape[1] % 3:
+        raise ValueError(f"{kernel}: weight must be [R>=2, 3H], got {tuple(weights.shape)}")
+    return weights.shape[0], weights.shape[1]
+
+
+def fused_rbf_filter(
+    dist: torch.Tensor,
+    mask: torch.Tensor,
+    weights: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    cutoff: float,
+    envelope_exponent: int = 5,
+) -> torch.Tensor:
+    """Masked radial edge filters ``(gauss_rbf(d) * envelope(d)) @ W + b``
+    (``csrc/fused_rbf_filter.cu``): a GEMM whose basis operand the kernel
+    computes from ``dist`` and never stores.
+
+    ``dist``, ``mask`` ``[..., K]`` (any lead dims), ``weights`` ``[R, F]``,
+    ``bias`` ``[F]``; returns ``[..., K, F]`` f32, 0 on masked edges (bias
+    included) and the bias on an unmasked edge beyond the cutoff.  The JAX
+    wrapper's ``tile`` (its edge padding) has no counterpart: the kernel
+    guards the ends instead of padding.  On the card: f32 contiguous inputs,
+    ``mask`` bool, no gradient.  No model calls it.
+    """
+    if dist.device.type == "cpu":
+        return fused_rbf_filter_reference(dist, mask, weights, bias, cutoff=cutoff,
+                                          envelope_exponent=envelope_exponent)
+    tensors = dict(dist=dist, mask=mask, weights=weights, bias=bias)
+    _check_cuda_inputs("fused_rbf_filter", tensors, {"mask": torch.bool})
+    if weights.dim() != 2 or weights.shape[0] < 2:
+        raise ValueError(f"fused_rbf_filter: weights must be [R>=2, F], got {tuple(weights.shape)}")
+    r, f = weights.shape
+    _check_shapes("fused_rbf_filter", tensors, dict(mask=tuple(dist.shape), bias=(f,)))
+    out = torch.empty(tuple(dist.shape) + (f,), dtype=torch.float32, device=dist.device)
+    e = dist.numel()
+    if e * f == 0:  # empty output: nothing to launch
+        return out
+    lib = _library("fused_rbf_filter", [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    _launch("fused_rbf_filter", lib, dist.device, dist.data_ptr(), mask.data_ptr(), weights.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), e, r, f, 1.0 / cutoff, int(envelope_exponent))
+    return out
 
 
 def gemnet_quad_chain_reference(

@@ -16,16 +16,13 @@ import logging
 import os
 from typing import Dict, Optional
 
-import numpy as np
-import torch
-
 from adsorbdiff_tpu_torch.data.buckets import BucketedBatcher
 from adsorbdiff_tpu_torch.data.schema import System
 from adsorbdiff_tpu_torch.data.store import ShardDataset, write_shard
 from adsorbdiff_tpu_torch.device import resolve_device
 from adsorbdiff_tpu_torch.eval_tools import success_rate
 from adsorbdiff_tpu_torch.relaxation.continuous import ContinuousRelaxationEngine, resolve_continuous
-from adsorbdiff_tpu_torch.relaxation.ml_relaxation import DiffusionEngine, RelaxationEngine
+from adsorbdiff_tpu_torch.relaxation.ml_relaxation import DiffusionEngine, RelaxationEngine, batch_generator
 from adsorbdiff_tpu_torch.runtime.trajectory import Trajectory, list_trajectories
 
 
@@ -47,12 +44,6 @@ def sampled_trajs_to_dataset(traj_dir: str, out_path: str, z_clearance: float = 
                               cell=traj.cell, sid=traj.sid, fid=traj.fid))
     write_shard(out_path, systems)
     return len(systems)
-
-
-def batch_generator(seed: int, index: int, device: torch.device) -> torch.Generator:
-    """The sampling generator of batch ``index`` of seed ``seed``."""
-    state = np.random.SeedSequence([int(seed), int(index)]).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(state))
 
 
 def run_pipeline(

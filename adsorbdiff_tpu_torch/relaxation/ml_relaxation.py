@@ -18,6 +18,7 @@ import queue
 import threading
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from adsorbdiff_tpu_torch.data.schema import AtomsBatch
@@ -145,6 +146,14 @@ def make_score_fn(model: torch.nn.Module) -> Callable:
         return out1, out2
 
     return score_fn
+
+
+def batch_generator(seed: int, index: int, device: DeviceLike = None) -> torch.Generator:
+    """The sampling generator of batch ``index`` of seed ``seed`` (the JAX
+    package folds ``index`` into ``PRNGKey(seed)``; the two generators
+    differ, so the samples differ by design)."""
+    state = np.random.SeedSequence([int(seed), int(index)]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=resolve_device(device)).manual_seed(int(state))
 
 
 class DiffusionEngine:

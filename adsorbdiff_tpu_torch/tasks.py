@@ -1,9 +1,14 @@
 """Tasks and the trainer context: the thin dispatch layer (port of
-:mod:`adsorbdiff_tpu.tasks`, the ``train`` and ``validate`` tasks)."""
+:mod:`adsorbdiff_tpu.tasks`: ``train``, ``validate``, ``predict`` and
+``run-relaxations``)."""
 from __future__ import annotations
 
 import contextlib
+import logging
+import os
 from types import SimpleNamespace
+
+import numpy as np
 
 from adsorbdiff_tpu_torch.common.registry import registry
 from adsorbdiff_tpu_torch.train import trainer  # noqa: F401  (registers the trainers)
@@ -28,10 +33,43 @@ class TrainTask(BaseTask):
         self.trainer.train(disable_eval_tqdm=self.config.get("hide_eval_progressbar", False))
 
 
+@registry.register_task("predict")
+class PredictTask(BaseTask):
+    """EMA score predictions over the validation set (else the relax set),
+    written to ``results_dir/predictions.npz`` as JAX writes them: ``ids``
+    ``"{sid}_{fid}"`` per batch row and ``outputs``, the translation scores
+    ``[rows, N, 3]`` in f16 (a padded batch repeats its last system)."""
+
+    def run(self) -> None:
+        batcher = self.trainer.val_batcher or self.trainer.relax_batcher
+        if batcher is None:
+            raise ValueError("no dataset to predict on (dataset.1 or task.relax_dataset)")
+        ids, outs = [], []
+        for batch in batcher:
+            out1, _ = self.trainer.predict_denoising(batch)
+            outs.append(out1.cpu().numpy().astype(np.float16))
+            ids.extend(f"{s}_{f}" for s, f in zip(batch.sid.tolist(), batch.fid.tolist()))
+        path = os.path.join(self.trainer.results_dir, "predictions.npz")
+        np.savez_compressed(path, ids=np.asarray(ids), outputs=np.concatenate(outs))
+        logging.info(f"Writing results to {path}")
+
+
 @registry.register_task("validate")
 class ValidateTask(BaseTask):
     def run(self) -> None:
         self.trainer.validate(split=self.config.get("val_split", "val"))
+
+
+@registry.register_task("run-relaxations")
+class RelaxationTask(BaseTask):
+    """Diffusion sampling over ``task.relax_dataset`` from a checkpoint."""
+
+    def run(self) -> None:
+        if self.trainer.relax_dataset is None:
+            raise ValueError("Relax dataset is required for making predictions (task.relax_dataset)")
+        if not self.config.get("checkpoint"):
+            raise ValueError("checkpoint required to run relaxations")
+        self.trainer.run_relaxations()
 
 
 @contextlib.contextmanager

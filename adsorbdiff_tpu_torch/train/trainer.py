@@ -19,11 +19,15 @@ the host when the config says ``cpu: true``):
   draws its masks from a per-step dropout generator seeded from
   (seed, step), separate from the noise generator, so the noise does not
   change when drops are on (JAX's ``fold_in(key, 1)``); the EMA copy, which
-  validation and score prediction run, is in eval mode and draws nothing.
+  validation and score prediction run, is in eval mode and draws nothing;
+- ``DenoisingTrainer.run_relaxations`` samples the ``task.relax_dataset``
+  with the EMA model through :class:`DiffusionEngine`, batch i from a
+  ``torch.Generator`` seeded from (seed + 2, i), where JAX folds i into
+  ``PRNGKey(seed + 2)``: the samples differ between the packages by design.
 
 Not ported (raise ``NotImplementedError``): S2EF training (``S2EFTrainer``),
 ``amp``, ``grad_accumulation_steps > 1``, ``ReduceLROnPlateau``,
-``run_relaxations``, several devices.
+``model.scale_file``, several devices.
 """
 from __future__ import annotations
 
@@ -48,11 +52,13 @@ from adsorbdiff_tpu_torch.device import DeviceLike, resolve_device
 from adsorbdiff_tpu_torch.diffusion.schedules import ScheduleDraws, ads_com_gaussian_schedule, tr_so3_schedule
 from adsorbdiff_tpu_torch.models import equiformer_v2, gemnet_oc, painn  # noqa: F401  (registers the models)
 from adsorbdiff_tpu_torch.ops.pbc import auto_cell_reps
+from adsorbdiff_tpu_torch.relaxation.ml_relaxation import DiffusionEngine, batch_generator
 from adsorbdiff_tpu_torch.train import checkpoint as ckpt
 from adsorbdiff_tpu_torch.train.evaluator import Evaluator
 from adsorbdiff_tpu_torch.train.loss import denoising_loss
 from adsorbdiff_tpu_torch.train.lr import build_lr_schedule
 from adsorbdiff_tpu_torch.train.normalizer import Normalizer
+from adsorbdiff_tpu_torch.train.scaling import ensure_fitted
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adamw defaults
 # reference config keys the models take elsewhere or not at all
@@ -131,6 +137,8 @@ class BaseTrainer:
             raise NotImplementedError("grad_accumulation_steps > 1 is not ported yet")
         if str(self.optim_cfg.get("scheduler", "")) == "ReduceLROnPlateau":
             raise NotImplementedError("the ReduceLROnPlateau scheduler is not ported yet")
+        if self.model_cfg.get("scale_file"):
+            raise NotImplementedError("model.scale_file (reference scale files) is not ported yet")
         self.device = resolve_device("cpu" if config.get("cpu") else device)
         self.seed = int(config.get("seed", 0) or 0)
         self.run_dir = config.get("run_dir", "./")
@@ -149,6 +157,9 @@ class BaseTrainer:
         self._normalizers(config)
         self._optimizer()
         self.initialized = False
+        # True once a checkpoint supplies scale factors (the JAX trainer's
+        # explicit fitted state); False after a fresh init
+        self.scale_factors_fitted: Optional[bool] = None
         self.evaluator = Evaluator(task=self.name if self.name in Evaluator.task_metrics else "ocp")
         self.logger = self._logger(config)
         self.step = 0
@@ -164,7 +175,7 @@ class BaseTrainer:
         (:func:`adsorbdiff_tpu_torch.ops.pbc.auto_cell_reps`)."""
         if self.model_cfg.get("cell_reps") != "auto":
             return
-        ds = self.train_dataset or self.val_dataset
+        ds = self.train_dataset or self.relax_dataset or self.val_dataset
         cutoff = max([float(v) for k, v in self.model_cfg.items() if k.startswith("cutoff")] or [12.0])
         if ds is None or len(ds) == 0:
             self.model_cfg["cell_reps"] = (2, 2, 1)
@@ -189,23 +200,23 @@ class BaseTrainer:
 
     def _datasets(self, config) -> None:
         ds_cfg = config.get("dataset")
-        self.train_dataset = self.val_dataset = None
-        self.train_batcher = self.val_batcher = None
-        if self.task_cfg.get("relax_dataset"):
-            raise NotImplementedError("relax_dataset (run_relaxations) is not ported yet")
+        self.train_dataset = self.val_dataset = self.relax_dataset = None
+        self.train_batcher = self.val_batcher = self.relax_batcher = None
         if self.optim_cfg.get("atom_budget"):
             raise NotImplementedError("atom-balanced batches (optim.atom_budget) are not ported yet")
         bs = int(self.optim_cfg.get("batch_size", 4))
         eval_bs = int(self.optim_cfg.get("eval_batch_size", bs))
-        if not ds_cfg:
-            return
-        entries = ds_cfg if isinstance(ds_cfg, list) else [ds_cfg]
-        if entries[0].get("src"):
+        entries = (ds_cfg if isinstance(ds_cfg, list) else [ds_cfg]) if ds_cfg else []
+        if entries and entries[0].get("src"):
             self.train_dataset = ShardDataset(entries[0])
             self.train_batcher = BucketedBatcher(self.train_dataset, bs, seed=self.seed, shuffle=True)
         if len(entries) > 1 and entries[1].get("src"):
             self.val_dataset = ShardDataset(entries[1])
             self.val_batcher = BucketedBatcher(self.val_dataset, eval_bs, seed=self.seed, shuffle=False)
+        relax_cfg = self.task_cfg.get("relax_dataset")
+        if relax_cfg and relax_cfg.get("src"):
+            self.relax_dataset = ShardDataset(relax_cfg)
+            self.relax_batcher = BucketedBatcher(self.relax_dataset, eval_bs, seed=self.seed, shuffle=False)
 
     def _normalizers(self, config) -> None:
         self.normalizers: Dict[str, Normalizer] = {}
@@ -252,6 +263,11 @@ class BaseTrainer:
         self.mu, self.nu = _views(self._mu_flat, params), _views(self._nu_flat, params)
         self.ema = list(self.ema_module.parameters())
         self.initialized = True
+        self.scale_factors_fitted = False
+
+    def scale_factors(self) -> Dict[str, torch.Tensor]:
+        """The model's ScaleFactor buffers by name."""
+        return {n: b for n, b in self.model.named_buffers() if n.endswith("scale_factor")}
 
     def state_dict(self) -> dict:
         names = [n for n, _ in self.model.named_parameters()]
@@ -260,7 +276,7 @@ class BaseTrainer:
             "step": self.step,
             "params": {n: params[n].detach() for n in names},
             "ema_params": dict(zip(names, self.ema)),
-            "scale_factors": {n: b for n, b in self.model.named_buffers() if n.endswith("scale_factor")},
+            "scale_factors": self.scale_factors(),
             "opt_state": {"count": self.count, "mu": dict(zip(names, self.mu)), "nu": dict(zip(names, self.nu))},
         }
 
@@ -282,6 +298,8 @@ class BaseTrainer:
                 self.nu[i].copy_(state["opt_state"]["nu"][n])
             self.count.copy_(state["opt_state"]["count"])
         self.step = int(state["step"])
+        if state.get("scale_factors"):  # a checkpoint's scale factors count as fitted, as in JAX
+            self.scale_factors_fitted = True
 
     def save(self, name: str = "checkpoint") -> str:
         return ckpt.save_checkpoint(self.ckpt_dir, name, self.state_dict(), config=self.config)
@@ -453,8 +471,51 @@ class BaseTrainer:
     def validate(self, split: str = "val") -> dict:
         raise NotImplementedError
 
+    # --------------------------------------------------- relaxation results
+    def _write_relaxed_positions(self, ids, positions, chunk_idx) -> None:
+        """``results_dir/relaxed_positions.npz``: ``ids``, the positions of
+        each distinct id in one ``[sum natoms, 3]`` array, and ``chunk_idx``,
+        the offsets where each id's atoms after the first begin (the JAX
+        trainer's file; its positions are f32 here where JAX may store an
+        object array)."""
+        full_path = os.path.join(self.results_dir, "relaxed_positions.npz")
+        ids = np.asarray(ids)
+        _, idx = np.unique(ids, return_index=True)
+        np.savez_compressed(
+            full_path,
+            ids=ids[idx],
+            pos=np.concatenate([np.asarray(positions[i]) for i in idx]) if len(idx) else np.zeros((0, 3)),
+            chunk_idx=np.cumsum(np.asarray(chunk_idx)[idx])[:-1] if len(idx) else np.zeros(0, np.int64),
+        )
+        logging.info(f"Writing results to {full_path}")
+
+    def _relax_metrics(self, batch: AtomsBatch, final_pos, final_energy, metrics_is2rs, metrics_is2re):
+        """IS2RS and IS2RE metrics on free atoms (``final_pos`` and
+        ``final_energy`` on the host), accumulated into the two metric
+        dicts."""
+        host = batch.to("cpu")
+        free = host.free_mask.numpy()
+        natoms_free = free.sum(1)
+        cells = host.cell.numpy()
+        pred_pos = np.asarray(final_pos)[free]
+        common = {"cell": cells, "pbc": (True, True, True), "natoms": natoms_free}
+        target = {"energy": host.y_relaxed.numpy(), "positions": host.pos_relaxed.numpy()[free], **common}
+        pred = {"energy": np.asarray(final_energy), "positions": pred_pos, **common}
+        metrics_is2rs = Evaluator(task="is2rs").eval(pred, target, metrics_is2rs)
+        metrics_is2re = Evaluator(task="is2re").eval({"energy": pred["energy"]}, {"energy": target["energy"]},
+                                                      metrics_is2re)
+        return metrics_is2rs, metrics_is2re
+
+    def _log_relax_metrics(self, metrics_is2rs, metrics_is2re, split="val") -> None:
+        for task_name, metrics in (("is2rs", metrics_is2rs), ("is2re", metrics_is2re)):
+            log = {f"{task_name}_{k}": v["metric"] for k, v in metrics.items()}
+            if log:
+                logging.info(f"[{task_name}] " + ", ".join(f"{k}: {v:.4f}" for k, v in log.items()))
+                if self.logger:
+                    self.logger.log(log, step=self.step, split=split)
+
     def run_relaxations(self, split: str = "val") -> None:
-        raise NotImplementedError("run_relaxations is not ported yet")
+        raise NotImplementedError(f"run_relaxations is not ported for the {self.name} trainer")
 
 
 @registry.register_trainer("denoising")
@@ -505,8 +566,11 @@ class DenoisingTrainer(BaseTrainer):
     @torch.no_grad()
     def predict_denoising(self, batch: AtomsBatch):
         """EMA score prediction for the sampler: ``(tr [B, N, 3], rot [B, N, 3]
-        or None)``, the rotation head zeroed on fixed atoms."""
-        return self.score_fn(batch)
+        or None)`` on the trainer's device, the rotation head zeroed on fixed
+        atoms."""
+        if not self.initialized:
+            self.init_state()
+        return self.score_fn(batch.to(self.device))
 
     def score_fn(self, batch: AtomsBatch, static_graph=None):
         """The EMA model as the sampler calls it: energy conditioning zeroed,
@@ -525,6 +589,56 @@ class DenoisingTrainer(BaseTrainer):
         if not self.initialized:
             self.init_state()
         return getattr(self.ema_module, "prepare_static", None)
+
+    @torch.no_grad()
+    def run_relaxations(self, split: str = "val") -> None:
+        """Reverse diffusion over the relax dataset with the EMA model.
+
+        Raises unless the scale factors are fitted (a loaded checkpoint's
+        count as fitted); with ``is_debug`` it warns instead.  Task keys:
+        ``relax_opt.traj_dir`` (one trajectory per system),
+        ``save_full_traj`` [True], ``write_pos`` [False]
+        (``relaxed_positions.npz``), ``num_relaxation_batches``.  IS2RS/IS2RE
+        metrics are logged when the dataset has relaxed energies."""
+        if not self.initialized:
+            self.init_state()
+        ensure_fitted(self.scale_factors(), warn=bool(self.config.get("is_debug")), fitted=self.scale_factors_fitted)
+        if self.relax_batcher is None:
+            raise ValueError("no relax_dataset configured")
+        engine = DiffusionEngine(self.score_fn, self.denoising_pos_params, static_fn=self.sampling_static_fn(),
+                                 device=self.device)
+        traj_dir = (self.task_cfg.get("relax_opt", {}) or {}).get("traj_dir")
+        save_full = self.task_cfg.get("save_full_traj", True)
+        write_pos = self.task_cfg.get("write_pos", False)
+        num_batches = int(self.task_cfg.get("num_relaxation_batches", int(1e9)))
+
+        metrics_is2rs: Dict[str, Any] = {}
+        metrics_is2re: Dict[str, Any] = {}
+        ids, positions, chunk_idx = [], [], []
+        has_targets = None
+        for i, batch in self._batches(self.relax_batcher, depth=0):
+            if i >= num_batches:
+                break
+            res = engine.run(batch, batch_generator(self.seed + 2, i, self.device), traj_dir=traj_dir,
+                             save_full_traj=save_full)
+            if res is None:
+                continue
+            final_pos = res.batch.pos.cpu().numpy()
+            if write_pos:
+                natoms, sids = batch.natoms.cpu().numpy(), batch.sid.cpu().numpy()
+                for b in range(batch.batch_size):
+                    ids.append(str(int(sids[b])))
+                    positions.append(final_pos[b, : natoms[b]])
+                    chunk_idx.append(int(natoms[b]))
+            if has_targets is None:
+                has_targets = bool((batch.y_relaxed != 0).any())
+            if has_targets:
+                metrics_is2rs, metrics_is2re = self._relax_metrics(
+                    batch, final_pos, np.zeros(batch.batch_size), metrics_is2rs, metrics_is2re)
+        engine.flush()  # join the trajectory writes before returning
+        if write_pos:
+            self._write_relaxed_positions(ids, positions, chunk_idx)
+        self._log_relax_metrics(metrics_is2rs, metrics_is2re, split)
 
 
 @registry.register_trainer("s2ef")

@@ -16,6 +16,17 @@ Phases; any failure raises and the exit code is then non-zero:
    gives it, gemnet_quad_basis at [8, 80, 30, 8, 30] with S=7, and ragged
    shapes (M, K not multiples of 32, zero rows, an all-false keep), each
    against its plain version; times per launch against a bytes bound.
+   painn_message_consumer and painn_message_consumer_tiled (phase 3d, ti 1
+   and 8): at the second message layer's inputs of one B=16 PaiNN forward
+   (M = 1280 targets, K=50, H=512; features gathered in torch), each against
+   its plain version and against painn_message_fused on the same layer, and
+   at ragged shapes (M not a multiple of 8, K not of 32, an all-false row,
+   shared memory over 48 KB).  fused_rbf_filter (phase 3e): at that layer's
+   distances, mask and filter weights (the [1280, 50, 1536] filter of the
+   plain message versions) and ragged lead shapes with an unmasked edge past
+   the cutoff (output = bias).  No model calls these three: every path
+   run's exact counts leave them at 0, and the kernels line reports their
+   launches summed over those runs.
 4. sampling path: PaiNN at the painn_so3.yml widths (H=512, 6 layers, 128
    RBF, cutoff 12 A, K=50; random weights from a seeded generator) drives 100
    ODE reverse-diffusion steps through DiffusionEngine with the hoisted
@@ -114,15 +125,33 @@ Phases; any failure raises and the exit code is then non-zero:
    trajectory's last frame is its RelaxedSystem (energy, positions, frame
    count).  Prints wall time per stage, relax system-steps/s, the success
    rate and the per-system anomaly flags.
-17. the kernels line, then the device line as the last line.  A row's ms,
+17. run-relaxations with the GemNet-OC so3 score model: a DenoisingTrainer
+   at the gemnet_so3.yml + base.yml settings (4 blocks, atom 256, edge 512,
+   128 RBF, 7 spherical, cutoff 12 A, 30/8/20 neighbours, all interactions,
+   both heads; random weights from its seed; cell_reps auto) saves a
+   checkpoint; the run-relaxations task, built by new_trainer_context as
+   the command line builds it, loads it and runs 100 reverse-diffusion
+   steps over 8 bench systems in a shard (one batch of 8), writing
+   trajectories and relaxed_positions.npz.  Launch counts are zeroed just
+   before the task runs and read just after: per score forward 4
+   gemnet_quad_chain and 3 masked_legendre_cos, forwards counted by a
+   wrapper around the trainer's score_fn.  Then the predict task on the same
+   data writes predictions.npz.
+18. card vs CPU at B=2, within 1e-4 * max|cpu|: one GemNet-OC so3
+   denoising forward at full width (both heads), and one PaiNN forward at
+   the painn_conditional.yml widths with non-zero energies (both heads; the
+   energy must move the output).
+19. the kernels line, then the device line as the last line.  A row's ms,
    plain_ms and bound_ms are per launch; eqv2_edge_rotate's are the mean
    over the four forms in the proportions one forward launches them, and
    its launches are the EquiformerV2 sampling run's; masked_legendre_cos's
    are the mean over the three triplet bases, and its launches are the
-   relaxation path's.
+   relaxation path's; the consumers' and fused_rbf_filter's launches are
+   their counts summed over every path run (0: no path calls them).
 
 It imports nothing of JAX and nothing of the JAX package.
 """
+import collections
 import copy
 import dataclasses
 import json
@@ -144,19 +173,22 @@ from adsorbdiff_tpu_torch.models import equiformer_v2, gemnet_oc
 from adsorbdiff_tpu_torch.models.base import generate_graph
 from adsorbdiff_tpu_torch.models.equiformer_v2 import EquiformerV2
 from adsorbdiff_tpu_torch.models.gemnet_oc import GemNetOC
-from adsorbdiff_tpu_torch.models import so3
+from adsorbdiff_tpu_torch.models import painn, so3
 from adsorbdiff_tpu_torch.models.painn import PaiNN
 from adsorbdiff_tpu_torch.ops import build, kernels, pbc
 from adsorbdiff_tpu_torch.relaxation.continuous import ContinuousRelaxationEngine
 from adsorbdiff_tpu_torch.relaxation.lbfgs import candidate_fn_for, make_mlff_energy_forces
 from adsorbdiff_tpu_torch.relaxation.ml_relaxation import DiffusionEngine, RelaxationEngine, make_score_fn
 from adsorbdiff_tpu_torch.runtime.trajectory import SUFFIX, Trajectory
+from adsorbdiff_tpu_torch.tasks import new_trainer_context
 from adsorbdiff_tpu_torch.train.trainer import DenoisingTrainer
 
 # NVIDIA H100 SXM data sheet: dense f32 outside the tensor cores, HBM3 rate
 F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
+# every main-path run's launch counts, summed: the kernels line reads the standalone kernels' launches here
+PATH_LAUNCHES = collections.Counter()
 MODEL_RTOL = 1e-4
 PARAMS = dict(num_steps=100, ads_std_low=0.1, ads_std_high=10.0, rot_std_low=0.01, rot_std_high=1.55, ode=True)
 MODEL_KW = dict(sampling=True, cell_reps=(2, 2, 0), max_ads=8)  # painn_so3.yml widths by default
@@ -215,6 +247,26 @@ EQV2_TRAIN_CONFIG = dict(
 )
 # tests/test_equiformer_v2.py TINY widths: (lmax, mmax, C per half, c_out, extra, gaussians, trunk width, cutoff)
 EQV2_TINY = (2, 1, 16, 16, 32, 16, 16, 6.0)
+# configs/denoising/gemnet_so3.yml (model) over configs/denoising/base.yml (optim, task), as a dict: full width,
+# random weights from the trainer's seed; 100 reverse-diffusion steps (denoising_pos_params.num_steps) over 8 bench
+# systems, one batch of 8 (eval_batch_size, which the relax batcher takes).  is_debug: no experiment logger (and
+# run_relaxations would only warn on unfitted scale factors; the loaded checkpoint's count as fitted, so the check
+# passes without it).
+GEMNET_SO3_MODEL = dict(name="gemnet_oc", mode="denoising", so3_denoising=True, num_spherical=7, num_radial=128,
+                        num_blocks=4, emb_size_atom=256, emb_size_edge=512, cutoff=12.0, max_neighbors=30,
+                        max_neighbors_qint=8, max_neighbors_aeaint=20, quad_interaction=True,
+                        atom_edge_interaction=True, edge_atom_interaction=True, atom_interaction=True,
+                        qint_tags=[1, 2], cell_reps="auto")
+SO3_RELAX_BATCH = 8
+GEMNET_SO3_CONFIG = dict(
+    trainer="denoising", model=GEMNET_SO3_MODEL,
+    optim=dict(TRAIN_CONFIG["optim"], eval_batch_size=SO3_RELAX_BATCH),
+    task=dict(TRAIN_CONFIG["task"], relaxation_steps=300, relaxation_fmax=0.01,
+              relax_opt=dict(maxstep=0.04, memory=50, damping=1.0, alpha=70.0), write_pos=True),
+    logger="tensorboard", is_debug=True, seed=0, identifier="smoke_gemnet_so3", print_every=100,
+)
+# configs/denoising/painn_conditional.yml's model block (painn_so3.yml widths with the scalar energy encoding)
+PAINN_CONDITIONAL_KW = dict(MODEL_KW, sampling=False, energy_encoding="scalar")
 
 
 def bench_systems(batch_size=16):
@@ -245,6 +297,14 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def path_launches():
+    """A main-path run's launch counts, read just after it (zeroed just
+    before it), and added to PATH_LAUNCHES."""
+    launches = dict(kernels.launches)
+    PATH_LAUNCHES.update(launches)
+    return launches
 
 
 def bound(flops, tensors):
@@ -299,8 +359,10 @@ def basis_rows(inputs, cutoff):
     """(valid edges, their non-zero basis values): the basis is a unit-width
     gaussian in r that underflows to exactly 0 in f32 beyond ~14.4 rows of
     its centre, so the products need only these rows (what this run's data
-    needs, not the dense R per edge)."""
-    basis = kernels.message_basis(inputs["dist"], inputs["weight"].shape[0], cutoff, 5)
+    needs, not the dense R per edge).  ``inputs`` holds ``dist``, ``mask``
+    and the ``[R, ...]`` filter weights as ``weight`` or ``weights``."""
+    weights = inputs["weight"] if "weight" in inputs else inputs["weights"]
+    basis = kernels.message_basis(inputs["dist"], weights.shape[0], cutoff, 5)
     mask = inputs["mask"]
     return int(mask.sum()), int((basis != 0).sum(-1)[mask].sum())
 
@@ -395,9 +457,9 @@ def capture_calls(module, name, fn):
     positional arguments, in order."""
     seen, original = [], getattr(module, name)
 
-    def rec(*args):
+    def rec(*args, **kwargs):
         seen.append(args)
-        return original(*args)
+        return original(*args, **kwargs)
 
     setattr(module, name, rec)
     try:
@@ -492,6 +554,125 @@ def legendre_checks(device, gen, model, batch):
     return dict(name="masked_legendre_cos", source="adsorbdiff_tpu_torch/csrc/masked_legendre_cos.cu",
                 replaces="adsorbdiff_tpu/ops/pallas_kernels.py:1613", max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=by)
+
+
+# --------------------------------------------------------------------------
+# painn_message_consumer{,_tiled} and fused_rbf_filter (no model calls them)
+# --------------------------------------------------------------------------
+def consumer_inputs(gen, device, m, k, r, h, cutoff):
+    """Gathered-feature inputs with masked slots, distances past the cutoff
+    and an all-false last row."""
+    mask = torch.rand((m, k), generator=gen) > 0.2
+    mask[-1] = False
+    cpu = dict(dist=torch.rand((m, k), generator=gen) * 1.2 * cutoff, mask=mask,
+               unit=torch.randn((m, k, 3), generator=gen), xh_gathered=torch.randn((m, k, 3 * h), generator=gen),
+               vec_gathered=torch.randn((m, k, 3 * h), generator=gen),
+               weights=torch.randn((r, 3 * h), generator=gen) * r ** -0.5, bias=torch.randn(3 * h, generator=gen) * 0.1)
+    return {name: t.to(device).contiguous() for name, t in cpu.items()}
+
+
+def consumer_bound_ms(inputs, outputs, cutoff):
+    """message_bound_ms's operations (the same function after the gather)
+    against the gathered inputs and the outputs moved once."""
+    h = inputs["weights"].shape[1] // 3
+    edges, rows = basis_rows(inputs, cutoff)
+    flops = 6 * h * rows + 20 * h * edges + 10 * rows
+    return (*bound(flops, list(inputs.values()) + list(outputs)), flops)
+
+
+def rbf_bound_ms(inputs, out, cutoff):
+    """The product on the valid edges' non-zero basis values (2F each), the
+    basis (~10 per value) and the bias and mask (2F per edge), against the
+    inputs and the [..., K, F] output moved once."""
+    f = inputs["weights"].shape[1]
+    edges, rows = basis_rows(inputs, cutoff)
+    flops = 2 * f * rows + 10 * rows + 2 * f * inputs["dist"].numel()
+    return (*bound(flops, list(inputs.values()) + [out]), flops)
+
+
+@torch.no_grad()
+def consumer_checks(device, gen, systems):
+    """Phases 3d and 3e: the consumers and the radial filter at the second
+    message layer's inputs of one B=16 PaiNN forward (the first layer's vec
+    is all zero), held against their plain versions and the consumers
+    against painn_message_fused on the same layer; ragged shapes; times per
+    launch against their bounds.  These launches stay outside every path
+    run; the kernels line takes the three kernels' launches from
+    PATH_LAUNCHES, which the paths' exact counts hold at 0."""
+    batch = collate(systems, max_atoms=80, device=device)
+    model = PaiNN(**MODEL_KW, device=device, generator=gen)
+    with torch.no_grad():
+        calls = capture_calls(painn, "painn_message_fused", lambda: model(batch))
+    if len(calls) != model.num_layers:
+        raise AssertionError(f"one PaiNN forward called painn_message_fused {len(calls)} times")
+    xh, vec, src, dist, mask, unit, weight, bias = calls[1]
+    del calls
+    b, n, k = src.shape
+    m, f3, cutoff = b * n, weight.shape[1], model.cutoff
+    idx = src.reshape(b, n * k, 1).long().expand(-1, -1, f3)
+    layer = dict(dist=dist.reshape(m, k).contiguous(), mask=mask.reshape(m, k).contiguous(),
+                 unit=unit.reshape(m, k, 3).contiguous(),
+                 xh_gathered=torch.gather(xh, 1, idx).reshape(m, k, f3),
+                 vec_gathered=torch.gather(vec, 1, idx).reshape(m, k, f3), weights=weight, bias=bias)
+    fused = [t.reshape(m, *t.shape[2:]) for t in kernels.painn_message_fused(xh, vec, src, dist, mask, unit, weight,
+                                                                            bias, cutoff=cutoff)]
+    want = kernels.painn_message_consumer_reference(**layer, cutoff=cutoff)
+    plain_ms = cuda_ms(lambda: kernels.painn_message_consumer_reference(**layer, cutoff=cutoff), 5)
+    edges, nz = basis_rows(layer, cutoff)
+    shape = f"M={m}, K={k}, R={weight.shape[0]}, H={f3 // 3}"
+    rows = []
+    for name, ti, line in (("painn_message_consumer", 1, 130), ("painn_message_consumer_tiled", 8, 769)):
+        fn = getattr(kernels, name)
+        got = fn(**layer, cutoff=cutoff, ti=ti)
+        torch.cuda.synchronize()
+        err = check_close(f"{name} ti={ti} at the PaiNN layer ({shape})", got, want)
+        check_close(f"{name} ti={ti} against painn_message_fused on the same layer", got, fused)
+        for ragged in ((37, 45, 128, 192), (13, 10, 16, 64), (5, 120, 128, 64)):  # M % 8, K % 32, smem > 48 KB
+            ins = consumer_inputs(gen, device, *ragged, 6.0)
+            out = fn(**ins, cutoff=6.0, ti=ti)
+            torch.cuda.synchronize()
+            check_close(f"{name} ti={ti} m,k,r,h={ragged}", out,
+                        kernels.painn_message_consumer_reference(**ins, cutoff=6.0))
+            if out[0][-1].any() or out[1][-1].any():
+                raise AssertionError(f"{name}: a row with an all-false mask is not zero")
+        ms = cuda_ms(lambda: fn(**layer, cutoff=cutoff, ti=ti), 20)
+        bound_ms, by, nbytes, flops = consumer_bound_ms(layer, got, cutoff)
+        print(f"[kernel] {name} ti={ti} at {shape} ({edges} valid edges, {nz / edges:.2f} non-zero basis values "
+              f"each): {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP "
+              f"f32, {nbytes / 1e6:.2f} MB)", flush=True)
+        rows.append(dict(name=name, source="adsorbdiff_tpu_torch/csrc/painn_message_consumer.cu",
+                         replaces=f"adsorbdiff_tpu/ops/pallas_kernels.py:{line}", launches=None, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by))
+    del layer["xh_gathered"], layer["vec_gathered"], got, want, fused
+
+    # 3e. fused_rbf_filter at the same layer's distances, mask and filter weights: the plain version is the
+    # filter the plain message versions build
+    filt = dict(dist=layer["dist"], mask=layer["mask"], weights=weight, bias=bias)
+    out = kernels.fused_rbf_filter(**filt, cutoff=cutoff)
+    torch.cuda.synchronize()
+    err = check_close(f"fused_rbf_filter at the PaiNN layer's [{m}, {k}] edges (the plain message filter)", [out],
+                      [kernels.fused_rbf_filter_reference(**filt, cutoff=cutoff)])
+    for lead, r, f in (((3, 10, 8), 16, 100), ((127,), 16, 128), ((2, 5, 50), 128, 1536)):
+        ins = dict(dist=torch.rand(lead, generator=gen) * 7.2, mask=torch.rand(lead, generator=gen) > 0.3,
+                   weights=torch.randn((r, f), generator=gen) * r ** -0.5, bias=torch.randn(f, generator=gen))
+        ins["dist"].view(-1)[0], ins["mask"].view(-1)[0] = 7.5, True  # unmasked, past the 6 A cutoff
+        ins = {name: t.to(device) for name, t in ins.items()}
+        got = kernels.fused_rbf_filter(**ins, cutoff=6.0)
+        torch.cuda.synchronize()
+        check_close(f"fused_rbf_filter lead {lead} R={r} F={f}", [got],
+                    [kernels.fused_rbf_filter_reference(**ins, cutoff=6.0)])
+        if not torch.equal(got.reshape(-1, f)[0], ins["bias"]):
+            raise AssertionError("fused_rbf_filter: an unmasked edge past the cutoff does not give the bias")
+    ms = cuda_ms(lambda: kernels.fused_rbf_filter(**filt, cutoff=cutoff), 20)
+    plain_ms = cuda_ms(lambda: kernels.fused_rbf_filter_reference(**filt, cutoff=cutoff), 5)
+    bound_ms, by, nbytes, flops = rbf_bound_ms(filt, out, cutoff)
+    print(f"[kernel] fused_rbf_filter at [{m}, {k}] x R={weight.shape[0]} -> F={f3}: {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP f32, {nbytes / 1e6:.2f} MB)",
+          flush=True)
+    rows.append(dict(name="fused_rbf_filter", source="adsorbdiff_tpu_torch/csrc/fused_rbf_filter.cu",
+                     replaces="adsorbdiff_tpu/ops/pallas_kernels.py:256", launches=None, max_abs_err=err, ms=ms,
+                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by))
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -748,7 +929,7 @@ def eqv2_path(device, gen, systems):
     res = engine.run(batch, generator=torch.Generator(device=device).manual_seed(1))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    launches = path_launches()
     steps = EQV2_PARAMS["num_steps"]
     per_step = model.num_layers + 2  # every block and both force heads
     want = {"s2_grid_silu": per_step * steps, "eqv2_attn_conv1": per_step * steps,
@@ -823,9 +1004,9 @@ def sampling_path(device, gen, systems):
     res = engine.run(batch, generator=torch.Generator(device=device).manual_seed(1))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    launches = path_launches()
     want_launches = model.num_layers * PARAMS["num_steps"]
-    if launches.get("painn_message_fused", 0) != want_launches:
+    if launches != {"painn_message_fused": want_launches}:
         raise AssertionError(f"sampling path launched {launches}, want painn_message_fused x{want_launches}")
     if res.traj_pos.shape != (PARAMS["num_steps"] + 1, 16, 80, 3) or not torch.isfinite(res.traj_pos).all():
         raise AssertionError("sampled positions are not finite or have the wrong shape")
@@ -967,7 +1148,7 @@ def relax_path(device, gen, systems):
     res = engine.run(batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    launches = path_launches()
     want_launches = gemnet_launches(model, forwards)
     if launches != want_launches:
         raise AssertionError(f"relaxation path launched {launches}, want {want_launches} ({forwards} forwards)")
@@ -1060,9 +1241,9 @@ def check_training_step(config, device, model_name):
 
 def train_one_epoch(trainer, steps, want):
     """trainer.train() with the launch counts zeroed just before and read at
-    every step (each step must launch exactly ``want``); every loss finite,
-    params and EMA moved, EMA != params.  Returns (launches, systems/s over
-    the steps after the first, wall s, losses, peak MiB)."""
+    every step (each step must launch exactly ``want``, and the epoch nothing
+    besides); every loss finite, params and EMA moved, EMA != params.
+    Returns the epoch's launches."""
     p0 = [p.detach().clone() for p in trainer.params]
     step_fn, per_step, losses, times = trainer.train_step, [], [], []
 
@@ -1085,9 +1266,11 @@ def train_one_epoch(trainer, steps, want):
     torch.cuda.synchronize()
     wall = time.perf_counter() - times[0]
     del trainer.train_step
-    launches = dict(kernels.launches)
-    if len(per_step) != steps or any(s != want for s in per_step):
-        raise AssertionError(f"training launched {per_step}, want {want} in each of {steps} steps")
+    launches = path_launches()
+    if len(per_step) != steps or any(s != want for s in per_step) or launches != {k: steps * v for k, v in
+                                                                               want.items()}:
+        raise AssertionError(f"training launched {per_step} ({launches} in all), want {want} in each of {steps} "
+                             f"steps and nothing else")
     loss = torch.stack(losses).cpu()
     if not torch.isfinite(loss).all():
         raise AssertionError(f"non-finite training losses: {loss.tolist()}")
@@ -1294,7 +1477,7 @@ def pipeline_path(device, gen, systems, root):
             setattr(owner, name, original)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    launches = dict(kernels.launches)
+    launches = path_launches()
     calls = {name: rest for name, *rest in record}
     if sorted(calls) != ["run_dataset", "sampled_trajs_to_dataset", "success_rate"] or len(record) != 3:
         raise AssertionError(f"the pipeline made the calls {[r[0] for r in record]}: want one conversion, one "
@@ -1358,6 +1541,101 @@ def pipeline_path(device, gen, systems, root):
           f"surface changed, intercalated) {flags}", flush=True)
 
 
+def denoising_tasks_path(device, gen, systems, root):
+    """Phases 17 and 18: the run-relaxations and predict tasks with the
+    GemNet-OC so3 score model, then card vs CPU for it and for the
+    energy-conditional PaiNN."""
+    write_shard(os.path.join(root, "relax"), systems)
+    traj_dir = os.path.join(root, "trajs")
+    cfg = dict(copy.deepcopy(GEMNET_SO3_CONFIG), run_dir=root)
+    cfg["task"].update(relax_dataset={"src": os.path.join(root, "relax.adshard.npz")},
+                       relax_opt=dict(cfg["task"]["relax_opt"], traj_dir=traj_dir))
+    saver = DenoisingTrainer(cfg, device=device)
+    saver.init_state()
+    ckpt_path = saver.save("checkpoint")
+    del saver
+    steps = cfg["optim"]["denoising_pos_params"]["num_steps"]
+    with new_trainer_context(dict(cfg, mode="run-relaxations", checkpoint=ckpt_path)) as ctx:
+        trainer = ctx.trainer
+        print(f"[so3-relax] GemNet-OC gemnet_so3.yml widths, cell_reps {trainer.model.cell_reps} (auto), "
+              f"{steps} reverse-diffusion steps, B={SO3_RELAX_BATCH}, {len(systems)} bench systems, run-relaxations "
+              f"from a checkpoint", flush=True)
+        forwards, score_fn = 0, trainer.score_fn
+
+        def counted(*args, **kwargs):
+            nonlocal forwards
+            forwards += 1
+            return score_fn(*args, **kwargs)
+
+        trainer.score_fn = counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.launches.clear()
+        t0 = time.perf_counter()
+        ctx.task.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = path_launches()
+    batches = -(-len(systems) // SO3_RELAX_BATCH)
+    want = gemnet_launches(trainer.model, forwards)
+    if forwards != steps * batches or launches != want:
+        raise AssertionError(f"run-relaxations launched {launches} in {forwards} score forwards; want {want} and "
+                             f"{steps * batches} forwards")
+    relaxed = np.load(os.path.join(trainer.results_dir, "relaxed_positions.npz"))
+    sids = sorted(str(s.sid) for s in systems)
+    if sorted(relaxed["ids"].tolist()) != sids or not np.isfinite(relaxed["pos"]).all():
+        raise AssertionError(f"relaxed_positions.npz holds ids {relaxed['ids'].tolist()} (want {sids}) or non-finite "
+                             f"positions")
+    if relaxed["pos"].shape != (sum(s.natoms for s in systems), 3):
+        raise AssertionError(f"relaxed_positions.npz positions have shape {relaxed['pos'].shape}")
+    for s in systems:
+        traj = Trajectory.load(os.path.join(traj_dir, f"{s.sid}{SUFFIX}"))
+        slab = traj.tags != 2
+        if len(traj) != steps + 1 or not np.isfinite(traj.positions).all() or not (
+                traj.positions[:, slab] == s.pos[slab]).all():
+            raise AssertionError(f"trajectory {s.sid}: {len(traj)} frames, non-finite or moved slab positions")
+    print(f"[so3-relax] {wall:.3f} s wall, {steps * len(systems) / wall:.2f} system-steps/s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB allocated, {forwards} score forwards, launches "
+          f"{launches}; relaxed_positions.npz holds {len(sids)} ids, {len(systems)} trajectories of {steps + 1} "
+          f"frames", flush=True)
+    batch = collate(systems, max_atoms=80, device=device)
+    with torch.no_grad():
+        static = trainer.sampling_static_fn()(batch)
+        forward_ms = cuda_ms(lambda: score_fn(batch, static), 5)
+    print(f"[so3-relax] one score forward (incremental graphs + 4 blocks + two force heads): {forward_ms:.3f} ms",
+          flush=True)
+
+    with new_trainer_context(dict(cfg, mode="predict", checkpoint=ckpt_path)) as ctx:
+        ctx.task.run()
+        pred = np.load(os.path.join(ctx.trainer.results_dir, "predictions.npz"))
+    want_ids = sorted(f"{s.sid}_{s.fid}" for s in systems)
+    if sorted(pred["ids"].tolist()) != want_ids or pred["outputs"].dtype != np.float16 or pred["outputs"].shape != (
+            len(systems), 80, 3) or not np.isfinite(pred["outputs"]).all():
+        raise AssertionError(f"predictions.npz: ids {pred['ids'].tolist()}, outputs {pred['outputs'].dtype} "
+                             f"{pred['outputs'].shape}")
+    print(f"[so3-relax] predict: predictions.npz holds {len(want_ids)} ids and outputs {pred['outputs'].shape} f16, "
+          f"finite", flush=True)
+
+    # 18. card vs CPU at B=2: GemNet-OC so3 (both heads), PaiNN conditional with non-zero energies
+    small = collate(systems[:2], max_atoms=80, device=device)
+    kw = {k: v for k, v in GEMNET_SO3_MODEL.items() if k not in ("name", "cell_reps")}
+    gem = GemNetOC(**kw, cell_reps=trainer.model.cell_reps, device=device, generator=gen)
+    with torch.no_grad():
+        card, host = gem(small), copy.deepcopy(gem).to("cpu")(small.to("cpu"))
+    check_model("GemNet-OC so3", zip(("forces", "forces_so3"), card, host))
+    del gem
+    conditioned = small.replace(energy=torch.tensor([1.3, -0.7], device=device))
+    model = PaiNN(**PAINN_CONDITIONAL_KW, device=device, generator=gen)
+    with torch.no_grad():
+        card, host = model(conditioned), copy.deepcopy(model).to("cpu")(conditioned.to("cpu"))
+        unconditioned = model(small.replace(energy=torch.zeros(2, device=device)))
+    check_model("PaiNN conditional", zip(("out_forces", "out_forces2"), card, host))
+    moved = (card[0] - unconditioned[0]).abs().max().item()
+    if not moved > 0:
+        raise AssertionError("PaiNN conditional: the energy does not change the output")
+    print(f"[check] PaiNN conditional: the energy moves out_forces by up to {moved:.3e}", flush=True)
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -1381,9 +1659,11 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
-    # 3-16. each path: its kernels against the plain versions, the path, card vs CPU; then the pipeline
+    # 3-18. each path: its kernels against the plain versions, the path, card vs CPU; then the pipeline and the
+    # run-relaxations and predict tasks
     systems = bench_systems()
     rows = [sampling_path(device, torch.Generator().manual_seed(0), systems)]
+    rows += consumer_checks(device, torch.Generator().manual_seed(15), systems)
     rows += relax_path(device, torch.Generator().manual_seed(3), systems[:RELAX_BATCH])
     with tempfile.TemporaryDirectory() as root:
         rows.append(training_path(device, torch.Generator().manual_seed(5), root))
@@ -1392,8 +1672,13 @@ def main():
         rows.append(eqv2_training_path(device, torch.Generator().manual_seed(9), root))
     with tempfile.TemporaryDirectory() as root:
         pipeline_path(device, torch.Generator().manual_seed(13), systems, root)
+    with tempfile.TemporaryDirectory() as root:
+        denoising_tasks_path(device, torch.Generator().manual_seed(17), systems[:SO3_RELAX_BATCH], root)
 
-    # 17. results
+    # 19. results
+    for r in rows:
+        if r["launches"] is None:  # a standalone kernel: what the path runs launched of it
+            r["launches"] = PATH_LAUNCHES[r["name"]]
     print(json.dumps({"kernels": [
         dict(name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"], launches=r["launches"],
              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

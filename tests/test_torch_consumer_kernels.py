@@ -1,0 +1,233 @@
+"""PyTorch port: the PaiNN message consumers (one target per block and tiled)
+and the fused radial filter, against JAX's Pallas functions.
+
+Each plain version is held against its JAX function (Pallas in interpret
+mode on the CPU, as tests/test_pallas_kernels.py:20-129 runs them); the
+consumer is also held against JAX's fused-gather kernel fed the ungathered
+features.  Tests marked ``cuda`` hold the Hopper kernels against the plain
+versions and skip without a card; JAX is imported inside the JAX tests only,
+so on the card they run with ``python -m pytest --noconftest
+tests/test_torch_consumer_kernels.py -m cuda``.
+
+Tolerances: 1e-5 abs and rel against JAX (R-term filter sums and K-term
+reductions of O(1) values in another order); on the card
+|kernel - plain| <= 1e-4 * max|plain| + 1e-5, the bound chip_smoke.py holds
+every kernel to (f32 sums in another order over up to 128 radial terms).
+"""
+import numpy as np
+import pytest
+import torch
+
+from adsorbdiff_tpu_torch.ops import kernels
+from adsorbdiff_tpu_torch.ops.kernels import (
+    fused_rbf_filter,
+    fused_rbf_filter_reference,
+    painn_message_consumer,
+    painn_message_consumer_reference,
+    painn_message_consumer_tiled,
+    painn_message_fused_reference,
+)
+from tests.port_bridge import one_torch_thread  # noqa: F401  (autouse)
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+CONSUMER = (13, 10, 16, 64)  # m, k, r, h of tests/test_pallas_kernels.py:92 (m not a multiple of ti)
+NAMES = ("dist", "mask", "unit", "xh_gathered", "vec_gathered", "weights", "bias")
+
+
+def _consumer_inputs(seed, m, k, r, h, cutoff=6.0):
+    """Distances past the cutoff, 20% masked slots, and an all-false row."""
+    rng = np.random.default_rng(seed)
+    mask = rng.random((m, k)) > 0.2
+    mask[-1] = False
+    return dict(
+        dist=rng.uniform(0, 1.2 * cutoff, (m, k)).astype(np.float32),
+        mask=mask,
+        unit=rng.normal(0, 1, (m, k, 3)).astype(np.float32),
+        xh_gathered=rng.normal(0, 1, (m, k, 3 * h)).astype(np.float32),
+        vec_gathered=rng.normal(0, 1, (m, k, 3 * h)).astype(np.float32),
+        weights=rng.normal(0, 0.2, (r, 3 * h)).astype(np.float32),
+        bias=rng.normal(0, 0.1, 3 * h).astype(np.float32),
+    )
+
+
+def _filter_inputs(seed, shape, r=16, f=128, cutoff=6.0):
+    rng = np.random.default_rng(seed)
+    return dict(
+        dist=rng.uniform(0, 1.2 * cutoff, shape).astype(np.float32),
+        mask=rng.random(shape) > 0.3,
+        weights=rng.normal(0, 0.3, (r, f)).astype(np.float32),
+        bias=rng.normal(0, 0.1, f).astype(np.float32),
+    )
+
+
+def _torch(arrays, device="cpu"):
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+# ----------------------------------------------------------------------------
+# plain versions against JAX (Pallas in interpret mode)
+# ----------------------------------------------------------------------------
+@pytest.mark.parametrize("shape", [(3, 10, 8), (127,), (2, 5, 50)], ids=["3x10x8", "127", "2x5x50"])
+def test_rbf_filter_plain_matches_jax(shape):
+    """Lead shapes of tests/test_pallas_kernels.py:20, past the cutoff
+    included."""
+    from adsorbdiff_tpu.ops.pallas_kernels import fused_rbf_filter as jax_fused_rbf_filter
+
+    arrays = _filter_inputs(1, shape)
+    want = np.asarray(jax_fused_rbf_filter(*(arrays[k] for k in ("dist", "mask", "weights", "bias")), cutoff=6.0,
+                                           tile=128))
+    got = fused_rbf_filter(**_torch(arrays), cutoff=6.0)
+    assert got.shape == shape + (128,)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_rbf_filter_beyond_cutoff_gives_the_bias_and_a_masked_edge_zero():
+    """An unmasked edge past the cutoff has an all-zero basis, so its filter
+    is the bias; a masked edge is 0, bias included (as JAX's kernel)."""
+    from adsorbdiff_tpu.ops.pallas_kernels import fused_rbf_filter as jax_fused_rbf_filter
+
+    cutoff = 5.0
+    dist = np.asarray([[cutoff * 1.5, cutoff * 0.5, cutoff * 0.5]], np.float32)
+    mask = np.asarray([[True, True, False]])
+    w = np.ones((8, 128), np.float32)
+    b = np.linspace(-1, 1, 128).astype(np.float32)
+    want = np.asarray(jax_fused_rbf_filter(dist, mask, w, b, cutoff=cutoff, tile=128))
+    got = fused_rbf_filter(*(torch.from_numpy(x) for x in (dist, mask, w, b)), cutoff=cutoff).numpy()
+    np.testing.assert_array_equal(got[0, 0], b)
+    assert np.abs(got[0, 1] - b).max() > 0.0
+    np.testing.assert_array_equal(got[0, 2], 0.0)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("tiled", [False, True], ids=["one-target", "tiled-ti8"])
+def test_consumer_plain_matches_jax(tiled):
+    """M = 13 targets (not a multiple of ti = 8), K = 10, H = 64, an
+    all-false row, against painn_message_consumer / _tiled in interpret
+    mode."""
+    from adsorbdiff_tpu.ops import pallas_kernels as pk
+
+    arrays = _consumer_inputs(2, *CONSUMER)
+    jax_fn = pk.painn_message_consumer_tiled if tiled else pk.painn_message_consumer
+    want = jax_fn(*(arrays[k] for k in NAMES), cutoff=6.0, **({"ti": 8} if tiled else {}))
+    port_fn = painn_message_consumer_tiled if tiled else painn_message_consumer
+    got = port_fn(**_torch(arrays), cutoff=6.0)
+    assert got[0].shape == (13, 64) and got[1].shape == (13, 3, 64)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+    assert not got[0][-1].any() and not got[1][-1].any()  # the all-false row
+
+
+def test_consumer_on_gathered_features_matches_the_fused_kernels():
+    """The consumer on features gathered in torch equals JAX's fused-gather
+    kernel (interpret mode) and the port's plain fused message, on a ragged
+    neighbour table (tests/test_pallas_kernels.py:109)."""
+    from adsorbdiff_tpu.ops.pallas_kernels import painn_message_fused as jax_painn_message_fused
+
+    b, n, k, r, h = 2, 13, 10, 16, 64
+    rng = np.random.default_rng(4)
+    src = rng.integers(0, n, (b, n, k)).astype(np.int32)
+    arrays = _consumer_inputs(5, b * n, k, r, h)
+    xh = rng.normal(0, 1, (b, n, 3 * h)).astype(np.float32)
+    vec = rng.normal(0, 1, (b, n, 3 * h)).astype(np.float32)
+    geo = {name: arrays[name].reshape((b, n) + arrays[name].shape[1:]) for name in ("dist", "mask", "unit")}
+
+    t = _torch(dict(xh=xh, vec=vec, src=src, **geo, weight=arrays["weights"], bias=arrays["bias"]))
+    idx = t["src"].reshape(b, n * k, 1).long().expand(-1, -1, 3 * h)
+    xh_g = torch.gather(t["xh"], 1, idx).reshape(b * n, k, 3 * h)
+    vec_g = torch.gather(t["vec"], 1, idx).reshape(b * n, k, 3 * h)
+    flat = {name: t[name].reshape((b * n,) + t[name].shape[2:]) for name in ("dist", "mask", "unit")}
+    got = painn_message_consumer_tiled(**flat, xh_gathered=xh_g, vec_gathered=vec_g, weights=t["weight"],
+                                       bias=t["bias"], cutoff=6.0, ti=8)
+
+    want_jax = jax_painn_message_fused(xh, vec, src, geo["dist"], geo["mask"], geo["unit"], arrays["weights"],
+                                       arrays["bias"], cutoff=6.0, ti=8)
+    want_port = painn_message_fused_reference(**t, cutoff=6.0)
+    for g, wj, wp in zip(got, want_jax, want_port):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wj).reshape(g.shape), **TOL)
+        torch.testing.assert_close(g, wp.reshape(g.shape), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["painn_message_consumer", "painn_message_consumer_tiled", "fused_rbf_filter"])
+def test_wrappers_on_cpu_run_the_plain_versions_and_count_no_launch(name):
+    before = dict(kernels.launches)
+    if name == "fused_rbf_filter":
+        inputs = _torch(_filter_inputs(6, (2, 7, 9)))
+        got = [fused_rbf_filter(**inputs, cutoff=6.0)]
+        want = [fused_rbf_filter_reference(**inputs, cutoff=6.0)]
+    else:
+        inputs = _torch(_consumer_inputs(6, 11, 9, 16, 32))
+        got = getattr(kernels, name)(**inputs, cutoff=6.0, ti=3)
+        want = painn_message_consumer_reference(**inputs, cutoff=6.0)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert dict(kernels.launches) == before
+
+
+# ----------------------------------------------------------------------------
+# the Hopper kernels against the plain versions (skipped without a card)
+# ----------------------------------------------------------------------------
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU or interpret mode)")
+    return torch.device("cuda")
+
+
+def _close(got, want):
+    for g, w in zip(got, want):
+        err = (g - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item() + 1e-5, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,ti",
+    [((13, 10, 16, 64), 1), ((13, 10, 16, 64), 8), ((37, 45, 128, 192), 8), ((9, 3, 8, 128), 4),
+     ((5, 120, 128, 64), 3), ((160, 50, 128, 512), 8)],
+    ids=["ragged", "ragged-ti8", "k45-h192-ti8", "k3-ti4", "smem-over-48k", "sampling-width"],
+)
+def test_consumer_kernel_matches_plain_version_on_card(cuda_device, shape, ti):
+    inputs = _torch(_consumer_inputs(7, *shape), cuda_device)
+    name = "painn_message_consumer_tiled" if ti > 1 else "painn_message_consumer"
+    before = kernels.launches[name]
+    got = getattr(kernels, name)(**inputs, cutoff=6.0, ti=ti)
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + 1
+    _close(got, painn_message_consumer_reference(**inputs, cutoff=6.0))
+    assert not got[0][-1].any() and not got[1][-1].any()  # the all-false row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,r,f", [((3, 10, 8), 16, 128), ((127,), 16, 100), ((2, 5, 50), 128, 1536), ((1280, 50), 128, 1536)],
+    ids=["3x10x8", "127-f100", "2x5x50-f1536", "sampling-width"],
+)
+def test_rbf_filter_kernel_matches_plain_version_on_card(cuda_device, shape, r, f):
+    inputs = _torch(_filter_inputs(8, shape, r=r, f=f), cuda_device)
+    inputs["dist"].view(-1)[0] = 7.5  # unmasked past the cutoff: the bias
+    inputs["mask"].view(-1)[0] = True
+    before = kernels.launches["fused_rbf_filter"]
+    got = fused_rbf_filter(**inputs, cutoff=6.0)
+    torch.cuda.synchronize()
+    assert kernels.launches["fused_rbf_filter"] == before + 1
+    _close([got], [fused_rbf_filter_reference(**inputs, cutoff=6.0)])
+    torch.testing.assert_close(got.reshape(-1, f)[0], inputs["bias"], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_raise_instead_of_falling_back(cuda_device):
+    inputs = _torch(_consumer_inputs(9, *CONSUMER), cuda_device)
+    with pytest.raises(TypeError, match="mask must be torch.bool"):
+        painn_message_consumer(**dict(inputs, mask=inputs["mask"].float()), cutoff=6.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        painn_message_consumer_tiled(**dict(inputs, unit=inputs["unit"].transpose(0, 1).contiguous()
+                                            .transpose(0, 1)), cutoff=6.0)
+    with pytest.raises(ValueError, match="ti must be"):
+        painn_message_consumer_tiled(**inputs, cutoff=6.0, ti=0)
+    with pytest.raises(NotImplementedError):
+        painn_message_consumer(**dict(inputs, weights=inputs["weights"].requires_grad_()), cutoff=6.0)
+    f = _torch(_filter_inputs(10, (4, 5)), cuda_device)
+    with pytest.raises(TypeError, match="dist must be torch.float32"):
+        fused_rbf_filter(**dict(f, dist=f["dist"].double()), cutoff=6.0)
+    with pytest.raises(ValueError, match="shape"):
+        fused_rbf_filter(**dict(f, mask=f["mask"][:, :4].contiguous()), cutoff=6.0)

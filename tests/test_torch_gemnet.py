@@ -207,7 +207,88 @@ def test_wide_image_key_is_exact_at_cell_reps_4():
 
 
 def test_unported_options_raise():
-    for kw in (dict(mode="denoising"), dict(compute_dtype="bfloat16"), dict(energy_encoding="scalar"),
-               dict(fused_trip=True)):
+    for kw in (dict(compute_dtype="bfloat16"), dict(fused_trip=True)):
         with pytest.raises(NotImplementedError):
             GemNetOC(**TINY, **kw, device="cpu")
+
+
+# configs/denoising/gemnet_so3.yml's mode at the TINY widths, one block (the s2ef cases above run two; one
+# block halves the JAX compile)
+SO3 = dict(TINY, num_blocks=1, mode="denoising", so3_denoising=True)
+
+
+@pytest.fixture(scope="module")
+def jax_so3():
+    """A JAX denoising GemNet-OC with the scalar energy encoding (its
+    variables hold every parameter the other cases need) on a batch with
+    non-zero energies."""
+    batch = make_batch(np.random.default_rng(5))
+    batch = batch.replace(energy=np.asarray([0.9, -1.4], np.float32))
+    variables = jax.jit(JaxGemNetOC(**SO3, energy_encoding="scalar").init)(jax.random.PRNGKey(1), batch)
+    return batch, jax.tree.map(np.asarray, dict(variables))
+
+
+def _so3_variables(variables, kw):
+    if "energy_encoding" in kw:
+        return variables
+    return dict(variables, params={k: v for k, v in variables["params"].items() if k != "energy_embedding"})
+
+
+def _port_so3(variables, **kw) -> GemNetOC:
+    model = GemNetOC(**SO3, **kw, device="cpu")
+    model.load_state_dict(gemnet_state_dict_from_jax(_so3_variables(variables, kw)), strict=True)
+    return model
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(energy_encoding="scalar")], ids=["so3", "energy-scalar"])
+def test_denoising_so3_matches_jax(jax_so3, kw):
+    """mode="denoising" with so3_denoising: both heads against the JAX model
+    (its fused quad) with converted weights (JAX case
+    tests/test_gemnet_oc.py:164); with the scalar energy encoding the energy
+    conditions both heads, and sampling=True zeroes it (the same weights give
+    the conditioned model's output at zero energy)."""
+    batch, variables = jax_so3
+    want = jax.jit(JaxGemNetOC(**SO3, fused_quad=True, **kw).apply)(_so3_variables(variables, kw), batch)
+    model = _port_so3(variables, **kw)
+    with torch.no_grad():
+        got = model(to_torch_batch(batch))
+        shifted = model(to_torch_batch(batch.replace(energy=batch.energy + 2.0)))
+    assert isinstance(got, tuple) and len(got) == 2
+    for g, w in zip(got, want):
+        assert g.shape == (2, 24, 3)
+        np.testing.assert_allclose(to_numpy(g), np.asarray(w), atol=5e-5, rtol=1e-4)
+    assert np.abs(to_numpy(got[0]) - to_numpy(got[1])).max() > 1e-8  # distinct heads
+    moved = max((a - b).abs().max().item() for a, b in zip(got, shifted))
+    if not kw:
+        assert moved == 0.0
+        return
+    assert moved > 1e-7
+    sampler = _port_so3(variables, sampling=True, **kw)
+    with torch.no_grad():
+        zeroed = model(to_torch_batch(batch.replace(energy=np.zeros(2, np.float32))))
+        for energy in (batch.energy, batch.energy + 2.0):
+            for g, w in zip(sampler(to_torch_batch(batch.replace(energy=energy))), zeroed):
+                torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("derive", [True, False], ids=["derived-subgraphs", "three-graphs"])
+def test_denoising_prepare_static_matches_no_static_graph(jax_so3, derive):
+    """prepare_static hoists the slab-slab part of each graph built on its
+    own (the main one, and aeaint and qint unless derived): after the
+    adsorbate moved, the forward with it equals the forward without it (the
+    tables are the full build's; their order of tied slots may differ)."""
+    batch, variables = jax_so3
+    kw = dict(derive_subgraphs=derive, max_ads=4)
+    rng = np.random.default_rng(6)
+    delta = np.zeros(batch.pos.shape, np.float32)
+    ads = np.asarray(batch.ads_mask)
+    delta[ads] = rng.normal(0, 0.6, (int(ads.sum()), 3))
+    moved = to_torch_batch(batch.replace(pos=batch.pos + delta))
+    model = _port_so3(variables, **kw)
+    static = model.prepare_static(to_torch_batch(batch))
+    assert set(static) == ({"main"} if derive else {"main", "aeaint", "qint"})
+    with torch.no_grad():
+        got = model(moved, static)
+        full = model(moved)
+    for g, f in zip(got, full):
+        np.testing.assert_allclose(to_numpy(g), to_numpy(f), atol=5e-5, rtol=1e-4)

@@ -135,10 +135,45 @@ def test_radial_basis_matches_jax(envelope):
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(mode="s2ef"), dict(compute_dtype="bfloat16"), dict(tag_based_z=True), dict(energy_encoding="scalar"),
-     dict(rbf={"name": "spherical_bessel"})],
-    ids=["s2ef", "bfloat16", "tag_based_z", "energy_encoding", "bessel"],
+    [dict(mode="s2ef"), dict(compute_dtype="bfloat16"), dict(rbf={"name": "spherical_bessel"})],
+    ids=["s2ef", "bfloat16", "bessel"],
 )
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         PaiNN(**MODEL_KW, device="cpu", **kw)
+
+
+def _option_batch(seed):
+    """make_batch with non-zero energies and slab (and one adsorbate) atoms
+    that are H, C, N and O, which tag_based_z remaps on the slab only."""
+    batch = make_batch(np.random.default_rng(seed))
+    z = np.array(batch.atomic_numbers)
+    z[:, [0, 1, 9, 10, 17]] = [1, 6, 7, 8, 8]  # tags 0, 0, 1, 1, 2
+    return batch.replace(atomic_numbers=z, energy=np.asarray([1.3, -0.7], np.float32))
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(energy_encoding="scalar"), dict(energy_encoding="scalar", sampling=True), dict(tag_based_z=True),
+     dict(tag_based_z=True, energy_encoding="scalar")],
+    ids=["energy-scalar", "energy-scalar-sampling", "tag-based-z", "both"],
+)
+def test_painn_options_match_jax(kw):
+    """configs/denoising/painn_conditional.yml's scalar energy encoding
+    (conditioned, and zeroed with sampling=True) and the tag-based element
+    remap, against the JAX model with the same weights (JAX cases
+    tests/test_painn.py:111-125)."""
+    batch = _option_batch(12)
+    jmodel = JaxPaiNN(**MODEL_KW, so3_denoising=True, use_pallas=True, **kw)
+    variables = jax.tree.map(np.asarray, dict(jmodel.init(jax.random.PRNGKey(4), batch)))
+    want = jmodel.apply(variables, batch)
+    model = PaiNN(**MODEL_KW, device="cpu", **kw)
+    model.load_state_dict(painn_state_dict_from_jax(variables))  # strict: energy_embedding and the table size
+    with torch.no_grad():
+        got = model(to_torch_batch(batch))
+        shifted = model(to_torch_batch(batch.replace(energy=batch.energy + 3.0)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=5e-5, rtol=1e-4)
+    moved = max((a - b).abs().max().item() for a, b in zip(got, shifted))
+    conditioned = kw.get("energy_encoding") == "scalar" and not kw.get("sampling")
+    assert (moved > 1e-6) if conditioned else moved == 0.0
