@@ -728,6 +728,128 @@ def s2_grid_silu_bwd_reference(h: torch.Tensor, dy: torch.Tensor, to_grid_m: tor
     return torch.matmul(to_m.t(), dg)
 
 
+# H100 SXM: the most shared memory a block may take (227 KB), less 1 KB for
+# the kernels' static shared variables
+SMEM_PER_BLOCK = 232448 - 1024
+
+
+class LaunchPlan(NamedTuple):
+    """How a kernel is launched: ``tile`` edges (or columns) a block takes at
+    a time, ``cluster`` blocks that share their weight slices (1: none),
+    ``threads`` a block, ``blocks`` in the grid, dynamic shared-memory bytes a
+    block, and the FLOP per edge the design adds to the function's count."""
+
+    tile: int
+    cluster: int
+    threads: int
+    blocks: int
+    smem_bytes: int
+    extra_flops_per_edge: int = 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def s2_grid_silu_plan(m: int, nc: int, c: int, g: int) -> LaunchPlan:
+    """``csrc/s2_grid_silu.cu``'s launch: 128 threads of 4 columns a block,
+    one column group per thread over the ``m * c`` (edge, channel) columns,
+    both ``[G, NC]`` tables (rows padded to 4) in shared memory."""
+    threads, cols = 128, 4
+    smem = 2 * g * _round4(nc) * 4
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"s2_grid_silu: the tables need {smem} bytes of shared memory, more than {SMEM_PER_BLOCK}")
+    return LaunchPlan(tile=threads * cols, cluster=1, threads=threads,
+                      blocks=max(_cdiv(m * c, threads * cols), 1), smem_bytes=smem)
+
+
+# csrc/eqv2_attn_conv1.cu's constants: edges a tile, threads, most weight
+# rows a ring slice, ring slots, floats a slot, gate columns a chunk, trunk
+# columns a pass, 64-column groups an m0 / |m| > 0 pass at most, bytes of one
+# segment table entry (two pointers and seven ints)
+_C1_TILE, _C1_THREADS, _C1_SLICE_ROWS, _C1_STAGES, _C1_SLOT, _C1_KC, _C1_TRUNK_N = 64, 256, 64, 3, 8192, 128, 128
+_C1_M0_NJ, _C1_PAIR_NJ, _C1_SEG_BYTES, _C1_MAX_PARTS = 7, 4, 48, 32
+
+
+def _pass_width(n: int, nj_max: int) -> int:
+    """The kernel's column pass: the fewest passes of at most ``nj_max * 64``
+    columns, each rounded up to whole 64-column groups."""
+    return _cdiv(_cdiv(n, _cdiv(n, nj_max * 64)), 64) * 64
+
+
+def _conv1_parts(c: int, c_out: int, extra: int, n_blocks: Tuple[int, ...]):
+    """Per m-block ``(K, N, column passes)``, in the kernel's order."""
+    out = []
+    for g, nb in enumerate(n_blocks):
+        n = extra + nb * c_out if g == 0 else nb * c_out
+        out.append((nb * c, n, _cdiv(n, _pass_width(n, _C1_M0_NJ if g == 0 else _C1_PAIR_NJ))))
+    return out
+
+
+def attn_conv1_plan(e: int, num_gauss: int, e_dim: int, hidden: int, c: int, c_out: int, extra: int,
+                    n_blocks: Tuple[int, ...], sms: int) -> LaunchPlan:
+    """``csrc/eqv2_attn_conv1.cu``'s launch for ``e`` edges on a card of
+    ``sms`` SMs: one persistent block per SM (one per 64-edge tile when there
+    are fewer), each taking whole tiles and then units, single column passes
+    of 32-edge halves of the tiles left over (:func:`attn_conv1_work`).  The
+    shared memory is the 3-slot weight ring, the trunk activations, the X
+    region (embeddings, the second trunk layer, the gated message chunk), a
+    gaussian slice, the tile's distances and mask, and the segment table (one
+    entry per weight region a tile streams, counted as the kernel's
+    ``for_each_segment`` walks them).  ``extra_flops_per_edge``: the
+    gates that a second (or later) column pass of an m-block makes again, and
+    the trunk that every unit of a leftover tile makes again.  Raises
+    ValueError when the widths do not fit."""
+    hp, edp = _round4(hidden), _round4(e_dim)
+    trunk_passes = _cdiv(hidden, _C1_TRUNK_N)
+    parts = _conv1_parts(c, c_out, extra, n_blocks)
+    n_parts = sum(p for _, _, p in parts)
+    n_seg = 4 * trunk_passes + sum(p * 2 * _cdiv(k, _C1_KC) * 2 for k, _, p in parts)
+    x_floats = _C1_TILE * max(2 * edp, hp, 2 * _C1_KC)
+    floats = _C1_STAGES * _C1_SLOT + hp * _C1_TILE + x_floats + _C1_SLICE_ROWS * _C1_TILE + 2 * _C1_TILE
+    smem = 4 * floats + _C1_SEG_BYTES * n_seg
+    if smem > SMEM_PER_BLOCK or n_parts > _C1_MAX_PARTS:
+        raise ValueError(f"eqv2_attn_conv1: widths (hidden {hidden}, emb {e_dim}, C {c}) need {smem} bytes of "
+                         f"shared memory a block, more than {SMEM_PER_BLOCK}, or {n_parts} column passes (at most "
+                         f"{_C1_MAX_PARTS})")
+    tiles = max(_cdiv(e, _C1_TILE), 1)
+    blocks = min(sms, tiles)
+    leftover_edges = e - (tiles // blocks) * blocks * _C1_TILE
+    trunk_flops = 2 * hidden * (num_gauss + 2 * e_dim + hidden)
+    extra_flops = sum((p - 1) * 2 * 2 * hidden * k for k, _, p in parts)
+    extra_flops += _cdiv(leftover_edges * (n_parts - 1) * trunk_flops, max(e, 1))
+    return LaunchPlan(tile=_C1_TILE, cluster=1, threads=_C1_THREADS, blocks=blocks, smem_bytes=smem,
+                      extra_flops_per_edge=extra_flops)
+
+
+def attn_conv1_work(e: int, blocks: int, n_parts: int):
+    """The kernel's work items, as ``(block, first edge, edges, parts)``
+    (``parts``: the set of column passes, None for all): of the ``T`` 64-edge
+    tiles, block ``b`` takes tiles ``b * q .. b * q + q - 1`` whole (``q = T //
+    blocks``), then the units ``u = b, b + blocks, ...`` of the leftover tiles
+    ``q * blocks ..``, unit ``u`` being column pass ``u % n_parts`` of the
+    32-edge half ``u // n_parts`` of those tiles."""
+    tiles = _cdiv(e, _C1_TILE)
+    whole = tiles // blocks
+    half = _C1_TILE // 2
+    units = _cdiv(e - whole * blocks * _C1_TILE, half) * n_parts  # the non-empty halves
+    for b in range(blocks):
+        for i in range(whole):
+            t = b * whole + i
+            yield b, t * _C1_TILE, min(_C1_TILE, e - t * _C1_TILE), None
+        for u in range(b, units, blocks):
+            e0 = whole * blocks * _C1_TILE + (u // n_parts) * half
+            yield b, e0, min(half, e - e0), {u % n_parts}
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _s2_shape(kernel: str, tensors: dict) -> Tuple[int, int, int, int]:
     """``(M, NC, C, G)`` of the S^2 kernels' inputs, or raise."""
     h, to_grid_m = tensors["h"], tensors["to_grid_m"]
@@ -767,9 +889,11 @@ def _s2_grid_silu_forward(h, to_grid_m, from_grid_m) -> torch.Tensor:
     out = torch.empty_like(h)
     if h.numel() == 0:  # empty output: nothing to launch
         return out
-    lib = _library("s2_grid_silu", [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    _launch("s2_grid_silu", lib, h.device,
-            h.data_ptr(), to_grid_m.data_ptr(), from_grid_m.data_ptr(), out.data_ptr(), m, nc, c, g)
+    plan = s2_grid_silu_plan(m, nc, c, g)
+    lib = _library("s2_grid_silu", [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    _launch("s2_grid_silu", lib, h.device, h.data_ptr(), to_grid_m.data_ptr(), from_grid_m.data_ptr(),
+            out.data_ptr(), m, nc, c, g, plan.blocks, plan.smem_bytes)
     return out
 
 
@@ -1020,7 +1144,9 @@ def eqv2_attn_conv1(
     call).  Returns ``(h [..., n_act, c_out], extra_out [...,
     extra])``, f32: h's rows in the truncated m-primary order, extra_out the
     fc_m0 columns that precede h's.  On the card: f32 contiguous inputs,
-    ``mask`` bool.  When autograd needs a gradient the call goes through
+    ``mask`` bool, and widths whose :func:`attn_conv1_plan` fits in one
+    block's shared memory (at C = 128, trunk and embedding widths up to 160;
+    else ValueError).  When autograd needs a gradient the call goes through
     :class:`EqV2AttnConv1`, whose backward recomputes the plain version.
     """
     kw = dict(lmax=lmax, mmax=mmax, c_out=c_out, extra=extra, num_gauss=num_gauss, cutoff=cutoff,
@@ -1112,14 +1238,16 @@ def _eqv2_attn_conv1_forward(dist, mask, emb_s, emb_t, msg_s, msg_t, rad_params,
     h = torch.empty(lead + (n_act, c_out), dtype=torch.float32, device=msg_s.device)
     if m == 0:  # empty output: nothing to launch
         return h, extra_out
+    plan = attn_conv1_plan(m, num_gauss, e_dim, hidden, c, c_out, extra, n_blocks, _sm_count(msg_s.device))
     lib = _library("eqv2_attn_conv1", [ctypes.c_void_p] * 22 + [ctypes.c_longlong] + [ctypes.c_int] * 6
-                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float, ctypes.c_float]
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     _launch(
         "eqv2_attn_conv1", lib, msg_s.device,
         *(t.data_ptr() for t in (dist, mask, emb_s, emb_t, msg_s, msg_t)), *(t.data_ptr() for t in packed.trunk),
         packed.flat_conv.data_ptr(), extra_out.data_ptr(), h.data_ptr(),
         m, num_gauss, e_dim, hidden, c, c_out, extra, (ctypes.c_int * len(n_blocks))(*n_blocks), len(n_blocks),
-        float(cutoff), float(width_scalar),
+        float(cutoff), float(width_scalar), plan.blocks, plan.smem_bytes,
     )
     return h, extra_out
 

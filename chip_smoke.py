@@ -68,10 +68,20 @@ Phases; any failure raises and the exit code is then non-zero:
    atomics in another order, through 6 layers forward and back).
 10. EquiformerV2 kernels: s2_grid_silu and eqv2_attn_conv1 against their
    plain versions on the card at the inputs the B=16 sampling path gives its
-   first attention block (captured from one forward) and at two ragged
-   shapes each (TINY widths of tests/test_equiformer_v2.py, E not a multiple
-   of the 16-edge tile), |kernel - plain| <= 1e-4 * max|plain| + 1e-5 per
-   output; times from CUDA events against their f32 bounds.
+   first attention block (captured from one forward) and at ragged shapes,
+   |kernel - plain| <= 1e-4 * max|plain| + 1e-5 per output; times from CUDA
+   events against their f32 bounds, each with its launch plan (tile,
+   cluster, blocks, shared bytes), its share of the bound and ptxas's
+   register and spill lines.  s2_grid_silu's ragged shapes: column counts
+   (M x C) that are not a multiple of a thread's 4 or a block's 512, at NC
+   5, 9 and 19, and two TINY leads.  eqv2_attn_conv1's, at the TINY widths
+   of tests/test_equiformer_v2.py and the CONV1_L4 widths of
+   tests/test_torch_kernels.py: E one 64-edge tile - 1, one tile a block
+   and 1 edge more (a leftover tile split into units), 65 edges a block's
+   worth (three leftover tiles, one partial), a tile
+   whose every slot is masked, a tile whose distances all lie past the
+   cutoff, and two older ragged leads (every plan takes over 48 KB of shared
+   memory; no clusters).
 11. EquiformerV2 sampling path: the eqv2_so3.yml widths (8 layers, 128
    sphere channels, lmax 4 / mmax 2, grid 18, 600 gaussians, cutoff 12 A,
    K=20; random weights from a seeded generator; cell_reps=(2,2,0),
@@ -247,6 +257,8 @@ EQV2_TRAIN_CONFIG = dict(
 )
 # tests/test_equiformer_v2.py TINY widths: (lmax, mmax, C per half, c_out, extra, gaussians, trunk width, cutoff)
 EQV2_TINY = (2, 1, 16, 16, 32, 16, 16, 6.0)
+# tests/test_torch_kernels.py CONV1_L4: the production m-block structure (5, 4, 3) at narrow widths
+EQV2_L4 = (4, 2, 8, 8, 12, 40, 16, 6.0)
 # configs/denoising/gemnet_so3.yml (model) over configs/denoising/base.yml (optim, task), as a dict: full width,
 # random weights from the trainer's seed; 100 reverse-diffusion steps (denoising_pos_params.num_steps) over 8 bench
 # systems, one batch of 8 (eval_batch_size, which the relax batcher takes).  is_debug: no experiment logger (and
@@ -708,6 +720,13 @@ def s2_bound_ms(h, to_m, from_m, out):
     return (*bound(flops, [h, to_m, from_m, out]), flops)
 
 
+def ptxas_lines(name):
+    """ptxas's register and spill lines for kernel source ``name`` (this
+    process's build)."""
+    return [line.strip() for line in build.build_logs.get(name, "").splitlines()
+            if "registers" in line or "spill" in line]
+
+
 def check_s2_kernel(name, h, to_m, from_m):
     got = kernels.s2_grid_silu(h, to_m, from_m)
     torch.cuda.synchronize()
@@ -740,6 +759,40 @@ def conv1_inputs(gen, device, lmax, mmax, lead, c, c_out, extra, r, width, cutof
     to_dev = lambda t: {k: to_dev(v) if isinstance(v, dict) else v.to(device) for k, v in t.items()}  # noqa: E731
     kw = dict(lmax=lmax, mmax=mmax, c_out=c_out, extra=extra, num_gauss=r, cutoff=cutoff)
     return [t.to(device).contiguous() for t in edges.values()] + [to_dev(rad), to_dev(conv)], kw
+
+
+def conv1_plan(args, kw):
+    """The launch plan the wrapper takes for these inputs."""
+    nb = kernels.conv1_blocks(kw["lmax"], kw["mmax"])
+    rad = args[6]
+    width = rad["dense_1"]["kernel"].shape[0]
+    return kernels.attn_conv1_plan(args[0].numel(), kw["num_gauss"], args[2].shape[-1], width, args[4].shape[-1],
+                                   kw["c_out"], kw["extra"], nb, kernels._sm_count(args[0].device))
+
+
+def conv1_ragged_cases(gen, device):
+    """Phase 10b's ragged conv1 inputs at TINY and CONV1_L4 widths: E one
+    64-edge tile - 1 (one block); one tile a block and 1 edge more (a 1-edge
+    tile left over, computed as units, one column pass of a 32-edge half
+    each, on other blocks); 65 edges a block's worth (three tiles left over,
+    one partial); a
+    tile whose every slot is masked; a tile whose distances all lie past the
+    cutoff (every gaussian slice skipped); and the older ragged leads.  Every
+    plan here takes more than 48 KB of shared memory (the design's least is
+    ~170 KB); no clusters are used."""
+    sms = kernels._sm_count(device)
+    for widths, tag in ((EQV2_TINY, "TINY"), (EQV2_L4, "L4")):
+        for lead, fill in (((63,), None), ((64 * sms + 1,), None), ((65 * sms,), None), ((129,), "masked"),
+                           ((129,), "far"), ((37,), None), ((2, 13, 5), None)):
+            args, kw = conv1_inputs(gen, device, *widths[:2], lead, *widths[2:])
+            if fill is not None:  # the kernel's second tile
+                _, e0, n, _ = list(kernels.attn_conv1_work(args[0].numel(), conv1_plan(args, kw).blocks, 1))[1]
+                if fill == "masked":
+                    args[1].view(-1)[e0:e0 + n] = False
+                else:
+                    args[0].view(-1)[e0:e0 + n] = 1.5 * kw["cutoff"] + torch.arange(n, dtype=torch.float32,
+                                                                                     device=device)
+            yield f"{tag} {fill or 'ragged'}", args, kw
 
 
 def check_conv1_kernel(name, args, kw):
@@ -891,6 +944,13 @@ def eqv2_path(device, gen, systems):
     # 10a. s2_grid_silu at the first attention block's input, then ragged TINY shapes
     h, to_m, from_m = calls["s2_grid_silu"][0]
     s2_out, s2_err = check_s2_kernel("sampling", h, to_m, from_m)
+    # ragged: column counts (M x C) that are not a multiple of a thread's 4 or a block's 512, at NC 5, 9 and 19,
+    # and the older TINY leads
+    for lmax, mmax in ((4, 0), (2, 2), (4, 2)):
+        r_to, r_from = (torch.from_numpy(t).to(device) for t in equiformer_v2.s2_act_matrices(lmax, mmax, 18))
+        for lead, c in (((1,), 3), ((37,), 16), ((129,), 5)):
+            h_r = torch.randn(lead + (r_to.shape[1], c), generator=gen).to(device)
+            check_s2_kernel(f"ragged NC={r_to.shape[1]}", h_r, r_to, r_from)
     tiny_to, tiny_from = (torch.from_numpy(t).to(device) for t in equiformer_v2.s2_act_matrices(*EQV2_TINY[:2], 16))
     for lead in ((37,), (3, 11, 7)):
         check_s2_kernel("ragged", torch.randn(lead + (tiny_to.shape[1], 16), generator=gen).to(device), tiny_to,
@@ -898,21 +958,32 @@ def eqv2_path(device, gen, systems):
     s2_ms = cuda_ms(lambda: kernels.s2_grid_silu(h, to_m, from_m), 20)
     s2_plain_ms = cuda_ms(lambda: kernels.s2_grid_silu_reference(h, to_m, from_m), 5)
     s2_bound, s2_by, s2_bytes, s2_flops = s2_bound_ms(h, to_m, from_m, s2_out)
+    s2_plan = kernels.s2_grid_silu_plan(h.numel() // (to_m.shape[1] * h.shape[-1]), to_m.shape[1], h.shape[-1],
+                                        to_m.shape[0])
     print(f"[kernel] s2_grid_silu at h{tuple(h.shape)}: {s2_ms:.4f} ms, plain {s2_plain_ms:.4f} ms, bound "
-          f"{s2_bound:.4f} ms by {s2_by} ({s2_flops / 1e9:.2f} GFLOP f32, {s2_bytes / 1e6:.2f} MB)", flush=True)
+          f"{s2_bound:.4f} ms by {s2_by} ({s2_flops / 1e9:.2f} GFLOP f32, {s2_bytes / 1e6:.2f} MB), "
+          f"{100 * s2_bound / s2_ms:.1f}% of the bound; plan: {s2_plan.tile} columns a block ({s2_plan.threads} "
+          f"threads x 4), cluster {s2_plan.cluster}, {s2_plan.blocks} blocks, {s2_plan.smem_bytes} B shared; "
+          f"ptxas: {' | '.join(ptxas_lines('s2_grid_silu')) or 'not built in this process'}", flush=True)
 
-    # 10b. eqv2_attn_conv1 at the first attention block's inputs, then ragged TINY shapes
+    # 10b. eqv2_attn_conv1 at the first attention block's inputs, then the ragged cases
     args, kw = calls["eqv2_attn_conv1"]
     c1_out, c1_err = check_conv1_kernel("sampling", args, kw)
-    for lead in ((37,), (2, 13, 5)):
-        check_conv1_kernel("ragged", *conv1_inputs(gen, device, *EQV2_TINY[:2], lead, *EQV2_TINY[2:]))
+    for name, r_args, r_kw in conv1_ragged_cases(gen, device):
+        check_conv1_kernel(name, r_args, r_kw)
     c1_ms = cuda_ms(lambda: kernels.eqv2_attn_conv1(*args, **kw), 10)
     c1_plain_ms = cuda_ms(lambda: kernels.eqv2_attn_conv1_reference(*args, **kw), 3)
     c1_bound, c1_by, c1_bytes, c1_flops, c1_dense, nz_rows = conv1_bound_ms(args, kw, c1_out)
+    c1_plan = conv1_plan(args, kw)
     print(f"[kernel] eqv2_attn_conv1 at E={args[0].numel()} ({int(args[1].sum())} valid edges, {nz_rows:.2f} "
           f"non-zero gaussian rows of {kw['num_gauss']} per edge): {c1_ms:.4f} ms, plain {c1_plain_ms:.4f} ms, bound "
           f"{c1_bound:.4f} ms by {c1_by} ({c1_flops / 1e9:.2f} GFLOP f32; dense {c1_dense / 1e9:.2f} GFLOP = "
-          f"{c1_dense / F32_FLOPS * 1e3:.4f} ms; {c1_bytes / 1e6:.2f} MB)", flush=True)
+          f"{c1_dense / F32_FLOPS * 1e3:.4f} ms; {c1_bytes / 1e6:.2f} MB), {100 * c1_bound / c1_ms:.1f}% of the "
+          f"bound; plan: tile {c1_plan.tile} edges, cluster {c1_plan.cluster}, {c1_plan.blocks} blocks x "
+          f"{c1_plan.threads} threads, {c1_plan.smem_bytes} B shared; made again (m0 gates, units' trunks) "
+          f"{c1_plan.extra_flops_per_edge * args[0].numel() / 1e9:.2f} GFLOP = "
+          f"{100 * c1_plan.extra_flops_per_edge * args[0].numel() / c1_flops:.1f}% of the bound's count; ptxas: "
+          f"{' | '.join(ptxas_lines('eqv2_attn_conv1')) or 'not built in this process'}", flush=True)
     del calls, h, s2_out, c1_out, args
 
     # 13a. eqv2_edge_rotate in every form at the sampling graph, and its VJPs

@@ -548,6 +548,123 @@ def test_attn_conv1_kernel_matches_plain_version_on_card(cuda_device, case):
         assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() + 1e-5
 
 
+# The launch plans of the two EquiformerV2 forward kernels (plain Python, no card)
+CONV1_PUBLISHED = dict(num_gauss=600, e_dim=128, hidden=128, c=128, c_out=64, extra=576, n_blocks=(5, 4, 3))
+
+
+def _conv1_plan_kw(case):
+    lmax, mmax, _, c, c_out, extra, r, width, _ = case
+    return dict(num_gauss=r, e_dim=width, hidden=width, c=c, c_out=c_out, extra=extra,
+                n_blocks=kernels.conv1_blocks(lmax, mmax))
+
+
+@pytest.mark.parametrize("kw", [CONV1_PUBLISHED, _conv1_plan_kw(CONV1_TINY), _conv1_plan_kw(CONV1_L4),
+                                _conv1_plan_kw((3, 1, (19,), 5, 3, 7, 9, 6, 4.0))],
+                         ids=["published", "tiny", "l4m2", "odd-widths"])
+def test_attn_conv1_plan_fits_one_block_per_sm(kw):
+    """The plan fits in 227 KB, takes one block per SM (one per tile for
+    fewer tiles) and adds FLOP within 10% of the bound's per-edge count at the
+    sampling and training edge counts."""
+    nb, c, h, ed = kw["n_blocks"], kw["c"], kw["hidden"], kw["e_dim"]
+    ng = 2 * sum(nb) * c
+    conv = 4 * nb[0] * c * (kw["extra"] + nb[0] * kw["c_out"]) + sum(16 * n * c * n * kw["c_out"] for n in nb[1:])
+    per_edge = 2 * h * (2 * ed + h + ng) + 20 * h + ng + conv
+    for e, blocks in ((25_600, 132), (19_200, 132), (64 * 132 + 1, 132), (65, 2), (1, 1)):
+        plan = kernels.attn_conv1_plan(e, **kw, sms=132)
+        assert plan.smem_bytes <= kernels.SMEM_PER_BLOCK and plan.smem_bytes > 48 * 1024
+        assert (plan.tile, plan.cluster, plan.threads, plan.blocks) == (64, 1, 256, blocks)
+        if e >= 19_200:
+            assert plan.extra_flops_per_edge <= 0.1 * per_edge
+
+
+def test_attn_conv1_plan_counts_the_m0_gate_recompute_and_refuses_wide_trunks():
+    exact = kernels.attn_conv1_plan(64 * 132 * 3, **CONV1_PUBLISHED, sms=132)  # no tile left over
+    assert exact.extra_flops_per_edge == 2 * 2 * 128 * 5 * 128  # the m0 output's second 448-column pass
+    assert exact.smem_bytes == 216_960
+    # 4 tiles left over at 25,600 edges: their units make the trunk 3 more times each
+    plan = kernels.attn_conv1_plan(25_600, **CONV1_PUBLISHED, sms=132)
+    trunk = 2 * 128 * (600 + 2 * 128 + 128)
+    assert plan.extra_flops_per_edge == exact.extra_flops_per_edge + -(-(256 * 3 * trunk) // 25_600)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.attn_conv1_plan(100, **dict(CONV1_PUBLISHED, e_dim=256, hidden=256), sms=132)
+
+
+@pytest.mark.parametrize("e", [1, 63, 64, 65, 193, 64 * 132 - 1, 64 * 132 + 1, 65 * 132, 19_200, 25_600])
+def test_attn_conv1_tiles_cover_every_edge_once(e):
+    """Every (edge, column pass) is computed by exactly one work item; every
+    block takes the same whole tiles and at most one unit more than another."""
+    kw = CONV1_PUBLISHED
+    plan = kernels.attn_conv1_plan(e, **kw, sms=132)
+    n_parts = sum(p for _, _, p in kernels._conv1_parts(kw["c"], kw["c_out"], kw["extra"], kw["n_blocks"]))
+    assert n_parts == 4  # m0 in two passes of 448 columns, m+-1 and m+-2 in one each
+    seen = np.zeros((e, n_parts), np.int64)
+    whole = np.zeros(plan.blocks, np.int64)
+    units = np.zeros(plan.blocks, np.int64)
+    for b, e0, n, parts in kernels.attn_conv1_work(e, plan.blocks, n_parts):
+        assert 1 <= n <= plan.tile and e0 % (plan.tile // 2) == 0
+        for p in range(n_parts) if parts is None else parts:
+            seen[e0:e0 + n, p] += 1
+        if parts is None:
+            whole[b] += 1
+        else:
+            units[b] += 1
+    assert (seen == 1).all()
+    assert whole.min() == whole.max() and units.max() - units.min() <= 1
+    assert all(n <= plan.tile // 2 for b, e0, n, parts in kernels.attn_conv1_work(e, plan.blocks, n_parts) if parts)
+
+
+@pytest.mark.parametrize("m,nc,c", [(25_600, 19, 64), (37, 5, 16), (3, 9, 7), (1, 19, 1)])
+def test_s2_grid_silu_plan_covers_every_column(m, nc, c):
+    plan = kernels.s2_grid_silu_plan(m, nc, c, 324)
+    assert plan.blocks * plan.tile >= m * c > (plan.blocks - 1) * plan.tile
+    assert plan.smem_bytes == 2 * 324 * ((nc + 3) // 4 * 4) * 4 <= kernels.SMEM_PER_BLOCK
+
+
+# Kernel vs plain at the redesigned kernels' boundaries, at TINY and CONV1_L4
+# widths (every plan takes more than 48 KB of shared memory; no clusters).
+@pytest.mark.cuda
+@pytest.mark.parametrize("base", [CONV1_TINY, CONV1_L4], ids=["tiny", "l4m2"])
+@pytest.mark.parametrize("edges,fill", [(63, None), (-1, None), (-65, None), (129, "masked"), (129, "far")],
+                         ids=["tile-1", "tiles+1", "leftover-tiles", "masked-tile", "past-cutoff-tile"])
+def test_attn_conv1_kernel_at_tile_boundaries_on_card(cuda_device, base, edges, fill):
+    """E one tile - 1; one 64-edge tile a block and 1 edge more (a 1-edge
+    tile left over, split into units); 65 edges a block's worth (leftover
+    tiles, one partial); a masked tile; a tile past the cutoff."""
+    if edges < 0:  # -1: 64 edges a block + 1; -65: 65 edges a block, on every SM
+        sms = kernels._sm_count(cuda_device)
+        edges = 64 * sms + 1 if edges == -1 else 65 * sms
+    case = base[:2] + ((edges,),) + base[3:]
+    e_in, rad, conv, kw = _conv1_inputs(37, *case)
+    if fill is not None:  # the kernel's second tile
+        plan = kernels.attn_conv1_plan(edges, **_conv1_plan_kw(base), sms=kernels._sm_count(cuda_device))
+        _, e0, n, _ = list(kernels.attn_conv1_work(edges, plan.blocks, 1))[1]
+        if fill == "masked":
+            e_in["mask"][e0:e0 + n] = False
+        else:
+            e_in["dist"][e0:e0 + n] = 1.5 * kw["cutoff"] + np.arange(n, dtype=np.float32)
+    args = [torch.from_numpy(e_in[k]).to(cuda_device) for k in e_in]
+    args += [_torch_tree(rad, cuda_device), _torch_tree(conv, cuda_device)]
+    got = eqv2_attn_conv1(*args, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, eqv2_attn_conv1_reference(*args, **kw)):
+        assert torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() + 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lmax,mmax", [(4, 0), (2, 2), (4, 2)], ids=["nc5", "nc9", "nc19"])
+@pytest.mark.parametrize("lead,c", [((1,), 3), ((37,), 16), ((129,), 5)], ids=["cols3", "cols592", "cols645"])
+def test_s2_grid_silu_kernel_at_ragged_columns_on_card(cuda_device, lmax, mmax, lead, c):
+    """Column counts that are not a multiple of a block's 512 or a thread's 4."""
+    to_m, from_m = (torch.from_numpy(t).to(cuda_device) for t in _s2_tables(lmax, mmax, 18))
+    h = torch.from_numpy(np.random.default_rng(38).normal(size=lead + (to_m.shape[1], c)).astype(np.float32))
+    h = h.to(cuda_device)
+    got = s2_grid_silu(h, to_m, from_m)
+    torch.cuda.synchronize()
+    want = s2_grid_silu_reference(h, to_m, from_m)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-5
+
+
 @pytest.mark.cuda
 def test_eqv2_kernel_wrappers_raise_instead_of_falling_back(cuda_device):
     edges, rad, conv, kw = _conv1_inputs(35, *CONV1_TINY)
