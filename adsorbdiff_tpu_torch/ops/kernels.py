@@ -309,8 +309,9 @@ def painn_message_fused_bwd(
     Inputs as :func:`painn_message_fused` plus the cotangents ``dx_ct
     [B, N, H]`` and ``dvec_ct [B, N, 3, H]``.  Returns ``(dxh [B, N, 3H],
     dvec [B, N, 3H], dW [R, 3H], db [3H])``, f32.  On the card: the forward's
-    input rules, f32 contiguous cotangents and R <= 128.  The kernel adds
-    with atomics, so the order of its f32 sums changes from run to run.
+    input rules, f32 contiguous cotangents and R <= 128; the launch is
+    :func:`painn_bwd_plan`'s.  The kernel adds with atomics, so the order of
+    its f32 sums changes from run to run.
     """
     if xh.device.type == "cpu":
         return painn_message_fused_bwd_reference(
@@ -326,22 +327,98 @@ def painn_message_fused_bwd(
         raise ValueError(f"painn_message_fused_bwd: the kernel holds R <= 128 radial functions, got {r}")
 
     f3 = 3 * h
-    dxh = torch.zeros((b, n, f3), dtype=torch.float32, device=xh.device)
-    dvec = torch.zeros((b, n, f3), dtype=torch.float32, device=xh.device)
     dw = torch.zeros((r, f3), dtype=torch.float32, device=xh.device)
     db = torch.zeros((f3,), dtype=torch.float32, device=xh.device)
     if b * n * k * h == 0:  # nothing to add: zero gradients, no launch
-        return dxh, dvec, dw, db
-    lib = _library("painn_message_fused_bwd",
-                   [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        return (torch.zeros((b, n, f3), dtype=torch.float32, device=xh.device),
+                torch.zeros((b, n, f3), dtype=torch.float32, device=xh.device), dw, db)
+    plan = painn_bwd_plan(b, n, k, r, h, _sm_count(xh.device))
+    # the kernel writes every element of dxh and dvec, except where it scatters with global atomics
+    new = torch.zeros if plan.global_scatter else torch.empty
+    dxh = new((b, n, f3), dtype=torch.float32, device=xh.device)
+    dvec = new((b, n, f3), dtype=torch.float32, device=xh.device)
+    scratch = torch.empty((plan.scratch_ints,), dtype=torch.int32, device=xh.device)
+    lib = _library("painn_message_fused_bwd", [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+                   + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     _launch(
         "painn_message_fused_bwd", lib, xh.device,
         xh.data_ptr(), vec.data_ptr(), src.data_ptr(), dist.data_ptr(), mask.data_ptr(), unit.data_ptr(),
         weight.data_ptr(), bias.data_ptr(), dx_ct.data_ptr(), dvec_ct.data_ptr(),
-        dxh.data_ptr(), dvec.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        b, n, k, r, h, 1.0 / cutoff, int(envelope_exponent),
+        dxh.data_ptr(), dvec.data_ptr(), dw.data_ptr(), db.data_ptr(), scratch.data_ptr(),
+        b, n, k, r, h, 1.0 / cutoff, int(envelope_exponent), plan.cols, int(plan.stage_rows),
+        int(plan.global_scatter), plan.smem_bytes,
     )
     return dxh, dvec, dw, db
+
+
+# csrc/painn_message_fused_bwd.cu's constants: warps a block (each owns some of the system's sources; one block an
+# SM), floats of a warp's basis buffer (up to 16 edges x 40 rows, row stride 20), the column widths a block may
+# take, widest first; the most dynamic shared memory a block may take beside the kernel's static 5,120 bytes (the
+# tiles' edges)
+_PB_WARPS, _PB_WARP_BUF, _PB_COLS = 16, 40 * 20, (32, 16, 8)
+_PB_SMEM = 232448 - 16 * 16 * 5 * 4
+
+
+class MessageBwdPlan(NamedTuple):
+    """How :func:`painn_message_fused_bwd` is launched: ``cols`` feature
+    columns h a block (each with its H + h and 2H + h), ``slices`` column
+    slices a system, ``blocks`` = systems x slices of ``threads`` threads,
+    one an SM; ``global_scatter``: dxh and dvec added with global atomics
+    (else accumulated in shared memory and written once); ``stage_rows``: the
+    system's xh and vec rows at the block's columns copied to shared memory
+    (else read through L1/L2); ``smem_bytes`` a block, ``scratch_ints``
+    int32s of scratch (the sorted slots and each warp's stream bounds), and
+    ``waves`` = blocks / SMs."""
+
+    cols: int
+    slices: int
+    blocks: int
+    threads: int
+    global_scatter: bool
+    stage_rows: bool
+    smem_bytes: int
+    scratch_ints: int
+    waves: float
+
+
+def _message_bwd_smem(n: int, r: int, cols: int, stage_rows: bool, global_scatter: bool) -> int:
+    """The backward kernel's dynamic shared bytes: the warps' basis buffers,
+    the block's W columns, the dxh/dvec accumulators (none with global
+    atomics) and the staged xh/vec rows."""
+    acc = 0 if global_scatter else 6 * n * cols
+    rows = 6 * n * cols if stage_rows else 0
+    return 4 * (_PB_WARPS * _PB_WARP_BUF + 3 * r * cols + acc + rows)
+
+
+def painn_bwd_plan(b: int, n: int, k: int, r: int, h: int, sms: int) -> MessageBwdPlan:
+    """``csrc/painn_message_fused_bwd.cu``'s launch for ``b`` systems of
+    ``n`` rows on a card of ``sms`` SMs.  The column slice: the widest (32,
+    16 or 8 columns h) whose grid fills one wave of one block an SM (8 when
+    the systems are too few), narrowed further while the system's dxh/dvec
+    accumulators do not fit one block's shared memory beside W and the tile
+    buffers (at R = 128: 32 columns up to N = 165, 16 up to 394, 8 up to
+    853); past that, the wave's width with global atomics for the scatter.
+    The xh/vec rows are staged where they fit too (N <= 82 at 32 columns).
+    Refuses nothing with ``2 <= r <= 128``."""
+    if not 2 <= r <= 128:
+        raise ValueError(f"painn_message_fused_bwd: the kernel holds 2 <= R <= 128 radial functions, got {r}")
+    widest = next((c for c in _PB_COLS if b * _cdiv(h, c) >= sms), _PB_COLS[-1])
+    fits = [c for c in _PB_COLS if c <= widest and _message_bwd_smem(n, r, c, False, False) <= _PB_SMEM]
+    cols, glob = (fits[0], False) if fits else (widest, True)
+    stage = not glob and _message_bwd_smem(n, r, cols, True, False) <= _PB_SMEM
+    slices = _cdiv(h, cols)
+    return MessageBwdPlan(cols=cols, slices=slices, blocks=b * slices, threads=32 * _PB_WARPS, global_scatter=glob,
+                          stage_rows=stage, smem_bytes=_message_bwd_smem(n, r, cols, stage, glob),
+                          scratch_ints=b * n * k + (_PB_WARPS + 1) * b, waves=b * slices / sms)
+
+
+def painn_bwd_work(plan: MessageBwdPlan, b: int, h: int):
+    """The backward kernel's blocks as ``(block, system, first column h,
+    columns)``: block ``(x, y)`` of the grid takes system ``y`` and columns
+    ``x * cols ..`` (and their H + h, 2H + h), the last slice cut at H."""
+    for y in range(b):
+        for x in range(plan.slices):
+            yield y * plan.slices + x, y, x * plan.cols, min(plan.cols, h - x * plan.cols)
 
 
 class PainnMessageFused(torch.autograd.Function):
@@ -790,6 +867,52 @@ def _conv1_parts(c: int, c_out: int, extra: int, n_blocks: Tuple[int, ...]):
     return out
 
 
+def _conv1_tile_budget(e_dim: int, hidden: int, c: int, c_out: int, extra: int,
+                       n_blocks: Tuple[int, ...]) -> Tuple[int, int, list]:
+    """(shared bytes a block, column passes, per-m-block parts) of the
+    64-edge kernel at these widths."""
+    hp, edp = _round4(hidden), _round4(e_dim)
+    trunk_passes = _cdiv(hidden, _C1_TRUNK_N)
+    parts = _conv1_parts(c, c_out, extra, n_blocks)
+    n_parts = sum(p for _, _, p in parts)
+    n_seg = 4 * trunk_passes + sum(p * 2 * _cdiv(k, _C1_KC) * 2 for k, _, p in parts)
+    x_floats = _C1_TILE * max(2 * edp, hp, 2 * _C1_KC)
+    floats = _C1_STAGES * _C1_SLOT + hp * _C1_TILE + x_floats + _C1_SLICE_ROWS * _C1_TILE + 2 * _C1_TILE
+    return 4 * floats + _C1_SEG_BYTES * n_seg, n_parts, parts
+
+
+# csrc/eqv2_attn_conv1_wide.cu's constants: edges a tile, gaussian rows a chunk
+_C1W_TILE, _C1W_RC = 16, 32
+
+
+def attn_conv1_wide_smem(e_dim: int, hidden: int, c: int, n_blocks: Tuple[int, ...]) -> int:
+    """Shared bytes a block of ``csrc/eqv2_attn_conv1_wide.cu`` takes: the
+    tile's distances and mask, a gaussian chunk, both trunk layers, and the
+    embeddings or the two gated message slices of the widest m-block."""
+    k_max = _round4(max(n_blocks) * c)
+    return 4 * (2 * _C1W_TILE + _C1W_TILE * _C1W_RC + 2 * _C1W_TILE * _round4(hidden)
+                + 2 * _C1W_TILE * max(_round4(e_dim), k_max))
+
+
+def attn_conv1_route(e_dim: int, hidden: int, c: int, c_out: int, extra: int, n_blocks: Tuple[int, ...]) -> str:
+    """Which kernel :func:`eqv2_attn_conv1` launches at these widths, from the
+    widths alone: ``"tiled64"`` (``csrc/eqv2_attn_conv1.cu``, the 64-edge
+    plan of :func:`attn_conv1_plan`) when that plan fits one block's shared
+    memory and at most ``_C1_MAX_PARTS`` column passes, else ``"wide"``
+    (``csrc/eqv2_attn_conv1_wide.cu``, 16-edge tiles: at C = 128 and equal
+    trunk and embedding widths, those over 144).  Raises ValueError when
+    neither fits."""
+    smem, n_parts, _ = _conv1_tile_budget(e_dim, hidden, c, c_out, extra, n_blocks)
+    if smem <= SMEM_PER_BLOCK and n_parts <= _C1_MAX_PARTS:
+        return "tiled64"
+    wide = attn_conv1_wide_smem(e_dim, hidden, c, n_blocks)
+    if wide > SMEM_PER_BLOCK:
+        raise ValueError(f"eqv2_attn_conv1: widths (hidden {hidden}, emb {e_dim}, C {c}) need {smem} bytes of "
+                         f"shared memory a block in 64-edge tiles and {wide} in 16-edge tiles, more than "
+                         f"{SMEM_PER_BLOCK}")
+    return "wide"
+
+
 def attn_conv1_plan(e: int, num_gauss: int, e_dim: int, hidden: int, c: int, c_out: int, extra: int,
                     n_blocks: Tuple[int, ...], sms: int) -> LaunchPlan:
     """``csrc/eqv2_attn_conv1.cu``'s launch for ``e`` edges on a card of
@@ -803,15 +926,9 @@ def attn_conv1_plan(e: int, num_gauss: int, e_dim: int, hidden: int, c: int, c_o
     ``for_each_segment`` walks them).  ``extra_flops_per_edge``: the
     gates that a second (or later) column pass of an m-block makes again, and
     the trunk that every unit of a leftover tile makes again.  Raises
-    ValueError when the widths do not fit."""
-    hp, edp = _round4(hidden), _round4(e_dim)
-    trunk_passes = _cdiv(hidden, _C1_TRUNK_N)
-    parts = _conv1_parts(c, c_out, extra, n_blocks)
-    n_parts = sum(p for _, _, p in parts)
-    n_seg = 4 * trunk_passes + sum(p * 2 * _cdiv(k, _C1_KC) * 2 for k, _, p in parts)
-    x_floats = _C1_TILE * max(2 * edp, hp, 2 * _C1_KC)
-    floats = _C1_STAGES * _C1_SLOT + hp * _C1_TILE + x_floats + _C1_SLICE_ROWS * _C1_TILE + 2 * _C1_TILE
-    smem = 4 * floats + _C1_SEG_BYTES * n_seg
+    ValueError when the widths do not fit (:func:`attn_conv1_route` then
+    picks the wide route)."""
+    smem, n_parts, parts = _conv1_tile_budget(e_dim, hidden, c, c_out, extra, n_blocks)
     if smem > SMEM_PER_BLOCK or n_parts > _C1_MAX_PARTS:
         raise ValueError(f"eqv2_attn_conv1: widths (hidden {hidden}, emb {e_dim}, C {c}) need {smem} bytes of "
                          f"shared memory a block, more than {SMEM_PER_BLOCK}, or {n_parts} column passes (at most "
@@ -1143,10 +1260,12 @@ def eqv2_attn_conv1(
     ``conv_params`` as :func:`pack_attn_conv1` takes them (repacked on every
     call).  Returns ``(h [..., n_act, c_out], extra_out [...,
     extra])``, f32: h's rows in the truncated m-primary order, extra_out the
-    fc_m0 columns that precede h's.  On the card: f32 contiguous inputs,
-    ``mask`` bool, and widths whose :func:`attn_conv1_plan` fits in one
-    block's shared memory (at C = 128, trunk and embedding widths up to 160;
-    else ValueError).  When autograd needs a gradient the call goes through
+    fc_m0 columns that precede h's.  On the card: f32 contiguous inputs and
+    ``mask`` bool.  :func:`attn_conv1_route` picks the kernel from the widths:
+    the 64-edge kernel where its plan fits one block's shared memory (at
+    C = 128, equal trunk and embedding widths up to 144), else the 16-edge
+    ``csrc/eqv2_attn_conv1_wide.cu``; both count as ``eqv2_attn_conv1``.
+    When autograd needs a gradient the call goes through
     :class:`EqV2AttnConv1`, whose backward recomputes the plain version.
     """
     kw = dict(lmax=lmax, mmax=mmax, c_out=c_out, extra=extra, num_gauss=num_gauss, cutoff=cutoff,
@@ -1238,17 +1357,20 @@ def _eqv2_attn_conv1_forward(dist, mask, emb_s, emb_t, msg_s, msg_t, rad_params,
     h = torch.empty(lead + (n_act, c_out), dtype=torch.float32, device=msg_s.device)
     if m == 0:  # empty output: nothing to launch
         return h, extra_out
+    common = (*(t.data_ptr() for t in (dist, mask, emb_s, emb_t, msg_s, msg_t)),
+              *(t.data_ptr() for t in packed.trunk), packed.flat_conv.data_ptr(), extra_out.data_ptr(), h.data_ptr(),
+              m, num_gauss, e_dim, hidden, c, c_out, extra, (ctypes.c_int * len(n_blocks))(*n_blocks), len(n_blocks),
+              float(cutoff), float(width_scalar))
+    if attn_conv1_route(e_dim, hidden, c, c_out, extra, n_blocks) == "wide":
+        lib = _library("eqv2_attn_conv1_wide", [ctypes.c_void_p] * 22 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+        _launch("eqv2_attn_conv1_wide", lib, msg_s.device, *common, count_as="eqv2_attn_conv1")
+        return h, extra_out
     plan = attn_conv1_plan(m, num_gauss, e_dim, hidden, c, c_out, extra, n_blocks, _sm_count(msg_s.device))
     lib = _library("eqv2_attn_conv1", [ctypes.c_void_p] * 22 + [ctypes.c_longlong] + [ctypes.c_int] * 6
                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float, ctypes.c_float]
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    _launch(
-        "eqv2_attn_conv1", lib, msg_s.device,
-        *(t.data_ptr() for t in (dist, mask, emb_s, emb_t, msg_s, msg_t)), *(t.data_ptr() for t in packed.trunk),
-        packed.flat_conv.data_ptr(), extra_out.data_ptr(), h.data_ptr(),
-        m, num_gauss, e_dim, hidden, c, c_out, extra, (ctypes.c_int * len(n_blocks))(*n_blocks), len(n_blocks),
-        float(cutoff), float(width_scalar), plan.blocks, plan.smem_bytes,
-    )
+    _launch("eqv2_attn_conv1", lib, msg_s.device, *common, plan.blocks, plan.smem_bytes)
     return h, extra_out
 
 

@@ -35,11 +35,17 @@ Phases; any failure raises and the exit code is then non-zero:
 5. card vs CPU, PaiNN: one full-width forward at B=2 on the card against the
    same forward on the CPU (plain versions), |card - cpu| <= 1e-4 * max|cpu|
    (f32 matmuls and sums in another order, over 6 layers; tight enough that
-   TF32 or bf16 products, ~1e-3 relative each, would fail it).  Printed
-   before the check: both sides' max |output|, whether the card's and the
-   CPU's B=2 neighbour tables agree exactly (if not, how many slots differ
-   and the largest distance among them), and a second CPU forward against
-   the first.
+   TF32 or bf16 products, ~1e-3 relative each, would fail it).  The CPU
+   runs the forward three times on equal inputs; the reference is an output
+   that two of them give bit for bit (on some hosts one CPU forward parts
+   from the others; with no two agreeing the phase fails).  Printed before
+   the check: each CPU forward against the first, with the first of its
+   records that differs (the neighbour search's squared distances before
+   and after the sort, the first message layer's src, cell offsets, vec,
+   dist and mask, then every submodule's output) and the host's CPU model,
+   torch's CPU capability and thread count; both sides' max |output|; and
+   whether the card's and the CPU's B=2 neighbour tables agree exactly (if
+   not, how many slots differ and the largest distance among them).
 6. relaxation path: GemNet-OC at the gemnet_relax.yml widths (4 blocks, atom
    256, edge 512, 128 RBF, 7 spherical, cutoff 12 A, 30/8/20 neighbours, all
    interactions; random weights from a seeded generator; cell_reps from
@@ -52,13 +58,18 @@ Phases; any failure raises and the exit code is then non-zero:
 7. card vs CPU, GemNet-OC: one full-width forward at B=2, energy and forces
    within 1e-4 * max|cpu|.
 8. training path: the painn_message_fused_bwd kernel against the plain VJP
-   at the training shape (a live B=48 neighbour table) and two ragged
-   shapes, |kernel - plain| <= 1e-4 * max|plain| + 1e-5 (atomics sum in
-   another order on every run); then DenoisingTrainer.train() for one epoch
-   of 31 steps at the painn_so3.yml + base.yml settings (B=48, AdamW at
-   1e-4, weight decay 1e-3, cosine LambdaLR with warm-up, clip 100, EMA
-   0.999; random weights from a seeded generator; max_epochs cut from 100
-   to 1) on bench systems written to shards in a temporary directory
+   at the training shape (a live B=48 neighbour table) and ragged cases (two
+   older shapes; N = 300, where the plan takes 16-column slices, and
+   N = 1200, where it scatters with global atomics; B = 5, where it takes
+   16-column slices to fill a wave; a system whose slots are all masked;
+   sources outside [0, N); H = 200), |kernel - plain| <=
+   1e-4 * max|plain| + 1e-5 (atomics sum in another order on every run),
+   each with its launch plan; its time beside its bound, its share of the
+   bound and ptxas's register and spill lines; then
+   DenoisingTrainer.train() for one epoch of 31 steps at the painn_so3.yml
+   + base.yml settings (B=48, AdamW at 1e-4, weight decay 1e-3, cosine
+   LambdaLR with warm-up, clip 100, EMA 0.999; random weights from a seeded
+   generator; max_epochs cut from 100 to 1) on bench systems written to shards in a temporary directory
    (pos_relaxed = pos).  Launch counts are zeroed just before train() and
    read at every step: exactly 6 forward and 6 backward launches per step.
    Systems/s over the 30 steps after the first; every loss finite; params
@@ -81,7 +92,11 @@ Phases; any failure raises and the exit code is then non-zero:
    worth (three leftover tiles, one partial), a tile
    whose every slot is masked, a tile whose distances all lie past the
    cutoff, and two older ragged leads (every plan takes over 48 KB of shared
-   memory; no clusters).
+   memory; no clusters).  Phase 10c: eqv2_attn_conv1's wide route (the
+   16-edge kernel that attn_conv1_route picks where the 64-edge plan does not
+   fit) at edge-embedding and trunk widths of 256 and the published conv
+   widths, E = 25,600 random edges, under the same gate, timed beside its
+   plain version and bound.
 11. EquiformerV2 sampling path: the eqv2_so3.yml widths (8 layers, 128
    sphere channels, lmax 4 / mmax 2, grid 18, 600 gaussians, cutoff 12 A,
    K=20; random weights from a seeded generator; cell_reps=(2,2,0),
@@ -166,6 +181,7 @@ import copy
 import dataclasses
 import json
 import os
+import platform
 import subprocess
 import sys
 import tempfile
@@ -200,6 +216,7 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
 # every main-path run's launch counts, summed: the kernels line reads the standalone kernels' launches here
 PATH_LAUNCHES = collections.Counter()
 MODEL_RTOL = 1e-4
+CPU_FORWARDS = 3  # phase 5: the CPU reference is an output two of them give bit for bit
 PARAMS = dict(num_steps=100, ads_std_low=0.1, ads_std_high=10.0, rot_std_low=0.01, rot_std_high=1.55, ode=True)
 MODEL_KW = dict(sampling=True, cell_reps=(2, 2, 0), max_ads=8)  # painn_so3.yml widths by default
 # configs/relaxation/gemnet_oc/gemnet_relax.yml, model block; cell_reps: auto
@@ -259,6 +276,8 @@ EQV2_TRAIN_CONFIG = dict(
 EQV2_TINY = (2, 1, 16, 16, 32, 16, 16, 6.0)
 # tests/test_torch_kernels.py CONV1_L4: the production m-block structure (5, 4, 3) at narrow widths
 EQV2_L4 = (4, 2, 8, 8, 12, 40, 16, 6.0)
+# trunk and embedding width of eqv2_attn_conv1's wide route (phase 10c): the eqv2_so3.yml model at edge_channels 256
+CONV1_WIDE = 256
 # configs/denoising/gemnet_so3.yml (model) over configs/denoising/base.yml (optim, task), as a dict: full width,
 # random weights from the trainer's seed; 100 reverse-diffusion steps (denoising_pos_params.num_steps) over 8 bench
 # systems, one batch of 8 (eval_batch_size, which the relax batcher takes).  is_debug: no experiment logger (and
@@ -410,15 +429,35 @@ def message_bwd_bound_ms(inputs, cts, outputs, cutoff):
     return (*bound(flops, list(inputs.values()) + list(cts) + list(outputs)), flops)
 
 
-def check_message_bwd_kernel(device, gen, shape, cutoff, nl=None, unit=None):
+def check_message_bwd_kernel(device, gen, shape, cutoff, nl=None, unit=None, fill=None):
+    """The backward kernel against the plain VJP.  ``fill``: "masked-system"
+    (every slot of system 1 masked), or "bad-src" (sources -1 and N + 5 on
+    unmasked slots; the plain VJP takes them as masked, the kernel's
+    contract)."""
     b, n, _, _, h = shape
     inputs = message_inputs(gen, device, *shape, cutoff, nl=nl, unit=unit)
+    if fill == "masked-system":
+        inputs["mask"][1] = False
+    elif fill == "bad-src":
+        inputs["src"][..., ::7] = -1
+        inputs["src"][..., 3::11] = n + 5
     cts = (torch.randn((b, n, h), generator=gen).to(device), torch.randn((b, n, 3, h), generator=gen).to(device))
+    plan = kernels.painn_bwd_plan(b, n, shape[2], shape[3], h, kernels._sm_count(device))
     got = kernels.painn_message_fused_bwd(**inputs, dx_ct=cts[0], dvec_ct=cts[1], cutoff=cutoff)
     torch.cuda.synchronize()
-    want = kernels.painn_message_fused_bwd_reference(**inputs, dx_ct=cts[0], dvec_ct=cts[1], cutoff=cutoff)
-    err = check_close(f"painn_message_fused_bwd b,n,k,r,h={shape}", got, want)
+    ok = (inputs["src"] >= 0) & (inputs["src"] < n)
+    plain = dict(inputs, src=torch.where(ok, inputs["src"], 0), mask=inputs["mask"] & ok)
+    want = kernels.painn_message_fused_bwd_reference(**plain, dx_ct=cts[0], dvec_ct=cts[1], cutoff=cutoff)
+    err = check_close(f"painn_message_fused_bwd b,n,k,r,h={shape}{' ' + fill if fill else ''} "
+                      f"({bwd_plan_line(plan)})", got, want)
     return inputs, cts, got, err
+
+
+def bwd_plan_line(plan):
+    return (f"plan: {plan.cols} columns h a block, {plan.slices} slices x {plan.blocks // plan.slices} systems = "
+            f"{plan.blocks} blocks x {plan.threads} threads, {plan.waves:.2f} waves of one block an SM, "
+            f"{plan.smem_bytes} B shared, {'global-atomic' if plan.global_scatter else 'shared-memory'} scatter, "
+            f"xh/vec rows {'staged' if plan.stage_rows else 'through L1/L2'}")
 
 
 # --------------------------------------------------------------------------
@@ -984,7 +1023,26 @@ def eqv2_path(device, gen, systems):
           f"{c1_plan.extra_flops_per_edge * args[0].numel() / 1e9:.2f} GFLOP = "
           f"{100 * c1_plan.extra_flops_per_edge * args[0].numel() / c1_flops:.1f}% of the bound's count; ptxas: "
           f"{' | '.join(ptxas_lines('eqv2_attn_conv1')) or 'not built in this process'}", flush=True)
-    del calls, h, s2_out, c1_out, args
+    # 10c. eqv2_attn_conv1's wide route: trunk and embedding widths of 256 at the sampling edge count, where the
+    # 64-edge plan does not fit one block's shared memory
+    lmax, mmax, c, c_out, extra, r, cutoff = 4, 2, 128, 64, 576, 600, 12.0  # eqv2_so3.yml's first conv
+    w_args, w_kw = conv1_inputs(gen, device, lmax, mmax, (args[0].numel(),), c, c_out, extra, r, CONV1_WIDE, cutoff)
+    w_route = kernels.attn_conv1_route(CONV1_WIDE, CONV1_WIDE, c, c_out, extra, kernels.conv1_blocks(lmax, mmax))
+    if w_route != "wide":
+        raise AssertionError(f"eqv2_attn_conv1 at widths {CONV1_WIDE}: route {w_route}, want wide")
+    before = kernels.launches["eqv2_attn_conv1"]
+    w_out, w_err = check_conv1_kernel(f"wide route e_dim=hidden={CONV1_WIDE}", w_args, w_kw)
+    if kernels.launches["eqv2_attn_conv1"] != before + 1:
+        raise AssertionError("eqv2_attn_conv1's wide route did not count one launch")
+    w_ms = cuda_ms(lambda: kernels.eqv2_attn_conv1(*w_args, **w_kw), 5)
+    w_plain_ms = cuda_ms(lambda: kernels.eqv2_attn_conv1_reference(*w_args, **w_kw), 2)
+    w_bound, w_by, w_bytes, w_flops, _, _ = conv1_bound_ms(w_args, w_kw, w_out)
+    print(f"[kernel] eqv2_attn_conv1 wide route at E={w_args[0].numel()}, e_dim = hidden = {CONV1_WIDE}, C={c}: "
+          f"{w_ms:.4f} ms, plain {w_plain_ms:.4f} ms, bound {w_bound:.4f} ms by {w_by} ({w_flops / 1e9:.2f} GFLOP "
+          f"f32, {w_bytes / 1e6:.2f} MB), {100 * w_bound / w_ms:.1f}% of the bound; 16-edge tiles, "
+          f"{kernels.attn_conv1_wide_smem(CONV1_WIDE, CONV1_WIDE, c, kernels.conv1_blocks(lmax, mmax))} B shared; "
+          f"ptxas: {' | '.join(ptxas_lines('eqv2_attn_conv1_wide')) or 'not built in this process'}", flush=True)
+    del calls, h, s2_out, c1_out, args, w_args, w_out
 
     # 13a. eqv2_edge_rotate in every form at the sampling graph, and its VJPs
     rot_row = check_rotations(device, gen, batch, model)
@@ -1094,20 +1152,16 @@ def sampling_path(device, gen, systems):
     print(f"[sample] one score forward (graph + 6 layers + heads): {forward_ms:.3f} ms; "
           f"6 kernel launches at {ms:.4f} ms = {100 * 6 * ms / forward_ms:.1f}% of it", flush=True)
 
-    # 5. card vs CPU, whole model at B=2, with what tells a host fault from a machine-dependent CPU path
+    # 5. card vs CPU, whole model at B=2, with what tells a host fault from a machine-dependent CPU path. The
+    # reference is the output that two CPU forwards on equal inputs give bit for bit (ROADMAP C.1).
     small = collate(systems[:2], max_atoms=80, device=device)
     cpu_model = copy.deepcopy(model).to("cpu")
-    inputs = [small.to("cpu"), small.to("cpu")]
+    inputs = [small.to("cpu") for _ in range(CPU_FORWARDS)]
     with torch.no_grad():
         card = model(small)
-        (host, trace), (host2, trace2) = (traced_forward(cpu_model, b) for b in inputs)
-    painn_diagnostics(model, small, card, host, host2)
-    same_inputs = all(torch.equal(getattr(inputs[0], f.name), getattr(inputs[1], f.name))
-                      for f in dataclasses.fields(inputs[0]) if getattr(inputs[0], f.name) is not None)
-    differ = [(name, (a.float() - b.float()).abs().max().item()) for (name, a), (_, b) in zip(trace, trace2)
-              if not torch.equal(a, b)]
-    print(f"[check] PaiNN B=2 the two CPU forwards: inputs equal {same_inputs}; {len(differ)} of {len(trace)} "
-          f"recorded outputs differ" + (f", the first {differ[:3]}" if differ else ""), flush=True)
+        runs = [traced_forward(cpu_model, b) for b in inputs]
+    host = repeated_cpu_reference("PaiNN B=2", inputs, runs)
+    painn_diagnostics(model, small, card, host)
     check_model("PaiNN", zip(("out_forces", "out_forces2"), card, host))
     return dict(name="painn_message_fused", source="adsorbdiff_tpu_torch/csrc/painn_message_fused.cu",
                 replaces="adsorbdiff_tpu/ops/pallas_kernels.py:336",
@@ -1116,37 +1170,101 @@ def sampling_path(device, gen, systems):
 
 
 def traced_forward(module, batch):
-    """``module(batch)`` with every submodule's output, and the neighbour
-    table the first message layer receives, recorded in call order: where
-    two runs part, the first record that differs names the step."""
+    """``module(batch)`` with every submodule's output, the squared distances
+    the neighbour search sorts (each ``pbc._smallest_k`` input, and the
+    values and indices it keeps), and the neighbour table the first message
+    layer receives (src, cell offsets, vec, dist, mask), recorded in call
+    order: where two runs part, the first record that differs names the
+    step."""
     trace, handles = [], []
+    smallest_k = pbc._smallest_k
+
+    def sort_input(d2, k):
+        trace.append(("neighbours.d2", d2.clone()))
+        vals, idx = smallest_k(d2, k)
+        trace.extend((("neighbours.d2_top", vals.clone()), ("neighbours.idx", idx.clone())))
+        return vals, idx
+
+    def graph(_, args):
+        trace.extend((f"graph.{f}", getattr(args[2], f).clone()) for f in ("src", "cell_offsets", "vec", "dist", "mask"))
 
     def hook(name):
         def record(_, args, out):
-            if name == "message_layers.0":
-                trace.extend((f"graph.{f}", getattr(args[2], f).clone()) for f in ("src", "dist", "mask"))
             trace.append((name, (out[0] if isinstance(out, tuple) else out).clone()))
         return record
 
     for name, mod in module.named_modules():
         if name:
             handles.append(mod.register_forward_hook(hook(name)))
+        if name == "message_layers.0":
+            handles.append(mod.register_forward_pre_hook(graph))
+    pbc._smallest_k = sort_input
     try:
         return module(batch), trace
     finally:
+        pbc._smallest_k = smallest_k
         for h in handles:
             h.remove()
 
 
-def painn_diagnostics(model, small, card, host, host2):
-    """Phase 5's evidence, printed before its check: both sides' max |output|,
-    whether the card's and the CPU's B=2 neighbour tables agree exactly (and
-    where not, how many slots differ and the largest distance among them),
-    and a second CPU forward against the first."""
-    for name, c, h, h2 in zip(("out_forces", "out_forces2"), card, host, host2):
+def host_cpu():
+    """The host's CPU (model name, else vendor, family and model numbers, as
+    /proc/cpuinfo gives them), torch's CPU capability and its intra-op thread
+    count: what tells the hosts of two phase-5 runs apart."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError as e:
+        fields["error"] = f"/proc/cpuinfo unreadable ({e.strerror})"
+    model = fields.get("model name") or " ".join(
+        f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model", "stepping", "error") if k in fields)
+    return (f"host CPU {model or platform.processor() or 'unknown'!r}, torch CPU capability "
+            f"{torch.backends.cpu.get_cpu_capability()}, {torch.get_num_threads()} threads")
+
+
+def repeated_cpu_reference(what, inputs, runs):
+    """The CPU reference of a card-vs-CPU check: the outputs that two of the
+    CPU forwards ``runs`` (``(outputs, trace)`` of :func:`traced_forward`) on
+    the equal ``inputs`` give bit for bit.  Prints each forward against the
+    first, with the first of its records that differ (the step where it
+    parts) and the host's CPU; raises when no two forwards agree."""
+    cpu = host_cpu()
+    same_inputs = all(torch.equal(getattr(inputs[0], f.name), getattr(b, f.name))
+                      for b in inputs[1:] for f in dataclasses.fields(b) if getattr(b, f.name) is not None)
+
+    def differ(i, j):
+        (out_i, trace_i), (out_j, trace_j) = runs[i], runs[j]
+        pairs = list(zip(trace_i, trace_j)) + [((f"output {k}", a), (f"output {k}", b))
+                                               for k, (a, b) in enumerate(zip(out_i, out_j))]
+        return [(name, (a.float() - b.float()).abs().max().item()) for (name, a), (_, b) in pairs
+                if not torch.equal(a, b)]
+
+    for i in range(1, len(runs)):
+        d = differ(0, i)
+        print(f"[check] {what} CPU forward {i + 1} vs 1: inputs equal {same_inputs}; {len(d)} of "
+              f"{len(runs[0][1]) + len(runs[0][0])} recorded outputs differ"
+              + (f", the first {d[:3]}" if d else "") + f"; {cpu}", flush=True)
+    agree = next(((i, j) for i in range(len(runs)) for j in range(i + 1, len(runs)) if not differ(i, j)), None)
+    if agree is None:
+        raise AssertionError(f"{what}: no two of {len(runs)} CPU forwards on equal inputs agree; {cpu}")
+    apart = [k + 1 for k in range(len(runs)) if differ(agree[0], k)]
+    if apart:
+        print(f"[host] {what}: CPU forward(s) {apart} part from forwards {agree[0] + 1} and {agree[1] + 1}, which "
+              f"agree bit for bit and are the reference: the host fault of ROADMAP C.1; {cpu}", flush=True)
+    return runs[agree[0]][0]
+
+
+def painn_diagnostics(model, small, card, host):
+    """Phase 5's evidence, printed before its check: both sides' max |output|
+    and whether the card's and the CPU's B=2 neighbour tables agree exactly
+    (and where not, how many slots differ and the largest distance among
+    them)."""
+    for name, c, h in zip(("out_forces", "out_forces2"), card, host):
         print(f"[check] PaiNN B=2 {name}: max |card| {c.abs().max().item():.6f}, max |cpu| "
-              f"{h.abs().max().item():.6f}; second CPU forward vs first: max |diff| "
-              f"{(h2 - h).abs().max().item():.3e}", flush=True)
+              f"{h.abs().max().item():.6f}", flush=True)
     kw = dict(cutoff=model.cutoff, max_neighbors=model.max_neighbors, cell_reps=model.cell_reps)
     nl_card = generate_graph(small, **kw)[0]
     nl_cpu = generate_graph(small.to("cpu"), **kw)[0]
@@ -1382,8 +1500,13 @@ def training_path(device, gen, root):
                                  cell_reps=model.cell_reps)
     shape = (TRAIN_BATCH, 80, model.max_neighbors, 128, model.hidden_channels)
     inputs, cts, outputs, err = check_message_bwd_kernel(device, gen, shape, model.cutoff, nl=nl, unit=unit)
-    for ragged in ((2, 13, 10, 16, 64), (1, 37, 45, 128, 192)):
-        check_message_bwd_kernel(device, gen, ragged, 6.0)
+    # ragged: the older shapes; N = 300 (narrower slices) and N = 1200 (global atomics for the scatter); B = 5
+    # (16-column slices to fill a wave); an all-masked system; sources outside [0, N); H = 200, not a multiple of 32
+    for ragged, fill in (((2, 13, 10, 16, 64), None), ((1, 37, 45, 128, 192), None), ((9, 300, 20, 128, 512), None),
+                         ((1, 1200, 20, 128, 64), None), ((5, 80, 50, 128, 512), None),
+                         ((3, 80, 50, 128, 96), "masked-system"), ((2, 80, 50, 128, 64), "bad-src"),
+                         ((2, 80, 50, 128, 200), None)):
+        check_message_bwd_kernel(device, gen, ragged, 6.0, fill=fill)
     bwd = lambda: kernels.painn_message_fused_bwd(**inputs, dx_ct=cts[0], dvec_ct=cts[1], cutoff=model.cutoff)  # noqa: E731
     ms = cuda_ms(bwd, 10)
     plain_ms = cuda_ms(lambda: kernels.painn_message_fused_bwd_reference(
@@ -1391,10 +1514,13 @@ def training_path(device, gen, root):
     fwd_ms = cuda_ms(lambda: kernels.painn_message_fused(**inputs, cutoff=model.cutoff), 10)
     bound_ms, bound_by, nbytes, flops = message_bwd_bound_ms(inputs, cts, outputs, model.cutoff)
     edges, rows = basis_rows(inputs, model.cutoff)
+    plan = kernels.painn_bwd_plan(*shape, kernels._sm_count(device))
     print(f"[kernel] painn_message_fused_bwd at {shape} ({edges} valid edges, {rows / edges:.2f} non-zero basis "
           f"values each): {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP f32, "
-          f"{nbytes / 1e6:.2f} MB); the forward kernel at the same shape {fwd_ms:.4f} ms", flush=True)
+          f"{nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}% of the bound; the forward kernel at the same shape "
+          f"{fwd_ms:.4f} ms; {bwd_plan_line(plan)}; ptxas: "
+          f"{' | '.join(ptxas_lines('painn_message_fused_bwd')) or 'not built in this process'}", flush=True)
     del inputs, cts, outputs
 
     # 8b. one epoch of DenoisingTrainer.train(); counts zeroed just before, read at every step

@@ -256,6 +256,52 @@ def test_bwd_kernel_matches_plain_version_on_card(cuda_device, shape):
         assert err <= 1e-4 * w.abs().max().item() + 1e-5, (name, err)
 
 
+def _bwd_case(seed, shape, fill):
+    """Kernel inputs of :func:`_inputs` with ``fill``: "masked-system" (every
+    slot of system 1 masked) or "bad-src" (sources -1 and N + 5 on unmasked
+    slots), and the inputs the plain VJP takes for them (out-of-range sources
+    as masked slots: the kernel's contract)."""
+    inputs = _inputs(seed, *shape)
+    n = shape[1]
+    if fill == "masked-system":
+        inputs["mask"][1] = False
+    elif fill == "bad-src":
+        inputs["src"][..., ::7] = -1
+        inputs["src"][..., 3::11] = n + 5
+    ok = (inputs["src"] >= 0) & (inputs["src"] < n)
+    return inputs, dict(inputs, src=np.where(ok, inputs["src"], 0).astype(np.int32), mask=inputs["mask"] & ok)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,fill,cols,stage,glob", [
+    ((3, 80, 50, 128, 512), None, 8, True, False), ((5, 80, 50, 128, 512), None, 16, True, False),
+    ((9, 120, 50, 128, 512), None, 32, False, False), ((2, 300, 45, 128, 64), None, 8, True, False),
+    ((9, 300, 20, 128, 512), None, 16, False, False), ((1, 1200, 20, 128, 64), None, 8, False, True),
+    ((3, 80, 50, 128, 96), "masked-system", 8, True, False), ((2, 80, 50, 128, 64), "bad-src", 8, True, False),
+    ((2, 80, 50, 128, 200), None, 8, True, False),
+], ids=["n80-b3", "n80-b5", "n120-b9", "n300", "n300-b9", "n1200-global", "masked-system", "bad-src", "h200"])
+def test_bwd_kernel_plans_match_plain_version_on_card(cuda_device, shape, fill, cols, stage, glob):
+    """Each branch of the plan (column width, staged rows, global atomics),
+    an all-masked system, sources outside [0, N) and H not a multiple of 32,
+    against the plain VJP: |kernel - plain| <= 1e-4 * max|plain| + 1e-5 for
+    dxh, dvec, dW and db (32 columns with staged rows: the training-width
+    case above)."""
+    b, n, k, r, h = shape
+    plan = kernels.painn_bwd_plan(b, n, k, r, h, kernels._sm_count(cuda_device))
+    assert (plan.cols, plan.stage_rows, plan.global_scatter) == (cols, stage, glob)
+    raw, plain = _bwd_case(23, shape, fill)
+    inputs, plain = _torch(raw, cuda_device), _torch(plain, cuda_device)
+    cts = [torch.from_numpy(c).to(cuda_device) for c in _cotangents(24, b, n, h)]
+    before = kernels.launches["painn_message_fused_bwd"]
+    got = painn_message_fused_bwd(**inputs, dx_ct=cts[0], dvec_ct=cts[1], cutoff=6.0)
+    torch.cuda.synchronize()
+    assert kernels.launches["painn_message_fused_bwd"] == before + 1
+    want = painn_message_fused_bwd_reference(**plain, dx_ct=cts[0], dvec_ct=cts[1], cutoff=6.0)
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        err = (g - w).abs().max().item()
+        assert torch.isfinite(g).all() and err <= 1e-4 * w.abs().max().item() + 1e-5, (name, err)
+
+
 @pytest.mark.cuda
 def test_autograd_on_card_launches_forward_and_backward_kernels(cuda_device):
     """One backward through the Function: one launch of each kernel, and the
@@ -276,6 +322,49 @@ def test_autograd_on_card_launches_forward_and_backward_kernels(cuda_device):
     for name, w in zip(GRAD_NAMES, plain):
         g = inputs[name].grad.reshape(w.shape)
         assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() + 1e-5, name
+
+
+@pytest.mark.parametrize("b,n", [(1, 1), (3, 13), (2, 300), (4, 80), (5, 80), (8, 80), (9, 80), (48, 80),
+                                 (48, 83), (48, 165), (48, 166), (48, 394), (48, 395), (48, 853), (48, 854),
+                                 (1, 2000)])
+def test_bwd_plan_covers_every_system_and_column_once(b, n):
+    """Every (system, column h) pair is one block's, once; a block fits in
+    227 KB; the slices narrow as the systems get too few to fill a wave of
+    32-column blocks (132 blocks at H = 512 from B = 9 on) and as N grows
+    (the dxh/dvec accumulators of a system's rows must fit), then the
+    scatter goes to global atomics; the xh/vec rows are staged where they
+    fit."""
+    k, r = 50, 128
+    for h in (1, 31, 64, 200, 512):
+        plan = kernels.painn_bwd_plan(b, n, k, r, h, sms=132)
+        assert plan.smem_bytes + 16 * 16 * 5 * 4 <= 232448 and plan.threads == 512  # dynamic + static
+        assert plan.blocks == b * plan.slices and plan.waves == plan.blocks / 132
+        seen = np.zeros((b, h), np.int64)
+        blocks = set()
+        for blk, system, h0, cols in kernels.painn_bwd_work(plan, b, h):
+            assert 1 <= cols <= plan.cols and blk not in blocks
+            blocks.add(blk)
+            seen[system, h0:h0 + cols] += 1
+        assert (seen == 1).all() and len(blocks) == plan.blocks
+        assert plan.scratch_ints == b * n * k + 17 * b
+        assert not (plan.stage_rows and plan.global_scatter)
+        if h == 512:  # the largest N each width holds at R = 128: accumulators, then staged rows too
+            wide = 32 if b >= 9 else 16 if b >= 5 else 8
+            fit = [c for c in (32, 16, 8) if c <= wide and n <= {32: 165, 16: 394, 8: 853}[c]]
+            assert (plan.cols, plan.global_scatter) == ((fit[0], False) if fit else (wide, True))
+            assert plan.stage_rows == (not plan.global_scatter and n <= {32: 82, 16: 197, 8: 426}[plan.cols])
+
+
+def test_bwd_plan_refuses_nothing_the_wrapper_accepts():
+    """Every R <= 128 at any N, K and H has a plan; R > 128 is refused, as the
+    wrapper refuses it."""
+    for n in (1, 2, 80, 300, 5000):
+        for k in (1, 3, 50, 120):
+            for r in (2, 16, 64, 127, 128):
+                for h in (1, 8, 200, 512):
+                    assert kernels.painn_bwd_plan(2, n, k, r, h, sms=132).smem_bytes <= 232448 - 5120
+    with pytest.raises(ValueError, match="R <= 128"):
+        kernels.painn_bwd_plan(2, 80, 50, 129, 512, sms=132)
 
 
 def _quad_inputs(seed, b, n, u, q, k2, s, e, f, zero_rows=False):
@@ -548,6 +637,25 @@ def test_attn_conv1_kernel_matches_plain_version_on_card(cuda_device, case):
         assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() + 1e-5
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead", [(37,), (1200,), (3, 40, 20)], ids=["ragged", "e1200", "sampling-lead"])
+def test_attn_conv1_wide_route_matches_plain_version_on_card(cuda_device, lead):
+    """Trunk and embedding widths of 256 at the published conv widths: the
+    wrapper takes the 16-edge kernel, counts it as eqv2_attn_conv1, and
+    |kernel - plain| <= 1e-4 * max|plain| + 1e-5 per output."""
+    edges, rad, conv, kw = _conv1_inputs(35, 4, 2, lead, 128, 64, 576, 600, 256, 12.0)
+    assert kernels.attn_conv1_route(256, 256, 128, 64, 576, kernels.conv1_blocks(4, 2)) == "wide"
+    args = [torch.from_numpy(edges[k]).to(cuda_device) for k in edges]
+    args += [_torch_tree(rad, cuda_device), _torch_tree(conv, cuda_device)]
+    before = dict(kernels.launches)
+    got = eqv2_attn_conv1(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches["eqv2_attn_conv1"] == before.get("eqv2_attn_conv1", 0) + 1
+    assert kernels.launches["eqv2_attn_conv1_wide"] == before.get("eqv2_attn_conv1_wide", 0)
+    for g, w in zip(got, eqv2_attn_conv1_reference(*args, **kw)):
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() + 1e-5
+
+
 # The launch plans of the two EquiformerV2 forward kernels (plain Python, no card)
 CONV1_PUBLISHED = dict(num_gauss=600, e_dim=128, hidden=128, c=128, c_out=64, extra=576, n_blocks=(5, 4, 3))
 
@@ -587,6 +695,27 @@ def test_attn_conv1_plan_counts_the_m0_gate_recompute_and_refuses_wide_trunks():
     assert plan.extra_flops_per_edge == exact.extra_flops_per_edge + -(-(256 * 3 * trunk) // 25_600)
     with pytest.raises(ValueError, match="shared memory"):
         kernels.attn_conv1_plan(100, **dict(CONV1_PUBLISHED, e_dim=256, hidden=256), sms=132)
+
+
+@pytest.mark.parametrize("kw,route", [
+    (CONV1_PUBLISHED, "tiled64"), (_conv1_plan_kw(CONV1_TINY), "tiled64"), (_conv1_plan_kw(CONV1_L4), "tiled64"),
+    (dict(CONV1_PUBLISHED, e_dim=144, hidden=144), "tiled64"), (dict(CONV1_PUBLISHED, e_dim=152, hidden=152), "wide"),
+    (dict(CONV1_PUBLISHED, e_dim=256, hidden=256), "wide"), (dict(CONV1_PUBLISHED, e_dim=128, hidden=512), "wide"),
+], ids=["published", "tiny", "l4m2", "w144", "w152", "w256", "trunk512"])
+def test_attn_conv1_route_takes_the_wide_kernel_only_where_the_64_edge_plan_does_not_fit(kw, route):
+    """The route is decided from the widths alone: the 64-edge kernel wherever
+    its plan fits, the 16-edge kernel (whose shared memory fits) elsewhere."""
+    widths = {k: kw[k] for k in ("e_dim", "hidden", "c", "c_out", "extra", "n_blocks")}
+    assert kernels.attn_conv1_route(**widths) == route
+    if route == "tiled64":
+        assert kernels.attn_conv1_plan(25_600, kw["num_gauss"], **widths, sms=132).smem_bytes <= kernels.SMEM_PER_BLOCK
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            kernels.attn_conv1_plan(25_600, kw["num_gauss"], **widths, sms=132)
+        assert kernels.attn_conv1_wide_smem(kw["e_dim"], kw["hidden"], kw["c"], kw["n_blocks"]) <= \
+            kernels.SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match="16-edge tiles"):
+        kernels.attn_conv1_route(**dict(widths, hidden=2048))
 
 
 @pytest.mark.parametrize("e", [1, 63, 64, 65, 193, 64 * 132 - 1, 64 * 132 + 1, 65 * 132, 19_200, 25_600])
