@@ -15,47 +15,100 @@
 // in-edge of b (d -> b).
 //
 // What bounds it on the H100: at the relaxation shape (B=8, N=80, U=K2=30,
-// Q=8, S=7, E=F=32) a launch does ~4.3 GFLOP of f32 FMAs (0.064 ms at
+// Q=8, S=7, E=F=32) a launch does ~4.4 GFLOP of f32 FMAs (0.066 ms at
 // 67 TFLOP/s) and must read qp once (137.6 MB) and write out (78.6 MB):
 // ~240 MB in all, 0.072 ms at 3.35 TB/s. So bytes set the bound, with the
 // operations close behind; reading qp is most of it.
 //
-// The design, one block of 256 threads per cell:
-//   * the cell's xm [Q,K2,E], the normalised n2 [Q,K2,3] and n1 [U,Q,3] and
-//     both key tables are staged in shared memory once;
-//   * for each u in turn: the basis y[q,k,s] is built in shared memory
-//     (one thread per (q,k)), d2[q,s,e] is formed with one thread per (q,e)
-//     holding up to 8 levels s in registers and summing over k, and out[f,e]
-//     with one thread per (4 f, e) summing over (s,q); out is written
-//     coalesced along E;
-//   * qp[u] ([S,Q,F], contiguous in device memory) is copied into shared
-//     memory with cp.async at the top of each u step, so the copy overlaps
-//     the basis and d2 work of the same step.
-// Nothing between the inputs and out goes to device memory; the TPU kernel's
-// block-diagonal packing, u/k padding to 32 and level-major scratch were
-// Mosaic layout workarounds and have no counterpart here. Not yet used:
-// tensor cores (wgmma), TMA, and fusing the qp einsum into the kernel (which
-// would remove the largest input).
+// The design: a block stages one cell's xm [Q*K2, E], the normalised n2 and
+// n1 rows and the key2 table in shared memory, behind its only barrier. Then
+// each warp owns main edges u (u = its index in the cell's warps, then every
+// warps-of-the-cell-th one) and runs them with no block barrier:
+//   * qp[u] ([S,Q,F], contiguous in device memory) goes into the warp's own
+//     shared buffer by cp.async (16-byte copies where F % 4 == 0 and the base
+//     is aligned, else 4-byte ones into rows padded to a multiple of 4), the
+//     copy for the warp's next u issued before the current one is computed
+//     (two buffers) or after it (one buffer); where neither fits, qp is read
+//     from device memory in the product (the plan's qp_buffers = 0);
+//   * for each q and each tile of 32 in-edges k, every lane builds one basis
+//     row y[q,k,0:8] into the warp's [32][8] buffer (levels past S zero,
+//     rows 16-byte aligned), then each lane, owning one column e, adds
+//     d2[s] += y[k,s] xm[q,k,e] with the row read as two float4 broadcasts:
+//     d2 (8 levels) never leaves registers;
+//   * acc[f] += qp[s,q,f] d2[s] with qp read as float4 broadcasts; acc holds
+//     32 columns f in registers, and out[u,f,e] is written once, lane = e
+//     (128 B a column f at E = 32);
+//   * a warp whose key1[u] < 0 writes zeros (every keep is false).
+// Wider shapes run in passes: 8 levels s a pass (later passes add into out),
+// 32 columns e and 32 columns f a pass (d2 made again for each). The launch
+// (warps a block, blocks a cell, qp buffering, copy width) comes from the
+// plain-Python plan adsorbdiff_tpu_torch/ops/kernels.py::quad_chain_plan;
+// the C entry refuses a plan whose shared-memory size disagrees with its own
+// layout. Nothing between the inputs and out goes to device memory. Not yet
+// used: tensor cores (wgmma), TMA, and fusing the qp einsum into the kernel
+// (which would remove the largest input).
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSTile = 8;  // spherical levels held in registers in the d2 loop
-constexpr int kFTile = 4;  // output columns f per thread in the outer loop
+constexpr int kMaxWarps = 16;
+constexpr int kLevels = 8;                    // levels s a pass holds in registers (d2)
+constexpr int kCols = 32;                     // columns e (one a lane) and f (acc) a pass
+constexpr int kTileK = 32;                    // in-edges k a basis tile (one a lane)
+constexpr int kYFloats = kTileK * kLevels;    // a warp's basis buffer
 
-__host__ __device__ inline size_t smem_floats(int U, int Q, int K2, int S, int E, int F) {
+__host__ __device__ inline int round4(int x) { return (x + 3) / 4 * 4; }
+
+// Floats of a block's dynamic shared memory: per warp the basis buffer and
+// `bufs` qp[u] buffers (rows padded to a multiple of 4), then the cell's xm,
+// n2h, n1h and key2 (int) tables.
+__host__ __device__ inline size_t smem_floats(int warps, int bufs, int U, int Q, int K2, int S, int E, int F) {
   const size_t qk = (size_t)Q * K2;
-  return qk * E          // xm_s
-         + qk * 3        // n2h_s
-         + (size_t)U * Q * 3  // n1h_s
-         + qk * S        // y_s
-         + (size_t)Q * S * E  // d2_s
-         + (size_t)S * Q * F  // qp_s
-         + qk + U;       // key2_s, key1_s (ints, same size)
+  const size_t sqf = (size_t)S * Q * round4(F);
+  return (size_t)warps * (kYFloats + bufs * sqf) + qk * E + qk * 3 + (size_t)U * Q * 3 + qk;
+}
+
+struct ChainArgs {
+  const float* n1;
+  const float* n2;
+  const int32_t* key1;
+  const int32_t* key2;
+  const float* xm;
+  const float* qp;
+  float* out;
+  int U, Q, K2, S, E, F;
+  int warps, parts, bufs, copy16, xm16;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// qp[u] ([S*Q rows][F], n = S*Q*F floats) into a buffer of rows padded to fp.
+__device__ __forceinline__ void copy_qp(float* dst, const float* src, int n, int F, int fp, bool copy16, int lane) {
+  if (copy16) {  // F % 4 == 0, so fp == F and the rows are contiguous
+    for (int i = 4 * lane; i < n; i += 4 * 32) cp_async16(dst + i, src + i);
+  } else {
+    for (int i = lane; i < n; i += 32) {
+      const int r = i / F;
+      cp_async4(dst + (size_t)r * fp + (i - r * F), src + i);
+    }
+  }
 }
 
 __device__ __forceinline__ void normalize3(const float* v, float* out) {
@@ -66,127 +119,276 @@ __device__ __forceinline__ void normalize3(const float* v, float* out) {
   out[2] = z / den;
 }
 
-__global__ void __launch_bounds__(kThreads) gemnet_quad_chain_kernel(
-    const float* __restrict__ n1, const float* __restrict__ n2,
-    const int32_t* __restrict__ key1, const int32_t* __restrict__ key2,
-    const float* __restrict__ xm, const float* __restrict__ qp,
-    float* __restrict__ out, int U, int Q, int K2, int S, int E, int F) {
-  extern __shared__ float smem[];
-  const int QK = Q * K2;
-  float* xm_s = smem;                                   // [Q*K2][E]
-  float* n2h_s = xm_s + (size_t)QK * E;                 // [Q*K2][3]
-  float* n1h_s = n2h_s + (size_t)QK * 3;                // [U*Q][3]
-  float* y_s = n1h_s + (size_t)U * Q * 3;               // [Q*K2][S]
-  float* d2_s = y_s + (size_t)QK * S;                   // [Q][S][E]
-  float* qp_s = d2_s + (size_t)Q * S * E;               // [S][Q][F]
-  int* key2_s = reinterpret_cast<int*>(qp_s + (size_t)S * Q * F);  // [Q*K2]
-  int* key1_s = key2_s + QK;                            // [U]
-
-  const size_t cell = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float* xm_c = xm + cell * QK * E;
-  const float* n1_c = n1 + cell * U * Q * 3;
-  const float* n2_c = n2 + cell * QK * 3;
-  const size_t sqf = (size_t)S * Q * F;
-  const float* qp_c = qp + cell * U * sqf;
-  float* out_c = out + cell * U * F * E;
-
-  for (int i = tid; i < QK * E; i += kThreads) xm_s[i] = xm_c[i];
-  for (int i = tid; i < QK; i += kThreads) {
-    normalize3(n2_c + 3 * i, n2h_s + 3 * i);
-    key2_s[i] = key2[cell * QK + i];
+// y[j] = sqrt((2l+1)/4pi) P_l(c) for l = s0 + j, j < nl; 0 past nl and where
+// !keep. P_{l+1} = ((2l+1) c P_l - l P_{l-1}) / (l+1). kFirst: s0 == 0, so
+// every level's constants are known at compile time.
+template <bool kFirst>
+__device__ __forceinline__ void basis_row(float c, bool keep, int s0, int nl, float (&y)[kLevels]) {
+  const float inv4pi = 0.25f / 3.14159265358979323846f;
+  float pm1 = 0.f, p = 1.f;  // P_{l-1}, P_l at l = 0
+  int l0 = 0;
+  if (!kFirst) {
+    for (; l0 < s0; ++l0) {
+      const float next = ((2 * l0 + 1) * c * p - l0 * pm1) / (float)(l0 + 1);
+      pm1 = p;
+      p = next;
+    }
   }
-  for (int i = tid; i < U * Q; i += kThreads) normalize3(n1_c + 3 * i, n1h_s + 3 * i);
-  for (int i = tid; i < U; i += kThreads) key1_s[i] = key1[cell * U + i];
-  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kLevels; ++j) {
+    const int l = kFirst ? j : l0 + j;
+    y[j] = (keep && j < nl) ? sqrtf((2 * l + 1) * inv4pi) * p : 0.f;
+    const float next = ((2 * l + 1) * c * p - l * pm1) * (1.f / (float)(l + 1));
+    pm1 = p;
+    p = next;
+  }
+}
 
-  const float kPi = 3.14159265358979323846f;
-  for (int u = 0; u < U; ++u) {
-    // qp[u] -> shared memory, asynchronously; qp_s is free (barrier below)
-    const float* qp_u = qp_c + u * sqf;
-    for (size_t i = tid; i < sqf; i += kThreads) __pipeline_memcpy_async(qp_s + i, qp_u + i, sizeof(float));
-    __pipeline_commit();
+template <bool kShared>
+__device__ __forceinline__ float4 qp_load(const float* row, int valid) {
+  if (kShared) return *reinterpret_cast<const float4*>(row);  // padded rows: always in the buffer
+  return make_float4(__ldg(row), valid > 1 ? __ldg(row + 1) : 0.f, valid > 2 ? __ldg(row + 2) : 0.f,
+                     valid > 3 ? __ldg(row + 3) : 0.f);
+}
 
-    // 1. basis y[q,k,s] for this u
-    const int k1 = key1_s[u];
-    for (int i = tid; i < QK; i += kThreads) {
-      const int q = i / K2;
-      const float* a = n1h_s + 3 * (u * Q + q);
-      const float* b = n2h_s + 3 * i;
-      float c = a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
-      c = fminf(fmaxf(c, -1.f), 1.f);
-      const bool keep = (k1 != key2_s[i]) && (k1 >= 0);
-      float* yrow = y_s + (size_t)i * S;
-      float pm1 = 1.f, p = c;
-      for (int l = 0; l < S; ++l) {
-        float pl;
-        if (l == 0) {
-          pl = 1.f;
-        } else if (l == 1) {
-          pl = c;
+// d2[s] += y[k,s] xm[q,k,e] over a basis tile of nk rows, for kNL levels
+// (compile-time, so no guard splits the unrolled loop); xcol: xm[q,k0,e].
+template <int kNL>
+__device__ __forceinline__ void k_product(const float* y_w, const float* xcol, int E, int nk, float (&d2)[kLevels]) {
+  const float4* y4 = reinterpret_cast<const float4*>(y_w);
+#pragma unroll 8
+  for (int kk = 0; kk < nk; ++kk) {
+    const float4 ya = y4[2 * kk];
+    const float x = xcol[kk * E];
+    d2[0] = fmaf(ya.x, x, d2[0]);
+    if (kNL > 1) d2[1] = fmaf(ya.y, x, d2[1]);
+    if (kNL > 2) d2[2] = fmaf(ya.z, x, d2[2]);
+    if (kNL > 3) d2[3] = fmaf(ya.w, x, d2[3]);
+    if (kNL > 4) {
+      const float4 yb = y4[2 * kk + 1];
+      d2[4] = fmaf(yb.x, x, d2[4]);
+      if (kNL > 5) d2[5] = fmaf(yb.y, x, d2[5]);
+      if (kNL > 6) d2[6] = fmaf(yb.z, x, d2[6]);
+      if (kNL > 7) d2[7] = fmaf(yb.w, x, d2[7]);
+    }
+  }
+}
+
+// acc[f] += qp[s,q,f] d2[s] over kNL levels s; qrow: qp[u,s0,q,f0], rows of
+// level_stride floats apart; kFull: all 32 columns f of the pass lie below F
+// (else fleft = F - f0 of them do).
+template <bool kShared, int kNL, bool kFull>
+__device__ __forceinline__ void acc_update(const float* qrow, size_t level_stride, int fleft,
+                                           const float (&d2)[kLevels], float (&acc)[kCols]) {
+#pragma unroll
+  for (int j = 0; j < kNL; ++j) {
+    const float* row = qrow + j * level_stride;
+#pragma unroll
+    for (int c = 0; c < kCols / 4; ++c) {
+      if (kFull || 4 * c < fleft) {
+        const float4 w = qp_load<kShared>(row + 4 * c, fleft - 4 * c);
+        acc[4 * c] = fmaf(w.x, d2[j], acc[4 * c]);
+        acc[4 * c + 1] = fmaf(w.y, d2[j], acc[4 * c + 1]);
+        acc[4 * c + 2] = fmaf(w.z, d2[j], acc[4 * c + 2]);
+        acc[4 * c + 3] = fmaf(w.w, d2[j], acc[4 * c + 3]);
+      }
+    }
+  }
+}
+
+// One pass (levels s0 .. s0 + kNL - 1, column e0 + lane, columns f0 ..) of
+// one main edge u: acc[f] = sum_{q, s} qp[u,s,q,f0+f] d2[u,q,s,e], written to
+// out[u] (a later level pass adds into the warp's own rows). kE32: E == 32,
+// so the xm and out strides are immediates.
+template <bool kShared, int kNL, bool kFull, bool kE32>
+__device__ __forceinline__ void chain_pass(const ChainArgs& a, int k1, const float* n1u, const float* qpb,
+                                           int stride, const float* xm_s, const float* n2h_s, const int* key2_s,
+                                           float* y_w, float* out_u, int s0, int e0, int f0, int lane) {
+  const int Q = a.Q, K2 = a.K2, E = kE32 ? 32 : a.E, F = a.F;
+  const int e = e0 + lane;
+  const bool ev = e < E;
+  const int ec = ev ? e : E - 1;
+  const size_t level_stride = (size_t)Q * stride;
+  float acc[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) acc[j] = 0.f;
+  for (int q = 0; q < Q; ++q) {
+    float d2[kLevels];
+#pragma unroll
+    for (int j = 0; j < kLevels; ++j) d2[j] = 0.f;
+    const float ax = n1u[3 * q], ay = n1u[3 * q + 1], az = n1u[3 * q + 2];
+    for (int k0 = 0; k0 < K2; k0 += kTileK) {
+      const int nk = min(kTileK, K2 - k0);
+      __syncwarp();  // the last tile's readers are done with y_w
+      if (lane < nk) {
+        const int r = q * K2 + k0 + lane;
+        const float* b = n2h_s + 3 * r;
+        const float c = fminf(fmaxf(ax * b[0] + ay * b[1] + az * b[2], -1.f), 1.f);
+        const bool keep = k1 != key2_s[r];
+        float y[kLevels];
+        if (s0 == 0) {
+          basis_row<true>(c, keep, 0, kNL, y);
         } else {
-          pl = ((2 * l - 1) * c * p - (l - 1) * pm1) / (float)l;
-          pm1 = p;
-          p = pl;
+          basis_row<false>(c, keep, s0, kNL, y);
         }
-        yrow[l] = keep ? sqrtf((2 * l + 1) / (4.f * kPi)) * pl : 0.f;
+        float4* row = reinterpret_cast<float4*>(y_w + lane * kLevels);
+        row[0] = make_float4(y[0], y[1], y[2], y[3]);
+        if (kNL > 4) row[1] = make_float4(y[4], y[5], y[6], y[7]);
       }
+      __syncwarp();
+      k_product<kNL>(y_w, xm_s + (size_t)(q * K2 + k0) * E + ec, E, nk, d2);
     }
-    __syncthreads();
-
-    // 2. d2[q,s,e] = sum_k y[q,k,s] xm[q,k,e]
-    for (int item = tid; item < Q * E; item += kThreads) {
-      const int q = item / E;
-      const int e = item - q * E;
-      for (int s0 = 0; s0 < S; s0 += kSTile) {
-        float acc[kSTile];
-#pragma unroll
-        for (int j = 0; j < kSTile; ++j) acc[j] = 0.f;
-        for (int k = 0; k < K2; ++k) {
-          const int qk = q * K2 + k;
-          const float x = xm_s[(size_t)qk * E + e];
-          const float* yrow = y_s + (size_t)qk * S + s0;
-#pragma unroll
-          for (int j = 0; j < kSTile; ++j) {
-            if (s0 + j < S) acc[j] = fmaf(yrow[j], x, acc[j]);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < kSTile; ++j) {
-          if (s0 + j < S) d2_s[((size_t)q * S + s0 + j) * E + e] = acc[j];
-        }
-      }
-    }
-    __pipeline_wait_prior(0);
-    __syncthreads();
-
-    // 3. out[f,e] = sum_{s,q} qp[s,q,f] d2[q,s,e]
-    const int f_tiles = (F + kFTile - 1) / kFTile;
-    for (int item = tid; item < f_tiles * E; item += kThreads) {
-      const int fb = item / E;
-      const int e = item - fb * E;
-      const int f0 = fb * kFTile;
-      float acc[kFTile];
-#pragma unroll
-      for (int j = 0; j < kFTile; ++j) acc[j] = 0.f;
-      for (int s = 0; s < S; ++s) {
-        for (int q = 0; q < Q; ++q) {
-          const float d = d2_s[((size_t)q * S + s) * E + e];
-          const float* qrow = qp_s + ((size_t)s * Q + q) * F + f0;
-#pragma unroll
-          for (int j = 0; j < kFTile; ++j) {
-            if (f0 + j < F) acc[j] = fmaf(qrow[j], d, acc[j]);
-          }
-        }
-      }
-      float* orow = out_c + (size_t)u * F * E;
-#pragma unroll
-      for (int j = 0; j < kFTile; ++j) {
-        if (f0 + j < F) orow[(size_t)(f0 + j) * E + e] = acc[j];
-      }
-    }
-    __syncthreads();  // y_s, d2_s and qp_s are rewritten by the next u
+    acc_update<kShared, kNL, kFull>(qpb + ((size_t)s0 * Q + q) * stride + f0, level_stride, F - f0, d2, acc);
   }
+  if (ev) {
+    float* o = out_u + (size_t)f0 * E + e;
+    if (s0 == 0) {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        if (kFull || f0 + j < F) o[j * E] = acc[j];
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        if (kFull || f0 + j < F) o[j * E] += acc[j];
+      }
+    }
+  }
+}
+
+template <bool kShared, int kNL>
+__device__ __forceinline__ void chain_pass_f(const ChainArgs& a, int k1, const float* n1u, const float* qpb,
+                                             int stride, const float* xm_s, const float* n2h_s, const int* key2_s,
+                                             float* y_w, float* out_u, int s0, int e0, int f0, int lane) {
+  if (f0 + kCols <= a.F && a.E == kCols) {
+    chain_pass<kShared, kNL, true, true>(a, k1, n1u, qpb, stride, xm_s, n2h_s, key2_s, y_w, out_u, s0, e0, f0, lane);
+  } else if (f0 + kCols <= a.F) {
+    chain_pass<kShared, kNL, true, false>(a, k1, n1u, qpb, stride, xm_s, n2h_s, key2_s, y_w, out_u, s0, e0, f0,
+                                          lane);
+  } else {
+    chain_pass<kShared, kNL, false, false>(a, k1, n1u, qpb, stride, xm_s, n2h_s, key2_s, y_w, out_u, s0, e0, f0,
+                                           lane);
+  }
+}
+
+// One main edge u of the cell, by one warp, in passes. qpb: qp[u] with rows
+// of `stride` floats (the warp's buffer, or device memory when !kShared).
+template <bool kShared>
+__device__ __forceinline__ void chain_step(const ChainArgs& a, int u, int k1, const float* qpb, int stride,
+                                           const float* xm_s, const float* n2h_s, const float* n1h_s,
+                                           const int* key2_s, float* y_w, float* out_u, int lane) {
+  const int Q = a.Q, S = a.S, E = a.E, F = a.F;
+  if (k1 < 0 || S == 0) {  // every keep is false, or no levels: the plain version's exact zeros
+    for (int i = lane; i < F * E; i += 32) out_u[i] = 0.f;
+    return;
+  }
+  const float* n1u = n1h_s + (size_t)u * Q * 3;
+  for (int s0 = 0; s0 < S; s0 += kLevels) {
+    for (int e0 = 0; e0 < E; e0 += kCols) {
+      for (int f0 = 0; f0 < F; f0 += kCols) {
+#define QC_PASS(NL) \
+  chain_pass_f<kShared, NL>(a, k1, n1u, qpb, stride, xm_s, n2h_s, key2_s, y_w, out_u, s0, e0, f0, lane)
+        switch (min(kLevels, S - s0)) {
+          case 1: QC_PASS(1); break;
+          case 2: QC_PASS(2); break;
+          case 3: QC_PASS(3); break;
+          case 4: QC_PASS(4); break;
+          case 5: QC_PASS(5); break;
+          case 6: QC_PASS(6); break;
+          case 7: QC_PASS(7); break;
+          default: QC_PASS(8); break;
+        }
+#undef QC_PASS
+      }
+    }
+  }
+}
+
+template <bool kShared>
+__global__ void __launch_bounds__(kMaxWarps * 32) gemnet_quad_chain_kernel(const ChainArgs a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int U = a.U, Q = a.Q, K2 = a.K2, S = a.S, E = a.E, F = a.F;
+  const int QK = Q * K2, fp = round4(F);
+  const int bufs = kShared ? a.bufs : 0;
+  const size_t sqf = (size_t)S * Q * fp;  // floats of a staged qp[u]
+  const int sqf_g = S * Q * F;            // floats of qp[u] in device memory
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* qp_w = smem + (size_t)warp * bufs * sqf;
+  float* y_w = smem + (size_t)a.warps * bufs * sqf + warp * kYFloats;
+  float* xm_s = smem + (size_t)a.warps * (bufs * sqf + kYFloats);
+  float* n2h_s = xm_s + (size_t)QK * E;
+  float* n1h_s = n2h_s + (size_t)QK * 3;
+  int* key2_s = reinterpret_cast<int*>(n1h_s + (size_t)U * Q * 3);
+
+  const size_t cell = blockIdx.x / a.parts;
+  const int part = blockIdx.x - (int)cell * a.parts;
+  const int G = a.parts * a.warps;  // the cell's warps
+  const int g = part * a.warps + warp;
+  const float* qp_c = a.qp + cell * U * (size_t)sqf_g;
+  const bool copy16 = a.copy16 != 0;
+
+  // the cell's xm, then each warp's first qp[u], asynchronously; the rest by hand
+  const float* xm_c = a.xm + cell * QK * (size_t)E;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  if (a.xm16) {
+    for (int i = 4 * tid; i < QK * E; i += 4 * nt) cp_async16(xm_s + i, xm_c + i);
+  } else {
+    for (int i = tid; i < QK * E; i += nt) cp_async4(xm_s + i, xm_c + i);
+  }
+  cp_async_commit();
+  if (kShared && g < U) copy_qp(qp_w, qp_c + (size_t)g * sqf_g, sqf_g, F, fp, copy16, lane);
+  cp_async_commit();
+  const float* n2_c = a.n2 + cell * QK * 3;
+  const float* n1_c = a.n1 + cell * U * Q * 3;
+  for (int i = tid; i < QK; i += nt) {
+    normalize3(n2_c + 3 * i, n2h_s + 3 * i);
+    key2_s[i] = a.key2[cell * QK + i];
+  }
+  for (int i = tid; i < U * Q; i += nt) normalize3(n1_c + 3 * i, n1h_s + 3 * i);
+  cp_async_wait<1>();  // the xm group (a warp's qp group may still be in flight)
+  __syncthreads();     // the block's only barrier
+  if (g >= U) return;
+
+  int i = 0;
+  for (int u = g; u < U; u += G, ++i) {
+    const float* qpb;
+    if (kShared) {
+      float* buf = qp_w + (bufs == 2 ? (size_t)(i & 1) * sqf : 0);
+      if (bufs == 2) {
+        // the other buffer was read for the previous u, which every lane has finished (the __syncwarp below)
+        if (u + G < U) copy_qp(qp_w + (size_t)((i + 1) & 1) * sqf, qp_c + (size_t)(u + G) * sqf_g, sqf_g, F, fp,
+                               copy16, lane);
+        cp_async_commit();
+        cp_async_wait<1>();  // this u's copy
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncwarp();  // every lane's copies are visible to the warp
+      qpb = buf;
+    } else {
+      qpb = qp_c + (size_t)u * sqf_g;
+    }
+    const int k1 = a.key1[cell * U + u];
+    float* out_u = a.out + (cell * U + u) * (size_t)F * E;
+    chain_step<kShared>(a, u, k1, qpb, kShared ? fp : F, xm_s, n2h_s, n1h_s, key2_s, y_w, out_u, lane);
+    __syncwarp();  // every lane is done with this qp buffer
+    if (kShared && bufs == 1 && u + G < U) {
+      copy_qp(qp_w, qp_c + (size_t)(u + G) * sqf_g, sqf_g, F, fp, copy16, lane);
+      cp_async_commit();
+    }
+  }
+}
+
+template <bool kShared>
+int launch(const ChainArgs& a, int cells, size_t smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(gemnet_quad_chain_kernel<kShared>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  gemnet_quad_chain_kernel<kShared><<<(unsigned)((size_t)cells * a.parts), a.warps * 32, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -194,25 +396,31 @@ __global__ void __launch_bounds__(kThreads) gemnet_quad_chain_kernel(
 // Plain C interface (loaded with ctypes). All pointers are device pointers of
 // contiguous tensors: n1 [cells,U,Q,3] f32; n2 [cells,Q,K2,3] f32; key1
 // [cells,U] i32; key2 [cells,Q,K2] i32; xm [cells,Q,K2,E] f32; qp
-// [cells,U,S,Q,F] f32; out [cells,U,F,E] f32 is written. Launches on `stream`
-// and returns cudaGetLastError() after the launch (0 = success).
+// [cells,U,S,Q,F] f32; out [cells,U,F,E] f32 is written. The launch is
+// quad_chain_plan's: `warps` a block (1..16), `parts` blocks a cell,
+// `qp_buffers` (0: qp read from device memory, 1 or 2 staged buffers a
+// warp), `copy16` (16-byte qp copies; needs F % 4 == 0 and an aligned qp),
+// and `smem_bytes`, which must equal this file's layout. Launches on `stream`
+// and returns cudaGetLastError() after the launch (0 = success), or
+// cudaErrorInvalidValue for a plan that disagrees.
 extern "C" int gemnet_quad_chain_f32(
     const void* n1, const void* n2, const void* key1, const void* key2,
     const void* xm, const void* qp, void* out,
-    int cells, int U, int Q, int K2, int S, int E, int F, void* stream) {
+    int cells, int U, int Q, int K2, int S, int E, int F,
+    int warps, int parts, int qp_buffers, int copy16, long long smem_bytes, void* stream) {
   if (cells <= 0 || U <= 0 || F <= 0 || E <= 0) return 0;
-  const size_t smem = smem_floats(U, Q, K2, S, E, F) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gemnet_quad_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  gemnet_quad_chain_kernel<<<(unsigned)cells, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(n1), static_cast<const float*>(n2),
-      static_cast<const int32_t*>(key1), static_cast<const int32_t*>(key2),
-      static_cast<const float*>(xm), static_cast<const float*>(qp),
-      static_cast<float*>(out), U, Q, K2, S, E, F);
-  return (int)cudaGetLastError();
+  if (warps < 1 || warps > kMaxWarps || parts < 1 || qp_buffers < 0 || qp_buffers > 2 ||
+      (copy16 && (F % 4 != 0 || qp_buffers == 0 || reinterpret_cast<uintptr_t>(qp) % 16 != 0)))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_floats(warps, qp_buffers, U, Q, K2, S, E, F) * sizeof(float);
+  if (smem != (size_t)smem_bytes) return (int)cudaErrorInvalidValue;
+  ChainArgs a{static_cast<const float*>(n1), static_cast<const float*>(n2),
+              static_cast<const int32_t*>(key1), static_cast<const int32_t*>(key2),
+              static_cast<const float*>(xm), static_cast<const float*>(qp), static_cast<float*>(out),
+              U, Q, K2, S, E, F, warps, parts, qp_buffers, copy16 ? 1 : 0,
+              (reinterpret_cast<uintptr_t>(xm) % 16 == 0 && ((size_t)Q * K2 * E) % 4 == 0) ? 1 : 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return qp_buffers > 0 ? launch<true>(a, cells, smem, s) : launch<false>(a, cells, smem, s);
 }
 
 extern "C" const char* gemnet_quad_chain_error_string(int code) {

@@ -11,7 +11,13 @@ Phases; any failure raises and the exit code is then non-zero:
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, at its main path's shape and at ragged shapes, with
    |kernel - plain| <= 1e-4 * max|plain| + 1e-5 (f32 sums in another order);
-   times from CUDA events after warm-up.  masked_legendre_cos (phase 3c):
+   times from CUDA events after warm-up.  gemnet_quad_chain: at the
+   relaxation shape (640 cells, U=K2=30, Q=8, S=7, E=F=32) and at ragged
+   shapes (an older one; E=40 and F=48, two passes of 32 columns each; S=9,
+   two level passes; S*Q*F odd, 4-byte copies into padded rows; every main
+   key -1, exact zeros; U=1; one cell's main edges over two blocks), its time
+   printed with its launch plan (quad_chain_plan), its share of the bound
+   and ptxas's register and spill lines.  masked_legendre_cos (phase 3c):
    gemnet_cbf_basis at the e2e, a2e and e2a inputs one B=8 GemNet-OC forward
    gives it, gemnet_quad_basis at [8, 80, 30, 8, 30] with S=7, and ragged
    shapes (M, K not multiples of 32, zero rows, an all-false keep), each
@@ -463,16 +469,17 @@ def bwd_plan_line(plan):
 # --------------------------------------------------------------------------
 # gemnet_quad_chain
 # --------------------------------------------------------------------------
-def quad_inputs(gen, device, b, n, u, q, k2, s, e, f):
+def quad_inputs(gen, device, b, n, u, q, k2, s, e, f, negative_keys=3):
     """Chain inputs with keys from a small range (c == d collisions are
-    frequent), -1 main-edge keys (never match) and zero n1/n2 rows (masked
-    edges have unit = 0)."""
+    frequent), -1 keys on the last ``negative_keys`` main edges (never
+    match) and zero n1/n2 rows (masked edges have unit = 0)."""
     n1 = torch.randn((b, n, u, q, 3), generator=gen)
     n2 = torch.randn((b, n, q, k2, 3), generator=gen)
     n1[:, :, -2:] = 0.0
     n2[:, :, :, -3:] = 0.0
     key1 = torch.randint(0, 50, (b, n, u), generator=gen, dtype=torch.int32)
-    key1[..., -3:] = -1
+    if negative_keys:
+        key1[..., -negative_keys:] = -1
     key2 = torch.randint(0, 50, (b, n, q, k2), generator=gen, dtype=torch.int32)
     cpu = dict(n1=n1, n2=n2, key1=key1, key2=key2, xm=torch.randn((b, n, q, k2, e), generator=gen),
                qp=torch.randn((b, n, u, s, q, f), generator=gen))
@@ -490,9 +497,16 @@ def quad_bound_ms(inputs, out, s):
     return (*bound(flops, list(inputs.values()) + [out]), flops)
 
 
-def check_quad_kernel(device, gen, shape):
+def quad_plan_line(plan):
+    return (f"plan: {plan.warps} warps a block, {plan.parts} block(s) a cell, {plan.blocks} blocks x {plan.threads} "
+            f"threads, {plan.blocks_per_sm} block(s) an SM, {plan.waves:.2f} waves, {plan.smem_bytes} B shared, "
+            f"{plan.qp_buffers} qp buffer(s) a warp of {plan.copy_bytes}-byte copies, passes (levels, e, f) "
+            f"{plan.level_passes}, {plan.e_passes}, {plan.f_passes}")
+
+
+def check_quad_kernel(device, gen, shape, negative_keys=3):
     s = shape[5]
-    inputs = quad_inputs(gen, device, *shape)
+    inputs = quad_inputs(gen, device, *shape, negative_keys=negative_keys)
     got = kernels.gemnet_quad_chain(**inputs, num_spherical=s)
     torch.cuda.synchronize()
     want = kernels.gemnet_quad_chain_reference(**inputs, num_spherical=s)
@@ -1306,13 +1320,21 @@ def relax_path(device, gen, systems):
     shape = (b, n, model.max_neighbors, model.max_neighbors_qint, model.max_neighbors, s, model.emb_size_quad_in,
              model.emb_size_sbf)
     inputs, out, err = check_quad_kernel(device, gen, shape)
-    check_quad_kernel(device, gen, (2, 7, 12, 4, 13, 4, 8, 8))
+    # ragged: an older shape; two passes of 32 columns e and f; two level passes; 4-byte copies into padded rows;
+    # every main key -1 (exact zeros); one main edge a cell; a cell's main edges over two blocks
+    for ragged, negative_keys in (((2, 7, 12, 4, 13, 4, 8, 8), 3), ((2, 3, 7, 4, 13, 7, 40, 48), 3),
+                                  ((1, 3, 9, 5, 11, 9, 40, 48), 3), ((2, 4, 10, 3, 7, 5, 12, 9), 3),
+                                  ((2, 5, 30, 8, 30, 7, 32, 32), 30), ((2, 5, 1, 8, 30, 7, 32, 32), 0),
+                                  ((1, 1, 16, 8, 30, 7, 32, 32), 3)):
+        check_quad_kernel(device, gen, ragged, negative_keys)
     ms = cuda_ms(lambda: kernels.gemnet_quad_chain(**inputs, num_spherical=s), 20)
     plain_ms = cuda_ms(lambda: kernels.gemnet_quad_chain_reference(**inputs, num_spherical=s), 5)
     bound_ms, bound_by, nbytes, flops = quad_bound_ms(inputs, out, s)
     print(f"[kernel] gemnet_quad_chain at {shape}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"by {bound_by} ({flops / 1e9:.2f} GFLOP f32 = {flops / F32_FLOPS * 1e3:.4f} ms, {nbytes / 1e6:.2f} MB = "
-          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)", flush=True)
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), {100 * bound_ms / ms:.1f}% of the bound; "
+          f"{quad_plan_line(kernels.quad_chain_plan(b * n, *shape[2:], kernels._sm_count(device)))}; ptxas: "
+          f"{' | '.join(ptxas_lines('gemnet_quad_chain')) or 'not built in this process'}", flush=True)
     del inputs, out
     legendre_row = legendre_checks(device, gen, model, batch)
 

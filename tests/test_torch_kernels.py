@@ -47,6 +47,12 @@ RAGGED = (2, 13, 10, 16, 64)  # b, n, k, r, h of tests/test_pallas_kernels.py:11
 GRAD_NAMES = ("xh", "vec", "weight", "bias")
 QUAD = (1, 4, 30, 8, 30, 7, 16, 16)  # b, n, u, q, k2, s, e, f of tests/test_pallas_kernels.py:561
 QUAD_RAGGED = (2, 3, 12, 4, 13, 4, 8, 8)
+QUAD_RELAX = (8, 80, 30, 8, 30, 7, 32, 32)  # the relaxation path's shape (chip_smoke.py phase 3)
+QUAD_E40_F48 = (2, 3, 7, 4, 13, 7, 40, 48)  # two passes of 32 columns e and of 32 columns f
+QUAD_S9 = (1, 3, 9, 5, 11, 9, 16, 16)  # two passes of 8 levels
+QUAD_S9_E40_F48 = (1, 3, 9, 5, 11, 9, 40, 48)
+QUAD_UNALIGNED = (2, 4, 10, 3, 7, 5, 12, 9)  # S * Q * F = 135: 4-byte copies into padded rows
+QUAD_U_SPLIT = (1, 1, 16, 8, 30, 7, 32, 32)  # one cell: its 16 main edges dealt over two blocks
 
 
 def _inputs(seed, b, n, k, r, h, cutoff=6.0):
@@ -367,10 +373,11 @@ def test_bwd_plan_refuses_nothing_the_wrapper_accepts():
         kernels.painn_bwd_plan(2, 80, 50, 129, 512, sms=132)
 
 
-def _quad_inputs(seed, b, n, u, q, k2, s, e, f, zero_rows=False):
-    """Random chain inputs with -1 main-edge keys (never match), keys drawn
-    from a small range so that c == d collisions are frequent, and, with
-    ``zero_rows``, zero n1/n2 rows (masked edges have unit = 0)."""
+def _quad_inputs(seed, b, n, u, q, k2, s, e, f, zero_rows=False, negative_keys=3):
+    """Random chain inputs with -1 keys on the last ``negative_keys`` main
+    edges (never match), keys drawn from a small range so that c == d
+    collisions are frequent, and, with ``zero_rows``, zero n1/n2 rows (masked
+    edges have unit = 0)."""
     rng = np.random.default_rng(seed)
     n1 = rng.normal(size=(b, n, u, q, 3)).astype(np.float32)
     n2 = rng.normal(size=(b, n, q, k2, 3)).astype(np.float32)
@@ -378,7 +385,8 @@ def _quad_inputs(seed, b, n, u, q, k2, s, e, f, zero_rows=False):
         n1[:, :, -2:] = 0.0
         n2[:, :, :, -3:] = 0.0
     key1 = rng.integers(0, 50, size=(b, n, u)).astype(np.int32)
-    key1[..., -3:] = -1
+    if negative_keys:
+        key1[..., -negative_keys:] = -1
     key2 = rng.integers(0, 50, size=(b, n, q, k2)).astype(np.int32)
     return dict(
         n1=n1, n2=n2, key1=key1, key2=key2,
@@ -429,8 +437,10 @@ def test_quad_chain_wrapper_on_cpu_runs_the_plain_version_and_counts_no_launch()
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "shape", [QUAD, QUAD_RAGGED, (2, 80, 30, 8, 30, 7, 32, 32), (1, 2, 5, 1, 3, 3, 5, 7)],
-    ids=["jax-test", "ragged", "relax-width", "q1-odd-f"],
+    "shape", [QUAD, QUAD_RAGGED, (2, 80, 30, 8, 30, 7, 32, 32), (1, 2, 5, 1, 3, 3, 5, 7), QUAD_E40_F48, QUAD_S9,
+              QUAD_S9_E40_F48, QUAD_UNALIGNED, QUAD_U_SPLIT, QUAD_RELAX],
+    ids=["jax-test", "ragged", "relax-width", "q1-odd-f", "e40-f48", "s9", "s9-e40-f48", "unaligned-sqf", "u-split",
+         "relax-shape"],
 )
 def test_quad_chain_kernel_matches_plain_version_on_card(cuda_device, shape):
     """|kernel - plain| <= 1e-4 * max|plain| + 1e-5 (f32 sums in another order)."""
@@ -446,6 +456,58 @@ def test_quad_chain_kernel_matches_plain_version_on_card(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,negative_keys", [((2, 5, 30, 8, 30, 7, 32, 32), 30), ((2, 5, 1, 8, 30, 7, 32, 32), 0)],
+                         ids=["every-key1-negative", "u1"])
+def test_quad_chain_kernel_main_key_cases_on_card(cuda_device, shape, negative_keys):
+    """Every main edge excluded (exact zeros, as the plain version gives),
+    and one main edge a cell, against the plain version."""
+    inputs = _torch(_quad_inputs(11, *shape, zero_rows=True, negative_keys=negative_keys), cuda_device)
+    s = shape[5]
+    got = gemnet_quad_chain(**inputs, num_spherical=s)
+    torch.cuda.synchronize()
+    want = gemnet_quad_chain_reference(**inputs, num_spherical=s)
+    if negative_keys == shape[2]:
+        assert not got.any() and not want.any()
+    else:
+        assert want.abs().max().item() > 0
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item() + 1e-5, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 80, 30, 8, 30, 7, 32, 32), QUAD_UNALIGNED, QUAD_S9_E40_F48],
+                         ids=["relax-width", "unaligned-sqf", "s9-e40-f48"])
+@pytest.mark.parametrize("warps,parts,qp_buffers", [(8, 1, 2), (8, 1, 1), (8, 2, 1), (4, 2, 1), (16, 1, 1),
+                                                    (8, 1, 0), (1, 1, 0), (3, 3, 2)])
+def test_quad_chain_kernel_forced_plans_match_plain_version_on_card(cuda_device, shape, warps, parts, qp_buffers):
+    """Every buffering (two qp buffers, one, none: qp read from device
+    memory), warps a block and blocks a cell the plan can choose gives the
+    plain version's output; each call is one launch."""
+    b, n, u, q, k2, s, e, f = shape
+    inputs = _torch(_quad_inputs(12, *shape, zero_rows=True), cuda_device)
+    plan = kernels.quad_chain_plan(b * n, u, q, k2, s, e, f, kernels._sm_count(cuda_device), warps=warps, parts=parts,
+                                   qp_buffers=qp_buffers)
+    before = kernels.launches["gemnet_quad_chain"]
+    got = kernels._quad_chain_launch(inputs, s, plan)
+    torch.cuda.synchronize()
+    assert kernels.launches["gemnet_quad_chain"] == before + 1
+    want = gemnet_quad_chain_reference(**inputs, num_spherical=s)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item() + 1e-5, err
+
+
+@pytest.mark.cuda
+def test_quad_chain_kernel_refuses_a_plan_that_disagrees_with_its_layout(cuda_device):
+    inputs = _torch(_quad_inputs(13, *QUAD_RAGGED), cuda_device)
+    b, n, u, q, k2, s, e, f = QUAD_RAGGED
+    plan = kernels.quad_chain_plan(b * n, u, q, k2, s, e, f, kernels._sm_count(cuda_device))
+    before = kernels.launches["gemnet_quad_chain"]
+    with pytest.raises(RuntimeError, match="gemnet_quad_chain launch failed"):
+        kernels._quad_chain_launch(inputs, s, plan._replace(smem_bytes=plan.smem_bytes + 4))
+    assert kernels.launches["gemnet_quad_chain"] == before
+
+
+@pytest.mark.cuda
 def test_quad_chain_wrapper_raises_instead_of_falling_back(cuda_device):
     inputs = _torch(_quad_inputs(9, *QUAD_RAGGED), cuda_device)
     s = QUAD_RAGGED[5]
@@ -458,6 +520,99 @@ def test_quad_chain_wrapper_raises_instead_of_falling_back(cuda_device):
         gemnet_quad_chain(**inputs, num_spherical=s + 1)
     with pytest.raises(NotImplementedError, match="backward"):
         gemnet_quad_chain(**dict(inputs, qp=inputs["qp"].requires_grad_()), num_spherical=s)
+
+
+def _old_quad_chain_smem(u, q, k2, s, e, f):
+    """Shared bytes a block of the kernel this one replaced took: xm, n2h,
+    n1h, the [Q*K2][S] basis, d2 [Q][S][E], qp[u] and both key tables."""
+    qk = q * k2
+    return 4 * (qk * e + qk * 3 + u * q * 3 + qk * s + q * s * e + s * q * f + qk + u)
+
+
+QUAD_PLAN_SHAPES = [QUAD, QUAD_RAGGED, (2, 80, 30, 8, 30, 7, 32, 32), (1, 2, 5, 1, 3, 3, 5, 7), (2, 7, 12, 4, 13, 4, 8, 8),
+                    QUAD_RELAX, QUAD_E40_F48, QUAD_S9, QUAD_S9_E40_F48, QUAD_UNALIGNED, QUAD_U_SPLIT,
+                    (2, 5, 1, 8, 30, 7, 32, 32), (1, 1, 3, 0, 4, 7, 8, 8), (1, 2, 4, 2, 0, 7, 8, 8), (1, 2, 4, 2, 3, 0, 8, 8),
+                    (3, 1, 200, 2, 70, 17, 65, 33), (1, 1, 30, 8, 180, 7, 32, 32)]
+
+
+@pytest.mark.parametrize("shape", QUAD_PLAN_SHAPES)
+def test_quad_chain_plan_covers_every_main_edge_once(shape):
+    """Every (cell, u) is one warp's, once, in the cell's own block; a block
+    fits in 227 KB and takes what the kernel's layout says; passes of 8
+    levels and 32 columns e and f."""
+    b, n, u, q, k2, s, e, f = shape
+    cells = b * n
+    for sms in (132, 1):
+        plan = kernels.quad_chain_plan(cells, u, q, k2, s, e, f, sms=sms)
+        assert plan.smem_bytes == kernels.quad_chain_smem(plan.warps, plan.qp_buffers, u, q, k2, s, e, f)
+        assert plan.smem_bytes <= 232448 and plan.threads == 32 * plan.warps <= 512
+        assert plan.blocks == cells * plan.parts and plan.waves == plan.blocks / (sms * plan.blocks_per_sm)
+        assert (plan.level_passes, plan.e_passes, plan.f_passes) == (max(1, -(-s // 8)), -(-e // 32), -(-f // 32))
+        seen = np.zeros((cells, u), np.int64)
+        slots = set()
+        for blk, w, cell, us in kernels.quad_chain_work(plan, cells, u):
+            assert blk // plan.parts == cell and (blk, w) not in slots
+            slots.add((blk, w))
+            seen[cell, us] += 1
+        assert (seen == 1).all() and len(slots) == plan.blocks * plan.warps
+
+
+def test_quad_chain_plan_takes_sixteen_warps_an_sm_at_the_relaxation_shape():
+    """The relaxation shape: 8 warps a block of one qp buffer each (two
+    buffers would halve the warps an SM), 16-byte copies, each cell's 30
+    main edges over two blocks (two rounds of u a warp), two blocks an SM:
+    1280 blocks in 4.85 waves.  A grid under one wave splits the cell's main
+    edges over more blocks; where the buffers fit twice at 16 warps an SM,
+    two."""
+    b, n, u, q, k2, s, e, f = QUAD_RELAX
+    plan = kernels.quad_chain_plan(b * n, u, q, k2, s, e, f, sms=132)
+    assert (plan.warps, plan.parts, plan.qp_buffers, plan.copy_bytes, plan.blocks) == (8, 2, 1, 16, 1280)
+    assert plan.blocks_per_sm == 2 and plan.waves == pytest.approx(1280 / 264)
+    assert kernels.quad_chain_plan(6, *QUAD_RAGGED[2:], sms=132).qp_buffers == 2
+    b, n, u, q, k2, s, e, f = QUAD_U_SPLIT
+    assert kernels.quad_chain_plan(b * n, u, q, k2, s, e, f, sms=132).parts == 2
+    assert kernels.quad_chain_plan(1, 1, q, k2, s, e, f, sms=132)[:2] == (1, 1)  # U = 1: one warp
+    forced = kernels.quad_chain_plan(640, 30, 8, 30, 7, 32, 32, sms=132, warps=4, parts=1, qp_buffers=0)
+    assert (forced.warps, forced.parts, forced.qp_buffers, forced.copy_bytes, forced.blocks) == (4, 1, 0, 0, 640)
+
+
+@pytest.mark.parametrize("f", [1, 7, 8, 9, 32, 48])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+def test_quad_chain_plan_copies_16_bytes_only_where_the_rows_allow(f, aligned):
+    """16-byte qp copies need F % 4 == 0 (so S * Q * F % 4 == 0) and an
+    aligned qp; else 4-byte copies into rows padded to a multiple of 4."""
+    for s, q in ((7, 8), (3, 1), (9, 5)):
+        plan = kernels.quad_chain_plan(4, 6, q, 5, s, 16, f, sms=132, qp_aligned=aligned)
+        assert plan.qp_buffers >= 1
+        assert plan.copy_bytes == (16 if f % 4 == 0 and aligned else 4)
+        if plan.copy_bytes == 16:
+            assert s * q * f % 4 == 0
+    assert kernels.quad_chain_plan(4, 6, 8, 5, 7, 16, f, sms=132, qp_buffers=0).copy_bytes == 0
+
+
+def test_quad_chain_plan_refuses_nothing_the_old_kernel_accepted():
+    """Over 20,000 shapes drawn log-uniformly (U to 600, Q to 400, K2 to
+    2000, S to 40, E to 3000, F to 60,000): every shape whose old layout fit
+    227 KB has a plan; a refusal comes only where the old layout did not
+    fit either.  The shapes the tests and chip_smoke.py launch have plans."""
+    rng = np.random.default_rng(0)
+    dims = np.exp(rng.uniform(0, np.log([600, 400, 2000, 40, 3000, 60000]), size=(20000, 6))).astype(int)
+    accepted = 0
+    for u, q, k2, s, e, f in dims.tolist():
+        u, e, f = max(u, 1), max(e, 1), max(f, 1)
+        try:
+            plan = kernels.quad_chain_plan(640, u, q, k2, s, e, f, sms=132)
+        except ValueError as err:
+            assert "shared memory" in str(err)
+            assert _old_quad_chain_smem(u, q, k2, s, e, f) > 232448, (u, q, k2, s, e, f)
+        else:
+            assert plan.smem_bytes <= 232448
+            accepted += 1
+    assert accepted > 5000
+    for b, n, u, q, k2, s, e, f in QUAD_PLAN_SHAPES + [(1, 3, 9, 5, 11, 9, 40, 48)]:
+        kernels.quad_chain_plan(b * n, u, q, k2, s, e, f, sms=132)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.quad_chain_plan(1, 30, 8, 300, 7, 32, 32, sms=132)
 
 
 @pytest.mark.cuda
