@@ -28,19 +28,29 @@
 //     shared buffer by cp.async (16-byte copies where F % 4 == 0 and the base
 //     is aligned, else 4-byte ones into rows padded to a multiple of 4), the
 //     copy for the warp's next u issued before the current one is computed
-//     (two buffers) or after it (one buffer); where neither fits, qp is read
-//     from device memory in the product (the plan's qp_buffers = 0);
+//     (two buffers) or after it (one buffer: the plan's choice where two
+//     would halve the warps an SM); where neither fits, qp is read from
+//     device memory in the product (the plan's qp_buffers = 0);
 //   * for each q and each tile of 32 in-edges k, every lane builds one basis
 //     row y[q,k,0:8] into the warp's [32][8] buffer (levels past S zero,
-//     rows 16-byte aligned), then each lane, owning one column e, adds
-//     d2[s] += y[k,s] xm[q,k,e] with the row read as two float4 broadcasts:
-//     d2 (8 levels) never leaves registers;
-//   * acc[f] += qp[s,q,f] d2[s] with qp read as float4 broadcasts; acc holds
-//     32 columns f in registers, and out[u,f,e] is written once, lane = e
-//     (128 B a column f at E = 32);
+//     rows 16-byte aligned);
+//   * a lane owns two columns e (e0 + 2 (lane % 16) and the next). The two
+//     half-warps split the K2 product by rows k: d2[s] += y[k,s] xm[q,k,e]
+//     with the row read as float4 broadcasts and xm as one 8-byte load, 8
+//     FMAs a load pair; one shuffle a level sums the halves. d2 (8 levels x
+//     2 columns) never leaves registers;
+//   * then the halves split the 32 columns f, 16 each: acc[f][e] +=
+//     qp[s,q,f] d2[s,e], 8 FMAs a float4 broadcast of qp. acc stays in
+//     registers, and out[u,f,e] is written once, 8 bytes a lane (128 B a
+//     half-warp and column f at E = 32);
 //   * a warp whose key1[u] < 0 writes zeros (every keep is false).
+// Shared-memory loads, not FMAs or bytes, limited the one-column-a-lane form
+// of this kernel (0.28 ms at the relaxation shape on an H100 against 0.20
+// for this one); the two-column blocking halves the loads an FMA.
 // Wider shapes run in passes: 8 levels s a pass (later passes add into out),
-// 32 columns e and 32 columns f a pass (d2 made again for each). The launch
+// 32 columns e and 32 columns f a pass (d2 made again for each). The level
+// count of a pass, whether its columns f are all below F and whether E == 32
+// are template parameters, so no guard splits the unrolled loops. The launch
 // (warps a block, blocks a cell, qp buffering, copy width) comes from the
 // plain-Python plan adsorbdiff_tpu_torch/ops/kernels.py::quad_chain_plan;
 // the C entry refuses a plan whose shared-memory size disagrees with its own
@@ -55,7 +65,7 @@ namespace {
 
 constexpr int kMaxWarps = 16;
 constexpr int kLevels = 8;                    // levels s a pass holds in registers (d2)
-constexpr int kCols = 32;                     // columns e (one a lane) and f (acc) a pass
+constexpr int kCols = 32;                     // columns e (two a lane) and f (16 a lane) a pass
 constexpr int kTileK = 32;                    // in-edges k a basis tile (one a lane)
 constexpr int kYFloats = kTileK * kLevels;    // a warp's basis buffer
 
@@ -151,71 +161,92 @@ __device__ __forceinline__ float4 qp_load(const float* row, int valid) {
                      valid > 3 ? __ldg(row + 3) : 0.f);
 }
 
-// d2[s] += y[k,s] xm[q,k,e] over a basis tile of nk rows, for kNL levels
-// (compile-time, so no guard splits the unrolled loop); xcol: xm[q,k0,e].
-template <int kNL>
-__device__ __forceinline__ void k_product(const float* y_w, const float* xcol, int E, int nk, float (&d2)[kLevels]) {
+// This lane's half of the K2 product over a basis tile of nk rows: d2a[s]
+// and d2b[s] += y[k,s] xm[q,k,e] for its columns e = ec0 and ec1 and its
+// rows k = half, half + 2, ... (kNL levels, compile-time, so no guard splits
+// the unrolled loop; kE32: E == 32 and the two columns adjacent, one 8-byte
+// load). xrow: xm[q,k0,:].
+template <int kNL, bool kE32>
+__device__ __forceinline__ void k_product(const float* y_w, const float* xrow, int E, int nk, int half, int ec0,
+                                          int ec1, float (&d2a)[kLevels], float (&d2b)[kLevels]) {
   const float4* y4 = reinterpret_cast<const float4*>(y_w);
-#pragma unroll 8
-  for (int kk = 0; kk < nk; ++kk) {
+#pragma unroll 4
+  for (int kk = half; kk < nk; kk += 2) {
+    float x0, x1;
+    if (kE32) {
+      const float2 x = *reinterpret_cast<const float2*>(xrow + kk * 32 + ec0);
+      x0 = x.x;
+      x1 = x.y;
+    } else {
+      x0 = xrow[kk * E + ec0];
+      x1 = xrow[kk * E + ec1];
+    }
+    float y[kLevels];
     const float4 ya = y4[2 * kk];
-    const float x = xcol[kk * E];
-    d2[0] = fmaf(ya.x, x, d2[0]);
-    if (kNL > 1) d2[1] = fmaf(ya.y, x, d2[1]);
-    if (kNL > 2) d2[2] = fmaf(ya.z, x, d2[2]);
-    if (kNL > 3) d2[3] = fmaf(ya.w, x, d2[3]);
+    y[0] = ya.x, y[1] = ya.y, y[2] = ya.z, y[3] = ya.w;
     if (kNL > 4) {
       const float4 yb = y4[2 * kk + 1];
-      d2[4] = fmaf(yb.x, x, d2[4]);
-      if (kNL > 5) d2[5] = fmaf(yb.y, x, d2[5]);
-      if (kNL > 6) d2[6] = fmaf(yb.z, x, d2[6]);
-      if (kNL > 7) d2[7] = fmaf(yb.w, x, d2[7]);
+      y[4] = yb.x, y[5] = yb.y, y[6] = yb.z, y[7] = yb.w;
+    }
+#pragma unroll
+    for (int j = 0; j < kNL; ++j) {
+      d2a[j] = fmaf(y[j], x0, d2a[j]);
+      d2b[j] = fmaf(y[j], x1, d2b[j]);
     }
   }
 }
 
-// acc[f] += qp[s,q,f] d2[s] over kNL levels s; qrow: qp[u,s0,q,f0], rows of
-// level_stride floats apart; kFull: all 32 columns f of the pass lie below F
-// (else fleft = F - f0 of them do).
+// acca[f] and accb[f] += qp[s,q,f] d2[s] for this lane's 16 columns f and
+// two columns e, over kNL levels s; qrow: qp[u,s0,q,f], rows of level_stride
+// floats apart; kFull: all 16 columns lie below F (else fleft of them do).
 template <bool kShared, int kNL, bool kFull>
 __device__ __forceinline__ void acc_update(const float* qrow, size_t level_stride, int fleft,
-                                           const float (&d2)[kLevels], float (&acc)[kCols]) {
+                                           const float (&d2a)[kLevels], const float (&d2b)[kLevels],
+                                           float (&acca)[kCols / 2], float (&accb)[kCols / 2]) {
 #pragma unroll
   for (int j = 0; j < kNL; ++j) {
     const float* row = qrow + j * level_stride;
 #pragma unroll
-    for (int c = 0; c < kCols / 4; ++c) {
+    for (int c = 0; c < kCols / 8; ++c) {
       if (kFull || 4 * c < fleft) {
         const float4 w = qp_load<kShared>(row + 4 * c, fleft - 4 * c);
-        acc[4 * c] = fmaf(w.x, d2[j], acc[4 * c]);
-        acc[4 * c + 1] = fmaf(w.y, d2[j], acc[4 * c + 1]);
-        acc[4 * c + 2] = fmaf(w.z, d2[j], acc[4 * c + 2]);
-        acc[4 * c + 3] = fmaf(w.w, d2[j], acc[4 * c + 3]);
+        const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          acca[4 * c + t] = fmaf(wv[t], d2a[j], acca[4 * c + t]);
+          accb[4 * c + t] = fmaf(wv[t], d2b[j], accb[4 * c + t]);
+        }
       }
     }
   }
 }
 
-// One pass (levels s0 .. s0 + kNL - 1, column e0 + lane, columns f0 ..) of
-// one main edge u: acc[f] = sum_{q, s} qp[u,s,q,f0+f] d2[u,q,s,e], written to
-// out[u] (a later level pass adds into the warp's own rows). kE32: E == 32,
-// so the xm and out strides are immediates.
+// One pass (levels s0 .. s0 + kNL - 1, columns e0 .. e0 + 31, columns f0 ..
+// f0 + 31) of one main edge u: out[u,f,e] = sum_{q, s} qp[u,s,q,f] d2[u,q,s,e]
+// (a later level pass adds into the warp's own rows). A lane owns columns e
+// = e0 + 2 (lane % 16) and the next; the two half-warps split the K2 product
+// by rows k (their partial d2 summed with one shuffle a level) and then the
+// 32 columns f, 16 each: per k, 8 FMAs a lane for two broadcast loads of y and
+// one 8-byte load of xm; per level, 32 FMAs for four float4 loads of qp.
+// kE32: E == 32, so the xm and out strides are immediates.
 template <bool kShared, int kNL, bool kFull, bool kE32>
 __device__ __forceinline__ void chain_pass(const ChainArgs& a, int k1, const float* n1u, const float* qpb,
                                            int stride, const float* xm_s, const float* n2h_s, const int* key2_s,
                                            float* y_w, float* out_u, int s0, int e0, int f0, int lane) {
   const int Q = a.Q, K2 = a.K2, E = kE32 ? 32 : a.E, F = a.F;
-  const int e = e0 + lane;
-  const bool ev = e < E;
-  const int ec = ev ? e : E - 1;
+  const int half = lane >> 4;
+  const int e = e0 + 2 * (lane & 15);
+  const bool ev0 = e < E, ev1 = e + 1 < E;
+  const int ec0 = ev0 ? e : E - 1, ec1 = ev1 ? e + 1 : E - 1;
+  const int fh = f0 + (kCols / 2) * half;  // this lane's first column f
   const size_t level_stride = (size_t)Q * stride;
-  float acc[kCols];
+  float acca[kCols / 2], accb[kCols / 2];
 #pragma unroll
-  for (int j = 0; j < kCols; ++j) acc[j] = 0.f;
+  for (int j = 0; j < kCols / 2; ++j) acca[j] = accb[j] = 0.f;
   for (int q = 0; q < Q; ++q) {
-    float d2[kLevels];
+    float d2a[kLevels], d2b[kLevels];
 #pragma unroll
-    for (int j = 0; j < kLevels; ++j) d2[j] = 0.f;
+    for (int j = 0; j < kLevels; ++j) d2a[j] = d2b[j] = 0.f;
     const float ax = n1u[3 * q], ay = n1u[3 * q + 1], az = n1u[3 * q + 2];
     for (int k0 = 0; k0 < K2; k0 += kTileK) {
       const int nk = min(kTileK, K2 - k0);
@@ -236,21 +267,32 @@ __device__ __forceinline__ void chain_pass(const ChainArgs& a, int k1, const flo
         if (kNL > 4) row[1] = make_float4(y[4], y[5], y[6], y[7]);
       }
       __syncwarp();
-      k_product<kNL>(y_w, xm_s + (size_t)(q * K2 + k0) * E + ec, E, nk, d2);
+      k_product<kNL, kE32>(y_w, xm_s + (size_t)(q * K2 + k0) * E, E, nk, half, ec0, ec1, d2a, d2b);
     }
-    acc_update<kShared, kNL, kFull>(qpb + ((size_t)s0 * Q + q) * stride + f0, level_stride, F - f0, d2, acc);
+#pragma unroll
+    for (int j = 0; j < kNL; ++j) {  // both halves' rows k
+      d2a[j] += __shfl_xor_sync(0xffffffffu, d2a[j], 16);
+      d2b[j] += __shfl_xor_sync(0xffffffffu, d2b[j], 16);
+    }
+    acc_update<kShared, kNL, kFull>(qpb + ((size_t)s0 * Q + q) * stride + fh, level_stride, F - fh, d2a, d2b,
+                                    acca, accb);
   }
-  if (ev) {
-    float* o = out_u + (size_t)f0 * E + e;
-    if (s0 == 0) {
+  float* o = out_u + (size_t)fh * E + e;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        if (kFull || f0 + j < F) o[j * E] = acc[j];
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        if (kFull || f0 + j < F) o[j * E] += acc[j];
+  for (int j = 0; j < kCols / 2; ++j) {
+    if (kFull || fh + j < F) {
+      float* oj = o + j * E;
+      if (kE32) {  // both columns exist and the pair is 8-byte aligned
+        float2 v = make_float2(acca[j], accb[j]);
+        if (s0 != 0) {
+          const float2 old = *reinterpret_cast<const float2*>(oj);
+          v.x += old.x;
+          v.y += old.y;
+        }
+        *reinterpret_cast<float2*>(oj) = v;
+      } else {
+        if (ev0) oj[0] = s0 == 0 ? acca[j] : oj[0] + acca[j];
+        if (ev1) oj[1] = s0 == 0 ? accb[j] : oj[1] + accb[j];
       }
     }
   }
