@@ -45,8 +45,9 @@
 //     half-warp and column f at E = 32);
 //   * a warp whose key1[u] < 0 writes zeros (every keep is false).
 // Shared-memory loads, not FMAs or bytes, limited the one-column-a-lane form
-// of this kernel (0.28 ms at the relaxation shape on an H100 against 0.20
-// for this one); the two-column blocking halves the loads an FMA.
+// of this kernel (0.2867 ms at the relaxation shape on an H100 against
+// 0.2030 for this one, chip_smoke.py phase 3); the two-column blocking
+// halves the loads an FMA.
 // Wider shapes run in passes: 8 levels s a pass (later passes add into out),
 // 32 columns e and 32 columns f a pass (d2 made again for each). The level
 // count of a pass, whether its columns f are all below F and whether E == 32
