@@ -26,11 +26,10 @@
 // warps-of-the-cell-th one) and runs them with no block barrier:
 //   * qp[u] ([S,Q,F], contiguous in device memory) goes into the warp's own
 //     shared buffer by cp.async (16-byte copies where F % 4 == 0 and the base
-//     is aligned, else 4-byte ones into rows padded to a multiple of 4), the
-//     copy for the warp's next u issued before the current one is computed
-//     (two buffers) or after it (one buffer: the plan's choice where two
-//     would halve the warps an SM); where neither fits, qp is read from
-//     device memory in the product (the plan's qp_buffers = 0);
+//     is aligned, else 4-byte ones into rows padded to a multiple of 4); the
+//     copy for the warp's next u is issued once the current one is computed.
+//     Where even one warp's buffer does not fit, qp is read from device
+//     memory in the product (the plan's qp_buffers = 0);
 //   * for each q and each tile of 32 in-edges k, every lane builds one basis
 //     row y[q,k,0:8] into the warp's [32][8] buffer (levels past S zero,
 //     rows 16-byte aligned);
@@ -48,16 +47,18 @@
 // of this kernel (0.2867 ms at the relaxation shape on an H100 against
 // 0.2030 for this one, chip_smoke.py phase 3); the two-column blocking
 // halves the loads an FMA.
-// Wider shapes run in passes: 8 levels s a pass (later passes add into out),
-// 32 columns e and 32 columns f a pass (d2 made again for each). The level
-// count of a pass, whether its columns f are all below F and whether E == 32
-// are template parameters, so no guard splits the unrolled loops. The launch
-// (warps a block, blocks a cell, qp buffering, copy width) comes from the
-// plain-Python plan adsorbdiff_tpu_torch/ops/kernels.py::quad_chain_plan;
-// the C entry refuses a plan whose shared-memory size disagrees with its own
-// layout. Nothing between the inputs and out goes to device memory. Not yet
-// used: tensor cores (wgmma), TMA, and fusing the qp einsum into the kernel
-// (which would remove the largest input).
+// The widths every GemNet-OC config of the repo runs (S = 7, E = 32, the 32
+// columns f all below F, qp staged) take a pass with no guard in its
+// unrolled loops. Every other shape takes one generic pass: levels in passes
+// of 8 (later passes add into out), columns e and f in passes of 32 (d2 made
+// again for each), with runtime guards and qp read by scalar loads from the
+// buffer or from device memory. The launch (warps a block, blocks a cell,
+// qp buffering, copy width) comes from the plain-Python plan
+// adsorbdiff_tpu_torch/ops/kernels.py::quad_chain_plan; the C entry refuses
+// a plan whose shared-memory size disagrees with its own layout. Nothing
+// between the inputs and out goes to device memory. Not yet used: tensor
+// cores (wgmma), TMA, and fusing the qp einsum into the kernel (which would
+// remove the largest input).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,12 +70,13 @@ constexpr int kLevels = 8;                    // levels s a pass holds in regist
 constexpr int kCols = 32;                     // columns e (two a lane) and f (16 a lane) a pass
 constexpr int kTileK = 32;                    // in-edges k a basis tile (one a lane)
 constexpr int kYFloats = kTileK * kLevels;    // a warp's basis buffer
+constexpr int kPathLevels = 7;                // num_spherical of every GemNet-OC config (the guard-free pass)
 
 __host__ __device__ inline int round4(int x) { return (x + 3) / 4 * 4; }
 
 // Floats of a block's dynamic shared memory: per warp the basis buffer and
-// `bufs` qp[u] buffers (rows padded to a multiple of 4), then the cell's xm,
-// n2h, n1h and key2 (int) tables.
+// `bufs` (0 or 1) qp[u] buffer (rows padded to a multiple of 4), then the
+// cell's xm, n2h, n1h and key2 (int) tables.
 __host__ __device__ inline size_t smem_floats(int warps, int bufs, int U, int Q, int K2, int S, int E, int F) {
   const size_t qk = (size_t)Q * K2;
   const size_t sqf = (size_t)S * Q * round4(F);
@@ -155,18 +157,11 @@ __device__ __forceinline__ void basis_row(float c, bool keep, int s0, int nl, fl
   }
 }
 
-template <bool kShared>
-__device__ __forceinline__ float4 qp_load(const float* row, int valid) {
-  if (kShared) return *reinterpret_cast<const float4*>(row);  // padded rows: always in the buffer
-  return make_float4(__ldg(row), valid > 1 ? __ldg(row + 1) : 0.f, valid > 2 ? __ldg(row + 2) : 0.f,
-                     valid > 3 ? __ldg(row + 3) : 0.f);
-}
-
 // This lane's half of the K2 product over a basis tile of nk rows: d2a[s]
 // and d2b[s] += y[k,s] xm[q,k,e] for its columns e = ec0 and ec1 and its
-// rows k = half, half + 2, ... (kNL levels, compile-time, so no guard splits
-// the unrolled loop; kE32: E == 32 and the two columns adjacent, one 8-byte
-// load). xrow: xm[q,k0,:].
+// rows k = half, half + 2, ... over kNL levels (the generic pass takes all
+// 8: the basis rows are zero past its level count). kE32: E == 32 and the
+// two columns adjacent, one 8-byte load. xrow: xm[q,k0,:].
 template <int kNL, bool kE32>
 __device__ __forceinline__ void k_product(const float* y_w, const float* xrow, int E, int nk, int half, int ec0,
                                           int ec1, float (&d2a)[kLevels], float (&d2b)[kLevels]) {
@@ -183,12 +178,9 @@ __device__ __forceinline__ void k_product(const float* y_w, const float* xrow, i
       x1 = xrow[kk * E + ec1];
     }
     float y[kLevels];
-    const float4 ya = y4[2 * kk];
+    const float4 ya = y4[2 * kk], yb = y4[2 * kk + 1];
     y[0] = ya.x, y[1] = ya.y, y[2] = ya.z, y[3] = ya.w;
-    if (kNL > 4) {
-      const float4 yb = y4[2 * kk + 1];
-      y[4] = yb.x, y[5] = yb.y, y[6] = yb.z, y[7] = yb.w;
-    }
+    y[4] = yb.x, y[5] = yb.y, y[6] = yb.z, y[7] = yb.w;
 #pragma unroll
     for (int j = 0; j < kNL; ++j) {
       d2a[j] = fmaf(y[j], x0, d2a[j]);
@@ -198,19 +190,22 @@ __device__ __forceinline__ void k_product(const float* y_w, const float* xrow, i
 }
 
 // acca[f] and accb[f] += qp[s,q,f] d2[s] for this lane's 16 columns f and
-// two columns e, over kNL levels s; qrow: qp[u,s0,q,f], rows of level_stride
-// floats apart; kFull: all 16 columns lie below F (else fleft of them do).
-template <bool kShared, int kNL, bool kFull>
-__device__ __forceinline__ void acc_update(const float* qrow, size_t level_stride, int fleft,
+// two columns e; qrow: qp[u,s0,q,f], rows of level_stride floats apart.
+// kFast: kPathLevels levels and all 16 columns below F, qp read as float4
+// broadcasts from the warp's buffer; else nl levels and the fleft columns
+// below F, read one float at a time from the buffer or device memory.
+template <bool kFast>
+__device__ __forceinline__ void acc_update(const float* qrow, size_t level_stride, int nl, int fleft,
                                            const float (&d2a)[kLevels], const float (&d2b)[kLevels],
                                            float (&acca)[kCols / 2], float (&accb)[kCols / 2]) {
 #pragma unroll
-  for (int j = 0; j < kNL; ++j) {
+  for (int j = 0; j < (kFast ? kPathLevels : kLevels); ++j) {
+    if (!kFast && j >= nl) break;
     const float* row = qrow + j * level_stride;
+    if (kFast) {
 #pragma unroll
-    for (int c = 0; c < kCols / 8; ++c) {
-      if (kFull || 4 * c < fleft) {
-        const float4 w = qp_load<kShared>(row + 4 * c, fleft - 4 * c);
+      for (int c = 0; c < kCols / 8; ++c) {
+        const float4 w = *reinterpret_cast<const float4*>(row + 4 * c);
         const float wv[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
@@ -218,23 +213,35 @@ __device__ __forceinline__ void acc_update(const float* qrow, size_t level_strid
           accb[4 * c + t] = fmaf(wv[t], d2b[j], accb[4 * c + t]);
         }
       }
+    } else {
+#pragma unroll
+      for (int t = 0; t < kCols / 2; ++t) {
+        if (t < fleft) {
+          const float w = row[t];
+          acca[t] = fmaf(w, d2a[j], acca[t]);
+          accb[t] = fmaf(w, d2b[j], accb[t]);
+        }
+      }
     }
   }
 }
 
-// One pass (levels s0 .. s0 + kNL - 1, columns e0 .. e0 + 31, columns f0 ..
+// One pass (levels s0 .. s0 + nl - 1, columns e0 .. e0 + 31, columns f0 ..
 // f0 + 31) of one main edge u: out[u,f,e] = sum_{q, s} qp[u,s,q,f] d2[u,q,s,e]
 // (a later level pass adds into the warp's own rows). A lane owns columns e
 // = e0 + 2 (lane % 16) and the next; the two half-warps split the K2 product
 // by rows k (their partial d2 summed with one shuffle a level) and then the
 // 32 columns f, 16 each: per k, 8 FMAs a lane for two broadcast loads of y and
 // one 8-byte load of xm; per level, 32 FMAs for four float4 loads of qp.
-// kE32: E == 32, so the xm and out strides are immediates.
-template <bool kShared, int kNL, bool kFull, bool kE32>
+// kFast: the paths' widths (s0 == 0, nl == kPathLevels, E == 32, f0 + 32 <=
+// F, qpb the warp's buffer), so strides are immediates and no guard splits
+// the unrolled loops.
+template <bool kFast>
 __device__ __forceinline__ void chain_pass(const ChainArgs& a, int k1, const float* n1u, const float* qpb,
                                            int stride, const float* xm_s, const float* n2h_s, const int* key2_s,
-                                           float* y_w, float* out_u, int s0, int e0, int f0, int lane) {
-  const int Q = a.Q, K2 = a.K2, E = kE32 ? 32 : a.E, F = a.F;
+                                           float* y_w, float* out_u, int s0, int nl, int e0, int f0, int lane) {
+  constexpr int kNL = kFast ? kPathLevels : kLevels;
+  const int Q = a.Q, K2 = a.K2, E = kFast ? 32 : a.E, F = a.F;
   const int half = lane >> 4;
   const int e = e0 + 2 * (lane & 15);
   const bool ev0 = e < E, ev1 = e + 1 < E;
@@ -258,102 +265,73 @@ __device__ __forceinline__ void chain_pass(const ChainArgs& a, int k1, const flo
         const float c = fminf(fmaxf(ax * b[0] + ay * b[1] + az * b[2], -1.f), 1.f);
         const bool keep = k1 != key2_s[r];
         float y[kLevels];
-        if (s0 == 0) {
-          basis_row<true>(c, keep, 0, kNL, y);
+        if (kFast || s0 == 0) {
+          basis_row<true>(c, keep, 0, kFast ? kPathLevels : nl, y);
         } else {
-          basis_row<false>(c, keep, s0, kNL, y);
+          basis_row<false>(c, keep, s0, nl, y);
         }
         float4* row = reinterpret_cast<float4*>(y_w + lane * kLevels);
         row[0] = make_float4(y[0], y[1], y[2], y[3]);
-        if (kNL > 4) row[1] = make_float4(y[4], y[5], y[6], y[7]);
+        row[1] = make_float4(y[4], y[5], y[6], y[7]);
       }
       __syncwarp();
-      k_product<kNL, kE32>(y_w, xm_s + (size_t)(q * K2 + k0) * E, E, nk, half, ec0, ec1, d2a, d2b);
+      k_product<kNL, kFast>(y_w, xm_s + (size_t)(q * K2 + k0) * E, E, nk, half, ec0, ec1, d2a, d2b);
     }
 #pragma unroll
     for (int j = 0; j < kNL; ++j) {  // both halves' rows k
       d2a[j] += __shfl_xor_sync(0xffffffffu, d2a[j], 16);
       d2b[j] += __shfl_xor_sync(0xffffffffu, d2b[j], 16);
     }
-    acc_update<kShared, kNL, kFull>(qpb + ((size_t)s0 * Q + q) * stride + fh, level_stride, F - fh, d2a, d2b,
-                                    acca, accb);
+    acc_update<kFast>(qpb + ((size_t)s0 * Q + q) * stride + fh, level_stride, nl, F - fh, d2a, d2b, acca, accb);
   }
   float* o = out_u + (size_t)fh * E + e;
 #pragma unroll
   for (int j = 0; j < kCols / 2; ++j) {
-    if (kFull || fh + j < F) {
-      float* oj = o + j * E;
-      if (kE32) {  // both columns exist and the pair is 8-byte aligned
-        float2 v = make_float2(acca[j], accb[j]);
-        if (s0 != 0) {
-          const float2 old = *reinterpret_cast<const float2*>(oj);
-          v.x += old.x;
-          v.y += old.y;
-        }
-        *reinterpret_cast<float2*>(oj) = v;
-      } else {
-        if (ev0) oj[0] = s0 == 0 ? acca[j] : oj[0] + acca[j];
-        if (ev1) oj[1] = s0 == 0 ? accb[j] : oj[1] + accb[j];
-      }
+    float* oj = o + j * E;
+    if (kFast) {  // both columns exist, the pair is 8-byte aligned, and this is the only level pass
+      *reinterpret_cast<float2*>(oj) = make_float2(acca[j], accb[j]);
+    } else if (fh + j < F) {
+      if (ev0) oj[0] = s0 == 0 ? acca[j] : oj[0] + acca[j];
+      if (ev1) oj[1] = s0 == 0 ? accb[j] : oj[1] + accb[j];
     }
   }
 }
 
-template <bool kShared, int kNL>
-__device__ __forceinline__ void chain_pass_f(const ChainArgs& a, int k1, const float* n1u, const float* qpb,
-                                             int stride, const float* xm_s, const float* n2h_s, const int* key2_s,
-                                             float* y_w, float* out_u, int s0, int e0, int f0, int lane) {
-  if (f0 + kCols <= a.F && a.E == kCols) {
-    chain_pass<kShared, kNL, true, true>(a, k1, n1u, qpb, stride, xm_s, n2h_s, key2_s, y_w, out_u, s0, e0, f0, lane);
-  } else if (f0 + kCols <= a.F) {
-    chain_pass<kShared, kNL, true, false>(a, k1, n1u, qpb, stride, xm_s, n2h_s, key2_s, y_w, out_u, s0, e0, f0,
-                                          lane);
-  } else {
-    chain_pass<kShared, kNL, false, false>(a, k1, n1u, qpb, stride, xm_s, n2h_s, key2_s, y_w, out_u, s0, e0, f0,
-                                           lane);
-  }
-}
-
-// One main edge u of the cell, by one warp, in passes. qpb: qp[u] with rows
-// of `stride` floats (the warp's buffer, or device memory when !kShared).
-template <bool kShared>
-__device__ __forceinline__ void chain_step(const ChainArgs& a, int u, int k1, const float* qpb, int stride,
-                                           const float* xm_s, const float* n2h_s, const float* n1h_s,
-                                           const int* key2_s, float* y_w, float* out_u, int lane) {
+// One main edge u of the cell, by one warp, in passes. qp_w: the warp's qp
+// buffer (rows of fp floats; used only where a.bufs == 1, by the guard-free
+// pass); qpb: qp[u] with rows of `stride` floats, that buffer or device
+// memory (the generic pass).
+__device__ __forceinline__ void chain_step(const ChainArgs& a, int u, int k1, const float* qp_w, int fp,
+                                           const float* qpb, int stride, const float* xm_s, const float* n2h_s,
+                                           const float* n1h_s, const int* key2_s, float* y_w, float* out_u,
+                                           int lane) {
   const int Q = a.Q, S = a.S, E = a.E, F = a.F;
   if (k1 < 0 || S == 0) {  // every keep is false, or no levels: the plain version's exact zeros
     for (int i = lane; i < F * E; i += 32) out_u[i] = 0.f;
     return;
   }
   const float* n1u = n1h_s + (size_t)u * Q * 3;
+  const bool path_widths = a.bufs == 1 && S == kPathLevels && E == kCols;
   for (int s0 = 0; s0 < S; s0 += kLevels) {
+    const int nl = min(kLevels, S - s0);
     for (int e0 = 0; e0 < E; e0 += kCols) {
       for (int f0 = 0; f0 < F; f0 += kCols) {
-#define QC_PASS(NL) \
-  chain_pass_f<kShared, NL>(a, k1, n1u, qpb, stride, xm_s, n2h_s, key2_s, y_w, out_u, s0, e0, f0, lane)
-        switch (min(kLevels, S - s0)) {
-          case 1: QC_PASS(1); break;
-          case 2: QC_PASS(2); break;
-          case 3: QC_PASS(3); break;
-          case 4: QC_PASS(4); break;
-          case 5: QC_PASS(5); break;
-          case 6: QC_PASS(6); break;
-          case 7: QC_PASS(7); break;
-          default: QC_PASS(8); break;
+        if (path_widths && f0 + kCols <= F) {
+          chain_pass<true>(a, k1, n1u, qp_w, fp, xm_s, n2h_s, key2_s, y_w, out_u, 0, kPathLevels, 0, f0, lane);
+        } else {
+          chain_pass<false>(a, k1, n1u, qpb, stride, xm_s, n2h_s, key2_s, y_w, out_u, s0, nl, e0, f0, lane);
         }
-#undef QC_PASS
       }
     }
   }
 }
 
-template <bool kShared>
 __global__ void __launch_bounds__(kMaxWarps * 32) gemnet_quad_chain_kernel(const ChainArgs a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int U = a.U, Q = a.Q, K2 = a.K2, S = a.S, E = a.E, F = a.F;
   const int QK = Q * K2, fp = round4(F);
-  const int bufs = kShared ? a.bufs : 0;
+  const int bufs = a.bufs;
   const size_t sqf = (size_t)S * Q * fp;  // floats of a staged qp[u]
   const int sqf_g = S * Q * F;            // floats of qp[u] in device memory
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -380,7 +358,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) gemnet_quad_chain_kernel(const
     for (int i = tid; i < QK * E; i += nt) cp_async4(xm_s + i, xm_c + i);
   }
   cp_async_commit();
-  if (kShared && g < U) copy_qp(qp_w, qp_c + (size_t)g * sqf_g, sqf_g, F, fp, copy16, lane);
+  if (bufs && g < U) copy_qp(qp_w, qp_c + (size_t)g * sqf_g, sqf_g, F, fp, copy16, lane);
   cp_async_commit();
   const float* n2_c = a.n2 + cell * QK * 3;
   const float* n1_c = a.n1 + cell * U * Q * 3;
@@ -393,45 +371,21 @@ __global__ void __launch_bounds__(kMaxWarps * 32) gemnet_quad_chain_kernel(const
   __syncthreads();     // the block's only barrier
   if (g >= U) return;
 
-  int i = 0;
-  for (int u = g; u < U; u += G, ++i) {
-    const float* qpb;
-    if (kShared) {
-      float* buf = qp_w + (bufs == 2 ? (size_t)(i & 1) * sqf : 0);
-      if (bufs == 2) {
-        // the other buffer was read for the previous u, which every lane has finished (the __syncwarp below)
-        if (u + G < U) copy_qp(qp_w + (size_t)((i + 1) & 1) * sqf, qp_c + (size_t)(u + G) * sqf_g, sqf_g, F, fp,
-                               copy16, lane);
-        cp_async_commit();
-        cp_async_wait<1>();  // this u's copy
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncwarp();  // every lane's copies are visible to the warp
-      qpb = buf;
-    } else {
-      qpb = qp_c + (size_t)u * sqf_g;
+  for (int u = g; u < U; u += G) {
+    if (bufs) {
+      cp_async_wait<0>();  // this u's copy
+      __syncwarp();        // every lane's copies are visible to the warp
     }
     const int k1 = a.key1[cell * U + u];
     float* out_u = a.out + (cell * U + u) * (size_t)F * E;
-    chain_step<kShared>(a, u, k1, qpb, kShared ? fp : F, xm_s, n2h_s, n1h_s, key2_s, y_w, out_u, lane);
-    __syncwarp();  // every lane is done with this qp buffer
-    if (kShared && bufs == 1 && u + G < U) {
+    chain_step(a, u, k1, qp_w, fp, bufs ? qp_w : qp_c + (size_t)u * sqf_g, bufs ? fp : F, xm_s, n2h_s, n1h_s,
+               key2_s, y_w, out_u, lane);
+    __syncwarp();  // every lane is done with the qp buffer
+    if (bufs && u + G < U) {
       copy_qp(qp_w, qp_c + (size_t)(u + G) * sqf_g, sqf_g, F, fp, copy16, lane);
       cp_async_commit();
     }
   }
-}
-
-template <bool kShared>
-int launch(const ChainArgs& a, int cells, size_t smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(gemnet_quad_chain_kernel<kShared>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  gemnet_quad_chain_kernel<kShared><<<(unsigned)((size_t)cells * a.parts), a.warps * 32, smem, stream>>>(a);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -441,10 +395,10 @@ int launch(const ChainArgs& a, int cells, size_t smem, cudaStream_t stream) {
 // [cells,U] i32; key2 [cells,Q,K2] i32; xm [cells,Q,K2,E] f32; qp
 // [cells,U,S,Q,F] f32; out [cells,U,F,E] f32 is written. The launch is
 // quad_chain_plan's: `warps` a block (1..16), `parts` blocks a cell,
-// `qp_buffers` (0: qp read from device memory, 1 or 2 staged buffers a
-// warp), `copy16` (16-byte qp copies; needs F % 4 == 0 and an aligned qp),
-// and `smem_bytes`, which must equal this file's layout. Launches on `stream`
-// and returns cudaGetLastError() after the launch (0 = success), or
+// `qp_buffers` (0: qp read from device memory, 1: a staged buffer a warp),
+// `copy16` (16-byte qp copies; needs F % 4 == 0 and an aligned qp), and
+// `smem_bytes`, which must equal this file's layout. Launches on `stream` and
+// returns cudaGetLastError() after the launch (0 = success), or
 // cudaErrorInvalidValue for a plan that disagrees.
 extern "C" int gemnet_quad_chain_f32(
     const void* n1, const void* n2, const void* key1, const void* key2,
@@ -452,7 +406,7 @@ extern "C" int gemnet_quad_chain_f32(
     int cells, int U, int Q, int K2, int S, int E, int F,
     int warps, int parts, int qp_buffers, int copy16, long long smem_bytes, void* stream) {
   if (cells <= 0 || U <= 0 || F <= 0 || E <= 0) return 0;
-  if (warps < 1 || warps > kMaxWarps || parts < 1 || qp_buffers < 0 || qp_buffers > 2 ||
+  if (warps < 1 || warps > kMaxWarps || parts < 1 || qp_buffers < 0 || qp_buffers > 1 ||
       (copy16 && (F % 4 != 0 || qp_buffers == 0 || reinterpret_cast<uintptr_t>(qp) % 16 != 0)))
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_floats(warps, qp_buffers, U, Q, K2, S, E, F) * sizeof(float);
@@ -462,8 +416,14 @@ extern "C" int gemnet_quad_chain_f32(
               static_cast<const float*>(xm), static_cast<const float*>(qp), static_cast<float*>(out),
               U, Q, K2, S, E, F, warps, parts, qp_buffers, copy16 ? 1 : 0,
               (reinterpret_cast<uintptr_t>(xm) % 16 == 0 && ((size_t)Q * K2 * E) % 4 == 0) ? 1 : 0};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return qp_buffers > 0 ? launch<true>(a, cells, smem, s) : launch<false>(a, cells, smem, s);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(gemnet_quad_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  gemnet_quad_chain_kernel<<<(unsigned)((size_t)cells * parts), warps * 32, smem,
+                             static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* gemnet_quad_chain_error_string(int code) {

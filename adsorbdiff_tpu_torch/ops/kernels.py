@@ -654,10 +654,10 @@ def _quad_chain_launch(tensors: dict, s: int, plan: "QuadChainPlan") -> torch.Te
     return out
 
 
-# csrc/gemnet_quad_chain.cu's constants: most warps a block, floats of a warp's basis buffer (32 in-edges x 8
-# levels), levels s and columns e or f a pass; the plan's starting point of 8 warps a block, and the warps an SM
-# holds at the kernel's 128 registers a thread
-_QC_MAX_WARPS, _QC_Y_FLOATS, _QC_LEVELS, _QC_COLS, _QC_WARPS, _QC_WARPS_PER_SM = 16, 32 * 8, 8, 32, 8, 16
+# csrc/gemnet_quad_chain.cu's constants: floats of a warp's basis buffer (32 in-edges x 8 levels), levels s and
+# columns e or f a pass; the plan's starting point of 8 warps a block, and the warps an SM holds at the kernel's 128
+# registers a thread
+_QC_Y_FLOATS, _QC_LEVELS, _QC_COLS, _QC_WARPS, _QC_WARPS_PER_SM = 32 * 8, 8, 32, 8, 16
 # H100: the most dynamic shared memory a block may take (227 KB), an SM's shared memory, the 1 KB reserved a block
 _QC_SMEM, _SM_SMEM, _BLOCK_RESERVED = 232448, 233472, 1024
 
@@ -665,13 +665,16 @@ _QC_SMEM, _SM_SMEM, _BLOCK_RESERVED = 232448, 233472, 1024
 class QuadChainPlan(NamedTuple):
     """How :func:`gemnet_quad_chain` is launched: ``warps`` a block, each
     owning main edges u of one cell; ``parts`` blocks a cell (the cell's u
-    dealt over ``parts * warps`` warps); ``blocks`` = cells x parts of
-    ``threads``; ``qp_buffers`` qp[u] buffers a warp in shared memory (2:
-    the next u copied during this one; 1; 0: qp read from device memory);
-    ``copy_bytes`` a cp.async of qp (16 or 4; 0 when not staged);
-    ``smem_bytes`` of dynamic shared memory a block; ``blocks_per_sm`` as
-    shared memory and the registers allow; ``waves`` = blocks / (SMs x
-    blocks an SM); passes of 8 levels s, 32 columns e and 32 columns f."""
+    dealt over ``parts * warps`` warps: block ``x`` takes cell ``x //
+    parts``, its warp ``w`` is the cell's warp ``g = (x % parts) * warps +
+    w`` and takes ``u = g, g + parts * warps, ...``); ``blocks`` = cells x
+    parts of ``threads``; ``qp_buffers`` qp[u] buffers a warp in shared
+    memory (1: the next u copied once this one is done; 0: qp read from
+    device memory); ``copy_bytes`` a cp.async of qp (16 or 4; 0 when not
+    staged); ``smem_bytes`` of dynamic shared memory a block;
+    ``blocks_per_sm`` as shared memory and the registers allow; ``waves`` =
+    blocks / (SMs x blocks an SM); passes of 8 levels s, 32 columns e and 32
+    columns f."""
 
     warps: int
     parts: int
@@ -689,8 +692,9 @@ class QuadChainPlan(NamedTuple):
 
 def quad_chain_smem(warps: int, qp_buffers: int, u: int, q: int, k2: int, s: int, e: int, f: int) -> int:
     """Dynamic shared bytes of a block of ``csrc/gemnet_quad_chain.cu``: per
-    warp the [32][8] basis buffer and its qp[u] buffers (rows of F rounded up
-    to 4), then the cell's xm, normalised n2 and n1 rows and key2."""
+    warp the [32][8] basis buffer and its qp[u] buffer if any (rows of F
+    rounded up to 4), then the cell's xm, normalised n2 and n1 rows and
+    key2."""
     qk = q * k2
     return 4 * (warps * (_QC_Y_FLOATS + qp_buffers * s * q * _round4(f)) + qk * e + qk * 3 + u * q * 3 + qk)
 
@@ -700,53 +704,34 @@ def _quad_blocks_per_sm(warps: int, smem: int) -> int:
 
 
 def quad_chain_plan(cells: int, u: int, q: int, k2: int, s: int, e: int, f: int, sms: int, *,
-                    qp_aligned: bool = True, warps: Optional[int] = None, parts: Optional[int] = None,
-                    qp_buffers: Optional[int] = None) -> QuadChainPlan:
+                    qp_aligned: bool = True) -> QuadChainPlan:
     """``csrc/gemnet_quad_chain.cu``'s launch for ``cells`` cells of ``u``
     main edges on a card of ``sms`` SMs.  Of 8, 4, 2 or 1 warps a block (at
-    most U) and two or one qp[u] buffers a warp, the layout that fits 227 KB
-    with the most warps an SM (16 at most, by the registers), then the most
-    buffers, then the most warps a block: at the relaxation shape, 8 warps
-    of one buffer, two blocks an SM; where no buffer fits, none (qp read
-    from device memory).  Blocks a cell: enough that a block's warps take at most
-    two rounds of u, more while the grid fills less than one wave, at most
-    one u a warp.  qp copies are 16 bytes where F % 4 == 0 and qp is 16-byte
-    aligned (so S*Q*F % 4 == 0), else 4.  ``warps``, ``parts`` and
-    ``qp_buffers`` force those choices.  Raises ValueError only where the
-    cell's staged xm, n1, n2 and key2 with one warp's basis buffer exceed
-    227 KB, which the kernel this one replaced (it staged those and more)
-    refused as well."""
-    if warps is not None and not 1 <= warps <= _QC_MAX_WARPS:
-        raise ValueError(f"gemnet_quad_chain: 1 <= warps <= {_QC_MAX_WARPS}, got {warps}")
-    if qp_buffers is not None and qp_buffers not in (0, 1, 2):
-        raise ValueError(f"gemnet_quad_chain: qp_buffers is 0, 1 or 2, got {qp_buffers}")
-    w0 = warps if warps is not None else max(min(_QC_WARPS, u), 1)
-    widths = [w0] if warps is not None else [w for w in (w0, w0 // 2, w0 // 4, w0 // 8) if w >= 1]
-    options = [(w, nb) for w in widths for nb in ((qp_buffers,) if qp_buffers is not None else (2, 1, 0))]
+    most U), the layout with a qp[u] buffer a warp that fits 227 KB with the
+    most warps an SM (16 at most, by the registers), then the most warps a
+    block: at the relaxation shape 8 warps, two blocks an SM; where no
+    buffer fits, none (qp read from device memory).  Blocks a cell: enough
+    that a block's warps take at most two rounds of u, more while the grid
+    fills less than one wave, at most one u a warp.  qp copies are 16 bytes
+    where F % 4 == 0 and qp is 16-byte aligned (so S*Q*F % 4 == 0), else 4.
+    Raises ValueError only where the cell's staged xm, n1, n2 and key2 with
+    one warp's basis buffer exceed 227 KB, which the kernel this one
+    replaced (it staged those and more) refused as well."""
+    w0 = max(min(_QC_WARPS, u), 1)
+    options = [(w, nb) for w in (w0, w0 // 2, w0 // 4, w0 // 8) if w >= 1 for nb in (1, 0)]
     smem = {o: quad_chain_smem(o[0], o[1], u, q, k2, s, e, f) for o in options}
     fits = [o for o in options if smem[o] <= _QC_SMEM]
     if not fits:
         raise ValueError(f"gemnet_quad_chain: U={u}, Q={q}, K2={k2}, S={s}, E={e}, F={f} need "
                          f"{min(smem.values())} bytes of shared memory a block, more than {_QC_SMEM}")
-    w, nb = max(fits, key=lambda o: (o[1] > 0, o[0] * _quad_blocks_per_sm(o[0], smem[o]), o[1], o[0]))
+    w, nb = max(fits, key=lambda o: (o[1], o[0] * _quad_blocks_per_sm(o[0], smem[o]), o[0]))
     per_sm = _quad_blocks_per_sm(w, smem[w, nb])
-    if parts is None:
-        parts = min(max(_cdiv(u, 2 * w), sms * per_sm // max(cells, 1)), _cdiv(u, w))
+    parts = min(max(_cdiv(u, 2 * w), sms * per_sm // max(cells, 1)), _cdiv(u, w))
     copy = 0 if nb == 0 else 16 if f % 4 == 0 and qp_aligned else 4
     return QuadChainPlan(warps=w, parts=parts, blocks=cells * parts, threads=32 * w, qp_buffers=nb,
                          copy_bytes=copy, smem_bytes=smem[w, nb], blocks_per_sm=per_sm,
                          waves=cells * parts / (sms * per_sm), level_passes=max(1, _cdiv(s, _QC_LEVELS)),
                          e_passes=_cdiv(e, _QC_COLS), f_passes=_cdiv(f, _QC_COLS))
-
-
-def quad_chain_work(plan: QuadChainPlan, cells: int, u: int):
-    """The kernel's work as ``(block, warp, cell, main edges)``: block ``x``
-    takes cell ``x // parts``; its warp ``w`` is the cell's warp ``g = (x %
-    parts) * warps + w`` and takes ``u = g, g + parts * warps, ...``."""
-    for x in range(cells * plan.parts):
-        for w in range(plan.warps):
-            g = (x % plan.parts) * plan.warps + w
-            yield x, w, x // plan.parts, list(range(g, u, plan.parts * plan.warps))
 
 
 @functools.lru_cache(maxsize=16)

@@ -477,16 +477,15 @@ def test_quad_chain_kernel_main_key_cases_on_card(cuda_device, shape, negative_k
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 80, 30, 8, 30, 7, 32, 32), QUAD_UNALIGNED, QUAD_S9_E40_F48],
                          ids=["relax-width", "unaligned-sqf", "s9-e40-f48"])
-@pytest.mark.parametrize("warps,parts,qp_buffers", [(8, 1, 2), (8, 1, 1), (8, 2, 1), (4, 2, 1), (16, 1, 1),
-                                                    (8, 1, 0), (1, 1, 0), (3, 3, 2)])
+@pytest.mark.parametrize("warps,parts,qp_buffers", [(8, 1, 1), (8, 2, 1), (4, 2, 1), (16, 1, 1), (8, 1, 0),
+                                                    (1, 1, 0), (3, 3, 1)])
 def test_quad_chain_kernel_forced_plans_match_plain_version_on_card(cuda_device, shape, warps, parts, qp_buffers):
-    """Every buffering (two qp buffers, one, none: qp read from device
+    """Every buffering (one qp buffer a warp, none: qp read from device
     memory), warps a block and blocks a cell the plan can choose gives the
     plain version's output; each call is one launch."""
     b, n, u, q, k2, s, e, f = shape
     inputs = _torch(_quad_inputs(12, *shape, zero_rows=True), cuda_device)
-    plan = kernels.quad_chain_plan(b * n, u, q, k2, s, e, f, kernels._sm_count(cuda_device), warps=warps, parts=parts,
-                                   qp_buffers=qp_buffers)
+    plan = _forced_quad_plan(shape, kernels._sm_count(cuda_device), warps, parts, qp_buffers)
     before = kernels.launches["gemnet_quad_chain"]
     got = kernels._quad_chain_launch(inputs, s, plan)
     torch.cuda.synchronize()
@@ -522,6 +521,26 @@ def test_quad_chain_wrapper_raises_instead_of_falling_back(cuda_device):
         gemnet_quad_chain(**dict(inputs, qp=inputs["qp"].requires_grad_()), num_spherical=s)
 
 
+def _forced_quad_plan(shape, sms, warps, parts, qp_buffers):
+    """The plan for ``shape`` with its warps a block, blocks a cell and qp
+    buffers replaced, and what follows from them."""
+    b, n, u, q, k2, s, e, f = shape
+    plan = kernels.quad_chain_plan(b * n, u, q, k2, s, e, f, sms)
+    return plan._replace(warps=warps, parts=parts, blocks=b * n * parts, threads=32 * warps, qp_buffers=qp_buffers,
+                         copy_bytes=(16 if f % 4 == 0 else 4) if qp_buffers else 0,
+                         smem_bytes=kernels.quad_chain_smem(warps, qp_buffers, u, q, k2, s, e, f))
+
+
+def _quad_chain_work(plan, cells, u):
+    """The kernel's work as ``(block, warp, cell, main edges)``: block ``x``
+    takes cell ``x // parts``; its warp ``w`` is the cell's warp ``g = (x %
+    parts) * warps + w`` and takes ``u = g, g + parts * warps, ...``."""
+    for x in range(cells * plan.parts):
+        for w in range(plan.warps):
+            g = (x % plan.parts) * plan.warps + w
+            yield x, w, x // plan.parts, list(range(g, u, plan.parts * plan.warps))
+
+
 def _old_quad_chain_smem(u, q, k2, s, e, f):
     """Shared bytes a block of the kernel this one replaced took: xm, n2h,
     n1h, the [Q*K2][S] basis, d2 [Q][S][E], qp[u] and both key tables."""
@@ -550,7 +569,7 @@ def test_quad_chain_plan_covers_every_main_edge_once(shape):
         assert (plan.level_passes, plan.e_passes, plan.f_passes) == (max(1, -(-s // 8)), -(-e // 32), -(-f // 32))
         seen = np.zeros((cells, u), np.int64)
         slots = set()
-        for blk, w, cell, us in kernels.quad_chain_work(plan, cells, u):
+        for blk, w, cell, us in _quad_chain_work(plan, cells, u):
             assert blk // plan.parts == cell and (blk, w) not in slots
             slots.add((blk, w))
             seen[cell, us] += 1
@@ -558,22 +577,22 @@ def test_quad_chain_plan_covers_every_main_edge_once(shape):
 
 
 def test_quad_chain_plan_takes_sixteen_warps_an_sm_at_the_relaxation_shape():
-    """The relaxation shape: 8 warps a block of one qp buffer each (two
-    buffers would halve the warps an SM), 16-byte copies, each cell's 30
-    main edges over two blocks (two rounds of u a warp), two blocks an SM:
-    1280 blocks in 4.85 waves.  A grid under one wave splits the cell's main
-    edges over more blocks; where the buffers fit twice at 16 warps an SM,
-    two."""
+    """The relaxation shape: 8 warps a block of one qp buffer each, 16-byte
+    copies, each cell's 30 main edges over two blocks (two rounds of u a
+    warp), two blocks an SM: 1280 blocks in 4.85 waves.  A grid under one
+    wave splits the cell's main edges over more blocks; a shape whose qp[u]
+    leaves no room for one warp's buffer reads qp from device memory."""
     b, n, u, q, k2, s, e, f = QUAD_RELAX
     plan = kernels.quad_chain_plan(b * n, u, q, k2, s, e, f, sms=132)
     assert (plan.warps, plan.parts, plan.qp_buffers, plan.copy_bytes, plan.blocks) == (8, 2, 1, 16, 1280)
     assert plan.blocks_per_sm == 2 and plan.waves == pytest.approx(1280 / 264)
-    assert kernels.quad_chain_plan(6, *QUAD_RAGGED[2:], sms=132).qp_buffers == 2
+    assert kernels.quad_chain_plan(6, *QUAD_RAGGED[2:], sms=132).qp_buffers == 1
     b, n, u, q, k2, s, e, f = QUAD_U_SPLIT
     assert kernels.quad_chain_plan(b * n, u, q, k2, s, e, f, sms=132).parts == 2
     assert kernels.quad_chain_plan(1, 1, q, k2, s, e, f, sms=132)[:2] == (1, 1)  # U = 1: one warp
-    forced = kernels.quad_chain_plan(640, 30, 8, 30, 7, 32, 32, sms=132, warps=4, parts=1, qp_buffers=0)
-    assert (forced.warps, forced.parts, forced.qp_buffers, forced.copy_bytes, forced.blocks) == (4, 1, 0, 0, 640)
+    wide = kernels.quad_chain_plan(640, 1, 1, 1, 1, 1, 58000, sms=132)
+    assert (wide.warps, wide.parts, wide.qp_buffers, wide.copy_bytes, wide.blocks) == (1, 1, 0, 0, 640)
+    assert kernels.quad_chain_smem(1, 1, 1, 1, 1, 1, 1, 58000) > 232448 >= _old_quad_chain_smem(1, 1, 1, 1, 1, 58000)
 
 
 @pytest.mark.parametrize("f", [1, 7, 8, 9, 32, 48])
@@ -583,11 +602,12 @@ def test_quad_chain_plan_copies_16_bytes_only_where_the_rows_allow(f, aligned):
     aligned qp; else 4-byte copies into rows padded to a multiple of 4."""
     for s, q in ((7, 8), (3, 1), (9, 5)):
         plan = kernels.quad_chain_plan(4, 6, q, 5, s, 16, f, sms=132, qp_aligned=aligned)
-        assert plan.qp_buffers >= 1
+        assert plan.qp_buffers == 1
         assert plan.copy_bytes == (16 if f % 4 == 0 and aligned else 4)
         if plan.copy_bytes == 16:
             assert s * q * f % 4 == 0
-    assert kernels.quad_chain_plan(4, 6, 8, 5, 7, 16, f, sms=132, qp_buffers=0).copy_bytes == 0
+    unstaged = kernels.quad_chain_plan(4, 1, 1, 1, 1, 1, 58000 + f, sms=132, qp_aligned=aligned)
+    assert (unstaged.qp_buffers, unstaged.copy_bytes) == (0, 0)  # no buffer fits: no copies
 
 
 def test_quad_chain_plan_refuses_nothing_the_old_kernel_accepted():
