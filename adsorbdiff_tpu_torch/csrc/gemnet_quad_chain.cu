@@ -45,7 +45,7 @@
 //   * a warp whose key1[u] < 0 writes zeros (every keep is false).
 // Shared-memory loads, not FMAs or bytes, limited the one-column-a-lane form
 // of this kernel (0.2867 ms at the relaxation shape on an H100 against
-// 0.2030 for this one, chip_smoke.py phase 3); the two-column blocking
+// 0.2030 with two columns, chip_smoke.py phase 3); the two-column blocking
 // halves the loads an FMA.
 // The widths every GemNet-OC config of the repo runs (S = 7, E = 32, the 32
 // columns f all below F, qp staged) take a pass with no guard in its
