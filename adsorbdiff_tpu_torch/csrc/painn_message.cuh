@@ -1,7 +1,6 @@
-// The PaiNN message of one target atom, shared by painn_message_fused.cu
-// (rows gathered by index in the kernel) and painn_message_consumer.cu (rows
-// gathered by the caller), for Hopper (sm_90a), f32. For target t and feature
-// column h, over its K neighbour slots k:
+// The PaiNN message of one target atom, the body of painn_message_consumer.cu
+// (rows gathered by the caller), for Hopper (sm_90a), f32. For target t and
+// feature column h, over its K neighbour slots k:
 //
 //   basis[k, r] = exp(-(R-1)^2/2 * (d_k - r/(R-1))^2) * env(d_k),  d_k = dist/cutoff
 //   f[k, c]     = (bias[c] + sum_r basis[k, r] * W[r, c])   for a valid slot, c < 3H
@@ -11,6 +10,8 @@
 //
 // (before PaiNN's 1/sqrt(H) scale, which the caller applies). xrow_k and
 // vrow_k are rows of the features; an invalid slot contributes nothing.
+// painn_message_fused.cu computes the same function with the rows gathered by
+// index, in a body of its own.
 //
 // The basis is sparse: basis[k, r] = exp(-(r - c_k)^2 / 2) env(d_k) with
 // c_k = d_k (R-1), a unit-width gaussian in r that underflows to exactly 0 in

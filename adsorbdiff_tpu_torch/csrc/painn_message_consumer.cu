@@ -14,7 +14,7 @@
 //
 // which is csrc/painn_message_fused.cu's function with the gather done by
 // the caller: slot k's features are row k of the gathered tensors. The body
-// is painn_message.cuh's, shared with that kernel (the basis staged in shared
+// is painn_message.cuh's (the basis staged in shared
 // memory on the rows each 16-edge pass can reach, a 16-edge x 3-column
 // register tile of the filter, the K-reduction in registers where the TPU's
 // tiled kernel multiplies by selection matrices). A block takes TI

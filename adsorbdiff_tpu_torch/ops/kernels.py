@@ -204,16 +204,17 @@ def _check_shapes(kernel: str, tensors: dict, expected: dict) -> None:
             raise ValueError(f"{kernel}: {name} has shape {tuple(tensors[name].shape)}, want {shape}")
 
 
-def _launch(kernel: str, lib: ctypes.CDLL, device: torch.device, *args, count_as: Optional[str] = None) -> None:
+def _launch(kernel: str, lib: ctypes.CDLL, device: torch.device, *args, count_as: Optional[str] = None,
+            shape: Optional[str] = None) -> None:
     """Call ``<kernel>_f32(*args, stream)`` on the current stream of
-    ``device``; raise on a non-zero cudaError, else count the launch under
-    ``count_as`` (default ``kernel``)."""
+    ``device``; raise on a non-zero cudaError (naming ``shape`` where given),
+    else count the launch under ``count_as`` (default ``kernel``)."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, kernel + "_f32")(*args, stream)
     if err != 0:
         msg = getattr(lib, kernel + "_error_string")(err).decode()
-        raise RuntimeError(f"{kernel} launch failed: {msg} (cudaError {err})")
+        raise RuntimeError(f"{kernel} launch failed{' at ' + shape if shape else ''}: {msg} (cudaError {err})")
     launches[count_as or kernel] += 1
 
 
@@ -237,10 +238,10 @@ def painn_message_fused(
     (the transpose of a torch ``Linear(R, 3H).weight``).  Returns
     ``(dx [B, N, H] f32, dvec [B, N, 3, H] f32)`` before PaiNN's 1/sqrt(H)
     scale.  On the card: f32 only, contiguous inputs, ``src`` int32, ``mask``
-    bool.  When autograd needs a gradient the call goes through
-    :class:`PainnMessageFused`, whose backward is
-    :func:`painn_message_fused_bwd`; without one (sampling, ``no_grad``) it
-    launches the forward kernel alone.
+    bool; the launch is :func:`painn_fwd_plan`'s.  When autograd needs a
+    gradient the call goes through :class:`PainnMessageFused`, whose backward
+    is :func:`painn_message_fused_bwd`; without one (sampling, ``no_grad``)
+    it launches the forward kernel alone.
     """
     tensors = (xh, vec, src, dist, mask, unit, weight, bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
@@ -262,17 +263,137 @@ def _painn_message_fused_forward(
 
     if b * n * h == 0:  # empty output: nothing to launch
         return xh.new_empty((b, n, h)), xh.new_empty((b, n, 3, h))
+    if k == 0:  # no slots: the sums are empty
+        return xh.new_zeros((b, n, h), dtype=torch.float32), xh.new_zeros((b, n, 3, h), dtype=torch.float32)
+    plan = painn_fwd_plan(b, n, k, r, h, _sm_count(xh.device))
     dx = torch.empty((b, n, h), dtype=torch.float32, device=xh.device)
     dvec = torch.empty((b, n, 3, h), dtype=torch.float32, device=xh.device)
-    lib = _library("painn_message_fused",
-                   [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib = _library("painn_message_fused", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                   + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     _launch(
         "painn_message_fused", lib, xh.device,
         xh.data_ptr(), vec.data_ptr(), src.data_ptr(), dist.data_ptr(), mask.data_ptr(),
         unit.data_ptr(), weight.data_ptr(), bias.data_ptr(), dx.data_ptr(), dvec.data_ptr(),
-        b, n, k, r, h, 1.0 / cutoff, int(envelope_exponent),
+        b, n, k, r, h, 1.0 / cutoff, int(envelope_exponent), plan.tpb, int(plan.stage_w), int(plan.stage_rows),
+        plan.rows, plan.smem_bytes, shape=f"B, N, K, R, H = {b}, {n}, {k}, {r}, {h}",
     )
     return dx, dvec
+
+
+# csrc/painn_message_fused.cu's constants: owners (half-warps) a block, columns h a block, basis rows a pass, slots
+# a group; the floats of an owner's basis buffer and slot records and of the bias columns, and the most dynamic shared
+# memory a block may take (the kernel has no static shared memory); the H100's schedulers an SM
+_PF_OWNERS, _PF_COLS, _PF_WIN, _PF_GROUP = 32, 32, 48, 8
+_PF_FIXED = 4 * (_PF_OWNERS * (_PF_WIN * _PF_GROUP + 8 + 4 * (_PF_GROUP + 1)) + 3 * _PF_COLS)
+_PF_SMEM, _PF_SCHEDULERS = 232448, 4
+
+
+class MessageFwdPlan(NamedTuple):
+    """How :func:`painn_message_fused` is launched: block ``(x, y)`` of the
+    grid takes targets ``[x * tpb, (x + 1) * tpb)`` of the ``B * N`` (any
+    systems) and the 32 columns ``y * 32 ..`` (with their H + h and 2H + h);
+    ``blocks`` = target ranges x ``slices`` of ``threads`` threads, one an
+    SM; ``stage_w``: the block's W columns copied to shared memory (else
+    read through L1/L2); ``stage_rows``: the xh/vec rows of every system its
+    targets lie in too, ``rows`` of them at most; ``smem_bytes`` a block;
+    ``waves`` = blocks / SMs; ``load``: targets a scheduler of a full block
+    takes one after another (the plan's cost is ``ceil(waves) * load``)."""
+
+    tpb: int
+    slices: int
+    blocks: int
+    threads: int
+    stage_w: bool
+    stage_rows: bool
+    rows: int
+    smem_bytes: int
+    waves: float
+    load: int
+
+
+def _message_fwd_smem(r: int, rows: int, stage_w: bool, stage_rows: bool) -> int:
+    """The forward kernel's dynamic shared bytes: the owners' basis buffers
+    and slot records and the bias columns, the W columns (``stage_w``) and
+    the xh and vec rows of ``rows`` rows (``stage_rows``)."""
+    return _PF_FIXED + 4 * (3 * r * _PF_COLS * stage_w + 6 * rows * _PF_COLS * stage_rows)
+
+
+def _fwd_staged_rows(t: int, n: int, tpb: int) -> int:
+    """The most rows of whole systems a block's targets lie in (the kernel's
+    ``staged_rows``): the first ``n`` blocks show every offset of a block in
+    its system."""
+    most = 0
+    for x in range(min(_cdiv(t, tpb), n)):
+        t0, t1 = x * tpb, min(t, (x + 1) * tpb)
+        most = max(most, ((t1 - 1) // n + 1) * n - t0 // n * n)
+    return most
+
+
+def _fwd_load(tpb: int) -> int:
+    """Targets the busiest scheduler of a block of ``tpb`` targets takes one
+    after another: owner ``o`` (half-warp ``o // 16`` of warp ``o % 16``)
+    takes targets ``o, o + 32, ..``; a warp runs as long as its busier
+    owner, and warp ``w`` issues on scheduler ``w % 4``.  With ``tpb = 32m
+    + q``, warps ``w < q`` hold m + 1 targets (all 16 once q > 16), so the
+    busiest scheduler, the first, takes ``4m + min(4, ceil(q / 4))``."""
+    m, q = divmod(tpb, _PF_OWNERS)
+    return _PF_SCHEDULERS * m + min(_PF_SCHEDULERS, _cdiv(q, 4))
+
+
+@functools.lru_cache(maxsize=64)
+def painn_fwd_plan(b: int, n: int, k: int, r: int, h: int, sms: int) -> MessageFwdPlan:
+    """``csrc/painn_message_fused.cu``'s launch for ``b`` systems of ``n``
+    targets, ``k`` slots, ``r`` radial functions and ``h`` columns on a card
+    of ``sms`` SMs.  The target range ``tpb`` minimises ``ceil(waves) *
+    load`` (ties: staged rows, then fewer blocks): it narrows while too few
+    blocks fill a wave, and at N = 80 takes two whole systems (160 targets,
+    5 a half-warp).  W's columns are staged where they fit (R <= 461), the
+    systems' xh/vec rows where they fit beside W (at R = 128: 166 rows, two
+    systems of N <= 83 or one of N <= 166).  Refuses nothing with ``k >=
+    1``, ``r >= 2`` and ``h`` up to 65535 x 32 columns."""
+    if k < 1 or r < 2 or _cdiv(h, _PF_COLS) > 65535:
+        raise ValueError(f"painn_message_fused: no launch for B, N, K, R, H = {b}, {n}, {k}, {r}, {h} (the kernel "
+                         f"takes K >= 1, R >= 2 and H <= {65535 * _PF_COLS})")
+    t, slices = b * n, _cdiv(h, _PF_COLS)
+    stage_w = _message_fwd_smem(r, 0, True, False) <= _PF_SMEM
+    room = _PF_SMEM - _message_fwd_smem(r, 0, stage_w, False)  # for the staged rows
+    best = None
+    # the load is 4m + j for tpb in (32m + 4j - 4, 32m + 4j] (j <= 4), else 4m + 4: the widest tpb of each load
+    steps = [m + q for m in range(_PF_OWNERS, t, _PF_OWNERS) for q in (4, 8, 12, 16, _PF_OWNERS)]
+    for tpb in sorted({x for x in steps if x < t} | set(range(1, min(t, _PF_OWNERS) + 1)) | {t}):
+        blocks = _cdiv(t, tpb) * slices
+        load = _fwd_load(tpb)
+        cost = _cdiv(blocks, sms) * load
+        rows = _fwd_staged_rows(t, n, tpb) if _cdiv(tpb, n) * n * 6 * _PF_COLS * 4 <= room else 0
+        stage_rows = 0 < rows and rows * 6 * _PF_COLS * 4 <= room
+        key = (cost, not stage_rows, blocks)
+        if best is None or key < best[0]:
+            best = key, tpb, blocks, load, stage_rows, rows if stage_rows else 0
+    _, tpb, blocks, load, stage_rows, rows = best
+    return MessageFwdPlan(tpb=tpb, slices=slices, blocks=blocks, threads=32 * _PF_OWNERS // 2, stage_w=stage_w,
+                          stage_rows=stage_rows, rows=rows,
+                          smem_bytes=_message_fwd_smem(r, rows, stage_w, stage_rows), waves=blocks / sms, load=load)
+
+
+def painn_fwd_windows(dist: torch.Tensor, mask: torch.Tensor, src: torch.Tensor, r: int,
+                      cutoff: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's window rule, in Python: ``(lo, hi)`` ``[B, N,
+    G]`` (G = ceil(K / 8)), the basis rows the kernel runs for each group of
+    8 consecutive slots of a target: the union of ``[bin - 14, bin + 15]``
+    (cut to ``[0, R)``) over its valid slots (mask set, source in ``[0,
+    N)``) before the cutoff, ``bin = floor(dist * (1 / cutoff) * (R - 1))``
+    in f32; ``hi < lo`` where no such slot."""
+    b, n, k = dist.shape
+    g = _cdiv(k, _PF_GROUP)
+    d = dist.float() * (1.0 / cutoff)
+    reach = mask & (src >= 0) & (src < n) & (d < 1.0)
+    bins = torch.clamp((d * float(r - 1)).to(torch.int32), max=r - 1)
+    pad = g * _PF_GROUP - k
+    reach = torch.nn.functional.pad(reach, (0, pad)).reshape(b, n, g, _PF_GROUP)
+    bins = torch.nn.functional.pad(bins, (0, pad)).reshape(b, n, g, _PF_GROUP)
+    lo = torch.where(reach, torch.clamp(bins - 14, min=0), torch.full_like(bins, r)).amin(-1)
+    hi = torch.where(reach, torch.clamp(bins + 15, max=r - 1), torch.full_like(bins, -1)).amax(-1)
+    return lo, hi
 
 
 def _message_shape(kernel: str, tensors: dict) -> Tuple[int, int, int, int, int]:

@@ -11,7 +11,15 @@ Phases; any failure raises and the exit code is then non-zero:
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, at its main path's shape and at ragged shapes, with
    |kernel - plain| <= 1e-4 * max|plain| + 1e-5 (f32 sums in another order);
-   times from CUDA events after warm-up.  gemnet_quad_chain: at the
+   times from CUDA events after warm-up.  painn_message_fused: at the
+   sampling shape (16, 80, 50, 128, 512) on the sampling path's neighbour
+   table and at ragged shapes (two older ones; the training shape; N = 300
+   and N = 1200, rows read through L1/L2; an all-masked system; sources
+   outside [0, N); unmasked slots past the cutoff; H = 200; R = 16; the
+   bench graph's slots shuffled within every target), each with its launch
+   plan (painn_fwd_plan); its time with its share of the bound, the 8-slot
+   windows' products over the needed ones, and ptxas's register and spill
+   lines.  gemnet_quad_chain: at the
    relaxation shape (640 cells, U=K2=30, Q=8, S=7, E=F=32) and at ragged
    shapes (an older one; E=40 and F=48, two passes of 32 columns each; S=9,
    two level passes; S*Q*F odd, 4-byte copies into padded rows; every main
@@ -71,7 +79,9 @@ Phases; any failure raises and the exit code is then non-zero:
    sources outside [0, N); H = 200), |kernel - plain| <=
    1e-4 * max|plain| + 1e-5 (atomics sum in another order on every run),
    each with its launch plan; its time beside its bound, its share of the
-   bound and ptxas's register and spill lines; then
+   bound and ptxas's register and spill lines; the forward kernel at the
+   same live table against its plain version, its time beside its bound;
+   then
    DenoisingTrainer.train() for one epoch of 31 steps at the painn_so3.yml
    + base.yml settings (B=48, AdamW at 1e-4, weight decay 1e-3, cosine
    LambdaLR with warm-up, clip 100, EMA 0.999; random weights from a seeded
@@ -192,6 +202,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -415,13 +426,68 @@ def message_bound_ms(inputs, outputs, cutoff):
     return (*bound(flops, list(inputs.values()) + list(outputs)), flops)
 
 
-def check_message_kernel(device, gen, shape, cutoff, nl=None, unit=None):
+def message_fill(inputs, fill, n, cutoff):
+    """Apply ``fill`` to kernel inputs in place and return the inputs the
+    plain version takes for them: "masked-system" (every slot of system 1
+    masked), "bad-src" (sources -1 and N + 5 on unmasked slots; the plain
+    version takes them as masked, the kernels' contract), "past-cutoff"
+    (every slot of system 0 unmasked, every other one at or past the
+    cutoff: it adds xh * bias)."""
+    if fill == "masked-system":
+        inputs["mask"][1] = False
+    elif fill == "bad-src":
+        inputs["src"][..., ::7] = -1
+        inputs["src"][..., 3::11] = n + 5
+    elif fill == "past-cutoff":
+        inputs["mask"][0] = True
+        far = inputs["dist"][0, :, ::2]
+        far.copy_(torch.linspace(1.0, 1.5, far.numel(), device=far.device).reshape(far.shape) * cutoff)
+    ok = (inputs["src"] >= 0) & (inputs["src"] < n)
+    return dict(inputs, src=torch.where(ok, inputs["src"], 0), mask=inputs["mask"] & ok)
+
+
+def fwd_plan_line(plan):
+    return (f"plan: {plan.tpb} targets a block, {plan.blocks // plan.slices} ranges x {plan.slices} slices of 32 "
+            f"columns = {plan.blocks} blocks x {plan.threads} threads, {plan.waves:.2f} waves of one block an SM, "
+            f"{plan.load} targets on a block's busiest scheduler, {plan.smem_bytes} B shared, W "
+            f"{'staged' if plan.stage_w else 'through L1/L2'}, xh/vec rows "
+            f"{f'staged ({plan.rows} rows)' if plan.stage_rows else 'through L1/L2'}")
+
+
+def check_message_kernel(device, gen, shape, cutoff, nl=None, unit=None, fill=None, what=""):
+    b, n, k, r, h = shape
     inputs = message_inputs(gen, device, *shape, cutoff, nl=nl, unit=unit)
+    plain = message_fill(inputs, fill, n, cutoff)
+    plan = kernels.painn_fwd_plan(b, n, k, r, h, kernels._sm_count(device))
     got = kernels.painn_message_fused(**inputs, cutoff=cutoff)
     torch.cuda.synchronize()
-    want = kernels.painn_message_fused_reference(**inputs, cutoff=cutoff)
-    err = check_close(f"painn_message_fused b,n,k,r,h={shape}", got, want)
+    want = kernels.painn_message_fused_reference(**plain, cutoff=cutoff)
+    err = check_close(f"painn_message_fused b,n,k,r,h={shape}{' ' + fill if fill else ''}{what} "
+                      f"({fwd_plan_line(plan)})", got, want)
     return inputs, got, err
+
+
+def shuffled_slots(nl, unit, seed):
+    """The neighbour table with the slots of every target in random order
+    (the graph sorts them by distance)."""
+    perm = torch.argsort(torch.rand(nl.src.shape, generator=torch.Generator().manual_seed(seed)), dim=-1)
+    perm = perm.to(nl.src.device)
+    table = types.SimpleNamespace(**{name: torch.gather(getattr(nl, name), 2, perm)
+                                     for name in ("src", "dist", "mask")})
+    return table, torch.gather(unit, 2, perm[..., None].expand(-1, -1, -1, 3))
+
+
+def window_ratio(inputs, cutoff):
+    """Products the forward kernel runs over its 8-slot groups' windows on
+    valid slots, over the non-zero basis values those slots need (the
+    window rule's Python mirror, kernels.painn_fwd_windows)."""
+    src, dist, mask = inputs["src"], inputs["dist"], inputs["mask"]
+    b, n, k = src.shape
+    lo, hi = kernels.painn_fwd_windows(dist, mask, src, inputs["weight"].shape[0], cutoff)
+    valid = mask & (src >= 0) & (src < n)
+    per_group = torch.nn.functional.pad(valid, (0, lo.shape[-1] * 8 - k)).reshape(b, n, -1, 8).sum(-1)
+    _, rows = basis_rows(inputs, cutoff)
+    return float((torch.clamp(hi - lo + 1, min=0) * per_group).sum()) / rows
 
 
 def message_bwd_bound_ms(inputs, cts, outputs, cutoff):
@@ -442,17 +508,11 @@ def check_message_bwd_kernel(device, gen, shape, cutoff, nl=None, unit=None, fil
     contract)."""
     b, n, _, _, h = shape
     inputs = message_inputs(gen, device, *shape, cutoff, nl=nl, unit=unit)
-    if fill == "masked-system":
-        inputs["mask"][1] = False
-    elif fill == "bad-src":
-        inputs["src"][..., ::7] = -1
-        inputs["src"][..., 3::11] = n + 5
+    plain = message_fill(inputs, fill, n, cutoff)
     cts = (torch.randn((b, n, h), generator=gen).to(device), torch.randn((b, n, 3, h), generator=gen).to(device))
     plan = kernels.painn_bwd_plan(b, n, shape[2], shape[3], h, kernels._sm_count(device))
     got = kernels.painn_message_fused_bwd(**inputs, dx_ct=cts[0], dvec_ct=cts[1], cutoff=cutoff)
     torch.cuda.synchronize()
-    ok = (inputs["src"] >= 0) & (inputs["src"] < n)
-    plain = dict(inputs, src=torch.where(ok, inputs["src"], 0), mask=inputs["mask"] & ok)
     want = kernels.painn_message_fused_bwd_reference(**plain, dx_ct=cts[0], dvec_ct=cts[1], cutoff=cutoff)
     err = check_close(f"painn_message_fused_bwd b,n,k,r,h={shape}{' ' + fill if fill else ''} "
                       f"({bwd_plan_line(plan)})", got, want)
@@ -1125,15 +1185,28 @@ def sampling_path(device, gen, systems):
                                  cell_reps=model.cell_reps)
     main_shape = (16, 80, model.max_neighbors, 128, model.hidden_channels)
     inputs, outputs, err = check_message_kernel(device, gen, main_shape, model.cutoff, nl=nl, unit=unit)
-    for ragged in ((2, 13, 10, 16, 64), (1, 37, 45, 128, 192)):
-        check_message_kernel(device, gen, ragged, 6.0)
+    # ragged: two older shapes; the training shape; N = 300 and N = 1200 (rows read through L1/L2); an all-masked
+    # system; sources outside [0, N); unmasked slots past the cutoff; H = 200; R = 16; the bench graph's slots in
+    # random order within every target
+    for ragged, fill in (((2, 13, 10, 16, 64), None), ((1, 37, 45, 128, 192), None), ((48, 80, 50, 128, 512), None),
+                         ((9, 300, 20, 128, 512), None), ((1, 1200, 20, 128, 64), None),
+                         ((3, 80, 50, 128, 96), "masked-system"), ((2, 80, 50, 128, 64), "bad-src"),
+                         ((2, 80, 50, 128, 64), "past-cutoff"), ((2, 80, 50, 128, 200), None),
+                         ((2, 80, 50, 16, 512), None)):
+        check_message_kernel(device, gen, ragged, 6.0, fill=fill)
+    table, shuffled_unit = shuffled_slots(nl, unit, 11)
+    check_message_kernel(device, gen, main_shape, model.cutoff, nl=table, unit=shuffled_unit,
+                         what=" (bench graph, slots shuffled)")
     ms = cuda_ms(lambda: kernels.painn_message_fused(**inputs, cutoff=model.cutoff), 20)
     plain_ms = cuda_ms(lambda: kernels.painn_message_fused_reference(**inputs, cutoff=model.cutoff), 5)
     bound_ms, bound_by, nbytes, flops = message_bound_ms(inputs, outputs, model.cutoff)
     edges, rows = basis_rows(inputs, model.cutoff)
     print(f"[kernel] painn_message_fused at {main_shape} ({edges} valid edges, {rows / edges:.2f} non-zero basis "
-          f"values each): {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-          f"({flops / 1e9:.2f} GFLOP f32, {nbytes / 1e6:.2f} MB)", flush=True)
+          f"values each; the 8-slot windows run {window_ratio(inputs, model.cutoff):.3f}x them): {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP f32, "
+          f"{nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}% of the bound; "
+          f"{fwd_plan_line(kernels.painn_fwd_plan(*main_shape, kernels._sm_count(device)))}; ptxas: "
+          f"{' | '.join(ptxas_lines('painn_message_fused')) or 'not built in this process'}", flush=True)
     del inputs, outputs
 
     # 4. 100-step ODE sampling at full width
@@ -1533,7 +1606,13 @@ def training_path(device, gen, root):
     ms = cuda_ms(bwd, 10)
     plain_ms = cuda_ms(lambda: kernels.painn_message_fused_bwd_reference(
         **inputs, dx_ct=cts[0], dvec_ct=cts[1], cutoff=model.cutoff), 2)
+    fwd = kernels.painn_message_fused(**inputs, cutoff=model.cutoff)
+    torch.cuda.synchronize()
+    check_close(f"painn_message_fused at the training shape {shape} (live table)", fwd,
+                kernels.painn_message_fused_reference(**inputs, cutoff=model.cutoff))
     fwd_ms = cuda_ms(lambda: kernels.painn_message_fused(**inputs, cutoff=model.cutoff), 10)
+    fwd_bound_ms, fwd_bound_by, _, fwd_flops = message_bound_ms(inputs, fwd, model.cutoff)
+    del fwd
     bound_ms, bound_by, nbytes, flops = message_bwd_bound_ms(inputs, cts, outputs, model.cutoff)
     edges, rows = basis_rows(inputs, model.cutoff)
     plan = kernels.painn_bwd_plan(*shape, kernels._sm_count(device))
@@ -1541,7 +1620,8 @@ def training_path(device, gen, root):
           f"values each): {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP f32, "
           f"{nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}% of the bound; the forward kernel at the same shape "
-          f"{fwd_ms:.4f} ms; {bwd_plan_line(plan)}; ptxas: "
+          f"{fwd_ms:.4f} ms, bound {fwd_bound_ms:.4f} ms by {fwd_bound_by} ({fwd_flops / 1e9:.2f} GFLOP f32), "
+          f"{100 * fwd_bound_ms / fwd_ms:.1f}% of it; {bwd_plan_line(plan)}; ptxas: "
           f"{' | '.join(ptxas_lines('painn_message_fused_bwd')) or 'not built in this process'}", flush=True)
     del inputs, cts, outputs
 

@@ -308,6 +308,74 @@ def test_bwd_kernel_plans_match_plain_version_on_card(cuda_device, shape, fill, 
         assert torch.isfinite(g).all() and err <= 1e-4 * w.abs().max().item() + 1e-5, (name, err)
 
 
+def _fwd_case(seed, shape, fill):
+    """:func:`_bwd_case`'s fills plus "past-cutoff": every slot of system 0
+    unmasked, half of them at or past the cutoff (they add xh * bias)."""
+    if fill != "past-cutoff":
+        return _bwd_case(seed, shape, fill)
+    inputs = _inputs(seed, *shape)
+    inputs["mask"][0] = True
+    inputs["dist"][0, :, ::2] = np.linspace(6.0, 9.0, inputs["dist"][0, :, ::2].size).reshape(
+        inputs["dist"][0, :, ::2].shape)
+    return inputs, inputs
+
+
+def _check_fwd(inputs, plain):
+    before = kernels.launches["painn_message_fused"]
+    got = painn_message_fused(**inputs, cutoff=6.0)
+    torch.cuda.synchronize()
+    assert kernels.launches["painn_message_fused"] == before + 1
+    want = painn_message_fused_reference(**plain, cutoff=6.0)
+    for g, w in zip(got, want):
+        err = (g - w).abs().max().item()
+        assert torch.isfinite(g).all() and err <= 1e-4 * w.abs().max().item() + 1e-5, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,fill,stage_w,stage_rows", [
+    ((48, 80, 50, 128, 512), None, True, True), ((9, 300, 20, 128, 512), None, True, False),
+    ((1, 1200, 20, 128, 64), None, True, False), ((3, 80, 50, 128, 96), "masked-system", True, True),
+    ((2, 80, 50, 128, 64), "bad-src", True, True), ((2, 80, 50, 128, 64), "past-cutoff", True, True),
+    ((2, 80, 50, 128, 200), None, True, True), ((2, 80, 50, 16, 512), None, True, True),
+    ((2, 80, 3, 500, 64), None, False, True), ((1, 80, 50, 128, 512), None, True, True),
+    ((2, 13, 120, 128, 31), None, True, True),
+], ids=["training-width", "n300", "n1200", "masked-system", "bad-src", "past-cutoff", "h200", "r16", "r500",
+        "b1", "k120-h31"])
+def test_fwd_kernel_plans_match_plain_version_on_card(cuda_device, shape, fill, stage_w, stage_rows):
+    """Each branch of the forward plan (W and rows staged or read through
+    L1/L2), an all-masked system, sources outside [0, N), unmasked slots
+    past the cutoff, H not a multiple of 32 and odd, R = 16, one system,
+    against the plain version: |kernel - plain| <= 1e-4 * max|plain| + 1e-5."""
+    b, n, k, r, h = shape
+    plan = kernels.painn_fwd_plan(b, n, k, r, h, kernels._sm_count(cuda_device))
+    assert (plan.stage_w, plan.stage_rows) == (stage_w, stage_rows)
+    raw, plain = _fwd_case(25, shape, fill)
+    _check_fwd(_torch(raw, cuda_device), _torch(plain, cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+def test_fwd_kernel_on_the_bench_graph_on_card(cuda_device, order):
+    """The sampling shape (16, 80, 50, 128, 512) on the sampling path's
+    neighbour table, its slots as the graph sorts them and shuffled within
+    every target (wide windows), against the plain version."""
+    src, dist, mask, unit = _bench_graph()
+    if order == "shuffled":
+        perm = torch.from_numpy(np.random.default_rng(6).permuted(np.tile(np.arange(50), (16, 80, 1)), axis=-1))
+        src, dist, mask = (torch.gather(x, 2, perm) for x in (src, dist, mask))
+        unit = torch.gather(unit, 2, perm[..., None].expand(-1, -1, -1, 3))
+    inputs = _inputs(26, 16, 80, 50, 128, 512, cutoff=12.0)
+    inputs = dict(_torch(inputs), src=src, dist=dist, mask=mask, unit=unit)
+    inputs = {name: t.to(cuda_device).contiguous() for name, t in inputs.items()}
+    before = kernels.launches["painn_message_fused"]
+    got = painn_message_fused(**inputs, cutoff=12.0)
+    torch.cuda.synchronize()
+    assert kernels.launches["painn_message_fused"] == before + 1
+    want = painn_message_fused_reference(**inputs, cutoff=12.0)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() + 1e-5
+
+
 @pytest.mark.cuda
 def test_autograd_on_card_launches_forward_and_backward_kernels(cuda_device):
     """One backward through the Function: one launch of each kernel, and the
@@ -371,6 +439,177 @@ def test_bwd_plan_refuses_nothing_the_wrapper_accepts():
                     assert kernels.painn_bwd_plan(2, n, k, r, h, sms=132).smem_bytes <= 232448 - 5120
     with pytest.raises(ValueError, match="R <= 128"):
         kernels.painn_bwd_plan(2, 80, 50, 129, 512, sms=132)
+
+
+def test_fwd_load_counts_the_busiest_scheduler():
+    """The plan's closed form against the owners counted one by one: owner
+    o = 16 * half + warp takes targets o, o + 32, ..; warp w runs its busier
+    owner's targets on scheduler w % 4."""
+    for tpb in range(1, 400):
+        per = [0] * 4
+        for w in range(16):
+            per[w % 4] += max(len(range(o, tpb, 32)) for o in (w, w + 16))
+        assert kernels._fwd_load(tpb) == max(per), tpb
+
+
+def _fwd_work(plan, b, n, h):
+    """The forward kernel's work as ``(block, owner, target, first column h,
+    columns)``: block ``(x, y)`` (numbered ``y * ranges + x``) takes targets
+    ``[x * tpb, (x + 1) * tpb)`` cut at ``B * N`` and columns ``y * 32 ..``
+    cut at H; its owner ``o`` takes the block's targets ``o, o + 32, ..``
+    (``csrc/painn_message_fused.cu``)."""
+    t = b * n
+    ranges = kernels._cdiv(t, plan.tpb)
+    for y in range(plan.slices):
+        h0 = y * 32
+        for x in range(ranges):
+            t0, t1 = x * plan.tpb, min(t, (x + 1) * plan.tpb)
+            for j in range(t1 - t0):
+                yield y * ranges + x, j % 32, t0 + j, h0, min(32, h - h0)
+
+
+def _fwd_cost(t, slices, tpb, sms=132):
+    return kernels._cdiv(kernels._cdiv(t, tpb) * slices, sms) * kernels._fwd_load(tpb)
+
+
+@pytest.mark.parametrize("b", [1, 5, 16, 48])
+@pytest.mark.parametrize("n", [1, 13, 80, 300, 2000])
+def test_fwd_plan_covers_every_target_and_column_once(b, n):
+    """Every (target, column h) pair is one block's and one owner's, once; a
+    block fits in 232,448 B (the kernel has no static shared memory); the
+    target range is the cheapest of every range up to 2048 targets and every
+    multiple of 32 (it narrows while too few blocks fill a wave); W and the
+    systems' xh/vec rows are staged only where they fit, the rows with room
+    for every system a block's targets lie in."""
+    t = b * n
+    for h in (1, 31, 200, 512):
+        slices = kernels._cdiv(h, 32)
+        cheapest = min(_fwd_cost(t, slices, min(tpb, t))
+                       for tpb in set(range(1, min(t, 2048) + 1)) | set(range(32, t + 32, 32)))
+        for r in (2, 16, 128):
+            for k in (1, 10, 50, 120):
+                plan = kernels.painn_fwd_plan(b, n, k, r, h, sms=132)
+                assert plan.smem_bytes <= 232448 and plan.threads == 512 and plan.slices == slices
+                assert plan.smem_bytes == kernels._message_fwd_smem(r, plan.rows, plan.stage_w, plan.stage_rows)
+                assert plan.stage_w == (kernels._message_fwd_smem(r, 0, True, False) <= 232448)
+                assert plan.blocks == kernels._cdiv(t, plan.tpb) * slices and plan.waves == plan.blocks / 132
+                if plan.stage_rows:
+                    assert plan.rows >= kernels._fwd_staged_rows(t, n, plan.tpb) >= n
+                else:
+                    assert plan.rows == 0
+                    assert kernels._message_fwd_smem(r, kernels._fwd_staged_rows(t, n, plan.tpb), plan.stage_w,
+                                                     True) > 232448
+                assert _fwd_cost(t, slices, plan.tpb) == cheapest
+        if t * slices <= 20000:
+            plan = kernels.painn_fwd_plan(b, n, 50, 128, h, sms=132)
+            seen = np.zeros((t, h), np.int64)
+            owners = {}
+            for blk, owner, target, h0, cols in _fwd_work(plan, b, n, h):
+                assert 1 <= cols <= 32 and 0 <= owner < 32 and blk < plan.blocks
+                seen[target, h0:h0 + cols] += 1
+                owners.setdefault((blk, owner), []).append(target)
+            assert (seen == 1).all()
+            per_owner = [len(v) for v in owners.values()]
+            assert max(per_owner) - min(per_owner) <= 1 or plan.blocks > slices  # one block: balanced owners
+
+
+def test_fwd_plan_takes_two_systems_a_block_at_the_sampling_and_training_shapes():
+    """At N = 80, R = 128, H = 512 a block stages W and two systems' rows
+    (227,200 B) and gives each half-warp 5 targets: one wave of 128 blocks
+    at B = 16, three of 384 at B = 48."""
+    for b, blocks in ((16, 128), (48, 384)):
+        plan = kernels.painn_fwd_plan(b, 80, 50, 128, 512, sms=132)
+        assert (plan.tpb, plan.blocks, plan.stage_w, plan.stage_rows, plan.rows) == (160, blocks, True, True, 160)
+        assert plan.smem_bytes == 227200 and plan.load == 20
+
+
+def _old_fwd_smem(k, r):
+    """The shared bytes the old forward kernel (one block a target, the
+    whole basis tile) needed: its wrapper took a shape where they fit."""
+    padded = k // 16 * 16 + (k % 16 + 3) // 4 * 4
+    return (r * padded + 5 * k) * 4 + (k + 2 * kernels._cdiv(k, 16)) * 4
+
+
+def test_fwd_plan_refuses_nothing_the_old_wrapper_accepted():
+    """Every shape whose old shared-memory tile fit 227 KB (at R = 128, K up
+    to ~430; at K = 1, R up to ~14,500) has a plan that fits, W staged or
+    read through L1/L2; a shape the kernel cannot take is refused by name."""
+    for k in (1, 3, 50, 120, 430):
+        for r in (2, 16, 128, 461, 462, 1100, 14000):
+            if _old_fwd_smem(k, r) > 232448:
+                continue
+            for b, n in ((1, 1), (2, 80), (1, 2000), (48, 80)):
+                for h in (1, 8, 200, 512):
+                    plan = kernels.painn_fwd_plan(b, n, k, r, h, sms=132)
+                    assert plan.smem_bytes <= 232448 and plan.stage_w == (r <= 461)
+    with pytest.raises(ValueError, match=r"B, N, K, R, H = 2, 80, 50, 128, 2097153"):
+        kernels.painn_fwd_plan(2, 80, 50, 128, 65536 * 32 + 1, sms=132)
+
+
+def _bench_graph():
+    """The neighbour table of chip_smoke.py's sampling batch: bench.py's 16
+    systems (74 slab + 6 adsorbate atoms, 11.4 x 11.4 x 36 A), cutoff 12 A,
+    K = 50, cell_reps (2, 2, 0)."""
+    from adsorbdiff_tpu_torch.data.schema import System, collate
+    from adsorbdiff_tpu_torch.models.base import generate_graph
+
+    rng = np.random.default_rng(0)
+    systems = []
+    for i in range(16):
+        cell = np.diag([11.4, 11.4, 36.0]).astype(np.float32)
+        slab = (rng.random((74, 3)) * [1, 1, 0.35]) @ cell
+        ads = rng.random((6, 3)).astype(np.float32) * 1.6 + np.array([5, 5, 14.5], np.float32)
+        pos = np.concatenate([slab, ads]).astype(np.float32)
+        tags = np.array([0] * 37 + [1] * 37 + [2] * 6, np.int32)
+        z = np.concatenate([rng.integers(20, 80, 74), rng.integers(1, 9, 6)])
+        systems.append(System(pos=pos, atomic_numbers=z, cell=cell, tags=tags, fixed=tags == 0, sid=i))
+    batch = collate(systems, max_atoms=80, device="cpu")
+    nl, _, unit = generate_graph(batch, cutoff=12.0, max_neighbors=50, cell_reps=(2, 2, 0))
+    return nl.src, nl.dist, nl.mask, unit
+
+
+def _window_products(src, dist, mask, r, cutoff):
+    """(products the kernel runs over its groups' windows on valid slots,
+    the non-zero basis values of the valid slots); asserts that every
+    non-zero value lies inside its group's window."""
+    b, n, k = src.shape
+    lo, hi = kernels.painn_fwd_windows(dist, mask, src, r, cutoff)
+    valid = mask & (src >= 0) & (src < n)
+    nonzero = (kernels.message_basis(dist, r, cutoff, 5) != 0) & valid[..., None]
+    group = torch.arange(k) // 8
+    rows = torch.arange(r)
+    inside = (rows >= lo[..., group, None]) & (rows <= hi[..., group, None])
+    assert not (nonzero & ~inside).any()
+    width = torch.clamp(hi - lo + 1, min=0)
+    per_group = torch.nn.functional.pad(valid, (0, lo.shape[-1] * 8 - k)).reshape(b, n, -1, 8).sum(-1)
+    return int((width * per_group).sum()), int(nonzero.sum())
+
+
+def test_fwd_windows_hold_every_non_zero_basis_value_on_the_bench_graph():
+    """On the sampling path's graph (slots sorted by distance) every non-zero
+    basis value of a valid slot lies in its 8-slot group's rows, and the
+    products run are at most 1.35x the ones needed (1.33x measured); with
+    the slots of every target shuffled the windows widen but still hold
+    every value."""
+    src, dist, mask, _ = _bench_graph()
+    ran, needed = _window_products(src, dist, mask, 128, 12.0)
+    assert needed == 64000 * 28.7831875 and ran <= 1.35 * needed, ran / needed
+    perm = torch.from_numpy(np.random.default_rng(5).permuted(np.tile(np.arange(50), (16, 80, 1)), axis=-1))
+    shuffled = [torch.gather(x, 2, perm) for x in (src, dist, mask)]
+    ran_shuffled, needed_shuffled = _window_products(*shuffled, 128, 12.0)
+    assert needed_shuffled == needed and ran_shuffled > ran
+
+
+@pytest.mark.parametrize("r", [2, 16, 128])
+def test_fwd_windows_hold_every_non_zero_basis_value_on_random_slots(r):
+    """Random distances up to 1.2 x the cutoff (centres at both ends of the
+    rows and past the cutoff), masked slots and sources outside [0, N)."""
+    rng = np.random.default_rng(r)
+    b, n, k = 3, 20, 37
+    src = torch.from_numpy(rng.integers(-2, n + 2, (b, n, k)).astype(np.int32))
+    dist = torch.from_numpy(rng.uniform(0, 7.2, (b, n, k)).astype(np.float32))
+    mask = torch.from_numpy(rng.random((b, n, k)) > 0.2)
+    _window_products(src, dist, mask, r, 6.0)
 
 
 def _quad_inputs(seed, b, n, u, q, k2, s, e, f, zero_rows=False, negative_keys=3):
