@@ -44,7 +44,8 @@ so a reference ``.pt`` would not load into these names.
 transposes.
 
 Not ported yet (raise ``NotImplementedError``): ``compute_dtype="bfloat16"``
-and ``grid_mode="e3nn"`` (reference checkpoint imports, ROADMAP item 13).
+(ROADMAP A.8) and ``grid_mode="e3nn"`` (reference checkpoint imports, ROADMAP
+A.10).
 """
 from __future__ import annotations
 
@@ -455,10 +456,10 @@ class EquiformerV2(nn.Module):
         device = resolve_device(device)
         if compute_dtype is not None:
             raise NotImplementedError(f"EquiformerV2 compute_dtype={compute_dtype!r} (bf16) is not ported yet "
-                                      "(ROADMAP item 12)")
+                                      "(ROADMAP A.8)")
         if grid_mode != "gauss":
             raise NotImplementedError(f"EquiformerV2 grid_mode={grid_mode!r} serves reference-checkpoint imports, "
-                                      "not ported yet (ROADMAP item 13)")
+                                      "not ported yet (ROADMAP A.10)")
         if mode not in ("denoising", "s2ef"):
             raise ValueError(f"unknown EquiformerV2 mode {mode!r}")
         if energy_encoding not in (None, "scalar"):

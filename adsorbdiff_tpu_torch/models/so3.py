@@ -16,7 +16,7 @@ rotation copies nothing from the host after its first call.
 
 ``s2_grid_matrices(mode="e3nn")`` (the reference-checkpoint quadrature)
 raises ``NotImplementedError``: it serves checkpoint imports, which are not
-ported yet (ROADMAP item 13).
+ported yet (ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -227,7 +227,7 @@ def s2_grid_matrices(lmax: int, res_beta: int, res_alpha: int,
     basis (the JAX package's ``mode="gauss"``, bit for bit)."""
     if mode == "e3nn":
         raise NotImplementedError(
-            "s2_grid_matrices(mode='e3nn') serves reference-checkpoint imports, not ported yet (ROADMAP item 13)")
+            "s2_grid_matrices(mode='e3nn') serves reference-checkpoint imports, not ported yet (ROADMAP A.10)")
     if mode != "gauss":
         raise ValueError(f"unknown s2 grid mode {mode!r}")
     alphas = np.linspace(0, 2 * np.pi, res_alpha, endpoint=False)

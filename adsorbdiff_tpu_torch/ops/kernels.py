@@ -1020,8 +1020,10 @@ def s2_grid_silu_bwd_reference(h: torch.Tensor, dy: torch.Tensor, to_grid_m: tor
 
 
 # H100 SXM: the most shared memory a block may take (227 KB), less 1 KB for
-# the kernels' static shared variables
+# the kernels' static shared variables; an SM's shared memory (228 KB), of
+# which the card reserves 1 KB a block
 SMEM_PER_BLOCK = 232448 - 1024
+SMEM_PER_SM = 233472
 
 
 class LaunchPlan(NamedTuple):
@@ -1056,6 +1058,26 @@ def s2_grid_silu_plan(m: int, nc: int, c: int, g: int) -> LaunchPlan:
         raise ValueError(f"s2_grid_silu: the tables need {smem} bytes of shared memory, more than {SMEM_PER_BLOCK}")
     return LaunchPlan(tile=threads * cols, cluster=1, threads=threads,
                       blocks=max(_cdiv(m * c, threads * cols), 1), smem_bytes=smem)
+
+
+def s2_grid_silu_bwd_plan(m: int, nc: int, c: int, g: int, sms: int) -> LaunchPlan:
+    """``csrc/s2_grid_silu_bwd.cu``'s launch on a card of ``sms`` SMs: blocks
+    of 128 threads of 2 columns, persistent, one per SM slot (3 an SM up to
+    NC = 19, 2 past it, fewer where the tables leave no room; one per column
+    group when there are fewer groups).  Block ``b`` takes the 256-column
+    groups ``b, b + blocks, ...`` of the ``m * c`` (edge, channel) columns;
+    both ``[G, NC]`` tables (rows padded to 4) sit in its shared memory,
+    staged once.  The kernel refuses ``smem_bytes`` other than its layout's
+    and ``blocks`` outside 1 .. the groups."""
+    threads, cols = 128, 2
+    smem = 2 * g * _round4(nc) * 4
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"s2_grid_silu_bwd: the tables need {smem} bytes of shared memory, more than "
+                         f"{SMEM_PER_BLOCK}")
+    groups = max(_cdiv(m * c, threads * cols), 1)
+    per_sm = min(3 if nc <= 19 else 2, SMEM_PER_SM // (smem + 1024))
+    return LaunchPlan(tile=threads * cols, cluster=1, threads=threads, blocks=min(groups, per_sm * sms),
+                      smem_bytes=smem)
 
 
 # csrc/eqv2_attn_conv1.cu's constants: edges a tile, threads, most weight
@@ -1236,8 +1258,9 @@ def s2_grid_silu_bwd(h: torch.Tensor, dy: torch.Tensor, to_grid_m: torch.Tensor,
 
     ``h`` and ``dy`` ``[..., NC, C]``, the tables as :func:`s2_grid_silu`
     takes them.  Returns ``dh`` like ``h``, f32.  On the card: the forward's
-    input rules for both ``h`` and ``dy``.  Each column is written by one
-    thread (no atomics): the result repeats bit for bit.
+    input rules for both ``h`` and ``dy``, launched by
+    :func:`s2_grid_silu_bwd_plan`.  Each column is written by one thread (no
+    atomics): the result repeats bit for bit.
     """
     if h.device.type == "cpu":
         return s2_grid_silu_bwd_reference(h, dy, to_grid_m, from_grid_m)
@@ -1245,13 +1268,22 @@ def s2_grid_silu_bwd(h: torch.Tensor, dy: torch.Tensor, to_grid_m: torch.Tensor,
     _check_cuda_inputs("s2_grid_silu_bwd", tensors, {})
     m, nc, c, g = _s2_shape("s2_grid_silu_bwd", tensors)
     _check_shapes("s2_grid_silu_bwd", tensors, dict(dy=tuple(h.shape)))
-    dh = torch.empty_like(h)
     if h.numel() == 0:  # empty output: nothing to launch
-        return dh
-    lib = _library("s2_grid_silu_bwd",
-                   [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        return torch.empty_like(h)
+    return _s2_grid_silu_bwd_launch(h, dy, to_grid_m, from_grid_m, s2_grid_silu_bwd_plan(m, nc, c, g,
+                                                                                           _sm_count(h.device)))
+
+
+def _s2_grid_silu_bwd_launch(h, dy, to_grid_m, from_grid_m, plan: LaunchPlan) -> torch.Tensor:
+    """Launch ``csrc/s2_grid_silu_bwd.cu`` with ``plan`` on checked, non-empty
+    inputs (:func:`s2_grid_silu_bwd`'s) and return ``dh``."""
+    nc, c = h.shape[-2:]
+    dh = torch.empty_like(h)
+    lib = _library("s2_grid_silu_bwd", [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     _launch("s2_grid_silu_bwd", lib, h.device, h.data_ptr(), dy.data_ptr(), to_grid_m.data_ptr(),
-            from_grid_m.data_ptr(), dh.data_ptr(), m, nc, c, g)
+            from_grid_m.data_ptr(), dh.data_ptr(), h.numel() // (nc * c), nc, c, to_grid_m.shape[0], plan.blocks,
+            plan.smem_bytes, shape=f"h{tuple(h.shape)}")
     return dh
 
 

@@ -131,9 +131,15 @@ Phases; any failure raises and the exit code is then non-zero:
    on the node-level target half, from with n_sel 19 and with n_sel 5, the
    gather variant eqv2_gather_rotate_to), each form's VJP against autograd
    of the plain chain, and two ragged TINY shapes; s2_grid_silu_bwd at the
-   first attention block's input of a B=12 training forward and two ragged
-   TINY shapes; times from CUDA events against their f32 bounds; the conv1
-   VJP (a plain recompute, no kernel of its own) timed at that shape.
+   first attention block's input of a B=12 training forward (bit for bit
+   on a second launch), two ragged TINY shapes, column counts (M x C) that
+   are not a multiple of a thread's 2 or a block's 256 at NC 5, 9 and 19,
+   random NC = 32 tables, and h scaled so that max |to_eff @ h| = 100 (the
+   fast sigmoid's e^-g overflows; the output must stay finite); times from
+   CUDA events against their f32 bounds, the backward's with its launch
+   plan, its share of the bound and ptxas's lines for its NC = 19
+   instance; the conv1 VJP (a plain recompute, no kernel of its own) timed
+   at that shape.
 14. EquiformerV2 training path: DenoisingTrainer.train() for one epoch at
    the eqv2_so3.yml + base.yml settings (the model block above with
    cell_reps auto; B=12, AdamW at 4e-4, weight decay 1e-3, cosine LambdaLR
@@ -833,11 +839,17 @@ def s2_bound_ms(h, to_m, from_m, out):
     return (*bound(flops, [h, to_m, from_m, out]), flops)
 
 
-def ptxas_lines(name):
+def ptxas_lines(name, instance=""):
     """ptxas's register and spill lines for kernel source ``name`` (this
-    process's build)."""
-    return [line.strip() for line in build.build_logs.get(name, "").splitlines()
-            if "registers" in line or "spill" in line]
+    process's build); with ``instance``, only those of the functions whose
+    mangled name holds it (e.g. ``"ILi19E"``: a template instance)."""
+    lines, function = [], ""
+    for line in build.build_logs.get(name, "").splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            function = line
+        elif ("registers" in line or "spill" in line) and instance in function:
+            lines.append(line.strip())
+    return lines
 
 
 def check_s2_kernel(name, h, to_m, from_m):
@@ -1659,8 +1671,13 @@ def eqv2_training_path(device, gen, root):
     def check_s2_bwd(name, h, dy, to_m, from_m):
         got = kernels.s2_grid_silu_bwd(h, dy, to_m, from_m)
         torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"s2_grid_silu_bwd {name}: non-finite output")
         return got, check_close(f"s2_grid_silu_bwd {name} h{tuple(h.shape)}", [got],
                                 [kernels.s2_grid_silu_bwd_reference(h, dy, to_m, from_m)])
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(device)
 
     out, s2b_err = check_s2_bwd("training", h, dy, to_m, from_m)
     if not torch.equal(kernels.s2_grid_silu_bwd(h, dy, to_m, from_m), out):
@@ -1668,13 +1685,30 @@ def eqv2_training_path(device, gen, root):
     tiny_to, tiny_from = (torch.from_numpy(t).to(device) for t in equiformer_v2.s2_act_matrices(*EQV2_TINY[:2], 16))
     for lead in ((37,), (3, 11, 7)):
         shape = lead + (tiny_to.shape[1], 16)
-        check_s2_bwd("ragged", torch.randn(shape, generator=gen).to(device), torch.randn(shape, generator=gen).to(device),
-                     tiny_to, tiny_from)
+        check_s2_bwd("ragged", randn(*shape), randn(*shape), tiny_to, tiny_from)
+    # column counts (M x C) that are not a multiple of a thread's 2 or a block's 256, at NC 5, 9 and 19
+    for lmax, mmax in ((4, 0), (2, 2), (4, 2)):
+        r_to, r_from = (torch.from_numpy(t).to(device) for t in equiformer_v2.s2_act_matrices(lmax, mmax, 18))
+        for lead, c in (((1,), 3), ((37,), 16), ((129,), 5)):
+            shape = lead + (r_to.shape[1], c)
+            check_s2_bwd(f"ragged NC={r_to.shape[1]}", randn(*shape), randn(*shape), r_to, r_from)
+    check_s2_bwd("random NC=32 tables", randn(3, 37, 32, 16), randn(3, 37, 32, 16), randn(324, 32) / 32 ** 0.5,
+                 randn(32, 324) / 32 ** 0.5)
+    h_large = randn(2, 40, *h.shape[-2:])
+    h_large *= 100.0 / (to_m @ h_large).abs().max()  # max |g| = 100: e^-g overflows where g < -88.7
+    check_s2_bwd("max |g| 100", h_large, randn(*h_large.shape), to_m, from_m)
     s2b_ms = cuda_ms(lambda: kernels.s2_grid_silu_bwd(h, dy, to_m, from_m), 20)
     s2b_plain_ms = cuda_ms(lambda: kernels.s2_grid_silu_bwd_reference(h, dy, to_m, from_m), 5)
     s2b_bound, s2b_by, s2b_bytes, s2b_flops = s2_bwd_bound_ms(h, dy, to_m, from_m, out)
+    nc, c = h.shape[-2:]
+    m = h.numel() // (nc * c)
+    s2b_plan = kernels.s2_grid_silu_bwd_plan(m, nc, c, to_m.shape[0], kernels._sm_count(device))
     print(f"[kernel] s2_grid_silu_bwd at h{tuple(h.shape)}: {s2b_ms:.4f} ms, plain {s2b_plain_ms:.4f} ms, bound "
-          f"{s2b_bound:.4f} ms by {s2b_by} ({s2b_flops / 1e9:.2f} GFLOP f32, {s2b_bytes / 1e6:.2f} MB)", flush=True)
+          f"{s2b_bound:.4f} ms by {s2b_by} ({s2b_flops / 1e9:.2f} GFLOP f32, {s2b_bytes / 1e6:.2f} MB), "
+          f"{100 * s2b_bound / s2b_ms:.1f}% of the bound; plan: {s2b_plan.blocks} persistent blocks of "
+          f"{s2b_plan.threads} threads x 2 columns over {-(-m * c // s2b_plan.tile)} groups of {s2b_plan.tile} "
+          f"columns, {s2b_plan.smem_bytes} B shared; ptxas (NC = {nc}): "
+          f"{' | '.join(ptxas_lines('s2_grid_silu_bwd', f'ILi{nc}E')) or 'not built in this process'}", flush=True)
 
     # the conv1 VJP: a plain recompute (the TPU kernel has no backward body either), timed at this shape
     args, kw = calls["eqv2_attn_conv1"]

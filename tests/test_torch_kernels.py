@@ -1163,6 +1163,44 @@ def test_s2_grid_silu_plan_covers_every_column(m, nc, c):
     assert plan.smem_bytes == 2 * 324 * ((nc + 3) // 4 * 4) * 4 <= kernels.SMEM_PER_BLOCK
 
 
+@pytest.mark.parametrize("m,nc,c", [(19_200, 19, 64), (25_600, 19, 64), (37, 5, 16), (3, 9, 7), (1, 19, 1),
+                                    (5, 32, 3)])
+def test_s2_grid_silu_bwd_plan_covers_every_column(m, nc, c):
+    """Every (edge, channel) column once: groups of 128 threads x 2 columns,
+    block b taking groups b, b + blocks, ...; at most one block an SM slot
+    and none without a group (the kernel refuses such a plan)."""
+    plan = kernels.s2_grid_silu_bwd_plan(m, nc, c, 324, 132)
+    assert (plan.threads, plan.tile, plan.cluster) == (128, 256, 1)
+    groups = -(-m * c // plan.tile)
+    assert groups * plan.tile >= m * c > (groups - 1) * plan.tile
+    assert 1 <= plan.blocks <= min(groups, (3 if nc <= 19 else 2) * 132)
+    taken = np.concatenate([np.arange(b, groups, plan.blocks) for b in range(plan.blocks)])
+    np.testing.assert_array_equal(np.sort(taken), np.arange(groups))
+    assert plan.smem_bytes == 2 * 324 * ((nc + 3) // 4 * 4) * 4 <= kernels.SMEM_PER_BLOCK
+
+
+def test_s2_grid_silu_bwd_plan_takes_three_blocks_an_sm_at_the_training_shape():
+    """h [12, 80, 20, 19, 64]: 4800 groups over 396 blocks (12 warps an SM,
+    as the launch bound asks at NC <= 19), 12 or 13 groups each; three
+    blocks' tables fit an SM's shared memory.  NC = 32 takes two an SM."""
+    plan = kernels.s2_grid_silu_bwd_plan(19_200, 19, 64, 324, 132)
+    assert plan.blocks == 3 * 132
+    assert 3 * (plan.smem_bytes + 1024) <= kernels.SMEM_PER_SM
+    assert {len(range(b, 4800, plan.blocks)) for b in range(plan.blocks)} == {12, 13}
+    assert kernels.s2_grid_silu_bwd_plan(19_200, 32, 64, 324, 132).blocks == 2 * 132
+
+
+def test_s2_grid_silu_bwd_plan_refuses_only_tables_that_do_not_fit():
+    """Every NC the wrapper takes (1-32) fits at the 324-point grid; tables
+    past one block's shared memory raise by name; a grid whose tables leave
+    room for one block an SM gets one."""
+    for nc in range(1, 33):
+        assert kernels.s2_grid_silu_bwd_plan(19_200, nc, 64, 324, 132).smem_bytes <= kernels.SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match="s2_grid_silu_bwd: the tables need 522240 bytes"):
+        kernels.s2_grid_silu_bwd_plan(100, 32, 64, 2040, 132)
+    assert kernels.s2_grid_silu_bwd_plan(19_200, 32, 64, 900, 132).blocks == 132
+
+
 # Kernel vs plain at the redesigned kernels' boundaries, at TINY and CONV1_L4
 # widths (every plan takes more than 48 KB of shared memory; no clusters).
 @pytest.mark.cuda
@@ -1447,26 +1485,92 @@ def test_edge_rotate_wrappers_on_cpu_count_no_launch_and_give_angles_no_gradient
         eqv2_edge_rotate(xt.detach(), tg, tb, 2, 1, direction="from")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize(
-    "lmax,mmax,shape",
-    [(4, 2, (3, 5, 19, 16)), (2, 1, (2, 24, 12, 7, 16)), (4, 2, (12, 80, 20, 19, 64)), (3, 3, (37, 16, 33)),
-     (1, 1, (5, 4, 1))],
-    ids=["jax-test", "tiny", "training-width", "ragged", "nc4-c1"],
-)
-def test_s2_grid_silu_bwd_kernel_matches_plain_version_on_card(cuda_device, lmax, mmax, shape):
-    """|kernel - plain| <= 1e-4 * max|plain| + 1e-5 (f32 sums in another
-    order); the kernel's result repeats bit for bit."""
-    to_m, from_m = (torch.from_numpy(t).to(cuda_device) for t in _s2_tables(lmax, mmax, 18 if lmax == 4 else 8))
+# (lmax, mmax, grid resolution, h's shape, max |g| wanted or None): lmax None takes random [324, NC] tables
+S2_BWD_CASES = {
+    "jax-test": (4, 2, 18, (3, 5, 19, 16), None),
+    "tiny": (2, 1, 8, (2, 24, 12, 7, 16), None),
+    "training-width": (4, 2, 18, (12, 80, 20, 19, 64), None),
+    "ragged": (3, 3, 8, (37, 16, 33), None),
+    "nc4-c1": (1, 1, 8, (5, 4, 1), None),
+    # column counts (M x C) that are not a multiple of a thread's 2 or a block's 256
+    **{f"nc{nc}-cols{lead[0] * c}": (lmax, mmax, 18, lead + (nc, c), None)
+       for lmax, mmax, nc in ((4, 0, 5), (2, 2, 9), (4, 2, 19)) for lead, c in (((1,), 3), ((37,), 16), ((129,), 5))},
+    "nc32": (None, None, 18, (3, 37, 32, 16), None),
+    # h scaled so that max |to_eff @ h| = 100: the fast sigmoid's e^-g overflows to inf where g < -88.7
+    "large-g": (4, 2, 18, (2, 40, 19, 64), 100.0),
+}
+
+
+def _s2_bwd_case(case, device):
+    """The tables, h and dy of an S2_BWD_CASES entry."""
+    lmax, mmax, res, shape, g_max = case
     rng = np.random.default_rng(48)
-    h, dy = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device) for _ in range(2))
+    if lmax is None:
+        nc = shape[-2]
+        g = res * res
+        to_m, from_m = ((rng.normal(size=s) / np.sqrt(nc)).astype(np.float32) for s in ((g, nc), (nc, g)))
+    else:
+        to_m, from_m = _s2_tables(lmax, mmax, res)
+    assert to_m.shape[1] == shape[-2]
+    h, dy = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+    if g_max is not None:
+        h *= np.float32(g_max / np.abs(to_m @ h).max())
+    return [torch.from_numpy(t).to(device) for t in (h, dy, to_m, from_m)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(S2_BWD_CASES.values()), ids=list(S2_BWD_CASES))
+def test_s2_grid_silu_bwd_kernel_matches_plain_version_on_card(cuda_device, case):
+    """|kernel - plain| <= 1e-4 * max|plain| + 1e-5 (f32 sums in another
+    order), finite where |g| reaches 100; the kernel's result repeats bit for
+    bit."""
+    h, dy, to_m, from_m = _s2_bwd_case(case, cuda_device)
     before = kernels.launches["s2_grid_silu_bwd"]
     got = s2_grid_silu_bwd(h, dy, to_m, from_m)
     torch.cuda.synchronize()
     assert kernels.launches["s2_grid_silu_bwd"] == before + 1
     want = s2_grid_silu_bwd_reference(h, dy, to_m, from_m)
+    assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-5
     assert torch.equal(s2_grid_silu_bwd(h, dy, to_m, from_m), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [1, 2, 7, "groups"])
+def test_s2_grid_silu_bwd_kernel_forced_plans_match_plain_version_on_card(cuda_device, blocks):
+    """One block taking every column group, 2 or 7 blocks taking uneven
+    shares (at most one a group), and one block a group, at 645 columns (3
+    groups, the last ragged) and at 333 x 16 = 5328 columns (21 groups):
+    the same result bit for bit as the wrapper's plan, within the gate of
+    the plain version."""
+    for name in ("nc19-cols645", "nc9-cols592"):
+        h, dy, to_m, from_m = _s2_bwd_case(S2_BWD_CASES[name], cuda_device)
+        if name == "nc9-cols592":
+            h, dy = (t.repeat(9, 1, 1) for t in (h, dy))
+        nc, c = h.shape[-2:]
+        plan = kernels.s2_grid_silu_bwd_plan(h.numel() // (nc * c), nc, c, to_m.shape[0],
+                                             kernels._sm_count(cuda_device))
+        groups = -(-h.numel() // nc // plan.tile)
+        got = kernels._s2_grid_silu_bwd_launch(h, dy, to_m, from_m,
+                                               plan._replace(blocks=groups if blocks == "groups" else
+                                                             min(blocks, groups)))
+        torch.cuda.synchronize()
+        want = s2_grid_silu_bwd_reference(h, dy, to_m, from_m)
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-5
+        assert torch.equal(got, s2_grid_silu_bwd(h, dy, to_m, from_m))
+
+
+@pytest.mark.cuda
+def test_s2_grid_silu_bwd_kernel_refuses_a_plan_that_disagrees_with_its_layout(cuda_device):
+    h, dy, to_m, from_m = _s2_bwd_case(S2_BWD_CASES["nc19-cols645"], cuda_device)
+    nc, c = h.shape[-2:]
+    plan = kernels.s2_grid_silu_bwd_plan(h.numel() // (nc * c), nc, c, to_m.shape[0], kernels._sm_count(cuda_device))
+    before = kernels.launches["s2_grid_silu_bwd"]
+    for bad in (plan._replace(smem_bytes=plan.smem_bytes + 16), plan._replace(blocks=0),
+                plan._replace(blocks=plan.blocks + 1)):
+        with pytest.raises(RuntimeError, match="s2_grid_silu_bwd launch failed at h"):
+            kernels._s2_grid_silu_bwd_launch(h, dy, to_m, from_m, bad)
+    assert kernels.launches["s2_grid_silu_bwd"] == before
 
 
 @pytest.mark.cuda

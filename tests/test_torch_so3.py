@@ -62,7 +62,7 @@ def test_production_layout_has_19_active_rows():
 
 
 def test_e3nn_grid_mode_raises():
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
         so3.s2_grid_matrices(2, 8, 8, mode="e3nn")
 
 
