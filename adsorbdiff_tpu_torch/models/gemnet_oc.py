@@ -22,10 +22,11 @@ state dict.
 
 The quadruplet interaction always runs :func:`adsorbdiff_tpu_torch.ops.
 kernels.gemnet_quad_chain`, the JAX model's ``fused_quad=True`` path, and the
-e2e, a2e and e2a triplet bases always come from :func:`adsorbdiff_tpu_torch.
-ops.kernels.gemnet_cbf_basis` (the masked Legendre kernel; the JAX model's
-``use_pallas=True`` path for the first two, and the same function for the
-third, which JAX leaves to XLA).  There is no switch: ``fused_quad`` and
+e2e, a2e and e2a triplet bases always come from one call of
+:func:`adsorbdiff_tpu_torch.ops.kernels.gemnet_cbf_bases` (the masked
+Legendre kernel, one launch for the bases of the interactions switched on;
+the JAX model's ``use_pallas=True`` path for the first two, and the same
+function for the third, which JAX leaves to XLA).  There is no switch: ``fused_quad`` and
 ``use_pallas`` are accepted for config compatibility and ignored.  The
 quadruplet's c == d exclusion compares integer image keys (:func:`_img_key`),
 which the port packs in base 64: exact wherever the JAX package's base-16
@@ -47,7 +48,7 @@ from adsorbdiff_tpu_torch.models.base import (derive_subgraph, generate_graph, p
                                               prepare_static_graph)
 from adsorbdiff_tpu_torch.models.layers import AtomEmbedding, RadialBasis, ScaleFactor, lecun_normal_, scaled_silu
 from adsorbdiff_tpu_torch.ops import pbc
-from adsorbdiff_tpu_torch.ops.kernels import gemnet_cbf_basis, gemnet_quad_chain, legendre_y_l0
+from adsorbdiff_tpu_torch.ops.kernels import gemnet_cbf_bases, gemnet_quad_chain, legendre_y_l0
 
 INV_SQRT_2 = 1 / math.sqrt(2.0)
 KEY_BASE, KEY_BIAS = 64, 32  # _img_key digits: offsets in [-32, 31]
@@ -550,7 +551,21 @@ class GemNetOC(nn.Module):
         not_self = ~torch.eye(k1, dtype=torch.bool, device=emask.device)[None, None]
         trip_mask_e2e = emask[:, :, :, None] & emask[:, :, None, :] & not_self
         unit = unit.contiguous()
-        cbf_e2e = gemnet_cbf_basis(unit, unit, trip_mask_e2e.contiguous(), s)  # [B,N,S,K1,K1], mask folded
+        # the triplet bases' masks (a2e, e2a below) come first, so that one launch computes every basis
+        trip_problems = [(unit, unit, trip_mask_e2e.contiguous())]  # e2e: [B,N,S,K1,K1], mask folded
+        if self.atom_edge_interaction or self.edge_atom_interaction:
+            same_ae = _same_edge(
+                nl_ae.src[:, :, None, :], nl_ae.cell_offsets[:, :, None, :, :],
+                nl.src[:, :, :, None], nl.cell_offsets[:, :, :, None, :],
+            )  # [B,N,K1,Kae]
+            unit_ae = unit_ae.contiguous()
+        if self.atom_edge_interaction:
+            trip_mask_a2e = emask[:, :, :, None] & nl_ae.mask[:, :, None, :] & ~same_ae
+            trip_problems.append((unit, unit_ae, trip_mask_a2e.contiguous()))  # a2e: [B,N,S,K1,Kae]
+        if self.edge_atom_interaction:
+            trip_mask_e2a = nl_ae.mask[:, :, :, None] & emask[:, :, None, :] & ~same_ae.transpose(2, 3)
+            trip_problems.append((unit_ae, unit, trip_mask_e2a.contiguous()))  # e2a: [B,N,S,Kae,K1]
+        cbf_e2e, *cbf_ae = gemnet_cbf_bases(trip_problems, s)
         radw_tint = self.mlp_cbf_tint(rad_main, radw_only=True)  # [B,N,K1,F,S]
         rad_e2e = self.mlp_rbf_tint(rad_main)
 
@@ -593,20 +608,13 @@ class GemNetOC(nn.Module):
             n1, n2 = n1.contiguous(), n2.contiguous()
 
         if self.atom_edge_interaction or self.edge_atom_interaction:
-            same_ae = _same_edge(
-                nl_ae.src[:, :, None, :], nl_ae.cell_offsets[:, :, None, :, :],
-                nl.src[:, :, :, None], nl.cell_offsets[:, :, :, None, :],
-            )  # [B,N,K1,Kae]
             rad_ae = self.radial_basis_aeaint(dist_ae)
-            unit_ae = unit_ae.contiguous()
         if self.atom_edge_interaction:
-            trip_mask_a2e = emask[:, :, :, None] & nl_ae.mask[:, :, None, :] & ~same_ae
-            cbf_a2e = gemnet_cbf_basis(unit, unit_ae, trip_mask_a2e.contiguous(), s)  # [B,N,S,K1,Kae]
+            cbf_a2e = cbf_ae.pop(0)
             radw_aeint = self.mlp_cbf_aeint(rad_main, radw_only=True)  # [B,N,K1,F,S]
             rad_a2e = self.mlp_rbf_aeint(rad_ae)
         if self.edge_atom_interaction:
-            trip_mask_e2a = nl_ae.mask[:, :, :, None] & emask[:, :, None, :] & ~same_ae.transpose(2, 3)
-            cbf_e2a = gemnet_cbf_basis(unit_ae, unit, trip_mask_e2a.contiguous(), s)  # [B,N,S,Kae,K1]
+            cbf_e2a = cbf_ae.pop(0)
             radw_eaint = self.mlp_cbf_eaint(rad_ae, radw_only=True)  # [B,N,Kae,F,S]
             rad_e2a = self.mlp_rbf_eaint(rad_main)
 

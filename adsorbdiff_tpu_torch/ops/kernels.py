@@ -207,11 +207,15 @@ def _check_shapes(kernel: str, tensors: dict, expected: dict) -> None:
 def _launch(kernel: str, lib: ctypes.CDLL, device: torch.device, *args, count_as: Optional[str] = None,
             shape: Optional[str] = None) -> None:
     """Call ``<kernel>_f32(*args, stream)`` on the current stream of
-    ``device``; raise on a non-zero cudaError (naming ``shape`` where given),
-    else count the launch under ``count_as`` (default ``kernel``)."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, kernel + "_f32")(*args, stream)
+    ``device`` (made the current device for the call where it is not);
+    raise on a non-zero cudaError (naming ``shape`` where given), else count
+    the launch under ``count_as`` (default ``kernel``)."""
+    fn = getattr(lib, kernel + "_f32")
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, _raw_stream(device))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, _raw_stream(device))
     if err != 0:
         msg = getattr(lib, kernel + "_error_string")(err).decode()
         raise RuntimeError(f"{kernel} launch failed{' at ' + shape if shape else ''}: {msg} (cudaError {err})")
@@ -912,25 +916,154 @@ def gemnet_quad_basis_reference(n1: torch.Tensor, n2: torch.Tensor, keep: torch.
     return _masked_legendre(torch.clamp(cos, -1.0, 1.0), keep.permute(0, 1, 3, 2, 4), num_spherical, dim=2)
 
 
-def _legendre_launch(tensors: dict, out: torch.Tensor, outer: int, q: int, m: int, k: int, s: int,
-                     normalize: bool, strides: Tuple[int, ...]) -> None:
-    """Launch ``csrc/masked_legendre_cos.cu`` on ``outer x q`` cells of
-    ``m x k`` columns, every operand addressed through ``strides`` (a: outer,
-    q, m; b: outer, q, k, component; keep: outer, q, m; y: outer, q, l, m)."""
-    _check_cuda_inputs("masked_legendre_cos", tensors, {"keep": torch.bool})
-    if not 1 <= s <= 16:
-        raise ValueError(f"masked_legendre_cos: the kernel holds 1 <= S <= 16 levels, got {s}")
-    if 12 * (m + k) > 227 * 1024:
-        raise ValueError(f"masked_legendre_cos: M + K = {m + k} rows exceed the shared memory")
-    if out.numel() == 0:  # empty output: nothing to launch
-        return
-    lib = _library("masked_legendre_cos", [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 3)
-    a, b, keep = tensors["a"], tensors["b"], tensors["keep"]
-    strides_c = (ctypes.c_longlong * 14)(*strides)
+# csrc/masked_legendre_cos.cu's constants: problems a group, threads a block, the columns a block aims at (~7 a
+# thread), long longs a problem in the host table
+_LG_PROBLEMS, _LG_THREADS, _LG_COLUMNS, _LG_TABLE = 3, 256, 2048, 22
+
+
+class LegendreGroupPlan(NamedTuple):
+    """How ``csrc/masked_legendre_cos.cu`` is launched for a group of
+    problems: problem ``p`` takes blocks ``[first[p], first[p] + blocks_of[p])``,
+    each of ``cpb[p]`` consecutive cells (the last one fewer), with four
+    columns a thread where ``vec[p]`` (M K % 4 == 0), else one; ``blocks`` in
+    all, of ``threads`` threads and ``smem_bytes`` of dynamic shared memory
+    (the largest problem's staged a and b rows)."""
+
+    first: Tuple[int, ...]
+    blocks_of: Tuple[int, ...]
+    cpb: Tuple[int, ...]
+    vec: Tuple[bool, ...]
+    blocks: int
+    threads: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=64)
+def legendre_group_plan(shapes: Tuple[Tuple[int, int, int], ...]) -> LegendreGroupPlan:
+    """The launch for a group of 1 to 3 problems, ``shapes`` one ``(cells, M,
+    K)`` each: a block takes ``cpb = 2048 // (M K)`` cells (at least one, as
+    far as their rows fit the shared memory), so that its 256 threads take ~7
+    columns each (e2e at 30 x 30: 2 cells; a2e and e2a at 30 x 20: 3);
+    problems with no column take no block.  Raises where one cell's rows do
+    not fit the shared memory."""
+    if not 1 <= len(shapes) <= _LG_PROBLEMS:
+        raise ValueError(f"masked_legendre_cos: a launch takes 1 to {_LG_PROBLEMS} problems, got {len(shapes)}")
+    first, blocks_of, cpbs, vecs, smem, total = [], [], [], [], 0, 0
+    for cells, m, k in shapes:
+        row_bytes = 12 * (m + k)
+        if row_bytes > SMEM_PER_BLOCK:
+            raise ValueError(f"masked_legendre_cos: M + K = {m + k} rows exceed the shared memory")
+        cpb = max(1, min(_LG_COLUMNS // max(m * k, 1), SMEM_PER_BLOCK // max(row_bytes, 1), max(cells, 1)))
+        n_blocks = _cdiv(cells, cpb) if m * k > 0 else 0
+        if n_blocks:
+            smem = max(smem, cpb * row_bytes)
+        first.append(total)
+        blocks_of.append(n_blocks)
+        cpbs.append(cpb)
+        vecs.append(m * k % 4 == 0)
+        total += n_blocks
+    return LegendreGroupPlan(first=tuple(first), blocks_of=tuple(blocks_of), cpb=tuple(cpbs), vec=tuple(vecs),
+                             blocks=total, threads=_LG_THREADS, smem_bytes=smem)
+
+
+def legendre_group_work(plan: LegendreGroupPlan, shapes: Tuple[Tuple[int, int, int], ...]):
+    """The kernel's work in Python: for each block ``(problem, first cell,
+    cells, columns a unit)``; the block's threads take units ``tid, tid +
+    256, ..`` of its cells' ``cells x M x K`` columns, flattened cell-major,
+    ``m`` before ``k``."""
+    for b in range(plan.blocks):
+        p = max(i for i in range(len(shapes)) if plan.first[i] <= b and plan.blocks_of[i] > 0)
+        cell0 = (b - plan.first[p]) * plan.cpb[p]
+        yield p, cell0, min(plan.cpb[p], shapes[p][0] - cell0), 4 if plan.vec[p] else 1
+
+
+def _legendre_problem(spec: Tuple, s: int) -> Tuple[int, int, int, int, bool, Tuple[int, ...]]:
+    """``(outer, q, m, k, normalize, strides)`` of one problem from its
+    ``spec``: ``("cbf", B, N, M, K)`` (a triplet basis, one (b, n) row a
+    cell), ``("quad", B, N, K1, Kq, K2)`` (the dihedral basis, one (b, n, q)
+    row a cell, its vectors normalised) or ``("flat", G, M, K)``
+    (:func:`masked_legendre_cos`).  Strides: a: outer, q, m; b: outer, q, k,
+    component; keep: outer, q, m; y: outer, q, l, m."""
+    if spec[0] == "cbf":
+        _, b, n, m, k = spec
+        return b * n, 1, m, k, False, (m * 3, 0, 3, k * 3, 0, 3, 1, m * k, 0, k, s * m * k, 0, m * k, k)
+    if spec[0] == "quad":
+        _, b, n, k1, kq, k2 = spec
+        return (b * n, kq, k1, k2, True, (k1 * kq * 3, 3, kq * 3, kq * k2 * 3, k2 * 3, 3, 1, k1 * kq * k2, k2,
+                                          kq * k2, s * kq * k1 * k2, k1 * k2, kq * k1 * k2, k2))
+    _, g, m, k = spec
+    return g, 1, m, k, False, (m * 3, 0, 3, 3 * k, 0, 1, k, m * k, 0, k, s * m * k, 0, m * k, k)
+
+
+@functools.lru_cache(maxsize=64)
+def _legendre_table(specs: Tuple[Tuple, ...], s: int):
+    """The launch's host part for the problems ``specs`` (cached): the plan,
+    the table of ``csrc/masked_legendre_cos.cu`` and its address, the
+    coefficients and their address (the arrays kept alive by the cache
+    entry), and the pointer array's ctypes type."""
+    problems = [_legendre_problem(spec, s) for spec in specs]
+    plan = legendre_group_plan(tuple((outer * q, m, k) for outer, q, m, k, _, _ in problems))
+    rows = []
+    for i, (outer, q, m, k, normalize, strides) in enumerate(problems):
+        rows += [*strides, outer * q, q, m, k, int(normalize), plan.first[i], plan.cpb[i], int(plan.vec[i])]
+    table = (ctypes.c_longlong * len(rows))(*rows)
     coef = _legendre_coefs(s)
-    _launch("masked_legendre_cos", lib, a.device, a.data_ptr(), b.data_ptr(), keep.data_ptr(), out.data_ptr(),
-            outer, q, m, k, s, int(normalize), ctypes.addressof(strides_c), coef.ctypes.data)
+    return plan, table, ctypes.addressof(table), coef, coef.ctypes.data, ctypes.c_void_p * (4 * len(specs))
+
+
+@functools.lru_cache(maxsize=None)
+def _legendre_fn():
+    lib = _library("masked_legendre_cos", [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p])
+    return lib.masked_legendre_cos_f32, lib.masked_legendre_cos_error_string
+
+
+def _check_legendre_problem(kernel: str, a: torch.Tensor, b: torch.Tensor, keep: torch.Tensor,
+                            device: torch.device, s: int, shapes: Tuple[Tuple[int, ...], ...]) -> None:
+    """The checks that raise, for one problem on the card: device, dtype,
+    contiguity, no gradient, S and the shapes of ``a``, ``b`` and ``keep``."""
+    for name, t, dtype, shape in (("a", a, torch.float32, shapes[0]), ("b", b, torch.float32, shapes[1]),
+                                  ("keep", keep, torch.bool, shapes[2])):
+        if t.device != device:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, not {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+        if t.dtype != dtype:
+            raise TypeError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
+        if t.shape != shape:
+            raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, want {shape}")
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        raise NotImplementedError(f"{kernel} has no backward kernel on CUDA yet")
+    if not 1 <= s <= 16:
+        raise ValueError(f"{kernel}: the kernel holds 1 <= S <= 16 levels, got {s}")
+
+
+def _raw_stream(device: torch.device) -> int:
+    """The current stream of ``device``, the current device (no Stream
+    object and no device context: the launch's host cost)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _legendre_launch(specs: Tuple[Tuple, ...], tensors, s: int) -> None:
+    """One launch of ``csrc/masked_legendre_cos.cu`` for the problems
+    ``specs`` (see :func:`_legendre_problem`), ``tensors`` their ``(a, b,
+    keep, out)`` in turn, counted once; none where no problem has a column."""
+    device = tensors[0].device
+    plan, _, table, _, coef, ptr_type = _legendre_table(specs, s)
+    if plan.blocks == 0:  # empty outputs: nothing to launch
+        return
+    ptrs = ptr_type(*[t.data_ptr() for t in tensors])
+    fn, msg = _legendre_fn()
+    args = (len(specs), table, ctypes.addressof(ptrs), s, coef, plan.blocks, plan.threads, plan.smem_bytes)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, _raw_stream(device))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, _raw_stream(device))
+    if err != 0:
+        raise RuntimeError(f"masked_legendre_cos launch failed at {specs}: {msg(err).decode()} (cudaError {err})")
+    launches["masked_legendre_cos"] += 1
 
 
 def masked_legendre_cos(a: torch.Tensor, bt: torch.Tensor, keep: torch.Tensor, num_spherical: int) -> torch.Tensor:
@@ -943,16 +1076,16 @@ def masked_legendre_cos(a: torch.Tensor, bt: torch.Tensor, keep: torch.Tensor, n
     will bring the VJP)."""
     if a.device.type == "cpu":
         return masked_legendre_cos_reference(a, bt, keep, num_spherical)
+    if a.device.type != "cuda":
+        raise ValueError(f"masked_legendre_cos: unsupported device {a.device}")
     g, m, c = a.shape
     k = bt.shape[2]
     if c != 3:
         raise ValueError(f"masked_legendre_cos: the kernel takes C = 3 components, got {c}")
-    tensors = dict(a=a, b=bt, keep=keep)
-    _check_shapes("masked_legendre_cos", tensors, dict(b=(g, 3, k), keep=(g, m, k)))
     s = num_spherical
+    _check_legendre_problem("masked_legendre_cos", a, bt, keep, a.device, s, ((g, m, 3), (g, 3, k), (g, m, k)))
     out = torch.empty((g, s, m, k), dtype=torch.float32, device=a.device)
-    _legendre_launch(tensors, out, g, 1, m, k, s, False,
-                     (m * 3, 0, 3, 3 * k, 0, 1, k, m * k, 0, k, s * m * k, 0, m * k, k))
+    _legendre_launch((("flat", g, m, k),), (a, bt, keep, out), s)
     return out
 
 
@@ -962,19 +1095,56 @@ def gemnet_cbf_basis(u: torch.Tensor, v: torch.Tensor, keep: torch.Tensor, num_s
 
     ``u [B, N, M, 3]``, ``v [B, N, K, 3]`` unit rows (zero rows, padded edges,
     give cos 0), ``keep [B, N, M, K]`` bool -> ``[B, N, S, M, K]`` f32.  On the
-    card: as :func:`masked_legendre_cos`; launches counted under
+    card: as :func:`masked_legendre_cos`, a group of one of
+    :func:`gemnet_cbf_bases`; launches counted under
     ``masked_legendre_cos``."""
     if u.device.type == "cpu":
         return gemnet_cbf_basis_reference(u, v, keep, num_spherical)
-    b, n, m, _ = u.shape
-    k = v.shape[2]
-    tensors = dict(a=u, b=v, keep=keep)
-    _check_shapes("gemnet_cbf_basis", tensors, dict(a=(b, n, m, 3), b=(b, n, k, 3), keep=(b, n, m, k)))
-    s = num_spherical
-    out = torch.empty((b, n, s, m, k), dtype=torch.float32, device=u.device)
-    _legendre_launch(tensors, out, b * n, 1, m, k, s, False,
-                     (m * 3, 0, 3, k * 3, 0, 3, 1, m * k, 0, k, s * m * k, 0, m * k, k))
-    return out
+    return gemnet_cbf_bases([(u, v, keep)], num_spherical)[0]
+
+
+def gemnet_cbf_bases(problems, num_spherical: int):
+    """Up to three triplet bases in one launch: ``problems`` a list of 1 to 3
+    ``(u, v, keep)`` triples as :func:`gemnet_cbf_basis` takes them; returns
+    one ``[B, N, S, M, K]`` f32 tensor each.  GemNet-OC's forward passes the
+    e2e, a2e and e2a bases of the interactions it runs.  On the CPU: each
+    basis's plain version, no launch; on the card: one launch for the group
+    (none where every output is empty), counted once under
+    ``masked_legendre_cos``, after the checks of :func:`gemnet_cbf_basis`
+    on every problem."""
+    if not 1 <= len(problems) <= _LG_PROBLEMS:
+        raise ValueError(f"gemnet_cbf_bases: takes 1 to {_LG_PROBLEMS} problems, got {len(problems)}")
+    device = problems[0][0].device
+    if device.type == "cpu":
+        return [gemnet_cbf_basis_reference(u, v, keep, num_spherical) for u, v, keep in problems]
+    if device.type != "cuda":
+        raise ValueError(f"gemnet_cbf_basis: unsupported device {device}")
+    s, specs = num_spherical, []
+    for u, v, keep in problems:
+        b, n, m, _ = u.shape
+        k = v.shape[2]
+        _check_legendre_problem("gemnet_cbf_basis", u, v, keep, device, s, ((b, n, m, 3), (b, n, k, 3), (b, n, m, k)))
+        specs.append(("cbf", b, n, m, k))
+    specs = tuple(specs)
+    # one allocation for the group (an allocation costs more host time than a view), each output at an offset of
+    # whole 16-byte units, as the kernel's float4 stores need
+    offsets, total = _cbf_offsets(specs, s)
+    buf = torch.empty(total, dtype=torch.float32, device=device)
+    outs = [buf.as_strided((b, n, s, m, k), (s * m * k * n, s * m * k, m * k, k, 1), off)
+            for (_, b, n, m, k), off in zip(specs, offsets)]
+    _legendre_launch(specs, [t for p, out in zip(problems, outs) for t in (*p, out)], s)
+    return outs
+
+
+@functools.lru_cache(maxsize=64)
+def _cbf_offsets(specs: Tuple[Tuple, ...], s: int) -> Tuple[Tuple[int, ...], int]:
+    """Each triplet basis's offset in one buffer, in floats rounded up to
+    multiples of 4, and the buffer's size."""
+    offsets, total = [], 0
+    for _, b, n, m, k in specs:
+        offsets.append(total)
+        total += _round4(b * n * s * m * k)
+    return tuple(offsets), total
 
 
 def gemnet_quad_basis(n1: torch.Tensor, n2: torch.Tensor, keep: torch.Tensor, num_spherical: int) -> torch.Tensor:
@@ -988,16 +1158,15 @@ def gemnet_quad_basis(n1: torch.Tensor, n2: torch.Tensor, keep: torch.Tensor, nu
     kernel.  On the card: as :func:`masked_legendre_cos`."""
     if n1.device.type == "cpu":
         return gemnet_quad_basis_reference(n1, n2, keep, num_spherical)
+    if n1.device.type != "cuda":
+        raise ValueError(f"gemnet_quad_basis: unsupported device {n1.device}")
+    s = num_spherical
     b, n, k1, kq, _ = n1.shape
     k2 = n2.shape[3]
-    tensors = dict(a=n1, b=n2, keep=keep)
-    _check_shapes("gemnet_quad_basis", tensors, dict(a=(b, n, k1, kq, 3), b=(b, n, kq, k2, 3),
-                                                     keep=(b, n, k1, kq, k2)))
-    s = num_spherical
+    _check_legendre_problem("gemnet_quad_basis", n1, n2, keep, n1.device, s,
+                            ((b, n, k1, kq, 3), (b, n, kq, k2, 3), (b, n, k1, kq, k2)))
     out = torch.empty((b, n, s, kq, k1, k2), dtype=torch.float32, device=n1.device)
-    _legendre_launch(tensors, out, b * n, kq, k1, k2, s, True,
-                     (k1 * kq * 3, 3, kq * 3, kq * k2 * 3, k2 * 3, 3, 1, k1 * kq * k2, k2, kq * k2,
-                      s * kq * k1 * k2, k1 * k2, kq * k1 * k2, k2))
+    _legendre_launch((("quad", b, n, k1, kq, k2),), (n1, n2, keep, out), s)
     return out
 
 

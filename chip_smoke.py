@@ -26,10 +26,16 @@ Phases; any failure raises and the exit code is then non-zero:
    key -1, exact zeros; U=1; one cell's main edges over two blocks), its time
    printed with its launch plan (quad_chain_plan), its share of the bound
    and ptxas's register and spill lines.  masked_legendre_cos (phase 3c):
-   gemnet_cbf_basis at the e2e, a2e and e2a inputs one B=8 GemNet-OC forward
-   gives it, gemnet_quad_basis at [8, 80, 30, 8, 30] with S=7, and ragged
-   shapes (M, K not multiples of 32, zero rows, an all-false keep), each
-   against its plain version; times per launch against a bytes bound.
+   the grouped call (gemnet_cbf_bases) of one B=8 GemNet-OC forward, its
+   e2e, a2e and e2a bases in one launch, each against its plain version,
+   with its launch plan (legendre_group_plan) and ptxas's lines; its wall
+   (back to back) and device time (20 calls behind a torch.cuda._sleep) per
+   forward against the bytes bound summed over the three bases, and the
+   three bases launched one by one for the record; gemnet_quad_basis at
+   [8, 80, 30, 8, 30] with S=7; ragged shapes (M, K not multiples of 32,
+   zero rows, an all-false keep) and ragged groups (two problems of other M
+   and K, M K not a multiple of 4, an all-false keep in one problem of
+   three), each against its plain version.
    painn_message_consumer and painn_message_consumer_tiled (phase 3d, ti 1
    and 8): at the second message layer's inputs of one B=16 PaiNN forward
    (M = 1280 targets, K=50, H=512; features gathered in torch), each against
@@ -67,8 +73,9 @@ Phases; any failure raises and the exit code is then non-zero:
    the published relax_opt and the Verlet graph on, for 100 L-BFGS steps
    (cut from 300).  Launch counts are zeroed just before and read just
    after: per model forward 4 gemnet_quad_chain launches (one per block) and
-   3 masked_legendre_cos (the e2e, a2e and e2a triplet bases), forwards
-   counted by a wrapper around the engine's energy/forces function.
+   1 masked_legendre_cos (the e2e, a2e and e2a triplet bases in one grouped
+   launch), forwards counted by a wrapper around the engine's energy/forces
+   function.
 7. card vs CPU, GemNet-OC: one full-width forward at B=2, energy and forces
    within 1e-4 * max|cpu|.
 8. training path: the painn_message_fused_bwd kernel against the plain VJP
@@ -166,7 +173,7 @@ Phases; any failure raises and the exit code is then non-zero:
    300 to 100 (random weights never converge, so every system runs its
    budget).  Synthetic DFT targets, one per sid.  Launch counts are zeroed
    just before run_pipeline and read just after: 600 painn_message_fused
-   while sampling, and per GemNet-OC forward 4 + 3 while relaxing.  Checks:
+   while sampling, and per GemNet-OC forward 4 + 1 while relaxing.  Checks:
    one sampled and one relaxed trajectory per sid; every relaxed frame
    finite with fixed atoms where the converted input has them; each relaxed
    trajectory's last frame is its RelaxedSystem (energy, positions, frame
@@ -181,7 +188,7 @@ Phases; any failure raises and the exit code is then non-zero:
    steps over 8 bench systems in a shard (one batch of 8), writing
    trajectories and relaxed_positions.npz.  Launch counts are zeroed just
    before the task runs and read just after: per score forward 4
-   gemnet_quad_chain and 3 masked_legendre_cos, forwards counted by a
+   gemnet_quad_chain and 1 masked_legendre_cos, forwards counted by a
    wrapper around the trainer's score_fn.  Then the predict task on the same
    data writes predictions.npz.
 18. card vs CPU at B=2, within 1e-4 * max|cpu|: one GemNet-OC so3
@@ -192,8 +199,9 @@ Phases; any failure raises and the exit code is then non-zero:
    plain_ms and bound_ms are per launch; eqv2_edge_rotate's are the mean
    over the four forms in the proportions one forward launches them, and
    its launches are the EquiformerV2 sampling run's; masked_legendre_cos's
-   are the mean over the three triplet bases, and its launches are the
-   relaxation path's; the consumers' and fused_rbf_filter's launches are
+   are per forward (the grouped launch of the three triplet bases: ms its
+   wall back to back, bound_ms the three bases' bounds summed), and its
+   launches are the relaxation path's; the consumers' and fused_rbf_filter's launches are
    their counts summed over every path run (0: no path calls them).
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -628,30 +636,80 @@ def check_legendre(name, fn, plain, args, s):
     return got, check_close(f"{name} {shapes} S={s}", [got], [plain(*args, s)])
 
 
+def device_ms(fn, calls, sleep_cycles=20_000_000):
+    """Mean device milliseconds per call of ``fn``: ``calls`` calls enqueued
+    behind a ``torch.cuda._sleep`` long enough (~10 ms at 2 GHz) that the
+    host has enqueued them all before the card reaches them, so the events
+    around them time the card alone; after one warm-up call."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(sleep_cycles)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    if end.query():
+        raise AssertionError("device_ms: the card finished before the host had enqueued every call")
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def legendre_group_line(problems):
+    shapes = tuple((u.shape[0] * u.shape[1], u.shape[2], v.shape[2]) for u, v, _ in problems)
+    plan = kernels.legendre_group_plan(shapes)
+    return (f"plan: {plan.blocks} blocks x {plan.threads} threads, blocks a problem {plan.blocks_of}, cells a block "
+            f"{plan.cpb}, four columns a thread {plan.vec}, {plan.smem_bytes} B shared")
+
+
+def check_legendre_group(name, problems, s):
+    """One grouped launch against each basis's plain version."""
+    before = kernels.launches["masked_legendre_cos"]
+    got = kernels.gemnet_cbf_bases(problems, s)
+    torch.cuda.synchronize()
+    if kernels.launches["masked_legendre_cos"] != before + 1:
+        raise AssertionError(f"{name}: the grouped call launched {kernels.launches['masked_legendre_cos'] - before}")
+    err = check_close(f"{name}: {len(problems)} problems (M, K) "
+                      f"{[(u.shape[2], v.shape[2]) for u, v, _ in problems]} S={s} ({legendre_group_line(problems)})",
+                      [g for g in got if g.numel()],
+                      [kernels.gemnet_cbf_basis_reference(*p, s) for p, g in zip(problems, got) if g.numel()])
+    return got, err
+
+
 def legendre_checks(device, gen, model, batch):
-    """Phase 3c: the three triplet bases at the inputs one forward of
-    ``model`` on ``batch`` gives them, the dihedral basis at the relaxation
-    shape, and ragged shapes; returns the kernels-line row (times per launch,
-    the mean over the three triplet bases a forward launches)."""
+    """Phase 3c: the grouped call of one forward of ``model`` on ``batch``
+    (the e2e, a2e and e2a bases in one launch) against each basis's plain
+    version, its wall (back to back) and device time per forward beside the
+    bound summed over the three bases, the same bases launched one by one
+    for the record; the dihedral basis at the relaxation shape; ragged
+    shapes and groups.  Returns the kernels-line row (times per forward)."""
     s = model.num_spherical
     with torch.no_grad():
-        calls = capture_calls(gemnet_oc, "gemnet_cbf_basis", lambda: model(batch))
-    if len(calls) != 3:
-        raise AssertionError(f"one GemNet-OC forward called gemnet_cbf_basis {len(calls)} times, want 3")
-    err, times, bys = 0.0, [], []
-    for form, (u, v, keep, _) in zip(("e2e", "a2e", "e2a"), calls):
-        out, e = check_legendre(f"gemnet_cbf_basis {form}", kernels.gemnet_cbf_basis,
-                                kernels.gemnet_cbf_basis_reference, (u, v, keep), s)
-        err = max(err, e)
-        ms = cuda_ms(lambda: kernels.gemnet_cbf_basis(u, v, keep, s), 20)
-        plain_ms = cuda_ms(lambda: kernels.gemnet_cbf_basis_reference(u, v, keep, s), 5)
-        bound_ms, by, nbytes, flops = legendre_bound_ms((u, v, keep), out, s)
-        times.append((ms, plain_ms, bound_ms))
-        bys.append(by)
-        print(f"[kernel] masked_legendre_cos as gemnet_cbf_basis {form} at u{tuple(u.shape)} v{tuple(v.shape)}: "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {by} ({flops / 1e9:.3f} GFLOP f32, "
-              f"{nbytes / 1e6:.2f} MB)", flush=True)
-    del calls, out
+        calls = capture_calls(gemnet_oc, "gemnet_cbf_bases", lambda: model(batch))
+    if len(calls) != 1 or len(calls[0][0]) != 3:
+        raise AssertionError(f"one GemNet-OC forward called gemnet_cbf_bases {len(calls)} times "
+                             f"({[len(c[0]) for c in calls]} problems), want once with 3")
+    problems = [tuple(p) for p in calls[0][0]]
+    del calls
+    outs, err = check_legendre_group("gemnet_cbf_bases e2e, a2e, e2a of one forward", problems, s)
+    ms = cuda_ms(lambda: kernels.gemnet_cbf_bases(problems, s), 200)  # host-bound: many calls even out the host
+    dev_ms = device_ms(lambda: kernels.gemnet_cbf_bases(problems, s), 20)
+    plain_ms = cuda_ms(lambda: [kernels.gemnet_cbf_basis_reference(*p, s) for p in problems], 5)
+    bounds = [legendre_bound_ms(p, out, s) for p, out in zip(problems, outs)]
+    bound_ms, nbytes, flops = (sum(b[i] for b in bounds) for i in (0, 2, 3))
+    by = "bytes" if {b[1] for b in bounds} == {"bytes"} else "operations"
+    print(f"[kernel] masked_legendre_cos, one grouped launch a forward (e2e u{tuple(problems[0][0].shape)}, a2e, "
+          f"e2a): wall {ms:.4f} ms (back to back), device {dev_ms:.4f} ms (behind a sleep), plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms by {by} ({flops / 1e9:.3f} GFLOP f32, {nbytes / 1e6:.2f} MB), "
+          f"{100 * bound_ms / dev_ms:.1f}% of the bound on the device; {legendre_group_line(problems)}; ptxas: "
+          f"{' | '.join(ptxas_lines('masked_legendre_cos')) or 'not built in this process'}", flush=True)
+
+    def one_by_one():
+        return [kernels.gemnet_cbf_basis(*p, s) for p in problems]
+
+    print(f"[kernel] masked_legendre_cos as three one-problem launches a forward (the form before the grouped "
+          f"call): wall {cuda_ms(one_by_one, 200):.4f} ms, device {device_ms(one_by_one, 20):.4f} ms", flush=True)
+    del outs
     b, n = batch.batch_size, batch.max_atoms
     k1, kq = model.max_neighbors, model.max_neighbors_qint
     quad = legendre_inputs(gen, device, (b, n, k1, kq), (b, n, kq, k1), (b, n, k1, kq, k1), unit=False)
@@ -678,13 +736,20 @@ def legendre_checks(device, gen, model, batch):
                                keep_all=keep_all)
         check_legendre("gemnet_quad_basis ragged", kernels.gemnet_quad_basis, kernels.gemnet_quad_basis_reference,
                        args, 4)
-    ms, plain_ms, bound_ms = (sum(t[i] for t in times) / len(times) for i in range(3))
-    by = "bytes" if set(bys) == {"bytes"} else "operations"
-    print(f"[kernel] masked_legendre_cos per launch (mean of e2e, a2e, e2a): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms by {by}", flush=True)
+    # ragged groups: two problems of different M and K; M K not a multiple of 4 (one column a thread); an all-false
+    # keep in one problem of three
+    for name, shapes, false_keep in (("two shapes", [((3, 5), 29, 12), ((3, 5), 12, 20)], ()),
+                                     ("scalar path", [((2, 3), 7, 5), ((2, 3), 5, 3)], ()),
+                                     ("all-false keep", [((2, 3), 6, 6), ((2, 3), 6, 4), ((2, 3), 4, 6)], (1,))):
+        group = [legendre_inputs(gen, device, lead + (m,), lead + (k,), lead + (m, k), unit=True,
+                                 keep_all=False if i in false_keep else None)
+                 for i, (lead, m, k) in enumerate(shapes)]
+        got, _ = check_legendre_group(f"gemnet_cbf_bases {name}", group, s)
+        if any(got[i].any() for i in false_keep):
+            raise AssertionError("gemnet_cbf_bases: a problem with an all-false keep is not zero")
     return dict(name="masked_legendre_cos", source="adsorbdiff_tpu_torch/csrc/masked_legendre_cos.cu",
                 replaces="adsorbdiff_tpu/ops/pallas_kernels.py:1613", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by)
+                bound_ms=bound_ms, bound_by=by, device_ms=dev_ms)
 
 
 # --------------------------------------------------------------------------
@@ -1391,8 +1456,8 @@ def check_model(model_name, pairs):
 
 def gemnet_launches(model, forwards):
     """What ``forwards`` GemNet-OC forwards launch: one quad chain per block
-    and the three triplet bases (e2e, a2e, e2a)."""
-    return {"gemnet_quad_chain": model.num_blocks * forwards, "masked_legendre_cos": 3 * forwards}
+    and one grouped launch of the triplet bases (e2e, a2e, e2a)."""
+    return {"gemnet_quad_chain": model.num_blocks * forwards, "masked_legendre_cos": forwards}
 
 
 def relax_path(device, gen, systems):
@@ -1466,10 +1531,10 @@ def relax_path(device, gen, systems):
     fn = make_mlff_energy_forces(model)
     cand = model.prepare_candidates(batch, RELAX_OPT["k_cand"])
     forward_ms = cuda_ms(lambda: fn(batch, cand), 5)
-    kernel_ms = model.num_blocks * ms + 3 * legendre_row["ms"]
+    kernel_ms = model.num_blocks * ms + legendre_row["device_ms"]
     print(f"[relax] one model forward (Verlet refresh + 4 blocks + heads): {forward_ms:.3f} ms; "
-          f"{model.num_blocks} gemnet_quad_chain launches at {ms:.4f} ms and 3 masked_legendre_cos at "
-          f"{legendre_row['ms']:.4f} ms = {100 * kernel_ms / forward_ms:.1f}% of it", flush=True)
+          f"{model.num_blocks} gemnet_quad_chain launches at {ms:.4f} ms and one masked_legendre_cos launch at "
+          f"{legendre_row['device_ms']:.4f} ms of device time = {100 * kernel_ms / forward_ms:.1f}% of it", flush=True)
 
     # 7. card vs CPU, whole model at B=2
     small = collate(systems[:2], max_atoms=80, device=device)

@@ -292,3 +292,51 @@ def test_denoising_prepare_static_matches_no_static_graph(jax_so3, derive):
         full = model(moved)
     for g, f in zip(got, full):
         np.testing.assert_allclose(to_numpy(g), to_numpy(f), atol=5e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize(
+    "kw,n_problems",
+    [(dict(), 3), (dict(edge_atom_interaction=False), 2), (dict(atom_edge_interaction=False,
+                                                                edge_atom_interaction=False), 1)],
+    ids=["e2e-a2e-e2a", "e2e-a2e", "e2e"],
+)
+def test_tiny_triplet_bases_come_from_one_grouped_call(jax_tiny, jax_tiny_pallas, port_tiny, kw, n_problems):
+    """One forward calls ``gemnet_cbf_bases`` once, with the problems of the
+    interactions switched on, and still matches JAX ``GemNetOC(use_pallas=
+    True)`` (its triplet bases from Pallas in interpret mode) on the same
+    weights."""
+    import functools
+
+    import adsorbdiff_tpu.ops.pallas_kernels as pk
+    from adsorbdiff_tpu_torch.models import gemnet_oc as port_gemnet_oc
+
+    batch, variables, _ = jax_tiny
+    if kw:
+        orig_q, orig_c = pk.gemnet_quad_basis, pk.gemnet_cbf_basis
+        pk.gemnet_quad_basis = functools.partial(orig_q, interpret=True)
+        pk.gemnet_cbf_basis = functools.partial(orig_c, interpret=True)
+        try:
+            jax_model = JaxGemNetOC(**dict(TINY, **kw), use_pallas=True, fused_quad=True)
+            jax_vars = jax.jit(jax_model.init)(jax.random.PRNGKey(0), batch)
+            want = jax.jit(jax_model.apply)(jax_vars, batch)
+        finally:
+            pk.gemnet_quad_basis, pk.gemnet_cbf_basis = orig_q, orig_c
+        model = GemNetOC(**dict(TINY, **kw), device="cpu")
+        model.load_state_dict(gemnet_state_dict_from_jax(jax_vars), strict=True)
+    else:
+        want, model = jax_tiny_pallas[True], port_tiny
+    calls, original = [], port_gemnet_oc.gemnet_cbf_bases
+
+    def record(problems, s):
+        calls.append(len(problems))
+        return original(problems, s)
+
+    port_gemnet_oc.gemnet_cbf_bases = record
+    try:
+        with torch.no_grad():
+            got = model(to_torch_batch(batch))
+    finally:
+        port_gemnet_oc.gemnet_cbf_bases = original
+    assert calls == [n_problems]
+    np.testing.assert_allclose(to_numpy(got["energy"]), np.asarray(want["energy"]), atol=5e-5, rtol=1e-4)
+    np.testing.assert_allclose(to_numpy(got["forces"]), np.asarray(want["forces"]), atol=5e-5, rtol=1e-4)

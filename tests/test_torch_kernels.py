@@ -1789,3 +1789,155 @@ def test_legendre_wrappers_raise_instead_of_falling_back(cuda_device):
     before = kernels.launches["masked_legendre_cos"]
     empty = kernels.gemnet_cbf_basis(u[:, :, :0].contiguous(), v, keep[:, :, :0].contiguous(), 7)
     assert empty.shape == (2, 4, 7, 0, 5) and kernels.launches["masked_legendre_cos"] == before
+
+
+# the grouped launch: gemnet_cbf_bases and legendre_group_plan
+CBF_GROUPS = {  # (b, n, m, k) a problem: GemNet-OC's e2e, a2e and e2a forms at narrow widths, and ragged ones
+    1: [(2, 4, 7, 5)],
+    2: [(2, 4, 6, 6), (2, 4, 6, 3)],
+    3: [(2, 4, 6, 6), (2, 4, 6, 4), (2, 4, 4, 6)],
+}
+
+
+def _cbf_group(seed, shapes, s, keep_all=()):
+    """One ``(u, v, keep)`` of ``_cbf_inputs`` a shape (empty arrays where M
+    or K is 0); problem ``i`` in ``keep_all`` gets an all-false keep."""
+    def problem(i, b, n, m, k):
+        if m * k == 0:
+            return (np.zeros((b, n, m, 3), np.float32), np.zeros((b, n, k, 3), np.float32),
+                    np.zeros((b, n, m, k), bool))
+        return _cbf_inputs(seed + i, b, n, m, k, s, keep_all=False if i in keep_all else None)
+
+    return [problem(i, *shape) for i, shape in enumerate(shapes)]
+
+
+@pytest.mark.parametrize("n_problems", [1, 2, 3], ids=["one", "two", "three"])
+def test_cbf_bases_group_matches_jax_kernel(n_problems):
+    """gemnet_cbf_bases on a group of 1-3 problems against JAX's
+    gemnet_cbf_basis (Pallas in interpret mode) on each, at atol 1e-5 /
+    rtol 1e-5; the last problem of a group of three has an all-false keep."""
+    import jax.numpy as jnp
+
+    from adsorbdiff_tpu.ops import pallas_kernels as pk
+
+    s = 7
+    group = _cbf_group(30, CBF_GROUPS[n_problems], s, keep_all=(2,))
+    got = kernels.gemnet_cbf_bases([tuple(torch.from_numpy(x) for x in p) for p in group], s)
+    assert len(got) == n_problems
+    for (u, v, keep), g in zip(group, got):
+        b, n, m, _ = u.shape
+        assert g.shape == (b, n, s, m, v.shape[2])
+        want = np.asarray(pk.gemnet_cbf_basis(jnp.asarray(u), jnp.asarray(v), jnp.asarray(keep), s, interpret=True))
+        np.testing.assert_allclose(g.numpy(), want, atol=1e-5, rtol=1e-5)
+    if n_problems == 3:
+        assert not got[2].any()
+
+
+def test_cbf_bases_on_cpu_run_the_plain_versions_and_count_no_launch():
+    s = 7
+    group = [tuple(torch.from_numpy(x) for x in p) for p in _cbf_group(31, CBF_GROUPS[3], s)]
+    before = dict(kernels.launches)
+    got = kernels.gemnet_cbf_bases(group, s)
+    for p, g in zip(group, got):
+        torch.testing.assert_close(g, kernels.gemnet_cbf_basis_reference(*p, s), rtol=0, atol=0)
+    assert dict(kernels.launches) == before
+    with pytest.raises(ValueError, match="1 to 3"):
+        kernels.gemnet_cbf_bases(group + group[:1], s)
+
+
+@pytest.mark.parametrize(
+    "shapes",
+    [((640, 30, 30),), ((640, 30, 30), (640, 30, 20), (640, 20, 30)), ((7, 3, 5), (4, 30, 20)),
+     ((3, 7, 5), (0, 6, 6), (9, 20, 30)), ((0, 4, 4),), ((2, 0, 5), (3, 2, 2)), ((5, 33, 1), (1, 1, 1)),
+     ((11, 45, 46),)],
+    ids=["e2e-relax", "relax-group", "scalar-and-vec", "empty-middle", "empty", "no-columns", "k1", "wide"],
+)
+def test_legendre_group_plan_covers_every_column_once(shapes):
+    """Every (problem, cell, m, k) column is taken by exactly one block's
+    unit (four columns where M K % 4 == 0, else one); blocks are
+    consecutive per problem, problems without a column take none, and the
+    staged rows fit a block's shared memory."""
+    plan = kernels.legendre_group_plan(shapes)
+    assert plan.threads == 256 and plan.smem_bytes <= kernels.SMEM_PER_BLOCK
+    assert plan.first[0] == 0 and plan.blocks == sum(plan.blocks_of)
+    for i in range(1, len(shapes)):
+        assert plan.first[i] == plan.first[i - 1] + plan.blocks_of[i - 1]
+    counts = [np.zeros((cells, m, k), np.int64) for cells, m, k in shapes]
+    smem = 0
+    for p, cell0, ncell, unit in kernels.legendre_group_work(plan, shapes):
+        cells, m, k = shapes[p]
+        assert 1 <= ncell <= plan.cpb[p] and (m * k) % unit == 0
+        cols = np.arange(ncell * m * k // unit)[:, None] * unit + np.arange(unit)  # the block's units' columns
+        c, r = np.divmod(cols.ravel(), m * k)
+        np.add.at(counts[p], (cell0 + c, r // k, r % k), 1)
+        smem = max(smem, 12 * plan.cpb[p] * (m + k))
+    assert smem == plan.smem_bytes
+    for (cells, m, k), cnt, vec, nb in zip(shapes, counts, plan.vec, plan.blocks_of):
+        assert (cnt == 1).all()
+        assert vec == (m * k % 4 == 0) and (nb == 0) == (cells * m * k == 0)
+    if shapes[0] == (640, 30, 30):  # the relaxation shape: ~7 columns a thread
+        assert plan.cpb[0] == 2 and plan.blocks_of[0] == 320
+        assert plan.cpb[1:] == (3, 3)[: len(shapes) - 1]
+
+
+def test_legendre_group_plan_refuses_rows_past_the_shared_memory():
+    with pytest.raises(ValueError, match="M \\+ K"):
+        kernels.legendre_group_plan(((1, 10000, 10000),))
+    with pytest.raises(ValueError, match="1 to 3"):
+        kernels.legendre_group_plan(((1, 2, 2),) * 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shapes,keep_all",
+    [([(8, 80, 30, 30), (8, 80, 30, 20), (8, 80, 20, 30)], ()), ([(3, 5, 29, 13), (3, 5, 12, 20)], ()),
+     ([(2, 3, 7, 5), (2, 3, 5, 3)], ()), ([(2, 3, 6, 6), (2, 3, 6, 4), (2, 3, 4, 6)], (1,)),
+     ([(2, 3, 33, 1), (2, 3, 0, 4), (2, 3, 8, 8)], ())],
+    ids=["relax", "two-shapes", "scalar-path", "all-false-keep", "empty-problem"],
+)
+def test_cbf_bases_group_matches_plain_version_on_card(cuda_device, shapes, keep_all):
+    """One launch for the group; every basis within 1e-4 * max|plain| + 1e-5
+    of its plain version and bit for bit equal to its own one-problem
+    launch (the same plan and arithmetic for its cells)."""
+    s = 7
+    group = [tuple(torch.from_numpy(x).to(cuda_device) for x in p) for p in _cbf_group(32, shapes, s, keep_all)]
+    before = kernels.launches["masked_legendre_cos"]
+    got = kernels.gemnet_cbf_bases(group, s)
+    torch.cuda.synchronize()
+    assert kernels.launches["masked_legendre_cos"] == before + 1
+    for i, (p, g) in enumerate(zip(group, got)):
+        want = kernels.gemnet_cbf_basis_reference(*p, s)
+        assert g.shape == want.shape
+        if g.numel():
+            assert (g - want).abs().max().item() <= 1e-4 * want.abs().max().item() + 1e-5
+        torch.testing.assert_close(g, kernels.gemnet_cbf_basis(*p, s), rtol=0, atol=0)
+        if i in keep_all:
+            assert not g.any()
+
+
+@pytest.mark.cuda
+def test_legendre_launch_refuses_a_plan_that_disagrees_with_its_layout(cuda_device):
+    """The C side checks the plan against its layout: a wrong shared-memory
+    size, a first block out of order or a four-column problem whose M K is
+    not a multiple of 4 returns cudaErrorInvalidValue (1) and launches
+    nothing."""
+    import ctypes
+
+    u, v, keep = (torch.from_numpy(x).to(cuda_device) for x in _cbf_inputs(33, 2, 3, 6, 6, 7))
+    out = torch.zeros((2, 3, 7, 6, 6), device=cuda_device)
+    m = k = 6
+    plan = kernels.legendre_group_plan(((6, m, k),))
+    strides = (m * 3, 0, 3, k * 3, 0, 3, 1, m * k, 0, k, 7 * m * k, 0, m * k, k)
+    fn, _ = kernels._legendre_fn()
+    ptrs = (ctypes.c_void_p * 4)(u.data_ptr(), v.data_ptr(), keep.data_ptr(), out.data_ptr())
+    coef = kernels._legendre_coefs(7)
+    stream = torch.cuda.current_stream().cuda_stream
+    for first, smem, vec, kk in ((0, plan.smem_bytes + 4, 1, k), (1, plan.smem_bytes, 1, k),
+                                 (0, 12 * plan.cpb[0] * (m + 5), 1, 5)):
+        row = [*strides, 6, 1, m, kk, 0, first, plan.cpb[0], vec]
+        table = (ctypes.c_longlong * len(row))(*row)
+        err = fn(1, ctypes.addressof(table), ctypes.addressof(ptrs), 7, coef.ctypes.data, plan.blocks, 256, smem,
+                 stream)
+        assert err == 1
+    torch.cuda.synchronize()
+    assert not out.any()
