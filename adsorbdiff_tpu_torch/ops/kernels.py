@@ -680,7 +680,8 @@ def fused_rbf_filter(
     included) and the bias on an unmasked edge beyond the cutoff.  The JAX
     wrapper's ``tile`` (its edge padding) has no counterpart: the kernel
     guards the ends instead of padding.  On the card: f32 contiguous inputs,
-    ``mask`` bool, no gradient.  No model calls it.
+    ``mask`` bool, no gradient; the launch is :func:`rbf_filter_plan`'s.
+    No model calls it.
     """
     if dist.device.type == "cpu":
         return fused_rbf_filter_reference(dist, mask, weights, bias, cutoff=cutoff,
@@ -695,11 +696,108 @@ def fused_rbf_filter(
     e = dist.numel()
     if e * f == 0:  # empty output: nothing to launch
         return out
+    plan = rbf_filter_plan(e, r, f, _sm_count(dist.device))
     lib = _library("fused_rbf_filter", [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 2
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     _launch("fused_rbf_filter", lib, dist.device, dist.data_ptr(), mask.data_ptr(), weights.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), e, r, f, 1.0 / cutoff, int(envelope_exponent))
+            bias.data_ptr(), out.data_ptr(), e, r, f, 1.0 / cutoff, int(envelope_exponent), plan.blocks,
+            int(plan.stage_w), int(plan.vec), plan.smem_bytes, shape=f"E, R, F = {e}, {r}, {f}")
     return out
+
+
+# csrc/fused_rbf_filter.cu's constants: warps a block, edges a chunk (one a thread), output columns a block, edges
+# a warp's tile, basis rows a pass, the rows [bin - 14, bin + 15] of an edge's non-zero basis values, the most
+# shared memory a block may take, blocks an SM at most (its launch bounds)
+_RF_WARPS, _RF_CHUNK, _RF_COLS, _RF_GROUP, _RF_PASS, _RF_REACH = 12, 384, 128, 8, 48, 14
+_RF_SMEM, _RF_BLOCKS_PER_SM = 232448, 2
+
+
+class RbfFilterPlan(NamedTuple):
+    """How :func:`fused_rbf_filter` is launched: ``blocks`` persistent blocks
+    of ``threads`` threads, ``blocks_per_sm`` an SM; block ``b`` owns the
+    128-column slice ``b % slices`` (columns ``128 s ..``) and takes the
+    chunks of 384 consecutive edges ``b // slices, b // slices + blocks /
+    slices, ..`` of the ``chunks``; ``stage_w``: W's slice staged in shared
+    memory (else read through L1/L2); ``vec``: F % 4 == 0, float4 loads and
+    stores; ``smem_bytes`` a block; ``spread``: the most chunks a block
+    takes over the mean."""
+
+    slices: int
+    chunks: int
+    blocks: int
+    threads: int
+    blocks_per_sm: int
+    stage_w: bool
+    vec: bool
+    smem_bytes: int
+    spread: float
+
+
+def rbf_filter_smem(r: int, stage_w: bool) -> int:
+    """The kernel's dynamic shared bytes: W's ``[R][128]`` slice
+    (``stage_w``), the bias columns, the warps' ``[48][8]`` basis buffers,
+    the ``r / (R - 1)`` table, the ``R + 1`` counts of the sort and the
+    chunk's sorted edge, keep, d and envelope."""
+    return 4 * (_RF_COLS * r * stage_w + _RF_COLS + _RF_WARPS * _RF_PASS * _RF_GROUP + r + (r + 1) + 4 * _RF_CHUNK)
+
+
+@functools.lru_cache(maxsize=64)
+def rbf_filter_plan(e: int, r: int, f: int, sms: int) -> RbfFilterPlan:
+    """``csrc/fused_rbf_filter.cu``'s launch for ``e`` edges, ``r`` radial
+    functions and ``f`` columns on a card of ``sms`` SMs: W's slice is staged
+    where it fits (R <= 398; 91,652 B at R = 128, two blocks an SM), blocks
+    fill the SMs' block slots, a whole number a column slice, one a slice at
+    least and at most one a chunk.  Refuses ``e < 1``, ``f < 1``, ``r < 2``
+    and R past what even the unstaged layout holds."""
+    if e < 1 or f < 1 or r < 2 or rbf_filter_smem(r, False) > _RF_SMEM:
+        raise ValueError(f"fused_rbf_filter: no launch for E, R, F = {e}, {r}, {f} (the kernel takes E, F >= 1 and "
+                         f"2 <= R with its tables within {_RF_SMEM} bytes of shared memory)")
+    stage_w = rbf_filter_smem(r, True) <= _RF_SMEM
+    smem = rbf_filter_smem(r, stage_w)
+    per_sm = min(_RF_BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024))
+    slices, chunks = _cdiv(f, _RF_COLS), _cdiv(e, _RF_CHUNK)
+    per_slice = max(1, min(chunks, per_sm * sms // slices))
+    return RbfFilterPlan(slices=slices, chunks=chunks, blocks=slices * per_slice, threads=32 * _RF_WARPS,
+                         blocks_per_sm=per_sm, stage_w=stage_w, vec=f % 4 == 0, smem_bytes=smem,
+                         spread=_cdiv(chunks, per_slice) * per_slice / chunks)
+
+
+def rbf_filter_work(plan: RbfFilterPlan):
+    """The kernel's work in Python: ``(block, chunk, slice)`` for every
+    chunk a block takes."""
+    per_slice = plan.blocks // plan.slices
+    for b in range(plan.blocks):
+        for ch in range(b // plan.slices, plan.chunks, per_slice):
+            yield b, ch, b % plan.slices
+
+
+def rbf_filter_windows(dist: torch.Tensor, mask: torch.Tensor, r: int,
+                       cutoff: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's groups and windows, in Python: ``(lo, hi, edges)``, for
+    each group ``g`` of 8 edges the basis rows ``[lo, hi]`` the kernel runs
+    (``hi < lo``: none) and the flattened indices of its edges ``[G, 8]``
+    (-1 past the end).  Each chunk of 384 consecutive edges is sorted by key
+    (``bin = floor(dist * (1 / cutoff) * (R - 1))`` in f32, cut to R - 1, for
+    an unmasked edge before the cutoff, else R), stably (the kernel's order
+    within a key is the atomics', which changes no group's keys); its groups
+    are runs of 8 sorted edges, a group's window the union of ``[bin - 14,
+    bin + 15]`` (cut to ``[0, R)``) over its edges with a bin."""
+    d = dist.reshape(-1).float() * (1.0 / cutoff)
+    e = d.numel()
+    bins = torch.clamp((d * float(r - 1)).to(torch.int32), max=r - 1)
+    key = torch.where(mask.reshape(-1) & (d < 1.0), bins, torch.full_like(bins, r))
+    chunks = _cdiv(e, _RF_CHUNK)
+    pad = chunks * _RF_CHUNK - e
+    key = torch.nn.functional.pad(key, (0, pad), value=r + 1).reshape(chunks, _RF_CHUNK)  # r + 1: no edge
+    order = torch.argsort(key, dim=1, stable=True)
+    key = torch.gather(key, 1, order).reshape(-1, _RF_GROUP)
+    edges = (order + torch.arange(chunks)[:, None] * _RF_CHUNK).reshape(-1, _RF_GROUP)
+    edges = torch.where(key <= r, edges, torch.full_like(edges, -1))
+    reach = key < r
+    lo = torch.where(reach, torch.clamp(key - _RF_REACH, min=0), torch.full_like(key, r)).amin(-1)
+    hi = torch.where(reach, torch.clamp(key + _RF_REACH + 1, max=r - 1), torch.full_like(key, -1)).amax(-1)
+    live = (edges >= 0).any(-1)  # groups past a chunk's last edge do not exist
+    return lo[live], hi[live], edges[live]
 
 
 def gemnet_quad_chain_reference(

@@ -786,6 +786,23 @@ def rbf_bound_ms(inputs, out, cutoff):
     return (*bound(flops, list(inputs.values()) + [out]), flops)
 
 
+def rbf_plan_line(plan):
+    return (f"plan: {plan.blocks} blocks x {plan.threads} threads ({plan.blocks // plan.slices} a slice of 128 "
+            f"columns, {plan.blocks_per_sm} an SM), {plan.chunks} chunks of 384 edges (the most a block takes over "
+            f"the mean {plan.spread:.3f}), {plan.smem_bytes} B shared, W {'staged' if plan.stage_w else 'through L1/L2'}"
+            f", {'float4' if plan.vec else 'guarded scalar'} stores")
+
+
+def rbf_window_products(inputs, cutoff):
+    """(products the kernel runs over its sorted chunks' 8-edge windows, the
+    non-zero basis values of the unmasked edges), from the window rule's
+    Python mirror, kernels.rbf_filter_windows."""
+    weights = inputs["weights"]
+    lo, hi, _ = kernels.rbf_filter_windows(inputs["dist"].cpu(), inputs["mask"].cpu(), weights.shape[0], cutoff)
+    _, rows = basis_rows(inputs, cutoff)
+    return 8 * int(torch.clamp(hi - lo + 1, min=0).sum()), rows
+
+
 @torch.no_grad()
 def consumer_checks(device, gen, systems):
     """Phases 3d and 3e: the consumers and the radial filter at the second
@@ -846,25 +863,50 @@ def consumer_checks(device, gen, systems):
     filt = dict(dist=layer["dist"], mask=layer["mask"], weights=weight, bias=bias)
     out = kernels.fused_rbf_filter(**filt, cutoff=cutoff)
     torch.cuda.synchronize()
-    err = check_close(f"fused_rbf_filter at the PaiNN layer's [{m}, {k}] edges (the plain message filter)", [out],
-                      [kernels.fused_rbf_filter_reference(**filt, cutoff=cutoff)])
-    for lead, r, f in (((3, 10, 8), 16, 100), ((127,), 16, 128), ((2, 5, 50), 128, 1536)):
+    plan = kernels.rbf_filter_plan(m * k, weight.shape[0], f3, kernels._sm_count(device))
+    err = check_close(f"fused_rbf_filter at the PaiNN layer's [{m}, {k}] edges (the plain message filter; "
+                      f"{rbf_plan_line(plan)})", [out], [kernels.fused_rbf_filter_reference(**filt, cutoff=cutoff)])
+    # ragged lead shapes; F % 4 != 0 (guarded) at F = 100 + 1 and 1537; a tail group of 9 edges; every edge masked;
+    # R = 500 (W through L1/L2); each with an unmasked edge past the 6 A cutoff (output = bias) but the masked one
+    for lead, r, f, masked in (((3, 10, 8), 16, 100, False), ((127,), 16, 128, False), ((2, 5, 50), 128, 1536, False),
+                               ((3, 10, 8), 16, 101, False), ((2, 5, 50), 128, 1537, False), ((9,), 128, 1536, False),
+                               ((4, 50), 128, 1536, True), ((2, 5, 50), 500, 1536, False)):
         ins = dict(dist=torch.rand(lead, generator=gen) * 7.2, mask=torch.rand(lead, generator=gen) > 0.3,
                    weights=torch.randn((r, f), generator=gen) * r ** -0.5, bias=torch.randn(f, generator=gen))
         ins["dist"].view(-1)[0], ins["mask"].view(-1)[0] = 7.5, True  # unmasked, past the 6 A cutoff
+        if masked:
+            ins["mask"].zero_()
         ins = {name: t.to(device) for name, t in ins.items()}
         got = kernels.fused_rbf_filter(**ins, cutoff=6.0)
         torch.cuda.synchronize()
-        check_close(f"fused_rbf_filter lead {lead} R={r} F={f}", [got],
-                    [kernels.fused_rbf_filter_reference(**ins, cutoff=6.0)])
-        if not torch.equal(got.reshape(-1, f)[0], ins["bias"]):
+        check_close(f"fused_rbf_filter lead {lead} R={r} F={f}{' all masked' if masked else ''} "
+                    f"({rbf_plan_line(kernels.rbf_filter_plan(got.numel() // f, r, f, kernels._sm_count(device)))})",
+                    [got], [kernels.fused_rbf_filter_reference(**ins, cutoff=6.0)])
+        if masked and got.any():
+            raise AssertionError("fused_rbf_filter: an all-masked input does not give 0")
+        if not masked and not torch.equal(got.reshape(-1, f)[0], ins["bias"]):
             raise AssertionError("fused_rbf_filter: an unmasked edge past the cutoff does not give the bias")
     ms = cuda_ms(lambda: kernels.fused_rbf_filter(**filt, cutoff=cutoff), 20)
     plain_ms = cuda_ms(lambda: kernels.fused_rbf_filter_reference(**filt, cutoff=cutoff), 5)
     bound_ms, by, nbytes, flops = rbf_bound_ms(filt, out, cutoff)
+    ran, needed = rbf_window_products(filt, cutoff)
     print(f"[kernel] fused_rbf_filter at [{m}, {k}] x R={weight.shape[0]} -> F={f3}: {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP f32, {nbytes / 1e6:.2f} MB)",
-          flush=True)
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP f32, {nbytes / 1e6:.2f} MB), "
+          f"{100 * bound_ms / ms:.1f}% of the bound; sorted chunks' windows {ran / needed:.4f}x the needed products; "
+          f"{rbf_plan_line(plan)}; ptxas (the float4, W-staged instance): "
+          f"{' | '.join(ptxas_lines('fused_rbf_filter', 'ILb1ELb1E')) or 'not built in this process'}", flush=True)
+    # the same layer with the slots of every target shuffled (the graph sorts them by distance): for information
+    perm = torch.argsort(torch.rand((m, k), generator=torch.Generator().manual_seed(5)), dim=-1).to(device)
+    shuffled = dict(filt, dist=torch.gather(filt["dist"], 1, perm), mask=torch.gather(filt["mask"], 1, perm))
+    got = kernels.fused_rbf_filter(**shuffled, cutoff=cutoff)
+    torch.cuda.synchronize()
+    check_close("fused_rbf_filter on the shuffled slots", [got],
+                [kernels.fused_rbf_filter_reference(**shuffled, cutoff=cutoff)])
+    del got
+    s_ms = cuda_ms(lambda: kernels.fused_rbf_filter(**shuffled, cutoff=cutoff), 20)
+    s_ran, _ = rbf_window_products(shuffled, cutoff)
+    print(f"[kernel] fused_rbf_filter on the shuffled slots: {s_ms:.4f} ms, windows {s_ran / needed:.4f}x the needed "
+          f"products", flush=True)
     rows.append(dict(name="fused_rbf_filter", source="adsorbdiff_tpu_torch/csrc/fused_rbf_filter.cu",
                      replaces="adsorbdiff_tpu/ops/pallas_kernels.py:256", launches=None, max_abs_err=err, ms=ms,
                      plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by))

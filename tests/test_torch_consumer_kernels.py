@@ -164,6 +164,83 @@ def test_wrappers_on_cpu_run_the_plain_versions_and_count_no_launch(name):
 
 
 # ----------------------------------------------------------------------------
+# fused_rbf_filter's launch plan and row windows (plain Python, the kernel's mirror)
+# ----------------------------------------------------------------------------
+@pytest.mark.parametrize("r", [2, 128, 500])
+@pytest.mark.parametrize("f", [1, 100, 1536, 1537])
+@pytest.mark.parametrize("e", [1, 9, 64000])
+def test_rbf_filter_plan_covers_every_edge_and_column_once(e, f, r):
+    """Every (chunk of 384 edges, 128-column slice) pair is taken by exactly
+    one block, so every (edge, column) once (a chunk's sort is a
+    permutation: see the window tests); blocks a whole number a slice; W
+    staged where it fits (R <= 398); float4 where F % 4 == 0; shared memory
+    within 227 KB and two blocks an SM at R = 128."""
+    plan = kernels.rbf_filter_plan(e, r, f, 132)
+    assert plan.slices == -(-f // 128) and plan.chunks == -(-e // 384)
+    assert plan.blocks % plan.slices == 0 and 1 <= plan.blocks // plan.slices <= plan.chunks
+    assert plan.threads == 384 and plan.vec == (f % 4 == 0) and plan.stage_w == (r <= 398)
+    assert plan.smem_bytes == kernels.rbf_filter_smem(r, plan.stage_w) <= 232448
+    assert plan.blocks_per_sm == 2 and plan.blocks <= max(2 * 132, plan.slices)
+    taken = np.zeros((plan.chunks, plan.slices), np.int64)
+    for _, ch, sl in kernels.rbf_filter_work(plan):
+        taken[ch, sl] += 1
+    assert (taken == 1).all()
+    if (e, r, f) == (64000, 128, 1536):  # the bench layer: 22 blocks a slice, 7.6 chunks each
+        assert plan.blocks == 264 and plan.smem_bytes == 91652 and plan.spread < 1.06
+
+
+def test_rbf_filter_plan_refuses_what_the_kernel_cannot_take():
+    for e, r, f in ((0, 16, 8), (8, 1, 8), (8, 16, 0), (8, 30000, 8)):
+        with pytest.raises(ValueError, match=f"E, R, F = {e}, {r}, {f}"):
+            kernels.rbf_filter_plan(e, r, f, 132)
+
+
+def _rbf_window_products(dist, mask, r, cutoff):
+    """(products the kernel runs, 8 a row of each group's window; the
+    non-zero basis values of the unmasked edges); asserts that every edge
+    is in exactly one group and every non-zero basis value of an unmasked
+    edge lies inside its group's window."""
+    lo, hi, edges = kernels.rbf_filter_windows(dist, mask, r, cutoff)
+    flat = edges.reshape(-1)
+    assert torch.equal(torch.sort(flat[flat >= 0]).values, torch.arange(dist.numel()))
+    nonzero = (kernels.message_basis(dist.reshape(-1), r, cutoff, 5) != 0) & mask.reshape(-1, 1)
+    rows = torch.arange(r)
+    inside = (rows >= lo[:, None, None]) & (rows <= hi[:, None, None])  # [G, 1, R]
+    held = nonzero[edges.clamp(min=0)] & (edges >= 0)[..., None]  # [G, 8, R]
+    assert not (held & ~inside).any()
+    return int(torch.clamp(hi - lo + 1, min=0).sum()) * 8, int(nonzero.sum())
+
+
+def test_rbf_filter_windows_hold_every_non_zero_basis_value_on_the_bench_graph():
+    """On the bench layer's graph (PaiNN's sampling table, K = 50 slots
+    sorted by distance) the sorted chunks' windows hold every non-zero
+    basis value of an unmasked edge and run at most 1.35x the needed
+    products (~1.09x; 8 consecutive slots would run ~1.51x); with the slots
+    of every target shuffled they hold every value too and run about the
+    same, as the sort undoes the order."""
+    from tests.test_torch_kernels import _bench_graph
+
+    _, dist, mask, _ = _bench_graph()
+    ran, needed = _rbf_window_products(dist, mask, 128, 12.0)
+    assert needed == 64000 * 28.7831875 and ran <= 1.35 * needed, ran / needed
+    perm = torch.from_numpy(np.random.default_rng(5).permuted(np.tile(np.arange(50), (16, 80, 1)), axis=-1))
+    ran_shuffled, needed_shuffled = _rbf_window_products(torch.gather(dist, 2, perm), torch.gather(mask, 2, perm),
+                                                         128, 12.0)
+    assert needed_shuffled == needed and ran_shuffled <= 1.35 * needed, ran_shuffled / needed
+
+
+@pytest.mark.parametrize("r", [2, 16, 128, 500])
+def test_rbf_filter_windows_hold_every_non_zero_basis_value_on_random_edges(r):
+    """Random distances up to 1.2 x the cutoff (bins at both ends of the rows
+    and past the cutoff), masked edges, a lead shape whose edges end in a
+    partial chunk and a partial group."""
+    rng = np.random.default_rng(r)
+    dist = torch.from_numpy(rng.uniform(0, 7.2, (3, 7, 37)).astype(np.float32))
+    mask = torch.from_numpy(rng.random((3, 7, 37)) > 0.2)
+    _rbf_window_products(dist, mask, r, 6.0)
+
+
+# ----------------------------------------------------------------------------
 # the Hopper kernels against the plain versions (skipped without a card)
 # ----------------------------------------------------------------------------
 @pytest.fixture
@@ -231,3 +308,66 @@ def test_kernel_wrappers_raise_instead_of_falling_back(cuda_device):
         fused_rbf_filter(**dict(f, dist=f["dist"].double()), cutoff=6.0)
     with pytest.raises(ValueError, match="shape"):
         fused_rbf_filter(**dict(f, mask=f["mask"][:, :4].contiguous()), cutoff=6.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,r,f,fill",
+    [((9,), 16, 128, None), ((3, 7, 37), 128, 1537, None), ((2, 5, 50), 500, 256, None), ((2, 5, 50), 500, 99, None),
+     ((1000,), 128, 1, None), ((4, 50), 128, 1536, "all-masked"), ((16, 80, 50), 128, 1536, "bench"),
+     ((16, 80, 50), 128, 1536, "bench-shuffled")],
+    ids=["tail-group", "f1537-guarded", "r500-through-l2", "r500-f99", "f1", "all-masked", "bench-graph",
+         "bench-shuffled"],
+)
+def test_rbf_filter_kernel_plan_branches_on_card(cuda_device, shape, r, f, fill):
+    """Every branch of rbf_filter_plan and the kernel against the plain
+    version: a group narrower than 8, F % 4 != 0 (4-byte copies and scalar
+    stores), W read through L1/L2 (R = 500), F = 1, every edge masked (all
+    zero), and the bench layer's sorted and shuffled graph; an unmasked
+    edge past the cutoff gives the bias bit for bit."""
+    inputs = _filter_inputs(11, shape, r=r, f=f)
+    if fill in ("bench", "bench-shuffled"):
+        from tests.test_torch_kernels import _bench_graph
+
+        _, dist, mask, _ = _bench_graph()
+        if fill == "bench-shuffled":
+            perm = torch.from_numpy(np.random.default_rng(5).permuted(np.tile(np.arange(50), (16, 80, 1)), axis=-1))
+            dist, mask = torch.gather(dist, 2, perm), torch.gather(mask, 2, perm)
+        inputs.update(dist=dist.numpy().copy(), mask=mask.numpy().copy())
+    inputs = _torch(inputs, cuda_device)
+    if fill == "all-masked":
+        inputs["mask"].zero_()
+    else:
+        inputs["dist"].view(-1)[0], inputs["mask"].view(-1)[0] = 1e3, True  # unmasked past the cutoff: the bias
+    before = kernels.launches["fused_rbf_filter"]
+    got = fused_rbf_filter(**inputs, cutoff=6.0 if fill is None else 12.0)
+    torch.cuda.synchronize()
+    assert kernels.launches["fused_rbf_filter"] == before + 1
+    _close([got], [fused_rbf_filter_reference(**inputs, cutoff=6.0 if fill is None else 12.0)])
+    if fill == "all-masked":
+        assert not got.any()
+    else:
+        torch.testing.assert_close(got.reshape(-1, f)[0], inputs["bias"], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_rbf_filter_refuses_a_plan_that_disagrees_with_its_layout(cuda_device):
+    """A shared-memory size other than the layout's, blocks not a multiple
+    of the column slices, or float4 where F % 4 != 0: cudaErrorInvalidValue
+    (1), nothing launched."""
+    import ctypes
+
+    f = _torch(_filter_inputs(12, (4, 50), r=16, f=130), cuda_device)
+    out = torch.zeros((4, 50, 130), device=cuda_device)
+    plan = kernels.rbf_filter_plan(200, 16, 130, kernels._sm_count(cuda_device))
+    lib = kernels._library("fused_rbf_filter", [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+                           + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream().cuda_stream
+    for blocks, vec, smem in ((plan.blocks, 0, plan.smem_bytes + 4), (plan.blocks + 1, 0, plan.smem_bytes),
+                              (plan.blocks, 1, plan.smem_bytes)):
+        err = lib.fused_rbf_filter_f32(f["dist"].data_ptr(), f["mask"].data_ptr(), f["weights"].data_ptr(),
+                                       f["bias"].data_ptr(), out.data_ptr(), 200, 16, 130, 1.0 / 6.0, 5, blocks,
+                                       int(plan.stage_w), vec, smem, stream)
+        assert err == 1
+    torch.cuda.synchronize()
+    assert not out.any()
