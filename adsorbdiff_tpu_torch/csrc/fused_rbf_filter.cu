@@ -31,8 +31,8 @@
 // ([48 rows][8], in passes) and, per row, two broadcast float4 loads of the 8
 // basis values and one float4 load of the lane's 4 W columns feed 32 FMAs into
 // an 8 x 4 register tile; the epilogue adds the bias, applies the mask and
-// writes each edge's 4 columns with one float4 store (a guarded scalar path
-// where F % 4 != 0). An edge's sum runs over its own non-zero rows in
+// writes each edge's 4 columns with one streaming float4 store (a guarded
+// scalar path where F % 4 != 0). An edge's sum runs over its own non-zero rows in
 // ascending order from +0 whatever its group (rows outside its window add
 // exact zeros), so the output does not depend on the order the atomics give
 // within a bin.
@@ -117,6 +117,8 @@ __global__ void __launch_bounds__(kThreads, 2) fused_rbf_filter_kernel(
   if (STAGE_W) asm volatile("cp.async.wait_all;\n" ::);
   __syncthreads();
 
+  // rows a step of the row loop: 4 where W is staged (the unstaged instances spill at 4)
+  constexpr int kUnroll = STAGE_W ? 4 : 2;
   const float coeff = -0.5f * (float)((R - 1) * (R - 1));
   float* buf = basis_s + warp * kPass * kGroup;
   const int col0 = f0 + 4 * lane;  // the lane's first column
@@ -183,10 +185,10 @@ __global__ void __launch_bounds__(kThreads, 2) fused_rbf_filter_kernel(
         const int rows = min(kPass, hi - r0 + 1);
         for (int idx = lane; idx < rows * kGroup; idx += 32) {
           const float diff = d_l - off_s[r0 + idx / kGroup];
-          buf[idx] = expf(coeff * diff * diff) * env_l;
+          buf[idx] = __expf(coeff * diff * diff) * env_l;  // within the gate, and faster than expf
         }
         __syncwarp();
-#pragma unroll 2
+#pragma unroll kUnroll
         for (int rr = 0; rr < rows; ++rr) {
           const float4 b0 = *reinterpret_cast<const float4*>(buf + rr * kGroup);
           const float4 b1 = *reinterpret_cast<const float4*>(buf + rr * kGroup + 4);
@@ -222,7 +224,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_rbf_filter_kernel(
                                           acc[i][3] + bias4.w)
                             : make_float4(0.f, 0.f, 0.f, 0.f);
         if (VEC) {
-          if (col0 < F) *reinterpret_cast<float4*>(row + col0) = v;
+          if (col0 < F) __stcs(reinterpret_cast<float4*>(row + col0), v);  // streaming: written once, not read
         } else {
           if (col0 < F) row[col0] = v.x;
           if (col0 + 1 < F) row[col0 + 1] = v.y;

@@ -27,8 +27,9 @@
 // and the coefficients are passed by value as a __grid_constant__ parameter.
 // A block finds its problem from its index and takes `cpb` consecutive cells
 // of it (a cell is a (b, n) target row of a triplet basis, a (b, n, q) row of
-// the dihedral basis): several cells where M x K is small, so that its 256
-// threads take ~7 columns each. It stages its cells' a and b rows in shared
+// the dihedral basis): as many whole cells as hold at most 1024 columns, one
+// where a cell has more (one at the relaxation shape: 2048 columns a block ran
+// slower). It stages its cells' a and b rows in shared
 // memory (normalised there when asked) behind its only barrier. Where M x K %
 // 4 == 0 and y's (m, k) plane is contiguous and 16-byte aligned (the plan
 // asks, and this file checks), a thread takes four consecutive (m, k) columns

@@ -1014,9 +1014,10 @@ def gemnet_quad_basis_reference(n1: torch.Tensor, n2: torch.Tensor, keep: torch.
     return _masked_legendre(torch.clamp(cos, -1.0, 1.0), keep.permute(0, 1, 3, 2, 4), num_spherical, dim=2)
 
 
-# csrc/masked_legendre_cos.cu's constants: problems a group, threads a block, the columns a block aims at (~7 a
-# thread), long longs a problem in the host table
-_LG_PROBLEMS, _LG_THREADS, _LG_COLUMNS, _LG_TABLE = 3, 256, 2048, 22
+# csrc/masked_legendre_cos.cu's constants: problems a group, threads a block, the most columns a block takes in
+# whole cells (one cell where a cell has more; 1024 measured faster than 2048 and 4096 at the relaxation shape,
+# scripts/variants_rbf_legendre.py), long longs a problem in the host table
+_LG_PROBLEMS, _LG_THREADS, _LG_COLUMNS, _LG_TABLE = 3, 256, 1024, 22
 
 
 class LegendreGroupPlan(NamedTuple):
@@ -1039,9 +1040,10 @@ class LegendreGroupPlan(NamedTuple):
 @functools.lru_cache(maxsize=64)
 def legendre_group_plan(shapes: Tuple[Tuple[int, int, int], ...]) -> LegendreGroupPlan:
     """The launch for a group of 1 to 3 problems, ``shapes`` one ``(cells, M,
-    K)`` each: a block takes ``cpb = 2048 // (M K)`` cells (at least one, as
-    far as their rows fit the shared memory), so that its 256 threads take ~7
-    columns each (e2e at 30 x 30: 2 cells; a2e and e2a at 30 x 20: 3);
+    K)`` each: a block takes ``cpb = 1024 // (M K)`` cells (at least one, as
+    far as their rows fit the shared memory), so that its 256 threads take
+    up to 4 columns each (at the relaxation shape one cell a block: 3.5
+    columns a thread for e2e at 30 x 30, 2.3 for a2e and e2a at 30 x 20);
     problems with no column take no block.  Raises where one cell's rows do
     not fit the shared memory."""
     if not 1 <= len(shapes) <= _LG_PROBLEMS:
@@ -1120,7 +1122,14 @@ def _legendre_fn():
 def _check_legendre_problem(kernel: str, a: torch.Tensor, b: torch.Tensor, keep: torch.Tensor,
                             device: torch.device, s: int, shapes: Tuple[Tuple[int, ...], ...]) -> None:
     """The checks that raise, for one problem on the card: device, dtype,
-    contiguity, no gradient, S and the shapes of ``a``, ``b`` and ``keep``."""
+    contiguity, no gradient, S and the shapes of ``a``, ``b`` and ``keep``
+    (all at once first: this is host time on every GemNet-OC forward)."""
+    if (a.device == device and b.device == device and keep.device == device and a.dtype == torch.float32
+            and b.dtype == torch.float32 and keep.dtype == torch.bool and a.shape == shapes[0]
+            and b.shape == shapes[1] and keep.shape == shapes[2] and a.is_contiguous() and b.is_contiguous()
+            and keep.is_contiguous() and 1 <= s <= 16
+            and not (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad))):
+        return
     for name, t, dtype, shape in (("a", a, torch.float32, shapes[0]), ("b", b, torch.float32, shapes[1]),
                                   ("keep", keep, torch.bool, shapes[2])):
         if t.device != device:
