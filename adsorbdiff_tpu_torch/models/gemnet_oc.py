@@ -26,8 +26,9 @@ e2e, a2e and e2a triplet bases always come from one call of
 :func:`adsorbdiff_tpu_torch.ops.kernels.gemnet_cbf_bases` (the masked
 Legendre kernel, one launch for the bases of the interactions switched on;
 the JAX model's ``use_pallas=True`` path for the first two, and the same
-function for the third, which JAX leaves to XLA).  There is no switch: ``fused_quad`` and
-``use_pallas`` are accepted for config compatibility and ignored.  The
+function for the third, which JAX leaves to XLA).  There is no switch:
+``fused_quad`` and ``use_pallas`` are accepted for config compatibility
+and ignored.  The
 quadruplet's c == d exclusion compares integer image keys (:func:`_img_key`),
 which the port packs in base 64: exact wherever the JAX package's base-16
 key is exact, and still injective where that one collides (offsets past 7).

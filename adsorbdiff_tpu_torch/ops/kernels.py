@@ -1016,8 +1016,8 @@ def gemnet_quad_basis_reference(n1: torch.Tensor, n2: torch.Tensor, keep: torch.
 
 # csrc/masked_legendre_cos.cu's constants: problems a group, threads a block, the most columns a block takes in
 # whole cells (one cell where a cell has more; 1024 measured faster than 2048 and 4096 at the relaxation shape,
-# scripts/variants_rbf_legendre.py), long longs a problem in the host table
-_LG_PROBLEMS, _LG_THREADS, _LG_COLUMNS, _LG_TABLE = 3, 256, 1024, 22
+# scripts/variants_rbf_legendre.py)
+_LG_PROBLEMS, _LG_THREADS, _LG_COLUMNS = 3, 256, 1024
 
 
 class LegendreGroupPlan(NamedTuple):
@@ -1098,7 +1098,8 @@ def _legendre_problem(spec: Tuple, s: int) -> Tuple[int, int, int, int, bool, Tu
 @functools.lru_cache(maxsize=64)
 def _legendre_table(specs: Tuple[Tuple, ...], s: int):
     """The launch's host part for the problems ``specs`` (cached): the plan,
-    the table of ``csrc/masked_legendre_cos.cu`` and its address, the
+    the table of ``csrc/masked_legendre_cos.cu`` (22 long longs a problem)
+    and its address, the
     coefficients and their address (the arrays kept alive by the cache
     entry), and the pointer array's ctypes type."""
     problems = [_legendre_problem(spec, s) for spec in specs]

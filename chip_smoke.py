@@ -789,8 +789,8 @@ def rbf_bound_ms(inputs, out, cutoff):
 def rbf_plan_line(plan):
     return (f"plan: {plan.blocks} blocks x {plan.threads} threads ({plan.blocks // plan.slices} a slice of 128 "
             f"columns, {plan.blocks_per_sm} an SM), {plan.chunks} chunks of 384 edges (the most a block takes over "
-            f"the mean {plan.spread:.3f}), {plan.smem_bytes} B shared, W {'staged' if plan.stage_w else 'through L1/L2'}"
-            f", {'float4' if plan.vec else 'guarded scalar'} stores")
+            f"the mean {plan.spread:.3f}), {plan.smem_bytes} B shared, "
+            f"W {'staged' if plan.stage_w else 'through L1/L2'}, {'float4' if plan.vec else 'guarded scalar'} stores")
 
 
 def rbf_window_products(inputs, cutoff):

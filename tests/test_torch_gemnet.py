@@ -1,7 +1,8 @@
 """PyTorch port: GemNet-OC (s2ef) against the JAX model and the reference oracle.
 
 The port's quadruplet interaction always runs ``gemnet_quad_chain`` and its
-triplet bases ``gemnet_cbf_basis`` (on the CPU: their plain versions); the
+triplet bases ``gemnet_cbf_bases``, one call a forward (on the CPU: their
+plain versions); the
 JAX model is run with its fused quad kernel and with its unfused einsum
 chain, each with and without ``use_pallas`` (Pallas in interpret mode).
 
