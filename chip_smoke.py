@@ -43,8 +43,13 @@ Phases; any failure raises and the exit code is then non-zero:
    at ragged shapes (M not a multiple of 8, K not of 32, an all-false row,
    shared memory over 48 KB).  fused_rbf_filter (phase 3e): at that layer's
    distances, mask and filter weights (the [1280, 50, 1536] filter of the
-   plain message versions) and ragged lead shapes with an unmasked edge past
-   the cutoff (output = bias).  No model calls these three: every path
+   plain message versions), printed with its launch plan (rbf_filter_plan),
+   its sorted chunks' window product ratio (rbf_filter_windows), its share
+   of the bound and ptxas's lines; ragged lead shapes, F = 101 and 1537
+   (guarded stores), 9 edges (a tail group), R = 500 (W through L1/L2),
+   each with an unmasked edge past the cutoff (output = bias bit for bit),
+   and an all-masked input (all zero); the same layer with its slots
+   shuffled, timed for information.  No model calls these three: every path
    run's exact counts leave them at 0, and the kernels line reports their
    launches summed over those runs.
 4. sampling path: PaiNN at the painn_so3.yml widths (H=512, 6 layers, 128
