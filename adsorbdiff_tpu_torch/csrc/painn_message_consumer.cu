@@ -3,8 +3,10 @@
 // Replaces two TPU kernels of adsorbdiff_tpu/ops/pallas_kernels.py:
 // _painn_message_kernel (wrapper painn_message_consumer, one target per
 // program) and _painn_message_tiled_kernel (wrapper
-// painn_message_consumer_tiled, TI targets per program). For every target m
-// and feature column h it computes, over the K neighbour slots of m:
+// painn_message_consumer_tiled, TI targets per program). One kernel serves
+// both: their function is the same, and the launch comes from the plan, not
+// from TI. For every target m and feature column h it computes, over the K
+// neighbour slots of m:
 //
 //   basis[k, r] = exp(-(R-1)^2/2 * (d_k - r/(R-1))^2) * env(d_k),  d_k = dist/cutoff
 //   f[k, c]     = mask_k * (bias[c] + sum_r basis[k, r] * W[r, c])      c < 3H
@@ -13,49 +15,354 @@
 //   dvec[d][h] = sum_k unit[k, d] * g3 + vec[m, k, d*H + h] * g2
 //
 // which is csrc/painn_message_fused.cu's function with the gather done by
-// the caller: slot k's features are row k of the gathered tensors. The body
-// is painn_message.cuh's (the basis staged in shared
-// memory on the rows each 16-edge pass can reach, a 16-edge x 3-column
-// register tile of the filter, the K-reduction in registers where the TPU's
-// tiled kernel multiplies by selection matrices). A block takes TI
-// consecutive targets one after another, reusing its shared memory; the last
-// block stops at M, so M need not be a multiple of TI.
+// the caller: slot k's features are row m K + k of the gathered tensors. A
+// masked slot adds nothing (its rows are not read); an unmasked slot at or
+// past the cutoff adds xh * bias (its basis is all zero, its bias is not); a
+// target whose slots are all masked gives 0.
+//
+// The basis is sparse: basis[k, r] = exp(-(r - c_k)^2 / 2) env(d_k) with
+// c_k = d_k (R-1), a unit-width gaussian in r that underflows to 0 in f32
+// once |r - c_k| > 14.4, and is 0 for d_k >= 1. A slot of bin b = floor(c_k)
+// reaches rows [b - 14, b + 15] only.
 //
 // What bounds it on the H100: it must read the two gathered [M, K, 3H]
-// tensors once (786 MB at M=1280, K=50, H=512: ~0.24 ms at 3.35 TB/s), above
-// the ~6.3 GFLOP the filter needs on the non-zero rows (~0.09 ms).
+// tensors once (786 MB of the 798.8 MB it moves at M=1280, K=50, H=512:
+// 0.2384 ms at 3.35 TB/s), above the 6.33 GFLOP the filter needs on the
+// non-zero rows (0.0945 ms). So device memory has to stream without a pause
+// while the filter's FMAs run underneath, and the FMAs, with the
+// shared-memory loads that feed them, must issue fast enough to stay under
+// the bytes.
 //
-// Masked slots contribute nothing; an unmasked slot beyond the cutoff
-// contributes xh * bias (its basis is all zero), as in the TPU kernel.
+// Design (ops/kernels.py::consumer_plan sets the launch; the C function
+// refuses a plan whose shared-memory size disagrees with this file's layout):
+//   * one block of 8 warps an SM. Block b owns the 64 columns h0 = 64 (b % S)
+//     .. h0 + 63 (with H + h and 2H + h) of the S = ceil(H / 64) slices and
+//     the targets of chunk b / S of the plan's C equal chunks. The S blocks
+//     of a chunk run side by side and walk the same targets in the same
+//     order, so dist, mask and unit come from device memory about once and
+//     from L2 for the other slices. Before its only barrier a block copies
+//     (cp.async) W's columns [R][3][64] and the bias into shared memory
+//     (W's slice is read through L1/L2 where it does not fit, R > 285);
+//   * each warp ("owner") takes the targets o, o + 8, .. of its chunk and
+//     walks their slots in groups of 8; lane l holds the columns h0 + 2l and
+//     h0 + 2l + 1. Lanes 0-7 read a group's slot records (mask, distance,
+//     unit vector);
+//   * a group first issues the loads of its valid slots' rows (8 slots x 2
+//     tensors x 3 H-blocks, a float2 a lane: 256-byte segments, 12 KB a
+//     group, streaming loads into registers), then builds its basis and runs
+//     its filter, and reads the rows only when the filter is done: every
+//     owner keeps its 12 KB in flight while its FMAs run (96 KB an SM, where
+//     ~20 KB cover the latency at full rate);
+//   * the rows the group can reach are the union of its valid slots' windows
+//     (1.33x the needed products on the bench graph). Lane l computes
+//     basis[r][l % 8] for rows plo + l / 8, + 4, .. directly (one ex2 each)
+//     into the owner's buffer, in passes of up to 48 rows; the filter is an
+//     8-slot x 6-column register tile, per row two broadcast float4s of the
+//     basis (one address for the whole warp) and one float2 of W for each
+//     H-block feeding 48 FMAs (the last group of K, 4 or 2 slots, runs a 4-
+//     or 2-slot tile). A warp runs its own target's window: no lane waits on
+//     another target's rows;
+//   * the gather-multiply, the K-reduction and the directional term stay in
+//     registers; each output is written once, with a plain store, when the
+//     owner's target is done: no atomics and no barrier after the staging.
+//   Shared memory at M=1280, K=50, R=128, H=512 (8 slices x 16 chunks = 128
+//   blocks of 256 threads, 80 targets a block, 10 a warp), 111,872 B:
+//       the owners' basis buffers [8][48 x 8 + 16]       12,800 B
+//       W columns [R][3][64]                             98,304 B
+//       bias columns [3][64]                                768 B
+//   The rows of a group live in registers (96 floats a lane), not in shared
+//   memory: one block of 8 warps an SM is what the 65,536 registers allow.
+//
+// Knobs below (the layout line, kRowsFirst, kUnrollSW, ld_rows) are the
+// design choices scripts/variants_painn_message_consumer.py undoes one at a
+// time (kOwnerLanes = 16: half-warp owners over 32 columns).
 
-#include "painn_message.cuh"
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
 namespace {
 
-using namespace painn_message;
+constexpr int kWarps = 8, kOwnerLanes = 32, kGroup = 8, kWin = 48;  // warps a block, lanes an owner, slots a
+                                                                     // group, basis rows a pass
+constexpr int kThreads = kWarps * 32;
+constexpr int kOwners = kThreads / kOwnerLanes;  // owners a block, each owning targets
+constexpr int kCols = 2 * kOwnerLanes;           // columns h a block; a lane holds two neighbours
+constexpr int kBufStride = kWin * kGroup + 16;   // floats of an owner's buffer: two owners of a warp (adjacent
+                                                 // buffers) read banks 16 apart
+constexpr int kReachLo = 14, kReachHi = 15;      // a slot of bin b reaches rows [b - 14, b + 15]
+constexpr bool kRowsFirst = true;                // a group's rows are loaded before its filter loop, not after it
+constexpr int kUnrollSW = 4;                     // filter row loop unrolling with W staged
+static_assert(kOwnerLanes == 16 || kOwnerLanes == 32, "an owner is a half-warp or a warp");
+static_assert(kWin * kGroup % 32 == 0, "basis buffers keep their bank offset");
 
-__global__ void __launch_bounds__(kThreads) painn_message_consumer_kernel(
-    const float* __restrict__ dist, const uint8_t* __restrict__ mask,
-    const float* __restrict__ unit, const float* __restrict__ xh,
-    const float* __restrict__ vec, const float* __restrict__ w,
-    const float* __restrict__ bias, float* __restrict__ dx_out,
-    float* __restrict__ dvec_out, int M, int K, int R, int H, int ti,
-    float inv_cutoff, int p) {
-  extern __shared__ float smem[];
-  const Tile t = carve(smem, K, R);
-  const int h = blockIdx.y * kThreads + threadIdx.x;
-  const size_t F = 3 * (size_t)H;
-  for (int j = 0; j < ti; ++j) {
-    const int m = blockIdx.x * ti + j;  // the same for every thread of the block
-    if (m >= M) break;
-    const size_t e0 = (size_t)m * K;
-    __syncthreads();  // the previous target's reads of the tile are done
-    stage_target(t, dist, unit, e0, K, R, inv_cutoff, p, [&](int k) { return mask[e0 + k] ? k : -1; });
-    if (h < H) {
-      message_columns(t, K, H, h, w, bias, xh + e0 * F, vec + e0 * F, dx_out + (size_t)m * H,
-                      dvec_out + (size_t)m * F);
+// Dynamic shared bytes of a block: the owners' basis buffers, the W columns (stage_w), the bias columns.
+__host__ __device__ inline size_t smem_bytes(int R, bool stage_w) {
+  return sizeof(float) * ((size_t)kOwners * kBufStride + (stage_w ? 3 * (size_t)R * kCols : 0) + 3 * kCols);
+}
+
+// The gathered rows are read once: streaming loads (evict first) keep W, dist and unit in L2.
+__device__ __forceinline__ float2 ld_rows(const float* p) { return __ldcs(reinterpret_cast<const float2*>(p)); }
+__device__ __forceinline__ float ld_row(const float* p) { return __ldcs(p); }
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(ok ? 4 : 0));
+}
+
+struct Args {
+  const float *dist, *unit, *xh, *vec, *w, *bias;
+  const uint8_t* mask;
+  float *dx, *dvec;
+  int M, K, R, H, chunks, slices;
+  float inv_cutoff;
+  int p;
+};
+
+// One group's slot record, held by lanes 0-7 (lane l: slot 8 grp + l).
+struct Slot {
+  bool valid;
+  float d, u0, u1, u2;
+};
+
+__device__ __forceinline__ Slot read_slot(const Args& a, int t, int k, bool lane_reads) {
+  Slot s{false, 2.f, 0.f, 0.f, 0.f};
+  if (lane_reads && k < a.K) {
+    const size_t e = (size_t)t * a.K + k;
+    s.valid = __ldg(a.mask + e) != 0;
+    s.d = __ldg(a.dist + e) * a.inv_cutoff;
+    s.u0 = __ldg(a.unit + 3 * e);
+    s.u1 = __ldg(a.unit + 3 * e + 1);
+    s.u2 = __ldg(a.unit + 3 * e + 2);
+  }
+  return s;
+}
+
+// The filter over the basis rows [plo, phi] of the owner's buffer: acc[i][j] += basis[r][i] * W[r][jH + (hA, hB)]
+// for the group's first TE slots (TE = 8, 4 or 2); W from shared memory (SW) or through L1/L2.
+template <int TE, bool SW>
+__device__ __forceinline__ void filter_rows(float2 (&acc)[kGroup][3], const float4* __restrict__ b4,
+                                            const float2* __restrict__ w2, const float* __restrict__ w, size_t F,
+                                            int H, int cA, int cB, int plo, int phi) {
+  constexpr int kUnroll = SW ? kUnrollSW : 2;
+#pragma unroll kUnroll
+  for (int r = plo; r <= phi; ++r) {
+    float bv[kGroup];
+    const float4 ba = b4[2 * (r - plo)];
+    bv[0] = ba.x, bv[1] = ba.y, bv[2] = ba.z, bv[3] = ba.w;
+    if (TE > 4) {
+      const float4 bb = b4[2 * (r - plo) + 1];
+      bv[4] = bb.x, bv[5] = bb.y, bv[6] = bb.z, bv[7] = bb.w;
+    }
+    float2 w0, w1, w2v;
+    if (SW) {
+      const float2* wr = w2 + r * (3 * kCols / 2);
+      w0 = wr[0];
+      w1 = wr[kCols / 2];
+      w2v = wr[kCols];
+    } else {
+      const float* wr = w + (size_t)r * F;
+      w0 = make_float2(__ldg(wr + cA), __ldg(wr + cB));
+      w1 = make_float2(__ldg(wr + H + cA), __ldg(wr + H + cB));
+      w2v = make_float2(__ldg(wr + 2 * H + cA), __ldg(wr + 2 * H + cB));
+    }
+#pragma unroll
+    for (int i = 0; i < TE; ++i) {
+      acc[i][0].x = fmaf(bv[i], w0.x, acc[i][0].x);
+      acc[i][0].y = fmaf(bv[i], w0.y, acc[i][0].y);
+      acc[i][1].x = fmaf(bv[i], w1.x, acc[i][1].x);
+      acc[i][1].y = fmaf(bv[i], w1.y, acc[i][1].y);
+      acc[i][2].x = fmaf(bv[i], w2v.x, acc[i][2].x);
+      acc[i][2].y = fmaf(bv[i], w2v.y, acc[i][2].y);
     }
   }
+}
+
+// The rows of the group's valid slots (bit i of vm: slot e0 + i) at the lane's columns: x[i][j] = xh[e0 + i][jH +
+// (hA, hB)], v likewise; zero for an invalid slot or a column past H. V2: H even, float2 loads.
+template <bool V2>
+__device__ __forceinline__ void load_rows(float2 (&x)[kGroup][3], float2 (&v)[kGroup][3], const Args& a, size_t e0,
+                                          unsigned vm, int hA, size_t F) {
+  const int H = a.H;
+#pragma unroll
+  for (int i = 0; i < kGroup; ++i) {
+    const bool okA = (vm >> i & 1u) && hA < H;
+    const bool okB = (vm >> i & 1u) && hA + 1 < H;
+    const float* xp = a.xh + (e0 + i) * F + hA;
+    const float* vp = a.vec + (e0 + i) * F + hA;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      if (V2) {
+        x[i][j] = okA ? ld_rows(xp + j * H) : make_float2(0.f, 0.f);
+        v[i][j] = okA ? ld_rows(vp + j * H) : make_float2(0.f, 0.f);
+      } else {
+        x[i][j] = make_float2(okA ? ld_row(xp + j * H) : 0.f, okB ? ld_row(xp + j * H + 1) : 0.f);
+        v[i][j] = make_float2(okA ? ld_row(vp + j * H) : 0.f, okB ? ld_row(vp + j * H + 1) : 0.f);
+      }
+    }
+  }
+}
+
+template <bool SW, bool V2>
+__global__ void __launch_bounds__(kThreads, 1) consumer_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int half = lane / kOwnerLanes, l = lane % kOwnerLanes;  // half: 0 where an owner is a warp
+  const int owner = half * kWarps + warp;  // consecutive targets go to warps on other schedulers first
+  const unsigned omask = kOwnerLanes == 32 ? 0xffffffffu : 0xffffu << (16 * half);
+  const int obase = kOwnerLanes * half;  // the owner's first lane
+  float* buf = smem + (warp * (32 / kOwnerLanes) + half) * kBufStride;
+  float* w_s = smem + kOwners * kBufStride;           // [R][3][kCols]
+  float* bias_s = w_s + (SW ? 3 * a.R * kCols : 0);  // [3][kCols]
+
+  const int H = a.H, K = a.K, R = a.R;
+  const size_t F = 3 * (size_t)H;
+  const int slice = blockIdx.x % a.slices, chunk = blockIdx.x / a.slices;
+  const int h0 = slice * kCols;
+  const int t0 = (int)((long long)chunk * a.M / a.chunks);
+  const int t1 = (int)((long long)(chunk + 1) * a.M / a.chunks);
+
+  // ---- the block's W and bias columns (zero past H); the only barrier ----
+  for (int i = tid; i < 3 * kCols; i += kThreads) {
+    const int c = h0 + i % kCols;
+    bias_s[i] = c < H ? __ldg(a.bias + (i / kCols) * H + c) : 0.f;
+  }
+  if (SW) {
+    for (int i = tid; i < 3 * R * kCols; i += kThreads) {
+      const int r = i / (3 * kCols), j = i / kCols % 3, c = h0 + i % kCols;
+      cp_async4(w_s + i, a.w + (size_t)r * F + j * H + (c < H ? c : 0), c < H);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // ---- this owner's targets t0 + owner, t0 + owner + kOwners, .., a group of 8 slots at a time ----
+  const int hA = h0 + 2 * l, hB = hA + 1;
+  const int cA = min(hA, H - 1), cB = min(hB, H - 1);  // clamped columns for W loads of idle lanes
+  const int ngroups = (K + kGroup - 1) / kGroup;
+  const int mine = owner < t1 - t0 ? (t1 - t0 - owner + kOwners - 1) / kOwners : 0;
+  const int nwork = mine * ngroups;
+  const float pf = (float)a.p;
+  const float ca = -(pf + 1.f) * (pf + 2.f) * 0.5f;
+  const float cb = pf * (pf + 2.f);
+  const float cc = -pf * (pf + 1.f) * 0.5f;
+  const float rm1 = (float)(R - 1);
+  const float inv_sqrt3 = 0.57735026918962576f;
+  const float2* w2 = reinterpret_cast<const float2*>(w_s) + l;
+  const float4* b4 = reinterpret_cast<const float4*>(buf);
+  const float2* bias2 = reinterpret_cast<const float2*>(bias_s) + l;
+  const float2 b0 = bias2[0], b1 = bias2[kCols / 2], b2 = bias2[kCols];
+  const bool reader = l < kGroup;  // lanes 0-7 hold the group's slot records
+  const int e = l % kGroup;        // the basis column (slot) a lane builds
+
+  float2 ox = make_float2(0.f, 0.f), ov0 = ox, ov1 = ox, ov2 = ox;  // the target's outputs at hA, hB
+  for (int wi = 0; wi < nwork; ++wi) {
+    const int tt = wi / ngroups, grp = wi - tt * ngroups;
+    const int t = t0 + owner + tt * kOwners;
+    const Slot cur = read_slot(a, t, grp * kGroup + l, reader);
+    const unsigned vm = (__ballot_sync(omask, cur.valid) >> obase) & 0xffu;  // the group's valid slots
+    const size_t e0 = (size_t)t * K + grp * kGroup;
+    float2 xr[kGroup][3], vr[kGroup][3];
+    if (kRowsFirst) load_rows<V2>(xr, vr, a, e0, vm, hA, F);
+
+    // envelope, bin and reach of the lane's slot; the group's window [lo, hi]
+    const float d = cur.valid ? cur.d : 2.f;
+    const bool reach = d < 1.f;  // a valid slot with a non-zero basis
+    float env = 0.f;
+    if (reach) {
+      float dp = 1.f;
+      for (int j = 0; j < a.p; ++j) dp *= d;
+      env = 1.f + ca * dp + cb * dp * d + cc * dp * d * d;
+    }
+    const int bin = reach ? min((int)(d * rm1), R - 1) : 0;
+    const int lo = __reduce_min_sync(omask, reach ? max(0, bin - kReachLo) : R);
+    const int hi = __reduce_max_sync(omask, reach ? min(R - 1, bin + kReachHi) : -1);
+    const float ce = __shfl_sync(omask, d, obase + e) * rm1;  // slot e's centre row
+    const float enve = __shfl_sync(omask, env, obase + e);
+
+    const int nslots = min(kGroup, K - grp * kGroup);  // the owners of a warp are at one group: no divergence
+    float2 acc[kGroup][3];
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) acc[i][0] = acc[i][1] = acc[i][2] = make_float2(0.f, 0.f);
+    for (int plo = lo; plo <= hi; plo += kWin) {
+      const int phi = min(hi, plo + kWin - 1);
+      // basis rows [plo, phi]: lane l builds slot e's rows plo + l / 8, + kOwnerLanes / 8, ..
+      for (int r = plo + l / kGroup; r <= phi; r += kOwnerLanes / kGroup) {
+        const float x = (float)r - ce;
+        buf[(r - plo) * kGroup + e] = enve != 0.f ? __expf(-0.5f * x * x) * enve : 0.f;
+      }
+      __syncwarp(omask);
+      // ---- the filter; a group of 4 or fewer slots (the tail of K) runs a narrower tile ----
+      if (nslots > 4) {
+        filter_rows<8, SW>(acc, b4, w2, a.w, F, H, cA, cB, plo, phi);
+      } else if (nslots > 2) {
+        filter_rows<4, SW>(acc, b4, w2, a.w, F, H, cA, cB, plo, phi);
+      } else {
+        filter_rows<2, SW>(acc, b4, w2, a.w, F, H, cA, cB, plo, phi);
+      }
+      __syncwarp(omask);  // the next pass overwrites the buffer
+    }
+    if (!kRowsFirst) load_rows<V2>(xr, vr, a, e0, vm, hA, F);
+
+    // ---- gather-multiply, K-reduction and directional term, in registers ----
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      const float u0 = __shfl_sync(omask, cur.u0, obase + i);
+      const float u1 = __shfl_sync(omask, cur.u1, obase + i);
+      const float u2 = __shfl_sync(omask, cur.u2, obase + i);
+      if (vm >> i & 1u) {
+        const float g1x = xr[i][0].x * (acc[i][0].x + b0.x), g1y = xr[i][0].y * (acc[i][0].y + b0.y);
+        const float g2x = xr[i][1].x * (acc[i][1].x + b1.x) * inv_sqrt3;
+        const float g2y = xr[i][1].y * (acc[i][1].y + b1.y) * inv_sqrt3;
+        const float g3x = xr[i][2].x * (acc[i][2].x + b2.x), g3y = xr[i][2].y * (acc[i][2].y + b2.y);
+        ox.x += g1x;
+        ox.y += g1y;
+        ov0.x += u0 * g3x + vr[i][0].x * g2x;
+        ov0.y += u0 * g3y + vr[i][0].y * g2y;
+        ov1.x += u1 * g3x + vr[i][1].x * g2x;
+        ov1.y += u1 * g3y + vr[i][1].y * g2y;
+        ov2.x += u2 * g3x + vr[i][2].x * g2x;
+        ov2.y += u2 * g3y + vr[i][2].y * g2y;
+      }
+    }
+    if (grp == ngroups - 1) {  // the target is done: its outputs, once
+      float* dxr = a.dx + (size_t)t * H;
+      float* dvr = a.dvec + (size_t)t * F;
+      if (V2) {
+        if (hA < H) {
+          *reinterpret_cast<float2*>(dxr + hA) = ox;
+          *reinterpret_cast<float2*>(dvr + hA) = ov0;
+          *reinterpret_cast<float2*>(dvr + H + hA) = ov1;
+          *reinterpret_cast<float2*>(dvr + 2 * H + hA) = ov2;
+        }
+      } else {
+        if (hA < H) {
+          dxr[hA] = ox.x;
+          dvr[hA] = ov0.x;
+          dvr[H + hA] = ov1.x;
+          dvr[2 * H + hA] = ov2.x;
+        }
+        if (hB < H) {
+          dxr[hB] = ox.y;
+          dvr[hB] = ov0.y;
+          dvr[H + hB] = ov1.y;
+          dvr[2 * H + hB] = ov2.y;
+        }
+      }
+      ox = ov0 = ov1 = ov2 = make_float2(0.f, 0.f);
+    }
+  }
+}
+
+template <bool SW, bool V2>
+cudaError_t launch(const Args& a, size_t smem, cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(consumer_kernel<SW, V2>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  consumer_kernel<SW, V2><<<(unsigned)(a.chunks * a.slices), kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -63,30 +370,48 @@ __global__ void __launch_bounds__(kThreads) painn_message_consumer_kernel(
 // Plain C interface (loaded with ctypes). All pointers are device pointers of
 // contiguous tensors: dist [M,K] f32; mask [M,K] bool (1 byte); unit [M,K,3]
 // f32; xh, vec [M,K,3H] f32 (vec's 3H is (3, H) flattened); w [R,3H] f32;
-// bias [3H] f32; dx [M,H] f32 and dvec [M,3,H] f32 are written. `ti`
-// targets per block (>= 1). Launches on `stream` and returns
-// cudaGetLastError() after the launch (0 = success).
+// bias [3H] f32; dx [M,H] f32 and dvec [M,3,H] f32 are written whole. The
+// plan (ops/kernels.py::consumer_plan): `chunks` target chunks (1 <= chunks
+// <= M) x ceil(H / 32) slices = the blocks; stage_w and smem_bytes must agree
+// with this file's layout; vec (float2 loads and stores) needs H even and
+// xh, vec, dx, dvec 8-byte aligned; else cudaErrorInvalidValue. Needs K >= 1
+// and R >= 2. Launches on `stream` and returns cudaGetLastError() after the
+// launch (0 = success).
 extern "C" int painn_message_consumer_f32(
     const void* dist, const void* mask, const void* unit, const void* xh,
     const void* vec, const void* w, const void* bias, void* dx, void* dvec,
-    int M, int K, int R, int H, int ti, float inv_cutoff, int envelope_exponent,
-    void* stream) {
+    int M, int K, int R, int H, float inv_cutoff, int envelope_exponent,
+    int chunks, int stage_w, int vec2, int smem, void* stream) {
   if (M <= 0 || H <= 0) return 0;
-  if (ti < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(K, R);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        painn_message_consumer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  const long long slices = (H + kCols - 1) / kCols;
+  if (K < 1 || R < 2 || chunks < 1 || chunks > M || chunks * slices > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((unsigned)((M + ti - 1) / ti), (unsigned)((H + kThreads - 1) / kThreads));
-  painn_message_consumer_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(dist), static_cast<const uint8_t*>(mask),
-      static_cast<const float*>(unit), static_cast<const float*>(xh),
-      static_cast<const float*>(vec), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<float*>(dx),
-      static_cast<float*>(dvec), M, K, R, H, ti, inv_cutoff, envelope_exponent);
-  return (int)cudaGetLastError();
+  if ((size_t)smem != smem_bytes(R, stage_w != 0)) return (int)cudaErrorInvalidValue;
+  const uintptr_t align = (uintptr_t)xh | (uintptr_t)vec | (uintptr_t)dx | (uintptr_t)dvec;
+  if (vec2 && (H % 2 != 0 || align % 8 != 0)) return (int)cudaErrorInvalidValue;
+  Args a;
+  a.dist = static_cast<const float*>(dist);
+  a.unit = static_cast<const float*>(unit);
+  a.xh = static_cast<const float*>(xh);
+  a.vec = static_cast<const float*>(vec);
+  a.w = static_cast<const float*>(w);
+  a.bias = static_cast<const float*>(bias);
+  a.mask = static_cast<const uint8_t*>(mask);
+  a.dx = static_cast<float*>(dx);
+  a.dvec = static_cast<float*>(dvec);
+  a.M = M;
+  a.K = K;
+  a.R = R;
+  a.H = H;
+  a.chunks = chunks;
+  a.slices = (int)slices;
+  a.inv_cutoff = inv_cutoff;
+  a.p = envelope_exponent;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t bytes = (size_t)smem;
+  if (stage_w) return (int)(vec2 ? launch<true, true>(a, bytes, s) : launch<true, false>(a, bytes, s));
+  return (int)(vec2 ? launch<false, true>(a, bytes, s) : launch<false, false>(a, bytes, s));
 }
 
 extern "C" const char* painn_message_consumer_error_string(int code) {

@@ -7,7 +7,7 @@ Counterpart of :mod:`adsorbdiff_tpu.ops.pallas_kernels`.  Each kernel has:
   (built from ``csrc/`` on first use) or raises.  On a CPU tensor it calls the
   plain version: that is the only way the plain version is reached;
 - a plain PyTorch version (``*_reference``) with the same signature (less
-  the consumers' ``ti``, which sets only the launch), for the CPU tests and for
+  the consumers' ``ti``, which sets nothing), for the CPU tests and for
   holding the kernel against on the card;
 - a launch count in :data:`launches`, raised by one where the wrapper
   launches the kernel and nowhere else.
@@ -387,14 +387,24 @@ def painn_fwd_windows(dist: torch.Tensor, mask: torch.Tensor, src: torch.Tensor,
     (cut to ``[0, R)``) over its valid slots (mask set, source in ``[0,
     N)``) before the cutoff, ``bin = floor(dist * (1 / cutoff) * (R - 1))``
     in f32; ``hi < lo`` where no such slot."""
-    b, n, k = dist.shape
-    g = _cdiv(k, _PF_GROUP)
+    n = dist.shape[1]
+    return _group_windows(dist, mask & (src >= 0) & (src < n), r, cutoff, _PF_GROUP)
+
+
+def _group_windows(dist: torch.Tensor, valid: torch.Tensor, r: int, cutoff: float,
+                   group: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(lo, hi)`` ``[..., ceil(K / group)]``: for each group of ``group``
+    consecutive slots the union of ``[bin - 14, bin + 15]`` (cut to ``[0,
+    R)``) over its ``valid`` slots before the cutoff; ``hi < lo`` where no
+    such slot."""
+    k = dist.shape[-1]
+    g = _cdiv(k, group)
     d = dist.float() * (1.0 / cutoff)
-    reach = mask & (src >= 0) & (src < n) & (d < 1.0)
+    reach = valid & (d < 1.0)
     bins = torch.clamp((d * float(r - 1)).to(torch.int32), max=r - 1)
-    pad = g * _PF_GROUP - k
-    reach = torch.nn.functional.pad(reach, (0, pad)).reshape(b, n, g, _PF_GROUP)
-    bins = torch.nn.functional.pad(bins, (0, pad)).reshape(b, n, g, _PF_GROUP)
+    pad = g * group - k
+    reach = torch.nn.functional.pad(reach, (0, pad)).unflatten(-1, (g, group))
+    bins = torch.nn.functional.pad(bins, (0, pad)).unflatten(-1, (g, group))
     lo = torch.where(reach, torch.clamp(bins - 14, min=0), torch.full_like(bins, r)).amin(-1)
     hi = torch.where(reach, torch.clamp(bins + 15, max=r - 1), torch.full_like(bins, -1)).amax(-1)
     return lo, hi
@@ -596,8 +606,9 @@ def painn_message_consumer(
     ``dist``, ``mask`` ``[M, K]``, ``unit`` ``[M, K, 3]``, ``xh_gathered``,
     ``vec_gathered`` ``[M, K, 3H]``, ``weights`` ``[R, 3H]``, ``bias``
     ``[3H]``.  Returns ``(dx [M, H], dvec [M, 3, H])`` f32, before PaiNN's
-    1/sqrt(H) scale.  ``ti`` targets per block (M need not be a multiple).
-    On the card: f32 contiguous inputs, ``mask`` bool, no gradient (the JAX
+    1/sqrt(H) scale.  ``ti`` (>= 1) is kept for API stability, as JAX keeps
+    it: the launch is :func:`consumer_plan`'s whatever ``ti`` is.  On the
+    card: f32 contiguous inputs, ``mask`` bool, no gradient (the JAX
     function has no VJP either).  No model calls it.
     """
     return _consumer("painn_message_consumer", dist, mask, unit, xh_gathered, vec_gathered, weights, bias,
@@ -617,14 +628,17 @@ def painn_message_consumer_tiled(
     envelope_exponent: int = 5,
     ti: int = 8,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`painn_message_consumer` with ``ti`` targets per block (default
-    8), the counterpart of the JAX multi-target kernel; one source serves
-    both, and its launches count under this name."""
+    """:func:`painn_message_consumer` under the name of the JAX multi-target
+    kernel (``ti`` targets a program there, default 8).  One kernel serves
+    both names and takes its launch from :func:`consumer_plan`; ``ti`` (>= 1)
+    is checked and sets nothing.  Its launches count under this name."""
     return _consumer("painn_message_consumer_tiled", dist, mask, unit, xh_gathered, vec_gathered, weights, bias,
                      cutoff, envelope_exponent, ti)
 
 
 def _consumer(name, dist, mask, unit, xh_gathered, vec_gathered, weights, bias, cutoff, envelope_exponent, ti):
+    if int(ti) < 1:
+        raise ValueError(f"{name}: ti must be >= 1, got {ti}")
     if dist.device.type == "cpu":
         return painn_message_consumer_reference(dist, mask, unit, xh_gathered, vec_gathered, weights, bias,
                                                 cutoff=cutoff, envelope_exponent=envelope_exponent)
@@ -637,22 +651,104 @@ def _consumer(name, dist, mask, unit, xh_gathered, vec_gathered, weights, bias, 
     r, f3 = _filter_weights(name, weights)
     _check_shapes(name, tensors, dict(mask=(m, k), unit=(m, k, 3), xh_gathered=(m, k, f3), vec_gathered=(m, k, f3),
                                       bias=(f3,)))
-    if int(ti) < 1:
-        raise ValueError(f"{name}: ti must be >= 1, got {ti}")
     h = f3 // 3
+    if m * h == 0:  # empty output: nothing to launch
+        return dist.new_empty((m, h)), dist.new_empty((m, 3, h))
+    if k == 0:  # no slots: the sums are empty
+        return dist.new_zeros((m, h)), dist.new_zeros((m, 3, h))
+    plan = consumer_plan(m, k, r, h, _sm_count(dist.device))
     dx = torch.empty((m, h), dtype=torch.float32, device=dist.device)
     dvec = torch.empty((m, 3, h), dtype=torch.float32, device=dist.device)
-    if m * h == 0:  # empty output: nothing to launch
-        return dx, dvec
-    lib = _library("painn_message_consumer",
-                   [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    vec2 = plan.vec and all(t.data_ptr() % 8 == 0 for t in (xh_gathered, vec_gathered))
+    lib = _library("painn_message_consumer", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                   + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     _launch(
         "painn_message_consumer", lib, dist.device,
         dist.data_ptr(), mask.data_ptr(), unit.data_ptr(), xh_gathered.data_ptr(), vec_gathered.data_ptr(),
         weights.data_ptr(), bias.data_ptr(), dx.data_ptr(), dvec.data_ptr(),
-        m, k, r, h, int(ti), 1.0 / cutoff, int(envelope_exponent), count_as=name,
+        m, k, r, h, 1.0 / cutoff, int(envelope_exponent), plan.chunks, int(plan.stage_w), int(vec2),
+        plan.smem_bytes, count_as=name, shape=f"M, K, R, H = {m}, {k}, {r}, {h}",
     )
     return dx, dvec
+
+
+# csrc/painn_message_consumer.cu's constants: owners (warps) a block, columns h a block, slots a group, basis rows a
+# pass; the most dynamic shared memory a block may take (the kernel has no static shared memory)
+_CS_OWNERS, _CS_COLS, _CS_GROUP, _CS_WIN = 8, 64, 8, 48
+_CS_SMEM = 232448
+
+
+class ConsumerPlan(NamedTuple):
+    """How :func:`painn_message_consumer` is launched: ``blocks`` = ``chunks``
+    x ``slices`` blocks of ``threads`` threads, one an SM; block ``b`` owns
+    the 64 columns ``64 (b % slices) ..`` (with their H + h and 2H + h) and
+    the targets ``[c M // chunks, (c + 1) M // chunks)`` of chunk ``c = b //
+    slices``, owner (warp) ``o`` of it the targets ``o, o + 8, ..`` of the
+    chunk; ``stage_w``: W's columns copied to shared memory (else read
+    through L1/L2); ``vec``: H even, float2 loads and stores;
+    ``smem_bytes`` a block; ``load``: the most targets an owner takes;
+    ``waves`` = blocks / SMs."""
+
+    slices: int
+    chunks: int
+    blocks: int
+    threads: int
+    stage_w: bool
+    vec: bool
+    smem_bytes: int
+    load: int
+    waves: float
+
+
+def consumer_smem(r: int, stage_w: bool) -> int:
+    """The consumer kernel's dynamic shared bytes: the owners' ``[48 x 8 +
+    16]`` basis buffers, W's ``[R][3][64]`` columns (``stage_w``) and the
+    bias columns."""
+    return 4 * (_CS_OWNERS * (_CS_WIN * _CS_GROUP + 16) + 3 * r * _CS_COLS * stage_w + 3 * _CS_COLS)
+
+
+@functools.lru_cache(maxsize=64)
+def consumer_plan(m: int, k: int, r: int, h: int, sms: int) -> ConsumerPlan:
+    """``csrc/painn_message_consumer.cu``'s launch for ``m`` targets, ``k``
+    slots, ``r`` radial functions and ``h`` columns on a card of ``sms`` SMs:
+    ``slices = ceil(h / 64)`` column slices, each cut into the same
+    ``chunks`` target chunks, so that the blocks of a chunk (one a slice) run
+    side by side; ``chunks = sms // slices`` (at least 1, at most m): one
+    wave of one block an SM where the slices are fewer than the SMs (at M =
+    1280, H = 512: 16 chunks of 80 targets x 8 slices = 128 blocks, 10
+    targets a warp).  W's columns are staged where they fit (R <= 285).
+    Refuses ``m < 1``, ``k < 1``, ``h < 1``, ``r < 2`` and grids past 2^31
+    - 1 blocks."""
+    slices = _cdiv(h, _CS_COLS)
+    if m < 1 or k < 1 or h < 1 or r < 2 or slices > 2**31 - 1:
+        raise ValueError(f"painn_message_consumer: no launch for M, K, R, H = {m}, {k}, {r}, {h} (the kernel takes "
+                         f"M, K, H >= 1 and R >= 2)")
+    chunks = max(1, min(m, sms // slices))
+    stage_w = consumer_smem(r, True) <= _CS_SMEM
+    return ConsumerPlan(slices=slices, chunks=chunks, blocks=chunks * slices, threads=32 * _CS_OWNERS,
+                        stage_w=stage_w, vec=h % 2 == 0, smem_bytes=consumer_smem(r, stage_w),
+                        load=_cdiv(_cdiv(m, chunks), _CS_OWNERS), waves=chunks * slices / sms)
+
+
+def consumer_work(plan: ConsumerPlan, m: int):
+    """The kernel's work in Python: ``(block, owner, target, slice)`` for
+    every target an owner takes."""
+    for b in range(plan.blocks):
+        s, c = b % plan.slices, b // plan.slices
+        t0, t1 = c * m // plan.chunks, (c + 1) * m // plan.chunks
+        for t in range(t0, t1):
+            yield b, (t - t0) % _CS_OWNERS, t, s
+
+
+def consumer_windows(dist: torch.Tensor, mask: torch.Tensor, r: int,
+                     cutoff: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The consumer kernel's window rule, in Python: ``(lo, hi)`` ``[M, G]``
+    (G = ceil(K / 8)), the basis rows it runs for each group of 8
+    consecutive slots of a target: the union of ``[bin - 14, bin + 15]``
+    (cut to ``[0, R)``) over its unmasked slots before the cutoff, ``bin =
+    floor(dist * (1 / cutoff) * (R - 1))`` in f32; ``hi < lo`` where no such
+    slot."""
+    return _group_windows(dist, mask, r, cutoff, _CS_GROUP)
 
 
 def _filter_weights(kernel: str, weights: torch.Tensor) -> Tuple[int, int]:

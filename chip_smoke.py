@@ -39,9 +39,13 @@ Phases; any failure raises and the exit code is then non-zero:
    painn_message_consumer and painn_message_consumer_tiled (phase 3d, ti 1
    and 8): at the second message layer's inputs of one B=16 PaiNN forward
    (M = 1280 targets, K=50, H=512; features gathered in torch), each against
-   its plain version and against painn_message_fused on the same layer, and
-   at ragged shapes (M not a multiple of 8, K not of 32, an all-false row,
-   shared memory over 48 KB).  fused_rbf_filter (phase 3e): at that layer's
+   its plain version and against painn_message_fused on the same layer,
+   printed with its launch plan (consumer_plan), its 8-slot groups' window
+   product ratio (consumer_windows), its share of the bound and ptxas's
+   lines; and at ragged shapes (M not a multiple of 16, K = 1, 45 and 120,
+   H = 48, 100, 33 and 50 (H % 64 != 0; H = 33 odd: scalar loads), R = 600
+   (W through
+   L1/L2), an all-false row that must give 0).  fused_rbf_filter (phase 3e): at that layer's
    distances, mask and filter weights (the [1280, 50, 1536] filter of the
    plain message versions), printed with its launch plan (rbf_filter_plan),
    its sorted chunks' window product ratio (rbf_filter_windows), its share
@@ -781,6 +785,26 @@ def consumer_bound_ms(inputs, outputs, cutoff):
     return (*bound(flops, list(inputs.values()) + list(outputs)), flops)
 
 
+def consumer_plan_line(plan):
+    return (f"plan: {plan.chunks} chunks x {plan.slices} slices of 64 columns = {plan.blocks} blocks x "
+            f"{plan.threads} threads ({plan.waves:.2f} waves of one block an SM), at most {plan.load} targets an "
+            f"owner, {plan.smem_bytes} B shared, W {'staged' if plan.stage_w else 'through L1/L2'}, "
+            f"{'float2' if plan.vec else 'scalar'} row loads")
+
+
+def consumer_window_ratio(inputs, cutoff):
+    """Products the consumer kernel runs over its 8-slot groups' windows on
+    valid slots, over the non-zero basis values those slots need (the
+    window rule's Python mirror, kernels.consumer_windows)."""
+    dist, mask = inputs["dist"].cpu(), inputs["mask"].cpu()
+    m, k = dist.shape
+    lo, hi = kernels.consumer_windows(dist, mask, inputs["weights"].shape[0], cutoff)
+    g = kernels._CS_GROUP
+    per_group = torch.nn.functional.pad(mask, (0, lo.shape[-1] * g - k)).reshape(m, -1, g).sum(-1)
+    _, rows = basis_rows(inputs, cutoff)
+    return float((torch.clamp(hi - lo + 1, min=0) * per_group).sum()) / rows
+
+
 def rbf_bound_ms(inputs, out, cutoff):
     """The product on the valid edges' non-zero basis values (2F each), the
     basis (~10 per value) and the bias and mask (2F per edge), against the
@@ -838,26 +862,35 @@ def consumer_checks(device, gen, systems):
     plain_ms = cuda_ms(lambda: kernels.painn_message_consumer_reference(**layer, cutoff=cutoff), 5)
     edges, nz = basis_rows(layer, cutoff)
     shape = f"M={m}, K={k}, R={weight.shape[0]}, H={f3 // 3}"
+    sms = kernels._sm_count(device)
+    plan = kernels.consumer_plan(m, k, weight.shape[0], f3 // 3, sms)
+    ratio = consumer_window_ratio(layer, cutoff)
     rows = []
     for name, ti, line in (("painn_message_consumer", 1, 130), ("painn_message_consumer_tiled", 8, 769)):
         fn = getattr(kernels, name)
         got = fn(**layer, cutoff=cutoff, ti=ti)
         torch.cuda.synchronize()
-        err = check_close(f"{name} ti={ti} at the PaiNN layer ({shape})", got, want)
+        err = check_close(f"{name} ti={ti} at the PaiNN layer ({shape}; {consumer_plan_line(plan)})", got, want)
         check_close(f"{name} ti={ti} against painn_message_fused on the same layer", got, fused)
-        for ragged in ((37, 45, 128, 192), (13, 10, 16, 64), (5, 120, 128, 64)):  # M % 8, K % 32, smem > 48 KB
+        # M not a multiple of 8 or of the chunks, K % 8 != 0, K = 1 and 120, H % 64 != 0 (48, 100, 33, 50), H odd
+        # (33: scalar loads), R = 600 (W through L1/L2); each with an all-false last row
+        for ragged in ((37, 45, 128, 192), (13, 10, 16, 64), (5, 120, 128, 64), (29, 45, 128, 48), (11, 1, 16, 100),
+                       (9, 8, 16, 33), (6, 7, 16, 50), (7, 12, 600, 64)):
             ins = consumer_inputs(gen, device, *ragged, 6.0)
             out = fn(**ins, cutoff=6.0, ti=ti)
             torch.cuda.synchronize()
-            check_close(f"{name} ti={ti} m,k,r,h={ragged}", out,
-                        kernels.painn_message_consumer_reference(**ins, cutoff=6.0))
+            check_close(f"{name} ti={ti} m,k,r,h={ragged} ({consumer_plan_line(kernels.consumer_plan(*ragged, sms))})",
+                        out, kernels.painn_message_consumer_reference(**ins, cutoff=6.0))
             if out[0][-1].any() or out[1][-1].any():
                 raise AssertionError(f"{name}: a row with an all-false mask is not zero")
         ms = cuda_ms(lambda: fn(**layer, cutoff=cutoff, ti=ti), 20)
         bound_ms, by, nbytes, flops = consumer_bound_ms(layer, got, cutoff)
         print(f"[kernel] {name} ti={ti} at {shape} ({edges} valid edges, {nz / edges:.2f} non-zero basis values "
               f"each): {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP "
-              f"f32, {nbytes / 1e6:.2f} MB)", flush=True)
+              f"f32, {nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}% of the bound; windows {ratio:.4f}x the "
+              f"needed products; {consumer_plan_line(plan)}; ptxas (the W-staged float2 instance): "
+              f"{' | '.join(ptxas_lines('painn_message_consumer', 'ILb1ELb1E')) or 'not built in this process'}",
+              flush=True)
         rows.append(dict(name=name, source="adsorbdiff_tpu_torch/csrc/painn_message_consumer.cu",
                          replaces=f"adsorbdiff_tpu/ops/pallas_kernels.py:{line}", launches=None, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by))

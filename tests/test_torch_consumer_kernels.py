@@ -164,6 +164,83 @@ def test_wrappers_on_cpu_run_the_plain_versions_and_count_no_launch(name):
 
 
 # ----------------------------------------------------------------------------
+# the consumers' launch plan and row windows (plain Python, the kernel's mirror)
+# ----------------------------------------------------------------------------
+@pytest.mark.parametrize("r", [2, 128, 600])
+@pytest.mark.parametrize("h", [1, 33, 48, 100, 512, 5000])
+@pytest.mark.parametrize("k,m", [(1, 1), (45, 13), (50, 1280), (120, 1283)])
+def test_consumer_plan_covers_every_target_and_column_once(m, k, h, r):
+    """Every (target, 64-column slice) pair is taken by exactly one owner of
+    one block, and the slices cover every column once; the blocks of a chunk
+    (one a slice) share its targets; owners of a block differ by at most one
+    target; one wave of one block an SM where the slices are fewer than the
+    SMs; W staged where it fits (R <= 285); float2 loads where H is even."""
+    plan = kernels.consumer_plan(m, k, r, h, 132)
+    assert plan.slices == -(-h // 64) and 1 <= plan.chunks <= m and plan.blocks == plan.chunks * plan.slices
+    assert plan.blocks <= max(132, plan.slices) and plan.threads == 256
+    assert plan.chunks == min(m, max(1, 132 // plan.slices))
+    assert plan.stage_w == (r <= 285) and plan.vec == (h % 2 == 0)
+    assert plan.smem_bytes == kernels.consumer_smem(r, plan.stage_w) <= 232448
+    taken = np.zeros((m, plan.slices), np.int64)
+    per_owner = {}
+    for b, o, t, sl in kernels.consumer_work(plan, m):
+        assert 0 <= o < 8 and sl == b % plan.slices
+        taken[t, sl] += 1
+        per_owner[b, o] = per_owner.get((b, o), 0) + 1
+    assert (taken == 1).all()
+    columns = np.concatenate([np.arange(64 * sl, min(h, 64 * sl + 64)) for sl in range(plan.slices)])
+    assert np.array_equal(np.sort(columns), np.arange(h))
+    for b in range(plan.blocks):
+        counts = [per_owner.get((b, o), 0) for o in range(8)]
+        assert max(counts) - min(counts) <= 1 and max(counts) <= plan.load
+    assert plan.load == max(per_owner.values())
+    if (m, k, r, h) == (1280, 50, 128, 512):  # the bench layer: 16 chunks of 80 targets x 8 slices
+        assert plan.blocks == 128 and plan.chunks == 16 and plan.load == 10 and plan.smem_bytes == 111872
+
+
+def test_consumer_plan_refuses_what_the_kernel_cannot_take():
+    for m, k, r, h in ((0, 50, 128, 512), (13, 0, 16, 64), (13, 10, 1, 64), (13, 10, 16, 0)):
+        with pytest.raises(ValueError, match=f"M, K, R, H = {m}, {k}, {r}, {h}"):
+            kernels.consumer_plan(m, k, r, h, 132)
+
+
+def _consumer_window_products(dist, mask, r, cutoff):
+    """(products the consumer kernel runs over its 8-slot groups' windows on
+    valid slots, the non-zero basis values of the valid slots); asserts that
+    every non-zero value lies inside its group's window."""
+    m, k = dist.shape
+    lo, hi = kernels.consumer_windows(dist, mask, r, cutoff)
+    assert lo.shape == hi.shape == (m, -(-k // 8))
+    nonzero = (kernels.message_basis(dist, r, cutoff, 5) != 0) & mask[..., None]
+    group = torch.arange(k) // 8
+    rows = torch.arange(r)
+    inside = (rows >= lo[:, group, None]) & (rows <= hi[:, group, None])
+    assert not (nonzero & ~inside).any()
+    per_group = torch.nn.functional.pad(mask, (0, lo.shape[-1] * 8 - k)).reshape(m, -1, 8).sum(-1)
+    return int((torch.clamp(hi - lo + 1, min=0) * per_group).sum()), int(nonzero.sum())
+
+
+def test_consumer_windows_hold_every_non_zero_basis_value_on_the_bench_graph():
+    """At the bench layer (the sampling graph's [1280, 50] slots, sorted by
+    distance) every non-zero basis value of an unmasked slot lies in its
+    8-slot group's rows, at most 1.35x the needed products (1.33x, the fused
+    forward's rule on the same graph)."""
+    from tests.test_torch_kernels import _bench_graph
+
+    _, dist, mask, _ = _bench_graph()
+    ran, needed = _consumer_window_products(dist.reshape(1280, 50), mask.reshape(1280, 50), 128, 12.0)
+    assert needed == 64000 * 28.7831875 and ran <= 1.35 * needed, ran / needed
+
+
+@pytest.mark.parametrize("r", [2, 16, 128, 600])
+def test_consumer_windows_hold_every_non_zero_basis_value_on_random_slots(r):
+    """Random distances up to 1.2 x the cutoff (centres at both ends of the
+    rows and past the cutoff), masked slots, K = 37 (a partial group)."""
+    inputs = _consumer_inputs(r, 23, 37, r, 1)
+    _consumer_window_products(torch.from_numpy(inputs["dist"]), torch.from_numpy(inputs["mask"]), r, 6.0)
+
+
+# ----------------------------------------------------------------------------
 # fused_rbf_filter's launch plan and row windows (plain Python, the kernel's mirror)
 # ----------------------------------------------------------------------------
 @pytest.mark.parametrize("r", [2, 128, 500])
@@ -260,8 +337,10 @@ def _close(got, want):
 @pytest.mark.parametrize(
     "shape,ti",
     [((13, 10, 16, 64), 1), ((13, 10, 16, 64), 8), ((37, 45, 128, 192), 8), ((9, 3, 8, 128), 4),
-     ((5, 120, 128, 64), 3), ((160, 50, 128, 512), 8)],
-    ids=["ragged", "ragged-ti8", "k45-h192-ti8", "k3-ti4", "smem-over-48k", "sampling-width"],
+     ((5, 120, 128, 64), 3), ((160, 50, 128, 512), 8), ((29, 45, 128, 48), 8), ((11, 1, 16, 100), 1),
+     ((9, 8, 16, 33), 1), ((6, 7, 16, 50), 3), ((7, 12, 600, 64), 2)],
+    ids=["ragged", "ragged-ti8", "k45-h192-ti8", "k3-ti4", "smem-over-48k", "sampling-width", "h48-ti8", "k1-h100",
+         "h33-scalar", "h50", "r600-through-l2"],
 )
 def test_consumer_kernel_matches_plain_version_on_card(cuda_device, shape, ti):
     inputs = _torch(_consumer_inputs(7, *shape), cuda_device)
@@ -272,6 +351,36 @@ def test_consumer_kernel_matches_plain_version_on_card(cuda_device, shape, ti):
     assert kernels.launches[name] == before + 1
     _close(got, painn_message_consumer_reference(**inputs, cutoff=6.0))
     assert not got[0][-1].any() and not got[1][-1].any()  # the all-false row
+
+
+@pytest.mark.cuda
+def test_consumer_refuses_a_plan_that_disagrees_with_its_layout(cuda_device, monkeypatch):
+    """A shared-memory size other than the layout's, no chunks or more chunks
+    than targets, or float2 loads at an odd H: cudaErrorInvalidValue (1),
+    nothing written; through the wrapper the refusal raises and counts no
+    launch."""
+    import ctypes
+
+    inputs = _torch(_consumer_inputs(13, 13, 10, 16, 33), cuda_device)
+    plan = kernels.consumer_plan(13, 10, 16, 33, kernels._sm_count(cuda_device))
+    dx = torch.zeros((13, 33), device=cuda_device)
+    dvec = torch.zeros((13, 3, 33), device=cuda_device)
+    lib = kernels._library("painn_message_consumer", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                           + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [inputs[name].data_ptr() for name in NAMES] + [dx.data_ptr(), dvec.data_ptr()]
+    for chunks, vec2, smem in ((plan.chunks, 0, plan.smem_bytes + 4), (0, 0, plan.smem_bytes),
+                               (14, 0, plan.smem_bytes), (plan.chunks, 1, plan.smem_bytes)):
+        err = lib.painn_message_consumer_f32(*ptrs, 13, 10, 16, 33, 1.0 / 6.0, 5, chunks, int(plan.stage_w), vec2,
+                                             smem, stream)
+        assert err == 1
+    torch.cuda.synchronize()
+    assert not dx.any() and not dvec.any()
+    before = kernels.launches["painn_message_consumer"]
+    monkeypatch.setattr(kernels, "consumer_plan", lambda *args: plan._replace(smem_bytes=plan.smem_bytes + 4))
+    with pytest.raises(RuntimeError, match="launch failed at M, K, R, H = 13, 10, 16, 33"):
+        painn_message_consumer(**inputs, cutoff=6.0)
+    assert kernels.launches["painn_message_consumer"] == before
 
 
 @pytest.mark.cuda
