@@ -387,24 +387,14 @@ def painn_fwd_windows(dist: torch.Tensor, mask: torch.Tensor, src: torch.Tensor,
     (cut to ``[0, R)``) over its valid slots (mask set, source in ``[0,
     N)``) before the cutoff, ``bin = floor(dist * (1 / cutoff) * (R - 1))``
     in f32; ``hi < lo`` where no such slot."""
-    n = dist.shape[1]
-    return _group_windows(dist, mask & (src >= 0) & (src < n), r, cutoff, _PF_GROUP)
-
-
-def _group_windows(dist: torch.Tensor, valid: torch.Tensor, r: int, cutoff: float,
-                   group: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(lo, hi)`` ``[..., ceil(K / group)]``: for each group of ``group``
-    consecutive slots the union of ``[bin - 14, bin + 15]`` (cut to ``[0,
-    R)``) over its ``valid`` slots before the cutoff; ``hi < lo`` where no
-    such slot."""
-    k = dist.shape[-1]
-    g = _cdiv(k, group)
+    b, n, k = dist.shape
+    g = _cdiv(k, _PF_GROUP)
     d = dist.float() * (1.0 / cutoff)
-    reach = valid & (d < 1.0)
+    reach = mask & (src >= 0) & (src < n) & (d < 1.0)
     bins = torch.clamp((d * float(r - 1)).to(torch.int32), max=r - 1)
-    pad = g * group - k
-    reach = torch.nn.functional.pad(reach, (0, pad)).unflatten(-1, (g, group))
-    bins = torch.nn.functional.pad(bins, (0, pad)).unflatten(-1, (g, group))
+    pad = g * _PF_GROUP - k
+    reach = torch.nn.functional.pad(reach, (0, pad)).reshape(b, n, g, _PF_GROUP)
+    bins = torch.nn.functional.pad(bins, (0, pad)).reshape(b, n, g, _PF_GROUP)
     lo = torch.where(reach, torch.clamp(bins - 14, min=0), torch.full_like(bins, r)).amin(-1)
     hi = torch.where(reach, torch.clamp(bins + 15, max=r - 1), torch.full_like(bins, -1)).amax(-1)
     return lo, hi
@@ -673,8 +663,10 @@ def _consumer(name, dist, mask, unit, xh_gathered, vec_gathered, weights, bias, 
 
 
 # csrc/painn_message_consumer.cu's constants: owners (warps) a block, columns h a block, slots a group, basis rows a
-# pass; the most dynamic shared memory a block may take (the kernel has no static shared memory)
+# pass, targets an owner sums at a time, slots it sorts at a time, sort keys; the most dynamic shared memory a block
+# may take (the kernel has no static shared memory)
 _CS_OWNERS, _CS_COLS, _CS_GROUP, _CS_WIN = 8, 64, 8, 48
+_CS_BATCH, _CS_SLOTS, _CS_KEYS = 4, 256, 128
 _CS_SMEM = 232448
 
 
@@ -702,9 +694,12 @@ class ConsumerPlan(NamedTuple):
 
 def consumer_smem(r: int, stage_w: bool) -> int:
     """The consumer kernel's dynamic shared bytes: the owners' ``[48 x 8 +
-    16]`` basis buffers, W's ``[R][3][64]`` columns (``stage_w``) and the
-    bias columns."""
-    return 4 * (_CS_OWNERS * (_CS_WIN * _CS_GROUP + 16) + 3 * r * _CS_COLS * stage_w + 3 * _CS_COLS)
+    16]`` basis buffers and ``[4][4][64]`` sums, W's ``[R][3][64]`` columns
+    (``stage_w``), the bias columns, the owners' sort counts (132 ints),
+    slot distances (256 f32), sorted slots and keys (2 x 256 uint16)."""
+    floats = _CS_OWNERS * (_CS_WIN * _CS_GROUP + 16 + _CS_BATCH * 4 * _CS_COLS) + 3 * r * _CS_COLS * stage_w \
+        + 3 * _CS_COLS
+    return 4 * floats + 4 * _CS_OWNERS * (_CS_KEYS + 4) + 8 * _CS_OWNERS * _CS_SLOTS
 
 
 @functools.lru_cache(maxsize=64)
@@ -716,13 +711,13 @@ def consumer_plan(m: int, k: int, r: int, h: int, sms: int) -> ConsumerPlan:
     side by side; ``chunks = sms // slices`` (at least 1, at most m): one
     wave of one block an SM where the slices are fewer than the SMs (at M =
     1280, H = 512: 16 chunks of 80 targets x 8 slices = 128 blocks, 10
-    targets a warp).  W's columns are staged where they fit (R <= 285).
-    Refuses ``m < 1``, ``k < 1``, ``h < 1``, ``r < 2`` and grids past 2^31
-    - 1 blocks."""
+    targets a warp).  W's columns are staged where they fit (R <= 215).
+    Refuses ``m < 1``, ``k < 1``, ``h < 1``, ``r < 2``, ``m k >= 2^31`` and
+    grids past 2^31 - 1 blocks."""
     slices = _cdiv(h, _CS_COLS)
-    if m < 1 or k < 1 or h < 1 or r < 2 or slices > 2**31 - 1:
+    if m < 1 or k < 1 or h < 1 or r < 2 or m * k > 2**31 - 1 or slices > 2**31 - 1:
         raise ValueError(f"painn_message_consumer: no launch for M, K, R, H = {m}, {k}, {r}, {h} (the kernel takes "
-                         f"M, K, H >= 1 and R >= 2)")
+                         f"M, K, H >= 1, R >= 2 and M K < 2^31)")
     chunks = max(1, min(m, sms // slices))
     stage_w = consumer_smem(r, True) <= _CS_SMEM
     return ConsumerPlan(slices=slices, chunks=chunks, blocks=chunks * slices, threads=32 * _CS_OWNERS,
@@ -740,15 +735,52 @@ def consumer_work(plan: ConsumerPlan, m: int):
             yield b, (t - t0) % _CS_OWNERS, t, s
 
 
-def consumer_windows(dist: torch.Tensor, mask: torch.Tensor, r: int,
-                     cutoff: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The consumer kernel's window rule, in Python: ``(lo, hi)`` ``[M, G]``
-    (G = ceil(K / 8)), the basis rows it runs for each group of 8
-    consecutive slots of a target: the union of ``[bin - 14, bin + 15]``
-    (cut to ``[0, R)``) over its unmasked slots before the cutoff, ``bin =
-    floor(dist * (1 / cutoff) * (R - 1))`` in f32; ``hi < lo`` where no such
-    slot."""
-    return _group_windows(dist, mask, r, cutoff, _CS_GROUP)
+def consumer_windows(dist: torch.Tensor, mask: torch.Tensor, r: int, cutoff: float,
+                     plan: ConsumerPlan) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The consumer kernel's groups and windows, in Python: ``(lo, hi,
+    slots)``, for each group ``g`` the basis rows ``[lo, hi]`` it runs
+    (``hi < lo``: none) and its slots' flat indices ``t K + k`` ``[G, 8]``
+    (-1 past the end of a run).  An owner takes the targets ``o, o + 8, ..``
+    of its chunk in batches of at most 4 targets and 256 slots (a
+    target cut in runs of 256 slots where K > 256), sorts each run's unmasked
+    slots stably by key (``bin * 128 // R`` for a slot before the cutoff,
+    ``bin = floor(dist * (1 / cutoff) * (R - 1))`` in f32 cut to R - 1; 128
+    after it) and groups 8 consecutive sorted slots; a group's window is the
+    union of ``[bin - 14, bin + 15]`` (cut to ``[0, R)``) over its slots
+    before the cutoff."""
+    m, k = dist.shape
+    d = dist.reshape(-1).float() * (1.0 / cutoff)
+    bins = torch.clamp((d * float(r - 1)).to(torch.int64), max=r - 1)
+    reach = d < 1.0
+    key = torch.where(reach, bins * _CS_KEYS // r, torch.full_like(bins, _CS_KEYS))
+    key = torch.where(mask.reshape(-1), key, torch.full_like(key, -1))
+    per_batch = max(1, min(_CS_BATCH, _CS_SLOTS // k))
+    runs = []
+    for c in range(plan.chunks):
+        t0, t1 = c * m // plan.chunks, (c + 1) * m // plan.chunks
+        for o in range(_CS_OWNERS):
+            targets = list(range(t0 + o, t1, _CS_OWNERS))
+            if not targets:
+                continue
+            bsize = _cdiv(len(targets), _cdiv(len(targets), per_batch))
+            for i0 in range(0, len(targets), bsize):
+                rows = (torch.tensor(targets[i0:i0 + bsize])[:, None] * k + torch.arange(k)).reshape(-1)
+                runs += [rows[s0:s0 + _CS_SLOTS] for s0 in range(0, rows.numel(), _CS_SLOTS)]
+    los, his, groups = [], [], []
+    for run in runs:
+        run = run[key[run] >= 0]
+        run = run[torch.argsort(key[run], stable=True)]
+        pad = -run.numel() % _CS_GROUP
+        slots = torch.nn.functional.pad(run, (0, pad), value=-1).reshape(-1, _CS_GROUP)
+        ok = (slots >= 0) & reach[slots.clamp(min=0)]
+        b = bins[slots.clamp(min=0)]
+        los.append(torch.where(ok, torch.clamp(b - 14, min=0), torch.full_like(b, r)).amin(-1))
+        his.append(torch.where(ok, torch.clamp(b + 15, max=r - 1), torch.full_like(b, -1)).amax(-1))
+        groups.append(slots)
+    if not groups:
+        empty = torch.zeros(0, dtype=torch.int64)
+        return empty, empty, empty.reshape(0, _CS_GROUP)
+    return torch.cat(los), torch.cat(his), torch.cat(groups)
 
 
 def _filter_weights(kernel: str, weights: torch.Tensor) -> Tuple[int, int]:

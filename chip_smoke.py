@@ -40,7 +40,7 @@ Phases; any failure raises and the exit code is then non-zero:
    and 8): at the second message layer's inputs of one B=16 PaiNN forward
    (M = 1280 targets, K=50, H=512; features gathered in torch), each against
    its plain version and against painn_message_fused on the same layer,
-   printed with its launch plan (consumer_plan), its 8-slot groups' window
+   printed with its launch plan (consumer_plan), its sorted groups' window
    product ratio (consumer_windows), its share of the bound and ptxas's
    lines; and at ragged shapes (M not a multiple of 16, K = 1, 45 and 120,
    H = 48, 100, 33 and 50 (H % 64 != 0; H = 33 odd: scalar loads), R = 600
@@ -792,17 +792,15 @@ def consumer_plan_line(plan):
             f"{'float2' if plan.vec else 'scalar'} row loads")
 
 
-def consumer_window_ratio(inputs, cutoff):
-    """Products the consumer kernel runs over its 8-slot groups' windows on
-    valid slots, over the non-zero basis values those slots need (the
-    window rule's Python mirror, kernels.consumer_windows)."""
-    dist, mask = inputs["dist"].cpu(), inputs["mask"].cpu()
-    m, k = dist.shape
-    lo, hi = kernels.consumer_windows(dist, mask, inputs["weights"].shape[0], cutoff)
-    g = kernels._CS_GROUP
-    per_group = torch.nn.functional.pad(mask, (0, lo.shape[-1] * g - k)).reshape(m, -1, g).sum(-1)
+def consumer_window_ratio(inputs, cutoff, plan):
+    """Products the consumer kernel runs over its groups' windows on their
+    slots (8 slots sorted by basis bin across an owner's targets), over the
+    non-zero basis values the unmasked slots need (the window rule's Python
+    mirror, kernels.consumer_windows)."""
+    lo, hi, slots = kernels.consumer_windows(inputs["dist"].cpu(), inputs["mask"].cpu(), inputs["weights"].shape[0],
+                                             cutoff, plan)
     _, rows = basis_rows(inputs, cutoff)
-    return float((torch.clamp(hi - lo + 1, min=0) * per_group).sum()) / rows
+    return float((torch.clamp(hi - lo + 1, min=0) * (slots >= 0).sum(-1)).sum()) / rows
 
 
 def rbf_bound_ms(inputs, out, cutoff):
@@ -864,7 +862,7 @@ def consumer_checks(device, gen, systems):
     shape = f"M={m}, K={k}, R={weight.shape[0]}, H={f3 // 3}"
     sms = kernels._sm_count(device)
     plan = kernels.consumer_plan(m, k, weight.shape[0], f3 // 3, sms)
-    ratio = consumer_window_ratio(layer, cutoff)
+    ratio = consumer_window_ratio(layer, cutoff, plan)
     rows = []
     for name, ti, line in (("painn_message_consumer", 1, 130), ("painn_message_consumer_tiled", 8, 769)):
         fn = getattr(kernels, name)

@@ -1,8 +1,8 @@
 """Design choices of the painn_message_consumer kernel, undone one at a time, on one card.
 
 Every variant is csrc/painn_message_consumer.cu with one text substitution
-(the same plan; a layout line changes the shared bytes the launch passes),
-or the final source launched with another plan (W read through L1/L2),
+(launched with the chunks and shared bytes of its own exported layout), or
+the final source launched with another plan (W read through L1/L2),
 built with the port's nvcc flags, held against the plain version within
 chip_smoke.py's gate and timed with CUDA events at the
 bench layer (the second PaiNN message layer of the B=16 sampling batch,
@@ -40,17 +40,21 @@ from adsorbdiff_tpu_torch.models.painn import PaiNN  # noqa: E402
 from adsorbdiff_tpu_torch.ops import build, kernels  # noqa: E402
 
 SOURCE = "painn_message_consumer.cu"
-LAYOUT = "constexpr int kWarps = 8, kOwnerLanes = 32, kGroup = 8, kWin = 48;"
 # name -> [(old text, new text), ..] in csrc/painn_message_consumer.cu
 VARIANTS = {
     "final": [],
+    "no sort (a batch of one target: 8 consecutive slots a group)": [
+        ("constexpr int kBatch = 4;", "constexpr int kBatch = 1;")],
+    "batches of 5 targets": [("constexpr int kBatch = 4;", "constexpr int kBatch = 5;")],
+    "batches of 10 targets, runs of 512 slots": [("constexpr int kBatch = 4;", "constexpr int kBatch = 10;"),
+                                                 ("constexpr int kSlotCap = 256;", "constexpr int kSlotCap = 512;")],
+    "distances read from device memory at a group's start": [("          d = dsc[i];",
+                                                              "          d = __ldg(a.dist + row) * a.inv_cutoff;")],
     "rows loaded after the filter loop": [("constexpr bool kRowsFirst = true;", "constexpr bool kRowsFirst = false;")],
     "rows through __ldg (not streaming)": [("return __ldcs(reinterpret_cast<const float2*>(p));",
                                             "return __ldg(reinterpret_cast<const float2*>(p));")],
     "row loop unrolled by 2": [("constexpr int kUnrollSW = 4;", "constexpr int kUnrollSW = 2;")],
     "row loop not unrolled": [("constexpr int kUnrollSW = 4;", "constexpr int kUnrollSW = 1;")],
-    "80-row passes": [(LAYOUT, LAYOUT.replace("kWin = 48", "kWin = 80"))],
-    "half-warp owners, 32 columns a block": [(LAYOUT, LAYOUT.replace("kOwnerLanes = 32", "kOwnerLanes = 16"))],
 }
 # name -> substitutions whose output is wrong on purpose: timed, not checked
 DIAGNOSTICS = {
@@ -63,15 +67,15 @@ ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c
 PARENT_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
-def layout(text, r, h, stage_w, sms):
-    """``(chunks, shared bytes)`` of a source's layout line (kWarps,
-    kOwnerLanes, kGroup, kWin): kernels.consumer_plan's chunks and
-    kernels.consumer_smem's formula for that layout."""
-    line = next(x for x in text.splitlines() if x.startswith("constexpr int kWarps = "))
-    warps, lanes, group, win = (int(part.split("=")[1])
-                                for part in line.split(";")[0][len("constexpr int "):].split(","))
-    owners, cols = warps * 32 // lanes, 2 * lanes
-    return max(1, sms // -(-h // cols)), 4 * (owners * (win * group + 16) + 3 * r * cols * stage_w + 3 * cols)
+def layout(lib, r, h, stage_w, sms):
+    """``(chunks, shared bytes)`` of a built variant: its exported layout
+    (painn_message_consumer_layout: bytes a block, columns a block) and
+    kernels.consumer_plan's rule for the chunks."""
+    fn = lib.painn_message_consumer_layout
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    cols = ctypes.c_int()
+    smem = fn(r, int(stage_w), ctypes.byref(cols))
+    return max(1, sms // -(-h // cols.value)), smem
 
 
 def build_sources(sources, out_dir):
@@ -153,7 +157,7 @@ def variants(device, readings, parent):
                 args = (*ptrs, out[0].data_ptr(), out[1].data_ptr(), m, k, r, h, ti, 1.0 / cutoff, 5, stream)
             else:
                 fn.argtypes = ARGS
-                chunks, smem = layout(sources[source][0], r, h, stage_w, kernels._sm_count(device))
+                chunks, smem = layout(libs[source], r, h, stage_w, kernels._sm_count(device))
                 args = (*ptrs, out[0].data_ptr(), out[1].data_ptr(), m, k, r, h, 1.0 / cutoff, 5, min(chunks, m),
                         int(stage_w), int(plan.vec), smem, stream)
 
