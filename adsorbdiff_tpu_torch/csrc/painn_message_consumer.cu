@@ -84,8 +84,8 @@
 //   The rows of a group live in registers (96 floats a lane), not in shared
 //   memory: one block of 8 warps an SM is what the 65,536 registers allow.
 //
-// Knobs below (kRowsFirst, kUnrollSW, ld_rows) are design choices
-// scripts/variants_painn_message_consumer.py undoes one at a time.
+// scripts/variants_painn_message_consumer.py undoes these design choices one
+// at a time, each by a text substitution in this file.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -105,7 +105,6 @@ constexpr int kSlotCap = 256;                   // slots an owner sorts at a tim
 constexpr int kKeys = 128;                      // sort keys: bin * 128 / R with a basis, 128 without
 constexpr int kCountStride = kKeys + 4;         // ints of an owner's counts
 constexpr int kReachLo = 14, kReachHi = 15;     // a slot of bin b reaches rows [b - 14, b + 15]
-constexpr bool kRowsFirst = true;               // a group's rows are loaded before its filter loop, not after it
 constexpr int kUnrollSW = 4;                    // filter row loop unrolling with W staged
 
 // Dynamic shared bytes of a block: the owners' basis buffers and sums, the W columns (stage_w), the bias columns, the
@@ -323,7 +322,7 @@ __global__ void __launch_bounds__(kThreads, 1) consumer_kernel(const Args a) {
         }
         const unsigned vm = __ballot_sync(0xffffffffu, present) & 0xffu;
         float2 xr[kGroup][3], vr[kGroup][3];
-        if (kRowsFirst) load_rows<V2>(xr, vr, a, row, vm, hA, F);
+        load_rows<V2>(xr, vr, a, row, vm, hA, F);  // in flight while the basis and the filter run
 
         // envelope, bin and reach of the lane's slot; the group's window [lo, hi]
         const bool reach = d < 1.f;  // a present slot with a non-zero basis
@@ -361,7 +360,6 @@ __global__ void __launch_bounds__(kThreads, 1) consumer_kernel(const Args a) {
           }
           __syncwarp();  // the next pass overwrites the buffer
         }
-        if (!kRowsFirst) load_rows<V2>(xr, vr, a, row, vm, hA, F);
 
         // ---- gather-multiply and directional term in registers, into the slot's target's sums ----
 #pragma unroll

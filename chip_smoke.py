@@ -42,10 +42,10 @@ Phases; any failure raises and the exit code is then non-zero:
    its plain version and against painn_message_fused on the same layer,
    printed with its launch plan (consumer_plan), its sorted groups' window
    product ratio (consumer_windows), its share of the bound and ptxas's
-   lines; and at ragged shapes (M not a multiple of 16, K = 1, 45 and 120,
+   lines; and at ragged shapes (M not a multiple of 8, K = 1, 45 and 120,
    H = 48, 100, 33 and 50 (H % 64 != 0; H = 33 odd: scalar loads), R = 600
-   (W through
-   L1/L2), an all-false row that must give 0).  fused_rbf_filter (phase 3e): at that layer's
+   (W through L1/L2), each with an all-false row that must give 0).
+   fused_rbf_filter (phase 3e): at that layer's
    distances, mask and filter weights (the [1280, 50, 1536] filter of the
    plain message versions), printed with its launch plan (rbf_filter_plan),
    its sorted chunks' window product ratio (rbf_filter_windows), its share

@@ -40,6 +40,8 @@ from adsorbdiff_tpu_torch.models.painn import PaiNN  # noqa: E402
 from adsorbdiff_tpu_torch.ops import build, kernels  # noqa: E402
 
 SOURCE = "painn_message_consumer.cu"
+LOAD = "        load_rows<V2>(xr, vr, a, row, vm, hA, F);"
+CONSUME = "        // ---- gather-multiply and directional term"
 # name -> [(old text, new text), ..] in csrc/painn_message_consumer.cu
 VARIANTS = {
     "final": [],
@@ -50,7 +52,8 @@ VARIANTS = {
                                                  ("constexpr int kSlotCap = 256;", "constexpr int kSlotCap = 512;")],
     "distances read from device memory at a group's start": [("          d = dsc[i];",
                                                               "          d = __ldg(a.dist + row) * a.inv_cutoff;")],
-    "rows loaded after the filter loop": [("constexpr bool kRowsFirst = true;", "constexpr bool kRowsFirst = false;")],
+    "rows loaded after the filter loop": [(LOAD + "  // in flight while the basis and the filter run\n", ""),
+                                          (CONSUME, LOAD + "\n" + CONSUME)],
     "rows through __ldg (not streaming)": [("return __ldcs(reinterpret_cast<const float2*>(p));",
                                             "return __ldg(reinterpret_cast<const float2*>(p));")],
     "row loop unrolled by 2": [("constexpr int kUnrollSW = 4;", "constexpr int kUnrollSW = 2;")],
