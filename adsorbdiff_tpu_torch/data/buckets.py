@@ -6,8 +6,9 @@ static ``[B, N]`` shapes; within a bucket, batches are drawn shuffled per
 epoch from ``np.random.default_rng((seed, epoch))``, so for a seed and an
 epoch the port yields the JAX package's batch plan (atom buckets, without
 its atom budget and neighbour-count modes).  Batches are collated on the
-host (CPU tensors); :mod:`adsorbdiff_tpu_torch.data.prefetch` moves them to
-the card.
+host (CPU tensors), with ``forces`` where ``with_forces`` is set (an S2EF
+trainer's training and validation batches);
+:mod:`adsorbdiff_tpu_torch.data.prefetch` moves them to the card.
 """
 from __future__ import annotations
 
@@ -32,11 +33,13 @@ def default_bucket_edges(natoms: np.ndarray, num_buckets: int = 4) -> List[int]:
 class BucketedBatcher:
     """Iterates padded :class:`AtomsBatch` objects with bucket-static shapes."""
 
-    def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0) -> None:
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
+                 with_forces: bool = False) -> None:
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.seed = seed
+        self.with_forces = with_forces
         natoms = np.asarray(dataset.natoms_array())
         self.bucket_edges = default_bucket_edges(natoms)
         self._bucket_of = np.searchsorted(self.bucket_edges, natoms)
@@ -70,4 +73,4 @@ class BucketedBatcher:
             # carry the same sid and are deduped where results are gathered.
             idx = [int(i) for i in chunk]
             idx += [idx[-1]] * (self.batch_size - len(idx))
-            yield collate([self.dataset[i] for i in idx], max_atoms=edge, device="cpu")
+            yield collate([self.dataset[i] for i in idx], max_atoms=edge, with_forces=self.with_forces, device="cpu")

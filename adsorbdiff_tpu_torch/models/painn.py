@@ -1,11 +1,13 @@
 """PaiNN: the equivariant message-passing score network, in PyTorch.
 
-Port of :mod:`adsorbdiff_tpu.models.painn` in denoising mode with both so3
-heads, on the dense ``[B, N, K]`` neighbour table.  Module and parameter names
-are the AdsorbDiff reference's (``atom_emb.embeddings``,
+Port of :mod:`adsorbdiff_tpu.models.painn`: denoising mode with both so3
+heads, and s2ef mode (energy and direct forces), on the dense ``[B, N, K]``
+neighbour table.  Module and parameter names are the AdsorbDiff/OCP
+reference's (``atom_emb.embeddings``,
 ``message_layers.i.{x_layernorm,x_proj.0,x_proj.2,rbf_proj}``,
 ``update_layers.i.{vec_proj,xvec_proj.0,xvec_proj.2}``,
-``upd_out_scalar_scale_i.scale_factor``, ``out_forces{,2}.output_network.j.*``),
+``upd_out_scalar_scale_i.scale_factor``, ``out_forces{,2}.output_network.j.*``,
+and in s2ef mode ``out_energy.{0,2}``),
 so a reference ``.pt`` state dict loads with ``load_state_dict`` as it is, and
 :func:`painn_state_dict_from_jax` turns a JAX variable tree into one.
 
@@ -28,10 +30,10 @@ from torch import nn
 from adsorbdiff_tpu_torch.common.registry import registry
 from adsorbdiff_tpu_torch.data.schema import AtomsBatch
 from adsorbdiff_tpu_torch.device import DeviceLike, resolve_device
-from adsorbdiff_tpu_torch.models.base import generate_graph, prepare_static_graph
+from adsorbdiff_tpu_torch.models.base import generate_graph, prepare_candidate_graph, prepare_static_graph
 from adsorbdiff_tpu_torch.models.layers import AtomEmbedding, ScaledSiLU, ScaleFactor, lecun_normal_, scaled_silu
 from adsorbdiff_tpu_torch.ops.kernels import painn_message_fused
-from adsorbdiff_tpu_torch.ops.pbc import NeighborList, StaticGraphPart
+from adsorbdiff_tpu_torch.ops.pbc import CandidateTable, NeighborList, StaticGraphPart
 
 
 class PaiNNMessage(nn.Module):
@@ -130,11 +132,15 @@ class PaiNNOutput(nn.Module):
 
 @registry.register_model("painn")
 class PaiNN(nn.Module):
-    """PaiNN trunk with the denoising heads.
+    """PaiNN trunk with the denoising heads, or the S2EF heads.
 
-    Returns the per-atom translation score ``[B, N, 3]`` and, with
-    ``so3_denoising=True``, the rotation score as a second ``[B, N, 3]``.
-    Hyperparameters default to ``configs/denoising/painn_so3.yml``.
+    ``mode="denoising"``: returns the per-atom translation score ``[B, N, 3]``
+    and, with ``so3_denoising=True``, the rotation score as a second
+    ``[B, N, 3]``.  ``mode="s2ef"``: returns ``{"energy": [B], "forces":
+    [B, N, 3]}``, the energy a sum over atoms of ``out_energy`` (Linear H ->
+    H/2, scaled SiLU, Linear -> 1), the forces the ``out_forces`` head
+    (``so3_denoising`` is then ignored, as in JAX).  Hyperparameters default
+    to ``configs/denoising/painn_so3.yml``.
 
     ``device``: the CUDA card unless ``"cpu"`` is passed (raises without a
     card).  ``generator``: seeds the initial weights (flax's default init
@@ -148,8 +154,7 @@ class PaiNN(nn.Module):
     remap).  ``use_pallas`` is accepted for config compatibility and ignored:
     the message block always runs the fused kernel.
 
-    Not ported yet (raise ``NotImplementedError``): ``mode="s2ef"``, which
-    waits for S2EF training, and ``compute_dtype="bfloat16"``.
+    Not ported yet (raises ``NotImplementedError``): ``compute_dtype="bfloat16"``.
     """
 
     def __init__(
@@ -176,9 +181,10 @@ class PaiNN(nn.Module):
     ) -> None:
         super().__init__()
         device = resolve_device(device)
-        for name, value, default in (("mode", mode, "denoising"), ("compute_dtype", compute_dtype, None)):
-            if value != default:
-                raise NotImplementedError(f"PaiNN {name}={value!r} is not ported yet")
+        if mode not in ("denoising", "s2ef"):
+            raise ValueError(f"PaiNN mode must be 'denoising' or 's2ef', got {mode!r}")
+        if compute_dtype is not None:
+            raise NotImplementedError(f"PaiNN compute_dtype={compute_dtype!r} is not ported yet (ROADMAP A.8)")
         if energy_encoding not in (None, "scalar"):
             raise ValueError(f"PaiNN energy_encoding must be None or 'scalar', got {energy_encoding!r}")
         rbf_name = (rbf or {"name": "gaussian"}).get("name", "gaussian")
@@ -192,7 +198,8 @@ class PaiNN(nn.Module):
         self.num_layers = num_layers
         self.cutoff = cutoff
         self.max_neighbors = max_neighbors
-        self.so3_denoising = so3_denoising
+        self.s2ef = mode == "s2ef"
+        self.so3_denoising = so3_denoising and not self.s2ef
         self.cell_reps = tuple(int(r) for r in cell_reps)
         self.max_ads = max_ads
         self.sampling = sampling
@@ -209,8 +216,10 @@ class PaiNN(nn.Module):
         self.update_layers = nn.ModuleList(PaiNNUpdate(h) for _ in range(num_layers))
         for i in range(num_layers):
             self.add_module(f"upd_out_scalar_scale_{i}", ScaleFactor())
+        if self.s2ef:
+            self.out_energy = nn.Sequential(nn.Linear(h, h // 2), ScaledSiLU(), nn.Linear(h // 2, 1))
         self.out_forces = PaiNNOutput(h)
-        if so3_denoising:
+        if self.so3_denoising:
             self.out_forces2 = PaiNNOutput(h)
         self.reset_parameters(generator)
         self.to(device)
@@ -236,6 +245,11 @@ class PaiNN(nn.Module):
         return prepare_static_graph(
             batch, cutoff=self.cutoff, max_neighbors=self.max_neighbors, cell_reps=self.cell_reps
         )
+
+    def prepare_candidates(self, batch: AtomsBatch, k_cand: int = 64) -> CandidateTable:
+        """Verlet candidate table for a relaxation loop."""
+        return prepare_candidate_graph(batch, max_neighbors=self.max_neighbors, cell_reps=self.cell_reps,
+                                       k_cand=k_cand)
 
     def forward(self, batch: AtomsBatch, static_graph: Optional[StaticGraphPart] = None):
         nl, _, edge_unit = generate_graph(
@@ -263,6 +277,9 @@ class PaiNN(nn.Module):
 
         atom3 = batch.atom_mask[..., None]
         forces = torch.where(atom3, self.out_forces(x, vec), 0.0)
+        if self.s2ef:
+            per_atom = self.out_energy(x)[..., 0]  # [B, N]
+            return {"energy": torch.sum(torch.where(batch.atom_mask, per_atom, 0.0), dim=1), "forces": forces}
         if not self.so3_denoising:
             return forces
         forces2 = torch.where(atom3, self.out_forces2(x, vec), 0.0)
@@ -275,7 +292,9 @@ def painn_state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tens
 
     The inverse of ``adsorbdiff_tpu/train/torch_import.py::
     painn_state_dict_to_params``: flax Dense kernels are ``[in, out]``, torch
-    ``Linear.weight`` is ``[out, in]``.
+    ``Linear.weight`` is ``[out, in]``.  The s2ef energy head's
+    ``out_energy_0`` and ``out_energy_1`` become the reference's
+    ``out_energy.0`` and ``out_energy.2``.
     """
     params = variables["params"]
     scales = variables.get("scale_factors", {})
@@ -305,6 +324,9 @@ def painn_state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tens
         lin(f"update_layers.{i}.xvec_proj.2", upd["Dense_2"])
         scale = scales.get(f"upd_out_scalar_scale_{i}", {}).get("scale", 1.0)
         put(f"upd_out_scalar_scale_{i}.scale_factor", np.asarray(scale).reshape(()))
+    if "out_energy_0" in params:
+        lin("out_energy.0", params["out_energy_0"])
+        lin("out_energy.2", params["out_energy_1"])
     for head in ("out_forces", "out_forces2"):
         if head not in params:
             continue

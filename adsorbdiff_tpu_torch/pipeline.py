@@ -64,20 +64,27 @@ def run_pipeline(
     conversion -> MLFF L-BFGS -> (with ``dft_targets``) the anomaly-filtered
     min-energy success rate, which is returned.
 
-    The trainers are duck-typed.  ``diffusion_trainer`` needs ``score_fn``,
-    ``sampling_static_fn()`` and ``denoising_pos_params`` (a
-    :class:`~adsorbdiff_tpu_torch.train.trainer.DenoisingTrainer` with its
-    state); ``relax_trainer`` needs ``energy_forces_fn(batch[, static])`` and
-    may have ``relax_candidate_fn(relax_opt)`` for Verlet candidate tables.
-    ``relax_opt["continuous"]`` picks the engine (:func:`resolve_continuous`;
-    ``relax_opt["slots"]`` defaults to ``batch_size``).  Every stage runs on
-    the diffusion trainer's device (the CUDA card unless its config sets
-    ``cpu``, which runs the plain versions).  Atom-balanced batches
-    (``atom_budget``) are not ported yet.
+    ``diffusion_trainer`` is a :class:`~adsorbdiff_tpu_torch.train.trainer.
+    DenoisingTrainer` with its state (``score_fn``, ``sampling_static_fn()``
+    and ``denoising_pos_params`` are what it uses), ``relax_trainer`` an
+    :class:`~adsorbdiff_tpu_torch.train.trainer.S2EFTrainer`
+    (``energy_forces_fn(batch[, static])``, and ``relax_candidate_fn(
+    relax_opt)`` for Verlet candidate tables where it has one);
+    :mod:`adsorbdiff_tpu_torch.run_pipeline` builds both from configs and
+    checkpoints.  ``relax_opt["continuous"]`` picks the engine
+    (:func:`resolve_continuous`; ``relax_opt["slots"]`` defaults to
+    ``batch_size``).  Every stage runs on the diffusion trainer's device (the
+    CUDA card unless its config sets ``cpu``, which runs the plain
+    versions); a relax trainer on another device raises.  Atom-balanced
+    batches (``atom_budget``) are not ported yet.
     """
     if atom_budget is not None:
         raise NotImplementedError("atom-balanced batches (atom_budget) are not ported yet")
     device = resolve_device(getattr(diffusion_trainer, "device", None))
+    relax_device = getattr(relax_trainer, "device", device)
+    if relax_device != device:
+        raise ValueError(f"the relax trainer runs on {relax_device} and the diffusion trainer on {device}: the "
+                         f"pipeline runs every stage on one device")
     params = denoising_pos_params or diffusion_trainer.denoising_pos_params
     # one engine pair for every seed
     engine = DiffusionEngine(diffusion_trainer.score_fn, params, static_fn=diffusion_trainer.sampling_static_fn(),

@@ -35,10 +35,11 @@ class TrainTask(BaseTask):
 
 @registry.register_task("predict")
 class PredictTask(BaseTask):
-    """EMA score predictions over the validation set (else the relax set),
-    written to ``results_dir/predictions.npz`` as JAX writes them: ``ids``
-    ``"{sid}_{fid}"`` per batch row and ``outputs``, the translation scores
-    ``[rows, N, 3]`` in f16 (a padded batch repeats its last system)."""
+    """EMA predictions over the validation set (else the relax set), written
+    to ``results_dir/predictions.npz`` as JAX writes them: ``ids``
+    ``"{sid}_{fid}"`` per batch row and ``outputs`` ``[rows, N, 3]`` in f16,
+    the translation scores of a denoising trainer or the forces of an S2EF
+    trainer (a padded batch repeats its last system)."""
 
     def run(self) -> None:
         batcher = self.trainer.val_batcher or self.trainer.relax_batcher
@@ -46,8 +47,11 @@ class PredictTask(BaseTask):
             raise ValueError("no dataset to predict on (dataset.1 or task.relax_dataset)")
         ids, outs = [], []
         for batch in batcher:
-            out1, _ = self.trainer.predict_denoising(batch)
-            outs.append(out1.cpu().numpy().astype(np.float16))
+            if hasattr(self.trainer, "predict_denoising"):
+                out, _ = self.trainer.predict_denoising(batch)
+            else:
+                _, out = self.trainer.predict(batch)
+            outs.append(out.cpu().numpy().astype(np.float16))
             ids.extend(f"{s}_{f}" for s, f in zip(batch.sid.tolist(), batch.fid.tolist()))
         path = os.path.join(self.trainer.results_dir, "predictions.npz")
         np.savez_compressed(path, ids=np.asarray(ids), outputs=np.concatenate(outs))
@@ -62,7 +66,8 @@ class ValidateTask(BaseTask):
 
 @registry.register_task("run-relaxations")
 class RelaxationTask(BaseTask):
-    """Diffusion sampling over ``task.relax_dataset`` from a checkpoint."""
+    """The trainer's ``run_relaxations`` over ``task.relax_dataset`` from a
+    checkpoint: diffusion sampling (denoising) or L-BFGS (S2EF)."""
 
     def run(self) -> None:
         if self.trainer.relax_dataset is None:

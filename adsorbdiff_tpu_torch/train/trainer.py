@@ -1,4 +1,5 @@
-"""Trainers: the shared machinery and denoising score training.
+"""Trainers: the shared machinery, denoising score training, and the S2EF
+(energy and forces) trainer for inference.
 
 Port of :mod:`adsorbdiff_tpu.train.trainer` for one device (a CUDA card, or
 the host when the config says ``cpu: true``):
@@ -23,21 +24,26 @@ the host when the config says ``cpu: true``):
 - ``DenoisingTrainer.run_relaxations`` samples the ``task.relax_dataset``
   with the EMA model through :class:`DiffusionEngine`, batch i from a
   ``torch.Generator`` seeded from (seed + 2, i), where JAX folds i into
-  ``PRNGKey(seed + 2)``: the samples differ between the packages by design.
+  ``PRNGKey(seed + 2)``: the samples differ between the packages by design;
+- ``S2EFTrainer`` (the ``forces`` trainer of ``gemnet_relax.yml``) predicts,
+  validates and relaxes with the EMA model: ``energy_forces_fn`` is the
+  relaxer that ``run_pipeline`` and ``run_relaxations`` drive.
 
-Not ported (raise ``NotImplementedError``): S2EF training (``S2EFTrainer``),
-``amp``, ``grad_accumulation_steps > 1``, ``ReduceLROnPlateau``,
-``model.scale_file``, several devices.
+Not ported (raise ``NotImplementedError``): S2EF training (``S2EFTrainer.train``
+and ``train_step``, ROADMAP A.6 step 2), ``amp``,
+``grad_accumulation_steps > 1``, ``ReduceLROnPlateau``, ``model.scale_file``,
+several devices.
 """
 from __future__ import annotations
 
 import copy
 import inspect
+import itertools
 import logging
 import math
 import os
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,7 +58,9 @@ from adsorbdiff_tpu_torch.device import DeviceLike, resolve_device
 from adsorbdiff_tpu_torch.diffusion.schedules import ScheduleDraws, ads_com_gaussian_schedule, tr_so3_schedule
 from adsorbdiff_tpu_torch.models import equiformer_v2, gemnet_oc, painn  # noqa: F401  (registers the models)
 from adsorbdiff_tpu_torch.ops.pbc import auto_cell_reps
-from adsorbdiff_tpu_torch.relaxation.ml_relaxation import DiffusionEngine, batch_generator
+from adsorbdiff_tpu_torch.relaxation.continuous import ContinuousRelaxationEngine, resolve_continuous
+from adsorbdiff_tpu_torch.relaxation.lbfgs import candidate_fn_for
+from adsorbdiff_tpu_torch.relaxation.ml_relaxation import DiffusionEngine, RelaxationEngine, batch_generator
 from adsorbdiff_tpu_torch.train import checkpoint as ckpt
 from adsorbdiff_tpu_torch.train.evaluator import Evaluator
 from adsorbdiff_tpu_torch.train.loss import denoising_loss
@@ -206,13 +214,16 @@ class BaseTrainer:
             raise NotImplementedError("atom-balanced batches (optim.atom_budget) are not ported yet")
         bs = int(self.optim_cfg.get("batch_size", 4))
         eval_bs = int(self.optim_cfg.get("eval_batch_size", bs))
+        with_forces = self.name == "s2ef"  # the training and validation targets; relax batches carry none
         entries = (ds_cfg if isinstance(ds_cfg, list) else [ds_cfg]) if ds_cfg else []
         if entries and entries[0].get("src"):
             self.train_dataset = ShardDataset(entries[0])
-            self.train_batcher = BucketedBatcher(self.train_dataset, bs, seed=self.seed, shuffle=True)
+            self.train_batcher = BucketedBatcher(self.train_dataset, bs, seed=self.seed, shuffle=True,
+                                                 with_forces=with_forces)
         if len(entries) > 1 and entries[1].get("src"):
             self.val_dataset = ShardDataset(entries[1])
-            self.val_batcher = BucketedBatcher(self.val_dataset, eval_bs, seed=self.seed, shuffle=False)
+            self.val_batcher = BucketedBatcher(self.val_dataset, eval_bs, seed=self.seed, shuffle=False,
+                                               with_forces=with_forces)
         relax_cfg = self.task_cfg.get("relax_dataset")
         if relax_cfg and relax_cfg.get("src"):
             self.relax_dataset = ShardDataset(relax_cfg)
@@ -514,6 +525,43 @@ class BaseTrainer:
                 if self.logger:
                     self.logger.log(log, step=self.step, split=split)
 
+    def _relax_batches(self, batches: Iterable[Tuple[int, AtomsBatch]], relax: Callable, split: str,
+                       skip_repeats: bool = False) -> None:
+        """Relax each ``(i, batch)`` with ``relax(i, batch)``, which returns
+        the final positions ``[B, N, 3]`` and energies ``[B]`` on the host, or
+        None for a batch it skipped; then ``relaxed_positions.npz`` with
+        ``task.write_pos`` (``skip_repeats``: a padded batch's repeats of its
+        last sid once, as JAX's continuous branch writes them) and the
+        IS2RS/IS2RE metrics, logged when the data has relaxed energies."""
+        write_pos = self.task_cfg.get("write_pos", False)
+        metrics_is2rs: Dict[str, Any] = {}
+        metrics_is2re: Dict[str, Any] = {}
+        ids, positions, chunk_idx = [], [], []
+        has_targets = None
+        for i, batch in batches:
+            result = relax(i, batch)
+            if result is None:
+                continue
+            final_pos, final_energy = result
+            if write_pos:
+                natoms, sids = batch.natoms.cpu().numpy(), batch.sid.cpu().numpy()
+                seen = set()
+                for b in range(batch.batch_size):
+                    if skip_repeats and int(sids[b]) in seen:
+                        continue
+                    seen.add(int(sids[b]))
+                    ids.append(str(int(sids[b])))
+                    positions.append(final_pos[b, : natoms[b]])
+                    chunk_idx.append(int(natoms[b]))
+            if has_targets is None:
+                has_targets = bool((batch.y_relaxed != 0).any())
+            if has_targets:
+                metrics_is2rs, metrics_is2re = self._relax_metrics(
+                    batch, final_pos, final_energy, metrics_is2rs, metrics_is2re)
+        if write_pos:
+            self._write_relaxed_positions(ids, positions, chunk_idx)
+        self._log_relax_metrics(metrics_is2rs, metrics_is2re, split)
+
     def run_relaxations(self, split: str = "val") -> None:
         raise NotImplementedError(f"run_relaxations is not ported for the {self.name} trainer")
 
@@ -609,36 +657,22 @@ class DenoisingTrainer(BaseTrainer):
                                  device=self.device)
         traj_dir = (self.task_cfg.get("relax_opt", {}) or {}).get("traj_dir")
         save_full = self.task_cfg.get("save_full_traj", True)
-        write_pos = self.task_cfg.get("write_pos", False)
         num_batches = int(self.task_cfg.get("num_relaxation_batches", int(1e9)))
 
-        metrics_is2rs: Dict[str, Any] = {}
-        metrics_is2re: Dict[str, Any] = {}
-        ids, positions, chunk_idx = [], [], []
-        has_targets = None
-        for i, batch in self._batches(self.relax_batcher, depth=0):
-            if i >= num_batches:
-                break
+        def sample(i, batch):
             res = engine.run(batch, batch_generator(self.seed + 2, i, self.device), traj_dir=traj_dir,
                              save_full_traj=save_full)
-            if res is None:
-                continue
-            final_pos = res.batch.pos.cpu().numpy()
-            if write_pos:
-                natoms, sids = batch.natoms.cpu().numpy(), batch.sid.cpu().numpy()
-                for b in range(batch.batch_size):
-                    ids.append(str(int(sids[b])))
-                    positions.append(final_pos[b, : natoms[b]])
-                    chunk_idx.append(int(natoms[b]))
-            if has_targets is None:
-                has_targets = bool((batch.y_relaxed != 0).any())
-            if has_targets:
-                metrics_is2rs, metrics_is2re = self._relax_metrics(
-                    batch, final_pos, np.zeros(batch.batch_size), metrics_is2rs, metrics_is2re)
-        engine.flush()  # join the trajectory writes before returning
-        if write_pos:
-            self._write_relaxed_positions(ids, positions, chunk_idx)
-        self._log_relax_metrics(metrics_is2rs, metrics_is2re, split)
+            return None if res is None else (res.batch.pos.cpu().numpy(), np.zeros(batch.batch_size))
+
+        try:
+            self._relax_batches(itertools.islice(self._batches(self.relax_batcher, depth=0), num_batches), sample,
+                                split)
+        finally:
+            engine.flush()  # join the trajectory writes before returning
+
+
+_S2EF_TRAINING = ("S2EF training is not ported yet (ROADMAP A.6 step 2: it needs backward kernels for "
+                  "masked_legendre_cos and gemnet_quad_chain)")
 
 
 @registry.register_trainer("s2ef")
@@ -646,9 +680,145 @@ class DenoisingTrainer(BaseTrainer):
 @registry.register_trainer("energy")
 @registry.register_trainer("forces")
 class S2EFTrainer(BaseTrainer):
-    """Energy/forces training: not ported yet."""
+    """Energy and forces with the EMA model: ``predict``, ``validate``,
+    ``energy_forces_fn`` (the relaxer's calculator) and ``run_relaxations``.
+
+    Energies are denormalised by the ``energy`` normaliser where the first
+    dataset entry sets ``normalize_labels``.  The ``forces`` normaliser that
+    ``grad_target_mean``/``grad_target_std`` build is never applied, as in
+    JAX.  The model runs without autograd: the s2ef force heads are direct.
+    A trainer with no checkpoint initialises itself on first use (random
+    weights, scale factors not fitted).  Training raises
+    ``NotImplementedError`` (ROADMAP A.6 step 2).
+    """
 
     name = "s2ef"
 
-    def __init__(self, config: dict, device: DeviceLike = None) -> None:
-        raise NotImplementedError("S2EF training is not ported yet")
+    def _model_mode(self) -> Optional[str]:
+        return "s2ef"
+
+    def train_step(self, *args, **kwargs):
+        raise NotImplementedError(_S2EF_TRAINING)
+
+    def train(self, disable_eval_tqdm: bool = True) -> None:
+        raise NotImplementedError(_S2EF_TRAINING)
+
+    def _ema(self) -> torch.nn.Module:
+        if not self.initialized:
+            self.init_state()
+        return self.ema_module
+
+    def _denorm(self, energy: torch.Tensor) -> torch.Tensor:
+        norm = self.normalizers.get("energy")
+        return energy if norm is None else norm.denorm(energy)
+
+    @torch.no_grad()
+    def predict(self, batch: AtomsBatch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(energy [B], forces [B, N, 3])`` of the EMA model on the
+        trainer's device, the energy denormalised."""
+        out = self._ema()(batch.to(self.device))
+        return self._denorm(out["energy"]), out["forces"]
+
+    def energy_forces_fn(self, batch: AtomsBatch, static_graph=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The relaxer's calculator: :meth:`predict`'s energy and forces with
+        fixed atoms' forces zeroed; ``static_graph`` carries Verlet
+        candidate tables into the graph build."""
+        with torch.no_grad():
+            out = self._ema()(batch, static_graph)
+        return self._denorm(out["energy"]), torch.where(batch.fixed[..., None], 0.0, out["forces"])
+
+    def relax_candidate_fn(self, relax_opt: Optional[dict] = None) -> Optional[Callable]:
+        """The Verlet candidate-table builder ``relax_opt`` asks for (None
+        with ``verlet_graph: false``)."""
+        return candidate_fn_for(self._ema(), relax_opt)
+
+    @torch.no_grad()
+    def validate(self, split: str = "val") -> dict:
+        """S2EF metrics over the validation set (any other ``split``: the
+        relax set, whose batches carry no forces), forces on free atoms
+        with ``task.eval_on_free_atoms`` [True]."""
+        batcher = self.val_batcher if split == "val" else self.relax_batcher
+        if batcher is None:
+            raise ValueError(f"no {split!r} dataset configured")
+        eval_free = bool(self.task_cfg.get("eval_on_free_atoms", True))
+        evaluator = Evaluator(task="s2ef")
+        metrics: Dict[str, Any] = {}
+        for _, batch in self._batches(batcher):
+            energy, forces = self.predict(batch)
+            host = batch.to("cpu")
+            m = (host.free_mask if eval_free else host.atom_mask).numpy()
+            pred = {"energy": energy.cpu().numpy(), "forces": forces.cpu().numpy()[m], "natoms": m.sum(1)}
+            target = {"energy": host.energy.numpy(),
+                      "forces": host.forces.numpy()[m] if host.forces is not None else np.zeros_like(pred["forces"]),
+                      "natoms": m.sum(1)}
+            metrics = evaluator.eval(pred, target, metrics)
+        log = {k: metrics[k]["metric"] for k in metrics}
+        logging.info(f"[{split}] " + ", ".join(f"{k}: {v:.4f}" for k, v in log.items()))
+        if self.logger:
+            self.logger.log(log, step=self.step, split=split)
+        return metrics
+
+    @torch.no_grad()
+    def run_relaxations(self, split: str = "val") -> None:
+        """L-BFGS over the relax dataset with :meth:`energy_forces_fn`.
+
+        Raises unless the scale factors are fitted (a loaded checkpoint's
+        count as fitted); with ``is_debug`` it warns instead.
+        ``task.relax_opt.continuous`` picks the engine
+        (:func:`resolve_continuous`): the slot-refill engine
+        (``relax_opt.slots`` [eval batch size], ``chunk_steps``) or batches
+        of the relax batcher.  Task keys: ``relaxation_steps`` [300],
+        ``relaxation_fmax`` [0.01], ``relax_opt.traj_dir``,
+        ``save_full_traj`` [True], ``write_pos`` [False],
+        ``num_relaxation_batches`` (the batch engine only).  IS2RS/IS2RE
+        metrics are logged when the dataset has relaxed energies."""
+        self._ema()
+        ensure_fitted(self.scale_factors(), warn=bool(self.config.get("is_debug")), fitted=self.scale_factors_fitted)
+        if self.relax_batcher is None:
+            raise ValueError("no relax_dataset configured")
+        relax_opt = dict(self.task_cfg.get("relax_opt", {}) or {})
+        kw = dict(steps=int(self.task_cfg.get("relaxation_steps", 300)),
+                  fmax=float(self.task_cfg.get("relaxation_fmax", 0.01)),
+                  candidate_fn=self.relax_candidate_fn(relax_opt), device=self.device)
+        traj_dir = relax_opt.get("traj_dir")
+        save_full = self.task_cfg.get("save_full_traj", True)
+        num_batches = self.task_cfg.get("num_relaxation_batches")
+        if resolve_continuous(relax_opt, kw["fmax"], num_relaxation_batches=num_batches):
+            self._run_relaxations_continuous(relax_opt, kw, traj_dir, save_full, split)
+            return
+        engine = RelaxationEngine(self.energy_forces_fn, relax_opt, **kw)
+
+        def relax(i, batch):
+            res = engine.run(batch, traj_dir=traj_dir, save_full_traj=save_full)
+            return None if res is None else (res.batch.pos.cpu().numpy(), res.energy.cpu().numpy())
+
+        try:
+            capped = itertools.islice(enumerate(self.relax_batcher), int(1e9) if num_batches is None else num_batches)
+            self._relax_batches(capped, relax, split)
+        finally:
+            engine.flush()  # join the trajectory writes before returning
+
+    def _run_relaxations_continuous(self, relax_opt: dict, kw: dict, traj_dir: Optional[str], save_full: bool,
+                                    split: str) -> None:
+        """The slot-refill engine over the whole relax dataset (converged
+        systems retire at chunk boundaries, pending ones take their slots;
+        ``num_relaxation_batches`` does not apply); then the metrics and
+        ``write_pos`` over the relax batcher's batches, each row's relaxed
+        positions and energy taken from the results."""
+        engine = ContinuousRelaxationEngine(self.energy_forces_fn, relax_opt,
+                                            slots=int(relax_opt.get("slots", self.relax_batcher.batch_size)), **kw)
+        results = engine.run_dataset(self.relax_dataset, traj_dir=traj_dir, save_full_traj=save_full)
+
+        def relaxed(i, batch):
+            sids, natoms = batch.sid.numpy(), batch.natoms.numpy()
+            if not all(int(s) in results for s in sids):
+                return None  # skipped: its trajectories exist
+            final_pos = batch.pos.numpy().copy()
+            final_energy = np.zeros(batch.batch_size, np.float32)
+            for b in range(batch.batch_size):
+                r = results[int(sids[b])]
+                final_pos[b, : natoms[b]] = r.pos
+                final_energy[b] = r.energy
+            return final_pos, final_energy
+
+        self._relax_batches(enumerate(self.relax_batcher), relaxed, split, skip_repeats=True)

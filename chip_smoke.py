@@ -172,15 +172,20 @@ Phases; any failure raises and the exit code is then non-zero:
    CPU runs every kernel's plain version, the rotations' decomposed chain
    included).
 16. the main path end to end: run_pipeline once, nsites 1, on the 16 bench
-   systems written to a shard in a temporary directory.  Sampler: a
-   DenoisingTrainer at the painn_so3.yml widths (random weights from its
-   seed, cell_reps (2, 2, 0) and max_ads 8 as bench.py sets them), 100 ODE
-   steps at B=16.  Relaxer: a GemNet-OC at the gemnet_relax.yml widths
-   (random weights from a seeded generator) behind a small relax-trainer
-   object; relax_opt as published with 8 slots and continuous unset, so
-   "auto" picks the slot-refill engine; fmax 0.01; relaxation_steps cut from
-   300 to 100 (random weights never converge, so every system runs its
-   budget).  Synthetic DFT targets, one per sid.  Launch counts are zeroed
+   systems written to a shard in a temporary directory, with both trainers
+   built by run_pipeline.build_trainer (as python -m
+   adsorbdiff_tpu_torch.run_pipeline builds them) from YAML configs and
+   checkpoints the phase saves first (random weights from each trainer's
+   seed).  Sampler: a DenoisingTrainer at the painn_so3.yml widths
+   (cell_reps (2, 2, 0) and max_ads 8 as bench.py sets them), 100 ODE steps
+   at B=16.  Relaxer: an S2EFTrainer from configs/relaxation/gemnet_oc/
+   gemnet_relax.yml as published (trainer: forces; GemNet-OC at its widths,
+   cell_reps auto; energies denormalised by its target_mean/target_std),
+   its dataset entries pointed at the phase's shard; relax_opt as
+   published with 8 slots and continuous unset, so "auto" picks the
+   slot-refill engine; fmax 0.01; relaxation_steps cut from 300 to 100
+   (random weights never converge, so every system runs its budget).
+   Synthetic DFT targets, one per sid.  Launch counts are zeroed
    just before run_pipeline and read just after: 600 painn_message_fused
    while sampling, and per GemNet-OC forward 4 + 1 while relaxing.  Checks:
    one sampled and one relaxed trajectory per sid; every relaxed frame
@@ -204,13 +209,34 @@ Phases; any failure raises and the exit code is then non-zero:
    denoising forward at full width (both heads), and one PaiNN forward at
    the painn_conditional.yml widths with non-zero energies (both heads; the
    energy must move the output).
-19. the kernels line, then the device line as the last line.  A row's ms,
+19. S2EF tasks: phase 16's relaxer checkpoint (gemnet_relax.yml widths)
+   and the 16 bench systems written to a shard with synthetic energies,
+   forces, relaxed energies and relaxed positions.  Cuts: eval_batch_size
+   48 -> 8, relaxation_steps 300 -> 20.  Through new_trainer_context, as the
+   command line runs them: validate (finite energy_mae and forces_mae),
+   predict (predictions.npz: every sid_fid, forces [16, 80, 3] in f16),
+   run-relaxations with continuous false (the batch engine) and with
+   continuous auto and 8 slots (the slot-refill engine), each writing
+   relaxed_positions.npz (every sid, fixed atoms as in the input), one
+   trajectory per sid (2 to 21 finite frames, fixed atoms unmoved) and
+   finite IS2RS/IS2RE metrics.  Launch counts zeroed just before each task
+   and read just after: 4 gemnet_quad_chain and 1 masked_legendre_cos per
+   GemNet-OC forward, forwards counted by a global forward pre-hook.  Then
+   card against CPU for S2EFTrainer.energy_forces_fn at B=2 (denormalised
+   energy and forces within 1e-4 * max|cpu|), and run_pipeline.main once
+   on phase 16's configs and checkpoints (--nsites 1, --batch-size 16,
+   --relaxation-steps 20, DFT targets from a pickle): the success rate it
+   returns and prints equals the scorer's, one sampled and one relaxed
+   trajectory per sid, exact launch counts (6 painn_message_fused a PaiNN
+   forward, 4 + 1 a GemNet-OC forward).  Prints each task's wall.
+20. the kernels line, then the device line as the last line.  A row's ms,
    plain_ms and bound_ms are per launch; eqv2_edge_rotate's are the mean
    over the four forms in the proportions one forward launches them, and
    its launches are the EquiformerV2 sampling run's; masked_legendre_cos's
    are per forward (the grouped launch of the three triplet bases: ms its
-   wall back to back, bound_ms the three bases' bounds summed), and its
-   launches are the relaxation path's; the consumers' and fused_rbf_filter's launches are
+   wall back to back, bound_ms the three bases' bounds summed);
+   masked_legendre_cos's and gemnet_quad_chain's launches are the
+   relaxation path's plus phase 19's four tasks'; the consumers' and fused_rbf_filter's launches are
    their counts summed over every path run (0: no path calls them).
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -219,7 +245,9 @@ import collections
 import copy
 import dataclasses
 import json
+import logging
 import os
+import pickle
 import platform
 import subprocess
 import sys
@@ -229,9 +257,11 @@ import types
 
 import numpy as np
 import torch
+import yaml
 
 from adsorbdiff_tpu_torch.data.schema import System, collate
-from adsorbdiff_tpu_torch import eval_tools, pipeline
+from adsorbdiff_tpu_torch import eval_tools, pipeline, run_pipeline
+from adsorbdiff_tpu_torch.common.config import load_config
 from adsorbdiff_tpu_torch.data.store import ShardDataset, write_shard
 from adsorbdiff_tpu_torch.device import resolve_device
 from adsorbdiff_tpu_torch.diffusion.schedules import draw_schedule
@@ -243,11 +273,11 @@ from adsorbdiff_tpu_torch.models import painn, so3
 from adsorbdiff_tpu_torch.models.painn import PaiNN
 from adsorbdiff_tpu_torch.ops import build, kernels, pbc
 from adsorbdiff_tpu_torch.relaxation.continuous import ContinuousRelaxationEngine
-from adsorbdiff_tpu_torch.relaxation.lbfgs import candidate_fn_for, make_mlff_energy_forces
+from adsorbdiff_tpu_torch.relaxation.lbfgs import make_mlff_energy_forces
 from adsorbdiff_tpu_torch.relaxation.ml_relaxation import DiffusionEngine, RelaxationEngine, make_score_fn
 from adsorbdiff_tpu_torch.runtime.trajectory import SUFFIX, Trajectory
 from adsorbdiff_tpu_torch.tasks import new_trainer_context
-from adsorbdiff_tpu_torch.train.trainer import DenoisingTrainer
+from adsorbdiff_tpu_torch.train.trainer import DenoisingTrainer, S2EFTrainer
 
 # NVIDIA H100 SXM data sheet: dense f32 outside the tensor cores, HBM3 rate
 F32_FLOPS = 67e12
@@ -270,12 +300,19 @@ GEMNET_KW = dict(
 RELAX_OPT = dict(steps=100, fmax=0.01, maxstep=0.04, memory=50, damping=1.0, alpha=70.0,
                  verlet_graph=True, k_cand=64)
 RELAX_BATCH = 8
-# run_pipeline's relaxer: gemnet_relax.yml's relax_opt as published (continuous unset: auto picks the slot-refill
-# engine at fmax 0.01; run_pipeline writes the trajectories under its out_dir) with 8 slots; relaxation_steps cut
-# from 300 as above.  Energies denormalised by the config's dataset block.
+# run_pipeline's relax_opt: gemnet_relax.yml's as published (continuous unset: auto picks the slot-refill engine at
+# fmax 0.01; run_pipeline writes the trajectories under its out_dir) with 8 slots; relaxation_steps cut from 300 as
+# above.
 PIPELINE_RELAX_OPT = dict(maxstep=0.04, memory=50, damping=1.0, alpha=70.0, slots=8)
 PIPELINE_STEPS = 100
-GEMNET_TARGET_MEAN, GEMNET_TARGET_STD = -0.7554450631141663, 2.887317180633545
+# the relaxer's config, read as the command line reads it (trainer: forces; the model block; normalize_labels with
+# its target_mean/target_std, by which energies are denormalised).  Phases 16 and 19 point its dataset entries and
+# relax_dataset at shards they write and its traj_dir at their temporary directory.  Cut: eval_batch_size 48 -> 8
+# (phase 19's validate, predict and relax batches); phase 19 cuts relaxation_steps 300 -> S2EF_STEPS, and the
+# command line's --relaxation-steps to the same.
+RELAX_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "relaxation", "gemnet_oc",
+                            "gemnet_relax.yml")
+S2EF_BATCH, S2EF_STEPS = 8, 20
 # configs/denoising/painn_so3.yml (model) over configs/denoising/base.yml (optim, task), as a dict: the card
 # machine may have no PyYAML.  Cut: max_epochs 100 -> 1 (one epoch of TRAIN_STEPS steps); no checkpoint or
 # validation inside the timed epoch.
@@ -1879,25 +1916,29 @@ def eqv2_training_path(device, gen, root):
                max_abs_err=s2b_err, ms=s2b_ms, plain_ms=s2b_plain_ms, bound_ms=s2b_bound, bound_by=s2b_by)
 
 
-class GemNetRelaxer:
-    """The relax trainer as run_pipeline uses it (S2EF training is not ported
-    yet): a GemNet-OC's energies, denormalised by gemnet_relax.yml's
-    target_mean/target_std, its forces, and its Verlet candidate tables."""
+def write_config(path, config):
+    """``config`` as the YAML file the command line reads; returns the path."""
+    def plain(x):
+        if isinstance(x, dict):
+            return {k: plain(v) for k, v in x.items()}
+        return [plain(v) for v in x] if isinstance(x, (list, tuple)) else x
 
-    def __init__(self, model):
-        self.model = model
-        self.forwards = 0
-        fn = make_mlff_energy_forces(model)
+    with open(path, "w") as f:
+        yaml.safe_dump(plain(config), f)
+    return path
 
-        def energy_forces_fn(batch, static_graph=None):
-            self.forwards += 1
-            energy, forces = fn(batch, static_graph)
-            return energy * GEMNET_TARGET_STD + GEMNET_TARGET_MEAN, forces
 
-        self.energy_forces_fn = energy_forces_fn
-
-    def relax_candidate_fn(self, relax_opt=None):
-        return candidate_fn_for(self.model, relax_opt)
+def relax_config(root, src):
+    """gemnet_relax.yml with its dataset entries and relax_dataset at the
+    shard ``src``, its traj_dir under ``root`` and eval_batch_size cut to
+    S2EF_BATCH."""
+    config, _, _ = load_config(RELAX_CONFIG)
+    for entry in config["dataset"]:
+        entry["src"] = src
+    config["task"]["relax_dataset"] = {"src": src}
+    config["task"]["relax_opt"]["traj_dir"] = os.path.join(root, "relaxations")
+    config["optim"]["eval_batch_size"] = S2EF_BATCH
+    return dict(config, run_dir=root, identifier="smoke_relaxer", is_debug=True)  # is_debug: no experiment logger
 
 
 def timed_calls(owner, name, record):
@@ -1919,20 +1960,42 @@ def timed_calls(owner, name, record):
     return original
 
 
-def pipeline_path(device, gen, systems, root):
-    """Phase 16: run_pipeline once, sample -> convert -> relax -> score."""
+def pipeline_path(device, systems, root):
+    """Phase 16: run_pipeline once, sample -> convert -> relax -> score, with
+    both trainers built from configs and checkpoints as the command line
+    builds them.  Returns ``{"sampler"|"relaxer": (config path, checkpoint
+    path), "relax_input": shard}`` for phase 19."""
     write_shard(os.path.join(root, "relax_input"), systems)
+    relax_input = os.path.join(root, "relax_input.adshard.npz")
     sampler_cfg = dict(copy.deepcopy(TRAIN_CONFIG), run_dir=root, identifier="smoke_pipeline", logger=None,
                        model=dict(TRAIN_CONFIG["model"], cell_reps=MODEL_KW["cell_reps"],
                                   max_ads=MODEL_KW["max_ads"]))
-    sampler = DenoisingTrainer(sampler_cfg, device=device)
-    cell_reps = pbc.auto_cell_reps([s.pos for s in systems], [s.cell for s in systems], GEMNET_KW["cutoff"])
-    relaxer = GemNetRelaxer(GemNetOC(**GEMNET_KW, cell_reps=cell_reps, device=device, generator=gen))
+    files = {"relax_input": relax_input}
+    t0 = time.perf_counter()
+    for name, config, cls in (("sampler", sampler_cfg, DenoisingTrainer),
+                              ("relaxer", relax_config(root, relax_input), S2EFTrainer)):
+        saver = cls(config, device=device)  # random weights from the trainer's seed
+        saver.init_state()
+        files[name] = (write_config(os.path.join(root, f"{name}.yml"), config), saver.save("checkpoint"))
+        del saver
+    sampler = run_pipeline.build_trainer(*files["sampler"], "denoising")
+    relaxer = run_pipeline.build_trainer(*files["relaxer"], "s2ef")
+    t_build = time.perf_counter() - t0
+    forwards, energy_forces = 0, relaxer.energy_forces_fn
+
+    def counted(*args):
+        nonlocal forwards
+        forwards += 1
+        return energy_forces(*args)
+
+    relaxer.energy_forces_fn = counted
     rng = np.random.default_rng(11)
     dft = {str(s.sid): float(rng.normal(-1.0, 1.0)) for s in systems}  # synthetic DFT minima, one per sid
     out_dir = os.path.join(root, "out")
     print(f"[pipeline] sampler painn_so3.yml widths, {PARAMS['num_steps']} ODE steps, B={len(systems)}; relaxer "
-          f"GemNet-OC gemnet_relax.yml widths, cell_reps {cell_reps}; relax_opt {PIPELINE_RELAX_OPT}, "
+          f"S2EFTrainer (GemNet-OC, gemnet_relax.yml), cell_reps {relaxer.model.cell_reps} (auto), energies "
+          f"denormalised by {relaxer.normalizers['energy'].state_dict()}; both built by run_pipeline.build_trainer "
+          f"from configs and checkpoints saved first ({t_build:.3f} s); relax_opt {PIPELINE_RELAX_OPT}, "
           f"{PIPELINE_STEPS} steps, fmax 0.01; {len(systems)} bench systems, nsites 1", flush=True)
 
     record = []
@@ -1969,10 +2032,10 @@ def pipeline_path(device, gen, systems, root):
     relax_launches = {k: v - calls["run_dataset"][3].get(k, 0) for k, v in calls["success_rate"][3].items()
                       if v != calls["run_dataset"][3].get(k, 0)}
     want_sample = {"painn_message_fused": sampler.model.num_layers * steps}
-    want_relax = gemnet_launches(relaxer.model, relaxer.forwards)
+    want_relax = gemnet_launches(relaxer.model, forwards)
     if sample_launches != want_sample or relax_launches != want_relax or launches != {**want_sample, **want_relax}:
         raise AssertionError(f"pipeline launched {launches} (sampling {sample_launches}, want {want_sample}; "
-                             f"relaxation {relax_launches}, want {want_relax} for {relaxer.forwards} forwards)")
+                             f"relaxation {relax_launches}, want {want_relax} for {forwards} forwards)")
 
     # trajectories: one sampled and one relaxed per sid; relaxed frames finite with fixed atoms unmoved, the last
     # frame the RelaxedSystem
@@ -2009,12 +2072,13 @@ def pipeline_path(device, gen, systems, root):
     engine = calls["run_dataset"][4]
     print(f"[pipeline] wall per stage (s): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()), flush=True)
     print(f"[pipeline] relaxation: {len(results)} systems, {system_steps} L-BFGS system-steps in {stages['relax']:.3f} "
-          f"s = {system_steps / stages['relax']:.2f} relax system-steps/s; {relaxer.forwards} GemNet-OC forwards of "
-          f"{PIPELINE_RELAX_OPT['slots']} slots ({relaxer.forwards * PIPELINE_RELAX_OPT['slots'] / stages['relax']:.2f} "
+          f"s = {system_steps / stages['relax']:.2f} relax system-steps/s; {forwards} GemNet-OC forwards of "
+          f"{PIPELINE_RELAX_OPT['slots']} slots ({forwards * PIPELINE_RELAX_OPT['slots'] / stages['relax']:.2f} "
           f"slot-steps/s); {engine.host_reads} host reads; {sum(r.converged for r in results.values())} converged; peak "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB allocated; launches {launches}", flush=True)
     print(f"[pipeline] success rate {rate:.4f}; per system {per_system}; anomaly flags (dissociated, desorbed, "
           f"surface changed, intercalated) {flags}", flush=True)
+    return files
 
 
 def denoising_tasks_path(device, gen, systems, root):
@@ -2112,6 +2176,183 @@ def denoising_tasks_path(device, gen, systems, root):
     print(f"[check] PaiNN conditional: the energy moves out_forces by up to {moved:.3e}", flush=True)
 
 
+def labelled_systems(systems, seed):
+    """``systems`` with synthetic S2EF and IS2RS/IS2RE targets: energy,
+    forces (zero on fixed atoms), relaxed energy and relaxed positions (the
+    adsorbate moved)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for s in systems:
+        ads = (s.tags == 2)[:, None]
+        out.append(System(pos=s.pos, atomic_numbers=s.atomic_numbers, cell=s.cell, tags=s.tags, fixed=s.fixed,
+                          sid=s.sid, fid=s.fid, energy=float(rng.normal(-1.0, 1.0)),
+                          y_relaxed=float(rng.normal(-1.5, 1.0)),
+                          forces=np.where(s.fixed[:, None], 0.0, rng.normal(0.0, 0.5, s.pos.shape)),
+                          pos_relaxed=s.pos + np.where(ads, rng.normal(0.0, 0.2, s.pos.shape), 0.0)))
+    return out
+
+
+def check_relaxations(results_dir, traj_dir, systems, metrics):
+    """run-relaxations' results: relaxed_positions.npz with every sid once
+    and finite positions, fixed atoms where the input has them; one
+    trajectory per sid of 2 to S2EF_STEPS + 1 finite frames with fixed atoms
+    unmoved; IS2RS and IS2RE metrics logged, finite.  Returns the frames per
+    trajectory."""
+    relaxed = np.load(os.path.join(results_dir, "relaxed_positions.npz"))
+    sids = sorted(str(s.sid) for s in systems)
+    if sorted(relaxed["ids"].tolist()) != sids or relaxed["pos"].shape != (sum(s.natoms for s in systems), 3) or \
+            not np.isfinite(relaxed["pos"]).all():
+        raise AssertionError(f"relaxed_positions.npz: ids {relaxed['ids'].tolist()} (want {sids}), positions "
+                             f"{relaxed['pos'].shape}")
+    by_sid = {s.sid: s for s in systems}
+    offsets = np.concatenate([[0], relaxed["chunk_idx"], [len(relaxed["pos"])]])
+    frames = []
+    for k, sid in enumerate(relaxed["ids"].tolist()):
+        s = by_sid[int(sid)]
+        pos = relaxed["pos"][offsets[k]:offsets[k + 1]]
+        traj = Trajectory.load(os.path.join(traj_dir, f"{sid}{SUFFIX}"))
+        if not (s.fixed.any() and (pos[s.fixed] == s.pos[s.fixed]).all()
+                and (traj.positions[:, s.fixed] == s.pos[s.fixed]).all()):
+            raise AssertionError(f"relaxation {sid} moved fixed atoms")
+        if not 2 <= len(traj) <= S2EF_STEPS + 1 or not all(np.isfinite(x).all() for x in (traj.positions,
+                                                                                          traj.energy)):
+            raise AssertionError(f"trajectory {sid}: {len(traj)} frames or non-finite values")
+        frames.append(len(traj))
+    if len(metrics) != 1 or any(len(m) != 3 or not all(np.isfinite(v["metric"]) for v in m.values())
+                                for m in metrics[0]):
+        raise AssertionError(f"IS2RS/IS2RE metrics logged: {metrics}")
+    return frames
+
+
+def s2ef_tasks_path(device, systems, root, files, smi):
+    """Phase 19: validate, predict and run-relaxations (both engines) with the
+    S2EF trainer from phase 16's full-width GemNet-OC checkpoint, each with
+    its exact launch counts; card against CPU for energy_forces_fn; then the
+    pipeline's command line end to end.  Returns the launches summed over
+    the four tasks."""
+    labelled = labelled_systems(systems, 19)
+    write_shard(os.path.join(root, "s2ef"), labelled)
+    src = os.path.join(root, "s2ef.adshard.npz")
+    ckpt = files["relaxer"][1]
+    base = relax_config(root, src)
+    base["task"].update(relaxation_steps=S2EF_STEPS, write_pos=True)
+    print(f"[s2ef] {smi}; S2EFTrainer from phase 16's GemNet-OC checkpoint (gemnet_relax.yml widths), "
+          f"{len(systems)} bench systems with synthetic energy, forces and relaxed targets; cuts: eval_batch_size "
+          f"48 -> {S2EF_BATCH}, relaxation_steps 300 -> {S2EF_STEPS}, the command line's --relaxation-steps "
+          f"{S2EF_STEPS}", flush=True)
+    forwards = collections.Counter()  # model forwards by class, counted by a global forward pre-hook
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(
+        lambda module, args: forwards.update([type(module).__name__])
+        if isinstance(module, (GemNetOC, PaiNN)) else None)
+    engine_calls = []
+    original = timed_calls(ContinuousRelaxationEngine, "run_dataset", engine_calls)
+    total = collections.Counter()
+    try:
+        for label, mode, relax_opt in (("validate", "validate", {}), ("predict", "predict", {}),
+                                       ("relax-batch", "run-relaxations", {"continuous": False}),
+                                       ("relax-continuous", "run-relaxations",
+                                        {"continuous": "auto", "slots": S2EF_BATCH})):
+            cfg = copy.deepcopy(base)
+            traj_dir = os.path.join(root, f"trajs-{label}")
+            cfg["task"]["relax_opt"].update(relax_opt, traj_dir=traj_dir)
+            cfg.update(mode=mode, checkpoint=ckpt, identifier=f"smoke_s2ef_{label}")
+            with new_trainer_context(cfg) as ctx:
+                trainer, captured = ctx.trainer, []
+                if mode == "validate":
+                    validate = trainer.validate
+                    trainer.validate = lambda split="val": captured.append(validate(split))
+                else:
+                    trainer._log_relax_metrics = lambda is2rs, is2re, split="val": captured.append((is2rs, is2re))
+                del engine_calls[:]
+                torch.cuda.synchronize()
+                forwards.clear()
+                kernels.launches.clear()
+                t0 = time.perf_counter()
+                ctx.task.run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = path_launches()
+            want = gemnet_launches(trainer.model, forwards["GemNetOC"])
+            if not forwards["GemNetOC"] or launches != want or forwards["PaiNN"]:
+                raise AssertionError(f"{label}: launched {launches} in {dict(forwards)} forwards; want {want}")
+            total.update(launches)
+            if mode == "validate":
+                metrics = {k: v["metric"] for k, v in captured[0].items()}
+                if not all(np.isfinite(metrics[k]) for k in ("energy_mae", "forces_mae")):
+                    raise AssertionError(f"validate: metrics {metrics}")
+                what = "metrics " + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+            elif mode == "predict":
+                pred = np.load(os.path.join(trainer.results_dir, "predictions.npz"))
+                want_ids = sorted(f"{s.sid}_{s.fid}" for s in systems)
+                if sorted(pred["ids"].tolist()) != want_ids or pred["outputs"].dtype != np.float16 or \
+                        pred["outputs"].shape != (len(systems), 80, 3) or not np.isfinite(pred["outputs"]).all():
+                    raise AssertionError(f"predictions.npz: ids {pred['ids'].tolist()}, outputs "
+                                         f"{pred['outputs'].dtype} {pred['outputs'].shape}")
+                what = f"predictions.npz holds {len(want_ids)} ids and forces {pred['outputs'].shape} f16, finite"
+            else:
+                if len(engine_calls) != (relax_opt["continuous"] == "auto"):
+                    raise AssertionError(f"{label}: {len(engine_calls)} slot-refill engine runs")
+                frames = check_relaxations(trainer.results_dir, traj_dir, labelled, captured)
+                what = (f"{'slot-refill' if engine_calls else 'batch'} engine, {sum(frames) - len(frames)} L-BFGS "
+                        f"system-steps, trajectories of {min(frames)}-{max(frames)} frames; " + ", ".join(
+                            f"{k} {v['metric']:.4f}" for m in captured[0] for k, v in m.items()))
+            print(f"[s2ef] {label}: {wall:.3f} s wall, {forwards['GemNetOC']} GemNet-OC forwards, launches "
+                  f"{launches}; {what}", flush=True)
+
+        # card against CPU: energy_forces_fn (energy denormalised, fixed atoms' forces zeroed) at B=2
+        host = S2EFTrainer(dict(copy.deepcopy(base), cpu=True, identifier="smoke_s2ef_cpu"))
+        host.load_checkpoint(ckpt)
+        two = collate(labelled[:2], max_atoms=80, device="cpu")
+        card = trainer.energy_forces_fn(two.to(device))
+        check_model("S2EFTrainer.energy_forces_fn", zip(("energy", "forces"), card, host.energy_forces_fn(two)))
+        del host
+
+        # the pipeline's command line end to end, with phase 16's configs and checkpoints
+        rng = np.random.default_rng(23)
+        targets = os.path.join(root, "targets.pkl")
+        with open(targets, "wb") as f:
+            pickle.dump({s.sid: [("smoke", float(rng.normal(-1.0, 1.0)))] for s in systems}, f)
+        argv = ["--diffusion-config", files["sampler"][0], "--diffusion-ckpt", files["sampler"][1],
+                "--relax-config", files["relaxer"][0], "--relax-ckpt", ckpt, "--relax-dataset", files["relax_input"],
+                "--out-dir", os.path.join(root, "cli"), "--nsites", "1", "--batch-size", str(len(systems)),
+                "--relaxation-steps", str(S2EF_STEPS), "--dft-targets", targets]
+        scored, printed = [], []
+        score = timed_calls(pipeline, "success_rate", scored)
+        handler = logging.Handler()
+        handler.emit = lambda record: printed.append(record.getMessage())
+        logging.getLogger().addHandler(handler)
+        try:
+            forwards.clear()
+            kernels.launches.clear()
+            t0 = time.perf_counter()
+            rate = run_pipeline.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = path_launches()
+        finally:
+            pipeline.success_rate = score
+            logging.getLogger().removeHandler(handler)
+    finally:
+        hook.remove()
+        ContinuousRelaxationEngine.run_dataset = original
+    scorer_rate = scored[0][3][0] if len(scored) == 1 else None
+    lines = [m for m in printed if m.startswith("Success rate:") and "(" not in m]
+    if rate is None or rate != scorer_rate or lines != [f"Success rate: {scorer_rate * 100:.1f}%"]:
+        raise AssertionError(f"run_pipeline.main returned {rate} and printed {lines}; the scorer gave {scorer_rate}")
+    want = {"painn_message_fused": TRAIN_CONFIG["model"]["num_layers"] * forwards["PaiNN"],
+            **gemnet_launches(trainer.model, forwards["GemNetOC"])}
+    if launches != want:
+        raise AssertionError(f"run_pipeline.main launched {launches} in {dict(forwards)} forwards; want {want}")
+    step = os.path.join(root, "cli", "0")
+    for stage in ("sampled", "relaxations"):
+        if sorted(os.listdir(os.path.join(step, stage))) != sorted(f"{s.sid}{SUFFIX}" for s in systems):
+            raise AssertionError(f"run_pipeline.main: {stage} holds {os.listdir(os.path.join(step, stage))}")
+    print(f"[s2ef] python -m adsorbdiff_tpu_torch.run_pipeline {' '.join(argv)}: {wall:.3f} s wall (both trainers "
+          f"built from configs and checkpoints), {forwards['PaiNN']} PaiNN and {forwards['GemNetOC']} GemNet-OC "
+          f"forwards, launches {launches}; printed '{lines[0]}', the scorer's rate {scorer_rate:.4f}", flush=True)
+    return total
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -2147,14 +2388,18 @@ def main():
     with tempfile.TemporaryDirectory() as root:
         rows.append(eqv2_training_path(device, torch.Generator().manual_seed(9), root))
     with tempfile.TemporaryDirectory() as root:
-        pipeline_path(device, torch.Generator().manual_seed(13), systems, root)
-    with tempfile.TemporaryDirectory() as root:
-        denoising_tasks_path(device, torch.Generator().manual_seed(17), systems[:SO3_RELAX_BATCH], root)
+        files = pipeline_path(device, systems, root)
+        so3_root = os.path.join(root, "so3")
+        os.makedirs(so3_root)
+        denoising_tasks_path(device, torch.Generator().manual_seed(17), systems[:SO3_RELAX_BATCH], so3_root)
+        s2ef_launches = s2ef_tasks_path(device, systems, root, files, smi)
 
-    # 19. results
+    # 20. results
     for r in rows:
         if r["launches"] is None:  # a standalone kernel: what the path runs launched of it
             r["launches"] = PATH_LAUNCHES[r["name"]]
+        elif r["name"] in s2ef_launches:  # the GemNet-OC kernels: the relaxation path's and phase 19's tasks'
+            r["launches"] += s2ef_launches[r["name"]]
     print(json.dumps({"kernels": [
         dict(name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"], launches=r["launches"],
              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

@@ -10,6 +10,9 @@ One process runs, ``--runs`` times each:
   it with the profiler off (wall per step, rebuilds);
 - chip_smoke.py's phase 16: run_pipeline over the 16 bench systems (its
   own printed lines are passed through); total and relax-stage seconds.
+  Since PR 17 the phase builds both trainers from configs and checkpoints
+  it saves first; a checkout from before takes a seeded generator instead,
+  and the script calls whichever form the checkout has.
 
 Host-bound rates move between calls, so every reading is printed, not a
 summary.  ``--root`` takes chip_smoke.py and adsorbdiff_tpu_torch from
@@ -23,6 +26,7 @@ The last line is one JSON object with every reading.
 """
 import argparse
 import contextlib
+import inspect
 import io
 import json
 import os
@@ -79,7 +83,10 @@ def main() -> None:
         long, short = relax(smoke.RELAX_OPT["steps"]), relax(10)
         out = io.StringIO()
         with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(out):
-            smoke.pipeline_path(device, torch.Generator().manual_seed(13), smoke.bench_systems(), tmp)
+            if "gen" in inspect.signature(smoke.pipeline_path).parameters:  # a checkout from before PR 17
+                smoke.pipeline_path(device, torch.Generator().manual_seed(13), smoke.bench_systems(), tmp)
+            else:
+                smoke.pipeline_path(device, smoke.bench_systems(), tmp)
         stages = re.search(r"wall per stage \(s\): (.*)", out.getvalue()).group(1)
         pipeline = {k: float(v) for k, v in (item.split() for item in stages.split(", "))}
         readings.append(dict(relax_100=long, relax_10=short, pipeline_s=pipeline))

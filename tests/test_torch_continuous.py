@@ -1,8 +1,8 @@
 """PyTorch port: the continuous-batching relaxation engine (relaxation/continuous.py).
 
 Mirrors tests/test_continuous.py on the port (not its mesh case, which waits
-for several devices, nor its trainer case, which waits for the trainer's
-run-relaxations task), plus one case against the JAX engine.  Every system
+for several devices; its trainer case is in tests/test_torch_s2ef.py, with
+the S2EF trainer), plus one case against the JAX engine.  Every system
 must follow the trajectory that ``lbfgs_relax`` gives it alone in a batch of
 one, whatever shares its slots.
 

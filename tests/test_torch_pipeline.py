@@ -1,10 +1,11 @@
 """PyTorch port: the end-to-end pipeline (sample -> convert -> relax -> score).
 
 Mirrors tests/test_pipeline.py's first two tests on the port (a tiny PaiNN
-trained for one epoch on the CPU, a duck-typed relaxer around a small
-GemNet-OC), once with the batch engine and once with ``continuous``
-resolving to the slot-refill engine; its success-rate regression is ``slow``
-there and stays out.  Stages 2-4 are held against the JAX package on one
+trained for one epoch on the CPU, and as the relaxer an ``S2EFTrainer`` of a
+small GemNet-OC loaded from a checkpoint), once with the batch engine and
+once with ``continuous`` resolving to the slot-refill engine; its
+success-rate regression is ``slow`` there and stays out.  Stages 2-4 are
+held against the JAX package on one
 sampled directory: the converted shards are equal, and the continuous
 relaxations (a harmonic well per sid, written in both frameworks) and success
 rates agree (positions and energies 1e-5, step counts and the per-system
@@ -19,12 +20,11 @@ import torch
 
 from adsorbdiff_tpu_torch.data.store import ShardDataset
 from adsorbdiff_tpu_torch.eval_tools import success_rate
-from adsorbdiff_tpu_torch.models.gemnet_oc import GemNetOC
 from adsorbdiff_tpu_torch.pipeline import run_pipeline, sampled_trajs_to_dataset
 from adsorbdiff_tpu_torch.relaxation.continuous import ContinuousRelaxationEngine
-from adsorbdiff_tpu_torch.relaxation.lbfgs import candidate_fn_for, make_mlff_energy_forces
 from adsorbdiff_tpu_torch.runtime.trajectory import SUFFIX, Trajectory
-from adsorbdiff_tpu_torch.train.trainer import DenoisingTrainer
+from adsorbdiff_tpu_torch.train.trainer import DenoisingTrainer, S2EFTrainer
+from tests.test_s2ef_and_tasks import s2ef_config
 from tests.test_trainer import config_for, make_dataset
 from tests.port_bridge import one_torch_thread  # noqa: F401  (autouse)
 
@@ -49,18 +49,6 @@ def test_sampled_trajs_to_dataset_z_clearance(tmp_path):
     assert sys0.sid == 3
 
 
-class GemNetRelaxer:
-    """The relax trainer as the pipeline uses it: energy/forces and Verlet
-    candidate tables of a small GemNet-OC."""
-
-    def __init__(self, model):
-        self.model = model
-        self.energy_forces_fn = make_mlff_energy_forces(model)
-
-    def relax_candidate_fn(self, relax_opt):
-        return candidate_fn_for(self.model, relax_opt)
-
-
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("pipeline")
@@ -69,7 +57,12 @@ def trained(tmp_path_factory):
     cfg["optim"]["denoising_pos_params"]["num_steps"] = 8
     dtr = DenoisingTrainer(cfg)
     dtr.train()
-    relaxer = GemNetRelaxer(GemNetOC(**SMALL_GEMNET, device="cpu", generator=torch.Generator().manual_seed(1)))
+    rcfg = dict(s2ef_config(None, run_dir=str(tmp)), cpu=True, identifier="relaxer",
+                model=dict(name="gemnet_oc", **SMALL_GEMNET))
+    saver = S2EFTrainer(rcfg)
+    saver.init_state()
+    relaxer = S2EFTrainer(rcfg)
+    relaxer.load_checkpoint(saver.save("checkpoint"))
     return tmp, dtr, relaxer, make_dataset(tmp, rng, 6, "relaxds")
 
 
