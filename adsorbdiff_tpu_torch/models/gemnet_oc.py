@@ -28,7 +28,11 @@ Legendre kernel, one launch for the bases of the interactions switched on;
 the JAX model's ``use_pallas=True`` path for the first two, and the same
 function for the third, which JAX leaves to XLA).  There is no switch:
 ``fused_quad`` and ``use_pallas`` are accepted for config compatibility
-and ignored.  The
+and ignored.  Training runs the same two kernels: the chain's gradient
+reaches ``xm`` and ``qp`` through its VJP (a recompute of the plain
+version, :class:`adsorbdiff_tpu_torch.ops.kernels.GemnetQuadChain`), and
+the triplet bases take only geometry, which carries no gradient (the force
+heads are direct).  The
 quadruplet's c == d exclusion compares integer image keys (:func:`_img_key`),
 which the port packs in base 64: exact wherever the JAX package's base-16
 key is exact, and still injective where that one collides (offsets past 7).

@@ -14,9 +14,10 @@ Counterpart of :mod:`adsorbdiff_tpu.ops.pallas_kernels`.  Each kernel has:
 
 A kernel with a backward is wrapped in a ``torch.autograd.Function``
 (:class:`PainnMessageFused`, :class:`S2GridSilu`, :class:`EqV2AttnConv1`,
-:class:`EqV2EdgeRotate`), which the forward wrapper routes through only when
-autograd needs a gradient.  On CPU tensors a Function's forward and backward
-are the plain versions, so the CPU tests reach its backward too.
+:class:`EqV2EdgeRotate`, :class:`GemnetQuadChain`), which the forward wrapper
+routes through only when autograd needs a gradient.  On CPU tensors a
+Function's forward and backward are the plain versions, so the CPU tests
+reach its backward too.
 """
 from __future__ import annotations
 
@@ -964,9 +965,26 @@ def gemnet_quad_chain(
 
     Shapes as :func:`gemnet_quad_chain_reference`; ``qp`` has the true U (no
     padding).  Returns ``outer [B, N, U, F, E]`` f32 for the qint bilinear.
-    On the card: f32 tensors, int32 keys, contiguous, and no autograd (the
-    backward comes with training); the launch is :func:`quad_chain_plan`'s.
+    On the card: f32 tensors, int32 keys, contiguous; the launch is
+    :func:`quad_chain_plan`'s.  When autograd needs a gradient of ``xm`` or
+    ``qp`` the call goes through :class:`GemnetQuadChain`, whose backward
+    recomputes the plain version (:func:`gemnet_quad_chain_vjp`).  The
+    geometry ``n1``/``n2`` gets no gradient on the card: a CUDA call where
+    either needs one raises (the JAX VJP returns zeros for them, which would
+    drop a position gradient unseen); on the CPU the plain version's
+    autograd gives it.
     """
+    if torch.is_grad_enabled() and (n1.requires_grad or n2.requires_grad):
+        if n1.device.type == "cpu":
+            return gemnet_quad_chain_reference(n1, n2, key1, key2, xm, qp, num_spherical)
+        raise NotImplementedError("gemnet_quad_chain: no gradient of the geometry n1/n2 on CUDA (the backward "
+                                  "takes the cotangents of xm and qp only)")
+    if torch.is_grad_enabled() and (xm.requires_grad or qp.requires_grad):
+        return GemnetQuadChain.apply(n1, n2, key1, key2, xm, qp, num_spherical)
+    return _gemnet_quad_chain_forward(n1, n2, key1, key2, xm, qp, num_spherical)
+
+
+def _gemnet_quad_chain_forward(n1, n2, key1, key2, xm, qp, num_spherical: int) -> torch.Tensor:
     if n1.device.type == "cpu":
         return gemnet_quad_chain_reference(n1, n2, key1, key2, xm, qp, num_spherical)
     tensors = dict(n1=n1, n2=n2, key1=key1, key2=key2, xm=xm, qp=qp)
@@ -984,6 +1002,50 @@ def gemnet_quad_chain(
         return n1.new_empty((b, n, u, f, e))
     plan = quad_chain_plan(b * n, u, q, k2, s, e, f, _sm_count(n1.device), qp_aligned=qp.data_ptr() % 16 == 0)
     return _quad_chain_launch(tensors, s, plan)
+
+
+def gemnet_quad_chain_vjp(n1: torch.Tensor, n2: torch.Tensor, key1: torch.Tensor, key2: torch.Tensor,
+                          xm: torch.Tensor, qp: torch.Tensor, num_spherical: int,
+                          g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dxm, dqp)``, the cotangents of ``xm`` and ``qp`` for the output
+    cotangent ``g [B, N, U, F, E]``: the JAX package's ``_quad_chain_bwd``,
+    autograd of the plain version (:func:`gemnet_quad_chain_reference`)
+    recomputed from detached ``xm`` and ``qp``.  No kernel is launched.
+    ``qp`` may be padded along u past n1's U, as the JAX function allows: the
+    recompute reads its first U rows, and ``dqp`` has qp's shape, zero in the
+    padding."""
+    xm_ = xm.detach().requires_grad_(True)
+    qp_ = qp.detach().requires_grad_(True)
+    with torch.enable_grad():
+        out = gemnet_quad_chain_reference(n1.detach(), n2.detach(), key1, key2, xm_, qp_[:, :, : n1.shape[2]],
+                                          num_spherical)
+        dxm, dqp = torch.autograd.grad(out, (xm_, qp_), g)
+    return dxm, dqp
+
+
+class GemnetQuadChain(torch.autograd.Function):
+    """:func:`gemnet_quad_chain` with its VJP.
+
+    The forward launches the kernel once; the backward is
+    :func:`gemnet_quad_chain_vjp`, a recompute of the plain version, as the
+    JAX package's ``_quad_chain_bwd`` recomputes ``_quad_chain_ref`` in XLA
+    (the TPU kernel has no backward kernel either).  Gradients flow to ``xm``
+    and ``qp``; ``n1``, ``n2`` and the keys get none
+    (:func:`gemnet_quad_chain` routes no call here whose ``n1`` or ``n2``
+    needs one).  On CPU tensors the forward is the plain version.
+    """
+
+    @staticmethod
+    def forward(ctx, n1, n2, key1, key2, xm, qp, num_spherical):
+        ctx.save_for_backward(n1, n2, key1, key2, xm, qp)
+        ctx.num_spherical = num_spherical
+        return _gemnet_quad_chain_forward(n1, n2, key1, key2, xm, qp, num_spherical)
+
+    @staticmethod
+    def backward(ctx, g):
+        n1, n2, key1, key2, xm, qp = ctx.saved_tensors
+        dxm, dqp = gemnet_quad_chain_vjp(n1, n2, key1, key2, xm, qp, ctx.num_spherical, g)
+        return None, None, None, None, dxm, dqp, None
 
 
 def _quad_chain_launch(tensors: dict, s: int, plan: "QuadChainPlan") -> torch.Tensor:
@@ -1308,8 +1370,10 @@ def masked_legendre_cos(a: torch.Tensor, bt: torch.Tensor, keep: torch.Tensor, n
 
     ``a [G, M, C]``, ``bt [G, C, K]``, ``keep [G, M, K]`` -> ``[G, S, M, K]``.
     On the card: C = 3, f32 vectors, bool ``keep``, contiguous, S <= 16 and
-    no autograd (the TPU kernel is forward-only too; GemNet-OC S2EF training
-    will bring the VJP)."""
+    no autograd: an input that needs a gradient raises.  The TPU kernel is
+    forward-only too.  Training launches the forward as inference does:
+    GemNet-OC's bases take only geometry (unit edge vectors and masks) and
+    its force heads are direct, so no gradient flows through them."""
     if a.device.type == "cpu":
         return masked_legendre_cos_reference(a, bt, keep, num_spherical)
     if a.device.type != "cuda":

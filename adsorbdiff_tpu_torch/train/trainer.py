@@ -1,5 +1,5 @@
 """Trainers: the shared machinery, denoising score training, and the S2EF
-(energy and forces) trainer for inference.
+(energy and forces) trainer.
 
 Port of :mod:`adsorbdiff_tpu.train.trainer` for one device (a CUDA card, or
 the host when the config says ``cpu: true``):
@@ -25,14 +25,15 @@ the host when the config says ``cpu: true``):
   with the EMA model through :class:`DiffusionEngine`, batch i from a
   ``torch.Generator`` seeded from (seed + 2, i), where JAX folds i into
   ``PRNGKey(seed + 2)``: the samples differ between the packages by design;
-- ``S2EFTrainer`` (the ``forces`` trainer of ``gemnet_relax.yml``) predicts,
-  validates and relaxes with the EMA model: ``energy_forces_fn`` is the
-  relaxer that ``run_pipeline`` and ``run_relaxations`` drive.
+- ``S2EFTrainer`` (the ``forces`` trainer of ``gemnet_relax.yml``) trains on
+  energy and forces, and predicts, validates and relaxes with the EMA
+  model: ``energy_forces_fn`` is the relaxer that ``run_pipeline`` and
+  ``run_relaxations`` drive;
+- ``model.scale_file`` loads reference scale factors into the model's
+  ScaleFactor buffers at ``init_state`` (:func:`load_scales_compat`).
 
-Not ported (raise ``NotImplementedError``): S2EF training (``S2EFTrainer.train``
-and ``train_step``, ROADMAP A.6 step 2), ``amp``,
-``grad_accumulation_steps > 1``, ``ReduceLROnPlateau``, ``model.scale_file``,
-several devices.
+Not ported (raise ``NotImplementedError``): ``amp``,
+``grad_accumulation_steps > 1``, ``ReduceLROnPlateau``, several devices.
 """
 from __future__ import annotations
 
@@ -63,10 +64,10 @@ from adsorbdiff_tpu_torch.relaxation.lbfgs import candidate_fn_for
 from adsorbdiff_tpu_torch.relaxation.ml_relaxation import DiffusionEngine, RelaxationEngine, batch_generator
 from adsorbdiff_tpu_torch.train import checkpoint as ckpt
 from adsorbdiff_tpu_torch.train.evaluator import Evaluator
-from adsorbdiff_tpu_torch.train.loss import denoising_loss
+from adsorbdiff_tpu_torch.train.loss import atomwise_l2, denoising_loss, l2mae, mae, mse
 from adsorbdiff_tpu_torch.train.lr import build_lr_schedule
 from adsorbdiff_tpu_torch.train.normalizer import Normalizer
-from adsorbdiff_tpu_torch.train.scaling import ensure_fitted
+from adsorbdiff_tpu_torch.train.scaling import ensure_fitted, load_scales_compat
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adamw defaults
 # reference config keys the models take elsewhere or not at all
@@ -145,8 +146,6 @@ class BaseTrainer:
             raise NotImplementedError("grad_accumulation_steps > 1 is not ported yet")
         if str(self.optim_cfg.get("scheduler", "")) == "ReduceLROnPlateau":
             raise NotImplementedError("the ReduceLROnPlateau scheduler is not ported yet")
-        if self.model_cfg.get("scale_file"):
-            raise NotImplementedError("model.scale_file (reference scale files) is not ported yet")
         self.device = resolve_device("cpu" if config.get("cpu") else device)
         self.seed = int(config.get("seed", 0) or 0)
         self.run_dir = config.get("run_dir", "./")
@@ -262,8 +261,15 @@ class BaseTrainer:
     def init_state(self) -> None:
         """Fresh optimiser state (zero moments, count 0) and EMA = params.
         The EMA lives in an eval-mode copy of the model (:attr:`ema_module`),
-        whose parameters the update writes in place."""
+        whose parameters the update writes in place.  ``model.scale_file``
+        loads its scale factors into the model's buffers first, and they count
+        as fitted (the JAX trainer's ``init_state``)."""
+        scale_file = self.model_cfg.get("scale_file")
         with torch.no_grad():
+            if scale_file:
+                factors = self.scale_factors()
+                for name, value in load_scales_compat(factors, scale_file).items():
+                    factors[name].copy_(value)
             self._flat = _flatten_parameters(self.model)
             self.ema_module = copy.deepcopy(self.model).requires_grad_(False).eval()
             self._ema_flat = _flatten_parameters(self.ema_module)
@@ -274,7 +280,7 @@ class BaseTrainer:
         self.mu, self.nu = _views(self._mu_flat, params), _views(self._nu_flat, params)
         self.ema = list(self.ema_module.parameters())
         self.initialized = True
-        self.scale_factors_fitted = False
+        self.scale_factors_fitted = bool(scale_file)
 
     def scale_factors(self) -> Dict[str, torch.Tensor]:
         """The model's ScaleFactor buffers by name."""
@@ -671,25 +677,29 @@ class DenoisingTrainer(BaseTrainer):
             engine.flush()  # join the trajectory writes before returning
 
 
-_S2EF_TRAINING = ("S2EF training is not ported yet (ROADMAP A.6 step 2: it needs backward kernels for "
-                  "masked_legendre_cos and gemnet_quad_chain)")
-
-
 @registry.register_trainer("s2ef")
 @registry.register_trainer("ocp")
 @registry.register_trainer("energy")
 @registry.register_trainer("forces")
 class S2EFTrainer(BaseTrainer):
-    """Energy and forces with the EMA model: ``predict``, ``validate``,
+    """Energy and forces: training (``train``, ``train_step``, the shared
+    loop and update), and with the EMA model ``predict``, ``validate``,
     ``energy_forces_fn`` (the relaxer's calculator) and ``run_relaxations``.
 
-    Energies are denormalised by the ``energy`` normaliser where the first
-    dataset entry sets ``normalize_labels``.  The ``forces`` normaliser that
+    The loss is the JAX ``S2EFTrainer``'s (``_make_train_step``):
+    ``energy_coefficient`` [1] x ``loss_energy`` (``mae`` [default] or
+    ``mse``) + ``force_coefficient`` [30] x ``loss_force`` (``l2mae``
+    [default], ``atomwise*`` or ``mae``), forces on free atoms with
+    ``task.train_on_free_atoms`` [True], else on every real atom.  The energy
+    target is normalised, and predicted energies denormalised, by the
+    ``energy`` normaliser where the first dataset entry sets
+    ``normalize_labels``.  The ``forces`` normaliser that
     ``grad_target_mean``/``grad_target_std`` build is never applied, as in
-    JAX.  The model runs without autograd: the s2ef force heads are direct.
-    A trainer with no checkpoint initialises itself on first use (random
-    weights, scale factors not fitted).  Training raises
-    ``NotImplementedError`` (ROADMAP A.6 step 2).
+    JAX.  The s2ef force heads are direct: inference runs without autograd,
+    and training differentiates the loss with respect to the parameters
+    only.  A trainer with no checkpoint initialises itself on first use
+    (random weights, scale factors not fitted unless ``model.scale_file``
+    gives them).
     """
 
     name = "s2ef"
@@ -697,11 +707,29 @@ class S2EFTrainer(BaseTrainer):
     def _model_mode(self) -> Optional[str]:
         return "s2ef"
 
-    def train_step(self, *args, **kwargs):
-        raise NotImplementedError(_S2EF_TRAINING)
-
-    def train(self, disable_eval_tqdm: bool = True) -> None:
-        raise NotImplementedError(_S2EF_TRAINING)
+    def _loss_and_aux(self, batch, draws=None, generator=None, dropout_generator=None):
+        """The energy and force losses of one batch (the noise arguments are
+        not used); aux ``loss``, ``loss_energy``, ``loss_forces``."""
+        optim = self.optim_cfg
+        e_coef = float(optim.get("energy_coefficient", 1.0))
+        f_coef = float(optim.get("force_coefficient", 30.0))
+        loss_force = str(optim.get("loss_force", "l2mae"))
+        out = self.model(batch) if dropout_generator is None else self.model(batch, dropout_generator=dropout_generator)
+        e_target = batch.energy
+        e_norm = self.normalizers.get("energy")
+        if e_norm is not None:
+            e_target = e_norm.norm(e_target)
+        e_fn = mae if str(optim.get("loss_energy", "mae")) == "mae" else mse
+        loss_e = e_fn(out["energy"], e_target, torch.ones_like(out["energy"], dtype=torch.bool))
+        f_mask = batch.free_mask if bool(self.task_cfg.get("train_on_free_atoms", True)) else batch.atom_mask
+        if loss_force == "l2mae":
+            loss_f = l2mae(out["forces"], batch.forces, f_mask)
+        elif loss_force.startswith("atomwise"):
+            loss_f = atomwise_l2(out["forces"], batch.forces, f_mask, batch.natoms)
+        else:
+            loss_f = mae(out["forces"], batch.forces, f_mask)
+        loss = e_coef * loss_e + f_coef * loss_f
+        return loss, {"loss": loss, "loss_energy": loss_e, "loss_forces": loss_f}
 
     def _ema(self) -> torch.nn.Module:
         if not self.initialized:

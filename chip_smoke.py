@@ -229,14 +229,47 @@ Phases; any failure raises and the exit code is then non-zero:
    returns and prints equals the scorer's, one sampled and one relaxed
    trajectory per sid, exact launch counts (6 painn_message_fused a PaiNN
    forward, 4 + 1 a GemNet-OC forward).  Prints each task's wall.
-20. the kernels line, then the device line as the last line.  A row's ms,
+20. the quad chain's VJP: gemnet_quad_chain with xm and qp needing
+   gradients at the S2EF training shape (16 x 80 cells, U=K2=30, Q=8, S=7,
+   E=F=32) and at phase 3's ragged shapes (E=40 and F=48, S=9, S*Q*F odd,
+   every main key -1, U=1): exactly one kernel launch for forward and
+   backward (the backward, kernels.GemnetQuadChain, recomputes the plain
+   version), the output, dxm and dqp within 1e-4 * max|plain| + 1e-5 of
+   autograd through the plain version; an n1 or n2 that needs a gradient
+   raises on the card, and so does masked_legendre_cos's input.  Prints the
+   forward kernel's and the VJP's times (CUDA events), the VJP's peak memory
+   above what was allocated before it, and its bound.
+21. S2EF training: S2EFTrainer.train() for one epoch of
+   configs/relaxation/gemnet_oc/gemnet_relax.yml as published (trainer:
+   forces; GemNet-OC at its widths, cell_reps auto; B=16, AdamW at 5e-4,
+   weight decay 0, multistep LambdaLR with warm-up, clip 10, EMA 0.999,
+   energy MAE + 100 x force L2MAE on free atoms, energies normalised by its
+   target_mean/target_std; random weights from its seed) on bench systems
+   with synthetic energies and forces written to train and val shards.
+   Cuts: max_epochs 80 -> 1 (20 steps), eval_every 5000 -> 20 (one
+   validation and one checkpoint at the epoch's end), eval_batch_size
+   48 -> 16.  Launch counts are zeroed just before train() and read at every
+   step: exactly 4 gemnet_quad_chain and 1 masked_legendre_cos a step (the
+   backward launches none), and 4 + 1 a forward of the validation inside
+   train().  Every loss finite; params and EMA moved; EMA != params;
+   validation energy_mae and forces_mae finite; the checkpoint loads into a
+   fresh S2EFTrainer whose predict equals the EMA model's bit for bit.
+   Prints systems/s over the steps after the first and the epoch's peak
+   memory.  Then 3 DenoisingTrainer.train_step calls at the gemnet_so3.yml
+   + base.yml settings, B cut from 48 to 16 (48 does not fit in 80 GB),
+   exactly 4 + 1 launches a step, finite losses.
+22. card vs CPU, one S2EF training step of phase 21's trainer at B=2 (two
+   of its systems): loss, grad_norm and every parameter's gradient within
+   1e-3 * max|cpu| of that tensor.
+23. the kernels line, then the device line as the last line.  A row's ms,
    plain_ms and bound_ms are per launch; eqv2_edge_rotate's are the mean
    over the four forms in the proportions one forward launches them, and
    its launches are the EquiformerV2 sampling run's; masked_legendre_cos's
    are per forward (the grouped launch of the three triplet bases: ms its
    wall back to back, bound_ms the three bases' bounds summed);
    masked_legendre_cos's and gemnet_quad_chain's launches are the
-   relaxation path's plus phase 19's four tasks'; the consumers' and fused_rbf_filter's launches are
+   relaxation path's plus phase 19's four tasks' plus phase 21's runs'; the
+   consumers' and fused_rbf_filter's launches are
    their counts summed over every path run (0: no path calls them).
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -313,6 +346,10 @@ PIPELINE_STEPS = 100
 RELAX_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "relaxation", "gemnet_oc",
                             "gemnet_relax.yml")
 S2EF_BATCH, S2EF_STEPS = 8, 20
+# phase 21: gemnet_relax.yml's batch_size, one epoch of S2EF_TRAIN_STEPS steps (max_epochs cut from 80)
+S2EF_TRAIN_BATCH, S2EF_TRAIN_STEPS = 16, 20
+# the quad chain at that batch: 16 x 80 cells, U = K2 = 30, Q = 8, S = 7, E = F = 32 (b, n, u, q, k2, s, e, f)
+QUAD_TRAIN_SHAPE = (S2EF_TRAIN_BATCH, 80, 30, 8, 30, 7, 32, 32)
 # configs/denoising/painn_so3.yml (model) over configs/denoising/base.yml (optim, task), as a dict: the card
 # machine may have no PyYAML.  Cut: max_epochs 100 -> 1 (one epoch of TRAIN_STEPS steps); no checkpoint or
 # validation inside the timed epoch.
@@ -366,6 +403,9 @@ GEMNET_SO3_MODEL = dict(name="gemnet_oc", mode="denoising", so3_denoising=True, 
                         atom_edge_interaction=True, edge_atom_interaction=True, atom_interaction=True,
                         qint_tags=[1, 2], cell_reps="auto")
 SO3_RELAX_BATCH = 8
+# phase 21's GemNet-OC so3 training, 3 steps.  Cut: base.yml's batch_size 48 -> 16 (gemnet_relax.yml's; at 48 the
+# step ran out of the card's 80 GB, where B=16 S2EF training peaks at ~29 GB)
+SO3_TRAIN_BATCH, SO3_TRAIN_STEPS = 16, 3
 GEMNET_SO3_CONFIG = dict(
     trainer="denoising", model=GEMNET_SO3_MODEL,
     optim=dict(TRAIN_CONFIG["optim"], eval_batch_size=SO3_RELAX_BATCH),
@@ -1689,18 +1729,20 @@ def check_grads(what, pairs):
     return worst
 
 
-def check_training_step(config, device, model_name):
+def check_training_step(config, device, model_name, trainer_cls=DenoisingTrainer, systems=None):
     """One training step at B=2 on the card against the same step on the
-    CPU: loss, grad_norm and every parameter's gradient."""
+    CPU: loss, grad_norm and every parameter's gradient.  A denoising
+    trainer's step takes the same schedule draws on both sides; an S2EF
+    trainer's takes ``systems``, whose energies and forces are the targets."""
     small = dict(copy.deepcopy(config), optim=dict(config["optim"], batch_size=2, eval_batch_size=2))
-    card, host = DenoisingTrainer(small, device=device), DenoisingTrainer(dict(small, cpu=True))
-    two = collate(bench_systems(2), max_atoms=80, device="cpu")
+    card, host = trainer_cls(small, device=device), trainer_cls(dict(small, cpu=True))
+    two = collate(systems or bench_systems(2), max_atoms=80, with_forces=systems is not None, device="cpu")
     draws = draw_schedule(2, torch.device("cpu"), torch.Generator().manual_seed(6))
     results = []
     for tr, b in ((card, two.to(device)), (host, two)):
         tr.init_state()
-        loss, aux = tr._loss_and_aux(b, draws._replace(**{k: getattr(draws, k).to(b.device) for k in draws._fields}),
-                                     None)
+        on_device = draws._replace(**{k: getattr(draws, k).to(b.device) for k in draws._fields})
+        loss, aux = tr._loss_and_aux(b, on_device if trainer_cls is DenoisingTrainer else None, None)
         grads = torch.autograd.grad(loss, tr.params)
         results.append((tr._finalize_train_step(loss, aux, list(grads)), [g.cpu() for g in grads]))
     (card_aux, card_grads), (host_aux, host_grads) = results
@@ -1715,38 +1757,72 @@ def check_training_step(config, device, model_name):
           f"(limit {GRAD_RTOL})", flush=True)
 
 
-def train_one_epoch(trainer, steps, want):
+def launches_since(before):
+    """The launch counts added since the snapshot ``before``."""
+    return {k: kernels.launches[k] - before.get(k, 0) for k in kernels.launches
+            if kernels.launches[k] != before.get(k, 0)}
+
+
+def train_one_epoch(trainer, steps, want, val_forward=None, val_metrics=("loss",)):
     """trainer.train() with the launch counts zeroed just before and read at
     every step (each step must launch exactly ``want``, and the epoch nothing
-    besides); every loss finite, params and EMA moved, EMA != params.
-    Returns the epoch's launches."""
+    besides but the validations inside train(), each launching
+    ``val_forward`` per forward of the EMA model when given); every loss
+    finite, params and EMA moved, EMA != params; then ``val_metrics`` of a
+    validation finite.  Systems/s over the steps after the first, from the
+    end of the first step to the end of the last.  Returns the epoch's
+    launches."""
     p0 = [p.detach().clone() for p in trainer.params]
-    step_fn, per_step, losses, times = trainer.train_step, [], [], []
+    step_fn, per_step, losses, times, val_runs = trainer.train_step, [], [], [], []
 
     def counted(*args, **kwargs):
         before = dict(kernels.launches)
         aux = step_fn(*args, **kwargs)
-        per_step.append({k: kernels.launches[k] - before.get(k, 0) for k in kernels.launches
-                         if kernels.launches[k] != before.get(k, 0)})
+        per_step.append(launches_since(before))
         losses.append(aux["loss"])
-        if len(per_step) == 1:  # the timed window opens after the first step
+        if len(per_step) in (1, steps):  # the timed window runs from the end of the first step to the last's
             torch.cuda.synchronize()
             times.append(time.perf_counter())
         return aux
 
     trainer.train_step = counted
+    if val_forward is not None:
+        validate = trainer.validate
+
+        def counted_validate(split="val"):
+            forwards = [0]
+            hook = trainer.ema_module.register_forward_pre_hook(lambda module, args: forwards.__setitem__(
+                0, forwards[0] + 1))
+            before = dict(kernels.launches)
+            try:
+                return validate(split)
+            finally:
+                hook.remove()
+                val_runs.append((forwards[0], launches_since(before)))
+
+        trainer.validate = counted_validate
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.launches.clear()
-    trainer.train()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - times[0]
-    del trainer.train_step
+    try:
+        trainer.train()
+        torch.cuda.synchronize()
+    finally:
+        del trainer.train_step
+        if val_forward is not None:
+            del trainer.validate
+    wall = times[-1] - times[0]
     launches = path_launches()
-    if len(per_step) != steps or any(s != want for s in per_step) or launches != {k: steps * v for k, v in
-                                                                               want.items()}:
-        raise AssertionError(f"training launched {per_step} ({launches} in all), want {want} in each of {steps} "
-                             f"steps and nothing else")
+    val_total = collections.Counter()
+    for forwards, counts in val_runs:
+        if not forwards or counts != {k: forwards * v for k, v in val_forward.items()}:
+            raise AssertionError(f"a validation inside train() launched {counts} in {forwards} forwards, want "
+                                 f"{val_forward} a forward")
+        val_total.update(counts)
+    if len(per_step) != steps or any(s != want for s in per_step) or launches != {
+            k: steps * v + val_total[k] for k, v in want.items()}:
+        raise AssertionError(f"training launched {per_step} ({launches} in all; validations {val_runs}), want "
+                             f"{want} in each of {steps} steps and nothing else")
     loss = torch.stack(losses).cpu()
     if not torch.isfinite(loss).all():
         raise AssertionError(f"non-finite training losses: {loss.tolist()}")
@@ -1760,12 +1836,14 @@ def train_one_epoch(trainer, steps, want):
     peak = torch.cuda.max_memory_allocated() / 2**20
     print(f"[train] {steps} steps, B={batch} x 80 atoms: {rate:.2f} systems/s over the {steps - 1} steps after "
           f"the first ({wall:.3f} s, {1e3 * wall / (steps - 1):.2f} ms per step), peak {peak:.1f} MiB allocated, "
-          f"launches {launches}; loss {loss[0].item():.4f} -> {loss[-1].item():.4f}; max |param move| {moved:.3e}, "
-          f"|EMA move| {ema_moved:.3e}, |EMA - params| {ema_gap:.3e}", flush=True)
-    val = trainer.validate("val")["loss"]["metric"]
-    if not np.isfinite(val):
-        raise AssertionError(f"validation loss {val}")
-    print(f"[train] validation loss (EMA weights) {val:.4f}", flush=True)
+          f"launches {launches} ({len(val_runs)} validation(s) inside train(): {val_runs}); loss "
+          f"{loss[0].item():.4f} -> {loss[-1].item():.4f}; max |param move| {moved:.3e}, |EMA move| {ema_moved:.3e}, "
+          f"|EMA - params| {ema_gap:.3e}", flush=True)
+    metrics = trainer.validate("val")
+    val = {k: metrics[k]["metric"] for k in val_metrics}
+    if not all(np.isfinite(v) for v in val.values()):
+        raise AssertionError(f"validation metrics {val}")
+    print(f"[train] validation (EMA weights): {', '.join(f'{k} {v:.4f}' for k, v in val.items())}", flush=True)
     return launches
 
 
@@ -2353,6 +2431,171 @@ def s2ef_tasks_path(device, systems, root, files, smi):
     return total
 
 
+# --------------------------------------------------------------------------
+# S2EF training: the quad chain's VJP, gemnet_relax.yml's trainer, card vs CPU
+# --------------------------------------------------------------------------
+def check_quad_vjp(device, gen, shape, negative_keys=3):
+    """gemnet_quad_chain with xm and qp needing gradients: one kernel launch
+    for forward and backward, the output, dxm and dqp within the kernel gate
+    of autograd through the plain version, for a random cotangent."""
+    s = shape[5]
+    b, n, u, q, k2, _, e, f = shape
+    inputs = quad_inputs(gen, device, *shape, negative_keys=negative_keys)
+    g = torch.randn((b, n, u, f, e), generator=gen).to(device)
+    leaves = {k: inputs[k].clone().requires_grad_() for k in ("xm", "qp")}
+    before = dict(kernels.launches)
+    out = kernels.gemnet_quad_chain(**dict(inputs, **leaves), num_spherical=s)
+    grads = torch.autograd.grad(out, (leaves["xm"], leaves["qp"]), g)
+    torch.cuda.synchronize()
+    launched = launches_since(before)
+    if launched != {"gemnet_quad_chain": 1}:
+        raise AssertionError(f"gemnet_quad_chain forward and backward launched {launched}, want one quad chain")
+    plain = {k: inputs[k].clone().requires_grad_() for k in ("xm", "qp")}
+    want = kernels.gemnet_quad_chain_reference(**dict(inputs, **plain), num_spherical=s)
+    want_grads = torch.autograd.grad(want, (plain["xm"], plain["qp"]), g)
+    err = check_close(f"gemnet_quad_chain VJP b,n,u,q,k2,s,e,f={shape} (out, dxm, dqp)", [out.detach(), *grads],
+                      [want.detach(), *want_grads])
+    return inputs, g, grads, err
+
+
+def quad_vjp_bound_ms(inputs, g, grads, s):
+    """The VJP's least work per cell: the basis ~(4S + 10) per (u, q, k), d2 =
+    y . xm and dxm = y^T . dd2 (2 U Q K2 S E each), dd2 = qp . g and dqp =
+    g . d2 (2 U S Q F E each); every input, the cotangent g and both
+    gradients moved once."""
+    b, n, u, q, _ = inputs["n1"].shape
+    k2, e = inputs["xm"].shape[3:]
+    f = inputs["qp"].shape[-1]
+    flops = b * n * (4 * u * q * k2 * s * e + 4 * u * s * q * f * e + u * q * k2 * (4 * s + 10))
+    return (*bound(flops, list(inputs.values()) + [g, *grads]), flops)
+
+
+def quad_vjp_path(device, gen):
+    """Phase 20: the quad chain's VJP on the card at the S2EF training shape
+    and ragged shapes; the geometry gets no gradient on the card."""
+    inputs, g, grads, err = check_quad_vjp(device, gen, QUAD_TRAIN_SHAPE)
+    # ragged, as phase 3: two passes of 32 columns e and f; two level passes; S*Q*F odd; every main key -1; U = 1
+    for shape, negative_keys in (((2, 3, 7, 4, 13, 7, 40, 48), 3), ((1, 3, 9, 5, 11, 9, 16, 16), 3),
+                                 ((2, 4, 10, 3, 7, 5, 12, 9), 3), ((2, 5, 30, 8, 30, 7, 32, 32), 30),
+                                 ((2, 5, 1, 8, 30, 7, 32, 32), 0)):
+        check_quad_vjp(device, gen, shape, negative_keys)
+    s = QUAD_TRAIN_SHAPE[5]
+    refused = []
+    for name in ("n1", "n2"):
+        try:
+            kernels.gemnet_quad_chain(**dict(inputs, **{name: inputs[name].clone().requires_grad_()}), num_spherical=s)
+        except NotImplementedError:
+            refused.append(f"gemnet_quad_chain with {name}")
+    a = inputs["n1"][0, 0, :4, 0].clone().requires_grad_()  # [4, 3]: one problem of masked_legendre_cos
+    try:
+        kernels.masked_legendre_cos(a[None], inputs["n2"][0, 0, 0].t().contiguous()[None],
+                                    torch.ones((1, 4, inputs["n2"].shape[3]), dtype=torch.bool, device=device), s)
+    except NotImplementedError:
+        refused.append("masked_legendre_cos with a")
+    if len(refused) != 3:
+        raise AssertionError(f"inputs needing a gradient refused only by {refused}")
+    fwd_ms = cuda_ms(lambda: kernels.gemnet_quad_chain(**inputs, num_spherical=s), 10)
+    vjp = lambda: kernels.gemnet_quad_chain_vjp(**inputs, num_spherical=s, g=g)  # noqa: E731
+    ms = cuda_ms(vjp, 5)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    vjp()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    bound_ms, bound_by, nbytes, flops = quad_vjp_bound_ms(inputs, g, grads, s)
+    print(f"[kernel] gemnet_quad_chain VJP (a plain recompute, no kernel) at the S2EF training shape "
+          f"{QUAD_TRAIN_SHAPE}: {ms:.4f} ms, peak {peak:.1f} MiB above what was allocated before it, bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP f32 = {flops / F32_FLOPS * 1e3:.4f} ms, "
+          f"{nbytes / 1e6:.2f} MB = {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), {100 * bound_ms / ms:.1f}% of the bound; "
+          f"the forward kernel at that shape {fwd_ms:.4f} ms; refused (no gradient of the geometry on the card): "
+          f"{', '.join(refused)}", flush=True)
+    return err
+
+
+def s2ef_train_config(root, paths):
+    """gemnet_relax.yml as published, its dataset entries at the train and
+    val shards (the relax set at the val shard: the trainer reads it, this
+    phase runs no relaxation).  Cuts: max_epochs 80 -> 1, eval_every 5000 ->
+    S2EF_TRAIN_STEPS (one validation and one checkpoint, at the epoch's
+    end), eval_batch_size 48 -> S2EF_TRAIN_BATCH (the val shard's size)."""
+    config, _, _ = load_config(RELAX_CONFIG)
+    config["dataset"][0]["src"], config["dataset"][1]["src"] = paths["train"], paths["val"]
+    config["task"]["relax_dataset"] = {"src": paths["val"]}
+    config["optim"].update(max_epochs=1, eval_every=S2EF_TRAIN_STEPS, eval_batch_size=S2EF_TRAIN_BATCH)
+    return dict(config, run_dir=root, identifier="smoke_s2ef_train", is_debug=True)  # is_debug: no logger
+
+
+def s2ef_training_path(device, root, smi):
+    """Phases 21 and 22: S2EFTrainer.train() for one epoch of
+    gemnet_relax.yml, its checkpoint reloaded; 3 steps of the GemNet-OC so3
+    DenoisingTrainer; card against CPU for one S2EF training step.  Returns
+    phase 21's launches."""
+    systems = labelled_systems(bench_systems(S2EF_TRAIN_BATCH * (S2EF_TRAIN_STEPS + 1)), 21)
+    paths = {}
+    for split, part in (("train", systems[:-S2EF_TRAIN_BATCH]), ("val", systems[-S2EF_TRAIN_BATCH:])):
+        write_shard(os.path.join(root, "s2ef_" + split), part)
+        paths[split] = os.path.join(root, f"s2ef_{split}.adshard.npz")
+    config = s2ef_train_config(root, paths)
+    trainer = S2EFTrainer(config, device=device)
+    optim = trainer.optim_cfg
+    print(f"[s2ef-train] {smi}; gemnet_relax.yml as published (trainer: forces, GemNet-OC at its widths, cell_reps "
+          f"{trainer.model.cell_reps} (auto), B={optim['batch_size']}, AdamW {optim['lr_initial']}, weight decay "
+          f"{optim['optimizer_params']['weight_decay']}, {optim['scheduler_params']['lambda_type']} LambdaLR with "
+          f"warm-up, clip {optim['clip_grad_norm']}, EMA {optim['ema_decay']}, force coefficient "
+          f"{optim['force_coefficient']}); {len(trainer.train_batcher)} steps on bench systems with synthetic "
+          f"energies and forces; cuts: max_epochs 80 -> 1, eval_every 5000 -> {S2EF_TRAIN_STEPS}, eval_batch_size "
+          f"48 -> {S2EF_TRAIN_BATCH}", flush=True)
+    per_forward = gemnet_launches(trainer.model, 1)
+    total = collections.Counter(train_one_epoch(trainer, S2EF_TRAIN_STEPS, per_forward, val_forward=per_forward,
+                                                val_metrics=("energy_mae", "forces_mae")))
+    # the checkpoint train() saved at the epoch's end, in a fresh trainer: its predictions are the EMA model's
+    fresh = S2EFTrainer(config, device=device)
+    fresh.load_checkpoint(os.path.join(trainer.ckpt_dir, "checkpoint"))
+    batch = next(iter(trainer.val_batcher)).to(device)
+    got, want = fresh.predict(batch), trainer.predict(batch)
+    if fresh.step != S2EF_TRAIN_STEPS or not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"the reloaded checkpoint (step {fresh.step}) predicts otherwise: energy max |diff| "
+                             f"{(got[0] - want[0]).abs().max().item()}")
+    print(f"[s2ef-train] the checkpoint saved at step {fresh.step} loads into a fresh S2EFTrainer whose predict "
+          f"equals the EMA model's bit for bit (energy and forces at B={batch.batch_size})", flush=True)
+    del fresh, trainer, batch
+
+    # GemNet-OC so3 denoising training: gemnet_so3.yml + base.yml, 3 steps
+    paths = write_training_shards(root, {"so3_train": SO3_TRAIN_BATCH * SO3_TRAIN_STEPS})
+    so3 = dict(copy.deepcopy(GEMNET_SO3_CONFIG), run_dir=root, dataset=[{"src": paths["so3_train"]}],
+               identifier="smoke_gemnet_so3_train")
+    so3["optim"]["batch_size"] = SO3_TRAIN_BATCH
+    trainer = DenoisingTrainer(so3, device=device)
+    want = gemnet_launches(trainer.model, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.launches.clear()
+    losses, per_step = [], []
+    t0 = time.perf_counter()
+    for step, (_, batch) in enumerate(trainer._batches(trainer.train_batcher)):
+        before = dict(kernels.launches)
+        aux = trainer.train_step(batch, generator=torch.Generator(device=device).manual_seed(step))
+        per_step.append(launches_since(before))
+        losses.append(aux["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = path_launches()
+    losses = torch.stack(losses).cpu()
+    if len(per_step) != SO3_TRAIN_STEPS or any(c != want for c in per_step) or not torch.isfinite(losses).all():
+        raise AssertionError(f"GemNet-OC so3 training: launches {per_step}, want {want} in each of {SO3_TRAIN_STEPS} "
+                             f"steps; losses {losses.tolist()}")
+    total.update(launches)
+    print(f"[so3-train] GemNet-OC gemnet_so3.yml + base.yml, B={SO3_TRAIN_BATCH}, {SO3_TRAIN_STEPS} steps of "
+          f"DenoisingTrainer.train_step in {wall:.3f} s, peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+          f"allocated, launches {launches}; losses {', '.join(f'{x:.4f}' for x in losses.tolist())}", flush=True)
+    del trainer
+
+    # 22. card vs CPU, one S2EF training step at B=2
+    check_training_step(config, device, "GemNet-OC S2EF", S2EFTrainer, systems[:2])
+    return total
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -2393,12 +2636,16 @@ def main():
         os.makedirs(so3_root)
         denoising_tasks_path(device, torch.Generator().manual_seed(17), systems[:SO3_RELAX_BATCH], so3_root)
         s2ef_launches = s2ef_tasks_path(device, systems, root, files, smi)
+    # 20-22. S2EF training: the quad chain's VJP, gemnet_relax.yml's trainer, card vs CPU
+    quad_vjp_path(device, torch.Generator().manual_seed(20))
+    with tempfile.TemporaryDirectory() as root:
+        s2ef_launches.update(s2ef_training_path(device, root, smi))
 
-    # 20. results
+    # 23. results
     for r in rows:
         if r["launches"] is None:  # a standalone kernel: what the path runs launched of it
             r["launches"] = PATH_LAUNCHES[r["name"]]
-        elif r["name"] in s2ef_launches:  # the GemNet-OC kernels: the relaxation path's and phase 19's tasks'
+        elif r["name"] in s2ef_launches:  # the GemNet-OC kernels: the relaxation path's, phase 19's and 21's
             r["launches"] += s2ef_launches[r["name"]]
     print(json.dumps({"kernels": [
         dict(name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"], launches=r["launches"],

@@ -2,15 +2,17 @@
 
 Runs a chip_smoke.py training path (DenoisingTrainer.train() at the
 painn_so3.yml + base.yml settings, B=48, or with ``--model eqv2`` at the
-eqv2_so3.yml + base.yml settings, B=12) on bench systems written to shards
-in a temporary directory, for one epoch of a few steps, and prints:
+eqv2_so3.yml + base.yml settings, B=12; with ``--model gemnet``
+S2EFTrainer.train() at gemnet_relax.yml as published, B=16, on systems
+with synthetic energies and forces) on bench systems written to shards in
+a temporary directory, for one epoch of a few steps, and prints:
 
 - the wall time per step (an epoch with the profiler off, after a warm-up
   step), the card's busy time per step (the sum of all device-side events of
   a profiled epoch of the same steps) and the idle share;
 - the device kernels with the most time, with their share of busy time.
 
-    python scripts/profile_torch_train.py [--model painn|eqv2] [--steps 10]
+    python scripts/profile_torch_train.py [--model painn|eqv2|gemnet] [--steps 10]
 
 The last line is one JSON object with the same numbers.
 """
@@ -29,12 +31,17 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from adsorbdiff_tpu_torch.device import resolve_device  # noqa: E402
-from adsorbdiff_tpu_torch.train.trainer import DenoisingTrainer  # noqa: E402
+from adsorbdiff_tpu_torch.data.store import write_shard  # noqa: E402
+from adsorbdiff_tpu_torch.train.trainer import DenoisingTrainer, S2EFTrainer  # noqa: E402
 from chip_smoke import (  # noqa: E402
     EQV2_TRAIN_BATCH,
     EQV2_TRAIN_CONFIG,
+    S2EF_TRAIN_BATCH,
     TRAIN_BATCH,
     TRAIN_CONFIG,
+    bench_systems,
+    labelled_systems,
+    s2ef_train_config,
     write_training_shards,
 )
 
@@ -43,21 +50,31 @@ TOP_KERNELS = 15  # rows of the per-kernel table
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("painn", "eqv2"), default="painn")
+    ap.add_argument("--model", choices=("painn", "eqv2", "gemnet"), default="painn")
     ap.add_argument("--steps", type=int, default=10)
     args = ap.parse_args()
     if args.model == "painn":
         batch_size, config = TRAIN_BATCH, copy.deepcopy(TRAIN_CONFIG)
         what = f"B={batch_size}, N=80, H=512, 6 layers, K=50"
-    else:
+    elif args.model == "eqv2":
         batch_size, config = EQV2_TRAIN_BATCH, copy.deepcopy(EQV2_TRAIN_CONFIG)
         what = f"EquiformerV2, B={batch_size}, N=80, 8 layers, C=128, lmax 4 / mmax 2, K=20"
+    else:
+        batch_size = S2EF_TRAIN_BATCH
+        what = f"GemNet-OC S2EF, gemnet_relax.yml, B={batch_size}, N=80, 4 blocks, atom 256, edge 512"
 
     device = resolve_device(None)
     with tempfile.TemporaryDirectory() as root:
-        paths = write_training_shards(root, {"train": batch_size * args.steps})
-        trainer = DenoisingTrainer(dict(config, run_dir=root, logger=None, dataset=[{"src": paths["train"]}]),
-                                   device=device)
+        if args.model == "gemnet":  # train and val shards with energies and forces (the config reads both)
+            systems = labelled_systems(bench_systems(batch_size * (args.steps + 1)), 21)
+            for split, part in (("train", systems[:-batch_size]), ("val", systems[-batch_size:])):
+                write_shard(os.path.join(root, split), part)
+            paths = {split: os.path.join(root, split + ".adshard.npz") for split in ("train", "val")}
+            trainer = S2EFTrainer(dict(s2ef_train_config(root, paths), logger=None), device=device)
+        else:
+            paths = write_training_shards(root, {"train": batch_size * args.steps})
+            trainer = DenoisingTrainer(dict(config, run_dir=root, logger=None, dataset=[{"src": paths["train"]}]),
+                                       device=device)
         batch = next(iter(trainer.train_batcher)).to(device)
         trainer.train_step(batch, generator=torch.Generator(device=device).manual_seed(0))  # warm-up
         torch.cuda.synchronize()

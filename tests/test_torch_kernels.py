@@ -15,8 +15,10 @@ sums and K-term reductions are taken in another order than the Pallas
 kernel's f32 matmuls; 2e-4 (abs and rel, the JAX package's own VJP test) for
 its gradients, whose dW and db sum over every edge of the batch; atol 2e-4 (the JAX package's own quad-chain test) and
 rtol 1e-5 for the GemNet-OC quadruplet chain, whose outputs sum K2 x S x Q =
-1680 products of O(1) terms in another order; 1e-5 (abs and rel, the JAX
-package's own quad-basis test) for the masked Legendre bases.
+1680 products of O(1) terms in another order, and for its VJP rtol 1e-4 and
+atol 1e-5 + 1e-6 * max|JAX| (each cotangent entry sums up to U x S x F
+products in another order); 1e-5 (abs and rel, the JAX package's own
+quad-basis test) for the masked Legendre bases.
 """
 import numpy as np
 import pytest
@@ -674,6 +676,62 @@ def test_quad_chain_wrapper_on_cpu_runs_the_plain_version_and_counts_no_launch()
     assert kernels.launches["gemnet_quad_chain"] == before
 
 
+@pytest.mark.parametrize("shape,pad_u", [(QUAD, 0), (QUAD_S9_E40_F48, 0), (QUAD, 2)],
+                         ids=["jax-test", "s9-e40-f48", "qp-padded-u"])
+def test_quad_chain_vjp_matches_jax(shape, pad_u):
+    """``gemnet_quad_chain_vjp`` against ``jax.vjp`` of JAX's
+    ``gemnet_quad_chain`` (the Pallas kernel in interpret mode, its custom VJP
+    an XLA recompute): dxm and dqp within rtol 1e-4 and atol 1e-5 +
+    1e-6 * max|JAX| (each cotangent entry sums U x S x F, or K2 x E, products
+    of terms up to that size in another order; at S = 9 one dxm entry of 0.32
+    among entries up to ~100 differs by 6.6e-5, f32 roundoff).  With qp
+    padded along u (as the JAX function allows), dqp keeps qp's shape and is
+    zero in the padding.  Then the wrapper under autograd on the CPU (the
+    Function's route, no launch) gives the same cotangents."""
+    import jax
+    import jax.numpy as jnp
+
+    from adsorbdiff_tpu.ops.pallas_kernels import gemnet_quad_chain as jax_gemnet_quad_chain
+
+    b, n, u, q, k2, s, e, f = shape
+    inputs = _quad_inputs(16, *shape, zero_rows=True)
+    inputs["qp"] = np.concatenate([inputs["qp"], np.random.default_rng(17).normal(
+        size=(b, n, pad_u, s, q, f)).astype(np.float32)], axis=2)
+    g = np.random.default_rng(18).normal(size=(b, n, u, f, e)).astype(np.float32)
+    args = [jnp.asarray(inputs[k]) for k in ("n1", "n2", "key1", "key2")]
+    _, pull = jax.vjp(lambda xm, qp: jax_gemnet_quad_chain(*args, xm, qp, s, interpret=True),
+                      jnp.asarray(inputs["xm"]), jnp.asarray(inputs["qp"]))
+    want = [np.asarray(x) for x in pull(jnp.asarray(g))]
+    t = _torch(inputs)
+    got = kernels.gemnet_quad_chain_vjp(**t, num_spherical=s, g=torch.from_numpy(g))
+    for name, a, w in zip(("dxm", "dqp"), got, want):
+        assert a.shape == w.shape
+        np.testing.assert_allclose(a.numpy(), w, atol=1e-5 + 1e-6 * np.abs(w).max(), rtol=1e-4, err_msg=name)
+    if pad_u:
+        assert not got[1][:, :, u:].any()
+        return
+    leaves = {k: t[k].clone().requires_grad_() for k in ("xm", "qp")}
+    before = kernels.launches["gemnet_quad_chain"]
+    out = gemnet_quad_chain(**dict(t, **leaves), num_spherical=s)
+    via_wrapper = torch.autograd.grad(out, (leaves["xm"], leaves["qp"]), torch.from_numpy(g))
+    assert kernels.launches["gemnet_quad_chain"] == before
+    for a, w in zip(via_wrapper, got):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+
+
+def test_quad_chain_geometry_gradient_on_cpu_is_the_plain_autograd():
+    """On the CPU an ``n1`` that needs a gradient gets the plain version's
+    (the card raises instead)."""
+    inputs = _torch(_quad_inputs(19, *QUAD_RAGGED))
+    s = QUAD_RAGGED[5]
+    n1 = inputs["n1"].clone().requires_grad_()
+    gemnet_quad_chain(**dict(inputs, n1=n1), num_spherical=s).sum().backward()
+    plain = inputs["n1"].clone().requires_grad_()
+    gemnet_quad_chain_reference(**dict(inputs, n1=plain), num_spherical=s).sum().backward()
+    assert n1.grad.abs().max() > 0
+    torch.testing.assert_close(n1.grad, plain.grad, rtol=0, atol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "shape", [QUAD, QUAD_RAGGED, (2, 80, 30, 8, 30, 7, 32, 32), (1, 2, 5, 1, 3, 3, 5, 7), QUAD_E40_F48, QUAD_S9,
@@ -756,8 +814,34 @@ def test_quad_chain_wrapper_raises_instead_of_falling_back(cuda_device):
                           num_spherical=s)
     with pytest.raises(ValueError, match="shape"):
         gemnet_quad_chain(**inputs, num_spherical=s + 1)
-    with pytest.raises(NotImplementedError, match="backward"):
-        gemnet_quad_chain(**dict(inputs, qp=inputs["qp"].requires_grad_()), num_spherical=s)
+    for name in ("n1", "n2"):
+        with pytest.raises(NotImplementedError, match="geometry"):
+            gemnet_quad_chain(**dict(inputs, **{name: inputs[name].clone().requires_grad_()}), num_spherical=s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [QUAD, QUAD_S9_E40_F48, (16, 80, 30, 8, 30, 7, 32, 32)],
+                         ids=["jax-test", "s9-e40-f48", "train-shape"])
+def test_quad_chain_vjp_on_card_matches_plain_autograd(cuda_device, shape):
+    """With ``xm`` and ``qp`` needing gradients: one kernel launch for
+    forward and backward, the output and both cotangents within
+    1e-4 * max|plain| + 1e-5 of autograd through the plain version."""
+    s = shape[5]
+    inputs = _torch(_quad_inputs(14, *shape, zero_rows=True), cuda_device)
+    g = torch.from_numpy(np.random.default_rng(15).normal(size=shape[:3] + shape[7:] + shape[6:7])
+                         .astype(np.float32)).to(cuda_device)
+    leaves = {k: inputs[k].clone().requires_grad_() for k in ("xm", "qp")}
+    before = kernels.launches["gemnet_quad_chain"]
+    out = gemnet_quad_chain(**dict(inputs, **leaves), num_spherical=s)
+    got = torch.autograd.grad(out, (leaves["xm"], leaves["qp"]), g)
+    torch.cuda.synchronize()
+    assert kernels.launches["gemnet_quad_chain"] == before + 1
+    plain = {k: inputs[k].clone().requires_grad_() for k in ("xm", "qp")}
+    want_out = gemnet_quad_chain_reference(**dict(inputs, **plain), num_spherical=s)
+    want = torch.autograd.grad(want_out, (plain["xm"], plain["qp"]), g)
+    for a, b in ((out, want_out), *zip(got, want)):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-4 * b.abs().max().item() + 1e-5, err
 
 
 def _forced_quad_plan(shape, sms, warps, parts, qp_buffers):

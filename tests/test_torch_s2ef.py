@@ -1,5 +1,6 @@
 """PyTorch port: the S2EF ``forces`` trainer for inference and the
-``run_pipeline`` command line, against the JAX package.
+``run_pipeline`` command line, against the JAX package (its training:
+tests/test_torch_s2ef_train.py).
 
 The trainer predicts, validates and relaxes (batch engine and slot-refill
 engine) with its EMA model; the predict and run-relaxations tasks and the
@@ -341,14 +342,6 @@ def test_run_pipeline_command_line(shards, tmp_path):
         cli.main(argv + ["--atom-budget", "320"])
     with pytest.raises(ValueError, match="one device"):  # every stage runs on the sampler's device
         run_pipeline(sampler, SimpleNamespace(device=torch.device("meta")), {"src": placements}, str(tmp_path / "x"))
-
-
-# (i) training is not ported
-def test_s2ef_training_raises(painn_pair):
-    _, pt = painn_pair
-    for call in (pt.train, lambda: pt.train_step(next(iter(pt.train_batcher)))):
-        with pytest.raises(NotImplementedError, match="A.6 step 2"):
-            call()
 
 
 # (j) forces in the training and validation batches, none in the relax batches
