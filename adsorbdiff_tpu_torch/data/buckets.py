@@ -4,15 +4,16 @@ Port of :mod:`adsorbdiff_tpu.data.buckets`: systems are bucketed by padded
 atom count (rounded up to a bucket edge), so each step sees one of a few
 static ``[B, N]`` shapes; within a bucket, batches are drawn shuffled per
 epoch from ``np.random.default_rng((seed, epoch))``, so for a seed and an
-epoch the port yields the JAX package's batch plan (atom buckets, without
-its atom budget and neighbour-count modes).  Batches are collated on the
+epoch the port yields the JAX package's batch plan, atom-balanced ones
+(``atom_budget``) included.  The neighbour-count buckets (JAX's
+``mode="neighbors"``) are not ported.  Batches are collated on the
 host (CPU tensors), with ``forces`` where ``with_forces`` is set (an S2EF
 trainer's training and validation batches);
 :mod:`adsorbdiff_tpu_torch.data.prefetch` moves them to the card.
 """
 from __future__ import annotations
 
-from typing import Iterator, List, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -31,18 +32,35 @@ def default_bucket_edges(natoms: np.ndarray, num_buckets: int = 4) -> List[int]:
 
 
 class BucketedBatcher:
-    """Iterates padded :class:`AtomsBatch` objects with bucket-static shapes."""
+    """Iterates padded :class:`AtomsBatch` objects with bucket-static shapes.
 
-    def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
-                 with_forces: bool = False) -> None:
+    ``bucket_edges``: the padded sizes (default: ``num_buckets`` quantiles).
+    ``atom_budget``: each bucket's batch size is ``min(batch_size,
+    atom_budget // edge)`` rounded down to a multiple of ``multiple_of`` (at
+    least ``multiple_of``), so every batch carries a similar padded-atom
+    count; ``batch_size`` becomes the cap.  ``drop_last`` drops each
+    bucket's short last batch; otherwise its tail system is repeated up to
+    the bucket's batch size."""
+
+    def __init__(self, dataset, batch_size: int, bucket_edges: Optional[Sequence[int]] = None, shuffle: bool = True,
+                 seed: int = 0, drop_last: bool = False, with_forces: bool = False, num_buckets: int = 4,
+                 atom_budget: Optional[int] = None, multiple_of: int = 1) -> None:
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.seed = seed
+        self.drop_last = drop_last
         self.with_forces = with_forces
+        self.atom_budget = int(atom_budget) if atom_budget else None
+        self.multiple_of = max(1, int(multiple_of))
+        if self.batch_size % self.multiple_of:
+            raise ValueError(f"batch_size {batch_size} not a multiple of {multiple_of}")
         natoms = np.asarray(dataset.natoms_array())
-        self.bucket_edges = default_bucket_edges(natoms)
+        self.bucket_edges = (list(bucket_edges) if bucket_edges is not None
+                             else default_bucket_edges(natoms, num_buckets))
         self._bucket_of = np.searchsorted(self.bucket_edges, natoms)
+        if (self._bucket_of >= len(self.bucket_edges)).any():
+            raise ValueError(f"system with {natoms.max()} atoms exceeds largest bucket edge {self.bucket_edges[-1]}")
         self._epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -58,11 +76,21 @@ class BucketedBatcher:
                 continue
             if self.shuffle:
                 rng.shuffle(idx)
-            for lo in range(0, len(idx), self.batch_size):
-                plan.append((edge, idx[lo : lo + self.batch_size]))
+            bs = self._bucket_batch_size(edge)
+            for lo in range(0, len(idx), bs):
+                chunk = idx[lo : lo + bs]
+                if self.drop_last and len(chunk) < bs:
+                    continue
+                plan.append((edge, chunk))
         if self.shuffle:
             rng.shuffle(plan)  # interleave buckets
         return plan
+
+    def _bucket_batch_size(self, edge: int) -> int:
+        if self.atom_budget:
+            bs = min(self.batch_size, self.atom_budget // max(edge, 1))
+            return max(self.multiple_of, (bs // self.multiple_of) * self.multiple_of)
+        return self.batch_size
 
     def __len__(self) -> int:
         return len(self._plan())
@@ -72,5 +100,5 @@ class BucketedBatcher:
             # Repeat the tail system so the batch axis stays static; repeats
             # carry the same sid and are deduped where results are gathered.
             idx = [int(i) for i in chunk]
-            idx += [idx[-1]] * (self.batch_size - len(idx))
+            idx += [idx[-1]] * (self._bucket_batch_size(edge) - len(idx))
             yield collate([self.dataset[i] for i in idx], max_atoms=edge, with_forces=self.with_forces, device="cpu")

@@ -1,11 +1,13 @@
-"""Reverse-diffusion sampler (ODE and SDE), as a Python loop over steps.
+"""Samplers: reverse diffusion (ODE and SDE) and annealed Langevin dynamics,
+each a Python loop over steps.
 
 Port of :mod:`adsorbdiff_tpu.diffusion.sampler` (``reverse_diffusion``,
-``init_placement``); ``langevin_dynamics`` comes later.  The JAX version is
-one ``lax.scan``; here each step is eager PyTorch, and the convergence freeze
-stays in tensors, so the loop never waits on the device.  The random numbers
-can be passed in (``frac``, ``noise``, ``rot_noise``), which is how the tests
-feed both frameworks the same draws; otherwise they come from ``generator``.
+``langevin_dynamics``, ``init_placement``).  The JAX versions are one
+``lax.scan`` each; here each step is eager PyTorch, and the convergence
+freeze stays in tensors, so the loop never waits on the device.  The random
+numbers can be passed in (``frac``, ``noise``, ``rot_noise``), which is how
+the tests feed both frameworks the same draws; otherwise they come from
+``generator``.
 """
 from __future__ import annotations
 
@@ -147,3 +149,50 @@ def reverse_diffusion(
         traj.append(pos)
 
     return SampleResult(batch=batch.replace(pos=pos), traj_pos=torch.stack(traj), converged_at=frozen_at)
+
+
+def langevin_dynamics(
+    score_fn: ScoreFn,
+    batch: AtomsBatch,
+    params: dict,
+    *,
+    generator: Optional[torch.Generator] = None,
+    frac: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+) -> SampleResult:
+    """Annealed Langevin dynamics: ``params["num_steps"]`` sigmas spaced
+    exponentially from ``ads_std_high`` down to ``ads_std_low``, each held for
+    ``n_step_each`` [1] steps of size ``step_lr`` [1e-4] ``* (sigma /
+    sigma_min)^2``: the tag-2 mean of the translation score times the step
+    size, plus ``sqrt(2 step size)`` normal noise, z zeroed, the COM wrapped
+    into the cell, the adsorbate moved rigidly.  ``score_fn(batch)`` is called
+    without a static graph, as in JAX.  ``noise [T * n_step_each, B, 3]``:
+    the normals per step.  ``traj_pos`` has ``T * n_step_each + 1`` frames;
+    ``converged_at`` is the step count (no freeze)."""
+    lo, hi, _, _, num_steps = _schedule_consts(params)
+    n_step_each = int(params.get("n_step_each", 1))
+    step_lr = float(params.get("step_lr", 1e-4))
+    total = num_steps * n_step_each
+    device = batch.device
+    batch = init_placement(batch, frac=frac, generator=generator)
+    shape = (total, batch.batch_size, 3)
+    noise = draw(shape, "normal", generator, device) if noise is None else noise.to(batch.pos)
+
+    # the ladder in float64 rounded to float32, the step sizes in float32, as the JAX sampler has them
+    sigmas = np.exp(np.linspace(np.log(hi), np.log(lo), num_steps)).astype(np.float32)
+    step_size = np.float32(step_lr) * (sigmas / sigmas[-1]) ** 2
+    step_size = torch.as_tensor(np.repeat(step_size, n_step_each), device=device)
+    noise_scale = torch.sqrt(step_size * 2.0)
+    ads = batch.ads_mask
+    pos = batch.pos
+    traj = [pos]
+    for it in range(total):
+        noise_pred, _ = score_fn(batch.replace(pos=pos))
+        dx = step_size[it] * masked_mean(noise_pred, ads, dim=1) + noise[it] * noise_scale[it]  # [B, 3]
+        com = masked_mean(pos, ads, dim=1)
+        dx = torch.cat([dx[:, :-1], torch.zeros_like(dx[:, -1:])], dim=1)
+        dx = wrap_positions(com + dx, batch.cell) - com
+        pos = torch.where(ads[..., None], pos + dx[:, None, :], pos)
+        traj.append(pos)
+    return SampleResult(batch=batch.replace(pos=pos), traj_pos=torch.stack(traj),
+                        converged_at=torch.full((), total, dtype=torch.int32, device=device))

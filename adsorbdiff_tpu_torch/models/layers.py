@@ -1,13 +1,15 @@
 """Shared model layers: activation, atom embedding, radial basis, scale factor.
 
-Port of :mod:`adsorbdiff_tpu.models.layers` for the gaussian basis that PaiNN
-uses.  The spherical-Bessel and Bernstein bases come with GemNet-OC.
+Port of :mod:`adsorbdiff_tpu.models.layers`: the gaussian basis (PaiNN's
+and EquiformerV2's) and the trainable spherical-Bessel and Bernstein bases
+(GemNet-OC's ``rbf`` options).
 """
 from __future__ import annotations
 
 import math
 from typing import Dict, Optional, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -65,8 +67,48 @@ def gaussian_basis(d: torch.Tensor, start: float, stop: float, num: int) -> torc
     return torch.exp(coeff * diff * diff)
 
 
+class SphericalBesselBasis(nn.Module):
+    """``sqrt(2 / cutoff^3) sin(f_n d) / d`` of ``d = d / cutoff``, with the
+    ``frequencies`` f trainable from ``pi * (1..R)``."""
+
+    def __init__(self, num_radial: int, cutoff: float) -> None:
+        super().__init__()
+        self.norm_const = math.sqrt(2.0 / cutoff**3)
+        self.frequencies = nn.Parameter(torch.from_numpy(np.pi * np.arange(1, num_radial + 1, dtype=np.float32)))
+
+    def forward(self, d_scaled: torch.Tensor) -> torch.Tensor:
+        safe = torch.clamp(d_scaled, min=1e-9)[..., None]
+        return self.norm_const / safe * torch.sin(self.frequencies * safe)
+
+
+class BernsteinBasis(nn.Module):
+    """SpookyNet's Bernstein polynomials of ``exp(-gamma d)``, with ``gamma =
+    softplus(pregamma)`` and the scalar ``pregamma`` trainable from
+    ``pregamma_initial``."""
+
+    def __init__(self, num_radial: int, pregamma_initial: float = 0.45264) -> None:
+        from scipy.special import binom  # the JAX package's prefactor, in double and rounded to f32
+
+        super().__init__()
+        exp1 = np.arange(num_radial, dtype=np.float32)
+        prefactor = binom(num_radial - 1, np.arange(num_radial)).astype(np.float32)
+        self.register_buffer("prefactor", torch.from_numpy(prefactor), persistent=False)
+        self.register_buffer("exp1", torch.from_numpy(exp1), persistent=False)
+        self.register_buffer("exp2", torch.from_numpy((num_radial - 1) - exp1), persistent=False)
+        self.pregamma = nn.Parameter(torch.tensor(float(pregamma_initial)))
+
+    def forward(self, d_scaled: torch.Tensor) -> torch.Tensor:
+        gamma = torch.nn.functional.softplus(self.pregamma)
+        exp_d = torch.exp(-gamma * d_scaled)[..., None]
+        return self.prefactor * exp_d**self.exp1 * (1 - exp_d) ** self.exp2
+
+
 class RadialBasis(nn.Module):
-    """Envelope(d/cutoff) * RBF(d/cutoff), gaussian basis only."""
+    """Envelope(d/cutoff) * RBF(d/cutoff).  ``rbf["name"]``: ``gaussian``
+    (fixed), ``spherical_bessel`` or ``bernstein`` (the module ``.rbf``,
+    whose parameters train: ``rbf.frequencies``, ``rbf.pregamma``, the
+    reference's names); envelopes ``polynomial`` (``exponent``) and
+    ``exponential``."""
 
     def __init__(
         self,
@@ -85,9 +127,11 @@ class RadialBasis(nn.Module):
         self.env_exponent = int(envelope.get("exponent", 5))
         if self.env_name not in ("polynomial", "exponential"):
             raise ValueError(f"Unknown envelope function '{self.env_name}'.")
-        if self.rbf_name in ("spherical_bessel", "bernstein"):
-            raise NotImplementedError(f"radial basis '{self.rbf_name}' is not ported yet")
-        if self.rbf_name != "gaussian":
+        if self.rbf_name == "spherical_bessel":
+            self.rbf = SphericalBesselBasis(num_radial, cutoff)
+        elif self.rbf_name == "bernstein":
+            self.rbf = BernsteinBasis(num_radial, float(rbf.get("pregamma_initial", 0.45264)))
+        elif self.rbf_name != "gaussian":
             raise ValueError(f"Unknown radial basis function '{self.rbf_name}'.")
 
     def forward(self, d: torch.Tensor) -> torch.Tensor:
@@ -96,7 +140,9 @@ class RadialBasis(nn.Module):
             env = polynomial_envelope(d_scaled, self.env_exponent)
         else:
             env = exponential_envelope(d_scaled)
-        return env[..., None] * gaussian_basis(d_scaled, 0.0, 1.0, self.num_radial)
+        if self.rbf_name == "gaussian":
+            return env[..., None] * gaussian_basis(d_scaled, 0.0, 1.0, self.num_radial)
+        return env[..., None] * self.rbf(d_scaled)
 
 
 class ScaleFactor(nn.Module):

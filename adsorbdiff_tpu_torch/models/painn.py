@@ -192,7 +192,7 @@ class PaiNN(nn.Module):
         if rbf_name != "gaussian" or env.get("name", "polynomial") != "polynomial":
             raise NotImplementedError(
                 f"the fused message kernel needs the gaussian/polynomial radial basis, got "
-                f"rbf={rbf_name!r} envelope={env.get('name')!r}"
+                f"rbf={rbf_name!r} envelope={env.get('name')!r} (a plain message for other bases: ROADMAP A.10)"
             )
         self.hidden_channels = hidden_channels
         self.num_layers = num_layers

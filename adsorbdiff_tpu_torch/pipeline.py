@@ -75,11 +75,11 @@ def run_pipeline(
     (:func:`resolve_continuous`; ``relax_opt["slots"]`` defaults to
     ``batch_size``).  Every stage runs on the diffusion trainer's device (the
     CUDA card unless its config sets ``cpu``, which runs the plain
-    versions); a relax trainer on another device raises.  Atom-balanced
-    batches (``atom_budget``) are not ported yet.
+    versions); a relax trainer on another device raises.  ``atom_budget``
+    gives the sampler's and the batch relaxer's batchers atom-balanced
+    batches (``batch_size`` becomes the cap; see
+    :class:`~adsorbdiff_tpu_torch.data.buckets.BucketedBatcher`).
     """
-    if atom_budget is not None:
-        raise NotImplementedError("atom-balanced batches (atom_budget) are not ported yet")
     device = resolve_device(getattr(diffusion_trainer, "device", None))
     relax_device = getattr(relax_trainer, "device", device)
     if relax_device != device:
@@ -108,7 +108,8 @@ def run_pipeline(
         relax_dir = os.path.join(step_dir, "relaxations")
 
         # 1. diffusion sampling
-        batcher = BucketedBatcher(ShardDataset(relax_dataset_cfg), batch_size, shuffle=False, seed=seed)
+        batcher = BucketedBatcher(ShardDataset(relax_dataset_cfg), batch_size, shuffle=False, seed=seed,
+                                  atom_budget=atom_budget)
         for i, batch in enumerate(batcher):
             engine.run(batch, batch_generator(seed, i, device), traj_dir=sample_dir)
         engine.flush()  # stage 2 reads the trajectories
@@ -123,7 +124,7 @@ def run_pipeline(
         if continuous:
             rengine.run_dataset(relax_ds, traj_dir=relax_dir)
         else:
-            for batch in BucketedBatcher(relax_ds, batch_size, shuffle=False, seed=seed):
+            for batch in BucketedBatcher(relax_ds, batch_size, shuffle=False, seed=seed, atom_budget=atom_budget):
                 rengine.run(batch, traj_dir=relax_dir)
         rengine.flush()  # stage 4 reads the trajectories
         relax_dirs.append(relax_dir)

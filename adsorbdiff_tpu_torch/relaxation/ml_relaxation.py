@@ -23,7 +23,7 @@ import torch
 
 from adsorbdiff_tpu_torch.data.schema import AtomsBatch
 from adsorbdiff_tpu_torch.device import DeviceLike, resolve_device
-from adsorbdiff_tpu_torch.diffusion.sampler import SampleResult, reverse_diffusion
+from adsorbdiff_tpu_torch.diffusion.sampler import SampleResult, langevin_dynamics, reverse_diffusion
 from adsorbdiff_tpu_torch.relaxation.lbfgs import (LBFGSResult, candidate_fn_for, lbfgs_relax,
                                                    make_mlff_energy_forces)
 from adsorbdiff_tpu_torch.runtime.trajectory import Trajectory, check_traj_files
@@ -157,13 +157,21 @@ def batch_generator(seed: int, index: int, device: DeviceLike = None) -> torch.G
 
 
 class DiffusionEngine:
-    """Reverse diffusion over batches (the reference's Denoiser + ml_diffuse).
+    """Sampling over batches (the reference's Denoiser + ml_diffuse).
 
+    ``sampler``: ``"reverse_sde_rot"`` (:func:`reverse_diffusion`, with the
+    rotation where the params set ``rot_std_low``) or ``"langevin"``
+    (:func:`langevin_dynamics`); another name raises ``ValueError`` (the JAX
+    engine runs reverse diffusion for any name but ``"langevin"``).
     ``static_fn``: optional ``batch -> static graph`` precomputation (e.g.
     ``model.prepare_static``) run once per trajectory; ``score_fn`` is then
-    called as ``score_fn(batch, static)``.  ``device``: where batches run, the
-    CUDA card unless ``"cpu"`` is passed (raises without a card).
+    called as ``score_fn(batch, static)``.  Langevin sampling, as in JAX,
+    calls ``score_fn(batch)`` and uses no static graph.  ``device``: where
+    batches run, the CUDA card unless ``"cpu"`` is passed (raises without a
+    card).
     """
+
+    SAMPLERS = ("reverse_sde_rot", "langevin")
 
     def __init__(
         self,
@@ -173,8 +181,9 @@ class DiffusionEngine:
         static_fn: Optional[Callable] = None,
         device: DeviceLike = None,
     ) -> None:
-        if sampler != "reverse_sde_rot":
-            raise NotImplementedError(f"sampler {sampler!r} is not ported yet")
+        if sampler not in self.SAMPLERS:
+            raise ValueError(f"unknown sampler {sampler!r} (known: {', '.join(self.SAMPLERS)})")
+        self.sampler = sampler
         self.score_fn = score_fn
         self.params = dict(denoising_pos_params)
         self.static_fn = static_fn
@@ -199,16 +208,23 @@ class DiffusionEngine:
     ) -> Optional[SampleResult]:
         """Sample one batch; ``None`` when ``skip_existing`` finds every
         system's trajectory in ``traj_dir``.  ``frac``/``noise``/``rot_noise``
-        replace the random draws (see :func:`reverse_diffusion`)."""
+        replace the random draws (see :func:`reverse_diffusion` and
+        :func:`langevin_dynamics`, which takes no ``rot_noise``)."""
         if traj_dir and skip_existing and _should_skip(self._writer, batch, traj_dir):
             logging.info(f"Skipping batch: {_sids(batch)}")
             return None
         with torch.no_grad():
-            result = reverse_diffusion(
-                self.score_fn, batch.to(self.device), self.params,
-                generator=generator, with_rotation="rot_std_low" in self.params,
-                static_fn=self.static_fn, frac=frac, noise=noise, rot_noise=rot_noise,
-            )
+            if self.sampler == "langevin":
+                if rot_noise is not None:
+                    raise ValueError("langevin sampling draws no rotation noise")
+                result = langevin_dynamics(self.score_fn, batch.to(self.device), self.params, generator=generator,
+                                           frac=frac, noise=noise)
+            else:
+                result = reverse_diffusion(
+                    self.score_fn, batch.to(self.device), self.params,
+                    generator=generator, with_rotation="rot_std_low" in self.params,
+                    static_fn=self.static_fn, frac=frac, noise=noise, rot_noise=rot_noise,
+                )
         if traj_dir:
             # traj_pos is stacked afresh by each run: nothing overwrites it
             # while the writer copies it

@@ -64,7 +64,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[float]:
     ap.add_argument("--nsites", type=int, default=1)
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--atom-budget", type=int, default=None,
-                    help="atom-balanced batching (not ported yet: run_pipeline raises)")
+                    help="atom-balanced batching: per-bucket batch size min(batch size, budget // padded atoms)")
     ap.add_argument("--relaxation-steps", type=int, default=300)
     ap.add_argument("--dft-targets", default=None, help="pkl of {sid: [(cfg, E), ...]}")
     args = ap.parse_args(argv)

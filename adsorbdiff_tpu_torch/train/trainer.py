@@ -15,6 +15,20 @@ the host when the config says ``cpu: true``):
   exactly unchanged through device-side masks, so no step reads the device.
   Params, moments and EMA each live in one flat buffer (every parameter a
   view of it), so the update is ~30 launches whatever the model's size;
+- ``optim.grad_accumulation_steps`` k > 1 is ``optax.MultiSteps`` (gradient
+  mean): the running mean of k micro-steps' gradients is clipped and fed to
+  AdamW at the k-th, so params, moments and the schedule's count move once
+  per k, while the EMA decays toward the (unchanged) params at every
+  micro-step, as in JAX;
+- ``optim.scheduler: ReduceLROnPlateau`` is the JAX chain's
+  ``optax.contrib.reduce_on_plateau(factor [0.8], patience [3])`` after
+  AdamW at the constant ``lr_initial``: the update is scaled by a factor that
+  drops by ``factor`` after ``patience`` steps whose training loss (NaN ->
+  1e9) did not improve on the best by a relative 1e-4.  Its state, like the
+  accumulator's, is device tensors, kept in checkpoints;
+- ``optim.atom_budget`` gives atom-balanced batches (batch size ``min(
+  batch_size, atom_budget // bucket edge)``) to the training, validation and
+  relax batchers;
 - losses drain to the host in one read per logging window;
 - a model with drop regularisers (EquiformerV2) is built in train mode and
   draws its masks from a per-step dropout generator seeded from
@@ -32,8 +46,8 @@ the host when the config says ``cpu: true``):
 - ``model.scale_file`` loads reference scale factors into the model's
   ScaleFactor buffers at ``init_state`` (:func:`load_scales_compat`).
 
-Not ported (raise ``NotImplementedError``): ``amp``,
-``grad_accumulation_steps > 1``, ``ReduceLROnPlateau``, several devices.
+Not ported (raise ``NotImplementedError``): ``amp`` (ROADMAP A.8), several
+devices (A.9).
 """
 from __future__ import annotations
 
@@ -70,6 +84,7 @@ from adsorbdiff_tpu_torch.train.normalizer import Normalizer
 from adsorbdiff_tpu_torch.train.scaling import ensure_fitted, load_scales_compat
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adamw defaults
+PLATEAU_RTOL = 1e-4  # optax.contrib.reduce_on_plateau's default (atol 0, cooldown 0; min_scale 0 never binds)
 # reference config keys the models take elsewhere or not at all
 _CONFIG_ONLY_KEYS = ("name", "scale_file", "regress_forces", "direct_forces", "use_pbc", "otf_graph")
 
@@ -142,10 +157,6 @@ class BaseTrainer:
         for key, what in (("amp", "amp (mixed precision)"), ("num_devices", "several devices")):
             if config.get(key) and not (key == "num_devices" and int(config[key]) <= 1):
                 raise NotImplementedError(f"{what} is not ported yet")
-        if int(self.optim_cfg.get("grad_accumulation_steps", 1) or 1) > 1:
-            raise NotImplementedError("grad_accumulation_steps > 1 is not ported yet")
-        if str(self.optim_cfg.get("scheduler", "")) == "ReduceLROnPlateau":
-            raise NotImplementedError("the ReduceLROnPlateau scheduler is not ported yet")
         self.device = resolve_device("cpu" if config.get("cpu") else device)
         self.seed = int(config.get("seed", 0) or 0)
         self.run_dir = config.get("run_dir", "./")
@@ -209,24 +220,25 @@ class BaseTrainer:
         ds_cfg = config.get("dataset")
         self.train_dataset = self.val_dataset = self.relax_dataset = None
         self.train_batcher = self.val_batcher = self.relax_batcher = None
-        if self.optim_cfg.get("atom_budget"):
-            raise NotImplementedError("atom-balanced batches (optim.atom_budget) are not ported yet")
         bs = int(self.optim_cfg.get("batch_size", 4))
         eval_bs = int(self.optim_cfg.get("eval_batch_size", bs))
         with_forces = self.name == "s2ef"  # the training and validation targets; relax batches carry none
+        # atom-balanced per-bucket batch sizes (batch_size becomes the cap); one device: no multiple
+        budget = self.optim_cfg.get("atom_budget")
         entries = (ds_cfg if isinstance(ds_cfg, list) else [ds_cfg]) if ds_cfg else []
         if entries and entries[0].get("src"):
             self.train_dataset = ShardDataset(entries[0])
             self.train_batcher = BucketedBatcher(self.train_dataset, bs, seed=self.seed, shuffle=True,
-                                                 with_forces=with_forces)
+                                                 with_forces=with_forces, atom_budget=budget)
         if len(entries) > 1 and entries[1].get("src"):
             self.val_dataset = ShardDataset(entries[1])
             self.val_batcher = BucketedBatcher(self.val_dataset, eval_bs, seed=self.seed, shuffle=False,
-                                               with_forces=with_forces)
+                                               with_forces=with_forces, atom_budget=budget)
         relax_cfg = self.task_cfg.get("relax_dataset")
         if relax_cfg and relax_cfg.get("src"):
             self.relax_dataset = ShardDataset(relax_cfg)
-            self.relax_batcher = BucketedBatcher(self.relax_dataset, eval_bs, seed=self.seed, shuffle=False)
+            self.relax_batcher = BucketedBatcher(self.relax_dataset, eval_bs, seed=self.seed, shuffle=False,
+                                                 atom_budget=budget)
 
     def _normalizers(self, config) -> None:
         self.normalizers: Dict[str, Normalizer] = {}
@@ -241,13 +253,24 @@ class BaseTrainer:
 
     def _optimizer(self) -> None:
         n_iter = len(self.train_batcher) if self.train_batcher is not None else 1
-        self.lr_schedule = build_lr_schedule({
-            **self.optim_cfg,
-            "scheduler_params": {
-                **(self.optim_cfg.get("scheduler_params", {}) or {}),
-                "epochs": self.optim_cfg.get("max_epochs", 1),
-            },
-        }, n_iter)
+        self.plateau = str(self.optim_cfg.get("scheduler", "")) == "ReduceLROnPlateau"
+        if self.plateau:
+            lr = float(self.optim_cfg["lr_initial"])
+            self.lr_schedule = lambda step: lr
+            self.plateau_factor = float(self.optim_cfg.get("factor", 0.8))
+            self.plateau_patience = int(self.optim_cfg.get("patience", 3))
+            if not 0.0 < self.plateau_factor < 1.0:  # as optax refuses it
+                raise ValueError(f"ReduceLROnPlateau factor must be in (0, 1), got {self.plateau_factor}")
+        else:
+            self.lr_schedule = build_lr_schedule({
+                **self.optim_cfg,
+                "scheduler_params": {
+                    **(self.optim_cfg.get("scheduler_params", {}) or {}),
+                    "epochs": self.optim_cfg.get("max_epochs", 1),
+                },
+            }, n_iter)
+        # effective batch = grad_accumulation_steps x batch_size
+        self.accumulation = int(self.optim_cfg.get("grad_accumulation_steps", 1) or 1)
         self.weight_decay = float((self.optim_cfg.get("optimizer_params", {}) or {}).get("weight_decay", 0.0))
         clip = self.optim_cfg.get("clip_grad_norm")
         self.clip_grad_norm = float(clip) if clip else None
@@ -259,11 +282,13 @@ class BaseTrainer:
         return list(self.model.parameters())
 
     def init_state(self) -> None:
-        """Fresh optimiser state (zero moments, count 0) and EMA = params.
-        The EMA lives in an eval-mode copy of the model (:attr:`ema_module`),
-        whose parameters the update writes in place.  ``model.scale_file``
-        loads its scale factors into the model's buffers first, and they count
-        as fitted (the JAX trainer's ``init_state``)."""
+        """Fresh optimiser state (zero moments, count 0; with accumulation a
+        zero gradient mean and mini-step 0; with the plateau schedule best
+        +inf, plateau count 0, scale 1) and EMA = params.  The EMA lives in an
+        eval-mode copy of the model (:attr:`ema_module`), whose parameters the
+        update writes in place.  ``model.scale_file`` loads its scale factors
+        into the model's buffers first, and they count as fitted (the JAX
+        trainer's ``init_state``)."""
         scale_file = self.model_cfg.get("scale_file")
         with torch.no_grad():
             if scale_file:
@@ -276,8 +301,16 @@ class BaseTrainer:
             self._mu_flat = torch.zeros_like(self._flat)
             self._nu_flat = torch.zeros_like(self._flat)
             self.count = torch.zeros((), dtype=torch.int32, device=self.device)
+            if self.accumulation > 1:
+                self._acc_flat = torch.zeros_like(self._flat)
+                self.mini_step = torch.zeros((), dtype=torch.int32, device=self.device)
+            if self.plateau:
+                self.plateau_best = torch.full((), float("inf"), device=self.device)
+                self.plateau_count = torch.zeros((), dtype=torch.int32, device=self.device)
+                self.plateau_scale = torch.ones((), device=self.device)
         params = self.params
         self.mu, self.nu = _views(self._mu_flat, params), _views(self._nu_flat, params)
+        self.acc = _views(self._acc_flat, params) if self.accumulation > 1 else None
         self.ema = list(self.ema_module.parameters())
         self.initialized = True
         self.scale_factors_fitted = bool(scale_file)
@@ -286,15 +319,30 @@ class BaseTrainer:
         """The model's ScaleFactor buffers by name."""
         return {n: b for n, b in self.model.named_buffers() if n.endswith("scale_factor")}
 
+    def _extra_opt_state(self) -> Dict[str, torch.Tensor]:
+        """The scalar state of accumulation and the plateau schedule, by
+        checkpoint name."""
+        out = {}
+        if self.accumulation > 1:
+            out["mini_step"] = self.mini_step
+        if self.plateau:
+            out.update(plateau_best=self.plateau_best, plateau_count=self.plateau_count,
+                       plateau_scale=self.plateau_scale)
+        return out
+
     def state_dict(self) -> dict:
         names = [n for n, _ in self.model.named_parameters()]
         params = dict(self.model.named_parameters())
+        opt_state = {"count": self.count, "mu": dict(zip(names, self.mu)), "nu": dict(zip(names, self.nu)),
+                     **self._extra_opt_state()}
+        if self.accumulation > 1:
+            opt_state["acc"] = dict(zip(names, self.acc))
         return {
             "step": self.step,
             "params": {n: params[n].detach() for n in names},
             "ema_params": dict(zip(names, self.ema)),
             "scale_factors": self.scale_factors(),
-            "opt_state": {"count": self.count, "mu": dict(zip(names, self.mu)), "nu": dict(zip(names, self.nu))},
+            "opt_state": opt_state,
         }
 
     def load_state_dict(self, state: dict) -> None:
@@ -313,7 +361,11 @@ class BaseTrainer:
                 self.ema[i].copy_(state["ema_params"][n])
                 self.mu[i].copy_(state["opt_state"]["mu"][n])
                 self.nu[i].copy_(state["opt_state"]["nu"][n])
+                if self.accumulation > 1:
+                    self.acc[i].copy_(state["opt_state"]["acc"][n])
             self.count.copy_(state["opt_state"]["count"])
+            for key, value in self._extra_opt_state().items():
+                value.copy_(state["opt_state"][key])
         self.step = int(state["step"])
         if state.get("scale_factors"):  # a checkpoint's scale factors count as fitted, as in JAX
             self.scale_factors_fitted = True
@@ -349,31 +401,46 @@ class BaseTrainer:
     @torch.no_grad()
     def _finalize_train_step(self, loss: torch.Tensor, aux: Dict[str, torch.Tensor],
                              grads: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """NaN-masked clip + AdamW + EMA, as optax's chain computes them, on
-        the flat buffers."""
+        """NaN-masked clip + AdamW (+ plateau scale) + EMA, as optax's chain
+        computes them (inside ``optax.MultiSteps`` with accumulation), on the
+        flat buffers."""
         good = torch.isfinite(loss)
         g = torch.cat([x.reshape(-1) for x in grads])
         g = torch.where(good, g, torch.zeros((), dtype=g.dtype, device=g.device))
-        grad_norm = torch.sqrt(torch.sum(g * g))
+        grad_norm = torch.sqrt(torch.sum(g * g))  # the micro-step's, as JAX reports it
+        keep = good  # where params, moments, the count and the plateau state take their new values
+        if self.accumulation > 1:
+            # Welford's running mean over the micro-steps; the chain runs on it and is kept at the k-th
+            acc = self._acc_flat + (g - self._acc_flat) / (self.mini_step + 1)
+            emit = self.mini_step == self.accumulation - 1
+            keep = good & emit
+            torch.where(good, torch.where(emit, torch.zeros((), device=acc.device), acc), self._acc_flat,
+                        out=self._acc_flat)
+            torch.where(good, (self.mini_step + 1) % self.accumulation, self.mini_step, out=self.mini_step)
+            g = acc
+        g_norm = torch.sqrt(torch.sum(g * g)) if self.accumulation > 1 else grad_norm
         if self.clip_grad_norm is not None:
-            g = torch.where(grad_norm < self.clip_grad_norm, g, (g / grad_norm) * self.clip_grad_norm)
+            g = torch.where(g_norm < self.clip_grad_norm, g, (g / g_norm) * self.clip_grad_norm)
 
         flat = self._flat
         count_inc = self.count + 1
         step_f = count_inc.to(torch.float32)
-        bc1 = 1 - torch.pow(torch.tensor(ADAM_B1, dtype=torch.float32, device=flat.device), step_f)
-        bc2 = 1 - torch.pow(torch.tensor(ADAM_B2, dtype=torch.float32, device=flat.device), step_f)
+        bc1 = 1 - torch.pow(ADAM_B1, step_f)  # a Python base: no host-to-device copy, which would wait on the card
+        bc2 = 1 - torch.pow(ADAM_B2, step_f)
         mu = (1 - ADAM_B1) * g + ADAM_B1 * self._mu_flat
         nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * self._nu_flat
         update = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
         if self.weight_decay:
             update = update + self.weight_decay * flat
-        new_flat = flat + (-self.lr_schedule(self.count)) * update
+        update = (-self.lr_schedule(self.count)) * update
+        if self.plateau:
+            update = self._plateau_scale(loss, keep) * update
+        new_flat = flat + update
 
-        torch.where(good, new_flat, flat, out=flat)
-        torch.where(good, mu, self._mu_flat, out=self._mu_flat)
-        torch.where(good, nu, self._nu_flat, out=self._nu_flat)
-        torch.where(good, count_inc, self.count, out=self.count)
+        torch.where(keep, new_flat, flat, out=flat)
+        torch.where(keep, mu, self._mu_flat, out=self._mu_flat)
+        torch.where(keep, nu, self._nu_flat, out=self._nu_flat)
+        torch.where(keep, count_inc, self.count, out=self.count)
         if self.ema_decay:
             d = np.float32(self.ema_decay)  # JAX takes 1 - d in f32
             new_ema = float(d) * self._ema_flat + float(np.float32(1) - d) * flat
@@ -384,6 +451,21 @@ class BaseTrainer:
         aux = {k: v.detach() for k, v in aux.items()}
         aux["grad_norm"] = grad_norm
         return aux
+
+    def _plateau_scale(self, loss: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+        """``reduce_on_plateau``'s update with this step's loss as the value
+        (accumulation size 1): the new scale, which the state takes where
+        ``keep``."""
+        value = torch.nan_to_num(loss.detach().to(torch.float32), nan=1e9)
+        improved = value < (1 - PLATEAU_RTOL) * self.plateau_best
+        count = torch.where(improved, torch.zeros_like(self.plateau_count), self.plateau_count + 1)
+        hit = count == self.plateau_patience
+        scale = torch.where(hit, self.plateau_scale * self.plateau_factor, self.plateau_scale)
+        torch.where(keep, torch.where(improved, value, self.plateau_best), self.plateau_best, out=self.plateau_best)
+        torch.where(keep, torch.where(hit, torch.zeros_like(count), count), self.plateau_count,
+                    out=self.plateau_count)
+        torch.where(keep, scale, self.plateau_scale, out=self.plateau_scale)
+        return scale
 
     # ------------------------------------------------------------------ train
     def _batches(self, batcher, skip: int = 0, depth: int = 2):

@@ -208,7 +208,7 @@ def test_wide_image_key_is_exact_at_cell_reps_4():
 
 
 def test_unported_options_raise():
-    for kw in (dict(compute_dtype="bfloat16"), dict(fused_trip=True)):
+    for kw in (dict(compute_dtype="bfloat16"),):
         with pytest.raises(NotImplementedError):
             GemNetOC(**TINY, **kw, device="cpu")
 
@@ -341,3 +341,106 @@ def test_tiny_triplet_bases_come_from_one_grouped_call(jax_tiny, jax_tiny_pallas
     assert calls == [n_problems]
     np.testing.assert_allclose(to_numpy(got["energy"]), np.asarray(want["energy"]), atol=5e-5, rtol=1e-4)
     np.testing.assert_allclose(to_numpy(got["forces"]), np.asarray(want["forces"]), atol=5e-5, rtol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# fused_trip: the triplet consumers through the quad chain at Q = 1
+# --------------------------------------------------------------------------
+def _scalar_loss(out):
+    return out["energy"].sum() + (out["forces"] ** 2).sum()
+
+
+@pytest.fixture(scope="module")
+def jax_tiny_grads(jax_tiny):
+    """JAX's gradient of ``_scalar_loss`` for the TINY model in its XLA form
+    (``fused_trip=False``, no kernels), in the port's names and layouts."""
+    import jax.numpy as jnp
+
+    batch, variables, _ = jax_tiny
+    model = JaxGemNetOC(**TINY)
+
+    def loss(params):
+        out = model.apply(dict(variables, params=params), batch)
+        return jnp.sum(out["energy"]) + jnp.sum(out["forces"] ** 2)
+
+    grads = jax.tree.map(np.asarray, jax.jit(jax.grad(loss))(variables["params"]))
+    return gemnet_state_dict_from_jax({"params": grads})
+
+
+def _grads(model, batch):
+    out = model(batch)
+    names = [n for n, _ in model.named_parameters()]
+    return out, dict(zip(names, torch.autograd.grad(_scalar_loss(out), list(model.parameters()))))
+
+
+def test_fused_trip_matches_jax_and_the_unfused_port(jax_tiny, port_tiny, jax_tiny_grads, monkeypatch):
+    """``fused_trip=True``: every triplet consumer is one ``gemnet_quad_chain``
+    call at Q = 1 (on the CPU its plain version; 4 calls a block with the
+    quadruplet's) and no triplet basis is built.  Against JAX
+    ``GemNetOC(fused_trip=False)`` in its XLA form (JAX's own fused and
+    unfused models are equal, tests/test_pallas_kernels.py:598) and the
+    port's unfused model on the same weights: energy and forces at atol 5e-5
+    / rtol 1e-4, as above; the gradient of energy.sum() + (forces^2).sum()
+    for every parameter within 1e-4 * max|JAX's| of that tensor (f32 sums
+    over two blocks forward and back taken in another order)."""
+    from adsorbdiff_tpu_torch.models import gemnet_oc as port_gemnet_oc
+
+    batch, _, outs = jax_tiny
+    model = GemNetOC(**TINY, fused_trip=True, device="cpu")
+    model.load_state_dict(port_tiny.state_dict(), strict=True)
+    tb = to_torch_batch(batch)
+    shapes, chain = [], port_gemnet_oc.gemnet_quad_chain
+
+    def counted(n1, n2, key1, key2, xm, qp, s):
+        shapes.append(tuple(xm.shape[2:]))
+        return chain(n1, n2, key1, key2, xm, qp, s)
+
+    def no_bases(*args):
+        raise AssertionError("fused_trip built a triplet basis")
+
+    monkeypatch.setattr(port_gemnet_oc, "gemnet_quad_chain", counted)
+    monkeypatch.setattr(port_gemnet_oc, "gemnet_cbf_bases", no_bases)
+    got, grads = _grads(model, tb)
+    monkeypatch.undo()
+    k1, kq, kae = TINY["max_neighbors"], TINY["max_neighbors_qint"], TINY["max_neighbors_aeaint"]
+    e_t, e_q = TINY["emb_size_trip_in"], TINY["emb_size_quad_in"]
+    assert shapes == [(1, k1, e_t), (kq, k1, e_q), (1, kae, e_t), (1, k1, e_t)] * TINY["num_blocks"]
+    unfused_out, unfused_grads = _grads(port_tiny, tb)
+    for key in ("energy", "forces"):
+        for want in (np.asarray(outs[False][key]), to_numpy(unfused_out[key])):
+            np.testing.assert_allclose(to_numpy(got[key]), want, atol=5e-5, rtol=1e-4, err_msg=key)
+    for name, g in grads.items():
+        for want in (jax_tiny_grads[name].numpy(), to_numpy(unfused_grads[name])):
+            np.testing.assert_allclose(to_numpy(g), want, atol=1e-4 * np.abs(want).max(), rtol=0, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def jax_bessel():
+    """A one-block JAX TINY with the spherical-Bessel basis; each of its four
+    bases' ``frequencies`` scaled apart from the init (so the weights, not
+    the initialiser, reach the port)."""
+    batch = make_batch(np.random.default_rng(8))
+    model = JaxGemNetOC(**dict(TINY, num_blocks=1, rbf={"name": "spherical_bessel"}))
+    variables = jax.tree.map(np.asarray, dict(jax.jit(model.init)(jax.random.PRNGKey(4), batch)))
+    params = dict(variables["params"])
+    for i, name in enumerate(("radial_basis", "radial_basis_qint", "radial_basis_aeaint", "radial_basis_aint")):
+        params[name] = {"frequencies": params[name]["frequencies"] * np.float32(1.0 + 0.05 * (i + 1))}
+    variables = dict(variables, params=params)
+    return batch, variables, jax.jit(model.apply)(variables, batch)
+
+
+@pytest.mark.parametrize("fused_trip", [False, True], ids=["port-unfused", "port-fused-trip"])
+def test_tiny_spherical_bessel_matches_jax(jax_bessel, fused_trip):
+    """``rbf: spherical_bessel``: four trainable bases (one a graph) carried
+    across as ``radial_basis*.rbf.frequencies``; energy and forces at atol
+    5e-5 / rtol 1e-4, as above."""
+    batch, variables, want = jax_bessel
+    model = GemNetOC(**dict(TINY, num_blocks=1, rbf={"name": "spherical_bessel"}), fused_trip=fused_trip,
+                     device="cpu")
+    model.load_state_dict(gemnet_state_dict_from_jax(variables), strict=True)
+    np.testing.assert_array_equal(to_numpy(model.radial_basis_aint.rbf.frequencies),
+                                  variables["params"]["radial_basis_aint"]["frequencies"])
+    with torch.no_grad():
+        got = model(to_torch_batch(batch))
+    for key in ("energy", "forces"):
+        np.testing.assert_allclose(to_numpy(got[key]), np.asarray(want[key]), atol=5e-5, rtol=1e-4, err_msg=key)

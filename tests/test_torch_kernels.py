@@ -55,6 +55,11 @@ QUAD_S9 = (1, 3, 9, 5, 11, 9, 16, 16)  # two passes of 8 levels
 QUAD_S9_E40_F48 = (1, 3, 9, 5, 11, 9, 40, 48)
 QUAD_UNALIGNED = (2, 4, 10, 3, 7, 5, 12, 9)  # S * Q * F = 135: 4-byte copies into padded rows
 QUAD_U_SPLIT = (1, 1, 16, 8, 30, 7, 32, 32)  # one cell: its 16 main edges dealt over two blocks
+# GemNet-OC fused_trip's triplet consumers at gemnet_relax.yml widths, B=8: Q = 1, E = emb_size_trip_in,
+# F = emb_size_cbf; U x K2 = main x main (e2e), main x a2ee2a (a2e), a2ee2a x main (e2a)
+QUAD_TRIP_E2E = (8, 80, 30, 1, 30, 7, 64, 16)
+QUAD_TRIP_A2E = (8, 80, 30, 1, 20, 7, 64, 16)
+QUAD_TRIP_E2A = (8, 80, 20, 1, 30, 7, 64, 16)
 
 
 def _inputs(seed, b, n, k, r, h, cutoff=6.0):
@@ -735,9 +740,9 @@ def test_quad_chain_geometry_gradient_on_cpu_is_the_plain_autograd():
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "shape", [QUAD, QUAD_RAGGED, (2, 80, 30, 8, 30, 7, 32, 32), (1, 2, 5, 1, 3, 3, 5, 7), QUAD_E40_F48, QUAD_S9,
-              QUAD_S9_E40_F48, QUAD_UNALIGNED, QUAD_U_SPLIT, QUAD_RELAX],
+              QUAD_S9_E40_F48, QUAD_UNALIGNED, QUAD_U_SPLIT, QUAD_RELAX, QUAD_TRIP_E2E, QUAD_TRIP_A2E, QUAD_TRIP_E2A],
     ids=["jax-test", "ragged", "relax-width", "q1-odd-f", "e40-f48", "s9", "s9-e40-f48", "unaligned-sqf", "u-split",
-         "relax-shape"],
+         "relax-shape", "trip-e2e", "trip-a2e", "trip-e2a"],
 )
 def test_quad_chain_kernel_matches_plain_version_on_card(cuda_device, shape):
     """|kernel - plain| <= 1e-4 * max|plain| + 1e-5 (f32 sums in another order)."""
@@ -820,8 +825,9 @@ def test_quad_chain_wrapper_raises_instead_of_falling_back(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [QUAD, QUAD_S9_E40_F48, (16, 80, 30, 8, 30, 7, 32, 32)],
-                         ids=["jax-test", "s9-e40-f48", "train-shape"])
+@pytest.mark.parametrize("shape", [QUAD, QUAD_S9_E40_F48, (16, 80, 30, 8, 30, 7, 32, 32), QUAD_TRIP_E2E,
+                                   QUAD_TRIP_A2E, QUAD_TRIP_E2A],
+                         ids=["jax-test", "s9-e40-f48", "train-shape", "trip-e2e", "trip-a2e", "trip-e2a"])
 def test_quad_chain_vjp_on_card_matches_plain_autograd(cuda_device, shape):
     """With ``xm`` and ``qp`` needing gradients: one kernel launch for
     forward and backward, the output and both cotangents within
@@ -874,7 +880,8 @@ def _old_quad_chain_smem(u, q, k2, s, e, f):
 QUAD_PLAN_SHAPES = [QUAD, QUAD_RAGGED, (2, 80, 30, 8, 30, 7, 32, 32), (1, 2, 5, 1, 3, 3, 5, 7), (2, 7, 12, 4, 13, 4, 8, 8),
                     QUAD_RELAX, QUAD_E40_F48, QUAD_S9, QUAD_S9_E40_F48, QUAD_UNALIGNED, QUAD_U_SPLIT,
                     (2, 5, 1, 8, 30, 7, 32, 32), (1, 1, 3, 0, 4, 7, 8, 8), (1, 2, 4, 2, 0, 7, 8, 8), (1, 2, 4, 2, 3, 0, 8, 8),
-                    (3, 1, 200, 2, 70, 17, 65, 33), (1, 1, 30, 8, 180, 7, 32, 32)]
+                    (3, 1, 200, 2, 70, 17, 65, 33), (1, 1, 30, 8, 180, 7, 32, 32), QUAD_TRIP_E2E, QUAD_TRIP_A2E,
+                    QUAD_TRIP_E2A]
 
 
 @pytest.mark.parametrize("shape", QUAD_PLAN_SHAPES)

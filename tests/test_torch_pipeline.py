@@ -158,3 +158,78 @@ def test_stages_2_to_4_match_jax(tmp_path):
     rate, per = success_rate([str(tmp_path / "rp")], dft)
     assert (rate, per) == jax_success_rate([str(tmp_path / "rj")], dft)
     assert rate == pytest.approx(0.5)
+
+
+def test_atom_budget_batches_match_jax(tmp_path):
+    """``run_pipeline(atom_budget=)`` with the batch relaxer on systems of
+    9-23 atoms: the sampler's and the relaxer's batches take the
+    atom-balanced batch sizes (2 and 1 a bucket against a cap of 4), and
+    from the port's sampled directory JAX's stages 2-4 with the same budget
+    (its conversion, batcher and RelaxationEngine, a harmonic well per sid)
+    give the same relaxed trajectories (positions and energies 1e-4, as
+    tests/test_torch_lbfgs.py holds L-BFGS, which carries the f32 roundoff
+    of its two-loop sums into later steps; frame counts exactly) and
+    success rate."""
+    from types import SimpleNamespace
+
+    import jax.numpy as jnp
+
+    from adsorbdiff_tpu.data.buckets import BucketedBatcher as JaxBatcher
+    from adsorbdiff_tpu.data.store import ShardDataset as JaxShardDataset
+    from adsorbdiff_tpu.eval_tools import success_rate as jax_success_rate
+    from adsorbdiff_tpu.pipeline import sampled_trajs_to_dataset as jax_convert
+    from adsorbdiff_tpu.relaxation.ml_relaxation import RelaxationEngine as JaxRelaxationEngine
+    from adsorbdiff_tpu_torch.data.schema import System
+    from adsorbdiff_tpu_torch.data.store import write_shard
+
+    rng = np.random.default_rng(21)
+    systems = []
+    for i in range(7):
+        n_slab = int(rng.integers(6, 21))
+        cell = np.diag([7.0, 7.0, 24.0]).astype(np.float32)
+        slab = (rng.random((n_slab, 3)) * [1, 1, 0.3]) @ cell
+        ads = rng.random((3, 3)) * 1.2 + [3, 3, 8.5]
+        pos = np.concatenate([slab, ads]).astype(np.float32)
+        tags = np.array([0] * n_slab + [2] * 3, np.int32)
+        systems.append(System(pos=pos, atomic_numbers=rng.integers(1, 40, n_slab + 3), cell=cell, tags=tags,
+                              fixed=tags == 0, sid=i))
+    write_shard(str(tmp_path / "placements"), systems)
+    targets = {s.sid: s.pos for s in systems}  # the wells sit where the systems were before sampling moved them
+    sids = sorted(targets)
+    shapes = {"sample": set(), "relax": set()}
+    harmonic = _harmonic(torch, targets, sids, 24)
+
+    def score_fn(b):
+        shapes["sample"].add(tuple(b.pos.shape[:2]))
+        return torch.zeros_like(b.pos), torch.zeros_like(b.pos)
+
+    def energy_forces_fn(b):
+        shapes["relax"].add(tuple(b.pos.shape[:2]))
+        return harmonic(b)
+
+    sampler = SimpleNamespace(score_fn=score_fn, denoising_pos_params=dict(num_steps=2, ads_std_low=0.1,
+                                                                           ads_std_high=1.0),
+                              sampling_static_fn=lambda: None, device=torch.device("cpu"))
+    relaxer = SimpleNamespace(energy_forces_fn=energy_forces_fn, device=torch.device("cpu"))
+    dft = {str(sid): -1.0 if sid % 2 else 5.0 for sid in sids}
+    port_dir = tmp_path / "port" / "0"
+    rate = run_pipeline(sampler, relaxer, {"src": str(tmp_path / "placements.adshard.npz")}, str(tmp_path / "port"),
+                        relax_opt=dict(RELAX_KW, continuous=False), relaxation_steps=40, batch_size=4,
+                        atom_budget=40, dft_targets=dft)
+    assert shapes["sample"] == shapes["relax"] == {(2, 16), (1, 24)}
+    # JAX's stages 2-4 from the port's sampled directory, with the same budget
+    assert jax_convert(str(port_dir / "sampled"), str(tmp_path / "jax_struct")) == len(sids)
+    batcher = JaxBatcher(JaxShardDataset({"src": str(tmp_path / "jax_struct")}), 4, shuffle=False, seed=0,
+                         atom_budget=40)
+    engine = JaxRelaxationEngine(_harmonic(jnp, targets, sids, 24), dict(RELAX_KW), steps=40)
+    for batch in batcher:
+        engine.run(batch, traj_dir=str(tmp_path / "jax"))
+    engine.flush()
+    for sid in sids:
+        got = Trajectory.load(str(port_dir / "relaxations" / f"{sid}{SUFFIX}"))
+        want = Trajectory.load(str(tmp_path / "jax" / f"{sid}{SUFFIX}"))
+        assert len(got.positions) == len(want.positions) > 2
+        np.testing.assert_allclose(got.positions, want.positions, atol=1e-4)
+        np.testing.assert_allclose(got.energy, want.energy, atol=1e-4)
+    got_rate = success_rate([str(port_dir / "relaxations")], dft)
+    assert got_rate == jax_success_rate([str(tmp_path / "jax")], dft) and got_rate[0] == rate

@@ -307,7 +307,9 @@ def test_run_pipeline_command_line(shards, tmp_path):
     """``run_pipeline.main`` on two written configs (``cpu: true``) and their
     checkpoints: a PaiNN sampler and a GemNet-OC ``forces`` relaxer.  Its rate
     equals a direct ``run_pipeline`` call's on trainers built the same way,
-    and every stage's files are there."""
+    and every stage's files are there; with ``--atom-budget`` its rate and
+    sampled trajectories equal a direct ``run_pipeline(atom_budget=)``
+    call's."""
     rng = np.random.default_rng(51)
     dcfg = dict(config_for(make_dataset(tmp_path, rng, 4, "dtrain"), run_dir=str(tmp_path), identifier="sampler"),
                 cpu=True)
@@ -338,8 +340,19 @@ def test_run_pipeline_command_line(shards, tmp_path):
     assert rate is not None and rate == direct and 0.0 <= rate <= 1.0
     for stage in ("sampled", "relaxations"):
         assert sorted(os.listdir(tmp_path / "cli" / "0" / stage)) == sorted(f"{i}{SUFFIX}" for i in range(5))
-    with pytest.raises(NotImplementedError, match="atom"):
-        cli.main(argv + ["--atom-budget", "320"])
+    # --atom-budget 32: batches of 2 of the 16-atom bucket instead of 4, in the command line and the direct call
+    budget_argv = [str(tmp_path / "cli-budget") if a == str(tmp_path / "cli") else a for a in argv]
+    budget_rate = cli.main(budget_argv + ["--atom-budget", "32"])
+    budget_direct = run_pipeline(cli.build_trainer(dpath, dckpt, "denoising"), cli.build_trainer(rpath, rckpt, "s2ef"),
+                                 {"src": placements}, str(tmp_path / "direct-budget"), relaxation_steps=5,
+                                 dft_targets={str(i): 1e3 if i % 2 else -1e3 for i in range(5)}, batch_size=4,
+                                 atom_budget=32)
+    assert budget_rate == budget_direct
+    for i in range(5):
+        got, want, full = (Trajectory.load(str(tmp_path / d / "0" / "sampled" / f"{i}{SUFFIX}")).positions
+                           for d in ("cli-budget", "direct-budget", "cli"))
+        np.testing.assert_array_equal(got, want)
+        assert i < 2 or not np.array_equal(got, full)  # batch 1 of 2 systems draws other numbers than of 4
     with pytest.raises(ValueError, match="one device"):  # every stage runs on the sampler's device
         run_pipeline(sampler, SimpleNamespace(device=torch.device("meta")), {"src": placements}, str(tmp_path / "x"))
 

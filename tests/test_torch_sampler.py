@@ -1,13 +1,14 @@
 """PyTorch port: reverse diffusion and DiffusionEngine against the JAX
 package, with JAX's random numbers fed to the port.
 
-The port's sampler takes its draws as tensors: ``frac`` from
+The port's samplers take their draws as tensors: ``frac`` from
 ``uniform(k_init, (B, 3))`` after ``k_init, k_noise = split(key)``, and per
 step key ``k`` of ``split(k_noise, T)`` the SDE normals ``z`` from
 ``split(k)[0]`` and ``zr`` from ``split(k)[1]``, as
-``adsorbdiff_tpu/diffusion/sampler.py`` draws them.  Positions agree to
-1e-4 A after 10 steps: the model outputs agree to f32 roundoff and the
-steps add them up.
+``adsorbdiff_tpu/diffusion/sampler.py`` draws them; Langevin dynamics draws
+``normal(k, (B, 3))`` from each of ``split(k_noise, T * n_step_each)``.
+Positions agree to 1e-4 A after 10 steps: the model outputs agree to f32
+roundoff and the steps add them up.
 """
 import jax
 import jax.numpy as jnp
@@ -16,11 +17,12 @@ import pytest
 import torch
 
 from adsorbdiff_tpu.diffusion.sampler import init_placement as jax_init_placement
+from adsorbdiff_tpu.diffusion.sampler import langevin_dynamics as jax_langevin_dynamics
 from adsorbdiff_tpu.diffusion.sampler import reverse_diffusion as jax_reverse_diffusion
 from adsorbdiff_tpu.models.equiformer_v2 import EquiformerV2 as JaxEquiformerV2
 from adsorbdiff_tpu.models.painn import PaiNN as JaxPaiNN
 from adsorbdiff_tpu.relaxation.ml_relaxation import DiffusionEngine as JaxDiffusionEngine
-from adsorbdiff_tpu_torch.diffusion.sampler import init_placement, reverse_diffusion
+from adsorbdiff_tpu_torch.diffusion.sampler import init_placement, langevin_dynamics, reverse_diffusion
 from adsorbdiff_tpu_torch.models.equiformer_v2 import EquiformerV2, eqv2_state_dict_from_jax
 from adsorbdiff_tpu_torch.models.painn import PaiNN, painn_state_dict_from_jax
 from adsorbdiff_tpu_torch.relaxation.ml_relaxation import DiffusionEngine, make_score_fn
@@ -42,6 +44,15 @@ def jax_draws(key, batch_size, num_steps):
     z = jnp.stack([jax.random.normal(jax.random.split(k)[0], (batch_size, 3)) for k in keys])
     zr = jnp.stack([jax.random.normal(jax.random.split(k)[1], (batch_size, 3)) for k in keys])
     return {name: torch.from_numpy(np.array(v)) for name, v in dict(frac=frac, noise=z, rot_noise=zr).items()}
+
+
+def jax_langevin_draws(key, batch_size, total):
+    """The random numbers JAX's langevin_dynamics draws from ``key``: one
+    ``[B, 3]`` normal per step, from each key of ``split(k_noise, total)``."""
+    k_init, k_noise = jax.random.split(key)
+    frac = jax.random.uniform(k_init, (batch_size, 3))
+    z = jnp.stack([jax.random.normal(k, (batch_size, 3)) for k in jax.random.split(k_noise, total)])
+    return {name: torch.from_numpy(np.array(v)) for name, v in dict(frac=frac, noise=z).items()}
 
 
 @pytest.fixture(scope="module")
@@ -163,13 +174,59 @@ def test_diffusion_engine_generator_draws_are_reproducible(models):
 
 
 def test_diffusion_engine_unported_paths_raise(tmp_path):
-    """Langevin sampling still raises; trajectory writing is ported, so a
-    ``traj_dir`` run writes one file per system instead of raising."""
-    with pytest.raises(NotImplementedError):
-        DiffusionEngine(lambda b: None, PARAMS, sampler="langevin", device="cpu")
+    """A sampler name the engine does not know raises ``ValueError`` (the
+    JAX engine would run reverse diffusion for it; ROADMAP §C); trajectory
+    writing is ported, so a ``traj_dir`` run writes one file per system."""
+    with pytest.raises(ValueError, match="unknown sampler"):
+        DiffusionEngine(lambda b: None, PARAMS, sampler="reverse_sde", device="cpu")
     engine = DiffusionEngine(lambda cur: (torch.zeros_like(cur.pos), torch.zeros_like(cur.pos)),
                              dict(PARAMS, num_steps=2), device="cpu")
     batch = to_torch_batch(make_batch(np.random.default_rng(9)))
     engine.run(batch, torch.Generator().manual_seed(0), traj_dir=str(tmp_path))
     engine.flush()
     assert len(list(tmp_path.glob("*.adtraj.npz"))) == len(set(batch.sid.tolist()))
+
+
+LANGEVIN = dict(PARAMS, num_steps=5, n_step_each=2, step_lr=1e-3)
+
+
+def test_langevin_dynamics_matches_jax(models):
+    """5 sigmas x 2 steps of the tiny PaiNN: 11 frames within 1e-4 A; the
+    slab unmoved and the adsorbate moved rigidly in xy."""
+    jmodel, variables, model = models
+    batch = make_batch(np.random.default_rng(13))
+    key = jax.random.PRNGKey(14)
+    want = jax.jit(lambda b, k: jax_langevin_dynamics(_jax_score_fn(jmodel, variables), b, LANGEVIN, k))(batch, key)
+    got = langevin_dynamics(make_score_fn(model), to_torch_batch(batch), LANGEVIN,
+                            **jax_langevin_draws(key, batch.batch_size, 10))
+    assert got.traj_pos.shape == (11, 3, 24, 3)
+    np.testing.assert_allclose(to_numpy(got.traj_pos), np.asarray(want.traj_pos), atol=1e-4)
+    assert int(got.converged_at) == int(want.converged_at) == 10 and got.converged_at.dtype == torch.int32
+    traj, ads = to_numpy(got.traj_pos), np.asarray(batch.ads_mask)
+    np.testing.assert_array_equal(traj[:, ~ads], np.broadcast_to(traj[0, ~ads], traj[:, ~ads].shape))
+    moved = traj[-1] - traj[0]
+    for b in range(batch.batch_size):
+        d = moved[b, ads[b]]
+        np.testing.assert_allclose(d, np.broadcast_to(d[0], d.shape), atol=1e-5)  # rigid
+        assert np.abs(d[:, 2]).max() <= 1e-5 and np.abs(d[0, :2]).max() > 1e-3  # in xy
+
+
+def test_diffusion_engine_langevin_matches_jax(models, tmp_path):
+    """``DiffusionEngine(sampler="langevin")`` against the JAX engine's
+    (which runs without the static graph for Langevin, as the port's does):
+    final positions and frames within 1e-4 A; one trajectory file per
+    system, as the SDE writes them."""
+    jmodel, variables, model = models
+    batch = make_batch(np.random.default_rng(15))
+    key = jax.random.PRNGKey(16)
+    want = JaxDiffusionEngine(_jax_score_fn(jmodel, variables), LANGEVIN, sampler="langevin",
+                              static_fn=jmodel.prepare_static).run(batch, key)
+    engine = DiffusionEngine(make_score_fn(model), LANGEVIN, sampler="langevin", static_fn=model.prepare_static,
+                             device="cpu")
+    got = engine.run(to_torch_batch(batch), traj_dir=str(tmp_path), **jax_langevin_draws(key, batch.batch_size, 10))
+    engine.flush()
+    np.testing.assert_allclose(to_numpy(got.batch.pos), np.asarray(want.batch.pos), atol=1e-4)
+    np.testing.assert_allclose(to_numpy(got.traj_pos), np.asarray(want.traj_pos), atol=1e-4)
+    assert len(list(tmp_path.glob("*.adtraj.npz"))) == len(set(batch.sid.tolist()))
+    with pytest.raises(ValueError, match="rotation"):
+        engine.run(to_torch_batch(batch), rot_noise=torch.zeros((10, 3, 3)))

@@ -100,6 +100,63 @@ def test_batch_plans_match_jax_for_two_epochs(tmp_path, shuffle, batch_size):
                 np.testing.assert_array_equal(to_numpy(getattr(g, name)), np.asarray(getattr(w, name)), err_msg=name)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(batch_size=6, shuffle=True, atom_budget=64),
+    dict(batch_size=6, shuffle=False, atom_budget=64, multiple_of=2),
+    dict(batch_size=8, shuffle=True, atom_budget=100, multiple_of=2, drop_last=True),
+    dict(batch_size=4, shuffle=True, bucket_edges=[16, 24, 32], drop_last=True),
+    dict(batch_size=5, shuffle=True, num_buckets=2, atom_budget=90),
+], ids=["budget", "budget-multiple-of-2", "budget-drop-last", "edges-drop-last", "two-buckets-budget"])
+def test_atom_balanced_batch_plans_match_jax(tmp_path, kw):
+    """Atom-balanced batches (each bucket's batch size min(batch_size,
+    atom_budget // edge), rounded down to multiple_of), drop_last, explicit
+    bucket_edges and num_buckets: the port's plans equal JAX's index for
+    index for two epochs, and so do the collated batches, the tail repeats
+    up to each bucket's batch size included."""
+    write_shard(str(tmp_path / "s"), _systems(System, 3, n_sys=41))
+    src = {"src": str(tmp_path / "s.adshard.npz")}
+    port = BucketedBatcher(ShardDataset(src), seed=5, **kw)
+    jax_b = JaxBucketedBatcher(JaxShardDataset(src), seed=5, **kw)
+    assert port.bucket_edges == jax_b.bucket_edges and len(port.bucket_edges) > 1
+    sizes = {port._bucket_batch_size(e) for e in port.bucket_edges}
+    assert sizes == {jax_b._bucket_batch_size(e) for e in jax_b.bucket_edges}
+    assert len(sizes) > 1 or "atom_budget" not in kw  # the budget gives buckets different batch sizes
+    for epoch in (0, 1):
+        port.set_epoch(epoch)
+        jax_b.set_epoch(epoch)
+        got_plan, want_plan = port._plan(), jax_b._plan()
+        assert [(e, c.tolist()) for e, c in got_plan] == [(e, c.tolist()) for e, c in want_plan]
+        got, want = list(port), list(jax_b)
+        assert len(got) == len(want) == len(port)
+        for g, w in zip(got, want):
+            for name in BATCH_FIELDS:
+                np.testing.assert_array_equal(to_numpy(getattr(g, name)), np.asarray(getattr(w, name)), err_msg=name)
+    with pytest.raises(ValueError, match="multiple"):
+        BucketedBatcher(ShardDataset(src), batch_size=5, multiple_of=2)
+    with pytest.raises(ValueError, match="bucket edge"):
+        BucketedBatcher(ShardDataset(src), batch_size=4, bucket_edges=[8, 16])
+
+
+def test_trainer_atom_budget_reaches_every_batcher(tmp_path):
+    """``optim.atom_budget`` gives the training, validation and relax
+    batchers of a trainer the JAX trainer's atom-balanced plans."""
+    from adsorbdiff_tpu.train.trainer import DenoisingTrainer as JaxDenoisingTrainer
+    from adsorbdiff_tpu_torch.train.trainer import DenoisingTrainer
+    from tests.test_trainer import config_for
+
+    for name, seed in (("train", 1), ("val", 2), ("relax", 3)):
+        write_shard(str(tmp_path / name), _systems(System, seed, n_sys=19, forces=False))
+    src = {name: str(tmp_path / f"{name}.adshard.npz") for name in ("train", "val", "relax")}
+    cfg = config_for(src["train"], src["val"], run_dir=str(tmp_path), batch_size=6, eval_batch_size=6, atom_budget=70)
+    cfg["task"]["relax_dataset"] = {"src": src["relax"]}
+    port, jax_t = DenoisingTrainer(dict(cfg, cpu=True)), JaxDenoisingTrainer(cfg, mesh=None)
+    for which in ("train_batcher", "val_batcher", "relax_batcher"):
+        got, want = getattr(port, which), getattr(jax_t, which)
+        assert got.atom_budget == want.atom_budget == 70, which
+        assert [(e, c.tolist()) for e, c in got._plan()] == [(e, c.tolist()) for e, c in want._plan()], which
+        assert min(got._bucket_batch_size(e) for e in got.bucket_edges) < 6, which  # the budget shrank a bucket
+
+
 def test_prefetcher_yields_in_order_and_stops_early():
     assert list(Prefetcher(range(50), lambda x: x * 2, depth=3)) == [2 * i for i in range(50)]
     it = iter(Prefetcher(range(1000), depth=2))
