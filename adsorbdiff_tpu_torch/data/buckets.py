@@ -13,7 +13,7 @@ trainer's training and validation batches);
 """
 from __future__ import annotations
 
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -34,33 +34,22 @@ def default_bucket_edges(natoms: np.ndarray, num_buckets: int = 4) -> List[int]:
 class BucketedBatcher:
     """Iterates padded :class:`AtomsBatch` objects with bucket-static shapes.
 
-    ``bucket_edges``: the padded sizes (default: ``num_buckets`` quantiles).
     ``atom_budget``: each bucket's batch size is ``min(batch_size,
-    atom_budget // edge)`` rounded down to a multiple of ``multiple_of`` (at
-    least ``multiple_of``), so every batch carries a similar padded-atom
-    count; ``batch_size`` becomes the cap.  ``drop_last`` drops each
-    bucket's short last batch; otherwise its tail system is repeated up to
-    the bucket's batch size."""
+    atom_budget // edge)`` (at least 1), so every batch carries a similar
+    padded-atom count; ``batch_size`` becomes the cap.  A bucket's short
+    last batch repeats its tail system up to the bucket's batch size."""
 
-    def __init__(self, dataset, batch_size: int, bucket_edges: Optional[Sequence[int]] = None, shuffle: bool = True,
-                 seed: int = 0, drop_last: bool = False, with_forces: bool = False, num_buckets: int = 4,
-                 atom_budget: Optional[int] = None, multiple_of: int = 1) -> None:
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
+                 with_forces: bool = False, atom_budget: Optional[int] = None) -> None:
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.seed = seed
-        self.drop_last = drop_last
         self.with_forces = with_forces
         self.atom_budget = int(atom_budget) if atom_budget else None
-        self.multiple_of = max(1, int(multiple_of))
-        if self.batch_size % self.multiple_of:
-            raise ValueError(f"batch_size {batch_size} not a multiple of {multiple_of}")
         natoms = np.asarray(dataset.natoms_array())
-        self.bucket_edges = (list(bucket_edges) if bucket_edges is not None
-                             else default_bucket_edges(natoms, num_buckets))
+        self.bucket_edges = default_bucket_edges(natoms)
         self._bucket_of = np.searchsorted(self.bucket_edges, natoms)
-        if (self._bucket_of >= len(self.bucket_edges)).any():
-            raise ValueError(f"system with {natoms.max()} atoms exceeds largest bucket edge {self.bucket_edges[-1]}")
         self._epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -78,18 +67,14 @@ class BucketedBatcher:
                 rng.shuffle(idx)
             bs = self._bucket_batch_size(edge)
             for lo in range(0, len(idx), bs):
-                chunk = idx[lo : lo + bs]
-                if self.drop_last and len(chunk) < bs:
-                    continue
-                plan.append((edge, chunk))
+                plan.append((edge, idx[lo : lo + bs]))
         if self.shuffle:
             rng.shuffle(plan)  # interleave buckets
         return plan
 
     def _bucket_batch_size(self, edge: int) -> int:
         if self.atom_budget:
-            bs = min(self.batch_size, self.atom_budget // max(edge, 1))
-            return max(self.multiple_of, (bs // self.multiple_of) * self.multiple_of)
+            return max(1, min(self.batch_size, self.atom_budget // max(edge, 1)))
         return self.batch_size
 
     def __len__(self) -> int:

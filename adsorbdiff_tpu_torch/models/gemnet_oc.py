@@ -21,30 +21,22 @@ stores ``[R, S, F]``, and its forward reads the coefficient of
 state dict.
 
 The quadruplet interaction always runs :func:`adsorbdiff_tpu_torch.ops.
-kernels.gemnet_quad_chain`, the JAX model's ``fused_quad=True`` path
-(``fused_quad`` and ``use_pallas`` are accepted for config compatibility
-and ignored).  The e2e, a2e and e2a triplet consumers take one of two
-routes, as the JAX model's ``fused_trip`` picks:
-
-- ``fused_trip=False`` (the published configs): their bases come from one
-  call of :func:`adsorbdiff_tpu_torch.ops.kernels.gemnet_cbf_bases` (the
-  masked Legendre kernel, one launch for the bases of the interactions
-  switched on; the JAX model's ``use_pallas=True`` path for the first two,
-  and the same function for the third, which JAX leaves to XLA), then two
-  einsums each;
-- ``fused_trip=True``: each consumer is one ``gemnet_quad_chain`` launch at
-  Q = 1 (the out-edge's and in-edge's unit vectors as ``n1``/``n2``, the
-  masked image keys for the exclusions, the radial factor as ``qp``), and
-  no basis is built.
-
-Training runs the same kernels: the chain's gradient reaches ``xm`` and
-``qp`` through its VJP (a recompute of the plain version,
-:class:`adsorbdiff_tpu_torch.ops.kernels.GemnetQuadChain`), and the bases
-and ``n1``/``n2`` take only geometry, which carries no gradient (the force
-heads are direct).  Edge identities compare integer image keys
-(:func:`_img_key`), which the port packs in base 64: exact wherever the JAX
-package's base-16 key is exact, and still injective where that one collides
-(offsets past 7).
+kernels.gemnet_quad_chain`, the JAX model's ``fused_quad=True`` path, and the
+e2e, a2e and e2a triplet bases always come from one call of
+:func:`adsorbdiff_tpu_torch.ops.kernels.gemnet_cbf_bases` (the masked
+Legendre kernel, one launch for the bases of the interactions switched on;
+the JAX model's ``use_pallas=True`` path for the first two, and the same
+function for the third, which JAX leaves to XLA).  There is no switch:
+``fused_quad``, ``fused_trip`` and ``use_pallas`` are accepted for config
+compatibility and ignored (``fused_trip``, the triplet consumers through
+the quad-chain kernel, computes the same function).  Training runs the
+same two kernels: the chain's gradient reaches ``xm`` and ``qp`` through
+its VJP (a recompute of the plain version, :class:`adsorbdiff_tpu_torch.
+ops.kernels.GemnetQuadChain`), and the triplet bases take only geometry,
+which carries no gradient (the force heads are direct).  The quadruplet's
+c == d exclusion compares integer image keys (:func:`_img_key`), which the
+port packs in base 64: exact wherever the JAX package's base-16 key is
+exact, and still injective where that one collides (offsets past 7).
 """
 from __future__ import annotations
 
@@ -184,24 +176,6 @@ def _img_key(src: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
 def _same_edge(src_a, off_a, src_b, off_b) -> torch.Tensor:
     """True where (src, offset) pairs denote the same periodic neighbour."""
     return (src_a == src_b) & torch.all(off_a == off_b, dim=-1)
-
-
-def _trip_qp(radw: torch.Tensor) -> torch.Tensor:
-    """A triplet radial factor ``[B, N, U, F, S]`` in the quad-chain
-    kernel's ``qp`` layout ``[B, N, U, S, 1, F]``, contiguous."""
-    return radw.transpose(-1, -2).unsqueeze(-2).contiguous()
-
-
-def _trip_chain(unit_out, unit_in, key_out, key_in, x, in_mask, qp, num_spherical: int) -> torch.Tensor:
-    """A triplet consumer as one quad-chain launch at Q = 1 (the JAX model's
-    ``fused_trip``): out-edges ``unit_out [B, N, U, 3]`` with keys ``key_out
-    [B, N, U]`` (-1 where masked), in-edges ``unit_in [B, N, K2, 3]`` with
-    keys ``key_in [B, N, 1, K2]`` (-2 where masked) and messages ``x [B, N,
-    K2, E]`` zeroed off ``in_mask``; the Legendre basis of their cosine,
-    zero where the keys are equal, contracted over K2 and then against ``qp
-    [B, N, U, S, 1, F]``: ``outer [B, N, U, F, E]``."""
-    xm = torch.where(in_mask[..., None], x, 0.0)[:, :, None].contiguous()
-    return gemnet_quad_chain(unit_out[:, :, :, None], unit_in[:, :, None], key_out, key_in, xm, qp, num_spherical)
 
 
 def _reverse_edge_table(nl: pbc.NeighborList) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -350,14 +324,12 @@ class GemNetOC(nn.Module):
     lecun-normal as flax's Dense, scale factors 1); weights are usually
     loaded afterwards.
 
-    ``fused_trip`` routes the triplet consumers through the quad-chain
-    kernel (module docstring).  ``rbf``: ``{"name": "gaussian"}`` (the
-    default), ``spherical_bessel`` or ``bernstein``, one trainable basis for
-    each of the four graphs (:class:`~adsorbdiff_tpu_torch.models.layers.
-    RadialBasis`).  Not ported yet (raises ``NotImplementedError``):
-    ``compute_dtype`` (ROADMAP A.8).  ``fused_quad`` and ``use_pallas`` are
-    accepted and ignored: the quadruplet interaction and the triplet bases
-    always run their kernels.
+    ``rbf``: ``{"name": "gaussian"}`` (the default), ``spherical_bessel`` or
+    ``bernstein``, one trainable basis for each of the four graphs
+    (:class:`~adsorbdiff_tpu_torch.models.layers.RadialBasis`).  Not ported yet (raises ``NotImplementedError``):
+    ``compute_dtype`` (ROADMAP A.8).  ``fused_quad``, ``fused_trip`` and
+    ``use_pallas`` are accepted and ignored: the quadruplet interaction and
+    the triplet bases always run their kernels.
     """
 
     def __init__(
@@ -444,7 +416,6 @@ class GemNetOC(nn.Module):
         self.mode = mode
         self.so3_denoising = mode == "denoising" and so3_denoising
         self.sampling = sampling
-        self.fused_trip = fused_trip
         self.derive_ae = derive_subgraphs and cutoff_aeaint <= cutoff and max_neighbors_aeaint <= max_neighbors
         self.derive_q = derive_subgraphs and cutoff_qint <= cutoff and max_neighbors_qint <= max_neighbors
 
@@ -587,37 +558,24 @@ class GemNetOC(nn.Module):
         # e2e triplets: in-edge b->a and out-edge c->a are slots of row a;
         # only the identical slot is excluded
         k1 = nl.src.shape[2]
+        not_self = ~torch.eye(k1, dtype=torch.bool, device=emask.device)[None, None]
+        trip_mask_e2e = emask[:, :, :, None] & emask[:, :, None, :] & not_self
         unit = unit.contiguous()
-        ae = self.atom_edge_interaction or self.edge_atom_interaction
-        if ae:
+        # the triplet bases' masks (a2e, e2a below) come first, so that one launch computes every basis
+        trip_problems = [(unit, unit, trip_mask_e2e.contiguous())]  # e2e: [B,N,S,K1,K1], mask folded
+        if self.atom_edge_interaction or self.edge_atom_interaction:
+            same_ae = _same_edge(
+                nl_ae.src[:, :, None, :], nl_ae.cell_offsets[:, :, None, :, :],
+                nl.src[:, :, :, None], nl.cell_offsets[:, :, :, None, :],
+            )  # [B,N,K1,Kae]
             unit_ae = unit_ae.contiguous()
-        if self.fused_trip:
-            # each consumer is one quad-chain launch at Q = 1 (see _trip_chain): out-keys masked to -1 and
-            # in-keys to -2, so the identical-edge and cross-table b == c exclusions are key equality (the
-            # slots of a row are distinct (source, image) pairs); no basis is built
-            key_main = _img_key(nl.src, nl.cell_offsets)
-            key_out, key_in = torch.where(emask, key_main, -1), torch.where(emask, key_main, -2)[:, :, None]
-            if ae:
-                key_ae = _img_key(nl_ae.src, nl_ae.cell_offsets)
-                key_ae_out = torch.where(nl_ae.mask, key_ae, -1)
-                key_ae_in = torch.where(nl_ae.mask, key_ae, -2)[:, :, None]
-        else:
-            not_self = ~torch.eye(k1, dtype=torch.bool, device=emask.device)[None, None]
-            trip_mask_e2e = emask[:, :, :, None] & emask[:, :, None, :] & not_self
-            # the triplet bases' masks (a2e, e2a below) come first, so that one launch computes every basis
-            trip_problems = [(unit, unit, trip_mask_e2e.contiguous())]  # e2e: [B,N,S,K1,K1], mask folded
-            if ae:
-                same_ae = _same_edge(
-                    nl_ae.src[:, :, None, :], nl_ae.cell_offsets[:, :, None, :, :],
-                    nl.src[:, :, :, None], nl.cell_offsets[:, :, :, None, :],
-                )  # [B,N,K1,Kae]
-            if self.atom_edge_interaction:
-                trip_mask_a2e = emask[:, :, :, None] & nl_ae.mask[:, :, None, :] & ~same_ae
-                trip_problems.append((unit, unit_ae, trip_mask_a2e.contiguous()))  # a2e: [B,N,S,K1,Kae]
-            if self.edge_atom_interaction:
-                trip_mask_e2a = nl_ae.mask[:, :, :, None] & emask[:, :, None, :] & ~same_ae.transpose(2, 3)
-                trip_problems.append((unit_ae, unit, trip_mask_e2a.contiguous()))  # e2a: [B,N,S,Kae,K1]
-            cbf_e2e, *cbf_ae = gemnet_cbf_bases(trip_problems, s)
+        if self.atom_edge_interaction:
+            trip_mask_a2e = emask[:, :, :, None] & nl_ae.mask[:, :, None, :] & ~same_ae
+            trip_problems.append((unit, unit_ae, trip_mask_a2e.contiguous()))  # a2e: [B,N,S,K1,Kae]
+        if self.edge_atom_interaction:
+            trip_mask_e2a = nl_ae.mask[:, :, :, None] & emask[:, :, None, :] & ~same_ae.transpose(2, 3)
+            trip_problems.append((unit_ae, unit, trip_mask_e2a.contiguous()))  # e2a: [B,N,S,Kae,K1]
+        cbf_e2e, *cbf_ae = gemnet_cbf_bases(trip_problems, s)
         radw_tint = self.mlp_cbf_tint(rad_main, radw_only=True)  # [B,N,K1,F,S]
         rad_e2e = self.mlp_rbf_tint(rad_main)
 
@@ -659,22 +617,16 @@ class GemNetOC(nn.Module):
             quad_p = torch.einsum("bnuqi,bnufij->bnujqf", ya_m1, radw_sbf).contiguous()
             n1, n2 = n1.contiguous(), n2.contiguous()
 
-        if ae:
+        if self.atom_edge_interaction or self.edge_atom_interaction:
             rad_ae = self.radial_basis_aeaint(dist_ae)
         if self.atom_edge_interaction:
+            cbf_a2e = cbf_ae.pop(0)
             radw_aeint = self.mlp_cbf_aeint(rad_main, radw_only=True)  # [B,N,K1,F,S]
             rad_a2e = self.mlp_rbf_aeint(rad_ae)
         if self.edge_atom_interaction:
+            cbf_e2a = cbf_ae.pop(0)
             radw_eaint = self.mlp_cbf_eaint(rad_ae, radw_only=True)  # [B,N,Kae,F,S]
             rad_e2a = self.mlp_rbf_eaint(rad_main)
-        if self.fused_trip:
-            # the radial factors in the kernel's qp layout [B,N,U,S,Q=1,F], once for all blocks
-            qp_tint = _trip_qp(radw_tint)
-            qp_aeint = _trip_qp(radw_aeint) if self.atom_edge_interaction else None
-            qp_eaint = _trip_qp(radw_eaint) if self.edge_atom_interaction else None
-        else:
-            cbf_a2e = cbf_ae.pop(0) if self.atom_edge_interaction else None
-            cbf_e2a = cbf_ae.pop(0) if self.edge_atom_interaction else None
 
         if self.atom_interaction:
             # all pairs within cutoff_aint over in-plane periodic images
@@ -729,11 +681,8 @@ class GemNetOC(nn.Module):
             # e2e triplets
             ti = blk.trip_interaction
             x_ba = ti.down_projection(ti.scale_rbf(ti.dense_ba(m) * ti.mlp_rbf(rad_e2e)))
-            if self.fused_trip:
-                outer_t = _trip_chain(unit, unit, key_out, key_in, x_ba, emask, qp_tint, s)
-            else:
-                d_t = torch.einsum("bnsuk,bnke->bnuse", cbf_e2e, x_ba)
-                outer_t = torch.einsum("bnufs,bnuse->bnufe", radw_tint, d_t)
+            d_t = torch.einsum("bnsuk,bnke->bnuse", cbf_e2e, x_ba)
+            outer_t = torch.einsum("bnufs,bnuse->bnufe", radw_tint, d_t)
             x = x_skip + up(ti, ti.scale_cbf_sum(ti.mlp_cbf(outer_t)))
 
             # quadruplets: the fused chain kernel
@@ -750,11 +699,8 @@ class GemNetOC(nn.Module):
                 ai = blk.atom_edge_interaction
                 x_h = _gather_rows(ai.dense_ba(h), nl_ae.src)  # [B,N,Kae,A]
                 x_h = ai.down_projection(ai.scale_rbf(x_h * ai.mlp_rbf(rad_a2e)))
-                if self.fused_trip:
-                    outer_ae = _trip_chain(unit, unit_ae, key_out, key_ae_in, x_h, nl_ae.mask, qp_aeint, s)
-                else:
-                    d_ae = torch.einsum("bnsuk,bnke->bnuse", cbf_a2e, x_h)
-                    outer_ae = torch.einsum("bnufs,bnuse->bnufe", radw_aeint, d_ae)
+                d_ae = torch.einsum("bnsuk,bnke->bnuse", cbf_a2e, x_h)
+                outer_ae = torch.einsum("bnufs,bnuse->bnufe", radw_aeint, d_ae)
                 x = x + up(ai, ai.scale_cbf_sum(ai.mlp_cbf(outer_ae)))
             x = x * (1 / math.sqrt(n_eint))
 
@@ -763,11 +709,8 @@ class GemNetOC(nn.Module):
             if self.edge_atom_interaction:
                 ei = blk.edge_atom_interaction
                 x_m = ei.down_projection(ei.scale_rbf(ei.dense_ba(m) * ei.mlp_rbf(rad_e2a)))
-                if self.fused_trip:  # the kernel's [B,N,Kae,F,E] summed into the atom
-                    outer_ea = _trip_chain(unit_ae, unit, key_ae_out, key_in, x_m, emask, qp_eaint, s).sum(dim=2)
-                else:
-                    d_ea = torch.einsum("bnsak,bnke->bnase", cbf_e2a, x_m)  # [B,N,Kae,S,Ti]
-                    outer_ea = torch.einsum("bnafs,bnase->bnfe", radw_eaint, d_ea)
+                d_ea = torch.einsum("bnsak,bnke->bnase", cbf_e2a, x_m)  # [B,N,Kae,S,Ti]
+                outer_ea = torch.einsum("bnafs,bnase->bnfe", radw_eaint, d_ea)
                 h_new = h_new + ei.up_projection_ca(ei.scale_cbf_sum(ei.mlp_cbf(outer_ea)))
 
             # atom -> atom pairs

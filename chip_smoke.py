@@ -261,24 +261,7 @@ Phases; any failure raises and the exit code is then non-zero:
 22. card vs CPU, one S2EF training step of phase 21's trainer at B=2 (two
    of its systems): loss, grad_norm and every parameter's gradient within
    1e-3 * max|cpu| of that tensor.
-23. GemNet-OC fused_trip's kernel shapes: one forward of the
-   gemnet_relax.yml widths with fused_trip at B=8 (8 bench systems,
-   cell_reps auto), its gemnet_quad_chain calls captured: 16 (4 a block:
-   e2e, the quadruplets, a2e, e2a).  On the first block's three triplet
-   calls (Q=1, S=7, E=64, F=16; e2e U=K2=30, a2e U=30 K2=20, e2a U=20
-   K2=30), as the model gives them: the kernel against its plain version
-   and the VJP (one launch for forward and backward, dxm and dqp against
-   plain autograd) within the kernel gate; each shape's time, plain time,
-   bound, share of the bound and launch plan, also as one
-   "[trip-shapes]" JSON line (printed again just before the kernels line).
-24. fused_trip paths: that model card against CPU and against the unfused
-   model on the card on the same weights at B=2 (energy and forces within
-   1e-4 * max|reference|); 100 L-BFGS steps at B=8 as phase 6 runs them,
-   exactly 16 gemnet_quad_chain and no masked_legendre_cos launch a
-   forward, its relax rate printed beside phase 6's; one S2EF training
-   step of gemnet_relax.yml with fused_trip card against CPU at B=2 (loss,
-   grad_norm and every gradient within 1e-3 * max|cpu|).
-25. Langevin sampling: DiffusionEngine(sampler="langevin") over phase 4's
+23. Langevin sampling: DiffusionEngine(sampler="langevin") over phase 4's
    PaiNN (the same seed, so the same weights) at B=16, 100 steps
    (n_step_each 1, step_lr 1e-4): exactly 600 painn_message_fused
    launches, 101 finite frames, the slab unmoved, every adsorbate moved
@@ -286,7 +269,7 @@ Phases; any failure raises and the exit code is then non-zero:
    |dz| <= 1e-5 A); its wall and rate beside phase 4's.  Then 10 steps card
    against CPU at B=2 from the same frac and noise tensors, positions within
    1e-4 A.
-26. accumulated and plateau training: the gemnet_so3.yml + base.yml steps
+24. accumulated and plateau training: the gemnet_so3.yml + base.yml steps
    of phase 21 at B=16 with grad_accumulation_steps 3 (the published
    effective batch of 48), 6 train_step calls: params unchanged after
    micro-steps 1, 2, 4 and 5 and moved after 3 and 6; the EMA equal to its
@@ -299,15 +282,15 @@ Phases; any failure raises and the exit code is then non-zero:
    trainer's modules making the host wait on the card during the steps
    (torch.cuda.set_sync_debug_mode("warn"); every such operation of the
    steps printed with its file and line).
-27. the kernels line, then the device line as the last line.  A row's ms,
+25. the kernels line, then the device line as the last line.  A row's ms,
    plain_ms and bound_ms are per launch; eqv2_edge_rotate's are the mean
    over the four forms in the proportions one forward launches them, and
    its launches are the EquiformerV2 sampling run's; masked_legendre_cos's
    are per forward (the grouped launch of the three triplet bases: ms its
    wall back to back, bound_ms the three bases' bounds summed);
    masked_legendre_cos's and gemnet_quad_chain's launches are the
-   relaxation path's plus phase 19's four tasks' plus phases 21, 24 and
-   26's runs'; painn_message_fused's are phase 4's plus phase 25's; the
+   relaxation path's plus phase 19's four tasks' plus phases 21's and
+   24's runs'; painn_message_fused's are phase 4's plus phase 23's; the
    consumers' and fused_rbf_filter's launches are
    their counts summed over every path run (0: no path calls them).
 
@@ -450,7 +433,7 @@ SO3_RELAX_BATCH = 8
 # phase 21's GemNet-OC so3 training, 3 steps.  Cut: base.yml's batch_size 48 -> 16 (gemnet_relax.yml's; at 48 the
 # step ran out of the card's 80 GB, where B=16 S2EF training peaks at ~29 GB)
 SO3_TRAIN_BATCH, SO3_TRAIN_STEPS = 16, 3
-# phase 26: the same steps with grad_accumulation_steps 3, the published effective batch of 48 (JAX's way to train
+# phase 24: the same steps with grad_accumulation_steps 3, the published effective batch of 48 (JAX's way to train
 # it on a smaller device); then PLATEAU_STEPS S2EF steps of gemnet_relax.yml with the ReduceLROnPlateau schedule
 ACCUM_STEPS, PLATEAU_STEPS = 3, 6
 GEMNET_SO3_CONFIG = dict(
@@ -1658,55 +1641,8 @@ def check_model(model_name, pairs):
 
 def gemnet_launches(model, forwards):
     """What ``forwards`` GemNet-OC forwards launch: one quad chain per block
-    and one grouped launch of the triplet bases (e2e, a2e, e2a); with
-    ``fused_trip``, one quad chain per block for the quadruplets and for
-    each triplet interaction, and no Legendre launch."""
-    if model.fused_trip:
-        chains = int(model.quad_interaction) + 1 + int(model.atom_edge_interaction) + int(model.edge_atom_interaction)
-        return {"gemnet_quad_chain": model.num_blocks * chains * forwards}
+    and one grouped launch of the triplet bases (e2e, a2e, e2a)."""
     return {"gemnet_quad_chain": model.num_blocks * forwards, "masked_legendre_cos": forwards}
-
-
-def lbfgs_run(model, batch, device):
-    """RelaxationEngine.from_model at RELAX_OPT on ``batch`` after a 2-step
-    warm-up, the launch counts zeroed just before and read just after (each
-    model forward must launch ``gemnet_launches``), the trajectory checked
-    (finite, shaped, fixed atoms unmoved, its last frame the final state).
-    Returns (result, wall s, forwards, launches, peak MiB)."""
-    RelaxationEngine.from_model(model, dict(RELAX_OPT, steps=2), device=device).run(batch)  # warm-up
-    engine = RelaxationEngine.from_model(model, RELAX_OPT, device=device)
-    forwards = 0
-    energy_forces = engine.energy_forces_fn
-
-    def counted(*args):
-        nonlocal forwards
-        forwards += 1
-        return energy_forces(*args)
-
-    engine.energy_forces_fn = counted
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.launches.clear()
-    t0 = time.perf_counter()
-    res = engine.run(batch)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = path_launches()
-    want_launches = gemnet_launches(model, forwards)
-    if launches != want_launches:
-        raise AssertionError(f"relaxation path launched {launches}, want {want_launches} ({forwards} forwards)")
-    for name in ("traj_pos", "traj_energy", "traj_forces", "energy", "forces"):
-        if not torch.isfinite(getattr(res, name)).all():
-            raise AssertionError(f"relaxation {name} is not finite")
-    b, n = batch.batch_size, batch.max_atoms
-    if res.traj_pos.shape != (RELAX_OPT["steps"] + 1, b, n, 3):
-        raise AssertionError(f"relaxation trajectory has shape {tuple(res.traj_pos.shape)}")
-    fixed = batch.fixed & batch.atom_mask
-    if not (bool(fixed.any()) and torch.equal(res.traj_pos[:, fixed], batch.pos[fixed].expand(len(res.traj_pos), -1, -1))):
-        raise AssertionError("relaxation moved fixed atoms")
-    if not torch.equal(res.traj_pos[-1], res.batch.pos):
-        raise AssertionError("the last trajectory frame is not the final state")
-    return res, wall, forwards, launches, torch.cuda.max_memory_allocated() / 2**20
 
 
 def relax_path(device, gen, systems):
@@ -1740,11 +1676,41 @@ def relax_path(device, gen, systems):
     # 6. 100 L-BFGS steps at full width
     print(f"[relax] GemNet-OC gemnet_relax.yml widths, cell_reps {cell_reps} (auto_cell_reps), "
           f"B={b} x {n} atoms, relax_opt {RELAX_OPT}", flush=True)
-    res, wall, forwards, launches, peak = lbfgs_run(model, batch, device)
+    RelaxationEngine.from_model(model, dict(RELAX_OPT, steps=2), device=device).run(batch)  # warm-up
+    engine = RelaxationEngine.from_model(model, RELAX_OPT, device=device)
+    forwards = 0
+    energy_forces = engine.energy_forces_fn
+
+    def counted(*args):
+        nonlocal forwards
+        forwards += 1
+        return energy_forces(*args)
+
+    engine.energy_forces_fn = counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    res = engine.run(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = path_launches()
+    want_launches = gemnet_launches(model, forwards)
+    if launches != want_launches:
+        raise AssertionError(f"relaxation path launched {launches}, want {want_launches} ({forwards} forwards)")
+    for name in ("traj_pos", "traj_energy", "traj_forces", "energy", "forces"):
+        if not torch.isfinite(getattr(res, name)).all():
+            raise AssertionError(f"relaxation {name} is not finite")
+    if res.traj_pos.shape != (RELAX_OPT["steps"] + 1, b, n, 3):
+        raise AssertionError(f"relaxation trajectory has shape {tuple(res.traj_pos.shape)}")
+    fixed = batch.fixed & batch.atom_mask
+    if not (bool(fixed.any()) and torch.equal(res.traj_pos[:, fixed], batch.pos[fixed].expand(len(res.traj_pos), -1, -1))):
+        raise AssertionError("relaxation moved fixed atoms")
+    if not torch.equal(res.traj_pos[-1], res.batch.pos):
+        raise AssertionError("the last trajectory frame is not the final state")
     moved = (res.batch.pos - batch.pos).norm(dim=-1).amax().item()
-    RATES["relax"] = res.nsteps * b / wall
-    print(f"[relax] {res.nsteps} L-BFGS steps, B={b}: {wall:.3f} s wall, {RATES['relax']:.2f} relax "
-          f"system-steps/s, peak {peak:.1f} MiB allocated, "
+    print(f"[relax] {res.nsteps} L-BFGS steps, B={b}: {wall:.3f} s wall, {res.nsteps * b / wall:.2f} relax "
+          f"system-steps/s, peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB allocated, "
           f"{forwards} model forwards, launches {launches}, {res.rebuilds} Verlet rebuilds, "
           f"{int(res.converged.sum())}/{b} converged, largest move {moved:.3f} A", flush=True)
     fn = make_mlff_energy_forces(model)
@@ -2498,15 +2464,13 @@ def s2ef_tasks_path(device, systems, root, files, smi):
 # --------------------------------------------------------------------------
 # S2EF training: the quad chain's VJP, gemnet_relax.yml's trainer, card vs CPU
 # --------------------------------------------------------------------------
-def check_quad_vjp(device, gen, shape, negative_keys=3, inputs=None):
+def check_quad_vjp(device, gen, shape, negative_keys=3):
     """gemnet_quad_chain with xm and qp needing gradients: one kernel launch
     for forward and backward, the output, dxm and dqp within the kernel gate
-    of autograd through the plain version, for a random cotangent; on
-    ``inputs`` where given, else on random ones of ``shape``."""
+    of autograd through the plain version, for a random cotangent."""
     s = shape[5]
     b, n, u, q, k2, _, e, f = shape
-    if inputs is None:
-        inputs = quad_inputs(gen, device, *shape, negative_keys=negative_keys)
+    inputs = quad_inputs(gen, device, *shape, negative_keys=negative_keys)
     g = torch.randn((b, n, u, f, e), generator=gen).to(device)
     leaves = {k: inputs[k].clone().requires_grad_() for k in ("xm", "qp")}
     before = dict(kernels.launches)
@@ -2664,85 +2628,10 @@ def s2ef_training_path(device, root, smi):
 
 
 # --------------------------------------------------------------------------
-# ROADMAP A.7: GemNet-OC fused_trip, Langevin sampling, accumulation, the plateau schedule
+# ROADMAP A.7: Langevin sampling, accumulation, the plateau schedule
 # --------------------------------------------------------------------------
-def trip_kernel_path(device, gen, systems):
-    """Phase 23: gemnet_quad_chain and its VJP at the three triplet shapes of
-    a fused_trip forward (gemnet_relax.yml widths, B=8), on the model's own
-    inputs.  Returns the fused model and the shapes' rows."""
-    cell_reps = pbc.auto_cell_reps([s.pos for s in systems], [s.cell for s in systems], GEMNET_KW["cutoff"])
-    batch = collate(systems, max_atoms=80, device=device)
-    model = GemNetOC(**GEMNET_KW, cell_reps=cell_reps, fused_trip=True, device=device, generator=gen)
-    with torch.no_grad():
-        calls = capture_calls(gemnet_oc, "gemnet_quad_chain", lambda: model(batch))
-    # a block calls e2e, the quadruplets (Q = 8), a2e, e2a: the first block's Q = 1 calls are the triplets
-    trips = [c for c in calls if c[0].shape[3] == 1][:3]
-    if len(calls) != gemnet_launches(model, 1)["gemnet_quad_chain"] or len(trips) != 3:
-        raise AssertionError(f"a fused_trip forward called gemnet_quad_chain {len(calls)} times")
-    rows = {}
-    sms = kernels._sm_count(device)
-    for what, (n1, n2, key1, key2, xm, qp, s) in zip(("e2e", "a2e", "e2a"), trips):
-        inputs = dict(n1=n1, n2=n2, key1=key1, key2=key2, xm=xm, qp=qp)
-        b, n, u, q, _ = n1.shape
-        shape = (b, n, u, q, xm.shape[3], s, xm.shape[4], qp.shape[-1])
-        out = kernels.gemnet_quad_chain(**inputs, num_spherical=s)
-        torch.cuda.synchronize()
-        want = kernels.gemnet_quad_chain_reference(**inputs, num_spherical=s)
-        err = check_close(f"gemnet_quad_chain {what} (fused_trip) b,n,u,q,k2,s,e,f={shape}", [out], [want])
-        vjp_err = check_quad_vjp(device, gen, shape, inputs=inputs)[3]
-        ms = cuda_ms(lambda: kernels.gemnet_quad_chain(**inputs, num_spherical=s), 20)
-        plain_ms = cuda_ms(lambda: kernels.gemnet_quad_chain_reference(**inputs, num_spherical=s), 5)
-        bound_ms, bound_by, nbytes, flops = quad_bound_ms(inputs, out, s)
-        rows[what] = dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                          share=bound_ms / ms, max_abs_err=err, vjp_max_abs_err=vjp_err,
-                          launches_per_forward=model.num_blocks)
-        print(f"[kernel] gemnet_quad_chain {what} (fused_trip) at {shape}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.3f} GFLOP f32, {nbytes / 1e6:.2f} MB), "
-              f"{100 * bound_ms / ms:.1f}% of the bound; "
-              f"{quad_plan_line(kernels.quad_chain_plan(b * n, *shape[2:], sms))}", flush=True)
-        del inputs, out, want
-    print("[trip-shapes] " + json.dumps(rows), flush=True)
-    return model, rows
-
-
-def fused_trip_path(device, model, systems):
-    """Phase 24: the fused_trip model card against CPU and against the
-    unfused model on the card (B=2), and 100 L-BFGS steps at B=8 as phase 6
-    runs them: 16 quad chains a forward, no Legendre launch.  Returns the
-    relaxation's launches."""
-    small = collate(systems[:2], max_atoms=80, device=device)
-    unfused = GemNetOC(**GEMNET_KW, cell_reps=model.cell_reps, device=device)
-    unfused.load_state_dict(model.state_dict(), strict=True)
-    cpu_model = copy.deepcopy(model).to("cpu")
-    with torch.no_grad():
-        card, plain = model(small), unfused(small)
-        host = cpu_model(small.to("cpu"))
-    check_model("GemNet-OC fused_trip", ((name, card[name], host[name]) for name in ("energy", "forces")))
-    check_model("GemNet-OC fused_trip against unfused on the card",
-                ((name, card[name], plain[name]) for name in ("energy", "forces")))
-    del cpu_model
-    batch = collate(systems, max_atoms=80, device=device)
-    # one B=8 forward of each, alternating in one process: fused, unfused, fused, unfused, fused, unfused
-    forward_ms = {"fused_trip": [], "unfused": []}
-    for _ in range(3):
-        for what, m in (("fused_trip", model), ("unfused", unfused)):
-            fn, cand = make_mlff_energy_forces(m), m.prepare_candidates(batch, RELAX_OPT["k_cand"])
-            forward_ms[what].append(cuda_ms(lambda: fn(batch, cand), 5))
-    del unfused
-    print(f"[relax-fused-trip] one B={batch.batch_size} model forward, alternating: fused_trip "
-          f"{', '.join(f'{x:.3f}' for x in forward_ms['fused_trip'])} ms, unfused "
-          f"{', '.join(f'{x:.3f}' for x in forward_ms['unfused'])} ms", flush=True)
-    res, wall, forwards, launches, peak = lbfgs_run(model, batch, device)
-    rate = res.nsteps * batch.batch_size / wall
-    print(f"[relax-fused-trip] {res.nsteps} L-BFGS steps, B={batch.batch_size}, fused_trip: {wall:.3f} s wall, "
-          f"{rate:.2f} relax system-steps/s (phase 6, unfused: {RATES['relax']:.2f}), peak {peak:.1f} MiB, "
-          f"{forwards} forwards, launches {launches} ({launches['gemnet_quad_chain'] // forwards} quad chains and "
-          f"{launches.get('masked_legendre_cos', 0)} masked_legendre_cos a forward)", flush=True)
-    return launches
-
-
 def langevin_path(device, systems):
-    """Phase 25: 100 steps of Langevin sampling with phase 4's PaiNN (its
+    """Phase 23: 100 steps of Langevin sampling with phase 4's PaiNN (its
     seed, so its weights) at B=16, and 10 steps card against CPU at B=2.
     Returns the run's launches."""
     batch = collate(systems, max_atoms=80, device=device)
@@ -2801,21 +2690,6 @@ def langevin_path(device, systems):
     return launches
 
 
-def fused_trip_training_step(device, root):
-    """Phase 24's last check: one S2EF training step of gemnet_relax.yml with
-    fused_trip, card against CPU at B=2.  The quad chain's VJP (a plain
-    recompute) at the triplet shapes carries the triplet interactions'
-    gradients."""
-    systems = labelled_systems(bench_systems(2), 24)
-    write_shard(os.path.join(root, "trip_train"), systems)
-    src = os.path.join(root, "trip_train.adshard.npz")
-    config = s2ef_train_config(root, {"train": src, "val": src})
-    config["model"] = dict(config["model"], fused_trip=True)
-    kernels.launches.clear()
-    check_training_step(config, device, "GemNet-OC S2EF fused_trip", S2EFTrainer, systems)
-    return path_launches()
-
-
 def sync_sources(record):
     """Run ``record()`` with the sync debug mode on ``warn``: the
     (file, line) of each operation that made the host wait on the card."""
@@ -2827,12 +2701,12 @@ def sync_sources(record):
             record()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in seen
+    return collections.Counter(f"{os.path.abspath(w.filename)}:{w.lineno}" for w in seen
                                if "synchronizing" in str(w.message))
 
 
 def options_training_path(device, root):
-    """Phase 26: gemnet_so3.yml + base.yml training at B=16 with
+    """Phase 24: gemnet_so3.yml + base.yml training at B=16 with
     grad_accumulation_steps 3 (the published effective batch of 48), 6
     micro-steps; then 6 S2EF steps of gemnet_relax.yml with the
     ReduceLROnPlateau schedule.  Returns the launches."""
@@ -2902,7 +2776,8 @@ def options_training_path(device, root):
     launches = path_launches()
     total.update(launches)
     losses = torch.stack(losses).cpu()
-    in_update = {k: v for k, v in syncs.items() if k.startswith(os.path.join("adsorbdiff_tpu_torch", "train"))}
+    train_dir = os.path.dirname(os.path.abspath(sys.modules[S2EFTrainer.__module__].__file__)) + os.sep
+    in_update = {k: v for k, v in syncs.items() if k.startswith(train_dir)}
     state = (trainer.plateau_best, trainer.plateau_count, trainer.plateau_scale)
     if (not torch.isfinite(losses).all() or launches != {k: v * PLATEAU_STEPS for k, v in want.items()}
             or any(t.device.type != "cuda" for t in state) or in_update):
@@ -2960,24 +2835,17 @@ def main():
     quad_vjp_path(device, torch.Generator().manual_seed(20))
     with tempfile.TemporaryDirectory() as root:
         s2ef_launches.update(s2ef_training_path(device, root, smi))
-    # 23-26. the options of ROADMAP A.7: fused_trip's kernel shapes and paths, Langevin sampling, accumulated
-    # training and the plateau schedule
-    fused, trip_rows = trip_kernel_path(device, torch.Generator().manual_seed(23), systems[:RELAX_BATCH])
-    s2ef_launches.update(fused_trip_path(device, fused, systems[:RELAX_BATCH]))
-    del fused
-    with tempfile.TemporaryDirectory() as root:
-        s2ef_launches.update(fused_trip_training_step(device, root))
+    # 23-24. the options of ROADMAP A.7: Langevin sampling, accumulated training and the plateau schedule
     s2ef_launches.update(langevin_path(device, systems))
     with tempfile.TemporaryDirectory() as root:
         s2ef_launches.update(options_training_path(device, root))
 
-    # 27. results
+    # 25. results
     for r in rows:
         if r["launches"] is None:  # a standalone kernel: what the path runs launched of it
             r["launches"] = PATH_LAUNCHES[r["name"]]
-        elif r["name"] in s2ef_launches:  # the sampling and relaxation paths' kernels: phases 19, 21 and 24-26 too
+        elif r["name"] in s2ef_launches:  # the sampling and relaxation paths' kernels: phases 19, 21, 23 and 24 too
             r["launches"] += s2ef_launches[r["name"]]
-    print("[trip-shapes] " + json.dumps(trip_rows), flush=True)
     print(json.dumps({"kernels": [
         dict(name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"], launches=r["launches"],
              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

@@ -16,11 +16,7 @@ Per-step numbers divide a whole ``RelaxationEngine.run`` by ``--steps``: it
 holds ``--steps`` model forwards, the final forward, the first candidate
 build and any Verlet rebuilds.
 
-    python scripts/profile_torch_relax.py [--steps 10] [--fused-trip]
-
-``--fused-trip`` builds the model with ``fused_trip=True`` (the triplet
-consumers through the quad-chain kernel; the same seed, so the same
-weights).
+    python scripts/profile_torch_relax.py [--steps 10]
 
 The last line is one JSON object with the same numbers.
 """
@@ -49,15 +45,13 @@ TOP_KERNELS = 15  # rows of the per-kernel table
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--fused-trip", action="store_true", help="the model with fused_trip=True")
     args = ap.parse_args()
 
     device = resolve_device(None)
     systems = bench_systems(RELAX_BATCH)
     cell_reps = pbc.auto_cell_reps([s.pos for s in systems], [s.cell for s in systems], GEMNET_KW["cutoff"])
     batch = collate(systems, max_atoms=80, device=device)
-    model = GemNetOC(**GEMNET_KW, cell_reps=cell_reps, fused_trip=args.fused_trip, device=device,
-                     generator=torch.Generator().manual_seed(3))
+    model = GemNetOC(**GEMNET_KW, cell_reps=cell_reps, device=device, generator=torch.Generator().manual_seed(3))
 
     def run(steps):
         RelaxationEngine.from_model(model, dict(RELAX_OPT, steps=steps), device=device).run(batch)
@@ -83,7 +77,7 @@ def main() -> None:
                 "device_events": sum(c for c, _ in by_name.values()) / args.steps}
     per_step["idle_share"] = 1.0 - per_step["device_busy_ms"] / wall_ms
     print(f"{torch.cuda.get_device_name(0)}; {args.steps} L-BFGS steps (B={RELAX_BATCH}, N=80, GemNet-OC "
-          f"gemnet_relax.yml widths, fused_trip {args.fused_trip}, cell_reps {cell_reps}, Verlet graph)")
+          f"gemnet_relax.yml widths, cell_reps {cell_reps}, Verlet graph)")
     print(f"per step: wall {wall_ms:.3f} ms (profiler off), device busy {per_step['device_busy_ms']:.3f} ms "
           f"(profiler on), idle share {per_step['idle_share']:.3f}; {per_step['device_events']:.0f} device events "
           f"of {len(by_name)} kinds")
@@ -100,8 +94,7 @@ def main() -> None:
             ours.append({"name": name, "calls_per_step": calls / args.steps, "device_ms_per_launch": us / 1e3 / calls})
             print(f"hand-written: {ours[-1]['device_ms_per_launch']:.4f} ms per launch, {calls / args.steps:.1f} "
                   f"calls/step  {name[:100]}")
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "steps": args.steps, "fused_trip": args.fused_trip,
-                      **per_step, "top": top,
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "steps": args.steps, **per_step, "top": top,
                       "hand_written": ours}))
 
 

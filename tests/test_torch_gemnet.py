@@ -12,6 +12,7 @@ order); the oracle golden at its own test's tolerances
 (``tests/test_torch_import.py``: energy 1e-4 * max(1, |e|), forces atol 5e-6 /
 rtol 5e-4); rotation 2e-4 (f32 geometry under a rotation).
 """
+import collections
 import itertools
 
 import jax
@@ -344,7 +345,7 @@ def test_tiny_triplet_bases_come_from_one_grouped_call(jax_tiny, jax_tiny_pallas
 
 
 # --------------------------------------------------------------------------
-# fused_trip: the triplet consumers through the quad chain at Q = 1
+# fused_trip: accepted and ignored (the JAX model's fused and unfused forms are equal)
 # --------------------------------------------------------------------------
 def _scalar_loss(out):
     return out["energy"].sum() + (out["forces"] ** 2).sum()
@@ -374,44 +375,46 @@ def _grads(model, batch):
 
 
 def test_fused_trip_matches_jax_and_the_unfused_port(jax_tiny, port_tiny, jax_tiny_grads, monkeypatch):
-    """``fused_trip=True``: every triplet consumer is one ``gemnet_quad_chain``
-    call at Q = 1 (on the CPU its plain version; 4 calls a block with the
-    quadruplet's) and no triplet basis is built.  Against JAX
-    ``GemNetOC(fused_trip=False)`` in its XLA form (JAX's own fused and
-    unfused models are equal, tests/test_pallas_kernels.py:598) and the
-    port's unfused model on the same weights: energy and forces at atol 5e-5
-    / rtol 1e-4, as above; the gradient of energy.sum() + (forces^2).sum()
-    for every parameter within 1e-4 * max|JAX's| of that tensor (f32 sums
-    over two blocks forward and back taken in another order)."""
+    """``fused_trip=True`` is accepted and runs the unfused kernels: one
+    grouped triplet-basis call a forward and one ``gemnet_quad_chain`` call
+    a block.  Against JAX ``GemNetOC(fused_trip=False)`` in its XLA form
+    (JAX's own fused and unfused models are equal,
+    tests/test_pallas_kernels.py:598): energy and forces at atol 5e-5 / rtol
+    1e-4, as above; the gradient of energy.sum() + (forces^2).sum() for
+    every parameter within 1e-4 * max|JAX's| of that tensor (f32 sums over
+    two blocks forward and back taken in another order).  Against the
+    port's model without the flag on the same weights: bit for bit."""
     from adsorbdiff_tpu_torch.models import gemnet_oc as port_gemnet_oc
 
     batch, _, outs = jax_tiny
     model = GemNetOC(**TINY, fused_trip=True, device="cpu")
     model.load_state_dict(port_tiny.state_dict(), strict=True)
     tb = to_torch_batch(batch)
-    shapes, chain = [], port_gemnet_oc.gemnet_quad_chain
+    calls = collections.Counter()
+    chain, bases = port_gemnet_oc.gemnet_quad_chain, port_gemnet_oc.gemnet_cbf_bases
 
-    def counted(n1, n2, key1, key2, xm, qp, s):
-        shapes.append(tuple(xm.shape[2:]))
-        return chain(n1, n2, key1, key2, xm, qp, s)
+    def counted_chain(*args):
+        calls["gemnet_quad_chain"] += 1
+        return chain(*args)
 
-    def no_bases(*args):
-        raise AssertionError("fused_trip built a triplet basis")
+    def counted_bases(*args):
+        calls["gemnet_cbf_bases"] += 1
+        return bases(*args)
 
-    monkeypatch.setattr(port_gemnet_oc, "gemnet_quad_chain", counted)
-    monkeypatch.setattr(port_gemnet_oc, "gemnet_cbf_bases", no_bases)
+    monkeypatch.setattr(port_gemnet_oc, "gemnet_quad_chain", counted_chain)
+    monkeypatch.setattr(port_gemnet_oc, "gemnet_cbf_bases", counted_bases)
     got, grads = _grads(model, tb)
     monkeypatch.undo()
-    k1, kq, kae = TINY["max_neighbors"], TINY["max_neighbors_qint"], TINY["max_neighbors_aeaint"]
-    e_t, e_q = TINY["emb_size_trip_in"], TINY["emb_size_quad_in"]
-    assert shapes == [(1, k1, e_t), (kq, k1, e_q), (1, kae, e_t), (1, k1, e_t)] * TINY["num_blocks"]
-    unfused_out, unfused_grads = _grads(port_tiny, tb)
+    assert calls == {"gemnet_quad_chain": TINY["num_blocks"], "gemnet_cbf_bases": 1}
+    plain_out, plain_grads = _grads(port_tiny, tb)
     for key in ("energy", "forces"):
-        for want in (np.asarray(outs[False][key]), to_numpy(unfused_out[key])):
-            np.testing.assert_allclose(to_numpy(got[key]), want, atol=5e-5, rtol=1e-4, err_msg=key)
+        np.testing.assert_allclose(to_numpy(got[key]), np.asarray(outs[False][key]), atol=5e-5, rtol=1e-4,
+                                   err_msg=key)
+        np.testing.assert_array_equal(to_numpy(got[key]), to_numpy(plain_out[key]), err_msg=key)
     for name, g in grads.items():
-        for want in (jax_tiny_grads[name].numpy(), to_numpy(unfused_grads[name])):
-            np.testing.assert_allclose(to_numpy(g), want, atol=1e-4 * np.abs(want).max(), rtol=0, err_msg=name)
+        want = jax_tiny_grads[name].numpy()
+        np.testing.assert_allclose(to_numpy(g), want, atol=1e-4 * np.abs(want).max(), rtol=0, err_msg=name)
+        np.testing.assert_array_equal(to_numpy(g), to_numpy(plain_grads[name]), err_msg=name)
 
 
 @pytest.fixture(scope="module")
@@ -432,8 +435,9 @@ def jax_bessel():
 @pytest.mark.parametrize("fused_trip", [False, True], ids=["port-unfused", "port-fused-trip"])
 def test_tiny_spherical_bessel_matches_jax(jax_bessel, fused_trip):
     """``rbf: spherical_bessel``: four trainable bases (one a graph) carried
-    across as ``radial_basis*.rbf.frequencies``; energy and forces at atol
-    5e-5 / rtol 1e-4, as above."""
+    across as ``radial_basis*.rbf.frequencies``, with and without the
+    (ignored) ``fused_trip``; energy and forces at atol 5e-5 / rtol 1e-4, as
+    above."""
     batch, variables, want = jax_bessel
     model = GemNetOC(**dict(TINY, num_blocks=1, rbf={"name": "spherical_bessel"}), fused_trip=fused_trip,
                      device="cpu")

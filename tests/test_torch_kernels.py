@@ -55,7 +55,7 @@ QUAD_S9 = (1, 3, 9, 5, 11, 9, 16, 16)  # two passes of 8 levels
 QUAD_S9_E40_F48 = (1, 3, 9, 5, 11, 9, 40, 48)
 QUAD_UNALIGNED = (2, 4, 10, 3, 7, 5, 12, 9)  # S * Q * F = 135: 4-byte copies into padded rows
 QUAD_U_SPLIT = (1, 1, 16, 8, 30, 7, 32, 32)  # one cell: its 16 main edges dealt over two blocks
-# GemNet-OC fused_trip's triplet consumers at gemnet_relax.yml widths, B=8: Q = 1, E = emb_size_trip_in,
+# Q = 1 at gemnet_relax.yml's triplet widths, B=8 (the JAX model's fused_trip shapes): E = emb_size_trip_in,
 # F = emb_size_cbf; U x K2 = main x main (e2e), main x a2ee2a (a2e), a2ee2a x main (e2a)
 QUAD_TRIP_E2E = (8, 80, 30, 1, 30, 7, 64, 16)
 QUAD_TRIP_A2E = (8, 80, 30, 1, 20, 7, 64, 16)
