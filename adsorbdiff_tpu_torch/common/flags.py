@@ -22,7 +22,7 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--run-dir", default="./", type=str, help="Directory to store checkpoint/log/result directory")
     parser.add_argument("--print-every", default=100, type=int, help="Log every N iterations")
     parser.add_argument("--seed", default=0, type=int, help="Seed of the run's torch.Generator")
-    parser.add_argument("--amp", action="store_true", help="Mixed precision (not ported yet: raises)")
+    parser.add_argument("--amp", action="store_true", help="Use bfloat16 mixed precision for model compute")
     parser.add_argument("--checkpoint", default=None, type=str, help="Checkpoint to load")
     parser.add_argument("--cpu", action="store_true", help="Run on the host instead of the CUDA card")
     return parser

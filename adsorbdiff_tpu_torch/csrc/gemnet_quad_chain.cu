@@ -1,4 +1,4 @@
-// GemNet-OC quadruplet chain, fused, for Hopper (sm_90a), f32.
+// GemNet-OC quadruplet chain, fused, for Hopper (sm_90a), f32 in, f32 or bf16 out.
 //
 // Replaces the TPU kernel adsorbdiff_tpu/ops/pallas_kernels.py::
 // _quad_chain_kernel (wrapper gemnet_quad_chain, plain math _quad_chain_ref).
@@ -59,9 +59,17 @@
 // between the inputs and out goes to device memory. Not yet used: tensor
 // cores (wgmma), TMA, and fusing the qp einsum into the kernel (which would
 // remove the largest input).
+//
+// The bf16 variant (the TPU kernel's out_dtype): out is bf16, rounded once
+// from the f32 sums. GemNet-OC with compute_dtype: bfloat16 passes f32 xm and
+// qp, as the JAX model does (its f32 scale factors widen xm), so the inputs,
+// the plan and the layout are the f32 ones. A bf16 out takes one pass of
+// levels (S <= 8): a later pass would add to a rounded partial sum.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dtype.cuh"
 
 namespace {
 
@@ -83,6 +91,8 @@ __host__ __device__ inline size_t smem_floats(int warps, int bufs, int U, int Q,
   return (size_t)warps * (kYFloats + bufs * sqf) + qk * E + qk * 3 + (size_t)U * Q * 3 + qk;
 }
 
+// TO: out (float or bf16)
+template <typename TO>
 struct ChainArgs {
   const float* n1;
   const float* n2;
@@ -90,7 +100,7 @@ struct ChainArgs {
   const int32_t* key2;
   const float* xm;
   const float* qp;
-  float* out;
+  TO* out;
   int U, Q, K2, S, E, F;
   int warps, parts, bufs, copy16, xm16;
 };
@@ -236,10 +246,10 @@ __device__ __forceinline__ void acc_update(const float* qrow, size_t level_strid
 // kFast: the paths' widths (s0 == 0, nl == kPathLevels, E == 32, f0 + 32 <=
 // F, qpb the warp's buffer), so strides are immediates and no guard splits
 // the unrolled loops.
-template <bool kFast>
-__device__ __forceinline__ void chain_pass(const ChainArgs& a, int k1, const float* n1u, const float* qpb,
+template <bool kFast, typename TO>
+__device__ __forceinline__ void chain_pass(const ChainArgs<TO>& a, int k1, const float* n1u, const float* qpb,
                                            int stride, const float* xm_s, const float* n2h_s, const int* key2_s,
-                                           float* y_w, float* out_u, int s0, int nl, int e0, int f0, int lane) {
+                                           float* y_w, TO* out_u, int s0, int nl, int e0, int f0, int lane) {
   constexpr int kNL = kFast ? kPathLevels : kLevels;
   const int Q = a.Q, K2 = a.K2, E = kFast ? 32 : a.E, F = a.F;
   const int half = lane >> 4;
@@ -284,15 +294,19 @@ __device__ __forceinline__ void chain_pass(const ChainArgs& a, int k1, const flo
     }
     acc_update<kFast>(qpb + ((size_t)s0 * Q + q) * stride + fh, level_stride, nl, F - fh, d2a, d2b, acca, accb);
   }
-  float* o = out_u + (size_t)fh * E + e;
+  TO* o = out_u + (size_t)fh * E + e;
 #pragma unroll
   for (int j = 0; j < kCols / 2; ++j) {
-    float* oj = o + j * E;
-    if (kFast) {  // both columns exist, the pair is 8-byte aligned, and this is the only level pass
-      *reinterpret_cast<float2*>(oj) = make_float2(acca[j], accb[j]);
-    } else if (fh + j < F) {
-      if (ev0) oj[0] = s0 == 0 ? acca[j] : oj[0] + acca[j];
-      if (ev1) oj[1] = s0 == 0 ? accb[j] : oj[1] + accb[j];
+    TO* oj = o + j * E;
+    if (kFast) {  // both columns exist, the pair is aligned to two elements, and this is the only level pass
+      if constexpr (dtype::kF32<TO>) {
+        *reinterpret_cast<float2*>(oj) = make_float2(acca[j], accb[j]);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(oj) = __floats2bfloat162_rn(acca[j], accb[j]);
+      }
+    } else if (fh + j < F) {  // a bf16 out has one level pass (s0 == 0)
+      if (ev0) oj[0] = dtype::narrow<TO>(s0 == 0 ? acca[j] : dtype::f32(oj[0]) + acca[j]);
+      if (ev1) oj[1] = dtype::narrow<TO>(s0 == 0 ? accb[j] : dtype::f32(oj[1]) + accb[j]);
     }
   }
 }
@@ -301,13 +315,14 @@ __device__ __forceinline__ void chain_pass(const ChainArgs& a, int k1, const flo
 // buffer (rows of fp floats; used only where a.bufs == 1, by the guard-free
 // pass); qpb: qp[u] with rows of `stride` floats, that buffer or device
 // memory (the generic pass).
-__device__ __forceinline__ void chain_step(const ChainArgs& a, int u, int k1, const float* qp_w, int fp,
+template <typename TO>
+__device__ __forceinline__ void chain_step(const ChainArgs<TO>& a, int u, int k1, const float* qp_w, int fp,
                                            const float* qpb, int stride, const float* xm_s, const float* n2h_s,
-                                           const float* n1h_s, const int* key2_s, float* y_w, float* out_u,
+                                           const float* n1h_s, const int* key2_s, float* y_w, TO* out_u,
                                            int lane) {
   const int Q = a.Q, S = a.S, E = a.E, F = a.F;
   if (k1 < 0 || S == 0) {  // every keep is false, or no levels: the plain version's exact zeros
-    for (int i = lane; i < F * E; i += 32) out_u[i] = 0.f;
+    for (int i = lane; i < F * E; i += 32) out_u[i] = dtype::narrow<TO>(0.f);
     return;
   }
   const float* n1u = n1h_s + (size_t)u * Q * 3;
@@ -326,7 +341,8 @@ __device__ __forceinline__ void chain_step(const ChainArgs& a, int u, int k1, co
   }
 }
 
-__global__ void __launch_bounds__(kMaxWarps * 32) gemnet_quad_chain_kernel(const ChainArgs a) {
+template <typename TO>
+__global__ void __launch_bounds__(kMaxWarps * 32) gemnet_quad_chain_kernel(const ChainArgs<TO> a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int U = a.U, Q = a.Q, K2 = a.K2, S = a.S, E = a.E, F = a.F;
@@ -377,7 +393,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) gemnet_quad_chain_kernel(const
       __syncwarp();        // every lane's copies are visible to the warp
     }
     const int k1 = a.key1[cell * U + u];
-    float* out_u = a.out + (cell * U + u) * (size_t)F * E;
+    TO* out_u = a.out + (cell * U + u) * (size_t)F * E;
     chain_step(a, u, k1, qp_w, fp, bufs ? qp_w : qp_c + (size_t)u * sqf_g, bufs ? fp : F, xm_s, n2h_s, n1h_s,
                key2_s, y_w, out_u, lane);
     __syncwarp();  // every lane is done with the qp buffer
@@ -388,43 +404,54 @@ __global__ void __launch_bounds__(kMaxWarps * 32) gemnet_quad_chain_kernel(const
   }
 }
 
+template <typename TO>
+int run(const void* n1, const void* n2, const void* key1, const void* key2, const void* xm, const void* qp, void* out,
+        int cells, int U, int Q, int K2, int S, int E, int F, int warps, int parts, int qp_buffers, int copy16,
+        long long smem_bytes, void* stream) {
+  if (cells <= 0 || U <= 0 || F <= 0 || E <= 0) return 0;
+  if (warps < 1 || warps > kMaxWarps || parts < 1 || qp_buffers < 0 || qp_buffers > 1 ||
+      (copy16 && (F % 4 != 0 || qp_buffers == 0 || reinterpret_cast<uintptr_t>(qp) % 16 != 0)) ||
+      (!dtype::kF32<TO> && S > kLevels))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_floats(warps, qp_buffers, U, Q, K2, S, E, F) * sizeof(float);
+  if (smem != (size_t)smem_bytes) return (int)cudaErrorInvalidValue;
+  ChainArgs<TO> a{static_cast<const float*>(n1), static_cast<const float*>(n2),
+                  static_cast<const int32_t*>(key1), static_cast<const int32_t*>(key2),
+                  static_cast<const float*>(xm), static_cast<const float*>(qp), static_cast<TO*>(out),
+                  U, Q, K2, S, E, F, warps, parts, qp_buffers, copy16 ? 1 : 0,
+                  (reinterpret_cast<uintptr_t>(xm) % 16 == 0 && ((size_t)Q * K2 * E) % 4 == 0) ? 1 : 0};
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(gemnet_quad_chain_kernel<TO>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  gemnet_quad_chain_kernel<TO><<<(unsigned)((size_t)cells * parts), warps * 32, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes). All pointers are device pointers of
 // contiguous tensors: n1 [cells,U,Q,3] f32; n2 [cells,Q,K2,3] f32; key1
 // [cells,U] i32; key2 [cells,Q,K2] i32; xm [cells,Q,K2,E] f32; qp
-// [cells,U,S,Q,F] f32; out [cells,U,F,E] f32 is written. The launch is
+// [cells,U,S,Q,F] f32; out [cells,U,F,E] is written, f32 by
+// gemnet_quad_chain_f32 and bf16 by gemnet_quad_chain_f32_bf16. The launch is
 // quad_chain_plan's: `warps` a block (1..16), `parts` blocks a cell,
 // `qp_buffers` (0: qp read from device memory, 1: a staged buffer a warp),
 // `copy16` (16-byte qp copies; needs F % 4 == 0 and an aligned qp), and
-// `smem_bytes`, which must equal this file's layout. Launches on `stream` and
-// returns cudaGetLastError() after the launch (0 = success), or
-// cudaErrorInvalidValue for a plan that disagrees.
-extern "C" int gemnet_quad_chain_f32(
-    const void* n1, const void* n2, const void* key1, const void* key2,
-    const void* xm, const void* qp, void* out,
-    int cells, int U, int Q, int K2, int S, int E, int F,
-    int warps, int parts, int qp_buffers, int copy16, long long smem_bytes, void* stream) {
-  if (cells <= 0 || U <= 0 || F <= 0 || E <= 0) return 0;
-  if (warps < 1 || warps > kMaxWarps || parts < 1 || qp_buffers < 0 || qp_buffers > 1 ||
-      (copy16 && (F % 4 != 0 || qp_buffers == 0 || reinterpret_cast<uintptr_t>(qp) % 16 != 0)))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_floats(warps, qp_buffers, U, Q, K2, S, E, F) * sizeof(float);
-  if (smem != (size_t)smem_bytes) return (int)cudaErrorInvalidValue;
-  ChainArgs a{static_cast<const float*>(n1), static_cast<const float*>(n2),
-              static_cast<const int32_t*>(key1), static_cast<const int32_t*>(key2),
-              static_cast<const float*>(xm), static_cast<const float*>(qp), static_cast<float*>(out),
-              U, Q, K2, S, E, F, warps, parts, qp_buffers, copy16 ? 1 : 0,
-              (reinterpret_cast<uintptr_t>(xm) % 16 == 0 && ((size_t)Q * K2 * E) % 4 == 0) ? 1 : 0};
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(gemnet_quad_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return (int)err;
+// `smem_bytes`, which must equal this file's layout; a bf16 out needs S <= 8.
+// Launches on `stream` and returns cudaGetLastError() after the launch (0 =
+// success), or cudaErrorInvalidValue for a plan that disagrees.
+#define QUAD_CHAIN_ENTRY(NAME, TO)                                                                               \
+  extern "C" int NAME(const void* n1, const void* n2, const void* key1, const void* key2, const void* xm,        \
+                      const void* qp, void* out, int cells, int U, int Q, int K2, int S, int E, int F, int warps, \
+                      int parts, int qp_buffers, int copy16, long long smem_bytes, void* stream) {                \
+    return run<TO>(n1, n2, key1, key2, xm, qp, out, cells, U, Q, K2, S, E, F, warps, parts, qp_buffers, copy16,  \
+                   smem_bytes, stream);                                                                          \
   }
-  gemnet_quad_chain_kernel<<<(unsigned)((size_t)cells * parts), warps * 32, smem,
-                             static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
-}
+QUAD_CHAIN_ENTRY(gemnet_quad_chain_f32, float)
+QUAD_CHAIN_ENTRY(gemnet_quad_chain_f32_bf16, __nv_bfloat16)
 
 extern "C" const char* gemnet_quad_chain_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

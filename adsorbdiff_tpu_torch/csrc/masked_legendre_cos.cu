@@ -1,4 +1,4 @@
-// GemNet-OC masked Legendre bases over pairwise cosines, for Hopper (sm_90a), f32.
+// GemNet-OC masked Legendre bases over pairwise cosines, for Hopper (sm_90a), f32 and bf16 outputs.
 //
 // Replaces the TPU kernel adsorbdiff_tpu/ops/pallas_kernels.py::
 // _legendre_cos_kernel (wrapper masked_legendre_cos, used through
@@ -40,9 +40,15 @@
 // through strides, so the dihedral basis writes its [B, N, S, Kq, K1, K2]
 // layout directly. The TPU kernel's block-diagonal packing over C = 3 Kq (one
 // MXU dot per cell) was a Mosaic workaround and has no counterpart here.
+//
+// The bf16 variant (GemNet-OC with compute_dtype: bfloat16, the TPU kernel's
+// out_dtype): inputs and arithmetic as above in f32, each output rounded once
+// to bf16; a four-column unit is one 8-byte store. It writes half the bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dtype.cuh"
 
 namespace {
 
@@ -59,7 +65,7 @@ struct Problem {
   const float* a;
   const float* b;
   const uint8_t* keep;
-  float* y;
+  void* y;  // float, or __nv_bfloat16 in the bf16 variant
   long long a_so, a_sq, a_sm;
   long long b_so, b_sq, b_sk, b_sc;
   long long kp_so, kp_sq, kp_sm;
@@ -98,6 +104,17 @@ __device__ __forceinline__ float legendre_next(float c, float p, float p_prev, i
   return ((float)(2 * l - 1) * c * p - (float)(l - 1) * p_prev) * inv_l;
 }
 
+// Four outputs at out (16-byte aligned for float, 8 for bf16)
+__device__ __forceinline__ void store4(float* out, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* out, const float (&v)[4]) {
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out);
+  o[0] = __floats2bfloat162_rn(v[0], v[1]);
+  o[1] = __floats2bfloat162_rn(v[2], v[3]);
+}
+
+template <typename TO>
 __global__ void __launch_bounds__(kThreads) masked_legendre_cos_kernel(const __grid_constant__ Group G) {
   extern __shared__ float smem[];
   int pi = 0;
@@ -143,7 +160,7 @@ __global__ void __launch_bounds__(kThreads) masked_legendre_cos_kernel(const __g
           ++m;
         }
       }
-      float* out = P.y + o * P.y_so + q * P.y_sq + r;  // y_sm == K: the plane is contiguous
+      TO* out = static_cast<TO*>(P.y) + o * P.y_so + q * P.y_sq + r;  // y_sm == K: the plane is contiguous
       float p_prev[4], p[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -166,7 +183,7 @@ __global__ void __launch_bounds__(kThreads) masked_legendre_cos_kernel(const __g
           }
           v[j] = kp[j] ? G.coef[l] * pl : 0.f;
         }
-        *reinterpret_cast<float4*>(out + l * P.y_sl) = make_float4(v[0], v[1], v[2], v[3]);
+        store4(out + l * P.y_sl, v);
       }
     }
   } else {
@@ -176,7 +193,7 @@ __global__ void __launch_bounds__(kThreads) masked_legendre_cos_kernel(const __g
       const long long cell = cell0 + c, o = cell / Q, q = cell - o * Q;
       const float cs = clipped_dot(a_s + 3 * (c * M + m), b_s + 3 * (c * K + k));
       const bool kp = P.keep[o * P.kp_so + q * P.kp_sq + m * P.kp_sm + k] != 0;
-      float* out = P.y + o * P.y_so + q * P.y_sq + m * P.y_sm + k;
+      TO* out = static_cast<TO*>(P.y) + o * P.y_so + q * P.y_sq + m * P.y_sm + k;
       float p_prev = 1.f, p = cs;
       for (int l = 0; l < S; ++l) {
         float pl;
@@ -189,13 +206,11 @@ __global__ void __launch_bounds__(kThreads) masked_legendre_cos_kernel(const __g
           p_prev = p;
           p = pl;
         }
-        out[l * P.y_sl] = kp ? G.coef[l] * pl : 0.f;
+        out[l * P.y_sl] = dtype::narrow<TO>(kp ? G.coef[l] * pl : 0.f);
       }
     }
   }
 }
-
-}  // namespace
 
 // Plain C interface (loaded with ctypes). One launch for a group of `n`
 // problems (1..3), laid out as ops/kernels.py::legendre_group_plan gives it:
@@ -203,17 +218,19 @@ __global__ void __launch_bounds__(kThreads) masked_legendre_cos_kernel(const __g
 //     order above (a: so, sq, sm; b: so, sq, sk, sc; keep: so, sq, sm; y: so,
 //     sq, sl, sm), cells (= outer x Q), Q, M, K, normalize, first block,
 //     cells a block, and 1 where the plan takes four columns a thread;
-//   ptrs: n x 4 device pointers (a, b, keep, y: f32, f32, bool, f32);
+//   ptrs: n x 4 device pointers (a, b, keep, y: f32, f32, bool, and f32 for
+//     masked_legendre_cos_f32, bf16 for masked_legendre_cos_bf16);
 //   coef: S floats.
 // The plan must agree with this file's layout: problem p's blocks are
 // [first, first + ceil(cells / cpb)) with the first problem's first at 0,
 // `blocks` their total, `threads` 256, `smem_bytes` the largest 12 cpb (M +
 // K) of a problem with blocks, and a four-column problem must have M K % 4 ==
-// 0 and a contiguous, 16-byte aligned y plane; else cudaErrorInvalidValue,
+// 0 and a contiguous y plane aligned to four elements; else cudaErrorInvalidValue,
 // with nothing launched. A group with no block launches nothing. Launches on
 // `stream` and returns cudaGetLastError() after the launch (0 = success).
-extern "C" int masked_legendre_cos_f32(int n, const long long* table, void* const* ptrs, int S,
-                                       const float* coef, int blocks, int threads, int smem_bytes, void* stream) {
+template <typename TO>
+int run(int n, const long long* table, void* const* ptrs, int S, const float* coef, int blocks, int threads,
+        int smem_bytes, void* stream) {
   if (n < 1 || n > kMaxProblems || S < 1 || S > kMaxS || threads != kThreads) return (int)cudaErrorInvalidValue;
   Group G;
   G.n = n;
@@ -230,7 +247,7 @@ extern "C" int masked_legendre_cos_f32(int n, const long long* table, void* cons
     P.a = static_cast<const float*>(ptrs[4 * i]);
     P.b = static_cast<const float*>(ptrs[4 * i + 1]);
     P.keep = static_cast<const uint8_t*>(ptrs[4 * i + 2]);
-    P.y = static_cast<float*>(ptrs[4 * i + 3]);
+    P.y = ptrs[4 * i + 3];
     P.a_so = t[0]; P.a_sq = t[1]; P.a_sm = t[2];
     P.b_so = t[3]; P.b_sq = t[4]; P.b_sk = t[5]; P.b_sc = t[6];
     P.kp_so = t[7]; P.kp_sq = t[8]; P.kp_sm = t[9];
@@ -247,8 +264,8 @@ extern "C" int masked_legendre_cos_f32(int n, const long long* table, void* cons
       smem = smem > 12LL * P.cpb * (P.M + P.K) ? smem : 12LL * P.cpb * (P.M + P.K);
     }
     if (P.vec4) {
-      const bool aligned = reinterpret_cast<uintptr_t>(P.y) % 16 == 0 && P.y_so % 4 == 0 && P.y_sq % 4 == 0 &&
-                           P.y_sl % 4 == 0;
+      const bool aligned = reinterpret_cast<uintptr_t>(P.y) % (4 * sizeof(TO)) == 0 && P.y_so % 4 == 0 &&
+                           P.y_sq % 4 == 0 && P.y_sl % 4 == 0;
       if (mk % 4 != 0 || P.y_sm != P.K || !aligned) return (int)cudaErrorInvalidValue;
       P.keep4 = P.kp_sm == P.K && P.kp_so % 4 == 0 && P.kp_sq % 4 == 0 &&
                 reinterpret_cast<uintptr_t>(P.keep) % 4 == 0;
@@ -260,12 +277,24 @@ extern "C" int masked_legendre_cos_f32(int n, const long long* table, void* cons
   if (first != blocks || smem != smem_bytes || first > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (blocks == 0) return 0;
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(masked_legendre_cos_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+    cudaError_t err = cudaFuncSetAttribute(masked_legendre_cos_kernel<TO>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  masked_legendre_cos_kernel<<<(unsigned)blocks, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(G);
+  masked_legendre_cos_kernel<TO><<<(unsigned)blocks, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(G);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int masked_legendre_cos_f32(int n, const long long* table, void* const* ptrs, int S,
+                                       const float* coef, int blocks, int threads, int smem_bytes, void* stream) {
+  return run<float>(n, table, ptrs, S, coef, blocks, threads, smem_bytes, stream);
+}
+
+extern "C" int masked_legendre_cos_bf16(int n, const long long* table, void* const* ptrs, int S,
+                                        const float* coef, int blocks, int threads, int smem_bytes, void* stream) {
+  return run<__nv_bfloat16>(n, table, ptrs, S, coef, blocks, threads, smem_bytes, stream);
 }
 
 extern "C" const char* masked_legendre_cos_error_string(int code) {

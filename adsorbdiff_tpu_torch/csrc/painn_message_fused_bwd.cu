@@ -89,10 +89,18 @@
 // scatter went to global REDs. Atomics make the order of the f32 sums into
 // dxh/dvec (with GLOBAL), dW and db differ from run to run. Not yet used:
 // tensor cores, TMA.
+//
+// The bf16 variants (PaiNN training with compute_dtype: bfloat16): xh in
+// bf16, vec in bf16 or f32, widened where they are loaded (into the same f32
+// shared memory when staged: the plan and layout are the f32 ones); W, the
+// cotangents and every sum stay f32, and the recomputed basis is NOT rounded
+// to bf16 (the TPU backward's jnp.dot(basis, w) in f32, unlike its forward).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "dtype.cuh"
 
 namespace {
 
@@ -125,6 +133,17 @@ __device__ __forceinline__ int edge_bin(float d, int R) {
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(ok ? 4 : 0));
+}
+
+// One element into the f32 shared memory (zero where !ok): by cp.async for
+// float, by a widening load and a store for bf16.
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, const T* src, bool ok) {
+  if constexpr (dtype::kF32<T>) {
+    cp_async4(dst, src, ok);
+  } else {
+    *dst = ok ? dtype::ldg(src) : 0.f;
+  }
 }
 
 // One block (of kWarps warps) per system: its valid slots (mask set, source
@@ -196,8 +215,12 @@ __global__ void __launch_bounds__(kThreads) painn_bwd_sort_kernel(
   }
 }
 
+// TX: xh (float or bf16); TV: vec
+template <typename TX, typename TV>
 struct Args {
-  const float *xh, *vec, *dist, *unit, *w, *bias, *gdx, *gdv;
+  const TX* xh;
+  const TV* vec;
+  const float *dist, *unit, *w, *bias, *gdx, *gdv;
   const int32_t* src;
   const int32_t* order;
   const int32_t* starts;
@@ -207,8 +230,8 @@ struct Args {
   int p;
 };
 
-template <int HC, bool STAGE, bool GLOBAL>
-__global__ void __launch_bounds__(kThreads, 1) painn_bwd_kernel(const Args a) {
+template <typename TX, typename TV, int HC, bool STAGE, bool GLOBAL>
+__global__ void __launch_bounds__(kThreads, 1) painn_bwd_kernel(const Args<TX, TV> a) {
   constexpr int EL = 32 / HC;    // lanes that share a column: edge groups in a warp
   constexpr int TE = kTile / EL;  // edges a thread holds
   constexpr int C3 = 3 * HC;
@@ -236,8 +259,8 @@ __global__ void __launch_bounds__(kThreads, 1) painn_bwd_kernel(const Args a) {
   const int hc = h_ok ? h : 0;  // clamped column for loads on idle lanes
   const int F = 3 * H;
   const size_t sys = (size_t)b * N;  // the system's first row
-  const float* xh_b = a.xh + sys * F;
-  const float* vec_b = a.vec + sys * F;
+  const TX* xh_b = a.xh + sys * F;
+  const TV* vec_b = a.vec + sys * F;
   const float* gdx_b = a.gdx + sys * H;
   const float* gdv_b = a.gdv + sys * F;
   float* dxh_b = a.dxh + sys * F;
@@ -255,8 +278,8 @@ __global__ void __launch_bounds__(kThreads, 1) painn_bwd_kernel(const Args a) {
       const int s = i / C3, j = (i - s * C3) / HC, c = i % HC;
       const bool ok = h0 + c < H;
       const size_t g = (size_t)s * F + j * H + (ok ? h0 + c : 0);
-      cp_async4(x_s + i, xh_b + g, ok);
-      cp_async4(v_s + i, vec_b + g, ok);
+      stage(x_s + i, xh_b + g, ok);
+      stage(v_s + i, vec_b + g, ok);
     }
   }
   asm volatile("cp.async.commit_group;\n" ::);
@@ -398,8 +421,10 @@ __global__ void __launch_bounds__(kThreads, 1) painn_bwd_kernel(const Args a) {
         xg0 = xr[0], xg1 = xr[HC], xg2 = xr[2 * HC];
         vg0 = vr[0], vg1 = vr[HC], vg2 = vr[2 * HC];
       } else {
-        xg0 = __ldg(xh_b + row + hc), xg1 = __ldg(xh_b + row + H + hc), xg2 = __ldg(xh_b + row + 2 * H + hc);
-        vg0 = __ldg(vec_b + row + hc), vg1 = __ldg(vec_b + row + H + hc), vg2 = __ldg(vec_b + row + 2 * H + hc);
+        xg0 = dtype::ldg(xh_b + row + hc), xg1 = dtype::ldg(xh_b + row + H + hc);
+        xg2 = dtype::ldg(xh_b + row + 2 * H + hc);
+        vg0 = dtype::ldg(vec_b + row + hc), vg1 = dtype::ldg(vec_b + row + H + hc);
+        vg2 = dtype::ldg(vec_b + row + 2 * H + hc);
       }
       const float f0 = acc[i][0] + b0, f1 = acc[i][1] + b1, f2 = acc[i][2] + b2;
       const float ghat1 = (vg0 * gv0 + vg1 * gv1 + vg2 * gv2) * inv_sqrt3;
@@ -499,7 +524,7 @@ __global__ void __launch_bounds__(kThreads, 1) painn_bwd_kernel(const Args a) {
       const int s = i / C3, j = (i - s * C3) / HC, c = i % HC;
       if (h0 + c < H) {
         const size_t row = (size_t)s * F;
-        const float x1 = STAGE ? x_s[s * C3 + HC + c] : __ldg(xh_b + row + H + h0 + c);
+        const float x1 = STAGE ? x_s[s * C3 + HC + c] : dtype::ldg(xh_b + row + H + h0 + c);
         dxh_b[row + j * H + h0 + c] = acc_x[i];
         dvec_b[row + j * H + h0 + c] = acc_v[i] * x1 * inv_sqrt3;
       }
@@ -507,44 +532,30 @@ __global__ void __launch_bounds__(kThreads, 1) painn_bwd_kernel(const Args a) {
   }
 }
 
-template <int HC, bool STAGE, bool GLOBAL>
-cudaError_t launch(const Args& a, int B, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(painn_bwd_kernel<HC, STAGE, GLOBAL>,
+template <typename TX, typename TV, int HC, bool STAGE, bool GLOBAL>
+cudaError_t launch(const Args<TX, TV>& a, int B, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(painn_bwd_kernel<TX, TV, HC, STAGE, GLOBAL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((a.H + HC - 1) / HC), (unsigned)B);
-  painn_bwd_kernel<HC, STAGE, GLOBAL><<<grid, kThreads, smem, stream>>>(a);
+  painn_bwd_kernel<TX, TV, HC, STAGE, GLOBAL><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool STAGE, bool GLOBAL>
-cudaError_t launch_cols(int cols, const Args& a, int B, size_t smem, cudaStream_t stream) {
+template <typename TX, typename TV, bool STAGE, bool GLOBAL>
+cudaError_t launch_cols(int cols, const Args<TX, TV>& a, int B, size_t smem, cudaStream_t stream) {
   switch (cols) {
-    case 32: return launch<32, STAGE, GLOBAL>(a, B, smem, stream);
-    case 16: return launch<16, STAGE, GLOBAL>(a, B, smem, stream);
-    default: return launch<8, STAGE, GLOBAL>(a, B, smem, stream);
+    case 32: return launch<TX, TV, 32, STAGE, GLOBAL>(a, B, smem, stream);
+    case 16: return launch<TX, TV, 16, STAGE, GLOBAL>(a, B, smem, stream);
+    default: return launch<TX, TV, 8, STAGE, GLOBAL>(a, B, smem, stream);
   }
 }
 
-}  // namespace
-
-// Plain C interface (loaded with ctypes). All pointers are device pointers of
-// contiguous tensors: xh, vec [B,N,3H] f32; src [B,N,K] i32; dist [B,N,K] f32;
-// mask [B,N,K] bool (1 byte); unit [B,N,K,3] f32; w [R,3H] f32; bias [3H] f32;
-// gdx [B,N,H] f32; gdv [B,N,3,H] f32. dw [R,3H] and db [3H] f32 must be
-// zeroed by the caller: the kernel adds into them. dxh, dvec [B,N,3H] are
-// written whole, except with global_scatter, where they must be zeroed too.
-// scratch: int32, B N K + 17 B entries. The plan (ops/kernels.py::
-// painn_bwd_plan): cols (8, 16 or 32 columns h a block), stage,
-// global_scatter and smem_bytes must equal this file's layout, else
-// cudaErrorInvalidValue. Needs 2 <= R <= 128. Launches the sort and the main
-// kernel on `stream` and returns cudaGetLastError() after them (0 = success).
-extern "C" int painn_message_fused_bwd_f32(
-    const void* xh, const void* vec, const void* src, const void* dist,
-    const void* mask, const void* unit, const void* w, const void* bias,
-    const void* gdx, const void* gdv, void* dxh, void* dvec, void* dw, void* db, void* scratch,
-    int B, int N, int K, int R, int H, float inv_cutoff, int envelope_exponent,
-    int cols, int stage, int global_scatter, int smem, void* stream) {
+template <typename TX, typename TV>
+int run(const void* xh, const void* vec, const void* src, const void* dist, const void* mask, const void* unit,
+        const void* w, const void* bias, const void* gdx, const void* gdv, void* dxh, void* dvec, void* dw, void* db,
+        void* scratch, int B, int N, int K, int R, int H, float inv_cutoff, int envelope_exponent, int cols,
+        int stage, int global_scatter, int smem, void* stream) {
   if (B <= 0 || N <= 0 || K <= 0 || H <= 0) return 0;
   if (R < 2 || R > kMaxR) return (int)cudaErrorInvalidValue;
   if ((cols != 8 && cols != 16 && cols != 32) || (stage && global_scatter) ||
@@ -559,9 +570,9 @@ extern "C" int painn_message_fused_bwd_f32(
       R, inv_cutoff, order, starts);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  Args a;
-  a.xh = static_cast<const float*>(xh);
-  a.vec = static_cast<const float*>(vec);
+  Args<TX, TV> a;
+  a.xh = static_cast<const TX*>(xh);
+  a.vec = static_cast<const TV*>(vec);
   a.dist = static_cast<const float*>(dist);
   a.unit = static_cast<const float*>(unit);
   a.w = static_cast<const float*>(w);
@@ -582,9 +593,38 @@ extern "C" int painn_message_fused_bwd_f32(
   a.inv_cutoff = inv_cutoff;
   a.p = envelope_exponent;
   const size_t bytes = (size_t)smem;
-  if (global_scatter) return (int)launch_cols<false, true>(cols, a, B, bytes, s);
-  return (int)(stage ? launch_cols<true, false>(cols, a, B, bytes, s) : launch_cols<false, false>(cols, a, B, bytes, s));
+  if (global_scatter) return (int)launch_cols<TX, TV, false, true>(cols, a, B, bytes, s);
+  return (int)(stage ? launch_cols<TX, TV, true, false>(cols, a, B, bytes, s)
+                     : launch_cols<TX, TV, false, false>(cols, a, B, bytes, s));
 }
+
+}  // namespace
+
+// Plain C interface (loaded with ctypes). All pointers are device pointers of
+// contiguous tensors: xh, vec [B,N,3H]; src [B,N,K] i32; dist [B,N,K] f32;
+// mask [B,N,K] bool (1 byte); unit [B,N,K,3] f32; w [R,3H] f32; bias [3H] f32;
+// gdx [B,N,H] f32; gdv [B,N,3,H] f32. The entries: painn_message_fused_bwd_f32
+// (xh, vec f32), _bf16 (xh, vec bf16) and _bf16_vf32 (xh bf16, vec f32). dw
+// [R,3H] and db [3H] f32 must be
+// zeroed by the caller: the kernel adds into them. dxh, dvec [B,N,3H] are
+// written whole, except with global_scatter, where they must be zeroed too.
+// scratch: int32, B N K + 17 B entries. The plan (ops/kernels.py::
+// painn_bwd_plan): cols (8, 16 or 32 columns h a block), stage,
+// global_scatter and smem_bytes must equal this file's layout, else
+// cudaErrorInvalidValue. Needs 2 <= R <= 128. Launches the sort and the main
+// kernel on `stream` and returns cudaGetLastError() after them (0 = success).
+#define PAINN_BWD_ENTRY(NAME, TX, TV)                                                                              \
+  extern "C" int NAME(const void* xh, const void* vec, const void* src, const void* dist, const void* mask,        \
+                      const void* unit, const void* w, const void* bias, const void* gdx, const void* gdv,          \
+                      void* dxh, void* dvec, void* dw, void* db, void* scratch, int B, int N, int K, int R, int H,  \
+                      float inv_cutoff, int envelope_exponent, int cols, int stage, int global_scatter, int smem,   \
+                      void* stream) {                                                                              \
+    return run<TX, TV>(xh, vec, src, dist, mask, unit, w, bias, gdx, gdv, dxh, dvec, dw, db, scratch, B, N, K, R,  \
+                       H, inv_cutoff, envelope_exponent, cols, stage, global_scatter, smem, stream);               \
+  }
+PAINN_BWD_ENTRY(painn_message_fused_bwd_f32, float, float)
+PAINN_BWD_ENTRY(painn_message_fused_bwd_bf16, __nv_bfloat16, __nv_bfloat16)
+PAINN_BWD_ENTRY(painn_message_fused_bwd_bf16_vf32, __nv_bfloat16, float)
 
 extern "C" const char* painn_message_fused_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -44,7 +44,7 @@ so a reference ``.pt`` would not load into these names.
 transposes.
 
 Not ported yet (raise ``NotImplementedError``): ``compute_dtype="bfloat16"``
-(ROADMAP A.8) and ``grid_mode="e3nn"`` (reference checkpoint imports, ROADMAP
+(ROADMAP A.8 step 2) and ``grid_mode="e3nn"`` (reference checkpoint imports, ROADMAP
 A.10).
 """
 from __future__ import annotations
@@ -456,7 +456,7 @@ class EquiformerV2(nn.Module):
         device = resolve_device(device)
         if compute_dtype is not None:
             raise NotImplementedError(f"EquiformerV2 compute_dtype={compute_dtype!r} (bf16) is not ported yet "
-                                      "(ROADMAP A.8)")
+                                      "(ROADMAP A.8 step 2)")
         if grid_mode != "gauss":
             raise NotImplementedError(f"EquiformerV2 grid_mode={grid_mode!r} serves reference-checkpoint imports, "
                                       "not ported yet (ROADMAP A.10)")

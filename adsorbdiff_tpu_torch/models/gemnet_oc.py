@@ -37,6 +37,14 @@ which carries no gradient (the force heads are direct).  The quadruplet's
 c == d exclusion compares integer image keys (:func:`_img_key`), which the
 port packs in base 64: exact wherever the JAX package's base-16 key is
 exact, and still injective where that one collides (offsets past 7).
+
+``compute_dtype="bfloat16"`` is the JAX model's bf16 feature path: every
+Dense layer and basis embedding computes in bf16 (f32 parameters, cast where
+used), the triplet bases come out of the Legendre kernel in bf16, the
+quadruplet chain writes a bf16 ``outer`` (its ``xm`` and ``qp`` stay f32: the
+f32 scale factors widen them, as in JAX), and the heads' final products, the
+pair bilinear and the outputs are f32 (JAX's promotion of a bf16 input
+against an f32 parameter).
 """
 from __future__ import annotations
 
@@ -52,7 +60,8 @@ from adsorbdiff_tpu_torch.data.schema import AtomsBatch
 from adsorbdiff_tpu_torch.device import DeviceLike, resolve_device
 from adsorbdiff_tpu_torch.models.base import (derive_subgraph, generate_graph, prepare_candidate_graph,
                                               prepare_static_graph)
-from adsorbdiff_tpu_torch.models.layers import AtomEmbedding, RadialBasis, ScaleFactor, lecun_normal_, scaled_silu
+from adsorbdiff_tpu_torch.models.layers import (AtomEmbedding, Linear, RadialBasis, ScaleFactor, lecun_normal_, mul,
+                                                resolve_compute_dtype, scaled_silu)
 from adsorbdiff_tpu_torch.ops import pbc
 from adsorbdiff_tpu_torch.ops.kernels import gemnet_cbf_bases, gemnet_quad_chain, legendre_y_l0
 
@@ -64,12 +73,12 @@ KEY_BASE, KEY_BIAS = 64, 32  # _img_key digits: offsets in [-32, 31]
 # small layers (reference layers/base_layers.py, efficient.py)
 # --------------------------------------------------------------------------
 class DenseLayer(nn.Module):
-    """Bias-free linear layer (``.linear``), then scaled SiLU unless
-    ``activation=False``."""
+    """Bias-free linear layer (``.linear``, computing in its ``cdt`` where
+    the model sets one), then scaled SiLU unless ``activation=False``."""
 
     def __init__(self, d_in: int, d_out: int, activation: bool = True) -> None:
         super().__init__()
-        self.linear = nn.Linear(d_in, d_out, bias=False)
+        self.linear = Linear(d_in, d_out, bias=False)
         self.activation = activation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -85,7 +94,7 @@ class ResidualLayer(nn.Module):
         self.dense_mlp = nn.Sequential(DenseLayer(units, units), DenseLayer(units, units))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (x + self.dense_mlp(x)) * INV_SQRT_2
+        return mul(x + self.dense_mlp(x), INV_SQRT_2)
 
 
 class MLPStack(nn.Sequential):
@@ -99,23 +108,29 @@ class MLPStack(nn.Sequential):
 
 class BasisEmbedding(nn.Module):
     """Radial (x spherical) basis -> embedding by a learned tensor, in the
-    reference's layouts (see the module docstring)."""
+    reference's layouts (see the module docstring); with ``cdt`` (set by the
+    model) the bases and the weight are cast to it, as JAX casts them."""
 
     def __init__(self, num_radial: int, emb_size: int, num_spherical: Optional[int] = None) -> None:
         super().__init__()
         self.num_spherical = num_spherical
         shape = (emb_size, num_radial) if num_spherical is None else (num_radial, num_spherical, emb_size)
         self.weight = nn.Parameter(torch.empty(shape))
+        self.cdt: Optional[torch.dtype] = None
 
     def forward(self, rad: torch.Tensor, sph: Optional[torch.Tensor] = None, radw_only: bool = False) -> torch.Tensor:
         """``rad [..., R]`` -> ``[..., F]``.  With a spherical axis:
         ``radw_only`` returns the radial contraction ``[..., F, S]``;
         otherwise ``sph [..., S]`` (broadcast against ``rad``) is contracted
         too."""
+        w = self.weight
+        if self.cdt is not None:
+            rad, w = rad.to(self.cdt), w.to(self.cdt)
+            sph = None if sph is None else sph.to(self.cdt)
         if self.num_spherical is None:
-            return rad @ self.weight.t()
-        r, s, f = self.weight.shape
-        radw = (rad @ self.weight.reshape(r, s * f)).unflatten(-1, (f, s))
+            return rad @ w.t()
+        r, s, f = w.shape
+        radw = (rad @ w.reshape(r, s * f)).unflatten(-1, (f, s))
         if radw_only:
             return radw
         return torch.matmul(radw, sph[..., None])[..., 0]
@@ -265,7 +280,7 @@ class OutputBlock(nn.Module):
         """OutputBlock: per-atom energy features and per-edge force features."""
         be = self.dense_rbf(basis_output)
         xe = self.scale_sum(torch.sum(torch.where(emask[..., None], m * be, 0.0), dim=2))
-        xe = (self.layers(xe) + h) * INV_SQRT_2
+        xe = mul(self.layers(xe) + h, INV_SQRT_2)
         xe = self.seq_energy2(xe)
         xf = self.scale_rbf_F(self.seq_forces(m) * self.dense_rbf_F(basis_output))
         return xe, xf
@@ -326,10 +341,11 @@ class GemNetOC(nn.Module):
 
     ``rbf``: ``{"name": "gaussian"}`` (the default), ``spherical_bessel`` or
     ``bernstein``, one trainable basis for each of the four graphs
-    (:class:`~adsorbdiff_tpu_torch.models.layers.RadialBasis`).  Not ported yet (raises ``NotImplementedError``):
-    ``compute_dtype`` (ROADMAP A.8).  ``fused_quad``, ``fused_trip`` and
-    ``use_pallas`` are accepted and ignored: the quadruplet interaction and
-    the triplet bases always run their kernels.
+    (:class:`~adsorbdiff_tpu_torch.models.layers.RadialBasis`).
+    ``compute_dtype``: ``None`` or ``"bfloat16"`` (the module docstring).
+    ``fused_quad``, ``fused_trip`` and ``use_pallas`` are accepted and
+    ignored: the quadruplet interaction and the triplet bases always run
+    their kernels.
     """
 
     def __init__(
@@ -388,8 +404,8 @@ class GemNetOC(nn.Module):
     ) -> None:
         super().__init__()
         device = resolve_device(device)
-        if compute_dtype is not None:
-            raise NotImplementedError(f"GemNetOC compute_dtype={compute_dtype!r} is not ported yet (ROADMAP A.8)")
+        self.compute_dtype = compute_dtype
+        self.cdt = resolve_compute_dtype(compute_dtype)
         if mode not in ("s2ef", "denoising"):
             raise ValueError(f"GemNetOC mode must be 's2ef' or 'denoising', got {mode!r}")
         if energy_encoding not in (None, "scalar"):
@@ -477,6 +493,16 @@ class GemNetOC(nn.Module):
         if self.so3_denoising:
             self.out_mlp_F_so3 = MLPStack(emb_size_edge * (num_blocks + 1), emb_size_edge, num_global_out_layers)
             self.out_forces_so3 = DenseLayer(emb_size_edge, 1, activation=False)
+        # the compute dtype of every Dense layer and basis embedding, but the
+        # layers JAX builds as plain f32 products (the pair bilinear's
+        # ``h_a2a_f @ w_aa``, the heads' ``nn.Dense(1)``): those promote
+        for module in self.modules():
+            if isinstance(module, (Linear, BasisEmbedding)):
+                module.cdt = self.cdt
+        f32_layers = [self.out_energy, self.out_forces] + ([self.out_forces_so3] if self.so3_denoising else [])
+        f32_layers += [blk.atom_interaction.bilinear for blk in self.int_blocks if atom_interaction]
+        for layer in f32_layers:
+            layer.linear.cdt = None
         self.reset_parameters(generator)
         self.to(device)
 
@@ -575,7 +601,7 @@ class GemNetOC(nn.Module):
         if self.edge_atom_interaction:
             trip_mask_e2a = nl_ae.mask[:, :, :, None] & emask[:, :, None, :] & ~same_ae.transpose(2, 3)
             trip_problems.append((unit_ae, unit, trip_mask_e2a.contiguous()))  # e2a: [B,N,S,Kae,K1]
-        cbf_e2e, *cbf_ae = gemnet_cbf_bases(trip_problems, s)
+        cbf_e2e, *cbf_ae = gemnet_cbf_bases(trip_problems, s, self.cdt or torch.float32)
         radw_tint = self.mlp_cbf_tint(rad_main, radw_only=True)  # [B,N,K1,F,S]
         rad_e2e = self.mlp_rbf_tint(rad_main)
 
@@ -613,8 +639,9 @@ class GemNetOC(nn.Module):
             key2 = _img_key(q_src_rows, q_off_rows + nl_q.cell_offsets[:, :, :, None, :])  # [B,N,Kq,K2]
             ya_m1 = torch.where(quad_m1[..., None], y_cab, 0.0)
             # (cab x radW) factor with m1 folded in, in the kernel's
-            # [B,N,U,S(j),Q,F] order; computed once for all blocks
-            quad_p = torch.einsum("bnuqi,bnufij->bnujqf", ya_m1, radw_sbf).contiguous()
+            # [B,N,U,S(j),Q,F] order; computed once for all blocks (in bf16:
+            # both factors in it, as JAX's cdt_cast)
+            quad_p = torch.einsum("bnuqi,bnufij->bnujqf", ya_m1.to(radw_sbf.dtype), radw_sbf).contiguous()
             n1, n2 = n1.contiguous(), n2.contiguous()
 
         if self.atom_edge_interaction or self.edge_atom_interaction:
@@ -670,7 +697,7 @@ class GemNetOC(nn.Module):
         def up(interaction, x):
             out = interaction.up_projection_ca(x)
             if self.symmetric_mp:
-                out = (out + swap_gather(interaction.up_projection_ac(x))) * INV_SQRT_2
+                out = mul(out + swap_gather(interaction.up_projection_ac(x)), INV_SQRT_2)
             return out
 
         n_eint = 2 + int(self.quad_interaction) + int(self.atom_edge_interaction)
@@ -691,7 +718,9 @@ class GemNetOC(nn.Module):
                 x_db = qi.down_projection(qi.scale_rbf(qi.dense_db(m) * qi.mlp_rbf(rad_qint_edges)))
                 x_db_t = qi.scale_cbf(_gather_rows(x_db, nl_q.src) * qi.mlp_cbf(cir_q))  # [B,N,Kq,K2,Qi]
                 xm = torch.where(quad_m2[..., None], x_db_t, 0.0).contiguous()
-                outer = gemnet_quad_chain(n1, n2, key1, key2, xm, quad_p, s)  # [B,N,K1,Fs,Qi]
+                # qp in xm's dtype (JAX's quad_p.astype(xm.dtype)); outer in the compute dtype
+                outer = gemnet_quad_chain(n1, n2, key1, key2, xm, quad_p.to(xm.dtype), s,
+                                          self.cdt or torch.float32)  # [B,N,K1,Fs,Qi]
                 x = x + up(qi, qi.scale_sbf_sum(qi.mlp_sbf(outer)))
 
             # atom -> edge triplets
@@ -702,7 +731,7 @@ class GemNetOC(nn.Module):
                 d_ae = torch.einsum("bnsuk,bnke->bnuse", cbf_a2e, x_h)
                 outer_ae = torch.einsum("bnufs,bnuse->bnufe", radw_aeint, d_ae)
                 x = x + up(ai, ai.scale_cbf_sum(ai.mlp_cbf(outer_ae)))
-            x = x * (1 / math.sqrt(n_eint))
+            x = mul(x, 1 / math.sqrt(n_eint))
 
             # edge -> atom triplets, aggregated into the atom
             h_new = h
@@ -719,12 +748,12 @@ class GemNetOC(nn.Module):
                 x_a = pi.down_projection(h)
                 h_a2a = torch.einsum("bnjf,bje->bnfe", basis_a2a, x_a).flatten(-2)
                 h_new = h_new + pi.up_projection(pi.scale_rbf_sum(pi.bilinear(h_a2a)))
-            h_mid = h_new * (1 / math.sqrt(n_aint))
+            h_mid = mul(h_new, 1 / math.sqrt(n_aint))
 
             # edge update residuals and skip
             for layer in blk.layers_before_skip:
                 x = layer(x)
-            m = (m + x) * INV_SQRT_2
+            m = mul(m + x, INV_SQRT_2)
             for layer in blk.layers_after_skip:
                 m = layer(m)
             m = torch.where(emask[..., None], m, 0.0)
@@ -734,13 +763,13 @@ class GemNetOC(nn.Module):
                 h_mid = layer(h_mid)
             au = blk.atom_update
             h2 = torch.sum(torch.where(emask[..., None], m * au.dense_rbf(basis_atom_update), 0.0), dim=2)
-            h = (h_mid + au.layers(au.scale_sum(h2))) * INV_SQRT_2
+            h = mul(h_mid + au.layers(au.scale_sum(h2)), INV_SQRT_2)
 
             # concat layer: refresh m with the updated atoms
             m2 = blk.concat_layer(h, m, nl.src)
             for layer in blk.residual_m:
                 m2 = layer(m2)
-            m = torch.where(emask[..., None], (m + m2) * INV_SQRT_2, 0.0)
+            m = torch.where(emask[..., None], mul(m + m2, INV_SQRT_2), 0.0)
 
             xe, xf = self.out_blocks[blk_idx + 1](h, m, basis_output, emask)
             xs_e.append(xe)

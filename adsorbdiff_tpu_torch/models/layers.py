@@ -2,10 +2,12 @@
 
 Port of :mod:`adsorbdiff_tpu.models.layers`: the gaussian basis (PaiNN's
 and EquiformerV2's) and the trainable spherical-Bessel and Bernstein bases
-(GemNet-OC's ``rbf`` options).
+(GemNet-OC's ``rbf`` options), and the compute dtype of ``compute_dtype:
+bfloat16`` (:func:`resolve_compute_dtype`, :class:`Linear`).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Union
 
@@ -14,9 +16,59 @@ import torch
 from torch import nn
 
 
+def resolve_compute_dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    """A model's ``compute_dtype`` config value as a torch dtype: ``None``
+    (full precision) or ``"bfloat16"``; anything else raises ``ValueError``.
+    The port's counterpart of the JAX package's ``compute_dtype_scope``: a
+    model resolves it once at construction and hands it to its layers."""
+    if name is None:
+        return None
+    if name == "bfloat16":
+        return torch.bfloat16
+    raise ValueError(f"compute_dtype must be None or 'bfloat16', got {name!r}")
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes as flax's ``nn.Dense(dtype=cdt)``: with
+    ``cdt`` set, input, weight and bias are cast to it (the f32 parameters
+    get their gradient through the cast); with ``cdt=None``, in the
+    promoted dtype of input and weight (a bf16 input meets an f32 layer as
+    it does in JAX: widened)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 cdt: Optional[torch.dtype] = None) -> None:
+        super().__init__(in_features, out_features, bias=bias)
+        self.cdt = cdt
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.cdt or torch.promote_types(x.dtype, self.weight.dtype)
+        if dt == x.dtype == self.weight.dtype:  # nothing to cast (the f32 path)
+            return torch.nn.functional.linear(x, self.weight, self.bias)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return torch.nn.functional.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded_scalar(c: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(c, dtype=dtype))
+
+
+def mul(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x * c`` as JAX computes it for a Python float ``c``: ``c`` is weakly
+    typed, so a bf16 ``x`` meets ``c`` rounded to bf16 (``1/sqrt(2)`` becomes
+    0.70703125); torch would multiply by the unrounded ``c``.  For f32 ``x``
+    it is ``x * c``."""
+    return x * (c if x.dtype == torch.float32 else _rounded_scalar(c, x.dtype))
+
+
 def scaled_silu(x: torch.Tensor) -> torch.Tensor:
-    """SiLU * 1/0.6 (GemNet-OC's ScaledSiLU)."""
-    return torch.nn.functional.silu(x) * (1.0 / 0.6)
+    """SiLU * 1/0.6 (GemNet-OC's ScaledSiLU).  In bf16 it rounds where JAX
+    does: ``jax.nn.silu`` is ``x * 1 / (1 + exp(-x))`` with each step rounded
+    to bf16, and 1/0.6 is the bf16 1.6640625 (a Python float, weakly typed);
+    torch's fused SiLU would round once, and bias the result by ~0.2%."""
+    if x.dtype == torch.float32:
+        return torch.nn.functional.silu(x) * (1.0 / 0.6)
+    return mul(x * (1.0 / (1.0 + torch.exp(-x))), 1.0 / 0.6)
 
 
 class ScaledSiLU(nn.Module):
@@ -154,7 +206,9 @@ class ScaleFactor(nn.Module):
         self.register_buffer("scale_factor", torch.tensor(float(value)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.scale_factor
+        # the product's dtype is JAX's: a bf16 x times the f32 factor is f32
+        # (torch would keep a 0-dim factor's product in bf16)
+        return x.to(torch.promote_types(x.dtype, self.scale_factor.dtype)) * self.scale_factor
 
 
 def lecun_normal_(weight: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -31,15 +31,19 @@ from adsorbdiff_tpu_torch.common.registry import registry
 from adsorbdiff_tpu_torch.data.schema import AtomsBatch
 from adsorbdiff_tpu_torch.device import DeviceLike, resolve_device
 from adsorbdiff_tpu_torch.models.base import generate_graph, prepare_candidate_graph, prepare_static_graph
-from adsorbdiff_tpu_torch.models.layers import AtomEmbedding, ScaledSiLU, ScaleFactor, lecun_normal_, scaled_silu
+from adsorbdiff_tpu_torch.models.layers import (AtomEmbedding, Linear, ScaledSiLU, ScaleFactor, lecun_normal_, mul,
+                                                resolve_compute_dtype, scaled_silu)
 from adsorbdiff_tpu_torch.ops.kernels import painn_message_fused
 from adsorbdiff_tpu_torch.ops.pbc import CandidateTable, NeighborList, StaticGraphPart
 
 
 class PaiNNMessage(nn.Module):
-    """Message block (reference painn_denoising.py:498-572)."""
+    """Message block (reference painn_denoising.py:498-572).  With ``cdt``
+    (bf16) the two ``x_proj`` layers compute in it; the LayerNorm computes
+    in f32 on the widened input, as flax's does."""
 
-    def __init__(self, hidden_channels: int, num_rbf: int, cutoff: float = 12.0, envelope_exponent: int = 5) -> None:
+    def __init__(self, hidden_channels: int, num_rbf: int, cutoff: float = 12.0, envelope_exponent: int = 5,
+                 cdt: Optional[torch.dtype] = None) -> None:
         super().__init__()
         h = hidden_channels
         self.hidden_channels = h
@@ -47,7 +51,7 @@ class PaiNNMessage(nn.Module):
         self.envelope_exponent = envelope_exponent
         # flax nn.LayerNorm's epsilon (torch's default is 1e-5)
         self.x_layernorm = nn.LayerNorm(h, eps=1e-6)
-        self.x_proj = nn.Sequential(nn.Linear(h, h), ScaledSiLU(), nn.Linear(h, 3 * h))
+        self.x_proj = nn.Sequential(Linear(h, h, cdt=cdt), ScaledSiLU(), Linear(h, 3 * h, cdt=cdt))
         self.rbf_proj = nn.Linear(num_rbf, 3 * h)
 
     def forward(
@@ -55,16 +59,17 @@ class PaiNNMessage(nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         b, n, k = nl.src.shape
         h = self.hidden_channels
-        xh = self.x_proj(self.x_layernorm(x))  # [B, N, 3H]
+        xh = self.x_proj(self.x_layernorm(x.float()))  # [B, N, 3H]
         # the kernel takes the raw nl.dist (not the 1e-3-clamped edge_dist);
-        # the two differ only on masked slots
+        # the two differ only on masked slots; f32 unit vectors (in bf16 the
+        # trunk's rounded ones, widened as JAX widens them)
         dx, dvec = painn_message_fused(
             xh,
             vec.reshape(b, n, 3 * h).contiguous(),
             nl.src,
             nl.dist,
             nl.mask,
-            edge_unit,
+            edge_unit.float(),
             self.rbf_proj.weight.t().contiguous(),  # [R, 3H]
             self.rbf_proj.bias,
             cutoff=self.cutoff,
@@ -74,26 +79,27 @@ class PaiNNMessage(nn.Module):
 
 
 class PaiNNUpdate(nn.Module):
-    """Node update block (reference painn_denoising.py:575-623)."""
+    """Node update block (reference painn_denoising.py:575-623); its three
+    layers compute in ``cdt`` where given."""
 
-    def __init__(self, hidden_channels: int) -> None:
+    def __init__(self, hidden_channels: int, cdt: Optional[torch.dtype] = None) -> None:
         super().__init__()
         h = hidden_channels
         self.hidden_channels = h
-        self.vec_proj = nn.Linear(h, 2 * h, bias=False)
-        self.xvec_proj = nn.Sequential(nn.Linear(2 * h, h), ScaledSiLU(), nn.Linear(h, 3 * h))
+        self.vec_proj = Linear(h, 2 * h, bias=False, cdt=cdt)
+        self.xvec_proj = nn.Sequential(Linear(2 * h, h, cdt=cdt), ScaledSiLU(), Linear(h, 3 * h, cdt=cdt))
 
     def forward(self, x: torch.Tensor, vec: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         h = self.hidden_channels
         vec1, vec2 = torch.split(self.vec_proj(vec), h, dim=-1)  # [B, N, 3, H] each
-        vec_dot = torch.sum(vec1 * vec2, dim=-2) * (1.0 / math.sqrt(h))
+        vec_dot = mul(torch.sum(vec1 * vec2, dim=-2), 1.0 / math.sqrt(h))
         # epsilon under the sqrt keeps the gradient finite at vec2 == 0
         vec2_norm = torch.sqrt(torch.sum(vec2 * vec2, dim=-2) + 1e-8)
         xvec = self.xvec_proj(torch.cat([x, vec2_norm], dim=-1))
         xvec1, xvec2, xvec3 = torch.split(xvec, h, dim=-1)
-        dx = (xvec1 + xvec2 * vec_dot) * (1.0 / math.sqrt(2.0))
+        dx = mul(xvec1 + xvec2 * vec_dot, 1.0 / math.sqrt(2.0))
         dvec = xvec3[:, :, None, :] * vec1
-        return dx, dvec
+        return dx.to(x.dtype), dvec.to(x.dtype)
 
 
 class GatedEquivariantBlock(nn.Module):
@@ -154,7 +160,15 @@ class PaiNN(nn.Module):
     remap).  ``use_pallas`` is accepted for config compatibility and ignored:
     the message block always runs the fused kernel.
 
-    Not ported yet (raises ``NotImplementedError``): ``compute_dtype="bfloat16"``.
+    ``compute_dtype="bfloat16"``: the JAX model's bf16 trunk.  The atom
+    features, the vector features and the unit edge vectors are cast to bf16
+    before the first layer; the message and update layers compute in bf16
+    (f32 parameters, cast where used); each block's outputs take the
+    features' dtype, and the f32 scale factor widens the scalar features
+    from the first layer's end on (JAX's promotion), the vector features
+    from the second layer's message on; the heads compute in f32 on widened
+    features.  The fused message kernel then takes bf16 ``xh`` (its
+    ``painn_message_fused.bf16`` launches).
     """
 
     def __init__(
@@ -183,8 +197,6 @@ class PaiNN(nn.Module):
         device = resolve_device(device)
         if mode not in ("denoising", "s2ef"):
             raise ValueError(f"PaiNN mode must be 'denoising' or 's2ef', got {mode!r}")
-        if compute_dtype is not None:
-            raise NotImplementedError(f"PaiNN compute_dtype={compute_dtype!r} is not ported yet (ROADMAP A.8)")
         if energy_encoding not in (None, "scalar"):
             raise ValueError(f"PaiNN energy_encoding must be None or 'scalar', got {energy_encoding!r}")
         rbf_name = (rbf or {"name": "gaussian"}).get("name", "gaussian")
@@ -204,6 +216,8 @@ class PaiNN(nn.Module):
         self.max_ads = max_ads
         self.sampling = sampling
         self.tag_based_z = tag_based_z
+        self.compute_dtype = compute_dtype
+        self.cdt = resolve_compute_dtype(compute_dtype)
         exponent = int(env.get("exponent", 5))
 
         h = hidden_channels
@@ -211,9 +225,10 @@ class PaiNN(nn.Module):
         if energy_encoding == "scalar":
             self.energy_embedding = nn.Linear(1, h)
         self.message_layers = nn.ModuleList(
-            PaiNNMessage(h, num_rbf, cutoff=cutoff, envelope_exponent=exponent) for _ in range(num_layers)
+            PaiNNMessage(h, num_rbf, cutoff=cutoff, envelope_exponent=exponent, cdt=self.cdt)
+            for _ in range(num_layers)
         )
-        self.update_layers = nn.ModuleList(PaiNNUpdate(h) for _ in range(num_layers))
+        self.update_layers = nn.ModuleList(PaiNNUpdate(h, cdt=self.cdt) for _ in range(num_layers))
         for i in range(num_layers):
             self.add_module(f"upd_out_scalar_scale_{i}", ScaleFactor())
         if self.s2ef:
@@ -265,15 +280,18 @@ class PaiNN(nn.Module):
             e = torch.zeros_like(batch.energy) if self.sampling else batch.energy
             x = x + self.energy_embedding(e[:, None].to(x.dtype))[:, None, :]
         vec = torch.zeros(x.shape[:2] + (3, self.hidden_channels), dtype=x.dtype, device=x.device)
+        if self.cdt is not None:
+            x, vec, edge_unit = x.to(self.cdt), vec.to(self.cdt), edge_unit.to(self.cdt)
         inv_sqrt_2 = 1 / math.sqrt(2.0)
         for i in range(self.num_layers):
             dx, dvec = self.message_layers[i](x, vec, nl, edge_unit)
-            x = (x + dx) * inv_sqrt_2
+            x = mul(x + dx, inv_sqrt_2)
             vec = vec + dvec
             dx, dvec = self.update_layers[i](x, vec)
             x = x + dx
             vec = vec + dvec
             x = getattr(self, f"upd_out_scalar_scale_{i}")(x)
+        x, vec = x.float(), vec.float()
 
         atom3 = batch.atom_mask[..., None]
         forces = torch.where(atom3, self.out_forces(x, vec), 0.0)

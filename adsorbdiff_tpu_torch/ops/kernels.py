@@ -12,6 +12,13 @@ Counterpart of :mod:`adsorbdiff_tpu.ops.pallas_kernels`.  Each kernel has:
 - a launch count in :data:`launches`, raised by one where the wrapper
   launches the kernel and nowhere else.
 
+Four kernels also take bf16 (the models' ``compute_dtype: bfloat16``), each
+rounding where its TPU kernel rounds: ``painn_message_fused`` and its
+backward (bf16 ``xh``, ``vec`` bf16 or f32), ``masked_legendre_cos`` (a
+bf16 output) and ``gemnet_quad_chain`` (a bf16 output).
+Their plain versions take the same dtypes and round at the same points;
+a launch of a bf16 variant counts under ``<kernel>.bf16``.
+
 A kernel with a backward is wrapped in a ``torch.autograd.Function``
 (:class:`PainnMessageFused`, :class:`S2GridSilu`, :class:`EqV2AttnConv1`,
 :class:`EqV2EdgeRotate`, :class:`GemnetQuadChain`), which the forward wrapper
@@ -82,8 +89,15 @@ def painn_message_consumer_reference(
     """Plain PyTorch version of :func:`painn_message_consumer` (and of its
     tiled form): ``(dx [..., H], dvec [..., 3, H])``, with the whole
     ``[..., K, 3H]`` filter materialised."""
-    h = weights.shape[1] // 3
     filt = fused_rbf_filter_reference(dist, mask, weights, bias, cutoff=cutoff, envelope_exponent=envelope_exponent)
+    return _message_from_filter(filt, unit, xh_gathered, vec_gathered)
+
+
+def _message_from_filter(filt: torch.Tensor, unit: torch.Tensor, xh_gathered: torch.Tensor,
+                         vec_gathered: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The message sums over K of the gathered rows times the filter
+    ``[..., K, 3H]``, in f32."""
+    h = filt.shape[-1] // 3
     g = xh_gathered.float() * filt
     g1, g2, g3 = g[..., :h], g[..., h : 2 * h] * (1.0 / math.sqrt(3.0)), g[..., 2 * h :]
     dx = torch.sum(g1, dim=-2)
@@ -108,14 +122,21 @@ def painn_message_fused_reference(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`painn_message_fused`: the gather, then
     :func:`painn_message_consumer_reference` (the whole ``[B, N, K, 3H]``
-    filter and gathered features are materialised)."""
+    filter and gathered features are materialised).  With bf16 ``xh`` the
+    basis and W are rounded to bf16 before the filter product, which sums in
+    f32 (the TPU kernel's ``basis.astype(cdt)`` against ``weights.astype(cdt)``);
+    the gathers are exact and every later product is f32."""
     b, n, k = src.shape
     f3 = weight.shape[1]
     idx = src.reshape(b, n * k, 1).long().expand(-1, -1, f3)
     xh_g = torch.gather(xh.float(), 1, idx).reshape(b, n, k, f3)
     vec_g = torch.gather(vec.float(), 1, idx).reshape(b, n, k, f3)
-    return painn_message_consumer_reference(dist, mask, unit, xh_g, vec_g, weight, bias, cutoff=cutoff,
-                                            envelope_exponent=envelope_exponent)
+    if xh.dtype == torch.float32:
+        return painn_message_consumer_reference(dist, mask, unit, xh_g, vec_g, weight, bias, cutoff=cutoff,
+                                                envelope_exponent=envelope_exponent)
+    basis = message_basis(dist, weight.shape[0], cutoff, envelope_exponent).to(xh.dtype).float()
+    filt = (basis @ weight.to(xh.dtype).float() + bias.float()) * mask[..., None].float()
+    return _message_from_filter(filt, unit, xh_g, vec_g)
 
 
 def painn_message_fused_bwd_reference(
@@ -136,7 +157,9 @@ def painn_message_fused_bwd_reference(
     """Plain PyTorch version of :func:`painn_message_fused_bwd`, written out
     from the VJP formulas of the TPU kernel (``_painn_message_fused_bwd_kernel``),
     not by autograd.  Returns ``(dxh [B, N, 3H], dvec [B, N, 3H], dW [R, 3H],
-    db [3H])``; the ``[B, N, K, 3H]`` edge tensors are materialised."""
+    db [3H])`` f32; the ``[B, N, K, 3H]`` edge tensors are materialised.
+    bf16 ``xh``/``vec`` are widened exactly; the recomputed basis and W stay
+    f32 (unlike the forward's: the TPU backward does not round them)."""
     b, n, k = src.shape
     r, f3 = weight.shape
     h = f3 // 3
@@ -164,16 +187,18 @@ def painn_message_fused_bwd_reference(
     return dxh, dvec, dw, db
 
 
-def _library(name: str, argtypes) -> ctypes.CDLL:
-    """Kernel ``name``'s library, built on first use; its C entry point is
-    ``<name>_f32(..., stream)`` returning a cudaError code, and
-    ``<name>_error_string(code)`` names the code."""
+def _library(name: str, argtypes, variants: Tuple[str, ...] = ("f32",)) -> ctypes.CDLL:
+    """Kernel ``name``'s library, built on first use; its C entry points are
+    ``<name>_<variant>(..., stream)`` (one signature, ``argtypes``) returning
+    a cudaError code, and ``<name>_error_string(code)`` names the code."""
     lib = build.load(name)
-    fn = getattr(lib, name + "_f32")
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        msg = getattr(lib, name + "_error_string")
+    for variant in variants:
+        fn = getattr(lib, f"{name}_{variant}")
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    msg = getattr(lib, name + "_error_string")
+    if msg.argtypes is None:
         msg.argtypes = [ctypes.c_int]
         msg.restype = ctypes.c_char_p
     return lib
@@ -206,12 +231,12 @@ def _check_shapes(kernel: str, tensors: dict, expected: dict) -> None:
 
 
 def _launch(kernel: str, lib: ctypes.CDLL, device: torch.device, *args, count_as: Optional[str] = None,
-            shape: Optional[str] = None) -> None:
-    """Call ``<kernel>_f32(*args, stream)`` on the current stream of
+            shape: Optional[str] = None, variant: str = "f32") -> None:
+    """Call ``<kernel>_<variant>(*args, stream)`` on the current stream of
     ``device`` (made the current device for the call where it is not);
     raise on a non-zero cudaError (naming ``shape`` where given), else count
     the launch under ``count_as`` (default ``kernel``)."""
-    fn = getattr(lib, kernel + "_f32")
+    fn = getattr(lib, f"{kernel}_{variant}")
     if device.index == torch.cuda.current_device():
         err = fn(*args, _raw_stream(device))
     else:
@@ -242,8 +267,12 @@ def painn_message_fused(
     Shapes as :func:`painn_message_fused_reference`; ``weight`` is ``[R, 3H]``
     (the transpose of a torch ``Linear(R, 3H).weight``).  Returns
     ``(dx [B, N, H] f32, dvec [B, N, 3, H] f32)`` before PaiNN's 1/sqrt(H)
-    scale.  On the card: f32 only, contiguous inputs, ``src`` int32, ``mask``
-    bool; the launch is :func:`painn_fwd_plan`'s.  When autograd needs a
+    scale.  ``xh`` and ``vec`` are f32, or ``xh`` bf16 with ``vec`` bf16 or
+    f32 (the bf16 variant: basis and W rounded to bf16 before the filter
+    product, as the TPU kernel rounds them); everything else f32.  On the
+    card: contiguous inputs, ``src`` int32, ``mask`` bool; the launch is
+    :func:`painn_fwd_plan`'s (the bf16 rows widened into the same f32 shared
+    memory), counted under ``painn_message_fused.bf16`` for bf16 ``xh``.  When autograd needs a
     gradient the call goes through :class:`PainnMessageFused`, whose backward
     is :func:`painn_message_fused_bwd`; without one (sampling, ``no_grad``)
     it launches the forward kernel alone.
@@ -263,7 +292,9 @@ def _painn_message_fused_forward(
             cutoff=cutoff, envelope_exponent=envelope_exponent,
         )
     tensors = dict(xh=xh, vec=vec, src=src, dist=dist, mask=mask, unit=unit, weight=weight, bias=bias)
-    _check_cuda_inputs("painn_message_fused", tensors, {"src": torch.int32, "mask": torch.bool})
+    variant = _message_variant("painn_message_fused", xh, vec)
+    _check_cuda_inputs("painn_message_fused", tensors,
+                       {"src": torch.int32, "mask": torch.bool, "xh": xh.dtype, "vec": vec.dtype})
     b, n, k, r, h = _message_shape("painn_message_fused", tensors)
 
     if b * n * h == 0:  # empty output: nothing to launch
@@ -273,16 +304,39 @@ def _painn_message_fused_forward(
     plan = painn_fwd_plan(b, n, k, r, h, _sm_count(xh.device))
     dx = torch.empty((b, n, h), dtype=torch.float32, device=xh.device)
     dvec = torch.empty((b, n, 3, h), dtype=torch.float32, device=xh.device)
+    if variant != "f32":  # the TPU kernel's weights.astype(cdt): W in the features' dtype
+        weight = weight.to(xh.dtype)
     lib = _library("painn_message_fused", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-                   + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p], _MESSAGE_VARIANTS)
     _launch(
         "painn_message_fused", lib, xh.device,
         xh.data_ptr(), vec.data_ptr(), src.data_ptr(), dist.data_ptr(), mask.data_ptr(),
         unit.data_ptr(), weight.data_ptr(), bias.data_ptr(), dx.data_ptr(), dvec.data_ptr(),
         b, n, k, r, h, 1.0 / cutoff, int(envelope_exponent), plan.tpb, int(plan.stage_w), int(plan.stage_rows),
-        plan.rows, plan.smem_bytes, shape=f"B, N, K, R, H = {b}, {n}, {k}, {r}, {h}",
+        plan.rows, plan.smem_bytes, shape=f"B, N, K, R, H = {b}, {n}, {k}, {r}, {h}", variant=variant,
+        count_as="painn_message_fused" + _count_suffix(variant),
     )
     return dx, dvec
+
+
+# the message kernels' C entry points: f32 rows; bf16 xh and vec rows; bf16 xh with f32 vec rows (PaiNN's trunk in
+# bf16 from its second layer on: the f32 scale factor widens the vector features there, as in JAX)
+_MESSAGE_VARIANTS = ("f32", "bf16", "bf16_vf32")
+
+
+def _message_variant(kernel: str, xh: torch.Tensor, vec: torch.Tensor) -> str:
+    """The message kernels' entry for the dtypes of ``xh`` and ``vec``, or raise."""
+    if xh.dtype == torch.float32 and vec.dtype == torch.float32:
+        return "f32"
+    if xh.dtype == torch.bfloat16 and vec.dtype in (torch.bfloat16, torch.float32):
+        return "bf16" if vec.dtype == torch.bfloat16 else "bf16_vf32"
+    raise TypeError(f"{kernel}: xh and vec must be f32, or xh bf16 with vec bf16 or f32; got {xh.dtype}, "
+                    f"{vec.dtype}")
+
+
+def _count_suffix(variant: str) -> str:
+    """Launch-count suffix of a kernel variant: ``.bf16`` for any bf16 one."""
+    return "" if variant == "f32" else ".bf16"
 
 
 # csrc/painn_message_fused.cu's constants: owners (half-warps) a block, columns h a block, basis rows a pass, slots
@@ -435,8 +489,10 @@ def painn_message_fused_bwd(
     Inputs as :func:`painn_message_fused` plus the cotangents ``dx_ct
     [B, N, H]`` and ``dvec_ct [B, N, 3, H]``.  Returns ``(dxh [B, N, 3H],
     dvec [B, N, 3H], dW [R, 3H], db [3H])``, f32.  On the card: the forward's
-    input rules, f32 contiguous cotangents and R <= 128; the launch is
-    :func:`painn_bwd_plan`'s.  The kernel adds with atomics, so the order of
+    input rules (bf16 ``xh``, ``vec`` bf16 or f32: the bf16 variant, whose
+    recomputed basis and W stay f32 as the TPU backward keeps them; counted
+    under ``painn_message_fused_bwd.bf16``), f32 contiguous cotangents and R
+    <= 128; the launch is :func:`painn_bwd_plan`'s.  The kernel adds with atomics, so the order of
     its f32 sums changes from run to run.
     """
     if xh.device.type == "cpu":
@@ -446,7 +502,9 @@ def painn_message_fused_bwd(
         )
     tensors = dict(xh=xh, vec=vec, src=src, dist=dist, mask=mask, unit=unit, weight=weight, bias=bias,
                    dx_ct=dx_ct, dvec_ct=dvec_ct)
-    _check_cuda_inputs("painn_message_fused_bwd", tensors, {"src": torch.int32, "mask": torch.bool})
+    variant = _message_variant("painn_message_fused_bwd", xh, vec)
+    _check_cuda_inputs("painn_message_fused_bwd", tensors,
+                       {"src": torch.int32, "mask": torch.bool, "xh": xh.dtype, "vec": vec.dtype})
     b, n, k, r, h = _message_shape("painn_message_fused_bwd", tensors)
     _check_shapes("painn_message_fused_bwd", tensors, dict(dx_ct=(b, n, h), dvec_ct=(b, n, 3, h)))
     if r > 128:
@@ -465,14 +523,15 @@ def painn_message_fused_bwd(
     dvec = new((b, n, f3), dtype=torch.float32, device=xh.device)
     scratch = torch.empty((plan.scratch_ints,), dtype=torch.int32, device=xh.device)
     lib = _library("painn_message_fused_bwd", [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
-                   + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p], _MESSAGE_VARIANTS)
     _launch(
         "painn_message_fused_bwd", lib, xh.device,
         xh.data_ptr(), vec.data_ptr(), src.data_ptr(), dist.data_ptr(), mask.data_ptr(), unit.data_ptr(),
         weight.data_ptr(), bias.data_ptr(), dx_ct.data_ptr(), dvec_ct.data_ptr(),
         dxh.data_ptr(), dvec.data_ptr(), dw.data_ptr(), db.data_ptr(), scratch.data_ptr(),
         b, n, k, r, h, 1.0 / cutoff, int(envelope_exponent), plan.cols, int(plan.stage_rows),
-        int(plan.global_scatter), plan.smem_bytes,
+        int(plan.global_scatter), plan.smem_bytes, variant=variant,
+        count_as="painn_message_fused_bwd" + _count_suffix(variant),
     )
     return dxh, dvec, dw, db
 
@@ -937,16 +996,17 @@ def gemnet_quad_chain_reference(
     xm: torch.Tensor,  # [B, N, Q, K2, E]
     qp: torch.Tensor,  # [B, N, U, S, Q, F]
     num_spherical: int,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`gemnet_quad_chain` (the JAX
-    ``_quad_chain_ref``): the Legendre table ``[B, N, U, Q, K2, S]`` and
-    ``d2 [B, N, U, Q, S, E]`` are materialised."""
+    ``_quad_chain_ref`` on f32 ``xm`` and ``qp``, then the kernel's cast to
+    ``out_dtype``): the Legendre table ``[B, N, U, Q, K2, S]`` and ``d2 [B,
+    N, U, Q, S, E]`` are materialised."""
     cos = torch.clamp(torch.einsum("bnuqc,bnqkc->bnuqk", _unit_rows(n1), _unit_rows(n2)), -1.0, 1.0)
     k1 = key1[:, :, :, None, None]
     keep = (k1 != key2[:, :, None, :, :]) & (k1 >= 0)
-    y = _masked_legendre(cos, keep, num_spherical, dim=-1)
-    d2 = torch.einsum("bnuqks,bnqke->bnuqse", y, xm)
-    return torch.einsum("bnusqf,bnuqse->bnufe", qp, d2)
+    d2 = torch.einsum("bnuqks,bnqke->bnuqse", _masked_legendre(cos, keep, num_spherical, dim=-1), xm)
+    return torch.einsum("bnusqf,bnuqse->bnufe", qp, d2).to(out_dtype)
 
 
 def gemnet_quad_chain(
@@ -957,6 +1017,7 @@ def gemnet_quad_chain(
     xm: torch.Tensor,
     qp: torch.Tensor,
     num_spherical: int,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """GemNet-OC's quadruplet consumer, fused: dihedral cosine, Legendre
     basis, c==d exclusion from the integer image keys, the K2 contraction
@@ -964,9 +1025,14 @@ def gemnet_quad_chain(
     (``csrc/gemnet_quad_chain.cu``).
 
     Shapes as :func:`gemnet_quad_chain_reference`; ``qp`` has the true U (no
-    padding).  Returns ``outer [B, N, U, F, E]`` f32 for the qint bilinear.
-    On the card: f32 tensors, int32 keys, contiguous; the launch is
-    :func:`quad_chain_plan`'s.  When autograd needs a gradient of ``xm`` or
+    padding).  Returns ``outer [B, N, U, F, E]`` in ``out_dtype`` (f32 or
+    bf16, rounded once from f32 sums) for the qint bilinear.  ``xm`` and
+    ``qp`` are f32: GemNet-OC in bf16 passes f32 ones (its f32 scale factors
+    widen them, as in the JAX model) and a bf16 ``out_dtype``.  On the card:
+    f32 geometry, int32 keys, contiguous; the launch is
+    :func:`quad_chain_plan`'s (a bf16 output takes S <= 8, one pass of
+    levels), counted under ``gemnet_quad_chain.bf16`` for a bf16 output.
+    When autograd needs a gradient of ``xm`` or
     ``qp`` the call goes through :class:`GemnetQuadChain`, whose backward
     recomputes the plain version (:func:`gemnet_quad_chain_vjp`).  The
     geometry ``n1``/``n2`` gets no gradient on the card: a CUDA call where
@@ -976,18 +1042,21 @@ def gemnet_quad_chain(
     """
     if torch.is_grad_enabled() and (n1.requires_grad or n2.requires_grad):
         if n1.device.type == "cpu":
-            return gemnet_quad_chain_reference(n1, n2, key1, key2, xm, qp, num_spherical)
+            return gemnet_quad_chain_reference(n1, n2, key1, key2, xm, qp, num_spherical, out_dtype)
         raise NotImplementedError("gemnet_quad_chain: no gradient of the geometry n1/n2 on CUDA (the backward "
                                   "takes the cotangents of xm and qp only)")
     if torch.is_grad_enabled() and (xm.requires_grad or qp.requires_grad):
-        return GemnetQuadChain.apply(n1, n2, key1, key2, xm, qp, num_spherical)
-    return _gemnet_quad_chain_forward(n1, n2, key1, key2, xm, qp, num_spherical)
+        return GemnetQuadChain.apply(n1, n2, key1, key2, xm, qp, num_spherical, out_dtype)
+    return _gemnet_quad_chain_forward(n1, n2, key1, key2, xm, qp, num_spherical, out_dtype)
 
 
-def _gemnet_quad_chain_forward(n1, n2, key1, key2, xm, qp, num_spherical: int) -> torch.Tensor:
+def _gemnet_quad_chain_forward(n1, n2, key1, key2, xm, qp, num_spherical: int,
+                               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     if n1.device.type == "cpu":
-        return gemnet_quad_chain_reference(n1, n2, key1, key2, xm, qp, num_spherical)
+        return gemnet_quad_chain_reference(n1, n2, key1, key2, xm, qp, num_spherical, out_dtype)
     tensors = dict(n1=n1, n2=n2, key1=key1, key2=key2, xm=xm, qp=qp)
+    if out_dtype not in _QUAD_VARIANTS:
+        raise TypeError(f"gemnet_quad_chain: out_dtype must be f32 or bf16, got {out_dtype}")
     _check_cuda_inputs("gemnet_quad_chain", tensors, {"key1": torch.int32, "key2": torch.int32})
     if n1.dim() != 5 or xm.dim() != 5 or qp.dim() != 6:
         raise ValueError("gemnet_quad_chain: n1, xm and qp must be 5-, 5- and 6-dimensional")
@@ -998,10 +1067,12 @@ def _gemnet_quad_chain_forward(n1, n2, key1, key2, xm, qp, num_spherical: int) -
         n1=(b, n, u, q, 3), n2=(b, n, q, k2, 3), key1=(b, n, u), key2=(b, n, q, k2), xm=(b, n, q, k2, e),
         qp=(b, n, u, s, q, f)))
 
+    if out_dtype == torch.bfloat16 and s > _QC_LEVELS:
+        raise ValueError(f"gemnet_quad_chain: a bf16 output takes S <= {_QC_LEVELS} levels (one pass), got {s}")
     if b * n * u * f * e == 0:  # empty output: nothing to launch
-        return n1.new_empty((b, n, u, f, e))
+        return n1.new_empty((b, n, u, f, e), dtype=out_dtype)
     plan = quad_chain_plan(b * n, u, q, k2, s, e, f, _sm_count(n1.device), qp_aligned=qp.data_ptr() % 16 == 0)
-    return _quad_chain_launch(tensors, s, plan)
+    return _quad_chain_launch(tensors, s, plan, out_dtype)
 
 
 def gemnet_quad_chain_vjp(n1: torch.Tensor, n2: torch.Tensor, key1: torch.Tensor, key2: torch.Tensor,
@@ -1009,8 +1080,9 @@ def gemnet_quad_chain_vjp(n1: torch.Tensor, n2: torch.Tensor, key1: torch.Tensor
                           g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dxm, dqp)``, the cotangents of ``xm`` and ``qp`` for the output
     cotangent ``g [B, N, U, F, E]``: the JAX package's ``_quad_chain_bwd``,
-    autograd of the plain version (:func:`gemnet_quad_chain_reference`)
-    recomputed from detached ``xm`` and ``qp``.  No kernel is launched.
+    autograd of the plain version (:func:`gemnet_quad_chain_reference`, in
+    f32, ``g`` cast to ``xm``'s dtype as JAX casts it) recomputed from
+    detached ``xm`` and ``qp``.  No kernel is launched.
     ``qp`` may be padded along u past n1's U, as the JAX function allows: the
     recompute reads its first U rows, and ``dqp`` has qp's shape, zero in the
     padding."""
@@ -1018,8 +1090,8 @@ def gemnet_quad_chain_vjp(n1: torch.Tensor, n2: torch.Tensor, key1: torch.Tensor
     qp_ = qp.detach().requires_grad_(True)
     with torch.enable_grad():
         out = gemnet_quad_chain_reference(n1.detach(), n2.detach(), key1, key2, xm_, qp_[:, :, : n1.shape[2]],
-                                          num_spherical)
-        dxm, dqp = torch.autograd.grad(out, (xm_, qp_), g)
+                                          num_spherical, xm.dtype)
+        dxm, dqp = torch.autograd.grad(out, (xm_, qp_), g.to(xm.dtype))
     return dxm, dqp
 
 
@@ -1036,33 +1108,39 @@ class GemnetQuadChain(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, n1, n2, key1, key2, xm, qp, num_spherical):
+    def forward(ctx, n1, n2, key1, key2, xm, qp, num_spherical, out_dtype=torch.float32):
         ctx.save_for_backward(n1, n2, key1, key2, xm, qp)
         ctx.num_spherical = num_spherical
-        return _gemnet_quad_chain_forward(n1, n2, key1, key2, xm, qp, num_spherical)
+        return _gemnet_quad_chain_forward(n1, n2, key1, key2, xm, qp, num_spherical, out_dtype)
 
     @staticmethod
     def backward(ctx, g):
         n1, n2, key1, key2, xm, qp = ctx.saved_tensors
         dxm, dqp = gemnet_quad_chain_vjp(n1, n2, key1, key2, xm, qp, ctx.num_spherical, g)
-        return None, None, None, None, dxm, dqp, None
+        return None, None, None, None, dxm, dqp, None, None
 
 
-def _quad_chain_launch(tensors: dict, s: int, plan: "QuadChainPlan") -> torch.Tensor:
+# the quad chain's C entries by out dtype (xm and qp are f32)
+_QUAD_VARIANTS = {torch.float32: "f32", torch.bfloat16: "f32_bf16"}
+
+
+def _quad_chain_launch(tensors: dict, s: int, plan: "QuadChainPlan",
+                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Launch ``csrc/gemnet_quad_chain.cu`` with ``plan`` on checked inputs
     (:func:`gemnet_quad_chain`'s) and return ``out``."""
     n1, xm, qp = tensors["n1"], tensors["xm"], tensors["qp"]
     b, n, u, q, _ = n1.shape
     k2, e = xm.shape[3], xm.shape[4]
     f = qp.shape[-1]
-    out = torch.empty((b, n, u, f, e), dtype=torch.float32, device=n1.device)
+    out = torch.empty((b, n, u, f, e), dtype=out_dtype, device=n1.device)
+    variant = _QUAD_VARIANTS[out_dtype]
     lib = _library("gemnet_quad_chain", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
-                   + [ctypes.c_longlong, ctypes.c_void_p])
+                   + [ctypes.c_longlong, ctypes.c_void_p], tuple(_QUAD_VARIANTS.values()))
     _launch(
         "gemnet_quad_chain", lib, n1.device,
         *(tensors[name].data_ptr() for name in ("n1", "n2", "key1", "key2", "xm", "qp")), out.data_ptr(),
         b * n, u, q, k2, s, e, f, plan.warps, plan.parts, plan.qp_buffers, int(plan.copy_bytes == 16),
-        plan.smem_bytes,
+        plan.smem_bytes, variant=variant, count_as="gemnet_quad_chain" + _count_suffix(variant),
     )
     return out
 
@@ -1179,29 +1257,31 @@ def _unit_rows(x: torch.Tensor) -> torch.Tensor:
 
 
 def masked_legendre_cos_reference(a: torch.Tensor, bt: torch.Tensor, keep: torch.Tensor,
-                                  num_spherical: int) -> torch.Tensor:
+                                  num_spherical: int, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain PyTorch version of :func:`masked_legendre_cos`: ``a [G, M, C]``,
-    ``bt [G, C, K]``, ``keep [G, M, K]`` bool -> ``[G, S, M, K]``."""
+    ``bt [G, C, K]``, ``keep [G, M, K]`` bool -> ``[G, S, M, K]``, computed
+    in f32 and rounded once to ``out_dtype``."""
     cos = torch.clamp(torch.matmul(a.float(), bt.float()), -1.0, 1.0)
-    return _masked_legendre(cos, keep, num_spherical, dim=1)
+    return _masked_legendre(cos, keep, num_spherical, dim=1).to(out_dtype)
 
 
 def gemnet_cbf_basis_reference(u: torch.Tensor, v: torch.Tensor, keep: torch.Tensor,
-                               num_spherical: int) -> torch.Tensor:
+                               num_spherical: int, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain PyTorch version of :func:`gemnet_cbf_basis`: ``u [B, N, M, 3]``,
     ``v [B, N, K, 3]`` unit rows (zero rows give cos 0), ``keep [B, N, M, K]``
-    -> ``[B, N, S, M, K]``."""
+    -> ``[B, N, S, M, K]`` in ``out_dtype``."""
     cos = torch.clamp(torch.einsum("bnmc,bnkc->bnmk", u.float(), v.float()), -1.0, 1.0)
-    return _masked_legendre(cos, keep, num_spherical, dim=2)
+    return _masked_legendre(cos, keep, num_spherical, dim=2).to(out_dtype)
 
 
 def gemnet_quad_basis_reference(n1: torch.Tensor, n2: torch.Tensor, keep: torch.Tensor,
-                                num_spherical: int) -> torch.Tensor:
+                                num_spherical: int, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain PyTorch version of :func:`gemnet_quad_basis`: ``n1 [B, N, K1,
     Kq, 3]``, ``n2 [B, N, Kq, K2, 3]`` (normalised here, eps 1e-9), ``keep
-    [B, N, K1, Kq, K2]`` -> ``[B, N, S, Kq, K1, K2]``."""
+    [B, N, K1, Kq, K2]`` -> ``[B, N, S, Kq, K1, K2]`` in ``out_dtype``."""
     cos = torch.einsum("bnuqc,bnqkc->bnquk", _unit_rows(n1.float()), _unit_rows(n2.float()))
-    return _masked_legendre(torch.clamp(cos, -1.0, 1.0), keep.permute(0, 1, 3, 2, 4), num_spherical, dim=2)
+    y = _masked_legendre(torch.clamp(cos, -1.0, 1.0), keep.permute(0, 1, 3, 2, 4), num_spherical, dim=2)
+    return y.to(out_dtype)
 
 
 # csrc/masked_legendre_cos.cu's constants: problems a group, threads a block, the most columns a block takes in
@@ -1303,11 +1383,13 @@ def _legendre_table(specs: Tuple[Tuple, ...], s: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _legendre_fn():
+def _legendre_fn(variant: str = "f32"):
+    """The kernel's C entry for f32 (``"f32"``) or bf16 (``"bf16"``) outputs,
+    and its error-string function."""
     lib = _library("masked_legendre_cos", [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p])
-    return lib.masked_legendre_cos_f32, lib.masked_legendre_cos_error_string
+                                           ctypes.c_void_p], ("f32", "bf16"))
+    return getattr(lib, "masked_legendre_cos_" + variant), lib.masked_legendre_cos_error_string
 
 
 def _check_legendre_problem(kernel: str, a: torch.Tensor, b: torch.Tensor, keep: torch.Tensor,
@@ -1346,13 +1428,16 @@ def _raw_stream(device: torch.device) -> int:
 def _legendre_launch(specs: Tuple[Tuple, ...], tensors, s: int) -> None:
     """One launch of ``csrc/masked_legendre_cos.cu`` for the problems
     ``specs`` (see :func:`_legendre_problem`), ``tensors`` their ``(a, b,
-    keep, out)`` in turn, counted once; none where no problem has a column."""
+    keep, out)`` in turn (every out f32, or every out bf16: the bf16 entry,
+    counted under ``masked_legendre_cos.bf16``), counted once; none where no
+    problem has a column."""
     device = tensors[0].device
     plan, _, table, _, coef, ptr_type = _legendre_table(specs, s)
     if plan.blocks == 0:  # empty outputs: nothing to launch
         return
     ptrs = ptr_type(*[t.data_ptr() for t in tensors])
-    fn, msg = _legendre_fn()
+    variant = "f32" if tensors[3].dtype == torch.float32 else "bf16"
+    fn, msg = _legendre_fn(variant)
     args = (len(specs), table, ctypes.addressof(ptrs), s, coef, plan.blocks, plan.threads, plan.smem_bytes)
     if device.index == torch.cuda.current_device():
         err = fn(*args, _raw_stream(device))
@@ -1361,12 +1446,19 @@ def _legendre_launch(specs: Tuple[Tuple, ...], tensors, s: int) -> None:
             err = fn(*args, _raw_stream(device))
     if err != 0:
         raise RuntimeError(f"masked_legendre_cos launch failed at {specs}: {msg(err).decode()} (cudaError {err})")
-    launches["masked_legendre_cos"] += 1
+    launches["masked_legendre_cos" + _count_suffix(variant)] += 1
 
 
-def masked_legendre_cos(a: torch.Tensor, bt: torch.Tensor, keep: torch.Tensor, num_spherical: int) -> torch.Tensor:
+def _legendre_out_dtype(kernel: str, out_dtype: torch.dtype) -> None:
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{kernel}: out_dtype must be f32 or bf16, got {out_dtype}")
+
+
+def masked_legendre_cos(a: torch.Tensor, bt: torch.Tensor, keep: torch.Tensor, num_spherical: int,
+                        out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``y[g, l, m, k] = sqrt((2l+1)/4pi) P_l(clip(<a[g,m,:], bt[g,:,k]>, -1, 1))
-    * keep[g, m, k]`` (``csrc/masked_legendre_cos.cu``), f32, forward only.
+    * keep[g, m, k]`` (``csrc/masked_legendre_cos.cu``), computed in f32 and
+    rounded once to ``out_dtype`` (f32 or bf16), forward only.
 
     ``a [G, M, C]``, ``bt [G, C, K]``, ``keep [G, M, K]`` -> ``[G, S, M, K]``.
     On the card: C = 3, f32 vectors, bool ``keep``, contiguous, S <= 16 and
@@ -1375,38 +1467,41 @@ def masked_legendre_cos(a: torch.Tensor, bt: torch.Tensor, keep: torch.Tensor, n
     GemNet-OC's bases take only geometry (unit edge vectors and masks) and
     its force heads are direct, so no gradient flows through them."""
     if a.device.type == "cpu":
-        return masked_legendre_cos_reference(a, bt, keep, num_spherical)
+        return masked_legendre_cos_reference(a, bt, keep, num_spherical, out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"masked_legendre_cos: unsupported device {a.device}")
+    _legendre_out_dtype("masked_legendre_cos", out_dtype)
     g, m, c = a.shape
     k = bt.shape[2]
     if c != 3:
         raise ValueError(f"masked_legendre_cos: the kernel takes C = 3 components, got {c}")
     s = num_spherical
     _check_legendre_problem("masked_legendre_cos", a, bt, keep, a.device, s, ((g, m, 3), (g, 3, k), (g, m, k)))
-    out = torch.empty((g, s, m, k), dtype=torch.float32, device=a.device)
+    out = torch.empty((g, s, m, k), dtype=out_dtype, device=a.device)
     _legendre_launch((("flat", g, m, k),), (a, bt, keep, out), s)
     return out
 
 
-def gemnet_cbf_basis(u: torch.Tensor, v: torch.Tensor, keep: torch.Tensor, num_spherical: int) -> torch.Tensor:
+def gemnet_cbf_basis(u: torch.Tensor, v: torch.Tensor, keep: torch.Tensor, num_spherical: int,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """GemNet-OC's masked triplet basis over the angles between unit edge
     vectors (:func:`masked_legendre_cos` with one (b, n) row per cell).
 
     ``u [B, N, M, 3]``, ``v [B, N, K, 3]`` unit rows (zero rows, padded edges,
-    give cos 0), ``keep [B, N, M, K]`` bool -> ``[B, N, S, M, K]`` f32.  On the
-    card: as :func:`masked_legendre_cos`, a group of one of
-    :func:`gemnet_cbf_bases`; launches counted under
+    give cos 0), ``keep [B, N, M, K]`` bool -> ``[B, N, S, M, K]`` in
+    ``out_dtype``.  On the card: as :func:`masked_legendre_cos`, a group of
+    one of :func:`gemnet_cbf_bases`; launches counted under
     ``masked_legendre_cos``."""
     if u.device.type == "cpu":
-        return gemnet_cbf_basis_reference(u, v, keep, num_spherical)
-    return gemnet_cbf_bases([(u, v, keep)], num_spherical)[0]
+        return gemnet_cbf_basis_reference(u, v, keep, num_spherical, out_dtype)
+    return gemnet_cbf_bases([(u, v, keep)], num_spherical, out_dtype)[0]
 
 
-def gemnet_cbf_bases(problems, num_spherical: int):
+def gemnet_cbf_bases(problems, num_spherical: int, out_dtype: torch.dtype = torch.float32):
     """Up to three triplet bases in one launch: ``problems`` a list of 1 to 3
     ``(u, v, keep)`` triples as :func:`gemnet_cbf_basis` takes them; returns
-    one ``[B, N, S, M, K]`` f32 tensor each.  GemNet-OC's forward passes the
+    one ``[B, N, S, M, K]`` tensor in ``out_dtype`` each (GemNet-OC in bf16
+    asks for bf16, as the JAX model's ``out_dtype=compute_dtype()``).  GemNet-OC's forward passes the
     e2e, a2e and e2a bases of the interactions it runs.  On the CPU: each
     basis's plain version, no launch; on the card: one launch for the group
     (none where every output is empty), counted once under
@@ -1416,9 +1511,10 @@ def gemnet_cbf_bases(problems, num_spherical: int):
         raise ValueError(f"gemnet_cbf_bases: takes 1 to {_LG_PROBLEMS} problems, got {len(problems)}")
     device = problems[0][0].device
     if device.type == "cpu":
-        return [gemnet_cbf_basis_reference(u, v, keep, num_spherical) for u, v, keep in problems]
+        return [gemnet_cbf_basis_reference(u, v, keep, num_spherical, out_dtype) for u, v, keep in problems]
     if device.type != "cuda":
         raise ValueError(f"gemnet_cbf_basis: unsupported device {device}")
+    _legendre_out_dtype("gemnet_cbf_basis", out_dtype)
     s, specs = num_spherical, []
     for u, v, keep in problems:
         b, n, m, _ = u.shape
@@ -1427,9 +1523,9 @@ def gemnet_cbf_bases(problems, num_spherical: int):
         specs.append(("cbf", b, n, m, k))
     specs = tuple(specs)
     # one allocation for the group (an allocation costs more host time than a view), each output at an offset of
-    # whole 16-byte units, as the kernel's float4 stores need
+    # whole units of four elements, as the kernel's four-column stores need
     offsets, total = _cbf_offsets(specs, s)
-    buf = torch.empty(total, dtype=torch.float32, device=device)
+    buf = torch.empty(total, dtype=out_dtype, device=device)
     outs = [buf.as_strided((b, n, s, m, k), (s * m * k * n, s * m * k, m * k, k, 1), off)
             for (_, b, n, m, k), off in zip(specs, offsets)]
     _legendre_launch(specs, [t for p, out in zip(problems, outs) for t in (*p, out)], s)
@@ -1438,7 +1534,7 @@ def gemnet_cbf_bases(problems, num_spherical: int):
 
 @functools.lru_cache(maxsize=64)
 def _cbf_offsets(specs: Tuple[Tuple, ...], s: int) -> Tuple[Tuple[int, ...], int]:
-    """Each triplet basis's offset in one buffer, in floats rounded up to
+    """Each triplet basis's offset in one buffer, in elements rounded up to
     multiples of 4, and the buffer's size."""
     offsets, total = [], 0
     for _, b, n, m, k in specs:
@@ -1447,25 +1543,27 @@ def _cbf_offsets(specs: Tuple[Tuple, ...], s: int) -> Tuple[Tuple[int, ...], int
     return tuple(offsets), total
 
 
-def gemnet_quad_basis(n1: torch.Tensor, n2: torch.Tensor, keep: torch.Tensor, num_spherical: int) -> torch.Tensor:
+def gemnet_quad_basis(n1: torch.Tensor, n2: torch.Tensor, keep: torch.Tensor, num_spherical: int,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """GemNet-OC's masked dihedral basis (:func:`masked_legendre_cos` with one
     (b, n, q) row per cell): ``y[b, n, l, q, u, k] = coef[l] P_l(clip(<n1h[u, q],
     n2h[q, k]>)) keep[u, q, k]`` with ``n1h``/``n2h`` the cross products
     normalised in the kernel (eps 1e-9).
 
     ``n1 [B, N, K1, Kq, 3]``, ``n2 [B, N, Kq, K2, 3]``, ``keep [B, N, K1, Kq,
-    K2]`` bool -> ``[B, N, S, Kq, K1, K2]`` f32, written in that layout by the
-    kernel.  On the card: as :func:`masked_legendre_cos`."""
+    K2]`` bool -> ``[B, N, S, Kq, K1, K2]`` in ``out_dtype``, written in that
+    layout by the kernel.  On the card: as :func:`masked_legendre_cos`."""
     if n1.device.type == "cpu":
-        return gemnet_quad_basis_reference(n1, n2, keep, num_spherical)
+        return gemnet_quad_basis_reference(n1, n2, keep, num_spherical, out_dtype)
     if n1.device.type != "cuda":
         raise ValueError(f"gemnet_quad_basis: unsupported device {n1.device}")
+    _legendre_out_dtype("gemnet_quad_basis", out_dtype)
     s = num_spherical
     b, n, k1, kq, _ = n1.shape
     k2 = n2.shape[3]
     _check_legendre_problem("gemnet_quad_basis", n1, n2, keep, n1.device, s,
                             ((b, n, k1, kq, 3), (b, n, kq, k2, 3), (b, n, k1, kq, k2)))
-    out = torch.empty((b, n, s, kq, k1, k2), dtype=torch.float32, device=n1.device)
+    out = torch.empty((b, n, s, kq, k1, k2), dtype=out_dtype, device=n1.device)
     _legendre_launch((("quad", b, n, k1, kq, k2),), (n1, n2, keep, out), s)
     return out
 

@@ -46,8 +46,12 @@ the host when the config says ``cpu: true``):
 - ``model.scale_file`` loads reference scale factors into the model's
   ScaleFactor buffers at ``init_state`` (:func:`load_scales_compat`).
 
-Not ported (raise ``NotImplementedError``): ``amp`` (ROADMAP A.8), several
-devices (A.9).
+``amp`` (``--amp``) sets ``model.compute_dtype: bfloat16`` where the model
+config names none, for the trained model, its EMA copy (the sampling and
+evaluation model) and so every path a trainer drives: the JAX trainer's
+rule.  Parameters, optimiser state, losses and outputs stay f32.
+
+Not ported (raise ``NotImplementedError``): several devices (A.9).
 """
 from __future__ import annotations
 
@@ -90,11 +94,14 @@ _CONFIG_ONLY_KEYS = ("name", "scale_file", "regress_forces", "direct_forces", "u
 
 
 def _model_from_config(model_cfg: dict, *, mode: Optional[str], device: torch.device,
-                       generator: torch.Generator, training: bool = False) -> torch.nn.Module:
+                       generator: torch.Generator, training: bool = False, amp: bool = False) -> torch.nn.Module:
     """The configured model; ``training`` builds it in train mode where the
     class has drop regularisers (a ``training`` argument), and the drop-rate
-    keys are dropped for a class without them (the JAX trainer's rules)."""
+    keys are dropped for a class without them; ``amp`` computes in bf16
+    where the config sets no ``compute_dtype`` (the JAX trainer's rules)."""
     cfg = {k: v for k, v in model_cfg.items() if k not in _CONFIG_ONLY_KEYS}
+    if amp and "compute_dtype" not in cfg:
+        cfg["compute_dtype"] = "bfloat16"
     cls = registry.get_model_class(model_cfg.get("name", "painn"))
     accepted = inspect.signature(cls).parameters
     for key in ("alpha_drop", "drop_path_rate", "proj_drop", "training"):
@@ -154,9 +161,8 @@ class BaseTrainer:
         self.optim_cfg = config["optim"]
         self.model_cfg = dict(config["model"])
         self.task_cfg = config.get("task", {}) or {}
-        for key, what in (("amp", "amp (mixed precision)"), ("num_devices", "several devices")):
-            if config.get(key) and not (key == "num_devices" and int(config[key]) <= 1):
-                raise NotImplementedError(f"{what} is not ported yet")
+        if int(config.get("num_devices") or 1) > 1:
+            raise NotImplementedError("several devices is not ported yet")
         self.device = resolve_device("cpu" if config.get("cpu") else device)
         self.seed = int(config.get("seed", 0) or 0)
         self.run_dir = config.get("run_dir", "./")
@@ -171,7 +177,8 @@ class BaseTrainer:
         # the model trains in train mode (drops on where it has them); the EMA
         # copy made from it in init_state runs in eval mode
         self.model = _model_from_config(self.model_cfg, mode=self._model_mode(), device=self.device,
-                                        generator=torch.Generator().manual_seed(self.seed), training=True)
+                                        generator=torch.Generator().manual_seed(self.seed), training=True,
+                                        amp=bool(config.get("amp")))
         self._normalizers(config)
         self._optimizer()
         self.initialized = False

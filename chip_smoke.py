@@ -5,7 +5,7 @@
 
 Phases; any failure raises and the exit code is then non-zero:
 1. device: the card's name and power limit (nvidia-smi); CUDA required;
-   TF32 off (both paths are f32).
+   TF32 off (phases 3-24 are f32; phases 25-28 run bf16 where asked).
 2. build: every kernel, from csrc/ with nvcc (one process per source, all
    started together); ptxas register and spill lines for each.
 3. kernel vs plain: each kernel against its plain PyTorch version on the
@@ -282,7 +282,47 @@ Phases; any failure raises and the exit code is then non-zero:
    trainer's modules making the host wait on the card during the steps
    (torch.cuda.set_sync_debug_mode("warn"); every such operation of the
    steps printed with its file and line).
-25. the kernels line, then the device line as the last line.  A row's ms,
+25. the bf16 variants (ROADMAP A.8 step 1) against their bf16 plain
+   versions on the card: painn_message_fused with bf16 xh and bf16 or f32
+   vec at the sampling shape on the bench graph (B=16) and at two ragged
+   shapes of phase 3, |kernel - plain| <= 1e-3 * max|plain| + 1e-5 (f32
+   outputs); painn_message_fused_bwd at the training shape (B=48, the bench
+   graph) and the same two ragged shapes, the same gate;
+   masked_legendre_cos's grouped call of one bf16 GemNet-OC forward at B=8
+   (bf16 outputs) and two ragged groups, 4e-3 * max|plain| + 1e-5 (one bf16
+   ulp of the largest element); gemnet_quad_chain with a bf16 out from f32
+   xm and qp (GemNet-OC's bf16 path) at the relaxation shape and two ragged
+   shapes, 1e-2 * max|plain| + 1e-5,
+   and its VJP at the S2EF training shape with a bf16 cotangent.  Each
+   timed by CUDA events beside its bound in bf16 bytes, with its share of
+   the bound and ptxas's lines for its bf16 instances.  Printed first:
+   torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction.
+26. PaiNN in bf16 (compute_dtype bfloat16, phase 4's weights): one B=2
+   forward on the card against the same bf16 model on the CPU, both heads
+   within 3e-2 * max|cpu bf16| and within the CPU's bf16-to-f32 distance,
+   and at least half that distance from the CPU's f32 forward (the card
+   rounds as bf16 does), printed beside the spread of three CPU bf16
+   forwards whose parameters are perturbed by 2e-7 relative; then 100 ODE
+   steps at
+   B=16 with the hoisted static graph: exactly 600 launches of the bf16
+   variant and no f32 one, finite f32 positions, the slab unmoved and every
+   adsorbate's interatomic distances kept (rigid moves); its rate beside
+   phase 4's.
+27. GemNet-OC in bf16 (phase 6's weights): the same B=2 check for energy
+   and forces, then 100 L-BFGS steps at B=8 with the Verlet graph: exactly 4
+   + 1 bf16 launches a forward and no f32 one, finite f32 energies and
+   forces in the L-BFGS state, fixed atoms unmoved; its rate and one
+   forward's time beside phase 6's.
+28. training with amp: true: DenoisingTrainer.train() at phase 8's settings
+   and cut (exactly 6 + 6 bf16 launches a step, the EMA model in bf16) and
+   S2EFTrainer.train() at phase 21's (4 + 1 a step and a validation
+   forward), every loss finite, params and EMA moved, systems/s and peak
+   beside phases 8 and 21; one step of each at B=2 card against CPU, loss
+   within 3e-2 relative, every gradient within 5e-2 * max|cpu| but one
+   fixed exception (BF16_GRAD_LIMITS), no CPU gradient's roundoff spread
+   past 0.1, and the gradients as one vector no further from the CPU's bf16
+   than the CPU's f32 is and at least half that far from the f32.
+29. the kernels line, then the device line as the last line.  A row's ms,
    plain_ms and bound_ms are per launch; eqv2_edge_rotate's are the mean
    over the four forms in the proportions one forward launches them, and
    its launches are the EquiformerV2 sampling run's; masked_legendre_cos's
@@ -292,7 +332,9 @@ Phases; any failure raises and the exit code is then non-zero:
    relaxation path's plus phase 19's four tasks' plus phases 21's and
    24's runs'; painn_message_fused's are phase 4's plus phase 23's; the
    consumers' and fused_rbf_filter's launches are
-   their counts summed over every path run (0: no path calls them).
+   their counts summed over every path run (0: no path calls them).  The
+   four bf16 variants are rows of their own (``<kernel>.bf16``, the same
+   source), their launches those of phases 26-28.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -497,16 +539,17 @@ def bound(flops, tensors):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), nbytes
 
 
-def check_close(name, got, want):
-    """Max |got - want| over the pairs, held to 1e-4 * max|want| + 1e-5."""
+def check_close(name, got, want, rtol=KERNEL_RTOL):
+    """Max |got - want| over the pairs, held to rtol * max|want| + 1e-5
+    (rtol 1e-4 unless given)."""
     err, limits = 0.0, []
     for g, w in zip(got, want):
         e = (g - w).abs().max().item()
-        limits.append(KERNEL_RTOL * w.abs().max().item() + KERNEL_ATOL)
+        limits.append(rtol * w.abs().max().item() + KERNEL_ATOL)
         if not e <= limits[-1]:
             raise AssertionError(f"{name}: max |kernel - plain| {e} > {limits[-1]}")
         err = max(err, e)
-    print(f"[kernel] {name}: max_abs_err {err:.3e} (limit {KERNEL_RTOL} * max|plain| + {KERNEL_ATOL} = "
+    print(f"[kernel] {name}: max_abs_err {err:.3e} (limit {rtol} * max|plain| + {KERNEL_ATOL} = "
           f"{', '.join(f'{x:.3e}' for x in limits)})", flush=True)
     return err
 
@@ -1709,13 +1752,14 @@ def relax_path(device, gen, systems):
     if not torch.equal(res.traj_pos[-1], res.batch.pos):
         raise AssertionError("the last trajectory frame is not the final state")
     moved = (res.batch.pos - batch.pos).norm(dim=-1).amax().item()
+    RATES["relax"] = res.nsteps * b / wall
     print(f"[relax] {res.nsteps} L-BFGS steps, B={b}: {wall:.3f} s wall, {res.nsteps * b / wall:.2f} relax "
           f"system-steps/s, peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB allocated, "
           f"{forwards} model forwards, launches {launches}, {res.rebuilds} Verlet rebuilds, "
           f"{int(res.converged.sum())}/{b} converged, largest move {moved:.3f} A", flush=True)
     fn = make_mlff_energy_forces(model)
     cand = model.prepare_candidates(batch, RELAX_OPT["k_cand"])
-    forward_ms = cuda_ms(lambda: fn(batch, cand), 5)
+    forward_ms = RATES["relax_forward"] = cuda_ms(lambda: fn(batch, cand), 5)
     kernel_ms = model.num_blocks * ms + legendre_row["device_ms"]
     print(f"[relax] one model forward (Verlet refresh + 4 blocks + heads): {forward_ms:.3f} ms; "
           f"{model.num_blocks} gemnet_quad_chain launches at {ms:.4f} ms and one masked_legendre_cos launch at "
@@ -1759,21 +1803,33 @@ def check_grads(what, pairs):
     return worst
 
 
+def training_step_inputs(config, systems):
+    """check_training_step's config at B=2, its two systems (on the CPU)
+    and its schedule draws."""
+    small = dict(copy.deepcopy(config), optim=dict(config["optim"], batch_size=2, eval_batch_size=2))
+    two = collate(systems or bench_systems(2), max_atoms=80, with_forces=systems is not None, device="cpu")
+    return small, two, draw_schedule(2, torch.device("cpu"), torch.Generator().manual_seed(6))
+
+
+def step_loss_and_grads(tr, b, draws, trainer_cls):
+    """A trainer's loss, aux and parameter gradients on batch ``b`` (a
+    denoising trainer's step takes ``draws``)."""
+    on_device = draws._replace(**{k: getattr(draws, k).to(b.device) for k in draws._fields})
+    loss, aux = tr._loss_and_aux(b, on_device if trainer_cls is DenoisingTrainer else None, None)
+    return loss, aux, torch.autograd.grad(loss, tr.params)
+
+
 def check_training_step(config, device, model_name, trainer_cls=DenoisingTrainer, systems=None):
     """One training step at B=2 on the card against the same step on the
     CPU: loss, grad_norm and every parameter's gradient.  A denoising
     trainer's step takes the same schedule draws on both sides; an S2EF
     trainer's takes ``systems``, whose energies and forces are the targets."""
-    small = dict(copy.deepcopy(config), optim=dict(config["optim"], batch_size=2, eval_batch_size=2))
+    small, two, draws = training_step_inputs(config, systems)
     card, host = trainer_cls(small, device=device), trainer_cls(dict(small, cpu=True))
-    two = collate(systems or bench_systems(2), max_atoms=80, with_forces=systems is not None, device="cpu")
-    draws = draw_schedule(2, torch.device("cpu"), torch.Generator().manual_seed(6))
     results = []
     for tr, b in ((card, two.to(device)), (host, two)):
         tr.init_state()
-        on_device = draws._replace(**{k: getattr(draws, k).to(b.device) for k in draws._fields})
-        loss, aux = tr._loss_and_aux(b, on_device if trainer_cls is DenoisingTrainer else None, None)
-        grads = torch.autograd.grad(loss, tr.params)
+        loss, aux, grads = step_loss_and_grads(tr, b, draws, trainer_cls)
         results.append((tr._finalize_train_step(loss, aux, list(grads)), [g.cpu() for g in grads]))
     (card_aux, card_grads), (host_aux, host_grads) = results
     names = [n for n, _ in host.model.named_parameters()]
@@ -1862,8 +1918,8 @@ def train_one_epoch(trainer, steps, want, val_forward=None, val_metrics=("loss",
     if not (moved > 0 and ema_moved > 0 and ema_gap > 0):
         raise AssertionError(f"params moved {moved}, EMA moved {ema_moved}, |EMA - params| {ema_gap}")
     batch = trainer.optim_cfg["batch_size"]
-    rate = (steps - 1) * batch / wall
-    peak = torch.cuda.max_memory_allocated() / 2**20
+    rate = RATES["epoch"] = (steps - 1) * batch / wall
+    peak = RATES["epoch_peak"] = torch.cuda.max_memory_allocated() / 2**20
     print(f"[train] {steps} steps, B={batch} x 80 atoms: {rate:.2f} systems/s over the {steps - 1} steps after "
           f"the first ({wall:.3f} s, {1e3 * wall / (steps - 1):.2f} ms per step), peak {peak:.1f} MiB allocated, "
           f"launches {launches} ({len(val_runs)} validation(s) inside train(): {val_runs}); loss "
@@ -1928,6 +1984,7 @@ def training_path(device, gen, root):
     # 8b. one epoch of DenoisingTrainer.train(); counts zeroed just before, read at every step
     launches = train_one_epoch(trainer, TRAIN_STEPS, {"painn_message_fused": model.num_layers,
                                                       "painn_message_fused_bwd": model.num_layers})
+    RATES["painn_train"], RATES["painn_train_peak"] = RATES["epoch"], RATES["epoch_peak"]
 
     # 9. card vs CPU, one training step at B=2
     check_training_step(config, device, "PaiNN")
@@ -2579,6 +2636,7 @@ def s2ef_training_path(device, root, smi):
     per_forward = gemnet_launches(trainer.model, 1)
     total = collections.Counter(train_one_epoch(trainer, S2EF_TRAIN_STEPS, per_forward, val_forward=per_forward,
                                                 val_metrics=("energy_mae", "forces_mae")))
+    RATES["s2ef_train"], RATES["s2ef_train_peak"] = RATES["epoch"], RATES["epoch_peak"]
     # the checkpoint train() saved at the epoch's end, in a fresh trainer: its predictions are the EMA model's
     fresh = S2EFTrainer(config, device=device)
     fresh.load_checkpoint(os.path.join(trainer.ckpt_dir, "checkpoint"))
@@ -2791,6 +2849,522 @@ def options_training_path(device, root):
     return total
 
 
+# --------------------------------------------------------------------------
+# ROADMAP A.8 step 1: compute_dtype bfloat16 and amp (phases 25-28)
+# --------------------------------------------------------------------------
+BF16 = torch.bfloat16
+# phase 25's gates, bf16 variant against its bf16 plain version (rtol x max|plain| + KERNEL_ATOL): f32 outputs after
+# a bf16-rounded basis (f32 sums in another order; a basis value an f32 ulp apart can round to the neighbouring bf16
+# number); a bf16 output, one bf16 ulp of the largest element; the quad chain's bf16 output, rounded once from f32
+# sums in another order over a longer chain
+BF16_RTOL = {"painn_message_fused.bf16": 1e-3, "painn_message_fused_bwd.bf16": 1e-3,
+             "masked_legendre_cos.bf16": 4e-3, "gemnet_quad_chain.bf16": 1e-2}
+# phases 26-28: a bf16 model on the card against the same bf16 model on the CPU, max|diff| <= 3e-2 * max|cpu|
+# (the roundoff spread of bf16 at the test widths, 0.05-0.8% of max for PaiNN and ~1% for GemNet-OC's forces, with
+# room for full width), and never more than the CPU's bf16 is from its f32 (a card that stayed in f32 would pass a
+# wider limit); a training step: loss within 3e-2 relative, every gradient within 5e-2 * max|cpu| but those of
+# BF16_GRAD_LIMITS
+BF16_MODEL_RTOL, BF16_LOSS_RTOL, BF16_GRAD_RTOL = 3e-2, 3e-2, 5e-2
+# the card's bf16 output (or gradients, as one vector) must be at least this fraction of the CPU's bf16-to-f32
+# distance away from the CPU's f32: it rounds where the CPU's bf16 rounds, not nowhere
+BF16_SEPARATION = 0.5
+BF16_PERTURB = 2e-7  # the relative parameter perturbation of the roundoff spreads printed and checked
+# phase 28: no CPU gradient's roundoff spread (its change over BF16_SPREAD_DRAWS passes with parameters x (1 +
+# BF16_PERTURB N(0,1))) may pass this fraction of max|cpu|: the fixed limits below were set where it was smaller
+BF16_SPREAD_CEILING, BF16_SPREAD_DRAWS = 0.1, 3
+# phase 28: the gradients whose bf16 value at B=2 sums so many cancelling terms that roundoff alone moves them past
+# 5e-2 of their max, each with its fixed limit (PERF.md section 2); no other gradient is raised
+# (PaiNN's: 1.25 x its recorded spread 6.127e-2, rounded up; its card-to-CPU distance read 7.034e-2, its CPU
+# bf16-to-f32 distance 4.622e-2, so no per-tensor limit tells bf16 from f32 there: the whole-gradient checks do)
+BF16_GRAD_LIMITS = {"PaiNN amp": {"out_forces.output_network.0.vec1_proj.weight": 0.077}, "GemNet-OC S2EF amp": {}}
+
+
+def bf16_launches(name, count):
+    return {name + ".bf16": count}
+
+
+def check_bf16(name, got, want):
+    """check_close at the bf16 variant's gate, outputs compared in f32."""
+    return check_close(name, [g.float() for g in got], [w.float() for w in want], BF16_RTOL[name.split(" ")[0]])
+
+
+def bf16_message_inputs(gen, device, shape, cutoff, nl=None, unit=None, vec_bf16=True):
+    inputs = message_inputs(gen, device, *shape, cutoff, nl=nl, unit=unit)
+    inputs["xh"] = inputs["xh"].to(BF16)
+    if vec_bf16:
+        inputs["vec"] = inputs["vec"].to(BF16)
+    return inputs
+
+
+def check_bf16_message(device, gen, shape, cutoff, nl=None, unit=None, vec_bf16=True):
+    inputs = bf16_message_inputs(gen, device, shape, cutoff, nl, unit, vec_bf16)
+    before = dict(kernels.launches)
+    got = kernels.painn_message_fused(**inputs, cutoff=cutoff)
+    torch.cuda.synchronize()
+    if launches_since(before) != bf16_launches("painn_message_fused", 1):
+        raise AssertionError(f"painn_message_fused with bf16 xh launched {launches_since(before)}")
+    err = check_bf16(f"painn_message_fused.bf16 b,n,k,r,h={shape} vec {'bf16' if vec_bf16 else 'f32'}", got,
+                     kernels.painn_message_fused_reference(**inputs, cutoff=cutoff))
+    return inputs, got, err
+
+
+def check_bf16_message_bwd(device, gen, shape, cutoff, nl=None, unit=None, vec_bf16=True):
+    b, n, _, _, h = shape
+    inputs = bf16_message_inputs(gen, device, shape, cutoff, nl, unit, vec_bf16)
+    cts = (torch.randn((b, n, h), generator=gen).to(device), torch.randn((b, n, 3, h), generator=gen).to(device))
+    before = dict(kernels.launches)
+    got = kernels.painn_message_fused_bwd(**inputs, dx_ct=cts[0], dvec_ct=cts[1], cutoff=cutoff)
+    torch.cuda.synchronize()
+    if launches_since(before) != bf16_launches("painn_message_fused_bwd", 1):
+        raise AssertionError(f"painn_message_fused_bwd with bf16 xh launched {launches_since(before)}")
+    err = check_bf16(f"painn_message_fused_bwd.bf16 b,n,k,r,h={shape} vec {'bf16' if vec_bf16 else 'f32'}", got,
+                     kernels.painn_message_fused_bwd_reference(**inputs, dx_ct=cts[0], dvec_ct=cts[1],
+                                                               cutoff=cutoff))
+    return inputs, cts, got, err
+
+
+def check_bf16_quad(device, gen, shape, negative_keys=3):
+    s = shape[5]
+    inputs = quad_inputs(gen, device, *shape, negative_keys=negative_keys)
+    before = dict(kernels.launches)
+    got = kernels.gemnet_quad_chain(**inputs, num_spherical=s, out_dtype=BF16)
+    torch.cuda.synchronize()
+    if launches_since(before) != bf16_launches("gemnet_quad_chain", 1) or got.dtype != BF16:
+        raise AssertionError(f"gemnet_quad_chain with a bf16 out launched {launches_since(before)}, {got.dtype}")
+    err = check_bf16(f"gemnet_quad_chain.bf16 b,n,u,q,k2,s,e,f={shape}",
+                     [got], [kernels.gemnet_quad_chain_reference(**inputs, num_spherical=s, out_dtype=BF16)])
+    return inputs, got, err
+
+
+# the TPU kernels the bf16 variants' sources replace (the f32 rows' "replaces")
+REPLACES = {"painn_message_fused": "adsorbdiff_tpu/ops/pallas_kernels.py:336",
+            "painn_message_fused_bwd": "adsorbdiff_tpu/ops/pallas_kernels.py:566",
+            "masked_legendre_cos": "adsorbdiff_tpu/ops/pallas_kernels.py:1613",
+            "gemnet_quad_chain": "adsorbdiff_tpu/ops/pallas_kernels.py:1728"}
+
+
+def bf16_row(name, err, ms, plain_ms, bound_ms, bound_by, **extra):
+    """A bf16 variant's kernels-line row (its launches filled in by main)."""
+    return dict(name=name + ".bf16", source=f"adsorbdiff_tpu_torch/csrc/{name}.cu", replaces=REPLACES[name],
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, **extra)
+
+
+def bf16_kernel_checks(device, gen, systems, relax_model):
+    """Phase 25: the four bf16 variants against their bf16 plain versions at
+    their paths' shapes and two ragged shapes each, timed beside their bounds
+    (bf16 bytes); returns their kernels-line rows, launches still 0."""
+    print(f"[bf16] torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = "
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction} (cuBLAS's bf16 GEMMs)", flush=True)
+    rows = []
+    # painn_message_fused: the sampling shape on the bench graph (vec bf16, layers 1-2; vec f32, layers 3-6)
+    painn_model = PaiNN(**MODEL_KW, device=device)  # painn_so3.yml's widths
+    k, r = painn_model.max_neighbors, painn_model.message_layers[0].rbf_proj.in_features
+    h, cutoff = painn_model.hidden_channels, painn_model.cutoff
+    del painn_model
+    batch = collate(systems, max_atoms=80, device=device)
+    nl, _, unit = generate_graph(batch, cutoff=cutoff, max_neighbors=k, cell_reps=MODEL_KW["cell_reps"])
+    shape = (batch.batch_size, batch.max_atoms, k, r, h)
+    inputs, outputs, err = check_bf16_message(device, gen, shape, cutoff, nl, unit)
+    err = max(err, check_bf16_message(device, gen, shape, cutoff, nl, unit, vec_bf16=False)[2])
+    for ragged in ((2, 13, 10, 16, 64), (1, 37, 45, 128, 192)):
+        err = max(err, check_bf16_message(device, gen, ragged, 6.0)[2])
+    ms = cuda_ms(lambda: kernels.painn_message_fused(**inputs, cutoff=cutoff), 20)
+    plain_ms = cuda_ms(lambda: kernels.painn_message_fused_reference(**inputs, cutoff=cutoff), 5)
+    bound_ms, bound_by, nbytes, flops = message_bound_ms(inputs, outputs, cutoff)
+    print(f"[kernel] painn_message_fused.bf16 at {shape} (xh, vec bf16): {ms:.4f} ms (the wrapper's W cast "
+          f"included), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP f32, "
+          f"{nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}% of the bound; "
+          f"{fwd_plan_line(kernels.painn_fwd_plan(*shape, kernels._sm_count(device)))}; ptxas (bf16 instances): "
+          f"{' | '.join(ptxas_lines('painn_message_fused', '__nv_bfloat16')) or 'not built in this process'}",
+          flush=True)
+    rows.append(bf16_row("painn_message_fused", err, ms, plain_ms, bound_ms, bound_by))
+    del inputs, outputs
+
+    # painn_message_fused_bwd: the training shape (B=48) on the bench graph
+    big = collate(bench_systems(TRAIN_BATCH), max_atoms=80, device=device)
+    nl, _, unit = generate_graph(big, cutoff=cutoff, max_neighbors=k, cell_reps=MODEL_KW["cell_reps"])
+    shape = (TRAIN_BATCH, big.max_atoms, k, r, h)
+    inputs, cts, outputs, err = check_bf16_message_bwd(device, gen, shape, cutoff, nl, unit)
+    err = max(err, check_bf16_message_bwd(device, gen, shape, cutoff, nl, unit, vec_bf16=False)[3])
+    for ragged in ((2, 13, 10, 16, 64), (1, 37, 45, 128, 192)):
+        err = max(err, check_bf16_message_bwd(device, gen, ragged, 6.0)[3])
+    bwd = lambda: kernels.painn_message_fused_bwd(**inputs, dx_ct=cts[0], dvec_ct=cts[1], cutoff=cutoff)  # noqa: E731
+    ms = cuda_ms(bwd, 10)
+    plain_ms = cuda_ms(lambda: kernels.painn_message_fused_bwd_reference(**inputs, dx_ct=cts[0], dvec_ct=cts[1],
+                                                                         cutoff=cutoff), 2)
+    bound_ms, bound_by, nbytes, flops = message_bwd_bound_ms(inputs, cts, outputs, cutoff)
+    print(f"[kernel] painn_message_fused_bwd.bf16 at {shape} (xh, vec bf16): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP f32, {nbytes / 1e6:.2f} MB), "
+          f"{100 * bound_ms / ms:.1f}% of the bound; "
+          f"{bwd_plan_line(kernels.painn_bwd_plan(*shape, kernels._sm_count(device)))}; ptxas (bf16 instances): "
+          f"{' | '.join(ptxas_lines('painn_message_fused_bwd', '__nv_bfloat16')) or 'not built in this process'}",
+          flush=True)
+    rows.append(bf16_row("painn_message_fused_bwd", err, ms, plain_ms, bound_ms, bound_by))
+    del inputs, cts, outputs, big, nl, unit
+
+    # masked_legendre_cos: the grouped call of one B=8 bf16 GemNet-OC forward; two ragged groups
+    relax = collate(systems[:RELAX_BATCH], max_atoms=80, device=device)
+    s = relax_model.num_spherical
+    with torch.no_grad():
+        calls = capture_calls(gemnet_oc, "gemnet_cbf_bases", lambda: relax_model(relax))
+    if len(calls) != 1 or len(calls[0][0]) != 3 or calls[0][2:] != (BF16,):
+        raise AssertionError(f"one bf16 GemNet-OC forward called gemnet_cbf_bases as {[c[1:] for c in calls]}")
+    problems = [tuple(p) for p in calls[0][0]]
+    del calls
+
+    def group(probs):
+        before = dict(kernels.launches)
+        got = kernels.gemnet_cbf_bases(probs, s, BF16)
+        torch.cuda.synchronize()
+        if launches_since(before) != bf16_launches("masked_legendre_cos", 1):
+            raise AssertionError(f"gemnet_cbf_bases in bf16 launched {launches_since(before)}")
+        return got, check_bf16(f"masked_legendre_cos.bf16 group (M, K) {[(u.shape[2], v.shape[2]) for u, v, _ in probs]}"
+                               f" S={s}", [g for g in got if g.numel()],
+                               [kernels.gemnet_cbf_basis_reference(*p, s, BF16) for p, g in zip(probs, got)
+                                if g.numel()])
+
+    outs, err = group(problems)
+    for shapes in ([((3, 5), 29, 12), ((3, 5), 12, 20)], [((2, 3), 7, 5), ((2, 3), 5, 3)]):
+        err = max(err, group([legendre_inputs(gen, device, lead + (m,), lead + (k,), lead + (m, k), unit=True)
+                              for lead, m, k in shapes])[1])
+    ms = cuda_ms(lambda: kernels.gemnet_cbf_bases(problems, s, BF16), 200)
+    dev_ms = device_ms(lambda: kernels.gemnet_cbf_bases(problems, s, BF16), 20)
+    plain_ms = cuda_ms(lambda: [kernels.gemnet_cbf_basis_reference(*p, s, BF16) for p in problems], 5)
+    bounds = [legendre_bound_ms(p, out, s) for p, out in zip(problems, outs)]
+    bound_ms, nbytes, flops = (sum(b[i] for b in bounds) for i in (0, 2, 3))
+    by = "bytes" if {b[1] for b in bounds} == {"bytes"} else "operations"
+    print(f"[kernel] masked_legendre_cos.bf16, one grouped launch a bf16 forward: wall {ms:.4f} ms, device "
+          f"{dev_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {by} ({nbytes / 1e6:.2f} MB), "
+          f"{100 * bound_ms / dev_ms:.1f}% of the bound on the device; ptxas (bf16 instance): "
+          f"{' | '.join(ptxas_lines('masked_legendre_cos', '__nv_bfloat16')) or 'not built in this process'}",
+          flush=True)
+    rows.append(bf16_row("masked_legendre_cos", err, ms, plain_ms, bound_ms, by, device_ms=dev_ms))
+    del outs, problems
+
+    # gemnet_quad_chain: f32 xm and qp, bf16 out (the model's) at the relaxation shape and two ragged shapes
+    shape = (relax.batch_size, relax.max_atoms, relax_model.max_neighbors, relax_model.max_neighbors_qint,
+             relax_model.max_neighbors, s, relax_model.emb_size_quad_in, relax_model.emb_size_sbf)
+    inputs, out, err = check_bf16_quad(device, gen, shape)
+    for ragged in ((2, 7, 12, 4, 13, 4, 8, 8), (2, 3, 7, 4, 13, 7, 40, 48)):
+        err = max(err, check_bf16_quad(device, gen, ragged)[2])
+    ms = cuda_ms(lambda: kernels.gemnet_quad_chain(**inputs, num_spherical=s, out_dtype=BF16), 20)
+    plain_ms = cuda_ms(lambda: kernels.gemnet_quad_chain_reference(**inputs, num_spherical=s, out_dtype=BF16), 5)
+    bound_ms, bound_by, nbytes, flops = quad_bound_ms(inputs, out, s)
+    print(f"[kernel] gemnet_quad_chain.bf16 at {shape}, f32 xm and qp, bf16 out (GemNet-OC's bf16 path): "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP "
+          f"f32, {nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}% of the bound; "
+          f"{quad_plan_line(kernels.quad_chain_plan(shape[0] * shape[1], *shape[2:], kernels._sm_count(device)))}"
+          f"; ptxas (bf16 instance): "
+          f"{' | '.join(ptxas_lines('gemnet_quad_chain', '__nv_bfloat16')) or 'not built in this process'}",
+          flush=True)
+    rows.append(bf16_row("gemnet_quad_chain", err, ms, plain_ms, bound_ms, bound_by))
+    del inputs, out
+    # its VJP at the S2EF training shape, as the bf16 training step runs it: f32 xm and qp, a bf16 out and
+    # cotangent; the backward recomputes the plain version in xm's dtype
+    b, n, u, q, k2, s_, e, f = QUAD_TRAIN_SHAPE
+    inputs = quad_inputs(gen, device, *QUAD_TRAIN_SHAPE)
+    g = torch.randn((b, n, u, f, e), generator=gen).to(device).to(BF16)
+    leaves = {k: inputs[k].clone().requires_grad_() for k in ("xm", "qp")}
+    before = dict(kernels.launches)
+    out = kernels.gemnet_quad_chain(**dict(inputs, **leaves), num_spherical=s_, out_dtype=BF16)
+    grads = torch.autograd.grad(out, (leaves["xm"], leaves["qp"]), g)
+    torch.cuda.synchronize()
+    if launches_since(before) != bf16_launches("gemnet_quad_chain", 1):
+        raise AssertionError(f"the bf16 quad chain's forward and VJP launched {launches_since(before)}")
+    plain = {k: inputs[k].clone().requires_grad_() for k in ("xm", "qp")}
+    want = kernels.gemnet_quad_chain_reference(**dict(inputs, **plain), num_spherical=s_, out_dtype=BF16)
+    want_grads = torch.autograd.grad(want, (plain["xm"], plain["qp"]), g)
+    check_bf16(f"gemnet_quad_chain.bf16 VJP at {QUAD_TRAIN_SHAPE} (out, dxm, dqp)", [out.detach(), *grads],
+               [want.detach(), *want_grads])
+    vjp_ms = cuda_ms(lambda: kernels.gemnet_quad_chain_vjp(**inputs, num_spherical=s_, g=g), 5)
+    print(f"[kernel] gemnet_quad_chain.bf16 VJP (a plain f32 recompute) at {QUAD_TRAIN_SHAPE}: {vjp_ms:.4f} ms",
+          flush=True)
+    return rows
+
+
+def rel_dist(a, b):
+    """max|a - b| / max|b|."""
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+
+def check_bf16_training_step(config, device, model_name, trainer_cls=DenoisingTrainer, systems=None):
+    """Phase 28's training step under amp at B=2 on the card against the
+    same step on the CPU in bf16 and, from the same parameters, in f32 (amp
+    off); every distance is max|diff| / max|cpu bf16| of its tensor:
+    - the loss within BF16_LOSS_RTOL, grad_norm and every gradient within
+      BF16_GRAD_RTOL, or within the gradient's fixed entry of
+      BF16_GRAD_LIMITS[model_name];
+    - no CPU bf16 gradient's roundoff spread (BF16_SPREAD_DRAWS passes with
+      parameters x (1 + BF16_PERTURB N(0,1))) past BF16_SPREAD_CEILING;
+    - the gradients as one vector: card bf16 at most as far from CPU bf16
+      as CPU f32 is, and at least BF16_SEPARATION of that from CPU f32.
+    The faults are raised together after the printout."""
+    small, two, draws = training_step_inputs(config, systems)
+    card, host = trainer_cls(small, device=device), trainer_cls(dict(small, cpu=True))
+    host32 = trainer_cls(dict(small, cpu=True, amp=False))
+    if host32.model.compute_dtype is not None:
+        raise AssertionError(f"amp off built a {host32.model.compute_dtype} model")
+    for tr in (card, host, host32):
+        tr.init_state()
+    with torch.no_grad():
+        host32._flat.copy_(host._flat)
+    results = [step_loss_and_grads(tr, b, draws, trainer_cls) for tr, b in
+               ((card, two.to(device)), (host, two), (host32, two))]
+    names = [n for n, _ in host.model.named_parameters()]
+    host_grads, host32_grads = results[1][2], results[2][2]
+    spread = {name: 0.0 for name in names}
+    rng = torch.Generator().manual_seed(29)
+    for _ in range(BF16_SPREAD_DRAWS):
+        saved = host._flat.clone()
+        with torch.no_grad():
+            host._flat.mul_(1 + BF16_PERTURB * torch.randn(host._flat.shape, generator=rng))
+        grads = step_loss_and_grads(host, two, draws, trainer_cls)[2]
+        with torch.no_grad():
+            host._flat.copy_(saved)
+        for name, g, h in zip(names, grads, host_grads):
+            spread[name] = max(spread[name], rel_dist(g, h))
+    (card_aux, card_grads), (host_aux, _) = [(tr._finalize_train_step(loss, aux, list(grads)), [g.cpu() for g in grads])
+                                             for tr, (loss, aux, grads) in zip((card, host), results[:2])]
+    fixed = BF16_GRAD_LIMITS[model_name]
+    faults, rows = [], []
+    for name, c, h, h32 in zip(names, card_grads, host_grads, host32_grads):
+        row = dict(name=name, err=rel_dist(c, h), limit=fixed.get(name, BF16_GRAD_RTOL), spread=spread[name],
+                   cpu_bf16_vs_f32=rel_dist(h32, h),
+                   card_vs_cpu_f32=(c - h32).abs().max().item() / max(h.abs().max().item(), 1e-30))
+        rows.append(row)
+        if not (torch.isfinite(c).all() and row["err"] <= row["limit"]):
+            faults.append(f"{name}: {row['err']:.3e} > {row['limit']}")
+        if row["spread"] > BF16_SPREAD_CEILING:
+            faults.append(f"{name}: roundoff spread {row['spread']:.3e} > {BF16_SPREAD_CEILING}")
+    for name, c, h, r in (("loss", card_aux["loss"].cpu(), host_aux["loss"], BF16_LOSS_RTOL),
+                          ("grad_norm", card_aux["grad_norm"].cpu(), host_aux["grad_norm"], BF16_GRAD_RTOL)):
+        if not rel_dist(c, h) <= r:
+            faults.append(f"{name}: {rel_dist(c, h):.3e} > {r}")
+    flat = lambda gs: torch.cat([g.reshape(-1) for g in gs])  # noqa: E731
+    c_all, h_all, h32_all = flat(card_grads), flat(host_grads), flat(host32_grads)
+    e_all, d32_all = rel_dist(c_all, h_all), rel_dist(h32_all, h_all)
+    sep_all = (c_all - h32_all).abs().max().item() / h_all.abs().max().item()
+    if not e_all <= d32_all:
+        faults.append(f"all gradients: card to CPU bf16 {e_all:.3e} > CPU bf16 to f32 {d32_all:.3e}")
+    if not sep_all >= BF16_SEPARATION * d32_all:
+        faults.append(f"all gradients: card bf16 to CPU f32 {sep_all:.3e} < {BF16_SEPARATION} x {d32_all:.3e}: "
+                      "the card did not round as bf16 does")
+    worst = max(rows, key=lambda r: r["err"])
+    print(f"[check] card vs CPU {model_name} training step at B=2: loss {card_aux['loss'].item():.6f} / "
+          f"{host_aux['loss'].item():.6f} (cpu f32 {results[2][0].item():.6f}), grad_norm "
+          f"{card_aux['grad_norm'].item():.6f} / {host_aux['grad_norm'].item():.6f}; {len(names)} gradients, worst "
+          f"max|diff| / max|cpu| {worst['err']:.3e} ({worst['name']}, limit {worst['limit']}; {BF16_GRAD_RTOL} but "
+          f"{len(fixed)} fixed); {sum(r['err'] > r['cpu_bf16_vs_f32'] for r in rows)} gradient(s) further from cpu "
+          f"bf16 than cpu f32 is (at their roundoff floor); all gradients as one vector: card bf16 to cpu bf16 "
+          f"{e_all:.3e}, cpu bf16 to cpu "
+          f"f32 {d32_all:.3e}, card bf16 to cpu f32 {sep_all:.3e}; roundoff spread of {BF16_SPREAD_DRAWS} passes "
+          f"with parameters x (1 + {BF16_PERTURB} N(0,1)): median "
+          f"{float(np.median([r['spread'] for r in rows])):.3e}, largest {max(r['spread'] for r in rows):.3e} "
+          f"(ceiling {BF16_SPREAD_CEILING})", flush=True)
+    for r in sorted(rows, key=lambda r: -r["err"]):
+        if r["err"] > BF16_GRAD_RTOL / 2 or r["name"] in fixed:
+            print(f"[check]   {r['name']}: card vs cpu bf16 {r['err']:.3e} (limit {r['limit']}), spread "
+                  f"{r['spread']:.3e}, cpu bf16 vs cpu f32 {r['cpu_bf16_vs_f32']:.3e}, card bf16 vs cpu f32 "
+                  f"{r['card_vs_cpu_f32']:.3e}", flush=True)
+    if faults:
+        raise AssertionError(f"card vs CPU {model_name} training step: " + "; ".join(faults))
+
+
+def bf16_card_vs_cpu(what, model16, model32, small, heads):
+    """A bf16 model at B=2 on the card against the same model on the CPU,
+    per output within BF16_MODEL_RTOL * max|cpu| and within the CPU's bf16
+    distance from its f32 forward, and at least BF16_SEPARATION of that
+    distance from the f32 forward; printed beside the spread of three CPU
+    bf16 forwards whose parameters are perturbed by BF16_PERTURB relative."""
+    cpu16 = copy.deepcopy(model16).to("cpu")
+    cpu32 = copy.deepcopy(model32).to("cpu")
+    host_batch = small.to("cpu")
+
+    def outputs(model, batch):
+        with torch.no_grad():
+            out = model(batch)
+        out = out if isinstance(out, dict) else dict(zip(heads, out if isinstance(out, tuple) else (out,)))
+        return {h: out[h].float().cpu() for h in heads}
+
+    t0 = time.perf_counter()
+    card, host, host32 = outputs(model16, small), outputs(cpu16, host_batch), outputs(cpu32, host_batch)
+    t_cpu = time.perf_counter() - t0
+    spread = {h: 0.0 for h in heads}
+    rng = torch.Generator().manual_seed(27)
+    for _ in range(3):
+        perturbed = copy.deepcopy(cpu16)
+        with torch.no_grad():
+            for p in perturbed.parameters():
+                p.mul_(1 + BF16_PERTURB * torch.randn(p.shape, generator=rng))
+        out = outputs(perturbed, host_batch)
+        for h in heads:
+            spread[h] = max(spread[h], ((out[h] - host[h]).abs().max() / host[h].abs().max()).item())
+    for h in heads:
+        if card[h].dtype != torch.float32 or not torch.isfinite(card[h]).all():
+            raise AssertionError(f"card bf16 {what} {h}: {card[h].dtype}, finite {bool(torch.isfinite(card[h]).all())}")
+        e, sep, d32 = rel_dist(card[h], host[h]), rel_dist(card[h], host32[h]), rel_dist(host[h], host32[h])
+        limit = min(BF16_MODEL_RTOL, d32)
+        print(f"[bf16] card vs CPU {what} {h} at B=2: max|card bf16 - cpu bf16| / max|cpu bf16| {e:.3e} (limit "
+              f"{limit:.3e}, the smaller of {BF16_MODEL_RTOL} and cpu bf16 vs cpu f32 {d32:.3e}); card bf16 vs cpu "
+              f"f32 {sep:.3e} (at least {BF16_SEPARATION} x {d32:.3e}); spread of 3 cpu bf16 forwards with "
+              f"parameters x (1 + {BF16_PERTURB} N(0,1)) {spread[h]:.3e}; CPU forwards {t_cpu:.1f} s", flush=True)
+        if not e <= limit:
+            raise AssertionError(f"card vs CPU bf16 {what} {h}: {e} > {limit}")
+        if not sep >= BF16_SEPARATION * d32:
+            raise AssertionError(f"card bf16 {what} {h} is {sep} from the CPU's f32, less than {BF16_SEPARATION} x "
+                                 f"the CPU's bf16-to-f32 {d32}: the card did not round as bf16 does")
+
+
+def rigid_adsorbates(res, batch):
+    """Slab unmoved and every adsorbate's interatomic distances kept, from
+    the first frame to the last (reverse diffusion moves it as a rigid
+    body); returns the largest change of such a distance."""
+    slab, ads = ~batch.ads_mask, batch.ads_mask
+    traj = res.traj_pos
+    if not torch.equal(traj[:, slab], traj[:1, slab].expand(len(traj), -1, -1)):
+        raise AssertionError("bf16 sampling moved slab atoms")
+    worst = 0.0
+    for i in range(batch.batch_size):
+        a, z = traj[0, i][ads[i]], traj[-1, i][ads[i]]
+        worst = max(worst, (torch.cdist(a[None], a[None]) - torch.cdist(z[None], z[None])).abs().max().item())
+    if worst > 1e-3:
+        raise AssertionError(f"bf16 sampling deformed an adsorbate: a distance changed by {worst} A")
+    return worst
+
+
+def bf16_sampling_path(device, systems):
+    """Phase 26: PaiNN in bf16 at the painn_so3.yml widths, card vs CPU at B=2
+    and 100 ODE steps at B=16 with the hoisted static graph.  Returns the
+    run's launches."""
+    model16 = PaiNN(**MODEL_KW, compute_dtype="bfloat16", device=device, generator=torch.Generator().manual_seed(0))
+    model32 = PaiNN(**MODEL_KW, device=device, generator=torch.Generator().manual_seed(0))  # phase 4's weights
+    bf16_card_vs_cpu("PaiNN", model16, model32, collate(systems[:2], max_atoms=80, device=device),
+                     ("out_forces", "out_forces2"))
+    del model32
+    batch = collate(systems, max_atoms=80, device=device)
+    engine = DiffusionEngine(make_score_fn(model16), PARAMS, static_fn=model16.prepare_static, device=device)
+    DiffusionEngine(make_score_fn(model16), dict(PARAMS, num_steps=2), static_fn=model16.prepare_static,
+                    device=device).run(batch, generator=torch.Generator(device=device).manual_seed(2))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    res = engine.run(batch, generator=torch.Generator(device=device).manual_seed(1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = path_launches()
+    want = bf16_launches("painn_message_fused", model16.num_layers * PARAMS["num_steps"])
+    if launches != want:
+        raise AssertionError(f"bf16 sampling launched {launches}, want {want} and no f32 launch")
+    if res.traj_pos.dtype != torch.float32 or not torch.isfinite(res.traj_pos).all():
+        raise AssertionError("bf16 sampling: positions not finite f32")
+    worst = rigid_adsorbates(res, batch)
+    rate = PARAMS["num_steps"] * batch.batch_size / wall
+    print(f"[bf16-sample] 100-step ODE sampling in bf16, B=16: {wall:.3f} s wall, {rate:.1f} system-steps/s (phase "
+          f"4's f32: {RATES['sample']:.1f}), peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, launches "
+          f"{launches}; slab unmoved, adsorbate distances kept within {worst:.1e} A", flush=True)
+    return launches
+
+
+def bf16_relax_kw(device, systems):
+    """Phase 6's GemNet-OC arguments (gemnet_relax.yml widths, cell_reps from
+    auto_cell_reps of ``systems``)."""
+    cell_reps = pbc.auto_cell_reps([s.pos for s in systems], [s.cell for s in systems], GEMNET_KW["cutoff"])
+    return dict(GEMNET_KW, cell_reps=cell_reps, device=device)
+
+
+def bf16_relax_path(device, systems, model16, kw):
+    """Phase 27: ``model16`` (GemNet-OC in bf16 at the gemnet_relax.yml
+    widths, phase 6's seed and so its weights), card vs CPU at B=2 and 100
+    L-BFGS steps at B=8 with the Verlet graph.  Returns the run's
+    launches."""
+    model32 = GemNetOC(**kw, generator=torch.Generator().manual_seed(3))  # the same weights in f32
+    bf16_card_vs_cpu("GemNet-OC", model16, model32, collate(systems[:2], max_atoms=80, device=device),
+                     ("energy", "forces"))
+    del model32
+    batch = collate(systems, max_atoms=80, device=device)
+    b, n = batch.batch_size, batch.max_atoms
+    RelaxationEngine.from_model(model16, dict(RELAX_OPT, steps=2), device=device).run(batch)  # warm-up
+    engine = RelaxationEngine.from_model(model16, RELAX_OPT, device=device)
+    forwards = 0
+    energy_forces = engine.energy_forces_fn
+
+    def counted(*args):
+        nonlocal forwards
+        forwards += 1
+        return energy_forces(*args)
+
+    engine.energy_forces_fn = counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    res = engine.run(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = path_launches()
+    want = {k + ".bf16": v for k, v in gemnet_launches(model16, forwards).items()}
+    if launches != want:
+        raise AssertionError(f"bf16 relaxation launched {launches}, want {want} ({forwards} forwards)")
+    for name in ("traj_pos", "traj_energy", "traj_forces", "energy", "forces"):
+        t = getattr(res, name)
+        if t.dtype != torch.float32 or not torch.isfinite(t).all():
+            raise AssertionError(f"bf16 relaxation {name}: {t.dtype}, finite {bool(torch.isfinite(t).all())}")
+    fixed = batch.fixed & batch.atom_mask
+    if not (bool(fixed.any()) and torch.equal(res.traj_pos[:, fixed], batch.pos[fixed].expand(len(res.traj_pos), -1, -1))):
+        raise AssertionError("bf16 relaxation moved fixed atoms")
+    rate = res.nsteps * b / wall
+    print(f"[bf16-relax] {res.nsteps} L-BFGS steps in bf16, B={b}: {wall:.3f} s wall, {rate:.2f} relax "
+          f"system-steps/s (phase 6's f32: {RATES['relax']:.2f}), peak {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+          f"MiB, {forwards} model forwards, launches {launches}, {res.rebuilds} Verlet rebuilds; fixed atoms unmoved, "
+          f"largest move {(res.batch.pos - batch.pos).norm(dim=-1).amax().item():.3f} A", flush=True)
+    fn = make_mlff_energy_forces(model16)
+    cand = model16.prepare_candidates(batch, RELAX_OPT["k_cand"])
+    print(f"[bf16-relax] one bf16 model forward: {cuda_ms(lambda: fn(batch, cand), 5):.3f} ms (phase 6's f32: "
+          f"{RATES['relax_forward']:.3f} ms)", flush=True)
+    return launches
+
+
+def bf16_training_path(device, root):
+    """Phase 28: DenoisingTrainer.train() (painn_so3.yml + base.yml, phase 8's
+    cut) and S2EFTrainer.train() (gemnet_relax.yml, phase 21's cut) with
+    amp: true; one step of each at B=2 card against CPU.  Returns the
+    launches."""
+    total = collections.Counter()
+    paths = write_training_shards(root, {"bf16_train": TRAIN_BATCH * TRAIN_STEPS, "bf16_val": TRAIN_BATCH})
+    config = dict(copy.deepcopy(TRAIN_CONFIG), run_dir=root, amp=True, identifier="smoke_bf16",
+                  dataset=[{"src": paths["bf16_train"]}, {"src": paths["bf16_val"]}])
+    trainer = DenoisingTrainer(config, device=device)
+    if trainer.model.compute_dtype != "bfloat16":
+        raise AssertionError(f"amp built a {trainer.model.compute_dtype} model")
+    layers = trainer.model.num_layers
+    total.update(train_one_epoch(trainer, TRAIN_STEPS, {"painn_message_fused.bf16": layers,
+                                                        "painn_message_fused_bwd.bf16": layers}))
+    print(f"[bf16-train] PaiNN with amp: {RATES['epoch']:.2f} systems/s (phase 8's f32: {RATES['painn_train']:.2f}), "
+          f"peak {RATES['epoch_peak']:.1f} MiB (f32: {RATES['painn_train_peak']:.1f})", flush=True)
+    if trainer.ema_module.compute_dtype != "bfloat16":
+        raise AssertionError("amp: the EMA model does not compute in bf16")
+    del trainer
+    check_bf16_training_step(config, device, "PaiNN amp")
+
+    systems = labelled_systems(bench_systems(S2EF_TRAIN_BATCH * (S2EF_TRAIN_STEPS + 1)), 28)
+    spaths = {}
+    for split, part in (("train", systems[:-S2EF_TRAIN_BATCH]), ("val", systems[-S2EF_TRAIN_BATCH:])):
+        write_shard(os.path.join(root, "bf16_s2ef_" + split), part)
+        spaths[split] = os.path.join(root, f"bf16_s2ef_{split}.adshard.npz")
+    config = dict(s2ef_train_config(root, spaths), amp=True, identifier="smoke_bf16_s2ef")
+    trainer = S2EFTrainer(config, device=device)
+    per_forward = {k + ".bf16": v for k, v in gemnet_launches(trainer.model, 1).items()}
+    total.update(train_one_epoch(trainer, S2EF_TRAIN_STEPS, per_forward, val_forward=per_forward,
+                                 val_metrics=("energy_mae", "forces_mae")))
+    print(f"[bf16-train] GemNet-OC S2EF with amp: {RATES['epoch']:.2f} systems/s (phase 21's f32: "
+          f"{RATES['s2ef_train']:.2f}), peak {RATES['epoch_peak']:.1f} MiB (f32: {RATES['s2ef_train_peak']:.1f})",
+          flush=True)
+    del trainer
+    check_bf16_training_step(config, device, "GemNet-OC S2EF amp", S2EFTrainer, systems[:2])
+    return total
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -2839,8 +3413,20 @@ def main():
     s2ef_launches.update(langevin_path(device, systems))
     with tempfile.TemporaryDirectory() as root:
         s2ef_launches.update(options_training_path(device, root))
+    # 25-28. ROADMAP A.8 step 1: the bf16 variants, then PaiNN and GemNet-OC in bf16 and both trainers with amp
+    relax_kw = bf16_relax_kw(device, systems[:RELAX_BATCH])
+    relax16 = GemNetOC(**relax_kw, compute_dtype="bfloat16", generator=torch.Generator().manual_seed(3))
+    bf16_rows = bf16_kernel_checks(device, torch.Generator().manual_seed(25), systems, relax16)
+    bf16 = collections.Counter(bf16_sampling_path(device, systems))
+    bf16.update(bf16_relax_path(device, systems[:RELAX_BATCH], relax16, relax_kw))
+    del relax16
+    with tempfile.TemporaryDirectory() as root:
+        bf16.update(bf16_training_path(device, root))
+    for r in bf16_rows:
+        r["launches"] = bf16[r["name"]]
+    rows += bf16_rows
 
-    # 25. results
+    # 29. results
     for r in rows:
         if r["launches"] is None:  # a standalone kernel: what the path runs launched of it
             r["launches"] = PATH_LAUNCHES[r["name"]]

@@ -9,7 +9,7 @@ graph) under ``torch.profiler`` for a few steps and prints:
   same steps) and the idle share;
 - the device kernels with the most time, with their share of busy time.
 
-    python scripts/profile_torch_sampling.py [--steps 20]
+    python scripts/profile_torch_sampling.py [--steps 20] [--compute-dtype bfloat16]
 
 The last line is one JSON object with the same numbers.
 """
@@ -84,9 +84,12 @@ def profile_sampling(model, params: dict, steps: int, title: str) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--compute-dtype", default=None, choices=("bfloat16",), help="the model's compute_dtype")
     args = ap.parse_args()
-    model = PaiNN(**MODEL_KW, device=resolve_device(None), generator=torch.Generator().manual_seed(0))
-    profile_sampling(model, PARAMS, args.steps, "sampling steps (B=16, N=80, H=512, 6 layers, K=50)")
+    model = PaiNN(**MODEL_KW, compute_dtype=args.compute_dtype, device=resolve_device(None),
+                  generator=torch.Generator().manual_seed(0))
+    profile_sampling(model, PARAMS, args.steps, f"sampling steps (B=16, N=80, H=512, 6 layers, K=50, compute_dtype "
+                                                f"{args.compute_dtype})")
 
 
 if __name__ == "__main__":

@@ -12,7 +12,7 @@ a temporary directory, for one epoch of a few steps, and prints:
   a profiled epoch of the same steps) and the idle share;
 - the device kernels with the most time, with their share of busy time.
 
-    python scripts/profile_torch_train.py [--model painn|eqv2|gemnet] [--steps 10]
+    python scripts/profile_torch_train.py [--model painn|eqv2|gemnet] [--steps 10] [--amp]
 
 The last line is one JSON object with the same numbers.
 """
@@ -52,6 +52,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=("painn", "eqv2", "gemnet"), default="painn")
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--amp", action="store_true", help="amp: true (bf16 compute; PaiNN and GemNet-OC)")
     args = ap.parse_args()
     if args.model == "painn":
         batch_size, config = TRAIN_BATCH, copy.deepcopy(TRAIN_CONFIG)
@@ -70,11 +71,11 @@ def main() -> None:
             for split, part in (("train", systems[:-batch_size]), ("val", systems[-batch_size:])):
                 write_shard(os.path.join(root, split), part)
             paths = {split: os.path.join(root, split + ".adshard.npz") for split in ("train", "val")}
-            trainer = S2EFTrainer(dict(s2ef_train_config(root, paths), logger=None), device=device)
+            trainer = S2EFTrainer(dict(s2ef_train_config(root, paths), logger=None, amp=args.amp), device=device)
         else:
             paths = write_training_shards(root, {"train": batch_size * args.steps})
-            trainer = DenoisingTrainer(dict(config, run_dir=root, logger=None, dataset=[{"src": paths["train"]}]),
-                                       device=device)
+            trainer = DenoisingTrainer(dict(config, run_dir=root, logger=None, amp=args.amp,
+                                            dataset=[{"src": paths["train"]}]), device=device)
         batch = next(iter(trainer.train_batcher)).to(device)
         trainer.train_step(batch, generator=torch.Generator(device=device).manual_seed(0))  # warm-up
         torch.cuda.synchronize()
@@ -98,7 +99,7 @@ def main() -> None:
     per_step = {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3 / args.steps,
                 "device_events": sum(c for c, _ in by_name.values()) / args.steps}
     per_step["idle_share"] = 1.0 - per_step["device_busy_ms"] / wall_ms
-    print(f"{torch.cuda.get_device_name(0)}; {args.steps} training steps ({what})")
+    print(f"{torch.cuda.get_device_name(0)}; {args.steps} training steps ({what}; amp {args.amp})")
     print(f"per step: wall {wall_ms:.3f} ms (profiler off), device busy {per_step['device_busy_ms']:.3f} ms "
           f"(profiler on; side-stream copies may overlap), idle share {per_step['idle_share']:.3f}; "
           f"{per_step['device_events']:.0f} device events of {len(by_name)} kinds")

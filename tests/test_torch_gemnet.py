@@ -208,12 +208,6 @@ def test_wide_image_key_is_exact_at_cell_reps_4():
     np.testing.assert_array_equal(same, np.asarray(jax_same_edge(src[i], off[i], src[j], off[j])))
 
 
-def test_unported_options_raise():
-    for kw in (dict(compute_dtype="bfloat16"),):
-        with pytest.raises(NotImplementedError):
-            GemNetOC(**TINY, **kw, device="cpu")
-
-
 # configs/denoising/gemnet_so3.yml's mode at the TINY widths, one block (the s2ef cases above run two; one
 # block halves the JAX compile)
 SO3 = dict(TINY, num_blocks=1, mode="denoising", so3_denoising=True)
@@ -329,9 +323,9 @@ def test_tiny_triplet_bases_come_from_one_grouped_call(jax_tiny, jax_tiny_pallas
         want, model = jax_tiny_pallas[True], port_tiny
     calls, original = [], port_gemnet_oc.gemnet_cbf_bases
 
-    def record(problems, s):
+    def record(problems, s, *out_dtype):
         calls.append(len(problems))
-        return original(problems, s)
+        return original(problems, s, *out_dtype)
 
     port_gemnet_oc.gemnet_cbf_bases = record
     try:

@@ -979,6 +979,95 @@ def test_empty_outputs_launch_nothing(cuda_device):
 
 
 # --------------------------------------------------------------------------
+# bf16 variants (compute_dtype bfloat16) against their bf16 plain versions
+# --------------------------------------------------------------------------
+BF16 = torch.bfloat16
+
+
+def _bf16_err(got, want, rtol):
+    """Holds got to rtol * max|want| + 1e-5, both compared in f32."""
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= rtol * w.float().abs().max().item() + 1e-5, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [RAGGED, (1, 37, 45, 128, 192), (16, 80, 50, 128, 512)],
+                         ids=["ragged", "k45-h192", "sampling-width"])
+@pytest.mark.parametrize("vec_bf16", [True, False], ids=["vec-bf16", "vec-f32"])
+def test_bf16_message_kernels_match_plain_versions_on_card(cuda_device, shape, vec_bf16):
+    """painn_message_fused and its backward with bf16 xh (vec bf16 or f32):
+    one launch of each bf16 variant, |kernel - plain| <= 1e-3 * max|plain| +
+    1e-5 (f32 outputs; the forward's basis and W rounded to bf16 before f32
+    sums in another order); an f32 launch count does not move."""
+    b, n, k, r, h = shape
+    inputs = _torch(_inputs(60, *shape), cuda_device)
+    inputs["xh"] = inputs["xh"].to(BF16)
+    if vec_bf16:
+        inputs["vec"] = inputs["vec"].to(BF16)
+    cts = [torch.from_numpy(c).to(cuda_device) for c in _cotangents(61, b, n, h)]
+    before = dict(kernels.launches)
+    got = painn_message_fused(**inputs, cutoff=6.0)
+    got_bwd = painn_message_fused_bwd(**inputs, dx_ct=cts[0], dvec_ct=cts[1], cutoff=6.0)
+    torch.cuda.synchronize()
+    assert {k: v - before.get(k, 0) for k, v in kernels.launches.items() if v != before.get(k, 0)} == {
+        "painn_message_fused.bf16": 1, "painn_message_fused_bwd.bf16": 1}
+    _bf16_err(got, painn_message_fused_reference(**inputs, cutoff=6.0), 1e-3)
+    _bf16_err(got_bwd, painn_message_fused_bwd_reference(**inputs, dx_ct=cts[0], dvec_ct=cts[1], cutoff=6.0), 1e-3)
+
+
+@pytest.mark.cuda
+def test_bf16_message_wrapper_refuses_f32_xh_with_bf16_vec(cuda_device):
+    inputs = _torch(_inputs(62, *RAGGED), cuda_device)
+    with pytest.raises(TypeError, match="xh and vec"):
+        painn_message_fused(**dict(inputs, vec=inputs["vec"].to(BF16)), cutoff=6.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [QUAD_RELAX, QUAD_RAGGED, QUAD_E40_F48, QUAD_UNALIGNED],
+                         ids=["relax-shape", "ragged", "e40-f48", "unaligned-sqf"])
+def test_bf16_quad_chain_kernel_matches_plain_version_on_card(cuda_device, shape):
+    """A bf16 out from f32 xm and qp: one launch of the bf16 variant,
+    |kernel - plain| <= 1e-2 * max|plain| + 1e-5; bf16 xm raises."""
+    inputs = _torch(_quad_inputs(63, *shape, zero_rows=True), cuda_device)
+    s = shape[5]
+    before = kernels.launches["gemnet_quad_chain.bf16"]
+    got = gemnet_quad_chain(**inputs, num_spherical=s, out_dtype=BF16)
+    torch.cuda.synchronize()
+    assert kernels.launches["gemnet_quad_chain.bf16"] == before + 1 and got.dtype == BF16
+    _bf16_err([got], [gemnet_quad_chain_reference(**inputs, num_spherical=s, out_dtype=BF16)], 1e-2)
+    with pytest.raises(TypeError, match="xm must be"):
+        gemnet_quad_chain(**dict(inputs, xm=inputs["xm"].to(BF16)), num_spherical=s, out_dtype=BF16)
+
+
+@pytest.mark.cuda
+def test_bf16_quad_chain_refuses_a_bf16_out_past_eight_levels(cuda_device):
+    inputs = _torch(_quad_inputs(64, *QUAD_S9), cuda_device)
+    with pytest.raises(ValueError, match="S <= 8"):
+        gemnet_quad_chain(**inputs, num_spherical=QUAD_S9[5], out_dtype=BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 80, 30, 30, 7), (3, 5, 29, 13, 7), (2, 3, 7, 5, 4)],
+                         ids=["e2e-relax", "ragged", "scalar-path"])
+def test_bf16_legendre_kernel_matches_plain_version_on_card(cuda_device, shape):
+    """A bf16 output: one launch of the bf16 variant, |kernel - plain| <=
+    4e-3 * max|plain| + 1e-5 (one bf16 ulp of the largest element); the
+    dihedral basis too."""
+    u, v, keep = (torch.from_numpy(x).to(cuda_device) for x in _cbf_inputs(65, *shape))
+    s = shape[4]
+    before = kernels.launches["masked_legendre_cos.bf16"]
+    got = kernels.gemnet_cbf_basis(u, v, keep, s, BF16)
+    torch.cuda.synchronize()
+    assert kernels.launches["masked_legendre_cos.bf16"] == before + 1
+    _bf16_err([got], [kernels.gemnet_cbf_basis_reference(u, v, keep, s, BF16)], 4e-3)
+    n1, n2, qkeep = (torch.from_numpy(x).to(cuda_device) for x in _quad_basis_inputs(66, 2, 3, 13, 5, 29, s))
+    _bf16_err([kernels.gemnet_quad_basis(n1, n2, qkeep, s, BF16)],
+              [kernels.gemnet_quad_basis_reference(n1, n2, qkeep, s, BF16)], 4e-3)
+
+
+# --------------------------------------------------------------------------
 # EquiformerV2: s2_grid_silu and eqv2_attn_conv1
 # --------------------------------------------------------------------------
 def _s2_tables(lmax=4, mmax=2, res=18):

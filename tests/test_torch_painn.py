@@ -135,8 +135,8 @@ def test_radial_basis_matches_jax(envelope):
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(envelope={"name": "exponential"}), dict(compute_dtype="bfloat16"), dict(rbf={"name": "spherical_bessel"})],
-    ids=["exponential-envelope", "bfloat16", "bessel"],
+    [dict(envelope={"name": "exponential"}), dict(rbf={"name": "spherical_bessel"})],
+    ids=["exponential-envelope", "bessel"],
 )
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):

@@ -126,13 +126,13 @@ def test_gemnet_train_step_differentiates_no_geometry(shards, tmp_path, monkeypa
     seen = {"bases": [], "chain": []}
     bases, chain = gemnet_oc.gemnet_cbf_bases, gemnet_oc.gemnet_quad_chain
 
-    def cbf_bases(problems, s):
+    def cbf_bases(problems, s, *out_dtype):
         seen["bases"].append([t.requires_grad for p in problems for t in p])
-        return bases(problems, s)
+        return bases(problems, s, *out_dtype)
 
-    def quad_chain(n1, n2, key1, key2, xm, qp, s):
+    def quad_chain(n1, n2, key1, key2, xm, qp, s, *out_dtype):
         seen["chain"].append({k: t.requires_grad for k, t in dict(n1=n1, n2=n2, xm=xm, qp=qp).items()})
-        return chain(n1, n2, key1, key2, xm, qp, s)
+        return chain(n1, n2, key1, key2, xm, qp, s, *out_dtype)
 
     monkeypatch.setattr(gemnet_oc, "gemnet_cbf_bases", cbf_bases)
     monkeypatch.setattr(gemnet_oc, "gemnet_quad_chain", quad_chain)
