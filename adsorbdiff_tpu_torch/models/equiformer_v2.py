@@ -43,9 +43,19 @@ so a reference ``.pt`` would not load into these names.
 :func:`eqv2_state_dict_from_jax` converts a JAX variable tree with plain
 transposes.
 
-Not ported yet (raise ``NotImplementedError``): ``compute_dtype="bfloat16"``
-(ROADMAP A.8 step 2) and ``grid_mode="e3nn"`` (reference checkpoint imports, ROADMAP
-A.10).
+``compute_dtype="bfloat16"`` (the trainers' ``amp``) is the JAX model's bf16
+path: it casts where that model casts and keeps the rest f32 (the geometry,
+the edge-degree embedding, the layer norms, the attention's alpha, its
+softmax and its sum over neighbours, every parameter).  bf16 are each
+attention's per-edge chain (its input cast before the rotations, the
+rotation, conv1, S^2 activation and internal SO(2) conv, the heads'
+weighting and the rotation back, through the bf16 variants of the kernels)
+and the FFN's grid MLP (its three Dense layers, SiLUs and the product back
+from the grid, then ``so3_linear_2``); the SO3Linear layers that take f32
+inputs round input and weight to bf16 and sum in f32.  The outputs are f32.
+
+Not ported yet (raises ``NotImplementedError``): ``grid_mode="e3nn"``
+(reference checkpoint imports, ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -61,7 +71,7 @@ from adsorbdiff_tpu_torch.common.registry import registry
 from adsorbdiff_tpu_torch.data.schema import AtomsBatch
 from adsorbdiff_tpu_torch.device import DeviceLike, resolve_device
 from adsorbdiff_tpu_torch.models.base import generate_graph, prepare_candidate_graph, prepare_static_graph
-from adsorbdiff_tpu_torch.models.layers import lecun_normal_
+from adsorbdiff_tpu_torch.models.layers import Linear, div, lecun_normal_, resolve_compute_dtype, silu
 from adsorbdiff_tpu_torch.models.so3 import (
     edge_euler_angles,
     l1_coeffs_to_vector,
@@ -124,11 +134,13 @@ def bernoulli_keep(generator: Optional[torch.Generator], keep: float, shape: Tup
 
 
 def _drop(y: torch.Tensor, rate: float, shape: Tuple[int, ...], generator: Optional[torch.Generator]) -> torch.Tensor:
-    """``y`` times a keep mask of ``shape`` over ``1 - rate`` (no draw for rate 0)."""
+    """``y`` times a keep mask of ``shape`` over ``1 - rate`` (no draw for rate
+    0), in y's dtype (a bf16 y is divided by ``1 - rate`` rounded to bf16, as
+    JAX divides by the weakly typed float)."""
     if rate <= 0.0:
         return y
     keep = 1.0 - rate
-    return y * bernoulli_keep(generator, keep, shape, y.device).to(y.dtype) / keep
+    return div(y * bernoulli_keep(generator, keep, shape, y.device).to(y.dtype), keep)
 
 
 def _jax_dense(linear: nn.Linear) -> Dict[str, torch.Tensor]:
@@ -211,19 +223,25 @@ class EquivariantLayerNormSH(nn.Module):
 
 class SO3Linear(nn.Module):
     """Per-l linear, bias on l=0: ``weight [lmax+1, C_out, C_in]`` applied
-    over the full coefficient axis."""
+    over the full coefficient axis.  With ``cdt``, input and weight are
+    rounded to it and the output keeps the input's dtype (the JAX layer's
+    f32 l-expansion widens the product for an f32 input: sums in f32, an f32
+    output; a bf16 input gives a bf16 product and bias)."""
 
-    def __init__(self, c_in: int, c_out: int, lmax: int) -> None:
+    def __init__(self, c_in: int, c_out: int, lmax: int, cdt: Optional[torch.dtype] = None) -> None:
         super().__init__()
-        self.c_in = c_in
+        self.c_in, self.cdt = c_in, cdt
         self.weight = nn.Parameter(torch.empty(lmax + 1, c_out, c_in))
         self.bias = nn.Parameter(torch.zeros(c_out))
         l_row = np.concatenate([np.full(2 * l + 1, l) for l in range(lmax + 1)])
         self.register_buffer("l_row", torch.from_numpy(l_row), persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.einsum("...ic,ioc->...io", x, self.weight[self.l_row])
-        return torch.cat([y[..., :1, :] + self.bias, y[..., 1:, :]], dim=-2)
+        w = self.weight[self.l_row]
+        if self.cdt is not None:
+            x, w = x.to(self.cdt).to(x.dtype), w.to(self.cdt).to(x.dtype)
+        y = torch.einsum("...ic,ioc->...io", x, w)
+        return torch.cat([y[..., :1, :] + self.bias.to(y.dtype), y[..., 1:, :]], dim=-2)
 
 
 class SO2Conv(nn.Module):
@@ -241,9 +259,10 @@ class SO2Conv(nn.Module):
     """
 
     def __init__(self, lmax: int, mmax: int, c_in: int, c_out: int, extra_m0_out: int = 0,
-                 internal_weights: bool = True, rad_channels: Tuple[int, ...] = ()) -> None:
+                 internal_weights: bool = True, rad_channels: Tuple[int, ...] = (),
+                 cdt: Optional[torch.dtype] = None) -> None:
         super().__init__()
-        self.lmax, self.mmax, self.c_in, self.c_out = lmax, mmax, c_in, c_out
+        self.lmax, self.mmax, self.c_in, self.c_out, self.cdt = lmax, mmax, c_in, c_out, cdt
         self.extra = extra_m0_out
         self.internal_weights = internal_weights
         self.ranges = m_primary_order(lmax, mmax)[1]
@@ -256,18 +275,26 @@ class SO2Conv(nn.Module):
             self.add_module(f"fc_m{mi + 1}_r", nn.Linear(nl * c_in, nl * c_out, bias=False))
             self.add_module(f"fc_m{mi + 1}_i", nn.Linear(nl * c_in, nl * c_out, bias=False))
 
+    def _linear(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        """``layer(x)``; with ``cdt``, input and weight cast to it, the product
+        rounded, then the bias added in it (the JAX group linear's order)."""
+        if self.cdt is None:
+            return layer(x)
+        y = F.linear(x.to(self.cdt), layer.weight.to(self.cdt))
+        return y if layer.bias is None else y + layer.bias.to(self.cdt)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.internal_weights:
             raise RuntimeError("the gated conv runs through eqv2_attn_conv1 (see jax_trees)")
         n0 = self.ranges[0][1]
-        y0 = self.fc_m0(x[..., :n0, :].flatten(-2))
+        y0 = self._linear(self.fc_m0, x[..., :n0, :].flatten(-2))
         pieces = [y0[..., self.extra:].unflatten(-1, (n0, self.c_out))]
         for mi in range(self.mmax):
             (pa, pb), (qa, qb) = self.ranges[1 + 2 * mi], self.ranges[2 + 2 * mi]
             xp, xn = x[..., pa:pb, :].flatten(-2), x[..., qa:qb, :].flatten(-2)
             wr, wi = getattr(self, f"fc_m{mi + 1}_r"), getattr(self, f"fc_m{mi + 1}_i")
-            pieces.append((wr(xp) - wi(xn)).unflatten(-1, (pb - pa, self.c_out)))
-            pieces.append((wi(xp) + wr(xn)).unflatten(-1, (pb - pa, self.c_out)))
+            pieces.append((self._linear(wr, xp) - self._linear(wi, xn)).unflatten(-1, (pb - pa, self.c_out)))
+            pieces.append((self._linear(wi, xp) + self._linear(wr, xn)).unflatten(-1, (pb - pa, self.c_out)))
         return torch.cat(pieces, dim=-2)
 
     def jax_trees(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
@@ -284,15 +311,18 @@ class GridMLPFFN(nn.Module):
     """FeedForwardNetwork, the published branch (``use_grid_mlp`` +
     ``use_sep_s2_act``): scalar SiLU MLP on l=0, SO3Linear, a bias-free
     3-layer MLP on the S^2 grid (plain matmuls), l=0 replaced by the scalar
-    branch, SO3Linear out."""
+    branch, SO3Linear out.  With ``cdt`` the grid MLP computes in it (flax's
+    ``nn.Dense(dtype=cdt)``), and so do the product back from the grid and
+    ``so3_linear_2``: the output is in ``cdt``."""
 
-    def __init__(self, lmax: int, c_in: int, hidden: int, c_out: int, grid_res: int = 18) -> None:
+    def __init__(self, lmax: int, c_in: int, hidden: int, c_out: int, grid_res: int = 18,
+                 cdt: Optional[torch.dtype] = None) -> None:
         super().__init__()
         self.scalar_mlp = nn.Linear(c_in, hidden)
-        self.so3_linear_1 = SO3Linear(c_in, hidden, lmax)
+        self.so3_linear_1 = SO3Linear(c_in, hidden, lmax, cdt)
         for i in range(3):
-            self.add_module(f"grid_mlp_{i}", nn.Linear(hidden, hidden, bias=False))
-        self.so3_linear_2 = SO3Linear(hidden, c_out, lmax)
+            self.add_module(f"grid_mlp_{i}", Linear(hidden, hidden, bias=False, cdt=cdt))
+        self.so3_linear_2 = SO3Linear(hidden, c_out, lmax, cdt)
         to_grid, from_grid = s2_grid_matrices(lmax, grid_res, grid_res)
         self.register_buffer("to_grid", torch.from_numpy(to_grid), persistent=False)
         self.register_buffer("from_grid", torch.from_numpy(from_grid), persistent=False)
@@ -300,10 +330,11 @@ class GridMLPFFN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         scalars = F.silu(self.scalar_mlp(x[..., 0, :]))
         g = torch.matmul(self.to_grid, self.so3_linear_1(x))
-        g = F.silu(self.grid_mlp_0(g))
-        g = F.silu(self.grid_mlp_1(g))
-        y = torch.matmul(self.from_grid, self.grid_mlp_2(g))
-        y = torch.cat([scalars[..., None, :], y[..., 1:, :]], dim=-2)
+        g = silu(self.grid_mlp_0(g))
+        g = silu(self.grid_mlp_1(g))
+        g = self.grid_mlp_2(g)
+        y = torch.matmul(self.from_grid.to(g.dtype), g)
+        y = torch.cat([scalars[..., None, :].to(y.dtype), y[..., 1:, :]], dim=-2)
         return self.so3_linear_2(y)
 
 
@@ -316,9 +347,10 @@ class SO2Attention(nn.Module):
 
     def __init__(self, lmax: int, mmax: int, channels: int, attn_hidden: int, num_heads: int, attn_alpha: int,
                  attn_value: int, c_out: int, max_num_elements: int, rad_channels: Tuple[int, ...],
-                 grid_res: int = 18, cutoff: float = 12.0, num_gauss: int = 600, alpha_drop: float = 0.0) -> None:
+                 grid_res: int = 18, cutoff: float = 12.0, num_gauss: int = 600, alpha_drop: float = 0.0,
+                 cdt: Optional[torch.dtype] = None) -> None:
         super().__init__()
-        self.lmax, self.mmax = lmax, mmax
+        self.lmax, self.mmax, self.cdt = lmax, mmax, cdt
         self.alpha_drop = alpha_drop
         self.num_heads, self.attn_alpha, self.attn_value = num_heads, attn_alpha, attn_value
         self.attn_hidden = attn_hidden
@@ -329,10 +361,10 @@ class SO2Attention(nn.Module):
         self.target_embedding = nn.Embedding(max_num_elements, emb_dim)
         self.so2_conv_1 = SO2Conv(lmax, mmax, 2 * channels, attn_hidden, extra_m0_out=self.extra,
                                   internal_weights=False, rad_channels=rad_channels)
-        self.so2_conv_2 = SO2Conv(lmax, mmax, attn_hidden, num_heads * attn_value)
+        self.so2_conv_2 = SO2Conv(lmax, mmax, attn_hidden, num_heads * attn_value, cdt=cdt)
         self.alpha_norm = nn.LayerNorm(attn_alpha, eps=1e-6)
         self.alpha_dot = nn.Parameter(torch.empty(num_heads, attn_alpha))
-        self.proj = SO3Linear(num_heads * attn_value, c_out, lmax)
+        self.proj = SO3Linear(num_heads * attn_value, c_out, lmax, cdt)
 
         to_eff, from_eff = s2_act_matrices(lmax, mmax, grid_res)
         self.register_buffer("to_eff", torch.from_numpy(to_eff), persistent=False)
@@ -344,6 +376,8 @@ class SO2Attention(nn.Module):
                 dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         emb_s = self.source_embedding(z_src)
         emb_t = self.target_embedding(z)[:, :, None, :].expand_as(emb_s).contiguous()
+        if self.cdt is not None:  # the whole per-edge chain in the compute dtype, as the JAX model casts
+            x = x.to(self.cdt)
         # the source half from the source rows; the target half rotates from
         # the node table, shared by the K edges of each target
         msg_s = eqv2_gather_rotate_to(x, nl.src, gamma, beta, self.lmax, self.mmax)
@@ -358,11 +392,11 @@ class SO2Attention(nn.Module):
 
         # separable S^2 activation: l=0 <- silu(gating scalars), l>0 <- grid silu
         h_act = s2_grid_silu(h, self.to_eff, self.from_eff)
-        h = torch.cat([F.silu(x0_gating)[..., None, :], h_act[..., 1:, :]], dim=-2)
+        h = torch.cat([silu(x0_gating)[..., None, :], h_act[..., 1:, :]], dim=-2)
         v = self.so2_conv_2(h)
 
-        # alpha: LayerNorm + SmoothLeakyReLU + per-head dot, masked softmax over K
-        a = self.alpha_norm(x0_alpha.unflatten(-1, (self.num_heads, self.attn_alpha)))
+        # alpha: LayerNorm + SmoothLeakyReLU + per-head dot, masked softmax over K (f32 in every compute dtype)
+        a = self.alpha_norm(x0_alpha.float().unflatten(-1, (self.num_heads, self.attn_alpha)))
         logits = torch.einsum("...ha,ha->...h", smooth_leaky_relu(a), self.alpha_dot)
         mask = nl.mask[..., None]
         logits = torch.where(mask, logits, torch.full_like(logits, -1e9))
@@ -370,23 +404,24 @@ class SO2Attention(nn.Module):
         if self.training:
             attn = _drop(attn, self.alpha_drop, tuple(attn.shape), dropout_generator)
 
-        v = v * attn.repeat_interleave(self.attn_value, dim=-1)[..., None, :]
+        v = v * attn.repeat_interleave(self.attn_value, dim=-1)[..., None, :].to(v.dtype)
         v_rot = eqv2_edge_rotate(v, gamma, beta, self.lmax, self.mmax, direction="from", n_sel=v.shape[-2])
-        v_rot = v_rot * self.rescale_out[:, None]
+        v_rot = v_rot * self.rescale_out[:, None].to(v_rot.dtype)
         v_rot = torch.where(mask[..., None], v_rot, torch.zeros_like(v_rot))
-        return self.proj(v_rot.sum(dim=2))
+        return self.proj(v_rot.sum(dim=2, dtype=torch.float32))
 
 
 class TransBlock(nn.Module):
     """One transformer block: ``norm_attn``, ``attn``, ``norm_ffn``, ``ffn``
     (the JAX model's ``{norm_attn,attn,norm_ffn,ffn}_{i}``)."""
 
-    def __init__(self, lmax: int, channels: int, attn: SO2Attention, ffn_hidden: int, grid_res: int) -> None:
+    def __init__(self, lmax: int, channels: int, attn: SO2Attention, ffn_hidden: int, grid_res: int,
+                 cdt: Optional[torch.dtype] = None) -> None:
         super().__init__()
         self.norm_attn = EquivariantLayerNormSH(lmax, channels)
         self.attn = attn
         self.norm_ffn = EquivariantLayerNormSH(lmax, channels)
-        self.ffn = GridMLPFFN(lmax, channels, ffn_hidden, channels, grid_res)
+        self.ffn = GridMLPFFN(lmax, channels, ffn_hidden, channels, grid_res, cdt)
 
 
 @registry.register_model("equiformer_v2")
@@ -454,9 +489,8 @@ class EquiformerV2(nn.Module):
     ) -> None:
         super().__init__()
         device = resolve_device(device)
-        if compute_dtype is not None:
-            raise NotImplementedError(f"EquiformerV2 compute_dtype={compute_dtype!r} (bf16) is not ported yet "
-                                      "(ROADMAP A.8 step 2)")
+        self.compute_dtype = compute_dtype
+        self.cdt = cdt = resolve_compute_dtype(compute_dtype)
         if grid_mode != "gauss":
             raise NotImplementedError(f"EquiformerV2 grid_mode={grid_mode!r} serves reference-checkpoint imports, "
                                       "not ported yet (ROADMAP A.10)")
@@ -492,7 +526,7 @@ class EquiformerV2(nn.Module):
         def attention(c_out, alpha_drop=0.0):  # the force heads drop nothing, as in JAX
             return SO2Attention(lmax, mmax, c, attn_hidden_channels, num_heads, attn_alpha_channels,
                                 attn_value_channels, c_out, max_num_elements, rad, grid_resolution, cutoff,
-                                num_distance_basis, alpha_drop)
+                                num_distance_basis, alpha_drop, cdt)
 
         self.sphere_embedding = nn.Embedding(max_num_elements, c)
         if energy_encoding == "scalar":
@@ -501,12 +535,12 @@ class EquiformerV2(nn.Module):
         self.edge_degree_target_embedding = nn.Embedding(max_num_elements, edge_channels)
         self.edge_degree_rad_func = RadialFunction(rad + (n0 * c,))
         self.blocks = nn.ModuleList(
-            TransBlock(lmax, c, attention(c, alpha_drop), ffn_hidden_channels, grid_resolution)
+            TransBlock(lmax, c, attention(c, alpha_drop), ffn_hidden_channels, grid_resolution, cdt)
             for _ in range(num_layers))
         self.norm_final = EquivariantLayerNormSH(lmax, c)
         self.force_block = attention(1)
         if mode == "s2ef":
-            self.energy_block = GridMLPFFN(lmax, c, ffn_hidden_channels, 1, grid_resolution)
+            self.energy_block = GridMLPFFN(lmax, c, ffn_hidden_channels, 1, grid_resolution, cdt)
         elif so3_denoising and for_denoising:
             self.force_block2 = attention(1)
         scale = 1.0 if radii_pm_bug_compat else 0.01
@@ -619,8 +653,9 @@ class EquiformerV2(nn.Module):
 
         if self.mode == "s2ef":
             e_atom = self.energy_block(x)[..., 0, 0]
-            energy = torch.where(batch.atom_mask, e_atom, torch.zeros_like(e_atom)).sum(dim=1) / self.avg_num_nodes
-            return {"energy": energy, "forces": force_head(self.force_block)}
+            energy = div(torch.where(batch.atom_mask, e_atom, torch.zeros_like(e_atom)).sum(dim=1),
+                         self.avg_num_nodes)
+            return {"energy": energy.float(), "forces": force_head(self.force_block)}
         forces = force_head(self.force_block)
         if self.so3_denoising and self.for_denoising:
             return forces, force_head(self.force_block2)

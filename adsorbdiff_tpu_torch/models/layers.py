@@ -61,14 +61,28 @@ def mul(x: torch.Tensor, c: float) -> torch.Tensor:
     return x * (c if x.dtype == torch.float32 else _rounded_scalar(c, x.dtype))
 
 
+def div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as JAX computes it for a Python float ``c`` (rounded to a
+    bf16 ``x``'s dtype first, as :func:`mul`)."""
+    return x / (c if x.dtype == torch.float32 else _rounded_scalar(c, x.dtype))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: in bf16 it is ``x * 1 / (1 + exp(-x))`` with each step
+    rounded to bf16, as XLA computes it; torch's fused SiLU would round once."""
+    if x.dtype == torch.float32:
+        return torch.nn.functional.silu(x)
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
 def scaled_silu(x: torch.Tensor) -> torch.Tensor:
     """SiLU * 1/0.6 (GemNet-OC's ScaledSiLU).  In bf16 it rounds where JAX
-    does: ``jax.nn.silu`` is ``x * 1 / (1 + exp(-x))`` with each step rounded
-    to bf16, and 1/0.6 is the bf16 1.6640625 (a Python float, weakly typed);
-    torch's fused SiLU would round once, and bias the result by ~0.2%."""
+    does: :func:`silu`'s steps, and 1/0.6 is the bf16 1.6640625 (a Python
+    float, weakly typed); torch's fused SiLU would round once, and bias the
+    result by ~0.2%."""
     if x.dtype == torch.float32:
         return torch.nn.functional.silu(x) * (1.0 / 0.6)
-    return mul(x * (1.0 / (1.0 + torch.exp(-x))), 1.0 / 0.6)
+    return mul(silu(x), 1.0 / 0.6)
 
 
 class ScaledSiLU(nn.Module):

@@ -12,12 +12,14 @@ Counterpart of :mod:`adsorbdiff_tpu.ops.pallas_kernels`.  Each kernel has:
 - a launch count in :data:`launches`, raised by one where the wrapper
   launches the kernel and nowhere else.
 
-Four kernels also take bf16 (the models' ``compute_dtype: bfloat16``), each
+Eight kernels also take bf16 (the models' ``compute_dtype: bfloat16``), each
 rounding where its TPU kernel rounds: ``painn_message_fused`` and its
 backward (bf16 ``xh``, ``vec`` bf16 or f32), ``masked_legendre_cos`` (a
-bf16 output) and ``gemnet_quad_chain`` (a bf16 output).
-Their plain versions take the same dtypes and round at the same points;
-a launch of a bf16 variant counts under ``<kernel>.bf16``.
+bf16 output), ``gemnet_quad_chain`` (a bf16 output), ``s2_grid_silu`` and
+its backward (bf16 ``h``, ``dy`` and output), ``eqv2_edge_rotate`` in all
+three forms (bf16 ``x`` and output) and ``eqv2_attn_conv1`` (bf16 messages
+and outputs).  Their plain versions take the same dtypes and round at the
+same points; a launch of a bf16 variant counts under ``<kernel>.bf16``.
 
 A kernel with a backward is wrapped in a ``torch.autograd.Function``
 (:class:`PainnMessageFused`, :class:`S2GridSilu`, :class:`EqV2AttnConv1`,
@@ -332,6 +334,10 @@ def _message_variant(kernel: str, xh: torch.Tensor, vec: torch.Tensor) -> str:
         return "bf16" if vec.dtype == torch.bfloat16 else "bf16_vf32"
     raise TypeError(f"{kernel}: xh and vec must be f32, or xh bf16 with vec bf16 or f32; got {xh.dtype}, "
                     f"{vec.dtype}")
+
+
+# the EquiformerV2 kernels' C entries by the dtype of their bf16-able tensors (h and dy, x, the messages) and outputs
+_EQV2_VARIANTS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def _count_suffix(variant: str) -> str:
@@ -1568,22 +1574,42 @@ def gemnet_quad_basis(n1: torch.Tensor, n2: torch.Tensor, keep: torch.Tensor, nu
     return out
 
 
+def _rounded(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` rounded to ``dtype`` and widened back to f32 (``t`` itself, as
+    f32, for an f32 ``dtype``)."""
+    return t.float() if dtype == torch.float32 else t.to(dtype).float()
+
+
+def _s2_check_dtype(kernel: str, h: torch.Tensor) -> None:
+    if h.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{kernel}: h must be f32 or bf16, got {h.dtype}")
+
+
 def s2_grid_silu_reference(h: torch.Tensor, to_grid_m: torch.Tensor, from_grid_m: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`s2_grid_silu`: the ``[..., G, C]``
-    grid tensor is materialised."""
-    g = torch.matmul(to_grid_m.float(), h.float())
-    return torch.matmul(from_grid_m.float(), torch.nn.functional.silu(g))
+    grid tensor is materialised.  With bf16 ``h`` the tables are rounded to
+    bf16 (the TPU wrapper casts them to ``h``'s dtype), ``silu(g)`` is
+    rounded to bf16 before the second product and the output is bf16; both
+    products sum in f32, as the TPU kernel's dots do."""
+    _s2_check_dtype("s2_grid_silu", h)
+    g = torch.matmul(_rounded(to_grid_m, h.dtype), h.float())
+    act = _rounded(torch.nn.functional.silu(g), h.dtype)
+    return torch.matmul(_rounded(from_grid_m, h.dtype), act).to(h.dtype)
 
 
 def s2_grid_silu_bwd_reference(h: torch.Tensor, dy: torch.Tensor, to_grid_m: torch.Tensor,
                                from_grid_m: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`s2_grid_silu_bwd`: the ``[..., G, C]``
-    grid tensors ``g`` and ``dg`` are materialised."""
-    to_m, from_m = to_grid_m.float(), from_grid_m.float()
+    grid tensors ``g`` and ``dg`` are materialised.  With bf16 ``h`` (and
+    its bf16 cotangent ``dy``) the tables are rounded to bf16, ``dg *
+    silu'(g)`` is rounded to bf16 before the last product and ``dh`` is
+    bf16, as the TPU backward rounds."""
+    _s2_check_dtype("s2_grid_silu_bwd", h)
+    to_m, from_m = _rounded(to_grid_m, h.dtype), _rounded(from_grid_m, h.dtype)
     g = torch.matmul(to_m, h.float())
     s = torch.sigmoid(g)
-    dg = torch.matmul(from_m.t(), dy.float()) * (s * (1.0 + g * (1.0 - s)))
-    return torch.matmul(to_m.t(), dg)
+    dg = _rounded(torch.matmul(from_m.t(), dy.float()) * (s * (1.0 + g * (1.0 - s))), h.dtype)
+    return torch.matmul(to_m.t(), dg).to(h.dtype)
 
 
 # H100 SXM: the most shared memory a block may take (227 KB), less 1 KB for
@@ -1790,10 +1816,13 @@ def s2_grid_silu(h: torch.Tensor, to_grid_m: torch.Tensor, from_grid_m: torch.Te
 
     ``h [..., NC, C]`` truncated m-primary coefficients (any leading dims);
     ``to_grid_m [G, NC]``, ``from_grid_m [NC, G]`` with the m-truncation
-    rescale folded in by the caller.  Returns a tensor like ``h``, f32.  On
-    the card: f32, contiguous, NC <= 32.  When autograd needs a gradient of
-    ``h`` the call goes through :class:`S2GridSilu`, whose backward is
-    :func:`s2_grid_silu_bwd`.
+    rescale folded in by the caller.  Returns a tensor like ``h``: f32, or
+    bf16 for bf16 ``h`` (the bf16 variant, counted under
+    ``s2_grid_silu.bf16``: the tables rounded to bf16 as the kernel stages
+    them, ``silu(g)`` rounded before the second product, as the TPU kernel
+    rounds).  On the card: f32 or bf16 ``h``, f32 tables, contiguous, NC <=
+    32.  When autograd needs a gradient of ``h`` the call goes through
+    :class:`S2GridSilu`, whose backward is :func:`s2_grid_silu_bwd`.
     """
     if torch.is_grad_enabled() and h.requires_grad:
         return S2GridSilu.apply(h, to_grid_m, from_grid_m)
@@ -1804,17 +1833,21 @@ def _s2_grid_silu_forward(h, to_grid_m, from_grid_m) -> torch.Tensor:
     if h.device.type == "cpu":
         return s2_grid_silu_reference(h, to_grid_m, from_grid_m)
     tensors = dict(h=h, to_grid_m=to_grid_m, from_grid_m=from_grid_m)
-    _check_cuda_inputs("s2_grid_silu", tensors, {})
+    _s2_check_dtype("s2_grid_silu", h)
+    _check_cuda_inputs("s2_grid_silu", tensors, {"h": h.dtype})
     m, nc, c, g = _s2_shape("s2_grid_silu", tensors)
     out = torch.empty_like(h)
     if h.numel() == 0:  # empty output: nothing to launch
         return out
     plan = s2_grid_silu_plan(m, nc, c, g)
+    variant = _EQV2_VARIANTS[h.dtype]
     lib = _library("s2_grid_silu", [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p], tuple(_EQV2_VARIANTS.values()))
     _launch("s2_grid_silu", lib, h.device, h.data_ptr(), to_grid_m.data_ptr(), from_grid_m.data_ptr(),
-            out.data_ptr(), m, nc, c, g, plan.blocks, plan.smem_bytes)
+            out.data_ptr(), m, nc, c, g, plan.blocks, plan.smem_bytes, variant=variant,
+            count_as="s2_grid_silu" + _count_suffix(variant))
     return out
+
 
 
 def s2_grid_silu_bwd(h: torch.Tensor, dy: torch.Tensor, to_grid_m: torch.Tensor,
@@ -1824,15 +1857,18 @@ def s2_grid_silu_bwd(h: torch.Tensor, dy: torch.Tensor, to_grid_m: torch.Tensor,
     with ``g = to @ h`` recomputed; neither grid tensor reaches device memory.
 
     ``h`` and ``dy`` ``[..., NC, C]``, the tables as :func:`s2_grid_silu`
-    takes them.  Returns ``dh`` like ``h``, f32.  On the card: the forward's
-    input rules for both ``h`` and ``dy``, launched by
-    :func:`s2_grid_silu_bwd_plan`.  Each column is written by one thread (no
-    atomics): the result repeats bit for bit.
+    takes them.  Returns ``dh`` like ``h``: f32, or bf16 for bf16 ``h`` and
+    ``dy`` (the bf16 variant, counted under ``s2_grid_silu_bwd.bf16``: the
+    tables rounded to bf16, ``dg * silu'(g)`` rounded once before its
+    second product).  On the card: the forward's input rules, ``dy`` in
+    ``h``'s dtype, launched by :func:`s2_grid_silu_bwd_plan`.  Each column
+    is written by one thread (no atomics): the result repeats bit for bit.
     """
     if h.device.type == "cpu":
         return s2_grid_silu_bwd_reference(h, dy, to_grid_m, from_grid_m)
     tensors = dict(h=h, dy=dy, to_grid_m=to_grid_m, from_grid_m=from_grid_m)
-    _check_cuda_inputs("s2_grid_silu_bwd", tensors, {})
+    _s2_check_dtype("s2_grid_silu_bwd", h)
+    _check_cuda_inputs("s2_grid_silu_bwd", tensors, {"h": h.dtype, "dy": h.dtype})
     m, nc, c, g = _s2_shape("s2_grid_silu_bwd", tensors)
     _check_shapes("s2_grid_silu_bwd", tensors, dict(dy=tuple(h.shape)))
     if h.numel() == 0:  # empty output: nothing to launch
@@ -1846,11 +1882,13 @@ def _s2_grid_silu_bwd_launch(h, dy, to_grid_m, from_grid_m, plan: LaunchPlan) ->
     inputs (:func:`s2_grid_silu_bwd`'s) and return ``dh``."""
     nc, c = h.shape[-2:]
     dh = torch.empty_like(h)
+    variant = _EQV2_VARIANTS[h.dtype]
     lib = _library("s2_grid_silu_bwd", [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p], tuple(_EQV2_VARIANTS.values()))
     _launch("s2_grid_silu_bwd", lib, h.device, h.data_ptr(), dy.data_ptr(), to_grid_m.data_ptr(),
             from_grid_m.data_ptr(), dh.data_ptr(), h.numel() // (nc * c), nc, c, to_grid_m.shape[0], plan.blocks,
-            plan.smem_bytes, shape=f"h{tuple(h.shape)}")
+            plan.smem_bytes, shape=f"h{tuple(h.shape)}", variant=variant,
+            count_as="s2_grid_silu_bwd" + _count_suffix(variant))
     return dh
 
 
@@ -1920,18 +1958,20 @@ def _gate_perm(n_blocks: Tuple[int, ...], c: int, device: torch.device) -> torch
 
 
 def pack_attn_conv1(rad_params: Dict[str, Any], conv_params: Dict[str, Any], *, lmax: int, mmax: int,
-                    num_gauss: int, c_in: int) -> AttnConv1Weights:
+                    num_gauss: int, c_in: int, dtype: torch.dtype = torch.float32) -> AttnConv1Weights:
     """The repack of the JAX package's ``eqv2_attn_conv1``: ``rad_params``
     is the RadialFunction tree (``dense_{0,1,2}`` ``kernel [in, out]`` and
     ``bias``, ``ln_{0,1}`` ``scale`` and ``bias``), ``conv_params`` the SO2Conv
     tree (``fc_m0`` ``kernel``/``bias``, ``fc_m{i}_{r,i}`` ``kernel``), as
-    tensors; ``c_in`` is the channel count of one message half."""
+    tensors; ``c_in`` is the channel count of one message half.  Every packed
+    tensor is f32; with ``dtype`` bf16 its values are rounded to bf16 first
+    (the TPU wrapper casts every weight to the message dtype)."""
     n_blocks = conv1_blocks(lmax, mmax)
     w0 = rad_params["dense_0"]["kernel"]
     e_dim = (w0.shape[0] - num_gauss) // 2
     perm = _gate_perm(n_blocks, c_in, w0.device)
     w2 = rad_params["dense_2"]["kernel"]
-    trunk = tuple(t.float().contiguous() for t in (
+    trunk = tuple(_rounded(t, dtype).contiguous() for t in (
         w0[:num_gauss], w0[num_gauss:num_gauss + e_dim], w0[num_gauss + e_dim:],
         rad_params["dense_0"]["bias"], rad_params["ln_0"]["scale"], rad_params["ln_0"]["bias"],
         rad_params["dense_1"]["kernel"], rad_params["dense_1"]["bias"],
@@ -1948,7 +1988,7 @@ def pack_attn_conv1(rad_params: Dict[str, Any], conv_params: Dict[str, Any], *, 
         kr_s, kr_t = split_st(conv_params[f"fc_m{mi}_r"]["kernel"], n_blocks[mi])
         ki_s, ki_t = split_st(conv_params[f"fc_m{mi}_i"]["kernel"], n_blocks[mi])
         conv += [kr_s, ki_s, kr_t, ki_t]
-    flat = torch.cat([k.float().reshape(-1) for k in conv])
+    flat = torch.cat([_rounded(k, dtype).reshape(-1) for k in conv])
     views, off = [], 0
     for k in conv:
         views.append(flat[off:off + k.numel()].view(k.shape))
@@ -1960,29 +2000,33 @@ def _attn_conv1_packed_reference(dist, mask, emb_s, emb_t, msg_s, msg_t, w: Attn
                                  width_scalar: float, c_out: int, extra: int) -> Tuple[torch.Tensor, ...]:
     """Port of the JAX ``_attn_conv1_ref`` on flat ``[E]`` / ``[E, ...]``
     inputs and packed weights.  Returns ``(extra [E, extra], m0 [E, nb0 *
-    c_out], then yp, yn [E, nb * c_out] per |m| > 0 block)``."""
+    c_out], then yp, yn [E, nb * c_out] per |m| > 0 block)`` in the
+    messages' dtype.  With bf16 messages it rounds where ``_attn_conv1_ref``
+    rounds: the gaussians, both trunk activations before their products and
+    the gates to bf16, each gated product in bf16, the outputs to bf16; every
+    product and sum of products is f32 (the weights and embeddings as given)."""
     wg, ws, wt, b0, ln0s, ln0b, w1, b1, ln1s, ln1b, w2, b2, bm0 = w.trunk
     c_in, n_blocks, num_gauss = w.c_in, w.n_blocks, w.num_gauss
+    dt = msg_s.dtype
     delta = cutoff / (num_gauss - 1)
     coeff = -0.5 / (width_scalar * delta) ** 2
     off = torch.arange(num_gauss, dtype=torch.float32, device=dist.device) * delta
-    gauss = torch.exp(coeff * (dist.float()[:, None] - off) ** 2) * mask.float()[:, None]
+    gauss = _rounded(torch.exp(coeff * (dist.float()[:, None] - off) ** 2) * mask.float()[:, None], dt)
 
     def ln_silu(h, s, b):
         mu = torch.mean(h, dim=1, keepdim=True)
         var = torch.mean((h - mu) ** 2, dim=1, keepdim=True)
         return torch.nn.functional.silu((h - mu) * torch.rsqrt(var + 1e-6) * s + b)
 
-    y0 = ln_silu(gauss @ wg + emb_s.float() @ ws + emb_t.float() @ wt + b0, ln0s, ln0b)
-    y1 = ln_silu(y0 @ w1 + b1, ln1s, ln1b)
-    gates = y1 @ w2 + b2
+    y0 = _rounded(ln_silu(gauss @ wg + emb_s.float() @ ws + emb_t.float() @ wt + b0, ln0s, ln0b), dt)
+    y1 = _rounded(ln_silu(y0 @ w1 + b1, ln1s, ln1b), dt)
+    gates = (y1 @ w2 + b2).to(dt)
     half = sum(n_blocks) * c_in
     goff = [0]
     for nb in n_blocks:
         goff.append(goff[-1] + nb * c_in)
 
-    def gated(msg, base):
-        msg = msg.float()
+    def gated(msg, base):  # in the message dtype: a bf16 product is rounded, as the TPU kernel's
         pieces = [msg[:, : n_blocks[0] * c_in] * gates[:, base : base + goff[1]]]
         moff = n_blocks[0] * c_in
         for mi in range(1, len(n_blocks)):
@@ -1993,24 +2037,35 @@ def _attn_conv1_packed_reference(dist, mask, emb_s, emb_t, msg_s, msg_t, w: Attn
             moff += 2 * width
         return pieces
 
+    def dot(a, k):  # widened at each use, as JAX promotes in each dot: a bf16 piece's cotangents round apart
+        return a.float() @ k
+
     gs, gt = gated(msg_s, 0), gated(msg_t, half)
     conv = w.conv
-    y0c = gs[0] @ conv[0] + gt[0] @ conv[1] + bm0
+    y0c = dot(gs[0], conv[0]) + dot(gt[0], conv[1]) + bm0
     outs = [y0c[:, :extra], y0c[:, extra:]]
     wi = 2
     for mi in range(1, len(n_blocks)):
         xp_s, xn_s, xp_t, xn_t = gs[2 * mi - 1], gs[2 * mi], gt[2 * mi - 1], gt[2 * mi]
         kr_s, ki_s, kr_t, ki_t = conv[wi : wi + 4]
         wi += 4
-        outs.append(xp_s @ kr_s + xp_t @ kr_t - xn_s @ ki_s - xn_t @ ki_t)
-        outs.append(xp_s @ ki_s + xp_t @ ki_t + xn_s @ kr_s + xn_t @ kr_t)
-    return tuple(outs)
+        outs.append(dot(xp_s, kr_s) + dot(xp_t, kr_t) - dot(xn_s, ki_s) - dot(xn_t, ki_t))
+        outs.append(dot(xp_s, ki_s) + dot(xp_t, ki_t) + dot(xn_s, kr_s) + dot(xn_t, kr_t))
+    return tuple(o.to(dt) for o in outs)
 
 
-def _attn_conv1_prepare(dist, emb_s, msg_s, rad_params, conv_params, *, lmax, mmax, num_gauss):
+def _attn_conv1_check_dtypes(msg_s: torch.Tensor, msg_t: torch.Tensor) -> None:
+    if msg_s.dtype not in (torch.float32, torch.bfloat16) or msg_t.dtype != msg_s.dtype:
+        raise TypeError(f"eqv2_attn_conv1: msg_s and msg_t must both be f32 or both bf16, got {msg_s.dtype}, "
+                        f"{msg_t.dtype}")
+
+
+def _attn_conv1_prepare(dist, emb_s, msg_s, rad_params, conv_params, *, lmax, mmax, num_gauss,
+                        weights_dtype=torch.float32):
     """(packed weights, leading dims, edges, n_act, C, emb dim) of a call."""
     c = msg_s.shape[-1]
-    packed = pack_attn_conv1(rad_params, conv_params, lmax=lmax, mmax=mmax, num_gauss=num_gauss, c_in=c)
+    packed = pack_attn_conv1(rad_params, conv_params, lmax=lmax, mmax=mmax, num_gauss=num_gauss, c_in=c,
+                             dtype=weights_dtype)
     lead = tuple(dist.shape)
     return packed, lead, math.prod(lead), msg_s.shape[-2], c, emb_s.shape[-1]
 
@@ -2034,12 +2089,29 @@ def eqv2_attn_conv1_reference(
     width_scalar: float = 2.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`eqv2_attn_conv1`: the gaussian basis,
-    the trunk activations and the ``[E, NG]`` gates are materialised."""
+    the trunk activations and the ``[E, NG]`` gates are materialised.  With
+    bf16 messages it is the TPU kernel's bf16 form (``_attn_conv1_call``
+    casts the embeddings and every weight to bf16 before the kernel body
+    rounds as :func:`_attn_conv1_packed_reference` says); the outputs are
+    bf16."""
+    return _attn_conv1_reference(dist, mask, emb_s, emb_t, msg_s, msg_t, rad_params, conv_params, lmax=lmax,
+                                 mmax=mmax, c_out=c_out, extra=extra, num_gauss=num_gauss, cutoff=cutoff,
+                                 width_scalar=width_scalar, kernel_form=True)
+
+
+def _attn_conv1_reference(dist, mask, emb_s, emb_t, msg_s, msg_t, rad_params, conv_params, *, lmax, mmax, c_out,
+                          extra, num_gauss, cutoff, width_scalar, kernel_form):
+    """:func:`eqv2_attn_conv1_reference`, or with ``kernel_form`` False the
+    JAX VJP's recompute (``_attn_conv1_bwd`` differentiates ``_attn_conv1_ref``
+    with the f32 weights and embeddings, where the forward kernel had cast
+    them to the message dtype; the two forms are one for f32 messages)."""
+    _attn_conv1_check_dtypes(msg_s, msg_t)
+    dt = msg_s.dtype if kernel_form else torch.float32
     packed, lead, m, n_act, c, e_dim = _attn_conv1_prepare(
-        dist, emb_s, msg_s, rad_params, conv_params, lmax=lmax, mmax=mmax, num_gauss=num_gauss)
+        dist, emb_s, msg_s, rad_params, conv_params, lmax=lmax, mmax=mmax, num_gauss=num_gauss, weights_dtype=dt)
     outs = _attn_conv1_packed_reference(
-        dist.reshape(m), mask.reshape(m), emb_s.reshape(m, e_dim), emb_t.reshape(m, e_dim),
-        msg_s.reshape(m, n_act * c), msg_t.reshape(m, n_act * c), packed,
+        dist.reshape(m), mask.reshape(m), _rounded(emb_s, dt).reshape(m, e_dim),
+        _rounded(emb_t, dt).reshape(m, e_dim), msg_s.reshape(m, n_act * c), msg_t.reshape(m, n_act * c), packed,
         cutoff=cutoff, width_scalar=width_scalar, c_out=c_out, extra=extra)
     h = torch.cat([o.reshape(lead + (-1, c_out)) for o in outs[1:]], dim=-2)
     return h, outs[0].reshape(lead + (extra,))
@@ -2072,14 +2144,20 @@ def eqv2_attn_conv1(
     Shapes as :func:`eqv2_attn_conv1_reference`; ``rad_params`` and
     ``conv_params`` as :func:`pack_attn_conv1` takes them (repacked on every
     call).  Returns ``(h [..., n_act, c_out], extra_out [...,
-    extra])``, f32: h's rows in the truncated m-primary order, extra_out the
-    fc_m0 columns that precede h's.  On the card: f32 contiguous inputs and
-    ``mask`` bool.  :func:`attn_conv1_route` picks the kernel from the widths:
-    the 64-edge kernel where its plan fits one block's shared memory (at
-    C = 128, equal trunk and embedding widths up to 144), else the 16-edge
-    ``csrc/eqv2_attn_conv1_wide.cu``; both count as ``eqv2_attn_conv1``.
-    When autograd needs a gradient the call goes through
-    :class:`EqV2AttnConv1`, whose backward recomputes the plain version.
+    extra])`` in the messages' dtype: h's rows in the truncated m-primary
+    order, extra_out the fc_m0 columns that precede h's.  On the card: f32
+    contiguous inputs and ``mask`` bool, or bf16 messages (the bf16 variant,
+    counted under ``eqv2_attn_conv1.bf16``: the weights rounded to bf16 by
+    the wrapper, the embeddings as the kernel stages them, then the
+    roundings of :func:`_attn_conv1_packed_reference`; the embeddings,
+    distances and weights stay f32 tensors).  :func:`attn_conv1_route`
+    picks the kernel from the widths: the 64-edge kernel where its plan fits
+    one block's shared memory (at C = 128, equal trunk and embedding widths
+    up to 144), else the 16-edge ``csrc/eqv2_attn_conv1_wide.cu`` (f32 only:
+    bf16 messages there raise ``TypeError``); both count as
+    ``eqv2_attn_conv1``.  When autograd needs a gradient the call goes
+    through :class:`EqV2AttnConv1`, whose backward recomputes the plain
+    version in the JAX VJP's form.
     """
     kw = dict(lmax=lmax, mmax=mmax, c_out=c_out, extra=extra, num_gauss=num_gauss, cutoff=cutoff,
               width_scalar=width_scalar)
@@ -2107,10 +2185,12 @@ def _unflatten_trees(keys, leaves) -> Tuple[Dict[str, Any], Dict[str, Any]]:
 class EqV2AttnConv1(torch.autograd.Function):
     """:func:`eqv2_attn_conv1` with its VJP.
 
-    The backward recomputes the plain version (:func:`eqv2_attn_conv1_reference`)
-    under autograd and differentiates it, as the JAX package's
-    ``_attn_conv1_bwd`` differentiates ``_attn_conv1_ref``: the TPU kernel has
-    no backward kernel of its own.  The recompute starts from the weight
+    The backward recomputes the plain version (:func:`_attn_conv1_reference`
+    with ``kernel_form`` False: with bf16 messages, the roundings of the
+    forward on f32 weights and embeddings) under autograd and
+    differentiates it, as the JAX package's ``_attn_conv1_bwd``
+    differentiates ``_attn_conv1_ref``: the TPU kernel has no backward
+    kernel of its own.  The recompute starts from the weight
     trees as the caller passed them (the module's parameters or views of
     them), so the gradients reach those and not the kernel's packed copy.
     Gradients flow to the embeddings, both message halves and every weight;
@@ -2132,7 +2212,7 @@ class EqV2AttnConv1(torch.autograd.Function):
         inputs = [t.detach().requires_grad_(True) for t in inputs]
         with torch.enable_grad():
             rad, conv = _unflatten_trees(ctx.keys, inputs[4:])
-            outs = eqv2_attn_conv1_reference(dist, mask, *inputs[:4], rad, conv, **ctx.kw)
+            outs = _attn_conv1_reference(dist, mask, *inputs[:4], rad, conv, **ctx.kw, kernel_form=False)
             grads = torch.autograd.grad(outs, inputs, (dh, dx), allow_unused=True)
         grads = [torch.zeros_like(t) if g is None else g for t, g in zip(inputs, grads)]
         return (None, None, torch.zeros_like(dist), None, *grads)
@@ -2144,12 +2224,14 @@ def _eqv2_attn_conv1_forward(dist, mask, emb_s, emb_t, msg_s, msg_t, rad_params,
         return eqv2_attn_conv1_reference(
             dist, mask, emb_s, emb_t, msg_s, msg_t, rad_params, conv_params, lmax=lmax, mmax=mmax, c_out=c_out,
             extra=extra, num_gauss=num_gauss, cutoff=cutoff, width_scalar=width_scalar)
+    _attn_conv1_check_dtypes(msg_s, msg_t)
     packed, lead, m, n_act, c, e_dim = _attn_conv1_prepare(
-        dist, emb_s, msg_s, rad_params, conv_params, lmax=lmax, mmax=mmax, num_gauss=num_gauss)
+        dist, emb_s, msg_s, rad_params, conv_params, lmax=lmax, mmax=mmax, num_gauss=num_gauss,
+        weights_dtype=msg_s.dtype)
     names = ("wg", "ws", "wt", "b0", "ln0_scale", "ln0_bias", "w1", "b1", "ln1_scale", "ln1_bias", "w2", "b2", "bm0")
     tensors = dict(dist=dist, mask=mask, emb_s=emb_s, emb_t=emb_t, msg_s=msg_s, msg_t=msg_t,
                    **dict(zip(names, packed.trunk)), wconv=packed.flat_conv)
-    _check_cuda_inputs("eqv2_attn_conv1", tensors, {"mask": torch.bool})
+    _check_cuda_inputs("eqv2_attn_conv1", tensors, {"mask": torch.bool, "msg_s": msg_s.dtype, "msg_t": msg_s.dtype})
     n_blocks = packed.n_blocks
     if n_act != n_blocks[0] + 2 * sum(n_blocks[1:]):
         raise ValueError(f"eqv2_attn_conv1: msg_s has {n_act} rows, lmax {lmax} / mmax {mmax} need "
@@ -2166,15 +2248,19 @@ def _eqv2_attn_conv1_forward(dist, mask, emb_s, emb_t, msg_s, msg_t, rad_params,
         conv_shapes += [(nb * c, nb * c_out)] * 4
     _check_shapes("eqv2_attn_conv1", {f"conv[{i}]": t for i, t in enumerate(packed.conv)},
                   {f"conv[{i}]": shape for i, shape in enumerate(conv_shapes)})
-    extra_out = torch.empty(lead + (extra,), dtype=torch.float32, device=msg_s.device)
-    h = torch.empty(lead + (n_act, c_out), dtype=torch.float32, device=msg_s.device)
+    extra_out = torch.empty(lead + (extra,), dtype=msg_s.dtype, device=msg_s.device)
+    h = torch.empty(lead + (n_act, c_out), dtype=msg_s.dtype, device=msg_s.device)
     if m == 0:  # empty output: nothing to launch
         return h, extra_out
+    variant = _EQV2_VARIANTS[msg_s.dtype]
     common = (*(t.data_ptr() for t in (dist, mask, emb_s, emb_t, msg_s, msg_t)),
               *(t.data_ptr() for t in packed.trunk), packed.flat_conv.data_ptr(), extra_out.data_ptr(), h.data_ptr(),
               m, num_gauss, e_dim, hidden, c, c_out, extra, (ctypes.c_int * len(n_blocks))(*n_blocks), len(n_blocks),
               float(cutoff), float(width_scalar))
     if attn_conv1_route(e_dim, hidden, c, c_out, extra, n_blocks) == "wide":
+        if variant != "f32":
+            raise TypeError(f"eqv2_attn_conv1: the wide route (hidden {hidden}, emb {e_dim}) takes f32 messages "
+                            f"only, got {msg_s.dtype}")
         lib = _library("eqv2_attn_conv1_wide", [ctypes.c_void_p] * 22 + [ctypes.c_longlong] + [ctypes.c_int] * 6
                        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         _launch("eqv2_attn_conv1_wide", lib, msg_s.device, *common, count_as="eqv2_attn_conv1")
@@ -2182,8 +2268,9 @@ def _eqv2_attn_conv1_forward(dist, mask, emb_s, emb_t, msg_s, msg_t, rad_params,
     plan = attn_conv1_plan(m, num_gauss, e_dim, hidden, c, c_out, extra, n_blocks, _sm_count(msg_s.device))
     lib = _library("eqv2_attn_conv1", [ctypes.c_void_p] * 22 + [ctypes.c_longlong] + [ctypes.c_int] * 6
                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float, ctypes.c_float]
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    _launch("eqv2_attn_conv1", lib, msg_s.device, *common, plan.blocks, plan.smem_bytes)
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], tuple(_EQV2_VARIANTS.values()))
+    _launch("eqv2_attn_conv1", lib, msg_s.device, *common, plan.blocks, plan.smem_bytes, variant=variant,
+            count_as="eqv2_attn_conv1" + _count_suffix(variant))
     return h, extra_out
 
 
@@ -2196,15 +2283,53 @@ def eqv2_edge_rotate_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch
                                direction: str, n_sel: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`eqv2_edge_rotate`: the decomposed chain
     of :mod:`adsorbdiff_tpu_torch.models.so3` (``rotate_to_edge_m`` /
-    ``rotate_from_edge_m``), whose ``[..., 2 dim, C]`` stages are materialised."""
+    ``rotate_from_edge_m``), whose ``[..., 2 dim, C]`` stages are
+    materialised.  bf16 ``x`` takes :func:`_edge_rotate_bf16_reference`."""
     n_sel = so3.n_act_rows(lmax, mmax) if n_sel is None else n_sel
+    if direction not in ("to", "from"):
+        raise ValueError(f"unknown rotation direction {direction!r}")
+    if direction == "from" and x.shape[-2] != n_sel:
+        raise ValueError(f"eqv2_edge_rotate: direction 'from' takes n_sel = {n_sel} rows, got {x.shape[-2]}")
+    if x.dtype == torch.bfloat16:
+        return _edge_rotate_bf16_reference(x, gamma, beta, lmax, mmax, direction, n_sel)
+    if x.dtype != torch.float32:
+        raise TypeError(f"eqv2_edge_rotate: x must be f32 or bf16, got {x.dtype}")
     if direction == "to":
         return so3.rotate_to_edge_m(x, gamma, beta, lmax, mmax, n_rows=n_sel)
-    if direction != "from":
-        raise ValueError(f"unknown rotation direction {direction!r}")
-    if x.shape[-2] != n_sel:
-        raise ValueError(f"eqv2_edge_rotate: direction 'from' takes n_sel = {n_sel} rows, got {x.shape[-2]}")
     return so3.rotate_from_edge_m(x, gamma, beta, lmax, mmax)
+
+
+def _edge_rotate_bf16_reference(x, gamma, beta, lmax, mmax, direction, n_sel) -> torch.Tensor:
+    """The TPU kernel's bf16 chain (``pallas_kernels.py::_edge_rot_kernel``
+    with ``x_ref.dtype`` bf16): the constant matrices and the cos/sin(m t)
+    tables rounded to bf16; each constant product summed in f32 and rounded
+    to bf16; each Dz stage ``h c + h' s`` in bf16, both products and their
+    sum rounded (what JAX's function returns: bit for bit against this chain
+    on the CPU, where one rounding of the f32 sum parts from it).  Returns
+    bf16."""
+    bf = torch.bfloat16
+    dim = (lmax + 1) ** 2
+
+    def tables(angle, m_row, sign, negate):
+        c, s = so3._cs(angle.float(), m_row, sign)
+        return _rounded(c, bf), _rounded(-s if negate else s, bf)
+
+    def dz(h, c, s):  # h [..., 2 dim, C]: the rows and their (l, -m) partners
+        return _rounded(_rounded(h[..., :dim, :] * c, bf) + _rounded(h[..., dim:, :] * s, bf), bf)
+
+    def product(table, t):
+        return _rounded(torch.matmul(_rounded(so3.device_table(table, t.device), bf), t), bf)
+
+    if direction == "to":
+        _, jt2, _, _, (m_row, sign), _, _, _ = so3._rot_decomp_mats(lmax, mmax, so3.n_act_rows(lmax, mmax))
+        swap = so3.device_table(so3.zrot_swap_sign(lmax)[1], x.device, torch.long)
+        xf = x.float()
+        t = dz(torch.cat([xf, xf[..., swap, :]], dim=-2), *tables(gamma, m_row, sign, False))
+        t = dz(product(jt2, t), *tables(beta, m_row, sign, False))
+        return product(so3._pj_rows(lmax, mmax, n_sel), t).to(bf)
+    _, _, _, _, (m_row, sign), jtp2, j2, _ = so3._rot_decomp_mats(lmax, mmax, n_sel)
+    t = dz(product(jtp2, x.float()), *tables(beta, m_row, sign, True))
+    return dz(product(j2, t), *tables(gamma, m_row, sign, True)).to(bf)
 
 
 def eqv2_gather_rotate_to_reference(x: torch.Tensor, src: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -2227,9 +2352,12 @@ def eqv2_edge_rotate(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, l
     defaults to the active-row count.  ``gamma``/``beta`` are the per-edge
     angles ``[...]``; x's leading dims equal theirs, or equal them with a 1
     on the last axis (a node row shared by its K edges, read by index: the
-    K-broadcast copy never exists).  Returns f32 with the angles' leading
-    dims.  On the card: f32 contiguous x and angles, lmax <= 6.  When
-    autograd needs a gradient the call goes through :class:`EqV2EdgeRotate`.
+    K-broadcast copy never exists).  Returns a tensor in x's dtype with the
+    angles' leading dims: f32, or bf16 for bf16 x (the bf16 variant of every
+    form, counted under ``eqv2_edge_rotate.bf16``: the TPU kernel's bf16
+    chain, :func:`_edge_rotate_bf16_reference`).  On the card: f32 or bf16
+    contiguous x, f32 contiguous angles, lmax <= 6.  When autograd needs a
+    gradient the call goes through :class:`EqV2EdgeRotate`.
     """
     return _rotate(x, None, gamma, beta, lmax, mmax, direction, n_sel)
 
@@ -2259,7 +2387,9 @@ def _rotate_forward(x, src, gamma, beta, lmax, mmax, direction, n_sel) -> torch.
         return eqv2_edge_rotate_reference(x, gamma, beta, lmax, mmax, direction=direction, n_sel=n_sel)
     kernel = "eqv2_edge_rotate"
     tensors = dict(x=x, gamma=gamma, beta=beta, **({} if src is None else {"src": src}))
-    _check_cuda_inputs(kernel, tensors, {"src": torch.int32})
+    if x.dtype not in _EQV2_VARIANTS:
+        raise TypeError(f"{kernel}: x must be f32 or bf16, got {x.dtype}")
+    _check_cuda_inputs(kernel, tensors, {"src": torch.int32, "x": x.dtype})
     if direction not in ("to", "from"):
         raise ValueError(f"unknown rotation direction {direction!r}")
     dim = (lmax + 1) ** 2
@@ -2283,17 +2413,32 @@ def _rotate_forward(x, src, gamma, beta, lmax, mmax, direction, n_sel) -> torch.
         _check_shapes(kernel, tensors, {"x": lead[:-1] + (1, n_in, c)})
     else:
         _check_shapes(kernel, tensors, {"x": lead + (n_in, c)})
-    out = torch.empty(lead + (n_out, c), dtype=torch.float32, device=x.device)
+    out = torch.empty(lead + (n_out, c), dtype=x.dtype, device=x.device)
     e = math.prod(lead)
     if e * c == 0:  # empty output: nothing to launch
         return out
-    j_blocks, sign, row = so3.edge_rot_consts(lmax, mmax, n_sel)  # contiguous host arrays, cached
+    variant = _EQV2_VARIANTS[x.dtype]
+    j_blocks, sign, row = _rotate_consts(lmax, mmax, n_sel, variant)  # contiguous host arrays, cached
     lib = _library(kernel, [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4,
+                   tuple(_EQV2_VARIANTS.values()))
     _launch(kernel, lib, x.device, x.data_ptr(), None if src is None else src.data_ptr(), gamma.data_ptr(),
             beta.data_ptr(), out.data_ptr(), e, c, n_in, n_out, kdiv, nk, n_nodes, lmax, int(direction == "to"),
-            j_blocks.ctypes.data, sign.ctypes.data, row.ctypes.data)
+            j_blocks.ctypes.data, sign.ctypes.data, row.ctypes.data, variant=variant,
+            count_as=kernel + _count_suffix(variant))
     return out
+
+
+
+@functools.lru_cache(maxsize=32)
+def _rotate_consts(lmax: int, mmax: int, n_sel: int, variant: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """:func:`so3.edge_rot_consts`, with J's blocks rounded to bf16 (kept as
+    f32 values) for the bf16 variant, as the TPU wrapper casts its constant
+    matrices to the input dtype."""
+    j_blocks, sign, row = so3.edge_rot_consts(lmax, mmax, n_sel)
+    if variant == "bf16":
+        j_blocks = np.ascontiguousarray(torch.from_numpy(j_blocks).to(torch.bfloat16).float().numpy())
+    return j_blocks, sign, row
 
 
 class EqV2EdgeRotate(torch.autograd.Function):
@@ -2302,11 +2447,12 @@ class EqV2EdgeRotate(torch.autograd.Function):
     The rotation is linear in x and Dz(t)^T = Dz(-t), so the VJP of one
     direction is the other direction at the same angles
     (``pallas_kernels.py::_edge_rot_bwd``): one launch of the same kernel on
-    the per-edge cotangent.  A node row shared by K edges then sums its K
-    rows; the gather variant adds each edge's row to its source node
-    (``index_add_``, outside the kernel as the one-hot gather's transpose was
-    outside the TPU kernel).  The angles get no gradient (the geometry
-    contract: score losses never differentiate through positions).
+    the per-edge cotangent (bf16 for a bf16 x: the bf16 variant).  A node
+    row shared by K edges then sums its K rows; the gather variant adds each
+    edge's row to its source node (``index_add_``, outside the kernel as the
+    one-hot gather's transpose was outside the TPU kernel); both sums run in
+    f32 and round once to x's dtype.  The angles get no gradient (the
+    geometry contract: score losses never differentiate through positions).
     """
 
     @staticmethod
@@ -2319,15 +2465,32 @@ class EqV2EdgeRotate(torch.autograd.Function):
     def backward(ctx, ct):
         src, gamma, beta = ctx.saved_tensors
         lmax, mmax, direction, n_sel, x_shape, dtype = ctx.meta
-        dual = "from" if direction == "to" else "to"
-        d = _rotate_forward(ct.contiguous(), None, gamma, beta, lmax, mmax, dual, n_sel)
-        if src is not None:
-            b, n = x_shape[:2]
-            idx = (torch.arange(b, device=src.device)[:, None, None] * n + src.long()).reshape(-1)
-            dx = torch.zeros((b * n,) + x_shape[2:], dtype=d.dtype, device=d.device)
-            dx = dx.index_add_(0, idx, d.reshape((-1,) + x_shape[2:])).reshape(x_shape)
-        elif tuple(d.shape) != x_shape:
-            dx = d.sum(dim=-3, keepdim=True)  # the K edges of a shared node row
-        else:
-            dx = d
-        return dx.to(dtype), None, None, None, None, None, None, None
+        d = _rotate_forward(ct.contiguous(), None, gamma, beta, lmax, mmax, _DUAL[direction], n_sel)
+        return _rotate_vjp_rows(d, src, x_shape).to(dtype), None, None, None, None, None, None, None
+
+
+_DUAL = {"to": "from", "from": "to"}
+
+
+def _rotate_vjp_rows(d: torch.Tensor, src: Optional[torch.Tensor], x_shape: Tuple[int, ...]) -> torch.Tensor:
+    """The per-edge rows ``d`` of the dual rotation back on x's rows: added to
+    the source nodes (the gather), summed over the K edges of a shared node
+    row, or as they are; the sums in f32."""
+    if src is not None:
+        b, n = x_shape[:2]
+        idx = (torch.arange(b, device=src.device)[:, None, None] * n + src.long()).reshape(-1)
+        dx = torch.zeros((b * n,) + tuple(x_shape[2:]), dtype=torch.float32, device=d.device)
+        return dx.index_add_(0, idx, d.float().reshape((-1,) + tuple(x_shape[2:]))).reshape(x_shape)
+    if tuple(d.shape) != tuple(x_shape):
+        return d.float().sum(dim=-3, keepdim=True)  # the K edges of a shared node row
+    return d
+
+
+def eqv2_edge_rotate_vjp_reference(ct: torch.Tensor, src: Optional[torch.Tensor], gamma: torch.Tensor,
+                                   beta: torch.Tensor, lmax: int, mmax: int, *, direction: str, n_sel: int,
+                                   x_shape: Tuple[int, ...]) -> torch.Tensor:
+    """Plain version of :class:`EqV2EdgeRotate`'s backward: the cotangent
+    ``ct`` of a rotation of ``direction`` (of :func:`eqv2_gather_rotate_to`
+    where ``src`` is given) -> x's cotangent ``x_shape``, in ct's dtype."""
+    d = eqv2_edge_rotate_reference(ct, gamma, beta, lmax, mmax, direction=_DUAL[direction], n_sel=n_sel)
+    return _rotate_vjp_rows(d, src, x_shape).to(ct.dtype)

@@ -153,6 +153,25 @@ def _pair_d2(src_pos: torch.Tensor, tgt_pos: torch.Tensor, offsets_cart: torch.T
     return torch.sum(diff * diff, dim=-1)
 
 
+def exact_sqrt(d2: torch.Tensor) -> torch.Tensor:
+    """``sqrt(max(d2, 0))`` of f32 ``d2``, correctly rounded (the IEEE square
+    root, which ``jnp.sqrt`` gives).  On the card this is ``torch.sqrt``:
+    CUDA's f32 sqrt is the IEEE root.  On the CPU ``torch.sqrt`` of a float
+    tensor runs MKL's vector math library, whose first call in a process
+    computed one 2048-element chunk about 11 bits deep (errors ~2e-3 at 5 A)
+    in 9 of 116 fresh processes on a card machine's host (ROADMAP C.1), and
+    which rounds 0.6% of values one ulp off even when it is right; there
+    rsqrt's estimate in f64 and one Newton step are exact to f64's rounding,
+    so rounding to f32 gives the correctly rounded root, call after call."""
+    x = torch.clamp(d2, min=0.0)
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    x = x.double()
+    y = x * torch.rsqrt(x)
+    y = 0.5 * (y + x / y)
+    return torch.where(x > 0, y, torch.zeros_like(y)).to(d2.dtype)
+
+
 def _decode(pos, cell, offsets_int, d2, fidx) -> NeighborList:
     """Selected candidates (d^2, flat index) -> :class:`NeighborList`."""
     c = offsets_int.shape[0]
@@ -162,7 +181,7 @@ def _decode(pos, cell, offsets_int, d2, fidx) -> NeighborList:
     mask = d2 < big
     cell_offsets = offsets_int[img]  # [B, N, K, 3]
     vec = _gather_rows(pos, src) + cell_offsets.to(pos.dtype) @ cell[:, None] - pos[:, :, None, :]
-    dist = torch.sqrt(torch.clamp(d2, min=0.0))
+    dist = exact_sqrt(d2)
     # neutralise invalid slots (src=0 gathers are harmless; keep vec finite)
     zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
     return NeighborList(
@@ -326,7 +345,7 @@ def candidate_topk(
     big = torch.finfo(d2.dtype).max
     d2_top, fidx = _smallest_k(torch.where(valid, d2, big).reshape(b, n, n * c), k_cand)
     vmask = d2_top < big
-    d = torch.sqrt(torch.clamp(d2_top, min=0.0))
+    d = exact_sqrt(d2_top)
     inf = torch.full((), float("inf"), dtype=d.dtype, device=d.device)
     if k_cand < n * c:
         # only full rows can have left a candidate out; padded targets and
@@ -375,7 +394,7 @@ def refresh_from_candidates(
         src=torch.where(mask, src, torch.zeros_like(src)),
         cell_offsets=cell_offsets,
         vec=torch.where(mask[..., None], v, zero),
-        dist=torch.where(mask, torch.sqrt(torch.clamp(d2_top, min=0.0)), zero),
+        dist=torch.where(mask, exact_sqrt(d2_top), zero),
         mask=mask,
     )
     return _strip_batch(squeeze, nl)

@@ -5,7 +5,7 @@
 
 Phases; any failure raises and the exit code is then non-zero:
 1. device: the card's name and power limit (nvidia-smi); CUDA required;
-   TF32 off (phases 3-24 are f32; phases 25-28 run bf16 where asked).
+   TF32 off (phases 3-24 are f32; phases 25-30 run bf16 where asked).
 2. build: every kernel, from csrc/ with nvcc (one process per source, all
    started together); ptxas register and spill lines for each.
 3. kernel vs plain: each kernel against its plain PyTorch version on the
@@ -155,7 +155,7 @@ Phases; any failure raises and the exit code is then non-zero:
    CUDA events against their f32 bounds, the backward's with its launch
    plan, its share of the bound and ptxas's lines for its NC = 19
    instance; the conv1 VJP (a plain recompute, no kernel of its own) timed
-   at that shape.
+   at that shape beside its bound (conv1_bwd_bound_ms).
 14. EquiformerV2 training path: DenoisingTrainer.train() for one epoch at
    the eqv2_so3.yml + base.yml settings (the model block above with
    cell_reps auto; B=12, AdamW at 4e-4, weight decay 1e-3, cosine LambdaLR
@@ -294,9 +294,23 @@ Phases; any failure raises and the exit code is then non-zero:
    xm and qp (GemNet-OC's bf16 path) at the relaxation shape and two ragged
    shapes, 1e-2 * max|plain| + 1e-5,
    and its VJP at the S2EF training shape with a bf16 cotangent.  Each
-   timed by CUDA events beside its bound in bf16 bytes, with its share of
-   the bound and ptxas's lines for its bf16 instances.  Printed first:
+   timed by CUDA events beside its bound (bf16 bytes; products of two bf16
+   values at the bf16 tensor-core rate), with its share of the bound and
+   ptxas's lines for its bf16 instances.  Printed first:
    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction.
+   Then EquiformerV2's four (ROADMAP A.8 step 2), through phases 10, 13a
+   and 13b's own checks with bf16 inputs: s2_grid_silu, eqv2_attn_conv1
+   and eqv2_edge_rotate (every form, the edge-degree one f32 in the model,
+   each with its VJP against the plain dual rotation) at the inputs of one
+   bf16 forward at the eqv2_so3.yml widths (B=16 sampling),
+   s2_grid_silu_bwd at a B=12 forward's (the training shape), each with
+   ragged shapes: a bf16 output within one bf16 ulp of the
+   largest element, bf16_ulp(max|plain|) + 1e-5 (kernel and plain sum in
+   f32 in another order, so an intermediate bf16 rounding can flip and move
+   an output by one ulp: 4e-3 to 7.8e-3 of max by where max lies in its
+   binade); each timed beside its f32 kernel on the same values, its plain
+   version and its bound in bf16 bytes; conv1's wide route raises
+   TypeError on bf16 messages.
 26. PaiNN in bf16 (compute_dtype bfloat16, phase 4's weights): one B=2
    forward on the card against the same bf16 model on the CPU, both heads
    within 3e-2 * max|cpu bf16| and within the CPU's bf16-to-f32 distance,
@@ -322,7 +336,24 @@ Phases; any failure raises and the exit code is then non-zero:
    fixed exception (BF16_GRAD_LIMITS), no CPU gradient's roundoff spread
    past 0.1, and the gradients as one vector no further from the CPU's bf16
    than the CPU's f32 is and at least half that far from the f32.
-29. the kernels line, then the device line as the last line.  A row's ms,
+29. EquiformerV2 in bf16 (compute_dtype bfloat16, phase 11's weights): one
+   B=2 forward card against CPU under phase 26's gates but a fixed limit,
+   BF16_EQV2_MODEL_LIMIT * max|cpu| in place of the CPU's bf16-to-f32
+   distance d (its own roundoff spread reaches d, and must stay below the
+   fixed limit), then 100 ODE steps
+   at B=16 with the hoisted static graph: per forward exactly 10 launches
+   each of eqv2_attn_conv1.bf16 and s2_grid_silu.bf16, 30 of
+   eqv2_edge_rotate.bf16 and 1 of the f32 eqv2_edge_rotate (the edge-degree
+   embedding, f32 in JAX too); finite f32 positions, the slab unmoved; its
+   rate, peak and one forward's time beside phase 11's.
+30. EquiformerV2 training with amp: true: the conv1 VJP in bf16 at the
+   training shape beside its bound, DenoisingTrainer.train() at phase 14's
+   settings and cut (per step 10 + 10 + 10 bf16 launches of conv1, the S^2
+   activation and its backward, 60 bf16 rotations and 2 f32 ones), its
+   systems/s and peak beside phase 14's; one amp step at B=2 card against
+   CPU under phase 28's gates for eqv2_so3.yml and eqv2_conditional.yml,
+   cut to EQV2_STEP_LAYERS layers.
+31. the kernels line, then the device line as the last line.  A row's ms,
    plain_ms and bound_ms are per launch; eqv2_edge_rotate's are the mean
    over the four forms in the proportions one forward launches them, and
    its launches are the EquiformerV2 sampling run's; masked_legendre_cos's
@@ -333,8 +364,9 @@ Phases; any failure raises and the exit code is then non-zero:
    24's runs'; painn_message_fused's are phase 4's plus phase 23's; the
    consumers' and fused_rbf_filter's launches are
    their counts summed over every path run (0: no path calls them).  The
-   four bf16 variants are rows of their own (``<kernel>.bf16``, the same
-   source), their launches those of phases 26-28.
+   eight bf16 variants are rows of their own (``<kernel>.bf16``, the same
+   source), their launches those of phases 26-30; eqv2_edge_rotate.bf16's
+   times are the mean over the three bf16 forms a forward launches.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -343,6 +375,7 @@ import copy
 import dataclasses
 import json
 import logging
+import math
 import os
 import pickle
 import platform
@@ -379,8 +412,9 @@ from adsorbdiff_tpu_torch.runtime.trajectory import SUFFIX, Trajectory
 from adsorbdiff_tpu_torch.tasks import new_trainer_context
 from adsorbdiff_tpu_torch.train.trainer import DenoisingTrainer, S2EFTrainer
 
-# NVIDIA H100 SXM data sheet: dense f32 outside the tensor cores, HBM3 rate
+# NVIDIA H100 SXM data sheet: dense f32 outside the tensor cores, dense bf16 on the tensor cores, HBM3 rate
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
 # every main-path run's launch counts, summed: the kernels line reads the standalone kernels' launches here
@@ -527,15 +561,18 @@ def path_launches():
     return launches
 
 
-def bound(flops, tensors):
-    """Least time on this card: the f32 operations at the f32 peak against
-    every given tensor moved once at the HBM rate.  Returns (ms, what sets
-    it, bytes)."""
+def bound(flops, tensors, bf16_flops=0):
+    """Least time on this card: the ``flops`` operations at the f32 peak,
+    but the ``bf16_flops`` of them that are products of two bf16 values
+    summed in f32 (a bf16 MMA's type) at the dense bf16 tensor-core peak,
+    against every given tensor moved once at the HBM rate.  Returns (ms,
+    what sets it, bytes)."""
     sizes = {}  # one entry per storage: a tensor passed twice (u is v) moves once
     for t in tensors:
         sizes[t.data_ptr()] = max(sizes.get(t.data_ptr(), 0), t.numel() * t.element_size())
     nbytes = sum(sizes.values())
-    t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ((flops - bf16_flops) / F32_FLOPS + bf16_flops / BF16_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), nbytes
 
 
@@ -589,14 +626,17 @@ def basis_rows(inputs, cutoff):
 
 
 def message_bound_ms(inputs, outputs, cutoff):
-    """The function's f32 operations on the valid edges (filter product 6H
-    per non-zero basis value, gather-multiply, reductions and directional
-    terms ~20H per edge, gaussian basis ~10 per non-zero value) against its
-    inputs and outputs moved once."""
+    """The function's operations on the valid edges (filter product 6H per
+    non-zero basis value, of two bf16 values where ``xh`` is bf16; f32
+    gather-multiply, reductions and directional terms ~20H per edge,
+    gaussian basis ~10 per non-zero value) against its inputs and outputs
+    moved once."""
     h = inputs["weight"].shape[1] // 3
     edges, rows = basis_rows(inputs, cutoff)
-    flops = 6 * h * rows + 20 * h * edges + 10 * rows
-    return (*bound(flops, list(inputs.values()) + list(outputs)), flops)
+    filt = 6 * h * rows
+    flops = filt + 20 * h * edges + 10 * rows
+    bf16_flops = filt if inputs["xh"].dtype == torch.bfloat16 else 0
+    return (*bound(flops, list(inputs.values()) + list(outputs), bf16_flops), flops)
 
 
 def message_fill(inputs, fill, n, cutoff):
@@ -1124,12 +1164,14 @@ def capture_first_calls(module, names, fn):
 
 
 def s2_bound_ms(h, to_m, from_m, out):
-    """2 x 2 G NC per (edge, channel) column for the two products and ~6 G
-    for the SiLU; h, both tables and out moved once."""
+    """2 x 2 G NC per (edge, channel) column for the two products (of bf16
+    values for bf16 h) and ~6 G f32 for the SiLU; h, both tables and out
+    moved once."""
     g, nc = to_m.shape
     cols = h.numel() // nc
-    flops = cols * (4 * g * nc + 6 * g)
-    return (*bound(flops, [h, to_m, from_m, out]), flops)
+    products = cols * 4 * g * nc
+    flops = products + cols * 6 * g
+    return (*bound(flops, [h, to_m, from_m, out], products if h.dtype == torch.bfloat16 else 0), flops)
 
 
 def ptxas_lines(name, instance=""):
@@ -1145,10 +1187,177 @@ def ptxas_lines(name, instance=""):
     return lines
 
 
-def check_s2_kernel(name, h, to_m, from_m):
-    got = kernels.s2_grid_silu(h, to_m, from_m)
+EQV2_REPLACES = {"s2_grid_silu": "adsorbdiff_tpu/ops/pallas_kernels.py:903",
+                 "s2_grid_silu_bwd": "adsorbdiff_tpu/ops/pallas_kernels.py:919",
+                 "eqv2_edge_rotate": "adsorbdiff_tpu/ops/pallas_kernels.py:1079",
+                 "eqv2_attn_conv1": "adsorbdiff_tpu/ops/pallas_kernels.py:1252"}
+BF16_PTXAS = "13__nv_bfloat16"  # the bf16 template instances' mangled names hold it
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at |x| > 0: 2^(floor(log2 |x|) - 7)."""
+    return math.ldexp(1.0, math.frexp(abs(x))[1] - 8)
+
+
+def check_eqv2(name, got, want, bf16):
+    """An EquiformerV2 kernel against its plain version: the f32 kernel at
+    check_close's gate; a bf16 variant's bf16 output within one bf16 ulp of
+    its largest element, bf16_ulp(max|plain|), + KERNEL_ATOL (phase 25's
+    gate: 4e-3 to 7.8e-3 of max, by where max lies in its binade), its f32
+    output within 1e-3 * max|plain| + KERNEL_ATOL."""
+    if not bf16:
+        return check_close(name, got, want)
+    err, limits = 0.0, []
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype:
+            raise AssertionError(f"{name}: kernel {g.dtype}, plain {w.dtype}")
+        g, w = g.float(), w.float()
+        e, top = (g - w).abs().max().item(), w.abs().max().item()
+        limits.append((bf16_ulp(top) if got[0].dtype == torch.bfloat16 else 1e-3 * top) + KERNEL_ATOL)
+        if not e <= limits[-1]:
+            raise AssertionError(f"{name}: max |kernel - plain| {e} > {limits[-1]} (max|plain| {top})")
+        err = max(err, e)
+    print(f"[kernel] {name}: max_abs_err {err:.3e} (limit one bf16 ulp of max|plain| + {KERNEL_ATOL} = "
+          f"{', '.join(f'{x:.3e}' for x in limits)})", flush=True)
+    return err
+
+
+def launched_one(key, fn):
+    """``fn()`` synchronised; raise unless it launched the kernel counted as
+    ``key`` (``eqv2_attn_conv1``, ``eqv2_attn_conv1.bf16``, ...) once and
+    nothing else."""
+    before = dict(kernels.launches)
+    out = fn()
     torch.cuda.synchronize()
-    return got, check_close(f"s2_grid_silu {name} h{tuple(h.shape)}", [got], [kernels.s2_grid_silu_reference(h, to_m, from_m)])
+    if launches_since(before) != {key: 1}:
+        raise AssertionError(f"{key}: one call launched {launches_since(before)}")
+    return out
+
+
+def eqv2_key(kernel, bf16):
+    """The launch count's name of an EquiformerV2 kernel or its bf16 variant."""
+    return kernel + (".bf16" if bf16 else "")
+
+
+def eqv2_timing(bf16, kernel_fn, f32_fn, plain_fn, iters, plain_iters):
+    """(ms, plain ms, text, extra): the kernel's and the plain version's ms
+    on the card; for a bf16 variant also its f32 kernel's on the same
+    values, in the text and in ``extra`` as the row's ``f32_ms``."""
+    ms, plain_ms = cuda_ms(kernel_fn, iters), cuda_ms(plain_fn, plain_iters)
+    extra = {}
+    if bf16:
+        extra["f32_ms"] = cuda_ms(f32_fn, iters)
+    text = f"{ms:.4f} ms" + (f", its f32 kernel on the same values {extra['f32_ms']:.4f} ms" if bf16 else "")
+    return ms, plain_ms, text + f", plain {plain_ms:.4f} ms", extra
+
+
+def eqv2_row(kernel, bf16, err, ms, plain_ms, bound_ms, bound_by, extra):
+    """An EquiformerV2 kernel's kernels-line row, its launches filled in by
+    its path."""
+    return dict(name=eqv2_key(kernel, bf16), source=f"adsorbdiff_tpu_torch/csrc/{kernel}.cu",
+                replaces=EQV2_REPLACES[kernel], launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, **extra)
+
+
+def flops_text(flops, bf16):
+    return f"{flops / 1e9:.2f} GFLOP" + (", the bf16 products at the bf16 tensor rate" if bf16 else " f32")
+
+
+def s2_kernel_checks(device, gen, h, to_m, from_m):
+    """Phase 10a (f32 h) or 25 (bf16 h: the variant): s2_grid_silu at a
+    first attention block's input against its plain version, then ragged
+    shapes (column counts M x C that are not a multiple of a thread's 4 or a
+    block's 512, at NC 5, 9 and 19, and TINY leads) in h's dtype; timed
+    beside its bound (bf16: and its f32 kernel on the same values).  Returns
+    the kernels-line row, launches 0."""
+    bf16 = h.dtype == torch.bfloat16
+    key = eqv2_key("s2_grid_silu", bf16)
+
+    def check(name, h_, to_, from_):
+        got = launched_one(key, lambda: kernels.s2_grid_silu(h_, to_, from_))
+        return got, check_eqv2(f"{key} {name} h{tuple(h_.shape)}", [got],
+                               [kernels.s2_grid_silu_reference(h_, to_, from_)], bf16)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(device).to(h.dtype)
+
+    out, err = check("at the path's input", h, to_m, from_m)
+    for lmax, mmax in ((4, 0), (2, 2), (4, 2)):
+        r_to, r_from = (torch.from_numpy(t).to(device) for t in equiformer_v2.s2_act_matrices(lmax, mmax, 18))
+        for lead, c in (((1,), 3), ((37,), 16), ((129,), 5)):
+            err = max(err, check(f"ragged NC={r_to.shape[1]}", randn(*lead, r_to.shape[1], c), r_to, r_from)[1])
+    tiny_to, tiny_from = (torch.from_numpy(t).to(device) for t in equiformer_v2.s2_act_matrices(*EQV2_TINY[:2], 16))
+    for lead in ((37,), (3, 11, 7)):
+        err = max(err, check("ragged", randn(*lead, tiny_to.shape[1], 16), tiny_to, tiny_from)[1])
+    h32 = h.float()
+    ms, plain_ms, text, extra = eqv2_timing(bf16, lambda: kernels.s2_grid_silu(h, to_m, from_m),
+                                            lambda: kernels.s2_grid_silu(h32, to_m, from_m),
+                                            lambda: kernels.s2_grid_silu_reference(h, to_m, from_m), 20, 5)
+    bound_ms, by, nbytes, flops = s2_bound_ms(h, to_m, from_m, out)
+    nc, c = h.shape[-2:]
+    plan = kernels.s2_grid_silu_plan(h.numel() // (nc * c), nc, c, to_m.shape[0])
+    ptxas = ptxas_lines("s2_grid_silu", f"ILi{nc}E" + (BF16_PTXAS if bf16 else "fE"))
+    print(f"[kernel] {key} at h{tuple(h.shape)}: {text}, bound {bound_ms:.4f} ms by {by} ({flops_text(flops, bf16)}, "
+          f"{nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}% of the bound; plan: {plan.tile} columns a block "
+          f"({plan.threads} threads x 4), cluster {plan.cluster}, {plan.blocks} blocks, {plan.smem_bytes} B shared; "
+          f"ptxas (NC = {nc}): {' | '.join(ptxas) or 'not built in this process'}", flush=True)
+    return eqv2_row("s2_grid_silu", bf16, err, ms, plain_ms, bound_ms, by, extra)
+
+
+def s2_bwd_kernel_checks(device, gen, h, dy, to_m, from_m):
+    """Phase 13b (f32) or 25 (bf16 h and cotangent dy: the variant):
+    s2_grid_silu_bwd at a first attention block's input against its plain
+    version, bit for bit again on a second call, then ragged shapes (TINY
+    leads; column counts M x C that are not a multiple of a thread's 2 or a
+    block's 256 at NC 5, 9 and 19; random NC=32 tables; max |g| 100, where
+    e^-g overflows) in h's dtype; timed beside its bound (bf16: and its f32
+    kernel on the same values).  Returns the kernels-line row, launches 0."""
+    bf16 = h.dtype == torch.bfloat16
+    key = eqv2_key("s2_grid_silu_bwd", bf16)
+
+    def check(name, h_, dy_, to_, from_):
+        got = launched_one(key, lambda: kernels.s2_grid_silu_bwd(h_, dy_, to_, from_))
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{key} {name}: non-finite output")
+        return got, check_eqv2(f"{key} {name} h{tuple(h_.shape)}", [got],
+                               [kernels.s2_grid_silu_bwd_reference(h_, dy_, to_, from_)], bf16)
+
+    def randn(*shape, dtype=h.dtype):
+        return torch.randn(shape, generator=gen).to(device).to(dtype)
+
+    out, err = check("at the path's input", h, dy, to_m, from_m)
+    if not torch.equal(kernels.s2_grid_silu_bwd(h, dy, to_m, from_m), out):
+        raise AssertionError(f"{key} does not repeat bit for bit")
+    tiny_to, tiny_from = (torch.from_numpy(t).to(device) for t in equiformer_v2.s2_act_matrices(*EQV2_TINY[:2], 16))
+    for lead in ((37,), (3, 11, 7)):
+        shape = lead + (tiny_to.shape[1], 16)
+        err = max(err, check("ragged", randn(*shape), randn(*shape), tiny_to, tiny_from)[1])
+    for lmax, mmax in ((4, 0), (2, 2), (4, 2)):
+        r_to, r_from = (torch.from_numpy(t).to(device) for t in equiformer_v2.s2_act_matrices(lmax, mmax, 18))
+        for lead, c in (((1,), 3), ((37,), 16), ((129,), 5)):
+            shape = lead + (r_to.shape[1], c)
+            err = max(err, check(f"ragged NC={r_to.shape[1]}", randn(*shape), randn(*shape), r_to, r_from)[1])
+    err = max(err, check("random NC=32 tables", randn(3, 37, 32, 16), randn(3, 37, 32, 16),
+                         randn(324, 32, dtype=torch.float32) / 32 ** 0.5,
+                         randn(32, 324, dtype=torch.float32) / 32 ** 0.5)[1])
+    h_large = randn(2, 40, *h.shape[-2:], dtype=torch.float32)
+    h_large = (h_large * (100.0 / (to_m @ h_large).abs().max())).to(h.dtype)  # max |g| ~100: e^-g overflows
+    err = max(err, check("max |g| 100", h_large, randn(*h_large.shape), to_m, from_m)[1])
+    h32, dy32 = h.float(), dy.float()
+    ms, plain_ms, text, extra = eqv2_timing(bf16, lambda: kernels.s2_grid_silu_bwd(h, dy, to_m, from_m),
+                                            lambda: kernels.s2_grid_silu_bwd(h32, dy32, to_m, from_m),
+                                            lambda: kernels.s2_grid_silu_bwd_reference(h, dy, to_m, from_m), 20, 5)
+    bound_ms, by, nbytes, flops = s2_bwd_bound_ms(h, dy, to_m, from_m, out)
+    nc, c = h.shape[-2:]
+    m = h.numel() // (nc * c)
+    plan = kernels.s2_grid_silu_bwd_plan(m, nc, c, to_m.shape[0], kernels._sm_count(device))
+    ptxas = ptxas_lines("s2_grid_silu_bwd", f"ILi{nc}E" + (BF16_PTXAS if bf16 else "fE"))
+    print(f"[kernel] {key} at h{tuple(h.shape)}: {text}, bound {bound_ms:.4f} ms by {by} ({flops_text(flops, bf16)}, "
+          f"{nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}% of the bound; plan: {plan.blocks} persistent blocks of "
+          f"{plan.threads} threads x 2 columns over {-(-m * c // plan.tile)} groups of {plan.tile} columns, "
+          f"{plan.smem_bytes} B shared; ptxas (NC = {nc}): {' | '.join(ptxas) or 'not built in this process'}",
+          flush=True)
+    return eqv2_row("s2_grid_silu_bwd", bf16, err, ms, plain_ms, bound_ms, by, extra)
 
 
 def conv1_inputs(gen, device, lmax, mmax, lead, c, c_out, extra, r, width, cutoff):
@@ -1213,21 +1422,51 @@ def conv1_ragged_cases(gen, device):
             yield f"{tag} {fill or 'ragged'}", args, kw
 
 
-def check_conv1_kernel(name, args, kw):
-    got = kernels.eqv2_attn_conv1(*args, **kw)
-    torch.cuda.synchronize()
-    want = kernels.eqv2_attn_conv1_reference(*args, **kw)
-    return got, check_close(f"eqv2_attn_conv1 {name} E={args[0].numel()}", got, want)
+def conv1_kernel_checks(device, gen, args, kw):
+    """Phase 10b (f32 messages) or 25 (bf16 messages: the variant; f32
+    embeddings and weights, as the bf16 model passes them):
+    eqv2_attn_conv1 at a first attention block's inputs against its plain
+    version, then conv1_ragged_cases with their messages in that dtype;
+    timed beside its bound (bf16: and its f32 kernel on the same values).
+    Returns the kernels-line row, launches 0."""
+    bf16 = args[4].dtype == torch.bfloat16
+    key = eqv2_key("eqv2_attn_conv1", bf16)
+
+    def check(name, a, k):
+        got = launched_one(key, lambda: kernels.eqv2_attn_conv1(*a, **k))
+        return got, check_eqv2(f"{key} {name} E={a[0].numel()} (extra, h)", got,
+                               kernels.eqv2_attn_conv1_reference(*a, **k), bf16)
+
+    out, err = check("at the path's inputs", args, kw)
+    for name, r_args, r_kw in conv1_ragged_cases(gen, device):
+        r_args[4], r_args[5] = r_args[4].to(args[4].dtype), r_args[5].to(args[4].dtype)
+        err = max(err, check(name, r_args, r_kw)[1])
+    a32 = [t if t.dtype == torch.bool else t.float() for t in args[:6]] + list(args[6:])
+    ms, plain_ms, text, extra = eqv2_timing(bf16, lambda: kernels.eqv2_attn_conv1(*args, **kw),
+                                            lambda: kernels.eqv2_attn_conv1(*a32, **kw),
+                                            lambda: kernels.eqv2_attn_conv1_reference(*args, **kw), 10, 3)
+    bound_ms, by, nbytes, flops, dense, nz_rows = conv1_bound_ms(args, kw, out)
+    plan = conv1_plan(args, kw)
+    e = args[0].numel()
+    print(f"[kernel] {key} at E={e} ({int(args[1].sum())} valid edges, {nz_rows:.2f} non-zero gaussian rows of "
+          f"{kw['num_gauss']} per edge): {text}, bound {bound_ms:.4f} ms by {by} ({flops_text(flops, bf16)}; dense "
+          f"{dense / 1e9:.2f} GFLOP; {nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}% of the bound; the wrapper's "
+          f"weight packing{' and rounding' if bf16 else ''} included; plan: tile {plan.tile} edges, cluster "
+          f"{plan.cluster}, {plan.blocks} blocks x {plan.threads} threads, {plan.smem_bytes} B shared; made again (m0 "
+          f"gates, units' trunks) {plan.extra_flops_per_edge * e / 1e9:.2f} GFLOP = "
+          f"{100 * plan.extra_flops_per_edge * e / flops:.1f}% of the bound's count; ptxas: "
+          f"{' | '.join(ptxas_lines('eqv2_attn_conv1', BF16_PTXAS if bf16 else 'IfE')) or 'not built in this process'}",
+          flush=True)
+    return eqv2_row("eqv2_attn_conv1", bf16, err, ms, plain_ms, bound_ms, by, extra)
 
 
-def conv1_bound_ms(args, kw, outputs):
-    """Per edge: the trunk 2 H (R' + 2 Ed + H + NG) with R' the gaussian rows
-    that are not exactly 0 in f32 on this data (all R for the dense count),
-    ~20 H for the two LayerNorm+SiLU, NG gate multiplies, and the conv
-    products (m0: 2 x 2 n0 C (extra + n0 c_out); each |m| > 0 block: 2 halves
-    x 4 products x 2 nb C nb c_out); every input, packed weight and output
-    moved once.  Returns (ms, by, bytes, flops, dense flops, non-zero rows
-    per edge)."""
+def conv1_counts(args, kw):
+    """(packed weights, edges, per-edge FLOP of conv1's products but the
+    gaussian rows' (the trunk 2 H (2 Ed + H + NG) and the conv products: m0
+    2 x 2 n0 C (extra + n0 c_out), each |m| > 0 block 2 halves x 4 products x
+    2 nb C nb c_out), per-edge elementwise FLOP (~20 H for the two
+    LayerNorm+SiLU, NG gate multiplies), the gaussian rows that are not
+    exactly 0 in f32 on this data, and all R of them)."""
     edges, (dist, mask) = args[:6], args[:2]
     packed = kernels.pack_attn_conv1(*args[6:], lmax=kw["lmax"], mmax=kw["mmax"], num_gauss=kw["num_gauss"],
                                      c_in=edges[4].shape[-1])
@@ -1241,113 +1480,158 @@ def conv1_bound_ms(args, kw, outputs):
     gauss = torch.exp(-0.5 / (2.0 * delta) ** 2 * (dist.reshape(-1, 1) - off) ** 2) * mask.reshape(-1, 1)
     rows = int((gauss != 0).sum())
     conv = 4 * nb[0] * c * (extra + nb[0] * c_out) + sum(16 * n * c * n * c_out for n in nb[1:])
-    per_edge = 2 * width * (2 * e_dim + width + ng) + 20 * width + ng + conv
-    flops, dense = e * per_edge + 2 * width * rows, e * (per_edge + 2 * width * r)
-    tensors = list(edges) + list(packed.trunk) + [packed.flat_conv] + list(outputs)
-    return (*bound(flops, tensors), flops, dense, rows / e)
+    return packed, e, 2 * width * (2 * e_dim + width + ng) + conv, 20 * width + ng, rows, r
+
+
+def conv1_bound_ms(args, kw, outputs):
+    """Per edge conv1_counts's products and elementwise work, and 2 H R'
+    for the gaussian rows R' that are not exactly 0 in f32 on this data (all
+    R for the dense count); with bf16 messages every product is of two bf16
+    values (the variant rounds weights, embeddings, gaussians, y0, y1 and
+    the gated messages), the elementwise work f32; every input, packed
+    weight and output moved once.  Returns (ms, by, bytes, flops, dense flops, non-zero rows per
+    edge)."""
+    packed, e, gemm, elem, rows, r = conv1_counts(args, kw)
+    width = packed.trunk[0].shape[1]
+    products = e * gemm + 2 * width * rows
+    flops, dense = products + e * elem, e * (gemm + elem + 2 * width * r)
+    tensors = list(args[:6]) + list(packed.trunk) + [packed.flat_conv] + list(outputs)
+    bf16_flops = products if args[4].dtype == torch.bfloat16 else 0
+    return (*bound(flops, tensors, bf16_flops), flops, dense, rows / e)
+
+
+def conv1_bwd_bound_ms(args, kw, cts, grads):
+    """The conv1 VJP's least work at these inputs: the forward recomputed
+    (conv1_bound_ms's count) and, for each of its products, the two of its
+    size that give the input's and the weight's gradient, but for the
+    gaussian rows only the weight's (the distances take no gradient); twice
+    the forward's elementwise work for its backward.  Every input, packed
+    weight, cotangent and gradient moved once.  Returns (ms, by, bytes,
+    flops)."""
+    packed, e, gemm, elem, rows, _ = conv1_counts(args, kw)
+    width = packed.trunk[0].shape[1]
+    flops = e * (3 * gemm + 3 * elem) + 2 * 2 * width * rows
+    tensors = list(args[:6]) + list(packed.trunk) + [packed.flat_conv] + list(cts) + list(grads)
+    return (*bound(flops, tensors), flops)
 
 
 def s2_bwd_bound_ms(h, dy, to_m, from_m, out):
     """3 x 2 G NC per (edge, channel) column for the three products (g
-    recomputed, dg, dh) and ~10 G for the sigmoid and silu'; h, dy, both
-    tables and dh moved once."""
+    recomputed, dg, dh; of bf16 values for bf16 h) and ~10 G f32 for the
+    sigmoid and silu'; h, dy, both tables and dh moved once."""
     g, nc = to_m.shape
     cols = h.numel() // nc
-    flops = cols * (6 * g * nc + 10 * g)
-    return (*bound(flops, [h, dy, to_m, from_m, out]), flops)
+    products = cols * 6 * g * nc
+    flops = products + cols * 10 * g
+    return (*bound(flops, [h, dy, to_m, from_m, out], products if h.dtype == torch.bfloat16 else 0), flops)
 
 
 def rotate_bound_ms(lmax, mmax, n_sel, inputs, out):
     """Per (edge, channel) column: the full block product, 2 sum_l (2l+1)^2;
     the other one on the selected rows only, 2 sum_r (2 l_r + 1); two Dz
-    stages, 4 FLOP per |m| > 0 row each; per edge, 2 x lmax sincos (~20
-    FLOP each).  Every input (a node table once, however many edges read
-    it) and out moved once."""
+    stages, 4 FLOP per |m| > 0 row each (the products of bf16 values for
+    bf16 x); per edge, 2 x lmax f32 sincos (~20 FLOP each).  Every input (a
+    node table once, however many edges read it) and out moved once."""
     dim = (lmax + 1) ** 2
     j_blocks, _, row = so3.edge_rot_consts(lmax, mmax, n_sel)
     l_of = np.floor(np.sqrt(np.arange(dim))).astype(int)
     selected = int((2 * l_of[row >= 0] + 1).sum())
     c = out.shape[-1]
     edges = out.numel() // (out.shape[-2] * c)
-    flops = edges * c * (2 * j_blocks.size + 2 * selected + 8 * (dim - lmax - 1)) + edges * 40 * lmax
-    return (*bound(flops, list(inputs) + [out]), flops)
+    products = edges * c * (2 * j_blocks.size + 2 * selected + 8 * (dim - lmax - 1))
+    flops = products + edges * 40 * lmax
+    return (*bound(flops, list(inputs) + [out], products if inputs[0].dtype == torch.bfloat16 else 0), flops)
 
 
-def check_rotations(device, gen, batch, model):
-    """Phase 13a: eqv2_edge_rotate in every form the model runs, at the
-    batch's live graph and the model's widths, and each form's VJP against
-    autograd of the plain chain; then ragged TINY shapes.  Returns the
-    kernels-line row, its times per launch: the mean over the forms in the
-    proportions one forward launches them."""
+def check_rotations(device, gen, batch, model, dtype=torch.float32):
+    """Phase 13a (f32) or 25 (bf16 x: the variant): eqv2_edge_rotate in
+    every form the model runs, at the batch's live graph and the model's
+    widths, and each form's VJP (f32: against autograd of the plain chain;
+    bf16: against the plain dual rotation, which rounds as the TPU backward
+    does), then ragged TINY shapes.  Returns the kernels-line row, launches
+    0, its times per launch the mean over the forms in the proportions one
+    forward launches them (a bf16 forward runs the edge-degree form in
+    f32)."""
+    bf16 = dtype == torch.bfloat16
+    key = eqv2_key("eqv2_edge_rotate", bf16)
     nl, _, unit = generate_graph(batch, cutoff=model.cutoff, max_neighbors=model.max_neighbors,
                                  cell_reps=model.cell_reps)
     gamma, beta = so3.edge_euler_angles(unit)
     lmax, mmax, c = model.lmax, model.mmax, model.sphere_channels
     b, n, k = nl.src.shape
     dim, n_act, n0 = (lmax + 1) ** 2, so3.n_act_rows(lmax, mmax), lmax + 1
-    x = torch.randn((b, n, dim, c), generator=gen).to(device)
-    x_edge = equiformer_v2.gather_nodes(x, nl.src).contiguous()
-    v = torch.randn((b, n, k, n_act, c), generator=gen).to(device)
-    deg = torch.randn((b, n, k, n0, c), generator=gen).to(device)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(device).to(dtype)
+
+    x = randn(b, n, dim, c)
+
     def rotate(direction, n_sel=None, node=False):
         return lambda fn, t: fn(t[:, :, None] if node else t, gamma, beta, lmax, mmax, direction=direction,
                                 n_sel=n_sel)
 
-    forms = [  # (name, input, apply(fn, input), n_sel, kernel, plain)
-        ("to, gathered rows", x_edge, rotate("to"), n_act, kernels.eqv2_edge_rotate,
-         kernels.eqv2_edge_rotate_reference),
-        ("to, node-level target half", x, rotate("to", node=True), n_act, kernels.eqv2_edge_rotate,
-         kernels.eqv2_edge_rotate_reference),
-        ("from, n_sel 19", v, rotate("from", n_act), n_act, kernels.eqv2_edge_rotate,
-         kernels.eqv2_edge_rotate_reference),
-        ("from, n_sel 5", deg, rotate("from", n0), n0, kernels.eqv2_edge_rotate, kernels.eqv2_edge_rotate_reference),
+    edge, edge_ref = kernels.eqv2_edge_rotate, kernels.eqv2_edge_rotate_reference
+    forms = [  # (name, input, apply(fn, input), n_sel, kernel, plain, the VJP's (direction, src))
+        ("to, gathered rows", equiformer_v2.gather_nodes(x, nl.src).contiguous(), rotate("to"), n_act, edge,
+         edge_ref, ("to", None)),
+        ("to, node-level target half", x, rotate("to", node=True), n_act, edge, edge_ref, ("to", None)),
+        ("from, n_sel 19", randn(b, n, k, n_act, c), rotate("from", n_act), n_act, edge, edge_ref, ("from", None)),
+        ("from, n_sel 5", randn(b, n, k, n0, c), rotate("from", n0), n0, edge, edge_ref, ("from", None)),
         ("eqv2_gather_rotate_to", x, lambda fn, t: fn(t, nl.src, gamma, beta, lmax, mmax), n_act,
-         kernels.eqv2_gather_rotate_to, kernels.eqv2_gather_rotate_to_reference),
+         kernels.eqv2_gather_rotate_to, kernels.eqv2_gather_rotate_to_reference, ("to", nl.src)),
     ]
     err, times = 0.0, {}
-    for name, inp, apply, n_sel, kernel, plain in forms:
-        got = apply(kernel, inp)
-        torch.cuda.synchronize()
-        err = max(err, check_close(f"eqv2_edge_rotate {name} x{tuple(inp.shape)} -> {tuple(got.shape)}", [got],
-                                   [apply(plain, inp)]))
-        ms, plain_ms = cuda_ms(lambda: apply(kernel, inp), 10), cuda_ms(lambda: apply(plain, inp), 3)
-        extra = [nl.src] if kernel is kernels.eqv2_gather_rotate_to else []
-        bound_ms, by, nbytes, flops = rotate_bound_ms(lmax, mmax, n_sel, [inp, gamma, beta] + extra, got)
-        times[name] = (ms, plain_ms, bound_ms)
-        print(f"[kernel] eqv2_edge_rotate {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
-              f"{by} ({flops / 1e9:.2f} GFLOP f32, {nbytes / 1e6:.2f} MB)", flush=True)
-        # the VJP: the dual rotation (then the K sum or the scatter to the sources) against autograd of the plain chain
+    for name, inp, apply, n_sel, kernel, plain, (direction, src) in forms:
+        got = launched_one(key, lambda: apply(kernel, inp))
+        err = max(err, check_eqv2(f"{key} {name} x{tuple(inp.shape)} -> {tuple(got.shape)}", [got],
+                                  [apply(plain, inp)], bf16))
+        i32 = inp.float()
+        ms, plain_ms, text, extra = eqv2_timing(bf16, lambda: apply(kernel, inp), lambda: apply(kernel, i32),
+                                                lambda: apply(plain, inp), 10, 3)
+        tables = [inp, gamma, beta] + ([] if src is None else [src])
+        bound_ms, by, nbytes, flops = rotate_bound_ms(lmax, mmax, n_sel, tables, got)
+        times[name] = (ms, plain_ms, bound_ms, extra.get("f32_ms", ms))
+        print(f"[kernel] {key} {name}: {text}, bound {bound_ms:.4f} ms by {by} ({flops_text(flops, bf16)}, "
+              f"{nbytes / 1e6:.2f} MB)", flush=True)
+        # the VJP: the dual rotation (then the K sum or the scatter to the sources)
+        ct = randn(*got.shape)
         with torch.enable_grad():
-            w = torch.randn(got.shape, generator=gen).to(device)
-            dual = []
-            for fn in (kernel, plain):
-                leaf = inp.clone().requires_grad_(True)
-                dual.append(torch.autograd.grad((apply(fn, leaf) * w).sum(), leaf)[0])
-            torch.cuda.synchronize()
-            err = max(err, check_close(f"eqv2_edge_rotate VJP of {name}", [dual[0]], [dual[1]]))
-        del got, w, dual
+            leaf = inp.clone().requires_grad_(True)
+            out = apply(kernel, leaf)
+            (dx,) = launched_one(key, lambda: torch.autograd.grad(out, leaf, ct))
+            if bf16:
+                x_shape = (b, n, 1, dim, c) if name.startswith("to, node") else tuple(inp.shape)
+                want = kernels.eqv2_edge_rotate_vjp_reference(ct, src, gamma, beta, lmax, mmax, direction=direction,
+                                                              n_sel=n_sel, x_shape=x_shape).reshape(inp.shape)
+            else:
+                leaf_ref = inp.clone().requires_grad_(True)
+                (want,) = torch.autograd.grad(apply(plain, leaf_ref), leaf_ref, ct)
+        err = max(err, check_eqv2(f"{key} VJP of {name}", [dx], [want], bf16))
+        del got, ct, dx, want, out, leaf, i32
     tiny_l, tiny_m = EQV2_TINY[:2]
     tiny_dim, tiny_act = (tiny_l + 1) ** 2, so3.n_act_rows(tiny_l, tiny_m)
     for lead in ((37,), (3, 11, 7)):
         g_t, b_t = (torch.rand(lead, generator=gen).to(device) * np.pi for _ in range(2))
         for direction, rows in (("to", tiny_dim), ("from", tiny_act)):
-            t = torch.randn(lead + (rows, 16), generator=gen).to(device)
-            args = (t, g_t, b_t, tiny_l, tiny_m)
-            check_close(f"eqv2_edge_rotate {direction} ragged x{tuple(t.shape)}",
-                        [kernels.eqv2_edge_rotate(*args, direction=direction)],
-                        [kernels.eqv2_edge_rotate_reference(*args, direction=direction)])
+            a = (randn(*lead, rows, 16), g_t, b_t, tiny_l, tiny_m)
+            got = launched_one(key, lambda: edge(*a, direction=direction))
+            err = max(err, check_eqv2(f"{key} {direction} ragged x{tuple(a[0].shape)}", [got],
+                                      [edge_ref(*a, direction=direction)], bf16))
     # per launch, weighted as one forward launches them: per attention the gathered source half, the target
-    # half and the value rotation back; the edge-degree embedding once
+    # half and the value rotation back; the edge-degree embedding once (in f32 in a bf16 forward)
     attn = model.num_layers + 2
-    mix = {"eqv2_gather_rotate_to": attn, "to, node-level target half": attn, "from, n_sel 19": attn,
-           "from, n_sel 5": 1}
-    ms, plain_ms, bound_ms = (sum(n * times[name][i] for name, n in mix.items()) / sum(mix.values())
-                              for i in range(3))
-    print(f"[kernel] eqv2_edge_rotate per launch at E={gamma.numel()}, weighted {mix}: {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by bytes", flush=True)
-    return dict(name="eqv2_edge_rotate", source="adsorbdiff_tpu_torch/csrc/eqv2_edge_rotate.cu",
-                replaces="adsorbdiff_tpu/ops/pallas_kernels.py:1079", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by="bytes")
+    mix = {"eqv2_gather_rotate_to": attn, "to, node-level target half": attn, "from, n_sel 19": attn}
+    if not bf16:
+        mix["from, n_sel 5"] = 1
+    ms, plain_ms, bound_ms, f32_ms = (sum(n_ * times[name][i] for name, n_ in mix.items()) / sum(mix.values())
+                                      for i in range(4))
+    extra = {"f32_ms": f32_ms} if bf16 else {}
+    ptxas = ptxas_lines("eqv2_edge_rotate", BF16_PTXAS if bf16 else "EfE")
+    print(f"[kernel] {key} per launch at E={gamma.numel()}, weighted {mix}: {ms:.4f} ms"
+          f"{f', its f32 kernel on the same values {f32_ms:.4f} ms' if bf16 else ''}, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms by bytes, {100 * bound_ms / ms:.1f}% of the bound; ptxas: "
+          f"{' | '.join(ptxas) or 'not built in this process'}", flush=True)
+    return eqv2_row("eqv2_edge_rotate", bf16, err, ms, plain_ms, bound_ms, "bytes", extra)
 
 
 @torch.no_grad()  # the sampling path: no autograd
@@ -1359,60 +1643,20 @@ def eqv2_path(device, gen, systems):
     static = model.prepare_static(batch)
     calls = capture_first_calls(equiformer_v2, ("eqv2_attn_conv1", "s2_grid_silu"), lambda: score_fn(batch, static))
 
-    # 10a. s2_grid_silu at the first attention block's input, then ragged TINY shapes
-    h, to_m, from_m = calls["s2_grid_silu"][0]
-    s2_out, s2_err = check_s2_kernel("sampling", h, to_m, from_m)
-    # ragged: column counts (M x C) that are not a multiple of a thread's 4 or a block's 512, at NC 5, 9 and 19,
-    # and the older TINY leads
-    for lmax, mmax in ((4, 0), (2, 2), (4, 2)):
-        r_to, r_from = (torch.from_numpy(t).to(device) for t in equiformer_v2.s2_act_matrices(lmax, mmax, 18))
-        for lead, c in (((1,), 3), ((37,), 16), ((129,), 5)):
-            h_r = torch.randn(lead + (r_to.shape[1], c), generator=gen).to(device)
-            check_s2_kernel(f"ragged NC={r_to.shape[1]}", h_r, r_to, r_from)
-    tiny_to, tiny_from = (torch.from_numpy(t).to(device) for t in equiformer_v2.s2_act_matrices(*EQV2_TINY[:2], 16))
-    for lead in ((37,), (3, 11, 7)):
-        check_s2_kernel("ragged", torch.randn(lead + (tiny_to.shape[1], 16), generator=gen).to(device), tiny_to,
-                        tiny_from)
-    s2_ms = cuda_ms(lambda: kernels.s2_grid_silu(h, to_m, from_m), 20)
-    s2_plain_ms = cuda_ms(lambda: kernels.s2_grid_silu_reference(h, to_m, from_m), 5)
-    s2_bound, s2_by, s2_bytes, s2_flops = s2_bound_ms(h, to_m, from_m, s2_out)
-    s2_plan = kernels.s2_grid_silu_plan(h.numel() // (to_m.shape[1] * h.shape[-1]), to_m.shape[1], h.shape[-1],
-                                        to_m.shape[0])
-    print(f"[kernel] s2_grid_silu at h{tuple(h.shape)}: {s2_ms:.4f} ms, plain {s2_plain_ms:.4f} ms, bound "
-          f"{s2_bound:.4f} ms by {s2_by} ({s2_flops / 1e9:.2f} GFLOP f32, {s2_bytes / 1e6:.2f} MB), "
-          f"{100 * s2_bound / s2_ms:.1f}% of the bound; plan: {s2_plan.tile} columns a block ({s2_plan.threads} "
-          f"threads x 4), cluster {s2_plan.cluster}, {s2_plan.blocks} blocks, {s2_plan.smem_bytes} B shared; "
-          f"ptxas: {' | '.join(ptxas_lines('s2_grid_silu')) or 'not built in this process'}", flush=True)
-
-    # 10b. eqv2_attn_conv1 at the first attention block's inputs, then the ragged cases
-    args, kw = calls["eqv2_attn_conv1"]
-    c1_out, c1_err = check_conv1_kernel("sampling", args, kw)
-    for name, r_args, r_kw in conv1_ragged_cases(gen, device):
-        check_conv1_kernel(name, r_args, r_kw)
-    c1_ms = cuda_ms(lambda: kernels.eqv2_attn_conv1(*args, **kw), 10)
-    c1_plain_ms = cuda_ms(lambda: kernels.eqv2_attn_conv1_reference(*args, **kw), 3)
-    c1_bound, c1_by, c1_bytes, c1_flops, c1_dense, nz_rows = conv1_bound_ms(args, kw, c1_out)
-    c1_plan = conv1_plan(args, kw)
-    print(f"[kernel] eqv2_attn_conv1 at E={args[0].numel()} ({int(args[1].sum())} valid edges, {nz_rows:.2f} "
-          f"non-zero gaussian rows of {kw['num_gauss']} per edge): {c1_ms:.4f} ms, plain {c1_plain_ms:.4f} ms, bound "
-          f"{c1_bound:.4f} ms by {c1_by} ({c1_flops / 1e9:.2f} GFLOP f32; dense {c1_dense / 1e9:.2f} GFLOP = "
-          f"{c1_dense / F32_FLOPS * 1e3:.4f} ms; {c1_bytes / 1e6:.2f} MB), {100 * c1_bound / c1_ms:.1f}% of the "
-          f"bound; plan: tile {c1_plan.tile} edges, cluster {c1_plan.cluster}, {c1_plan.blocks} blocks x "
-          f"{c1_plan.threads} threads, {c1_plan.smem_bytes} B shared; made again (m0 gates, units' trunks) "
-          f"{c1_plan.extra_flops_per_edge * args[0].numel() / 1e9:.2f} GFLOP = "
-          f"{100 * c1_plan.extra_flops_per_edge * args[0].numel() / c1_flops:.1f}% of the bound's count; ptxas: "
-          f"{' | '.join(ptxas_lines('eqv2_attn_conv1')) or 'not built in this process'}", flush=True)
+    # 10a-b. s2_grid_silu and eqv2_attn_conv1 at the first attention block's inputs, then ragged shapes
+    s2_row = s2_kernel_checks(device, gen, *calls["s2_grid_silu"][0])
+    c1_row = conv1_kernel_checks(device, gen, *calls["eqv2_attn_conv1"])
     # 10c. eqv2_attn_conv1's wide route: trunk and embedding widths of 256 at the sampling edge count, where the
     # 64-edge plan does not fit one block's shared memory
     lmax, mmax, c, c_out, extra, r, cutoff = 4, 2, 128, 64, 576, 600, 12.0  # eqv2_so3.yml's first conv
-    w_args, w_kw = conv1_inputs(gen, device, lmax, mmax, (args[0].numel(),), c, c_out, extra, r, CONV1_WIDE, cutoff)
+    n_edges = calls["eqv2_attn_conv1"][0][0].numel()
+    w_args, w_kw = conv1_inputs(gen, device, lmax, mmax, (n_edges,), c, c_out, extra, r, CONV1_WIDE, cutoff)
     w_route = kernels.attn_conv1_route(CONV1_WIDE, CONV1_WIDE, c, c_out, extra, kernels.conv1_blocks(lmax, mmax))
     if w_route != "wide":
         raise AssertionError(f"eqv2_attn_conv1 at widths {CONV1_WIDE}: route {w_route}, want wide")
-    before = kernels.launches["eqv2_attn_conv1"]
-    w_out, w_err = check_conv1_kernel(f"wide route e_dim=hidden={CONV1_WIDE}", w_args, w_kw)
-    if kernels.launches["eqv2_attn_conv1"] != before + 1:
-        raise AssertionError("eqv2_attn_conv1's wide route did not count one launch")
+    w_out = launched_one("eqv2_attn_conv1", lambda: kernels.eqv2_attn_conv1(*w_args, **w_kw))
+    check_close(f"eqv2_attn_conv1 wide route e_dim=hidden={CONV1_WIDE} E={n_edges}", w_out,
+                kernels.eqv2_attn_conv1_reference(*w_args, **w_kw))
     w_ms = cuda_ms(lambda: kernels.eqv2_attn_conv1(*w_args, **w_kw), 5)
     w_plain_ms = cuda_ms(lambda: kernels.eqv2_attn_conv1_reference(*w_args, **w_kw), 2)
     w_bound, w_by, w_bytes, w_flops, _, _ = conv1_bound_ms(w_args, w_kw, w_out)
@@ -1421,7 +1665,7 @@ def eqv2_path(device, gen, systems):
           f"f32, {w_bytes / 1e6:.2f} MB), {100 * w_bound / w_ms:.1f}% of the bound; 16-edge tiles, "
           f"{kernels.attn_conv1_wide_smem(CONV1_WIDE, CONV1_WIDE, c, kernels.conv1_blocks(lmax, mmax))} B shared; "
           f"ptxas: {' | '.join(ptxas_lines('eqv2_attn_conv1_wide')) or 'not built in this process'}", flush=True)
-    del calls, h, s2_out, c1_out, args, w_args, w_out
+    del calls, w_args, w_out
 
     # 13a. eqv2_edge_rotate in every form at the sampling graph, and its VJPs
     rot_row = check_rotations(device, gen, batch, model)
@@ -1449,11 +1693,13 @@ def eqv2_path(device, gen, systems):
     slab = ~batch.ads_mask
     if not torch.equal(res.batch.pos[slab], batch.pos[slab]):
         raise AssertionError("EquiformerV2 sampling moved slab atoms")
+    RATES["eqv2_sample"] = steps * batch.batch_size / wall
+    RATES["eqv2_sample_peak"] = torch.cuda.max_memory_allocated() / 2**20
     print(f"[eqv2] {steps}-step ODE sampling, B=16 x 80 atoms, eqv2_so3.yml widths: {wall:.3f} s wall, "
-          f"{steps * batch.batch_size / wall:.2f} system-steps/s, peak "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB allocated, launches {launches}, "
-          f"converged_at {int(res.converged_at)}", flush=True)
-    forward_ms = cuda_ms(lambda: score_fn(batch, static), 5)
+          f"{RATES['eqv2_sample']:.2f} system-steps/s, peak {RATES['eqv2_sample_peak']:.1f} MiB allocated, launches "
+          f"{launches}, converged_at {int(res.converged_at)}", flush=True)
+    forward_ms = RATES["eqv2_forward"] = cuda_ms(lambda: score_fn(batch, static), 5)
+    c1_ms, s2_ms = c1_row["ms"], s2_row["ms"]
     kernel_ms = per_step * (c1_ms + s2_ms) + (1 + 3 * per_step) * rot_row["ms"]
     print(f"[eqv2] one score forward (graph + {model.num_layers} blocks + 2 heads): {forward_ms:.3f} ms; {per_step} "
           f"launches each of eqv2_attn_conv1 and s2_grid_silu at {c1_ms:.4f} + {s2_ms:.4f} ms and {1 + 3 * per_step} "
@@ -1467,16 +1713,9 @@ def eqv2_path(device, gen, systems):
         host = cpu_model(small.to("cpu"))
     check_model("EquiformerV2", zip(("force_block", "force_block2"), card, host))
     del cpu_model, card, host
-    rot_row["launches"] = launches["eqv2_edge_rotate"]
-    return [
-        dict(name="s2_grid_silu", source="adsorbdiff_tpu_torch/csrc/s2_grid_silu.cu",
-             replaces="adsorbdiff_tpu/ops/pallas_kernels.py:903", launches=launches["s2_grid_silu"],
-             max_abs_err=s2_err, ms=s2_ms, plain_ms=s2_plain_ms, bound_ms=s2_bound, bound_by=s2_by),
-        dict(name="eqv2_attn_conv1", source="adsorbdiff_tpu_torch/csrc/eqv2_attn_conv1.cu",
-             replaces="adsorbdiff_tpu/ops/pallas_kernels.py:1252", launches=launches["eqv2_attn_conv1"],
-             max_abs_err=c1_err, ms=c1_ms, plain_ms=c1_plain_ms, bound_ms=c1_bound, bound_by=c1_by),
-        rot_row,
-    ]
+    for row in (s2_row, c1_row, rot_row):
+        row["launches"] = launches[row["name"]]
+    return [s2_row, c1_row, rot_row]
 
 
 # --------------------------------------------------------------------------
@@ -2011,74 +2250,22 @@ def eqv2_training_path(device, gen, root):
     with torch.no_grad():
         calls = capture_first_calls(equiformer_v2, ("s2_grid_silu", "eqv2_attn_conv1"), lambda: model(noised))
     h, to_m, from_m = calls["s2_grid_silu"][0]
-    dy = torch.randn(h.shape, generator=gen).to(device)
-
-    def check_s2_bwd(name, h, dy, to_m, from_m):
-        got = kernels.s2_grid_silu_bwd(h, dy, to_m, from_m)
-        torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"s2_grid_silu_bwd {name}: non-finite output")
-        return got, check_close(f"s2_grid_silu_bwd {name} h{tuple(h.shape)}", [got],
-                                [kernels.s2_grid_silu_bwd_reference(h, dy, to_m, from_m)])
-
-    def randn(*shape):
-        return torch.randn(shape, generator=gen).to(device)
-
-    out, s2b_err = check_s2_bwd("training", h, dy, to_m, from_m)
-    if not torch.equal(kernels.s2_grid_silu_bwd(h, dy, to_m, from_m), out):
-        raise AssertionError("s2_grid_silu_bwd does not repeat bit for bit")
-    tiny_to, tiny_from = (torch.from_numpy(t).to(device) for t in equiformer_v2.s2_act_matrices(*EQV2_TINY[:2], 16))
-    for lead in ((37,), (3, 11, 7)):
-        shape = lead + (tiny_to.shape[1], 16)
-        check_s2_bwd("ragged", randn(*shape), randn(*shape), tiny_to, tiny_from)
-    # column counts (M x C) that are not a multiple of a thread's 2 or a block's 256, at NC 5, 9 and 19
-    for lmax, mmax in ((4, 0), (2, 2), (4, 2)):
-        r_to, r_from = (torch.from_numpy(t).to(device) for t in equiformer_v2.s2_act_matrices(lmax, mmax, 18))
-        for lead, c in (((1,), 3), ((37,), 16), ((129,), 5)):
-            shape = lead + (r_to.shape[1], c)
-            check_s2_bwd(f"ragged NC={r_to.shape[1]}", randn(*shape), randn(*shape), r_to, r_from)
-    check_s2_bwd("random NC=32 tables", randn(3, 37, 32, 16), randn(3, 37, 32, 16), randn(324, 32) / 32 ** 0.5,
-                 randn(32, 324) / 32 ** 0.5)
-    h_large = randn(2, 40, *h.shape[-2:])
-    h_large *= 100.0 / (to_m @ h_large).abs().max()  # max |g| = 100: e^-g overflows where g < -88.7
-    check_s2_bwd("max |g| 100", h_large, randn(*h_large.shape), to_m, from_m)
-    s2b_ms = cuda_ms(lambda: kernels.s2_grid_silu_bwd(h, dy, to_m, from_m), 20)
-    s2b_plain_ms = cuda_ms(lambda: kernels.s2_grid_silu_bwd_reference(h, dy, to_m, from_m), 5)
-    s2b_bound, s2b_by, s2b_bytes, s2b_flops = s2_bwd_bound_ms(h, dy, to_m, from_m, out)
-    nc, c = h.shape[-2:]
-    m = h.numel() // (nc * c)
-    s2b_plan = kernels.s2_grid_silu_bwd_plan(m, nc, c, to_m.shape[0], kernels._sm_count(device))
-    print(f"[kernel] s2_grid_silu_bwd at h{tuple(h.shape)}: {s2b_ms:.4f} ms, plain {s2b_plain_ms:.4f} ms, bound "
-          f"{s2b_bound:.4f} ms by {s2b_by} ({s2b_flops / 1e9:.2f} GFLOP f32, {s2b_bytes / 1e6:.2f} MB), "
-          f"{100 * s2b_bound / s2b_ms:.1f}% of the bound; plan: {s2b_plan.blocks} persistent blocks of "
-          f"{s2b_plan.threads} threads x 2 columns over {-(-m * c // s2b_plan.tile)} groups of {s2b_plan.tile} "
-          f"columns, {s2b_plan.smem_bytes} B shared; ptxas (NC = {nc}): "
-          f"{' | '.join(ptxas_lines('s2_grid_silu_bwd', f'ILi{nc}E')) or 'not built in this process'}", flush=True)
+    s2b_row = s2_bwd_kernel_checks(device, gen, h, torch.randn(h.shape, generator=gen).to(device), to_m, from_m)
 
     # the conv1 VJP: a plain recompute (the TPU kernel has no backward body either), timed at this shape
-    args, kw = calls["eqv2_attn_conv1"]
-    dist, mask, *edge_inputs = (t.detach().clone() for t in args[:6])
-    edge_inputs = [t.requires_grad_(True) for t in edge_inputs]
-    trees = [{m: {k: v.detach().clone().requires_grad_(True) for k, v in mod.items()} for m, mod in tree.items()}
-             for tree in args[6:]]
-    leaves = edge_inputs + [v for tree in trees for mod in tree.values() for v in mod.values()]
-    outs = kernels.eqv2_attn_conv1(dist, mask, *edge_inputs, *trees, **kw)
-    cts = [torch.randn(o.shape, generator=gen).to(device) for o in outs]
-    vjp_ms = cuda_ms(lambda: torch.autograd.grad(outs, leaves, cts, retain_graph=True), 3)
-    print(f"[kernel] eqv2_attn_conv1 VJP (plain recompute under autograd) at E={dist.numel()}: {vjp_ms:.4f} ms",
-          flush=True)
-    del calls, h, dy, out, args, outs, cts, leaves, edge_inputs, trees, noised
+    conv1_vjp_timing("", device, gen, model, noised, lambda: model(noised))
+    del calls, h, noised
 
     # 14. one epoch of DenoisingTrainer.train(); counts zeroed just before, read at every step
     want = {"s2_grid_silu": per_step, "eqv2_attn_conv1": per_step, "s2_grid_silu_bwd": per_step,
             "eqv2_edge_rotate": 2 * (1 + 3 * per_step)}
     launches = train_one_epoch(trainer, EQV2_TRAIN_STEPS, want)
+    RATES["eqv2_train"], RATES["eqv2_train_peak"] = RATES["epoch"], RATES["epoch_peak"]
 
     # 15. card vs CPU, one training step at B=2
     check_training_step(config, device, "EquiformerV2")
-    return dict(name="s2_grid_silu_bwd", source="adsorbdiff_tpu_torch/csrc/s2_grid_silu_bwd.cu",
-               replaces="adsorbdiff_tpu/ops/pallas_kernels.py:919", launches=launches["s2_grid_silu_bwd"],
-               max_abs_err=s2b_err, ms=s2b_ms, plain_ms=s2b_plain_ms, bound_ms=s2b_bound, bound_by=s2b_by)
+    s2b_row["launches"] = launches["s2_grid_silu_bwd"]
+    return s2b_row
 
 
 def write_config(path, config):
@@ -2972,7 +3159,7 @@ def bf16_kernel_checks(device, gen, systems, relax_model):
     plain_ms = cuda_ms(lambda: kernels.painn_message_fused_reference(**inputs, cutoff=cutoff), 5)
     bound_ms, bound_by, nbytes, flops = message_bound_ms(inputs, outputs, cutoff)
     print(f"[kernel] painn_message_fused.bf16 at {shape} (xh, vec bf16): {ms:.4f} ms (the wrapper's W cast "
-          f"included), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP f32, "
+          f"included), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops_text(flops, True)}, "
           f"{nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}% of the bound; "
           f"{fwd_plan_line(kernels.painn_fwd_plan(*shape, kernels._sm_count(device)))}; ptxas (bf16 instances): "
           f"{' | '.join(ptxas_lines('painn_message_fused', '__nv_bfloat16')) or 'not built in this process'}",
@@ -3170,12 +3357,14 @@ def check_bf16_training_step(config, device, model_name, trainer_cls=DenoisingTr
         raise AssertionError(f"card vs CPU {model_name} training step: " + "; ".join(faults))
 
 
-def bf16_card_vs_cpu(what, model16, model32, small, heads):
+def bf16_card_vs_cpu(what, model16, model32, small, heads, fixed=None):
     """A bf16 model at B=2 on the card against the same model on the CPU,
     per output within BF16_MODEL_RTOL * max|cpu| and within the CPU's bf16
-    distance from its f32 forward, and at least BF16_SEPARATION of that
+    distance from its f32 forward, or within the ``fixed`` fraction of
+    max|cpu| where that is given, and at least BF16_SEPARATION of that
     distance from the f32 forward; printed beside the spread of three CPU
-    bf16 forwards whose parameters are perturbed by BF16_PERTURB relative."""
+    bf16 forwards whose parameters are perturbed by BF16_PERTURB relative,
+    which must stay below a ``fixed`` limit."""
     cpu16 = copy.deepcopy(model16).to("cpu")
     cpu32 = copy.deepcopy(model32).to("cpu")
     host_batch = small.to("cpu")
@@ -3203,11 +3392,14 @@ def bf16_card_vs_cpu(what, model16, model32, small, heads):
         if card[h].dtype != torch.float32 or not torch.isfinite(card[h]).all():
             raise AssertionError(f"card bf16 {what} {h}: {card[h].dtype}, finite {bool(torch.isfinite(card[h]).all())}")
         e, sep, d32 = rel_dist(card[h], host[h]), rel_dist(card[h], host32[h]), rel_dist(host[h], host32[h])
-        limit = min(BF16_MODEL_RTOL, d32)
+        limit = min(BF16_MODEL_RTOL, d32) if fixed is None else fixed
         print(f"[bf16] card vs CPU {what} {h} at B=2: max|card bf16 - cpu bf16| / max|cpu bf16| {e:.3e} (limit "
-              f"{limit:.3e}, the smaller of {BF16_MODEL_RTOL} and cpu bf16 vs cpu f32 {d32:.3e}); card bf16 vs cpu "
-              f"f32 {sep:.3e} (at least {BF16_SEPARATION} x {d32:.3e}); spread of 3 cpu bf16 forwards with "
-              f"parameters x (1 + {BF16_PERTURB} N(0,1)) {spread[h]:.3e}; CPU forwards {t_cpu:.1f} s", flush=True)
+              f"{limit:.3e}, " + (f"the smaller of {BF16_MODEL_RTOL} and " if fixed is None else "fixed; ") +
+              f"cpu bf16 vs cpu f32 {d32:.3e}); card bf16 vs cpu f32 {sep:.3e} (at least {BF16_SEPARATION} x "
+              f"{d32:.3e}); spread of 3 cpu bf16 forwards with parameters x (1 + {BF16_PERTURB} N(0,1)) "
+              f"{spread[h]:.3e}{'' if fixed is None else ' (below the limit)'}; CPU forwards {t_cpu:.1f} s", flush=True)
+        if fixed is not None and not spread[h] < fixed:
+            raise AssertionError(f"cpu bf16 {what} {h}: roundoff spread {spread[h]} reaches the fixed limit {fixed}")
         if not e <= limit:
             raise AssertionError(f"card vs CPU bf16 {what} {h}: {e} > {limit}")
         if not sep >= BF16_SEPARATION * d32:
@@ -3365,6 +3557,171 @@ def bf16_training_path(device, root):
     return total
 
 
+# --------------------------------------------------------------------------
+# ROADMAP A.8 step 2: EquiformerV2 in bf16 (phases 25, 29 and 30)
+# --------------------------------------------------------------------------
+# phases 29-30: the gradients of a B=2 amp step whose roundoff alone moves them past 5e-2 of their max, each with a
+# fixed limit (PERF.md section 2); no other gradient is raised
+BF16_GRAD_LIMITS.update({"EquiformerV2 amp": {}, "EquiformerV2 conditional amp": {}})
+# phase 30's B=2 amp steps card against CPU: depth cut 8 -> 4 layers (at 8, each model's five CPU steps, bf16, f32
+# and three perturbed, took ~130 s of the card machine's host, 267 s for both models in all)
+EQV2_STEP_LAYERS = 4
+# phase 29's B=2 forward card against CPU, per output, of max|cpu|: a fixed limit, 1.25x the largest roundoff spread
+# recorded there (1.795e-2, force_block).  The CPU's bf16-to-f32 distance d is no limit for EquiformerV2: its own
+# roundoff spread reached d at 2, 4 and 8 layers alike (0.65-1.02 of it, scripts/spread_torch_bf16_eqv2.py)
+BF16_EQV2_MODEL_LIMIT = 2.25e-2
+
+
+def bf16_eqv2_kernel_checks(device, gen, systems):
+    """Phase 25, EquiformerV2: phases 10a-b, 13a and 13b's checks on the
+    bf16 variants, at the inputs of one bf16 forward at the eqv2_so3.yml
+    widths (B=16 sampling; s2_grid_silu_bwd at a B=12 forward's, the
+    training shape, with a bf16 cotangent).  Returns the kernels-line rows,
+    launches still 0."""
+    model = EquiformerV2(**EQV2_KW, compute_dtype="bfloat16", device=device, generator=torch.Generator().manual_seed(7))
+    batch = collate(systems, max_atoms=80, device=device)
+    static = model.prepare_static(batch)
+    with torch.no_grad():
+        calls = capture_first_calls(equiformer_v2, ("eqv2_attn_conv1", "s2_grid_silu"), lambda: model(batch, static))
+    h = calls["s2_grid_silu"][0][0]
+    args = calls["eqv2_attn_conv1"][0]
+    if h.dtype != BF16 or args[4].dtype != BF16 or args[2].dtype != torch.float32:
+        raise AssertionError(f"the bf16 model's S^2 activation took {h.dtype}, its conv1 messages {args[4].dtype} "
+                             f"and embeddings {args[2].dtype}")
+    rows = [s2_kernel_checks(device, gen, *calls["s2_grid_silu"][0]),
+            conv1_kernel_checks(device, gen, *calls["eqv2_attn_conv1"])]
+    # the wide route takes f32 messages only
+    w_args, w_kw = conv1_inputs(gen, device, 4, 2, (64,), 128, 64, 576, 600, CONV1_WIDE, 12.0)
+    w_args[4], w_args[5] = w_args[4].to(BF16), w_args[5].to(BF16)
+    try:
+        kernels.eqv2_attn_conv1(*w_args, **w_kw)
+    except TypeError as exc:
+        print(f"[kernel] eqv2_attn_conv1 wide route with bf16 messages raises TypeError: {exc}", flush=True)
+    else:
+        raise AssertionError("eqv2_attn_conv1's wide route took bf16 messages")
+    del calls, h, args, w_args
+    rows.append(check_rotations(device, gen, batch, model, BF16))
+    big = collate(bench_systems(EQV2_TRAIN_BATCH), max_atoms=80, device=device)
+    with torch.no_grad():
+        h, to_m, from_m = capture_first_calls(equiformer_v2, ("s2_grid_silu",), lambda: model(big))["s2_grid_silu"][0]
+    rows.append(s2_bwd_kernel_checks(device, gen, h, torch.randn(h.shape, generator=gen).to(device).to(BF16), to_m,
+                                     from_m))
+    return rows
+
+
+def eqv2_bf16_launches(model, forwards, backwards=0):
+    """Launches of ``forwards`` bf16 EquiformerV2 forwards and ``backwards``
+    backwards: per forward one conv1, one S^2 activation and three rotations
+    per attention (the blocks' and the heads') in bf16, the edge-degree
+    rotation in f32; per backward each rotation's dual and each S^2
+    activation's backward."""
+    attn = model.num_layers + 2
+    want = {"eqv2_attn_conv1.bf16": attn * forwards, "s2_grid_silu.bf16": attn * forwards,
+            "eqv2_edge_rotate.bf16": 3 * attn * (forwards + backwards), "eqv2_edge_rotate": forwards + backwards}
+    if backwards:
+        want["s2_grid_silu_bwd.bf16"] = attn * backwards
+    return want
+
+
+def bf16_eqv2_sampling_path(device, systems):
+    """Phase 29: EquiformerV2 in bf16 at the eqv2_so3.yml widths (phase 11's
+    weights), card vs CPU at B=2 (at BF16_EQV2_MODEL_LIMIT) and 100 ODE
+    steps at B=16 with the hoisted static graph.  Returns the run's
+    launches."""
+    model16, model32 = (EquiformerV2(**EQV2_KW, compute_dtype=cdt, device=device,
+                                     generator=torch.Generator().manual_seed(7)) for cdt in ("bfloat16", None))
+    bf16_card_vs_cpu("EquiformerV2", model16, model32, collate(systems[:2], max_atoms=80, device=device),
+                     ("force_block", "force_block2"), fixed=BF16_EQV2_MODEL_LIMIT)
+    del model32
+    batch = collate(systems, max_atoms=80, device=device)
+    score_fn = make_score_fn(model16)
+    engine = DiffusionEngine(score_fn, EQV2_PARAMS, static_fn=model16.prepare_static, device=device)
+    DiffusionEngine(score_fn, dict(EQV2_PARAMS, num_steps=2), static_fn=model16.prepare_static,
+                    device=device).run(batch, generator=torch.Generator(device=device).manual_seed(2))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    res = engine.run(batch, generator=torch.Generator(device=device).manual_seed(1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = path_launches()
+    want = eqv2_bf16_launches(model16, EQV2_PARAMS["num_steps"])
+    if launches != want:
+        raise AssertionError(f"bf16 EquiformerV2 sampling launched {launches}, want {want}")
+    if res.traj_pos.dtype != torch.float32 or not torch.isfinite(res.traj_pos).all():
+        raise AssertionError("bf16 EquiformerV2 sampling: positions not finite f32")
+    slab = ~batch.ads_mask
+    if not torch.equal(res.batch.pos[slab], batch.pos[slab]):
+        raise AssertionError("bf16 EquiformerV2 sampling moved slab atoms")
+    rate = EQV2_PARAMS["num_steps"] * batch.batch_size / wall
+    static = model16.prepare_static(batch)
+    with torch.no_grad():
+        forward_ms = cuda_ms(lambda: score_fn(batch, static), 5)
+    print(f"[bf16-eqv2] {EQV2_PARAMS['num_steps']}-step ODE sampling in bf16, B=16, eqv2_so3.yml widths: "
+          f"{wall:.3f} s wall, {rate:.2f} system-steps/s (phase 11's f32: {RATES['eqv2_sample']:.2f}), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB (f32: {RATES['eqv2_sample_peak']:.1f}), launches "
+          f"{launches}; one score forward {forward_ms:.3f} ms (f32: {RATES['eqv2_forward']:.3f})", flush=True)
+    return launches
+
+
+def conv1_vjp_timing(what, device, gen, model, batch, noised_fn):
+    """The conv1 VJP at the first attention block's inputs of a training
+    forward of ``model``: its time (a plain recompute under autograd) beside
+    conv1_bwd_bound_ms."""
+    with torch.no_grad():
+        args, kw = capture_first_calls(equiformer_v2, ("eqv2_attn_conv1",), noised_fn)["eqv2_attn_conv1"]
+    dist, mask, *edge_inputs = (t.detach().clone() for t in args[:6])
+    edge_inputs = [t.requires_grad_(True) for t in edge_inputs]
+    trees = [{m: {k: v.detach().clone().requires_grad_(True) for k, v in mod.items()} for m, mod in tree.items()}
+             for tree in args[6:]]
+    leaves = edge_inputs + [v for tree in trees for mod in tree.values() for v in mod.values()]
+    outs = kernels.eqv2_attn_conv1(dist, mask, *edge_inputs, *trees, **kw)
+    cts = [torch.randn(o.shape, generator=gen).to(device).to(o.dtype) for o in outs]
+    grads = torch.autograd.grad(outs, leaves, cts, retain_graph=True)
+    vjp_ms = cuda_ms(lambda: torch.autograd.grad(outs, leaves, cts, retain_graph=True), 3)
+    bound_ms, by, nbytes, flops = conv1_bwd_bound_ms([dist, mask, *edge_inputs, *trees], kw, cts, grads)
+    print(f"[kernel] eqv2_attn_conv1 VJP{what} (plain recompute under autograd) at E={dist.numel()}, messages "
+          f"{edge_inputs[2].dtype}: {vjp_ms:.4f} ms, bound {bound_ms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP f32, "
+          f"{nbytes / 1e6:.2f} MB), {100 * bound_ms / vjp_ms:.1f}% of the bound", flush=True)
+    return vjp_ms, bound_ms
+
+
+def bf16_eqv2_training_path(device, root):
+    """Phase 30: DenoisingTrainer.train() on eqv2_so3.yml + base.yml with amp
+    (phase 14's cut: one 20-step epoch at B=12), the conv1 VJP in bf16, then
+    one amp step at B=2 card against CPU for the plain and the
+    energy-conditional model (eqv2_conditional.yml), cut to
+    EQV2_STEP_LAYERS layers.  Returns the launches."""
+    paths = write_training_shards(root, {"bf16_eqv2_train": EQV2_TRAIN_BATCH * EQV2_TRAIN_STEPS,
+                                         "bf16_eqv2_val": EQV2_EVAL_BATCH})
+    config = dict(copy.deepcopy(EQV2_TRAIN_CONFIG), run_dir=root, amp=True, identifier="smoke_bf16_eqv2",
+                  dataset=[{"src": paths["bf16_eqv2_train"]}, {"src": paths["bf16_eqv2_val"]}])
+    trainer = DenoisingTrainer(config, device=device)
+    model = trainer.model
+    if model.compute_dtype != "bfloat16":
+        raise AssertionError(f"amp built a {model.compute_dtype} EquiformerV2")
+    gen = torch.Generator().manual_seed(30)
+    batch = next(iter(trainer.train_batcher)).to(device)
+    batch = batch.replace(pos=batch.pos_relaxed)
+    noised, _ = trainer.schedule_fn(batch, trainer.denoising_pos_params, torch.Generator(device=device).manual_seed(4))
+    conv1_vjp_timing(" in bf16", device, gen, model, noised, lambda: model(noised))
+    del batch, noised
+    launches = train_one_epoch(trainer, EQV2_TRAIN_STEPS, eqv2_bf16_launches(model, 1, 1))
+    if trainer.ema_module.compute_dtype != "bfloat16":
+        raise AssertionError("amp: the EquiformerV2 EMA model does not compute in bf16")
+    print(f"[bf16-eqv2-train] EquiformerV2 with amp: {RATES['epoch']:.2f} systems/s (phase 14's f32: "
+          f"{RATES['eqv2_train']:.2f}), peak {RATES['epoch_peak']:.1f} MiB (f32: {RATES['eqv2_train_peak']:.1f})",
+          flush=True)
+    del trainer, model
+    config = dict(config, model=dict(config["model"], num_layers=EQV2_STEP_LAYERS))
+    check_bf16_training_step(config, device, "EquiformerV2 amp")
+    conditional = dict(config, model=dict(config["model"], energy_encoding="scalar"))
+    check_bf16_training_step(conditional, device, "EquiformerV2 conditional amp",
+                             systems=labelled_systems(bench_systems(2), 30))
+    return launches
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -3417,16 +3774,21 @@ def main():
     relax_kw = bf16_relax_kw(device, systems[:RELAX_BATCH])
     relax16 = GemNetOC(**relax_kw, compute_dtype="bfloat16", generator=torch.Generator().manual_seed(3))
     bf16_rows = bf16_kernel_checks(device, torch.Generator().manual_seed(25), systems, relax16)
+    bf16_rows += bf16_eqv2_kernel_checks(device, torch.Generator().manual_seed(26), systems)
     bf16 = collections.Counter(bf16_sampling_path(device, systems))
     bf16.update(bf16_relax_path(device, systems[:RELAX_BATCH], relax16, relax_kw))
     del relax16
     with tempfile.TemporaryDirectory() as root:
         bf16.update(bf16_training_path(device, root))
+    # 29-30. ROADMAP A.8 step 2: EquiformerV2 in bf16, sampling and amp training
+    bf16.update(bf16_eqv2_sampling_path(device, systems))
+    with tempfile.TemporaryDirectory() as root:
+        bf16.update(bf16_eqv2_training_path(device, root))
     for r in bf16_rows:
         r["launches"] = bf16[r["name"]]
     rows += bf16_rows
 
-    # 29. results
+    # 31. results
     for r in rows:
         if r["launches"] is None:  # a standalone kernel: what the path runs launched of it
             r["launches"] = PATH_LAUNCHES[r["name"]]

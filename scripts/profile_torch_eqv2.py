@@ -7,7 +7,7 @@ graph) under ``torch.profiler`` for a few steps and prints what
 ``scripts/profile_torch_sampling.py`` prints: wall and device-busy time per
 step, the idle share, and the device kernels with the most time.
 
-    python scripts/profile_torch_eqv2.py [--steps 5]
+    python scripts/profile_torch_eqv2.py [--steps 5] [--compute-dtype bfloat16]
 
 The last line is one JSON object with the same numbers.
 """
@@ -28,10 +28,13 @@ from profile_torch_sampling import profile_sampling  # noqa: E402
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--compute-dtype", default=None, choices=("bfloat16",), help="the model's compute_dtype")
     args = ap.parse_args()
-    model = EquiformerV2(**EQV2_KW, device=resolve_device(None), generator=torch.Generator().manual_seed(0))
+    model = EquiformerV2(**EQV2_KW, compute_dtype=args.compute_dtype, device=resolve_device(None),
+                         generator=torch.Generator().manual_seed(0))
     profile_sampling(model, EQV2_PARAMS, args.steps,
-                     "EquiformerV2 sampling steps (B=16, N=80, 8 layers, C=128, lmax 4 / mmax 2, K=20)")
+                     f"EquiformerV2 sampling steps (B=16, N=80, 8 layers, C=128, lmax 4 / mmax 2, K=20, compute_dtype "
+                     f"{args.compute_dtype})")
 
 
 if __name__ == "__main__":

@@ -52,7 +52,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=("painn", "eqv2", "gemnet"), default="painn")
     ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--amp", action="store_true", help="amp: true (bf16 compute; PaiNN and GemNet-OC)")
+    ap.add_argument("--amp", action="store_true", help="amp: true (bf16 compute)")
     args = ap.parse_args()
     if args.model == "painn":
         batch_size, config = TRAIN_BATCH, copy.deepcopy(TRAIN_CONFIG)

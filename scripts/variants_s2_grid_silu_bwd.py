@@ -42,7 +42,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 SHAPE = (12, 80, 20, 19, 64)  # h at phase 13b: [B, N, K, NC, C]
-INSTANCE = re.compile(r"ILi(19|20)E")  # NC = 19's instance (a kernel templated on NC rounded up to 4: 20)
+INSTANCE = re.compile(r"ILi(19|20)EfE")  # NC = 19's f32 instance (a kernel templated on NC rounded up to 4: 20)
 ONE_INSTANCE = "    S2B_CASE(19)\n"
 SIGMOID_FTZ = '''  float e, s;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(g * -1.4426950408889634f));
@@ -61,12 +61,12 @@ def _device_function(text):
     start = text.index(LOOP_HEAD) + len(LOOP_HEAD)
     end = text.index("\n  }\n}\n", start)
     body = "\n".join(line[2:] if line.startswith("    ") else line for line in text[start:end].splitlines())
-    helper = ("template <int NC>\n__device__ __forceinline__ void column_group(const float* __restrict__ h, "
-              "const float* __restrict__ dy, const float* to_s, const float* from_s, float* __restrict__ dh, "
+    helper = ("template <int NC, typename T>\n__device__ __forceinline__ void column_group(const T* __restrict__ h, "
+              "const T* __restrict__ dy, const float* to_s, const float* from_s, T* __restrict__ dh, "
               "long long group, long long ncols, int C, int G) {\n"
               "  constexpr int NCP = (NC + 3) & ~3;\n  constexpr int NQ = NCP / 4;\n" + body + "\n}\n\n")
-    text = text[:start] + "    column_group<NC>(h, dy, to_s, from_s, dh, group, ncols, C, G);" + text[end:]
-    kernel = text.index("template <int NC>\n__global__")
+    text = text[:start] + "    column_group<NC, T>(h, dy, to_s, from_s, dh, group, ncols, C, G);" + text[end:]
+    kernel = text.index("template <int NC, typename T>\n__global__")
     return text[:kernel] + helper + text[kernel:]
 
 
@@ -147,7 +147,7 @@ def main() -> None:
         path = os.path.join(out_dir, f"s2_grid_silu_bwd_{name}.cu")
         with open(path, "w") as f:
             f.write(text)
-        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", path[:-3] + ".so", path]
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-I", build.CSRC_DIR, "-o", path[:-3] + ".so", path]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     libs = {}

@@ -171,9 +171,7 @@ def test_state_dict_names_follow_the_jax_tree():
     assert registry.get_model_class("equiformer_v2_denoising") is EquiformerV2
 
 
-@pytest.mark.parametrize(
-    "kw", [dict(compute_dtype="bfloat16"), dict(grid_mode="e3nn")], ids=["bfloat16", "e3nn-grid"],
-)
+@pytest.mark.parametrize("kw", [dict(grid_mode="e3nn")], ids=["e3nn-grid"])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EquiformerV2(**TINY, **kw, device="cpu")
@@ -199,7 +197,7 @@ def test_denoising_trainer_on_equiformer_v2_raises(tmp_path):
     trainer.init_state()
     assert not trainer.ema_module.training
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DenoisingTrainer(dict(config, model=dict(config["model"], compute_dtype="bfloat16")))
+        DenoisingTrainer(dict(config, model=dict(config["model"], grid_mode="e3nn")))
 
 
 # --------------------------------------------------------------------------

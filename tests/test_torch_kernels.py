@@ -20,6 +20,8 @@ atol 1e-5 + 1e-6 * max|JAX| (each cotangent entry sums up to U x S x F
 products in another order); 1e-5 (abs and rel, the JAX package's own
 quad-basis test) for the masked Legendre bases.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -2120,3 +2122,92 @@ def test_legendre_launch_refuses_a_plan_that_disagrees_with_its_layout(cuda_devi
         assert err == 1
     torch.cuda.synchronize()
     assert not out.any()
+
+
+# --------------------------------------------------------------------------
+# EquiformerV2's bf16 variants against their bf16 plain versions
+# --------------------------------------------------------------------------
+def _bf16_ulp_err(got, want):
+    """A bf16 output within one bf16 ulp of its plain version's largest
+    element, 2^(floor(log2 max) - 7), + 1e-5 (intermediate bf16 roundings
+    after f32 sums in another order can move an output one ulp); an f32
+    output within 1e-3 * max|plain| + 1e-5."""
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        top = w.float().abs().max().item()
+        limit = math.ldexp(1.0, math.frexp(top)[1] - 8) if g.dtype == BF16 else 1e-3 * top
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= limit + 1e-5, (err, limit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lmax,mmax,lead,c", [(4, 2, (3, 40, 20), 64), (2, 1, (37,), 16), (4, 0, (129,), 5)],
+                         ids=["sampling-lead", "tiny-ragged", "nc5"])
+def test_bf16_s2_grid_silu_and_backward_match_plain_versions_on_card(cuda_device, lmax, mmax, lead, c):
+    """bf16 h and dy: one launch of each bf16 variant, bf16 outputs within one bf16 ulp of max."""
+    to_m, from_m = (torch.from_numpy(t).to(cuda_device) for t in _s2_tables(lmax, mmax, 18))
+    rng = np.random.default_rng(70)
+    h, dy = (torch.from_numpy(rng.normal(size=lead + (to_m.shape[1], c)).astype(np.float32)).to(cuda_device).to(BF16)
+             for _ in range(2))
+    before = dict(kernels.launches)
+    got = s2_grid_silu(h, to_m, from_m)
+    got_dh = kernels.s2_grid_silu_bwd(h, dy, to_m, from_m)
+    torch.cuda.synchronize()
+    assert {k: kernels.launches[k] - before.get(k, 0) for k in ("s2_grid_silu.bf16", "s2_grid_silu_bwd.bf16")} == {
+        "s2_grid_silu.bf16": 1, "s2_grid_silu_bwd.bf16": 1}
+    _bf16_ulp_err([got, got_dh], [s2_grid_silu_reference(h, to_m, from_m),
+                                  kernels.s2_grid_silu_bwd_reference(h, dy, to_m, from_m)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [CONV1_TINY, CONV1_L4, (4, 2, (2, 40, 20), 128, 64, 576, 600, 128, 12.0)],
+                         ids=["tiny", "l4m2", "sampling-width"])
+def test_bf16_attn_conv1_kernel_matches_plain_version_on_card(cuda_device, case):
+    """bf16 messages: one launch of the bf16 variant, bf16 outputs within one bf16 ulp of max."""
+    edges, rad, conv, kw = _conv1_inputs(71, *case)
+    args = [torch.from_numpy(edges[k]).to(cuda_device) for k in edges]
+    args[4], args[5] = args[4].to(BF16), args[5].to(BF16)
+    args += [_torch_tree(rad, cuda_device), _torch_tree(conv, cuda_device)]
+    before = kernels.launches["eqv2_attn_conv1.bf16"]
+    got = eqv2_attn_conv1(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches["eqv2_attn_conv1.bf16"] == before + 1
+    _bf16_ulp_err(got, eqv2_attn_conv1_reference(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["to", "to-node-row", "from", "gather-to"])
+def test_bf16_edge_rotate_kernel_and_vjp_match_plain_versions_on_card(cuda_device, form):
+    """bf16 x in each form the model runs: one launch of the bf16 variant a
+    call (forward, then the VJP's dual rotation), within one bf16 ulp of max
+    of the plain version and of the plain dual rotation."""
+    rng = np.random.default_rng(72)
+    b, n, k, c, lmax, mmax = 2, 30, 12, 32, 4, 2
+    dim, n_act = (lmax + 1) ** 2, 19
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device).to(BF16)
+
+    gamma, beta = (torch.from_numpy(rng.uniform(0, 3, (b, n, k)).astype(np.float32)).to(cuda_device) for _ in range(2))
+    src = torch.from_numpy(rng.integers(0, n, (b, n, k)).astype(np.int32)).to(cuda_device)
+    x, ref_shape, direction, src_arg, apply = {
+        "to": (t(b, n, k, dim, c), None, "to", None,
+               lambda fn, v: fn(v, gamma, beta, lmax, mmax, direction="to")),
+        "to-node-row": (t(b, n, dim, c), (b, n, 1, dim, c), "to", None,
+                        lambda fn, v: fn(v[:, :, None], gamma, beta, lmax, mmax, direction="to")),
+        "from": (t(b, n, k, n_act, c), None, "from", None,
+                 lambda fn, v: fn(v, gamma, beta, lmax, mmax, direction="from", n_sel=n_act)),
+        "gather-to": (t(b, n, dim, c), None, "to", src,
+                      lambda fn, v: (kernels.eqv2_gather_rotate_to if fn is kernels.eqv2_edge_rotate else
+                                     kernels.eqv2_gather_rotate_to_reference)(v, src, gamma, beta, lmax, mmax)),
+    }[form]
+    before = kernels.launches["eqv2_edge_rotate.bf16"]
+    leaf = x.clone().requires_grad_()
+    got = apply(kernels.eqv2_edge_rotate, leaf)
+    ct = t(*got.shape)
+    (dx,) = torch.autograd.grad(got, leaf, ct)
+    torch.cuda.synchronize()
+    assert kernels.launches["eqv2_edge_rotate.bf16"] == before + 2 and got.dtype == dx.dtype == BF16
+    want_dx = kernels.eqv2_edge_rotate_vjp_reference(ct, src_arg, gamma, beta, lmax, mmax, direction=direction,
+                                                     n_sel=n_act, x_shape=ref_shape or tuple(x.shape))
+    _bf16_ulp_err([got.detach(), dx], [apply(kernels.eqv2_edge_rotate_reference, x), want_dx.reshape(x.shape)])

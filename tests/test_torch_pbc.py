@@ -215,3 +215,27 @@ def test_candidate_table_single_system_and_graph_dispatch(rng):
     nl_full, dist_full, unit_full = generate_graph(batch, cutoff=radius, max_neighbors=k, cell_reps=reps)
     assert_same_neighbors(nl, nl_full, atol=0.0)
     torch.testing.assert_close(dist, dist_full, rtol=0, atol=0)
+
+
+def test_table_distances_are_the_ieee_root_on_every_call():
+    """ROADMAP C.1: the tables' distances are the correctly rounded square
+    root of d^2 (numpy's float32 sqrt, as ``jnp.sqrt``), and a second call
+    gives them again bit for bit; ``torch.sqrt`` on the CPU runs MKL's vector
+    math library, whose first call in a process computed one chunk about 11
+    bits deep on a card machine's host, and which rounds some values one ulp
+    off even when it is right."""
+    rng = np.random.default_rng(21)
+    d2 = np.concatenate([rng.uniform(0, 150, 4000), rng.uniform(0, 1e-3, 100),
+                         [0.0, -1e-7, 1e-30, 1e-4, 1.0, 2.0, np.finfo(np.float32).max]]).astype(np.float32)
+    want = np.sqrt(np.maximum(d2, 0))
+    for _ in range(2):
+        np.testing.assert_array_equal(pbc.exact_sqrt(_t(d2)).numpy(), want)
+    pos, cell, mask, _ = _bench_like_batch()
+    offsets_int, offsets_cart = pbc._offsets((2, 2, 0), _t(cell))
+    d2_all = pbc._pair_d2(_t(pos), _t(pos), offsets_cart)
+    b, n, _, c = d2_all.shape
+    top, fidx = pbc._smallest_k(torch.where(d2_all > 1e-4, d2_all, torch.finfo(torch.float32).max).reshape(b, n, -1),
+                                50)
+    for _ in range(2):
+        nl = pbc._decode(_t(pos), _t(cell), offsets_int, top, fidx)
+        np.testing.assert_array_equal(nl.dist.numpy(), np.where(nl.mask.numpy(), np.sqrt(top.numpy()), 0))
