@@ -1,6 +1,7 @@
-// EquiformerV2 attention front half, fused, for Hopper (sm_90a), f32 and bf16:
+// EquiformerV2 attention front half, fused, for Hopper (sm_90a), f32:
 // gaussian distance basis -> radial trunk -> per-m gates -> gated first SO(2)
-// convolution over the separate source and target message halves.
+// convolution over the separate source and target message halves. (bf16
+// message halves take eqv2_attn_conv1_bf16.cu, on the tensor cores.)
 //
 // Replaces the TPU kernel adsorbdiff_tpu/ops/pallas_kernels.py::
 // _attn_conv1_kernel (called from _attn_conv1_call; public eqv2_attn_conv1,
@@ -74,16 +75,6 @@
 //   fit in 227 KB (trunk and embedding widths over 160 at C = 128) are
 //   refused by the plan.
 //
-// The bf16 variant (EquiformerV2 with compute_dtype bfloat16) takes bf16
-// message halves and writes bf16 outputs, with the TPU kernel's bf16 rounding
-// (_attn_conv1_call casts the embeddings and every weight to the message
-// dtype; the body rounds with dt = msgs_ref.dtype): the wrapper passes the
-// packed weights rounded to bf16 as f32 values (so the ring, its slices and
-// the plan are the f32 ones), the embeddings are rounded as they are staged,
-// the gaussians, y0 and y1 as they are stored, the gates before they meet the
-// messages, each gated product, and each output once; every product and sum of
-// products is f32, as the TPU kernel's dots with preferred_element_type f32.
-//
 // Measured (chip_smoke.py phase 10, NVIDIA H100 80GB HBM3, 700 W): PERF.md
 // section 6, row 9, beside the 16-edge design it replaced (9.145 ms, 27% of
 // the bound). What holds it: 8 warps an SM at 255 registers a thread (the
@@ -97,8 +88,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include "dtype.cuh"
 
 namespace {
 
@@ -130,17 +119,16 @@ struct Seg {  // one weight matrix region, streamed in slices of sr rows
 struct Args {
   const float* dist;
   const uint8_t* mask;
-  const float *emb_s, *emb_t;
-  const void *msg_s, *msg_t;  // f32 or bf16 (the kernel's T)
+  const float *emb_s, *emb_t, *msg_s, *msg_t;
   const float *wg, *ws, *wt, *b0, *ln0s, *ln0b, *w1, *b1, *ln1s, *ln1b, *w2, *b2, *bm0, *wconv;
-  void *extra_out, *h_out;  // in the kernel's T
+  float *extra_out, *h_out;
   long long E;
   int R, Ed, H, C, CO, X, n_groups;
   int NG;  // gate columns, 2 sum(nb) C: the row stride of w2
   int nb[kMaxGroups];
   float delta, coeff;
   long long msg_ld;  // message row length, NA * C
-  int msg_vec;       // both message halves' chunks are aligned for 4-element loads
+  int msg_vec;       // both message halves' chunks are 16-byte aligned (float4 loads)
   int Hp, Edp;       // H, Ed rounded up to 4
   int x_floats;      // the X region: es/et, y1 before its LayerNorm, the gated message chunk
   int n_seg;         // segments per tile
@@ -484,9 +472,7 @@ __device__ __forceinline__ void pair_mma(float (&yp)[4][4 * NJ], float (&yn)[4][
 __device__ __forceinline__ float silu(float y) { return y / (1.f + expf(-y)); }
 
 // dst[h][e] = silu(LN(src[., e])[h] * scale[h] + bias[h]) over h < H, for the
-// tile's 64 edges (layout [h][64]), rounded to T; four threads per edge. src
-// may be dst.
-template <typename T>
+// tile's 64 edges (layout [h][64]); four threads per edge. src may be dst.
 __device__ __forceinline__ void ln_silu(const float* src, float* dst, int H, const float* __restrict__ scale,
                                         const float* __restrict__ bias) {
   const int e = threadIdx.x / 4, part = threadIdx.x % 4;
@@ -504,7 +490,7 @@ __device__ __forceinline__ void ln_silu(const float* src, float* dst, int H, con
   v += __shfl_xor_sync(0xffffffffu, v, 2);
   const float inv = rsqrtf(v / H + 1e-6f);
   for (int h = part; h < H; h += 4) {
-    dst[h * kTE + e] = dtype::rounded<T>(silu((src[h * kTE + e] - mu) * inv * __ldg(scale + h) + __ldg(bias + h)));
+    dst[h * kTE + e] = silu((src[h * kTE + e] - mu) * inv * __ldg(scale + h) + __ldg(bias + h));
   }
 }
 
@@ -538,20 +524,6 @@ __device__ __forceinline__ void init_bias(float (&acc)[4][4 * NJ], const float* 
     }
 }
 
-// v = p[0 .. 3], widened to f32: one 16-byte load of f32, one 8-byte load of bf16
-template <typename T>
-__device__ __forceinline__ void load4(const T* p, float (&v)[4]) {
-  if constexpr (dtype::kF32<T>) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-  } else {
-    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
-    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
-    v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
-  }
-}
-
 struct Tile {
   const Args* a;
   Ring* ring;
@@ -565,13 +537,11 @@ struct Tile {
 // start at gate column gcol0), then the gated message rows into X: xp^T
 // [kw][64] at X from the +m rows at message column msg_col + kc, and for a
 // pair (neg_off > 0: the -m rows' offset in the message row) xn^T at X + kKC
-// * kTE with the same gates, both swizzled. In bf16 the gates and each gated
-// product are rounded.
-template <typename T>
-__device__ __forceinline__ void gated_chunk(Tile& t, int gcol0, const T* msg_half, int kc, int kw, int msg_col,
+// * kTE with the same gates, both swizzled.
+__device__ __forceinline__ void gated_chunk(Tile& t, int gcol0, const float* msg_half, int kc, int kw, int msg_col,
                                             int neg_off) {
   const Args& a = *t.a;
-  const T* msg = msg_half + msg_col + kc;
+  const float* msg = msg_half + msg_col + kc;
   // bring the chunk's message rows toward L2 while the gates are made: 64 edges x 2 halves x 4 lines of 128 B
   for (int i = threadIdx.x; i < kTE * 8; i += kThreads) {
     const int e = i / 8, line = i % 8, off = (line & 4 ? neg_off : 0) + (line & 3) * 32;
@@ -602,12 +572,9 @@ __device__ __forceinline__ void gated_chunk(Tile& t, int gcol0, const T* msg_hal
     for (int c = 0; c < 4; ++c) {
       const int k = 4 * lane + c;
       if (k < kw) {
-        *reinterpret_cast<float4*>(t.X + a_offset<true>(k, 2 * w8)) =
-            make_float4(dtype::rounded<T>(g[0][c]), dtype::rounded<T>(g[1][c]), dtype::rounded<T>(g[2][c]),
-                        dtype::rounded<T>(g[3][c]));
+        *reinterpret_cast<float4*>(t.X + a_offset<true>(k, 2 * w8)) = make_float4(g[0][c], g[1][c], g[2][c], g[3][c]);
         *reinterpret_cast<float4*>(t.X + a_offset<true>(k, 2 * w8 + 1)) =
-            make_float4(dtype::rounded<T>(g[4][c]), dtype::rounded<T>(g[5][c]), dtype::rounded<T>(g[6][c]),
-                        dtype::rounded<T>(g[7][c]));
+            make_float4(g[4][c], g[5][c], g[6][c], g[7][c]);
       }
     }
   }
@@ -625,16 +592,20 @@ __device__ __forceinline__ void gated_chunk(Tile& t, int gcol0, const T* msg_hal
 #pragma unroll
       for (int c = 0; c < 4; ++c) m[u][c] = mn[u][c] = 0.f;
       if (i < items && e < t.ne) {
-        const T* row = msg + (size_t)(t.e0 + e) * a.msg_ld + k0;
+        const float* row = msg + (size_t)(t.e0 + e) * a.msg_ld + k0;
         if (a.msg_vec) {
-          load4(row, m[u]);
-          if (neg_off > 0) load4(row + neg_off, mn[u]);
+          const float4 v = __ldg(reinterpret_cast<const float4*>(row));
+          m[u][0] = v.x, m[u][1] = v.y, m[u][2] = v.z, m[u][3] = v.w;
+          if (neg_off > 0) {
+            const float4 w = __ldg(reinterpret_cast<const float4*>(row + neg_off));
+            mn[u][0] = w.x, mn[u][1] = w.y, mn[u][2] = w.z, mn[u][3] = w.w;
+          }
         } else {
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             if (k0 + c < kw) {
-              m[u][c] = dtype::ldg(row + c);
-              if (neg_off > 0) mn[u][c] = dtype::ldg(row + neg_off + c);
+              m[u][c] = __ldg(row + c);
+              if (neg_off > 0) mn[u][c] = __ldg(row + neg_off + c);
             }
           }
         }
@@ -649,15 +620,15 @@ __device__ __forceinline__ void gated_chunk(Tile& t, int gcol0, const T* msg_hal
         if (k0 + c >= kw) continue;
         const int off = a_offset<true>(k0 + c, e / 4) + e % 4;
         const float gv = t.X[off];
-        t.X[off] = dtype::rounded<T>(gv * m[u][c]);
-        if (neg_off > 0) t.X[kKC * kTE + off] = dtype::rounded<T>(gv * mn[u][c]);
+        t.X[off] = gv * m[u][c];
+        if (neg_off > 0) t.X[kKC * kTE + off] = gv * mn[u][c];
       }
     }
   }
 }
 
 // One m0 column pass (columns c0 .. c0 + w of [extra | h_m0]) over both halves.
-template <typename T, int NJ>
+template <int NJ>
 __device__ __forceinline__ void m0_pass(Tile& t, int K, int c0, int w) {
   const Args& a = *t.a;
   float acc[4][4 * NJ];
@@ -666,7 +637,7 @@ __device__ __forceinline__ void m0_pass(Tile& t, int K, int c0, int w) {
   for (int half = 0; half < 2; ++half) {
     for (int kc = 0; kc < K; kc += kKC) {
       const int kw = imin(kKC, K - kc);
-      gated_chunk<T>(t, half * (a.NG / 2), static_cast<const T*>(half ? a.msg_t : a.msg_s), kc, kw, 0, 0);
+      gated_chunk(t, half * (a.NG / 2), half ? a.msg_t : a.msg_s, kc, kw, 0, 0);
       for (int s = 0; s * sr < kw; ++s) {
         const float* W = t.ring->acquire();
         if (t.active) mma<NJ, true>(acc, t.X, s * sr, W, sld, imin(sr, kw - s * sr));
@@ -680,8 +651,8 @@ __device__ __forceinline__ void m0_pass(Tile& t, int K, int c0, int w) {
   for (int i = 0; i < 4; ++i) {
     const int e = 4 * ty + i;
     if (e >= t.ne) continue;
-    T* xrow = static_cast<T*>(a.extra_out) + (size_t)(t.e0 + e) * a.X;
-    T* hrow_p = static_cast<T*>(a.h_out) + (size_t)(t.e0 + e) * hrow - a.X;
+    float* xrow = a.extra_out + (size_t)(t.e0 + e) * a.X;
+    float* hrow_p = a.h_out + (size_t)(t.e0 + e) * hrow - a.X;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -690,9 +661,9 @@ __device__ __forceinline__ void m0_pass(Tile& t, int K, int c0, int w) {
         if (col >= w) continue;
         const int oc = c0 + col;
         if (oc < a.X) {
-          xrow[oc] = dtype::narrow<T>(acc[i][4 * j + c]);
+          xrow[oc] = acc[i][4 * j + c];
         } else {
-          hrow_p[oc] = dtype::narrow<T>(acc[i][4 * j + c]);
+          hrow_p[oc] = acc[i][4 * j + c];
         }
       }
   }
@@ -700,7 +671,7 @@ __device__ __forceinline__ void m0_pass(Tile& t, int K, int c0, int w) {
 
 // One |m| > 0 column pass (columns c0 .. c0 + w of the block's yp and yn)
 // over both halves; the block's +m rows start at message row row0.
-template <typename T, int NJ>
+template <int NJ>
 __device__ __forceinline__ void pair_pass(Tile& t, int K, int row0, int nb, int goff, int c0, int w) {
   const Args& a = *t.a;
   float yp[4][4 * NJ], yn[4][4 * NJ];
@@ -710,8 +681,7 @@ __device__ __forceinline__ void pair_pass(Tile& t, int K, int row0, int nb, int 
   for (int half = 0; half < 2; ++half) {
     for (int kc = 0; kc < K; kc += kKC) {
       const int kw = imin(kKC, K - kc);
-      gated_chunk<T>(t, half * (a.NG / 2) + goff, static_cast<const T*>(half ? a.msg_t : a.msg_s), kc, kw, row0 * a.C,
-                     nb * a.C);
+      gated_chunk(t, half * (a.NG / 2) + goff, half ? a.msg_t : a.msg_s, kc, kw, row0 * a.C, nb * a.C);
       for (int s = 0; s * sr < kw; ++s) {
         const float* W = t.ring->acquire();
         if (t.active) pair_mma<NJ>(yp, yn, t.X, t.X + kKC * kTE, s * sr, W, W + sr * sld, sld, imin(sr, kw - s * sr));
@@ -725,20 +695,19 @@ __device__ __forceinline__ void pair_pass(Tile& t, int K, int row0, int nb, int 
   for (int i = 0; i < 4; ++i) {
     const int e = 4 * ty + i;
     if (e >= t.ne) continue;
-    T* out = static_cast<T*>(a.h_out) + (size_t)(t.e0 + e) * hrow + c0;
+    float* out = a.h_out + (size_t)(t.e0 + e) * hrow + c0;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = (tx + 16 * j) * 4 + c;
         if (col >= w) continue;
-        out[(size_t)row0 * a.CO + col] = dtype::narrow<T>(yp[i][4 * j + c]);
-        out[(size_t)(row0 + nb) * a.CO + col] = dtype::narrow<T>(yn[i][4 * j + c]);
+        out[(size_t)row0 * a.CO + col] = yp[i][4 * j + c];
+        out[(size_t)(row0 + nb) * a.CO + col] = yn[i][4 * j + c];
       }
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) eqv2_attn_conv1_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   float* slots = reinterpret_cast<float*>(smem4);  // [kStages][kSlot] weight ring
@@ -786,8 +755,8 @@ __global__ void __launch_bounds__(kThreads, 1) eqv2_attn_conv1_kernel(const Args
     for (int i = tid; i < kTE * a.Ed; i += kThreads) {
       const int j = i / kTE, e = i - j * kTE;
       const bool ok = e < t.ne;
-      X[j * kTE + e] = ok ? dtype::rounded<T>(__ldg(a.emb_s + (size_t)(t.e0 + e) * a.Ed + j)) : 0.f;
-      X[(a.Edp + j) * kTE + e] = ok ? dtype::rounded<T>(__ldg(a.emb_t + (size_t)(t.e0 + e) * a.Ed + j)) : 0.f;
+      X[j * kTE + e] = ok ? __ldg(a.emb_s + (size_t)(t.e0 + e) * a.Ed + j) : 0.f;
+      X[(a.Edp + j) * kTE + e] = ok ? __ldg(a.emb_t + (size_t)(t.e0 + e) * a.Ed + j) : 0.f;
     }
     __syncthreads();
 
@@ -805,7 +774,7 @@ __global__ void __launch_bounds__(kThreads, 1) eqv2_attn_conv1_kernel(const Args
           float v = 0.f;
           if (rr < rows && e < t.ne) {
             const float d = d_s[e] - (float)(r0 + rr) * a.delta;
-            v = dtype::rounded<T>(expf(a.coeff * (d * d)) * m_s[e]);
+            v = expf(a.coeff * (d * d)) * m_s[e];
           }
           G[i] = v;
           nz |= v != 0.f;
@@ -823,7 +792,7 @@ __global__ void __launch_bounds__(kThreads, 1) eqv2_attn_conv1_kernel(const Args
       if (t.active) store_t<2>(Y, acc, hc, hw);
     }
     __syncthreads();
-    ln_silu<T>(Y, Y, a.H, a.ln0s, a.ln0b);
+    ln_silu(Y, Y, a.H, a.ln0s, a.ln0b);
 
     // 3. trunk layer 1: y0 @ w1 + b1 -> X, then LN + SiLU -> Y (y1)
     for (int hc = 0; hc < a.H; hc += kTrunkN) {
@@ -837,7 +806,7 @@ __global__ void __launch_bounds__(kThreads, 1) eqv2_attn_conv1_kernel(const Args
       if (t.active) store_t<2>(X, acc, hc, hw);
     }
     __syncthreads();
-    ln_silu<T>(X, Y, a.H, a.ln1s, a.ln1b);  // (the next acquire barrier orders this before Y is read)
+    ln_silu(X, Y, a.H, a.ln1s, a.ln1b);  // (the next acquire barrier orders this before Y is read)
 
     // 4. the item's m-block column passes: gates, gated messages, conv products
     int row0 = 0, goff = 0, part = 0;
@@ -847,13 +816,13 @@ __global__ void __launch_bounds__(kThreads, 1) eqv2_attn_conv1_kernel(const Args
         if (!((parts >> part) & 1u)) continue;
         const int w = imin(tn, N - c0);
         if (g == 0) {
-          m0_pass<T, kM0NJ>(t, K, c0, w);
+          m0_pass<kM0NJ>(t, K, c0, w);
         } else {
           switch (tn / 64) {
-            case 1: pair_pass<T, 1>(t, K, row0, nb, goff, c0, w); break;
-            case 2: pair_pass<T, 2>(t, K, row0, nb, goff, c0, w); break;
-            case 3: pair_pass<T, 3>(t, K, row0, nb, goff, c0, w); break;
-            default: pair_pass<T, 4>(t, K, row0, nb, goff, c0, w); break;
+            case 1: pair_pass<1>(t, K, row0, nb, goff, c0, w); break;
+            case 2: pair_pass<2>(t, K, row0, nb, goff, c0, w); break;
+            case 3: pair_pass<3>(t, K, row0, nb, goff, c0, w); break;
+            default: pair_pass<4>(t, K, row0, nb, goff, c0, w); break;
           }
         }
       }
@@ -864,13 +833,28 @@ __global__ void __launch_bounds__(kThreads, 1) eqv2_attn_conv1_kernel(const Args
   cp_async_wait<0>();
 }
 
-template <typename T>
-int launch(const void* dist, const void* mask, const void* emb_s, const void* emb_t, const void* msg_s,
-           const void* msg_t, const void* wg, const void* ws, const void* wt, const void* b0, const void* ln0s,
-           const void* ln0b, const void* w1, const void* b1, const void* ln1s, const void* ln1b, const void* w2,
-           const void* b2, const void* bm0, const void* wconv, void* extra_out, void* h_out, long long E,
-           int num_gauss, int emb_dim, int hidden, int c_in, int c_out, int extra, const int* n_blocks, int n_groups,
-           float cutoff, float width_scalar, int blocks, int smem_bytes, void* stream) {
+}  // namespace
+
+// Plain C interface (loaded with ctypes). Device pointers of contiguous
+// tensors, f32 unless named: dist [E]; mask [E] bool (uint8); emb_s, emb_t
+// [E, Ed]; msg_s, msg_t [E, NA * C] (truncated m-primary rows, n-major,
+// channel inner); the packed trunk wg [R, H], ws, wt [Ed, H], b0, ln0s, ln0b
+// [H], w1 [H, H], b1, ln1s, ln1b [H], w2 [H, 2 sum(nb) C], b2 [2 sum(nb) C],
+// bm0 [extra + nb0 c_out]; wconv, the conv kernels flattened one after another
+// (km0_s, km0_t [nb0 C, extra + nb0 c_out], then per |m| block kr_s, ki_s,
+// kr_t, ki_t [nb C, nb c_out]); extra_out [E, extra] and h_out [E, NA c_out]
+// are written. n_blocks: host array of the rows per m-block (n_groups <= 8).
+// `blocks` and `smem_bytes` come from the wrapper's plan
+// (ops/kernels.py::attn_conv1_plan); a shared-memory size that disagrees with
+// this kernel's layout is refused with cudaErrorInvalidValue. Launches on
+// `stream` and returns cudaGetLastError() after the launch.
+extern "C" int eqv2_attn_conv1_f32(
+    const void* dist, const void* mask, const void* emb_s, const void* emb_t, const void* msg_s,
+    const void* msg_t, const void* wg, const void* ws, const void* wt, const void* b0, const void* ln0s,
+    const void* ln0b, const void* w1, const void* b1, const void* ln1s, const void* ln1b, const void* w2,
+    const void* b2, const void* bm0, const void* wconv, void* extra_out, void* h_out, long long E,
+    int num_gauss, int emb_dim, int hidden, int c_in, int c_out, int extra, const int* n_blocks, int n_groups,
+    float cutoff, float width_scalar, int blocks, int smem_bytes, void* stream) {
   if (E <= 0) return 0;
   if (E > 0x7fffffffLL - kTE) return (int)cudaErrorInvalidValue;  // edge indices are 32-bit in the kernel
   if (n_groups < 1 || n_groups > kMaxGroups || num_gauss < 2 || blocks < 1) return (int)cudaErrorInvalidValue;
@@ -879,8 +863,8 @@ int launch(const void* dist, const void* mask, const void* emb_s, const void* em
   a.mask = static_cast<const uint8_t*>(mask);
   a.emb_s = static_cast<const float*>(emb_s);
   a.emb_t = static_cast<const float*>(emb_t);
-  a.msg_s = msg_s;
-  a.msg_t = msg_t;
+  a.msg_s = static_cast<const float*>(msg_s);
+  a.msg_t = static_cast<const float*>(msg_t);
   a.wg = static_cast<const float*>(wg);
   a.ws = static_cast<const float*>(ws);
   a.wt = static_cast<const float*>(wt);
@@ -895,8 +879,8 @@ int launch(const void* dist, const void* mask, const void* emb_s, const void* em
   a.b2 = static_cast<const float*>(b2);
   a.bm0 = static_cast<const float*>(bm0);
   a.wconv = static_cast<const float*>(wconv);
-  a.extra_out = extra_out;
-  a.h_out = h_out;
+  a.extra_out = static_cast<float*>(extra_out);
+  a.h_out = static_cast<float*>(h_out);
   a.E = E;
   a.R = num_gauss;
   a.Ed = emb_dim;
@@ -913,9 +897,8 @@ int launch(const void* dist, const void* mask, const void* emb_s, const void* em
   }
   a.NG = 2 * rows * c_in;
   a.msg_ld = (long long)na * c_in;
-  const uintptr_t align = 4 * sizeof(T) - 1;  // a 4-element load: 16 bytes of f32, 8 of bf16
-  a.msg_vec = c_in % 4 == 0 && (reinterpret_cast<uintptr_t>(msg_s) & align) == 0 &&
-              (reinterpret_cast<uintptr_t>(msg_t) & align) == 0;
+  a.msg_vec = c_in % 4 == 0 && (reinterpret_cast<uintptr_t>(msg_s) & 15) == 0 &&
+              (reinterpret_cast<uintptr_t>(msg_t) & 15) == 0;
   // as the plain version: both constants in double, then rounded to f32
   const double delta = (double)cutoff / (num_gauss - 1);
   a.delta = (float)delta;
@@ -933,45 +916,12 @@ int launch(const void* dist, const void* mask, const void* emb_s, const void* em
   const size_t floats = (size_t)kStages * kSlot + a.Hp * kTE + a.x_floats + kMaxSliceRows * kTE + 2 * kTE;
   const size_t smem = floats * sizeof(float) + (size_t)a.n_seg * sizeof(Seg);
   if (smem != (size_t)smem_bytes) return (int)cudaErrorInvalidValue;  // the wrapper's plan disagrees
-  cudaError_t err = cudaFuncSetAttribute(eqv2_attn_conv1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(eqv2_attn_conv1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  eqv2_attn_conv1_kernel<T><<<(unsigned)blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  eqv2_attn_conv1_kernel<<<(unsigned)blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
-
-}  // namespace
-
-// Plain C interface (loaded with ctypes). Device pointers of contiguous
-// tensors, f32 unless named: dist [E]; mask [E] bool (uint8); emb_s, emb_t
-// [E, Ed]; msg_s, msg_t [E, NA * C] (truncated m-primary rows, n-major,
-// channel inner; bf16 for the _bf16 entry); the packed trunk wg [R, H], ws, wt
-// [Ed, H], b0, ln0s, ln0b [H], w1 [H, H], b1, ln1s, ln1b [H], w2 [H, 2 sum(nb)
-// C], b2 [2 sum(nb) C], bm0 [extra + nb0 c_out]; wconv, the conv kernels
-// flattened one after another (km0_s, km0_t [nb0 C, extra + nb0 c_out], then
-// per |m| block kr_s, ki_s, kr_t, ki_t [nb C, nb c_out]); extra_out [E, extra]
-// and h_out [E, NA c_out] are written in the messages' dtype. For the _bf16
-// entry the weights hold bf16 values (the wrapper rounds them). n_blocks: host
-// array of the rows per m-block (n_groups <= 8). `blocks` and `smem_bytes`
-// come from the wrapper's plan (ops/kernels.py::attn_conv1_plan); a
-// shared-memory size that disagrees with this kernel's layout is refused with
-// cudaErrorInvalidValue. Launches on `stream` and returns cudaGetLastError()
-// after the launch.
-#define CONV1_ENTRY(name, T)                                                                                         \
-  extern "C" int name(const void* dist, const void* mask, const void* emb_s, const void* emb_t, const void* msg_s,  \
-                      const void* msg_t, const void* wg, const void* ws, const void* wt, const void* b0,            \
-                      const void* ln0s, const void* ln0b, const void* w1, const void* b1, const void* ln1s,          \
-                      const void* ln1b, const void* w2, const void* b2, const void* bm0, const void* wconv,          \
-                      void* extra_out, void* h_out, long long E, int num_gauss, int emb_dim, int hidden, int c_in,   \
-                      int c_out, int extra, const int* n_blocks, int n_groups, float cutoff, float width_scalar,     \
-                      int blocks, int smem_bytes, void* stream) {                                                    \
-    return launch<T>(dist, mask, emb_s, emb_t, msg_s, msg_t, wg, ws, wt, b0, ln0s, ln0b, w1, b1, ln1s, ln1b, w2, b2, \
-                     bm0, wconv, extra_out, h_out, E, num_gauss, emb_dim, hidden, c_in, c_out, extra, n_blocks,      \
-                     n_groups, cutoff, width_scalar, blocks, smem_bytes, stream);                                    \
-  }
-
-CONV1_ENTRY(eqv2_attn_conv1_f32, float)
-CONV1_ENTRY(eqv2_attn_conv1_bf16, __nv_bfloat16)
 
 extern "C" const char* eqv2_attn_conv1_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,5 +1,5 @@
-// EquiformerV2 S^2 grid activation, fused, for Hopper (sm_90a), f32 and
-// bf16.
+// EquiformerV2 S^2 grid activation, fused, for Hopper (sm_90a), f32 (bf16 h
+// takes s2_grid_silu_bf16.cu, on the tensor cores).
 //
 // Replaces the TPU kernel adsorbdiff_tpu/ops/pallas_kernels.py::
 // _s2_act_fwd_kernel (called from _s2_act_call; public s2_grid_silu). For
@@ -37,16 +37,6 @@
 // warps hide the shared-memory and SiLU latencies better than 2 blocks did.
 // Wider NC spills at 3 blocks and takes 2.
 //
-// The bf16 variant (EquiformerV2 with compute_dtype bfloat16) takes bf16 h and
-// writes a bf16 output, rounding where the TPU kernel rounds in bf16: the
-// tables are cast to h's dtype (the wrapper's to_grid_m.astype(h.dtype)), so
-// they are rounded to bf16 as they are staged (and kept widened in the same
-// f32 shared memory, so the plan and its layout are the f32 ones); both
-// products sum in f32; silu(g) is rounded to bf16 before the second product
-// (g.astype(from_ref.dtype)); the output is rounded once. The fast SiLU
-// stays: its few ulp can move a rounded value by one bf16 ulp where g sits
-// on a rounding boundary, inside the bf16 gate.
-//
 // Measured (chip_smoke.py phase 10, NVIDIA H100 80GB HBM3, 700 W): see
 // PERF.md section 6, row 6, for this design's time and share of the bound
 // beside the two-column design it replaced (1.693 ms, 38%). What is left:
@@ -55,8 +45,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include "dtype.cuh"
 
 namespace {
 
@@ -68,18 +56,18 @@ __device__ __forceinline__ float silu_fast(float g) { return __fdividef(g, 1.f +
 // Blocks per SM from ptxas's register counts at 128 threads: 3 (at most 170
 // registers a thread) hold the 8 NC + ~20 live values without spilling up to
 // NC = 19; wider NC takes 2.
-template <int NC, typename T>
+template <int NC>
 __global__ void __launch_bounds__(kThreads, NC <= 19 ? 3 : 2) s2_grid_silu_kernel(
-    const T* __restrict__ h, const float* __restrict__ to_eff, const float* __restrict__ from_eff,
-    T* __restrict__ out, long long M, int C, int G) {
+    const float* __restrict__ h, const float* __restrict__ to_eff, const float* __restrict__ from_eff,
+    float* __restrict__ out, long long M, int C, int G) {
   constexpr int NCP = (NC + 3) & ~3;
   extern __shared__ float4 smem4[];
   float* to_s = reinterpret_cast<float*>(smem4);  // [G][NCP]
   float* from_s = to_s + (size_t)G * NCP;         // [G][NCP] = from_eff^T
   for (int i = threadIdx.x; i < G * NCP; i += kThreads) {
     const int p = i / NCP, r = i - p * NCP;
-    to_s[i] = r < NC ? dtype::rounded<T>(to_eff[(size_t)p * NC + r]) : 0.f;
-    from_s[i] = r < NC ? dtype::rounded<T>(from_eff[(size_t)r * G + p]) : 0.f;
+    to_s[i] = r < NC ? to_eff[(size_t)p * NC + r] : 0.f;
+    from_s[i] = r < NC ? from_eff[(size_t)r * G + p] : 0.f;
   }
 
   const long long ncols = M * (long long)C;
@@ -92,10 +80,10 @@ __global__ void __launch_bounds__(kThreads, NC <= 19 ? 3 : 2) s2_grid_silu_kerne
     valid[j] = col[j] < ncols;
     const long long m = valid[j] ? col[j] / C : 0;
     const int c = valid[j] ? (int)(col[j] - m * C) : 0;
-    const T* src = h + m * (long long)NC * C + c;
+    const float* src = h + m * (long long)NC * C + c;
 #pragma unroll
     for (int r = 0; r < NC; ++r) {
-      x[j][r] = valid[j] ? dtype::ldg(src + (size_t)r * C) : 0.f;
+      x[j][r] = valid[j] ? __ldg(src + (size_t)r * C) : 0.f;
       acc[j][r] = 0.f;
     }
   }
@@ -129,7 +117,7 @@ __global__ void __launch_bounds__(kThreads, NC <= 19 ? 3 : 2) s2_grid_silu_kerne
     }
     float s[kCols];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) s[j] = dtype::rounded<T>(silu_fast(ge[j] + go[j]));
+    for (int j = 0; j < kCols; ++j) s[j] = silu_fast(ge[j] + go[j]);
 #pragma unroll
     for (int q = 0; q < NCP / 4; ++q) {
       const float4 f = f4[q];
@@ -150,14 +138,14 @@ __global__ void __launch_bounds__(kThreads, NC <= 19 ? 3 : 2) s2_grid_silu_kerne
     if (!valid[j]) continue;
     const long long m = col[j] / C;
     const int c = (int)(col[j] - m * C);
-    T* dst = out + m * (long long)NC * C + c;
+    float* dst = out + m * (long long)NC * C + c;
 #pragma unroll
-    for (int r = 0; r < NC; ++r) dst[(size_t)r * C] = dtype::narrow<T>(acc[j][r]);
+    for (int r = 0; r < NC; ++r) dst[(size_t)r * C] = acc[j][r];
   }
 }
 
-template <int NC, typename T>
-int launch(const T* h, const float* to_eff, const float* from_eff, T* out, long long M, int C, int G,
+template <int NC>
+int launch(const float* h, const float* to_eff, const float* from_eff, float* out, long long M, int C, int G,
            long long blocks, int smem, cudaStream_t stream) {
   constexpr int NCP = (NC + 3) & ~3;
   const long long ncols = M * (long long)C;
@@ -166,26 +154,34 @@ int launch(const T* h, const float* to_eff, const float* from_eff, T* out, long 
   }
   if (smem > 48 * 1024) {
     cudaError_t err =
-        cudaFuncSetAttribute(s2_grid_silu_kernel<NC, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        cudaFuncSetAttribute(s2_grid_silu_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  s2_grid_silu_kernel<NC, T><<<(unsigned)blocks, kThreads, smem, stream>>>(h, to_eff, from_eff, out, M, C, G);
+  s2_grid_silu_kernel<NC><<<(unsigned)blocks, kThreads, smem, stream>>>(h, to_eff, from_eff, out, M, C, G);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* h, const void* to_eff, const void* from_eff, void* out, long long M, int NC, int C, int G,
-             long long blocks, int smem, void* stream) {
+}  // namespace
+
+// Plain C interface (loaded with ctypes). Device pointers of contiguous f32
+// tensors: h [M, NC, C]; to_eff [G, NC] and from_eff [NC, G]; out [M, NC, C]
+// is written. 1 <= NC <= 32. `blocks` and `smem` come from the wrapper's plan
+// (ops/kernels.py::s2_grid_silu_plan: 128 threads x 4 columns a block, both
+// tables in shared memory); a plan this kernel does not match is refused
+// with cudaErrorInvalidValue. Launches on `stream` and returns
+// cudaGetLastError() after the launch (0 = success).
+extern "C" int s2_grid_silu_f32(const void* h, const void* to_eff, const void* from_eff, void* out,
+                                long long M, int NC, int C, int G, long long blocks, int smem, void* stream) {
   if (M <= 0 || C <= 0) return 0;
-  const T* hp = static_cast<const T*>(h);
+  const float* hp = static_cast<const float*>(h);
   const float* tp = static_cast<const float*>(to_eff);
   const float* fp = static_cast<const float*>(from_eff);
-  T* op = static_cast<T*>(out);
+  float* op = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (NC) {
 #define S2_CASE(n) \
   case n:          \
-    return launch<n, T>(hp, tp, fp, op, M, C, G, blocks, smem, s);
+    return launch<n>(hp, tp, fp, op, M, C, G, blocks, smem, s);
     S2_CASE(1) S2_CASE(2) S2_CASE(3) S2_CASE(4) S2_CASE(5) S2_CASE(6) S2_CASE(7) S2_CASE(8)
     S2_CASE(9) S2_CASE(10) S2_CASE(11) S2_CASE(12) S2_CASE(13) S2_CASE(14) S2_CASE(15) S2_CASE(16)
     S2_CASE(17) S2_CASE(18) S2_CASE(19) S2_CASE(20) S2_CASE(21) S2_CASE(22) S2_CASE(23) S2_CASE(24)
@@ -194,26 +190,6 @@ int dispatch(const void* h, const void* to_eff, const void* from_eff, void* out,
     default:
       return (int)cudaErrorInvalidValue;
   }
-}
-
-}  // namespace
-
-// Plain C interface (loaded with ctypes). Device pointers of contiguous
-// tensors: h [M, NC, C] (f32, or bf16 for the _bf16 entry); to_eff [G, NC] and
-// from_eff [NC, G] f32; out [M, NC, C] in h's dtype is written. 1 <= NC <= 32.
-// `blocks` and `smem` come from the wrapper's plan
-// (ops/kernels.py::s2_grid_silu_plan: 128 threads x 4 columns a block, both
-// tables in shared memory as f32); a plan this kernel does not match is
-// refused with cudaErrorInvalidValue. Launches on `stream` and returns
-// cudaGetLastError() after the launch (0 = success).
-extern "C" int s2_grid_silu_f32(const void* h, const void* to_eff, const void* from_eff, void* out,
-                                long long M, int NC, int C, int G, long long blocks, int smem, void* stream) {
-  return dispatch<float>(h, to_eff, from_eff, out, M, NC, C, G, blocks, smem, stream);
-}
-
-extern "C" int s2_grid_silu_bf16(const void* h, const void* to_eff, const void* from_eff, void* out,
-                                 long long M, int NC, int C, int G, long long blocks, int smem, void* stream) {
-  return dispatch<__nv_bfloat16>(h, to_eff, from_eff, out, M, NC, C, G, blocks, smem, stream);
 }
 
 extern "C" const char* s2_grid_silu_error_string(int code) {

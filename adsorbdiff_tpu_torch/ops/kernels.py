@@ -19,7 +19,10 @@ bf16 output), ``gemnet_quad_chain`` (a bf16 output), ``s2_grid_silu`` and
 its backward (bf16 ``h``, ``dy`` and output), ``eqv2_edge_rotate`` in all
 three forms (bf16 ``x`` and output) and ``eqv2_attn_conv1`` (bf16 messages
 and outputs).  Their plain versions take the same dtypes and round at the
-same points; a launch of a bf16 variant counts under ``<kernel>.bf16``.
+same points; a launch of a bf16 variant counts under ``<kernel>.bf16``.  Two
+bf16 forms are kernels of their own, whose products run on the bf16 tensor
+cores: ``csrc/s2_grid_silu_bf16.cu`` and ``csrc/eqv2_attn_conv1_bf16.cu``;
+the others are entries of their f32 kernel's source.
 
 A kernel with a backward is wrapped in a ``torch.autograd.Function``
 (:class:`PainnMessageFused`, :class:`S2GridSilu`, :class:`EqV2AttnConv1`,
@@ -1653,6 +1656,54 @@ def s2_grid_silu_plan(m: int, nc: int, c: int, g: int) -> LaunchPlan:
                       blocks=max(_cdiv(m * c, threads * cols), 1), smem_bytes=smem)
 
 
+# csrc/s2_grid_silu_bf16.cu: warps a block, columns a warp takes at a time, blocks an SM at most
+_S2B_WARPS, _S2B_COLS, _S2B_PER_SM = 8, 32, 2
+
+
+def s2_bf16_layout(nc: int, g: int) -> Tuple[int, int, int, int, int]:
+    """``(KS, NT, GP, to stride, from stride)`` of ``csrc/s2_grid_silu_bf16.cu``'s
+    tables: NC zero-padded to KS k16 steps for the first product and to NT n8
+    tiles for the second, G to GP (a multiple of 16); the tables' rows (``to``
+    by grid point, ``from`` by coefficient) hold an odd number of 16-byte
+    chunks, so the eight rows of an ldmatrix fall on eight bank groups."""
+    if not 1 <= nc <= 32:
+        raise ValueError(f"s2_grid_silu: the bf16 kernel takes 1 <= NC <= 32 coefficient rows, got {nc}")
+    ks = 1 if nc <= 16 else 2
+    gp = _cdiv(g, 16) * 16
+    return ks, _cdiv(nc, 8), gp, 16 * ks + 8, gp + 8
+
+
+def s2_bf16_tables(to_grid_m: torch.Tensor, from_grid_m: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernel's tables in one flat bf16 tensor, as it copies them
+    into shared memory: ``to_grid_m [G, NC]`` as ``[GP, to stride]`` then
+    ``from_grid_m [NC, G]`` as ``[NT 8, from stride]`` (:func:`s2_bf16_layout`),
+    each value rounded to bf16 (the TPU wrapper casts both tables to h's
+    dtype), zeros elsewhere."""
+    g, nc = to_grid_m.shape
+    _, nt, gp, ts, fs = s2_bf16_layout(nc, g)
+    blob = torch.zeros(gp * ts + nt * 8 * fs, dtype=torch.bfloat16, device=to_grid_m.device)
+    blob[:gp * ts].view(gp, ts)[:g, :nc] = to_grid_m
+    blob[gp * ts:].view(nt * 8, fs)[:nc, :g] = from_grid_m
+    return blob
+
+
+def s2_grid_silu_bf16_plan(m: int, nc: int, c: int, g: int, sms: int) -> LaunchPlan:
+    """``csrc/s2_grid_silu_bf16.cu``'s launch on a card of ``sms`` SMs:
+    persistent blocks of 8 warps (2 an SM where the shared memory allows),
+    each warp taking 32 columns at a time; shared memory holds the tables of
+    :func:`s2_bf16_tables` and 2 KB (1 KB for NC <= 16) a warp for its
+    columns.  Raises ValueError when the tables do not fit."""
+    ks, nt, gp, ts, fs = s2_bf16_layout(nc, g)
+    smem = 2 * (gp * ts + nt * 8 * fs) + _S2B_WARPS * ks * 16 * 64
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"s2_grid_silu: the bf16 tables (G {g}, NC {nc}) need {smem} bytes of shared memory a "
+                         f"block, more than {SMEM_PER_BLOCK}")
+    per_sm = min(_S2B_PER_SM, SMEM_PER_SM // (smem + 1024))
+    tiles = _cdiv(m * c, _S2B_COLS)
+    blocks = max(1, min(_cdiv(tiles, _S2B_WARPS), per_sm * sms))
+    return LaunchPlan(tile=_S2B_WARPS * _S2B_COLS, cluster=1, threads=32 * _S2B_WARPS, blocks=blocks, smem_bytes=smem)
+
+
 def s2_grid_silu_bwd_plan(m: int, nc: int, c: int, g: int, sms: int) -> LaunchPlan:
     """``csrc/s2_grid_silu_bwd.cu``'s launch on a card of ``sms`` SMs: blocks
     of 128 threads of 2 columns, persistent, one per SM slot (3 an SM up to
@@ -1687,12 +1738,13 @@ def _pass_width(n: int, nj_max: int) -> int:
     return _cdiv(_cdiv(n, _cdiv(n, nj_max * 64)), 64) * 64
 
 
-def _conv1_parts(c: int, c_out: int, extra: int, n_blocks: Tuple[int, ...]):
-    """Per m-block ``(K, N, column passes)``, in the kernel's order."""
+def _conv1_parts(c: int, c_out: int, extra: int, n_blocks: Tuple[int, ...], pair_nj: int = _C1_PAIR_NJ):
+    """Per m-block ``(K, N, column passes)``, in the kernel's order (|m| > 0
+    passes of at most ``pair_nj`` 64-column groups)."""
     out = []
     for g, nb in enumerate(n_blocks):
         n = extra + nb * c_out if g == 0 else nb * c_out
-        out.append((nb * c, n, _cdiv(n, _pass_width(n, _C1_M0_NJ if g == 0 else _C1_PAIR_NJ))))
+        out.append((nb * c, n, _cdiv(n, _pass_width(n, _C1_M0_NJ if g == 0 else pair_nj))))
     return out
 
 
@@ -1742,6 +1794,67 @@ def attn_conv1_route(e_dim: int, hidden: int, c: int, c_out: int, extra: int, n_
     return "wide"
 
 
+# csrc/eqv2_attn_conv1_bf16.cu's constants: threads a block, bf16 a ring slot, weight rows a slice at most, bytes a
+# segment table entry, 64-column groups an |m| > 0 pass at most (passes of 256 columns spilled)
+_C1B_THREADS, _C1B_SLOT, _C1B_SLICE_ROWS, _C1B_SEG_BYTES, _C1B_PAIR_NJ = 256, 16384, 64, 40, 3
+
+
+def _round_up(x: int, m: int) -> int:
+    return _cdiv(x, m) * m
+
+
+def _odd_stride(n: int) -> int:
+    """``csrc/mma_bf16.cuh``'s ``odd_stride``: a row of ``n`` bf16 (a
+    multiple of 8) padded to an odd number of 16-byte chunks."""
+    return ((n // 8) | 1) * 8
+
+
+def _conv1_bf16_budget(e_dim: int, hidden: int, c: int, c_out: int, extra: int,
+                       n_blocks: Tuple[int, ...]) -> Tuple[int, int, list]:
+    """(shared bytes a block, column passes, per-m-block parts) of
+    ``csrc/eqv2_attn_conv1_bf16.cu`` at these widths (its ``set_layout``): the
+    ring, y0/y1, both embeddings, the region the trunk's f32 sums share with
+    the gated message chunk, a gaussian slice, the distances and mask, the
+    warps' votes and the segment table."""
+    hp, edp = _round_up(hidden, 16), _round_up(e_dim, 16)
+    parts = _conv1_parts(c, c_out, extra, n_blocks, _C1B_PAIR_NJ)
+    n_parts = sum(p for _, _, p in parts)
+    n_seg = 4 * _cdiv(hidden, _C1_TRUNK_N) + sum(p * 2 * _cdiv(k, _C1_KC) * 2 for k, _, p in parts)
+    u = _round_up(max(2 * _C1_TILE * _odd_stride(_C1_KC) * 2, _C1_TILE * (_round_up(hidden, 32) + 4) * 4), 16)
+    smem = (_C1_STAGES * _C1B_SLOT * 2 + _C1_TILE * _odd_stride(hp) * 2 + 2 * _C1_TILE * _odd_stride(edp) * 2 + u
+            + _C1_TILE * _odd_stride(_C1B_SLICE_ROWS) * 2 + 2 * _C1_TILE * 4 + _C1B_THREADS // 32 * 4
+            + _C1B_SEG_BYTES * n_seg)
+    return smem, n_parts, parts
+
+
+def _conv1_launch(e: int, num_gauss: int, e_dim: int, hidden: int, parts: list, n_parts: int, smem: int,
+                  sms: int, threads: int = _C1_THREADS) -> LaunchPlan:
+    """The 64-edge kernels' persistent grid (one block an SM, one a tile when
+    there are fewer) and the FLOP a launch makes again."""
+    tiles = max(_cdiv(e, _C1_TILE), 1)
+    blocks = min(sms, tiles)
+    leftover_edges = max(e - (tiles // blocks) * blocks * _C1_TILE, 0)
+    trunk_flops = 2 * hidden * (num_gauss + 2 * e_dim + hidden)
+    extra_flops = sum((p - 1) * 2 * 2 * hidden * k for k, _, p in parts)
+    extra_flops += _cdiv(leftover_edges * (n_parts - 1) * trunk_flops, max(e, 1))
+    return LaunchPlan(tile=_C1_TILE, cluster=1, threads=threads, blocks=blocks, smem_bytes=smem,
+                      extra_flops_per_edge=extra_flops)
+
+
+def attn_conv1_bf16_plan(e: int, num_gauss: int, e_dim: int, hidden: int, c: int, c_out: int, extra: int,
+                         n_blocks: Tuple[int, ...], sms: int) -> LaunchPlan:
+    """``csrc/eqv2_attn_conv1_bf16.cu``'s launch: the grid, work items
+    (:func:`attn_conv1_work`) and FLOP made again of :func:`attn_conv1_plan`,
+    with the bf16 kernel's shared memory (:func:`_conv1_bf16_budget`).
+    Raises ValueError when the widths do not fit."""
+    smem, n_parts, parts = _conv1_bf16_budget(e_dim, hidden, c, c_out, extra, n_blocks)
+    if smem > SMEM_PER_BLOCK or n_parts > _C1_MAX_PARTS:
+        raise ValueError(f"eqv2_attn_conv1: widths (hidden {hidden}, emb {e_dim}, C {c}) need {smem} bytes of "
+                         f"shared memory a block in the bf16 kernel, more than {SMEM_PER_BLOCK}, or {n_parts} column "
+                         f"passes (at most {_C1_MAX_PARTS})")
+    return _conv1_launch(e, num_gauss, e_dim, hidden, parts, n_parts, smem, sms, _C1B_THREADS)
+
+
 def attn_conv1_plan(e: int, num_gauss: int, e_dim: int, hidden: int, c: int, c_out: int, extra: int,
                     n_blocks: Tuple[int, ...], sms: int) -> LaunchPlan:
     """``csrc/eqv2_attn_conv1.cu``'s launch for ``e`` edges on a card of
@@ -1762,14 +1875,7 @@ def attn_conv1_plan(e: int, num_gauss: int, e_dim: int, hidden: int, c: int, c_o
         raise ValueError(f"eqv2_attn_conv1: widths (hidden {hidden}, emb {e_dim}, C {c}) need {smem} bytes of "
                          f"shared memory a block, more than {SMEM_PER_BLOCK}, or {n_parts} column passes (at most "
                          f"{_C1_MAX_PARTS})")
-    tiles = max(_cdiv(e, _C1_TILE), 1)
-    blocks = min(sms, tiles)
-    leftover_edges = e - (tiles // blocks) * blocks * _C1_TILE
-    trunk_flops = 2 * hidden * (num_gauss + 2 * e_dim + hidden)
-    extra_flops = sum((p - 1) * 2 * 2 * hidden * k for k, _, p in parts)
-    extra_flops += _cdiv(leftover_edges * (n_parts - 1) * trunk_flops, max(e, 1))
-    return LaunchPlan(tile=_C1_TILE, cluster=1, threads=_C1_THREADS, blocks=blocks, smem_bytes=smem,
-                      extra_flops_per_edge=extra_flops)
+    return _conv1_launch(e, num_gauss, e_dim, hidden, parts, n_parts, smem, sms)
 
 
 def attn_conv1_work(e: int, blocks: int, n_parts: int):
@@ -1820,8 +1926,10 @@ def s2_grid_silu(h: torch.Tensor, to_grid_m: torch.Tensor, from_grid_m: torch.Te
     bf16 for bf16 ``h`` (the bf16 variant, counted under
     ``s2_grid_silu.bf16``: the tables rounded to bf16 as the kernel stages
     them, ``silu(g)`` rounded before the second product, as the TPU kernel
-    rounds).  On the card: f32 or bf16 ``h``, f32 tables, contiguous, NC <=
-    32.  When autograd needs a gradient of ``h`` the call goes through
+    rounds; on the card ``csrc/s2_grid_silu_bf16.cu``, both products on the
+    bf16 tensor cores, its tables from :func:`s2_bf16_tables`).  On the
+    card: f32 or bf16 ``h``, f32 tables, contiguous, NC <= 32.  When
+    autograd needs a gradient of ``h`` the call goes through
     :class:`S2GridSilu`, whose backward is :func:`s2_grid_silu_bwd`.
     """
     if torch.is_grad_enabled() and h.requires_grad:
@@ -1839,13 +1947,19 @@ def _s2_grid_silu_forward(h, to_grid_m, from_grid_m) -> torch.Tensor:
     out = torch.empty_like(h)
     if h.numel() == 0:  # empty output: nothing to launch
         return out
+    if h.dtype == torch.bfloat16:
+        plan = s2_grid_silu_bf16_plan(m, nc, c, g, _sm_count(h.device))
+        tables = s2_bf16_tables(to_grid_m, from_grid_m)
+        lib = _library("s2_grid_silu_bf16", [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p], ("mma",))
+        _launch("s2_grid_silu_bf16", lib, h.device, h.data_ptr(), tables.data_ptr(), out.data_ptr(), m, nc, c,
+                s2_bf16_layout(nc, g)[2], plan.blocks, plan.smem_bytes, variant="mma", count_as="s2_grid_silu.bf16")
+        return out
     plan = s2_grid_silu_plan(m, nc, c, g)
-    variant = _EQV2_VARIANTS[h.dtype]
     lib = _library("s2_grid_silu", [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p], tuple(_EQV2_VARIANTS.values()))
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     _launch("s2_grid_silu", lib, h.device, h.data_ptr(), to_grid_m.data_ptr(), from_grid_m.data_ptr(),
-            out.data_ptr(), m, nc, c, g, plan.blocks, plan.smem_bytes, variant=variant,
-            count_as="s2_grid_silu" + _count_suffix(variant))
+            out.data_ptr(), m, nc, c, g, plan.blocks, plan.smem_bytes)
     return out
 
 
@@ -1994,6 +2108,103 @@ def pack_attn_conv1(rad_params: Dict[str, Any], conv_params: Dict[str, Any], *, 
         views.append(flat[off:off + k.numel()].view(k.shape))
         off += k.numel()
     return AttnConv1Weights(trunk, tuple(views), flat, n_blocks, c_in, num_gauss)
+
+
+class AttnConv1MmaWeights(NamedTuple):
+    """``csrc/eqv2_attn_conv1_bf16.cu``'s weights: :func:`pack_attn_conv1`'s
+    bf16 values as bf16 matrices, zero-padded to k16 rows and n8 columns.
+
+    ``mats``: ``wg [Rp, H8]``, ``ws``, ``wt [Edp, H8]``, ``w1 [Hp, H8]``, ``w2
+    [Hp, NGp]``, then the conv kernels in :func:`pack_attn_conv1`'s order,
+    ``[kp_g, N_g rounded up to 8]`` (Rp, Edp, Hp: R, Ed, H rounded up to 16;
+    H8: H rounded up to 8; ``kp_g = nb_g C`` rounded up to 16), all views of
+    ``flat``.  ``w2``'s columns are [s-half | t-half], each half per m-block
+    ``kp_g`` columns of which the first ``nb_g C`` are :func:`pack_attn_conv1`'s
+    (its ``w2``'s columns of that half and m-block) and the rest zero.
+    ``vecs``: ``b0``, ``ln0_scale``, ``ln0_bias``, ``b1``, ``ln1_scale``,
+    ``ln1_bias [H]``, ``b2 [NGp]`` (``w2``'s column layout), ``bm0``: f32
+    tensors of bf16 values.
+    """
+
+    mats: Tuple[torch.Tensor, ...]
+    flat: torch.Tensor
+    vecs: Tuple[torch.Tensor, ...]
+    kp: Tuple[int, ...]
+
+
+@functools.lru_cache(maxsize=16)
+def _gate_perm_mma(n_blocks: Tuple[int, ...], c: int, device: torch.device) -> torch.Tensor:
+    """:func:`_gate_perm` with each half's m-block padded to ``kp_g`` columns:
+    the index ``n_rad`` (past the trunk's last column) marks a zero column."""
+    perm = _gate_perm(n_blocks, c, torch.device("cpu")).numpy()
+    n_rad = perm.size
+    half = n_rad // 2
+    out = []
+    for h in range(2):
+        off = 0
+        for nb in n_blocks:
+            k = nb * c
+            out.append(perm[h * half + off:h * half + off + k])
+            out.append(np.full(_round_up(k, 16) - k, n_rad, np.int64))
+            off += k
+    return torch.from_numpy(np.concatenate(out)).to(device)
+
+
+def pack_attn_conv1_mma(rad_params: Dict[str, Any], conv_params: Dict[str, Any], *, lmax: int, mmax: int,
+                        num_gauss: int, c_in: int) -> AttnConv1MmaWeights:
+    """The bf16 kernel's repack of :func:`pack_attn_conv1`'s trees (same
+    arguments): every value rounded to bf16 as :func:`pack_attn_conv1` with
+    ``dtype`` bf16 rounds it, the matrices stored as bf16 in the padded
+    layout of :class:`AttnConv1MmaWeights`.  Raises ValueError on a weight
+    whose shape does not fit the widths."""
+    n_blocks = conv1_blocks(lmax, mmax)
+    w0 = rad_params["dense_0"]["kernel"]
+    hidden = w0.shape[1]
+    e_dim = (w0.shape[0] - num_gauss) // 2
+    device = w0.device
+    kp = tuple(_round_up(nb * c_in, 16) for nb in n_blocks)
+    n_rad = 2 * sum(n_blocks) * c_in
+    w2 = rad_params["dense_2"]["kernel"]
+    b2 = rad_params["dense_2"]["bias"]
+    if w0.shape[0] != num_gauss + 2 * e_dim or tuple(w2.shape) != (hidden, n_rad) or tuple(b2.shape) != (n_rad,):
+        raise ValueError(f"eqv2_attn_conv1: dense_0 {tuple(w0.shape)} and dense_2 {tuple(w2.shape)} do not fit "
+                         f"{num_gauss} gaussians, hidden {hidden} and {n_rad} gate columns")
+    perm = _gate_perm_mma(n_blocks, c_in, device)
+    zero_col = torch.zeros((hidden, 1), dtype=w2.dtype, device=device)
+    w2p = torch.cat([w2, zero_col], dim=1)[:, perm]
+    b2p = torch.cat([b2, zero_col[0]])[perm]
+
+    def split_st(k, nb, n):
+        if tuple(k.shape) != (nb * 2 * c_in, n):
+            raise ValueError(f"eqv2_attn_conv1: a conv kernel has shape {tuple(k.shape)}, want {(nb * 2 * c_in, n)}")
+        k3 = k.reshape(nb, 2 * c_in, -1)
+        return k3[:, :c_in].reshape(nb * c_in, -1), k3[:, c_in:].reshape(nb * c_in, -1)
+
+    h8, hp, edp = _round_up(hidden, 8), _round_up(hidden, 16), _round_up(e_dim, 16)
+    mats = [(w0[:num_gauss], _round_up(num_gauss, 16), h8), (w0[num_gauss:num_gauss + e_dim], edp, h8),
+            (w0[num_gauss + e_dim:], edp, h8), (rad_params["dense_1"]["kernel"], hp, h8), (w2p, hp, w2p.shape[1])]
+    n0 = conv_params["fc_m0"]["bias"].shape[0]
+    mats += [(k, kp[0], _round_up(n0, 8)) for k in split_st(conv_params["fc_m0"]["kernel"], n_blocks[0], n0)]
+    for mi in range(1, len(n_blocks)):
+        nb, n = n_blocks[mi], conv_params[f"fc_m{mi}_r"]["kernel"].shape[1]
+        kr_s, kr_t = split_st(conv_params[f"fc_m{mi}_r"]["kernel"], nb, n)
+        ki_s, ki_t = split_st(conv_params[f"fc_m{mi}_i"]["kernel"], nb, n)
+        mats += [(k, kp[mi], _round_up(n, 8)) for k in (kr_s, ki_s, kr_t, ki_t)]
+    flat = torch.zeros(sum(k * n for _, k, n in mats), dtype=torch.bfloat16, device=device)
+    views, off = [], 0
+    for src, k, n in mats:
+        if src.shape[0] > k or src.shape[1] > n:
+            raise ValueError(f"eqv2_attn_conv1: a weight of shape {tuple(src.shape)} does not fit [{k}, {n}]")
+        view = flat[off:off + k * n].view(k, n)
+        view[:src.shape[0], :src.shape[1]] = src
+        views.append(view)
+        off += k * n
+    bf = torch.bfloat16
+    vecs = tuple(_rounded(t, bf).contiguous() for t in (
+        rad_params["dense_0"]["bias"], rad_params["ln_0"]["scale"], rad_params["ln_0"]["bias"],
+        rad_params["dense_1"]["bias"], rad_params["ln_1"]["scale"], rad_params["ln_1"]["bias"], b2p,
+        conv_params["fc_m0"]["bias"]))
+    return AttnConv1MmaWeights(tuple(views), flat, vecs, kp)
 
 
 def _attn_conv1_packed_reference(dist, mask, emb_s, emb_t, msg_s, msg_t, w: AttnConv1Weights, *, cutoff: float,
@@ -2147,10 +2358,11 @@ def eqv2_attn_conv1(
     extra])`` in the messages' dtype: h's rows in the truncated m-primary
     order, extra_out the fc_m0 columns that precede h's.  On the card: f32
     contiguous inputs and ``mask`` bool, or bf16 messages (the bf16 variant,
-    counted under ``eqv2_attn_conv1.bf16``: the weights rounded to bf16 by
-    the wrapper, the embeddings as the kernel stages them, then the
-    roundings of :func:`_attn_conv1_packed_reference`; the embeddings,
-    distances and weights stay f32 tensors).  :func:`attn_conv1_route`
+    counted under ``eqv2_attn_conv1.bf16``: ``csrc/eqv2_attn_conv1_bf16.cu``,
+    every product on the bf16 tensor cores, the weights packed as bf16 by
+    :func:`pack_attn_conv1_mma`, the embeddings rounded as the kernel
+    stages them, then the roundings of :func:`_attn_conv1_packed_reference`;
+    the embeddings, distances and weights stay f32 tensors).  :func:`attn_conv1_route`
     picks the kernel from the widths: the 64-edge kernel where its plan fits
     one block's shared memory (at C = 128, equal trunk and embedding widths
     up to 144), else the 16-edge ``csrc/eqv2_attn_conv1_wide.cu`` (f32 only:
@@ -2225,9 +2437,12 @@ def _eqv2_attn_conv1_forward(dist, mask, emb_s, emb_t, msg_s, msg_t, rad_params,
             dist, mask, emb_s, emb_t, msg_s, msg_t, rad_params, conv_params, lmax=lmax, mmax=mmax, c_out=c_out,
             extra=extra, num_gauss=num_gauss, cutoff=cutoff, width_scalar=width_scalar)
     _attn_conv1_check_dtypes(msg_s, msg_t)
+    if msg_s.dtype == torch.bfloat16:
+        return _eqv2_attn_conv1_bf16_forward(dist, mask, emb_s, emb_t, msg_s, msg_t, rad_params, conv_params,
+                                             lmax=lmax, mmax=mmax, c_out=c_out, extra=extra, num_gauss=num_gauss,
+                                             cutoff=cutoff, width_scalar=width_scalar)
     packed, lead, m, n_act, c, e_dim = _attn_conv1_prepare(
-        dist, emb_s, msg_s, rad_params, conv_params, lmax=lmax, mmax=mmax, num_gauss=num_gauss,
-        weights_dtype=msg_s.dtype)
+        dist, emb_s, msg_s, rad_params, conv_params, lmax=lmax, mmax=mmax, num_gauss=num_gauss)
     names = ("wg", "ws", "wt", "b0", "ln0_scale", "ln0_bias", "w1", "b1", "ln1_scale", "ln1_bias", "w2", "b2", "bm0")
     tensors = dict(dist=dist, mask=mask, emb_s=emb_s, emb_t=emb_t, msg_s=msg_s, msg_t=msg_t,
                    **dict(zip(names, packed.trunk)), wconv=packed.flat_conv)
@@ -2252,15 +2467,11 @@ def _eqv2_attn_conv1_forward(dist, mask, emb_s, emb_t, msg_s, msg_t, rad_params,
     h = torch.empty(lead + (n_act, c_out), dtype=msg_s.dtype, device=msg_s.device)
     if m == 0:  # empty output: nothing to launch
         return h, extra_out
-    variant = _EQV2_VARIANTS[msg_s.dtype]
     common = (*(t.data_ptr() for t in (dist, mask, emb_s, emb_t, msg_s, msg_t)),
               *(t.data_ptr() for t in packed.trunk), packed.flat_conv.data_ptr(), extra_out.data_ptr(), h.data_ptr(),
               m, num_gauss, e_dim, hidden, c, c_out, extra, (ctypes.c_int * len(n_blocks))(*n_blocks), len(n_blocks),
               float(cutoff), float(width_scalar))
     if attn_conv1_route(e_dim, hidden, c, c_out, extra, n_blocks) == "wide":
-        if variant != "f32":
-            raise TypeError(f"eqv2_attn_conv1: the wide route (hidden {hidden}, emb {e_dim}) takes f32 messages "
-                            f"only, got {msg_s.dtype}")
         lib = _library("eqv2_attn_conv1_wide", [ctypes.c_void_p] * 22 + [ctypes.c_longlong] + [ctypes.c_int] * 6
                        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         _launch("eqv2_attn_conv1_wide", lib, msg_s.device, *common, count_as="eqv2_attn_conv1")
@@ -2268,9 +2479,61 @@ def _eqv2_attn_conv1_forward(dist, mask, emb_s, emb_t, msg_s, msg_t, rad_params,
     plan = attn_conv1_plan(m, num_gauss, e_dim, hidden, c, c_out, extra, n_blocks, _sm_count(msg_s.device))
     lib = _library("eqv2_attn_conv1", [ctypes.c_void_p] * 22 + [ctypes.c_longlong] + [ctypes.c_int] * 6
                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float, ctypes.c_float]
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], tuple(_EQV2_VARIANTS.values()))
-    _launch("eqv2_attn_conv1", lib, msg_s.device, *common, plan.blocks, plan.smem_bytes, variant=variant,
-            count_as="eqv2_attn_conv1" + _count_suffix(variant))
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    _launch("eqv2_attn_conv1", lib, msg_s.device, *common, plan.blocks, plan.smem_bytes)
+    return h, extra_out
+
+
+def _eqv2_attn_conv1_bf16_forward(dist, mask, emb_s, emb_t, msg_s, msg_t, rad_params, conv_params, *, lmax, mmax,
+                                  c_out, extra, num_gauss, cutoff, width_scalar):
+    """The bf16 messages' launch (``csrc/eqv2_attn_conv1_bf16.cu``) on CUDA
+    tensors, its weights packed by :func:`pack_attn_conv1_mma`; widths that
+    take the wide route raise ``TypeError``."""
+    c, lead, n_act, e_dim = msg_s.shape[-1], tuple(dist.shape), msg_s.shape[-2], emb_s.shape[-1]
+    m = math.prod(lead)
+    n_blocks = conv1_blocks(lmax, mmax)
+    hidden = rad_params["dense_1"]["kernel"].shape[0]
+    if attn_conv1_route(e_dim, hidden, c, c_out, extra, n_blocks) == "wide":
+        raise TypeError(f"eqv2_attn_conv1: the wide route (hidden {hidden}, emb {e_dim}) takes f32 messages only, "
+                        f"got {msg_s.dtype}")
+    packed = pack_attn_conv1_mma(rad_params, conv_params, lmax=lmax, mmax=mmax, num_gauss=num_gauss, c_in=c)
+    names = ("wg", "ws", "wt", "w1", "w2")
+    vec_names = ("b0", "ln0_scale", "ln0_bias", "b1", "ln1_scale", "ln1_bias", "b2", "bm0")
+    tensors = dict(dist=dist, mask=mask, emb_s=emb_s, emb_t=emb_t, msg_s=msg_s, msg_t=msg_t,
+                   **dict(zip(vec_names, packed.vecs)))
+    _check_cuda_inputs("eqv2_attn_conv1", tensors, {"mask": torch.bool, "msg_s": torch.bfloat16,
+                                                    "msg_t": torch.bfloat16})
+    if n_act != n_blocks[0] + 2 * sum(n_blocks[1:]):
+        raise ValueError(f"eqv2_attn_conv1: msg_s has {n_act} rows, lmax {lmax} / mmax {mmax} need "
+                         f"{n_blocks[0] + 2 * sum(n_blocks[1:])}")
+    vec, h8, kp = (hidden,), _round_up(hidden, 8), packed.kp
+    ngp = 2 * sum(kp)
+    _check_shapes("eqv2_attn_conv1", tensors, dict(
+        mask=lead, emb_s=lead + (e_dim,), emb_t=lead + (e_dim,), msg_s=lead + (n_act, c), msg_t=lead + (n_act, c),
+        b0=vec, ln0_scale=vec, ln0_bias=vec, b1=vec, ln1_scale=vec, ln1_bias=vec, b2=(ngp,),
+        bm0=(extra + n_blocks[0] * c_out,)))
+    want = [(_round_up(num_gauss, 16), h8), (_round_up(e_dim, 16), h8), (_round_up(e_dim, 16), h8),
+            (_round_up(hidden, 16), h8), (_round_up(hidden, 16), ngp)]
+    want += [(kp[0], _round_up(extra + n_blocks[0] * c_out, 8))] * 2
+    for g in range(1, len(n_blocks)):
+        want += [(kp[g], _round_up(n_blocks[g] * c_out, 8))] * 4
+    _check_shapes("eqv2_attn_conv1", dict(zip(names + tuple(f"conv[{i}]" for i in range(len(want) - 5)),
+                                              packed.mats)),
+                  dict(zip(names + tuple(f"conv[{i}]" for i in range(len(want) - 5)), want)))
+    extra_out = torch.empty(lead + (extra,), dtype=msg_s.dtype, device=msg_s.device)
+    h = torch.empty(lead + (n_act, c_out), dtype=msg_s.dtype, device=msg_s.device)
+    if m == 0:  # empty output: nothing to launch
+        return h, extra_out
+    plan = attn_conv1_bf16_plan(m, num_gauss, e_dim, hidden, c, c_out, extra, n_blocks, _sm_count(msg_s.device))
+    lib = _library("eqv2_attn_conv1_bf16", [ctypes.c_void_p] * 22 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float, ctypes.c_float]
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ("mma",))
+    _launch("eqv2_attn_conv1_bf16", lib, msg_s.device,
+            *(t.data_ptr() for t in (dist, mask, emb_s, emb_t, msg_s, msg_t)), *(t.data_ptr() for t in packed.mats[:5]),
+            packed.mats[5].data_ptr(), *(t.data_ptr() for t in packed.vecs), extra_out.data_ptr(), h.data_ptr(), m,
+            num_gauss, e_dim, hidden, c, c_out, extra, (ctypes.c_int * len(n_blocks))(*n_blocks), len(n_blocks),
+            float(cutoff), float(width_scalar), plan.blocks, plan.smem_bytes, variant="mma",
+            count_as="eqv2_attn_conv1.bf16")
     return h, extra_out
 
 

@@ -310,7 +310,14 @@ Phases; any failure raises and the exit code is then non-zero:
    an output by one ulp: 4e-3 to 7.8e-3 of max by where max lies in its
    binade); each timed beside its f32 kernel on the same values, its plain
    version and its bound in bf16 bytes; conv1's wide route raises
-   TypeError on bf16 messages.
+   TypeError on bf16 messages.  s2_grid_silu's and eqv2_attn_conv1's bf16
+   forms are tensor-core kernels of their own (csrc/s2_grid_silu_bf16.cu,
+   csrc/eqv2_attn_conv1_bf16.cu), printed with their plans, ptxas's
+   lines and, for s2_grid_silu, the SiLU's SFU floor; their ragged cases
+   add the tiling edges: column counts that no m16 tile or 32-column warp
+   tile divides and NC 25 and 32; E that leaves a partial m16 tile in a
+   unit, or one m16 tile; ODD widths (C 12, c_out 6, extra 11, 21
+   gaussians, trunk 24) that no 8 or 16 divides.
 26. PaiNN in bf16 (compute_dtype bfloat16, phase 4's weights): one B=2
    forward on the card against the same bf16 model on the CPU, both heads
    within 3e-2 * max|cpu bf16| and within the CPU's bf16-to-f32 distance,
@@ -493,6 +500,9 @@ EQV2_TRAIN_CONFIG = dict(
 EQV2_TINY = (2, 1, 16, 16, 32, 16, 16, 6.0)
 # tests/test_torch_kernels.py CONV1_L4: the production m-block structure (5, 4, 3) at narrow widths
 EQV2_L4 = (4, 2, 8, 8, 12, 40, 16, 6.0)
+# widths no 8 or 16 divides (C 12, c_out 6, extra 11, 21 gaussians, trunk 24): the bf16 kernel's padding, its
+# 2-byte message loads and its 2-byte output stores, an output pair that straddles extra | h
+EQV2_ODD = (2, 1, 12, 6, 11, 21, 24, 6.0)
 # trunk and embedding width of eqv2_attn_conv1's wide route (phase 10c): the eqv2_so3.yml model at edge_channels 256
 CONV1_WIDE = 256
 # configs/denoising/gemnet_so3.yml (model) over configs/denoising/base.yml (optim, task), as a dict: full width,
@@ -1174,6 +1184,15 @@ def s2_bound_ms(h, to_m, from_m, out):
     return (*bound(flops, [h, to_m, from_m, out], products if h.dtype == torch.bfloat16 else 0), flops)
 
 
+def sfu_floor_ms(sigmoids, device):
+    """(ms, MHz): the SFU's least time for ``sigmoids`` sigmoids of two SFU
+    operations each (ex2, rcp) at 16 a clock per SM, at the SM clock
+    nvidia-smi reads now (the card's current clock, under this run's load)."""
+    mhz = int(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, check=True).stdout.split()[0])
+    return 2 * sigmoids / (16 * kernels._sm_count(device) * mhz * 1e6) * 1e3, mhz
+
+
 def ptxas_lines(name, instance=""):
     """ptxas's register and spill lines for kernel source ``name`` (this
     process's build); with ``instance``, only those of the functions whose
@@ -1251,10 +1270,20 @@ def eqv2_timing(bf16, kernel_fn, f32_fn, plain_fn, iters, plain_iters):
     return ms, plain_ms, text + f", plain {plain_ms:.4f} ms", extra
 
 
+# the bf16 forms with a source of their own (the tensor-core kernels); the other bf16 variants are entries of their
+# f32 kernel's source
+BF16_SOURCES = {"s2_grid_silu": "s2_grid_silu_bf16", "eqv2_attn_conv1": "eqv2_attn_conv1_bf16"}
+
+
+def eqv2_source(kernel, bf16):
+    """The kernel source (its name in csrc/) of an EquiformerV2 kernel or its bf16 variant."""
+    return BF16_SOURCES.get(kernel, kernel) if bf16 else kernel
+
+
 def eqv2_row(kernel, bf16, err, ms, plain_ms, bound_ms, bound_by, extra):
     """An EquiformerV2 kernel's kernels-line row, its launches filled in by
     its path."""
-    return dict(name=eqv2_key(kernel, bf16), source=f"adsorbdiff_tpu_torch/csrc/{kernel}.cu",
+    return dict(name=eqv2_key(kernel, bf16), source=f"adsorbdiff_tpu_torch/csrc/{eqv2_source(kernel, bf16)}.cu",
                 replaces=EQV2_REPLACES[kernel], launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, **extra)
 
@@ -1264,12 +1293,14 @@ def flops_text(flops, bf16):
 
 
 def s2_kernel_checks(device, gen, h, to_m, from_m):
-    """Phase 10a (f32 h) or 25 (bf16 h: the variant): s2_grid_silu at a
-    first attention block's input against its plain version, then ragged
-    shapes (column counts M x C that are not a multiple of a thread's 4 or a
-    block's 512, at NC 5, 9 and 19, and TINY leads) in h's dtype; timed
-    beside its bound (bf16: and its f32 kernel on the same values).  Returns
-    the kernels-line row, launches 0."""
+    """Phase 10a (f32 h) or 25 (bf16 h: csrc/s2_grid_silu_bf16.cu):
+    s2_grid_silu at a first attention block's input against its plain
+    version, then ragged shapes (column counts M x C that are not a multiple
+    of a thread's 4 or a block's 512, nor of the bf16 kernel's m16 tiles or
+    a warp's 32 columns, at NC 5, 9, 19 and 25, and TINY leads; random NC=32
+    tables) in h's dtype; timed beside its bound (bf16: and its f32 kernel
+    on the same values, and the SiLU's SFU floor).  Returns the kernels-line
+    row, launches 0."""
     bf16 = h.dtype == torch.bfloat16
     key = eqv2_key("s2_grid_silu", bf16)
 
@@ -1282,25 +1313,38 @@ def s2_kernel_checks(device, gen, h, to_m, from_m):
         return torch.randn(shape, generator=gen).to(device).to(h.dtype)
 
     out, err = check("at the path's input", h, to_m, from_m)
-    for lmax, mmax in ((4, 0), (2, 2), (4, 2)):
+    for lmax, mmax in ((4, 0), (2, 2), (4, 2), (4, 4)):
         r_to, r_from = (torch.from_numpy(t).to(device) for t in equiformer_v2.s2_act_matrices(lmax, mmax, 18))
-        for lead, c in (((1,), 3), ((37,), 16), ((129,), 5)):
+        for lead, c in (((1,), 3), ((37,), 16), ((129,), 5), ((41,), 9), ((23,), 8)):
             err = max(err, check(f"ragged NC={r_to.shape[1]}", randn(*lead, r_to.shape[1], c), r_to, r_from)[1])
     tiny_to, tiny_from = (torch.from_numpy(t).to(device) for t in equiformer_v2.s2_act_matrices(*EQV2_TINY[:2], 16))
     for lead in ((37,), (3, 11, 7)):
         err = max(err, check("ragged", randn(*lead, tiny_to.shape[1], 16), tiny_to, tiny_from)[1])
+    err = max(err, check("random NC=32 tables", randn(3, 37, 32, 16), randn(324, 32).float() / 32 ** 0.5,
+                         randn(32, 324).float() / 32 ** 0.5)[1])
     h32 = h.float()
     ms, plain_ms, text, extra = eqv2_timing(bf16, lambda: kernels.s2_grid_silu(h, to_m, from_m),
                                             lambda: kernels.s2_grid_silu(h32, to_m, from_m),
                                             lambda: kernels.s2_grid_silu_reference(h, to_m, from_m), 20, 5)
     bound_ms, by, nbytes, flops = s2_bound_ms(h, to_m, from_m, out)
     nc, c = h.shape[-2:]
-    plan = kernels.s2_grid_silu_plan(h.numel() // (nc * c), nc, c, to_m.shape[0])
-    ptxas = ptxas_lines("s2_grid_silu", f"ILi{nc}E" + (BF16_PTXAS if bf16 else "fE"))
+    m = h.numel() // (nc * c)
+    if bf16:
+        ks, nt, gp, _, _ = kernels.s2_bf16_layout(nc, to_m.shape[0])
+        plan = kernels.s2_grid_silu_bf16_plan(m, nc, c, to_m.shape[0], kernels._sm_count(device))
+        floor_ms, mhz = sfu_floor_ms(m * c * to_m.shape[0], device)
+        design = (f"plan: {plan.blocks} persistent blocks of {plan.threads // 32} warps x 32 columns, NC padded to "
+                  f"{16 * ks} (k) and {8 * nt} (n), G to {gp}, {plan.smem_bytes} B shared; the SiLU's SFU floor "
+                  f"{floor_ms:.4f} ms at {mhz} MHz ({m * c * to_m.shape[0] / 1e6:.1f} M sigmoids, two SFU operations "
+                  f"each, 16 a clock per SM); ptxas (NC = {nc}): "
+                  f"{' | '.join(ptxas_lines('s2_grid_silu_bf16', f'ILi{ks}ELi{nt}E')) or 'not built in this process'}")
+    else:
+        plan = kernels.s2_grid_silu_plan(m, nc, c, to_m.shape[0])
+        design = (f"plan: {plan.tile} columns a block ({plan.threads} threads x 4), cluster {plan.cluster}, "
+                  f"{plan.blocks} blocks, {plan.smem_bytes} B shared; ptxas (NC = {nc}): "
+                  f"{' | '.join(ptxas_lines('s2_grid_silu', f'ILi{nc}E')) or 'not built in this process'}")
     print(f"[kernel] {key} at h{tuple(h.shape)}: {text}, bound {bound_ms:.4f} ms by {by} ({flops_text(flops, bf16)}, "
-          f"{nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}% of the bound; plan: {plan.tile} columns a block "
-          f"({plan.threads} threads x 4), cluster {plan.cluster}, {plan.blocks} blocks, {plan.smem_bytes} B shared; "
-          f"ptxas (NC = {nc}): {' | '.join(ptxas) or 'not built in this process'}", flush=True)
+          f"{nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}% of the bound; {design}", flush=True)
     return eqv2_row("s2_grid_silu", bf16, err, ms, plain_ms, bound_ms, by, extra)
 
 
@@ -1388,29 +1432,36 @@ def conv1_inputs(gen, device, lmax, mmax, lead, c, c_out, extra, r, width, cutof
     return [t.to(device).contiguous() for t in edges.values()] + [to_dev(rad), to_dev(conv)], kw
 
 
-def conv1_plan(args, kw):
-    """The launch plan the wrapper takes for these inputs."""
+def conv1_plan(args, kw, bf16=False):
+    """The launch plan the wrapper takes for these inputs (with bf16, the
+    bf16 kernel's)."""
     nb = kernels.conv1_blocks(kw["lmax"], kw["mmax"])
     rad = args[6]
     width = rad["dense_1"]["kernel"].shape[0]
-    return kernels.attn_conv1_plan(args[0].numel(), kw["num_gauss"], args[2].shape[-1], width, args[4].shape[-1],
-                                   kw["c_out"], kw["extra"], nb, kernels._sm_count(args[0].device))
+    plan = kernels.attn_conv1_bf16_plan if bf16 else kernels.attn_conv1_plan
+    return plan(args[0].numel(), kw["num_gauss"], args[2].shape[-1], width, args[4].shape[-1], kw["c_out"],
+                kw["extra"], nb, kernels._sm_count(args[0].device))
 
 
 def conv1_ragged_cases(gen, device):
     """Phase 10b's ragged conv1 inputs at TINY and CONV1_L4 widths: E one
     64-edge tile - 1 (one block); one tile a block and 1 edge more (a 1-edge
     tile left over, computed as units, one column pass of a 32-edge half
-    each, on other blocks); 65 edges a block's worth (three tiles left over,
-    one partial); a
-    tile whose every slot is masked; a tile whose distances all lie past the
-    cutoff (every gaussian slice skipped); and the older ragged leads.  Every
-    plan here takes more than 48 KB of shared memory (the design's least is
-    ~170 KB); no clusters are used."""
+    each, on other blocks); one tile a block and 17 or 48 edges more (units
+    whose last m16 tile is partial, or a half of one m16 tile); 16 edges
+    (one m16 tile); 65 edges a block's worth (three tiles left over, one
+    partial); a tile whose every slot is masked; a tile whose distances all
+    lie past the cutoff (every gaussian slice skipped); and the older ragged
+    leads; then ODD widths (C, c_out, extra, gaussians and trunk width that
+    no 8 or 16 divides) at the first five leads.  Every plan here takes more
+    than 48 KB of shared memory (the designs' least is ~150 KB); no clusters
+    are used."""
     sms = kernels._sm_count(device)
-    for widths, tag in ((EQV2_TINY, "TINY"), (EQV2_L4, "L4")):
-        for lead, fill in (((63,), None), ((64 * sms + 1,), None), ((65 * sms,), None), ((129,), "masked"),
-                           ((129,), "far"), ((37,), None), ((2, 13, 5), None)):
+    leads = (((63,), None), ((64 * sms + 1,), None), ((64 * sms + 17,), None), ((64 * sms + 48,), None),
+             ((16,), None), ((65 * sms,), None), ((129,), "masked"), ((129,), "far"), ((37,), None),
+             ((2, 13, 5), None))
+    for widths, tag in ((EQV2_TINY, "TINY"), (EQV2_L4, "L4"), (EQV2_ODD, "ODD")):
+        for lead, fill in (leads if tag != "ODD" else leads[:5]):
             args, kw = conv1_inputs(gen, device, *widths[:2], lead, *widths[2:])
             if fill is not None:  # the kernel's second tile
                 _, e0, n, _ = list(kernels.attn_conv1_work(args[0].numel(), conv1_plan(args, kw).blocks, 1))[1]
@@ -1431,6 +1482,7 @@ def conv1_kernel_checks(device, gen, args, kw):
     Returns the kernels-line row, launches 0."""
     bf16 = args[4].dtype == torch.bfloat16
     key = eqv2_key("eqv2_attn_conv1", bf16)
+    source = eqv2_source("eqv2_attn_conv1", bf16)
 
     def check(name, a, k):
         got = launched_one(key, lambda: kernels.eqv2_attn_conv1(*a, **k))
@@ -1446,7 +1498,7 @@ def conv1_kernel_checks(device, gen, args, kw):
                                             lambda: kernels.eqv2_attn_conv1(*a32, **kw),
                                             lambda: kernels.eqv2_attn_conv1_reference(*args, **kw), 10, 3)
     bound_ms, by, nbytes, flops, dense, nz_rows = conv1_bound_ms(args, kw, out)
-    plan = conv1_plan(args, kw)
+    plan = conv1_plan(args, kw, bf16)
     e = args[0].numel()
     print(f"[kernel] {key} at E={e} ({int(args[1].sum())} valid edges, {nz_rows:.2f} non-zero gaussian rows of "
           f"{kw['num_gauss']} per edge): {text}, bound {bound_ms:.4f} ms by {by} ({flops_text(flops, bf16)}; dense "
@@ -1454,9 +1506,8 @@ def conv1_kernel_checks(device, gen, args, kw):
           f"weight packing{' and rounding' if bf16 else ''} included; plan: tile {plan.tile} edges, cluster "
           f"{plan.cluster}, {plan.blocks} blocks x {plan.threads} threads, {plan.smem_bytes} B shared; made again (m0 "
           f"gates, units' trunks) {plan.extra_flops_per_edge * e / 1e9:.2f} GFLOP = "
-          f"{100 * plan.extra_flops_per_edge * e / flops:.1f}% of the bound's count; ptxas: "
-          f"{' | '.join(ptxas_lines('eqv2_attn_conv1', BF16_PTXAS if bf16 else 'IfE')) or 'not built in this process'}",
-          flush=True)
+          f"{100 * plan.extra_flops_per_edge * e / flops:.1f}% of the bound's count; ptxas ({source}): "
+          f"{' | '.join(ptxas_lines(source)) or 'not built in this process'}", flush=True)
     return eqv2_row("eqv2_attn_conv1", bf16, err, ms, plain_ms, bound_ms, by, extra)
 
 
