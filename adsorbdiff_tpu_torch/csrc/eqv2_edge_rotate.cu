@@ -1,5 +1,5 @@
 // EquiformerV2's truncated edge-frame Wigner rotation, fused, for Hopper
-// (sm_90a), f32 and bf16.
+// (sm_90a), f32 (the bf16 form is csrc/eqv2_edge_rotate_bf16.cu).
 //
 // Replaces the TPU kernel adsorbdiff_tpu/ops/pallas_kernels.py::
 // _edge_rot_kernel (called from _edge_rot_call; public eqv2_edge_rotate and
@@ -38,21 +38,10 @@
 // expanders were Mosaic layout rules and have no counterpart. Not yet used:
 // keeping a node row in shared memory for its K edges (the reads go through
 // L2 instead).
-//
-// The bf16 variant (EquiformerV2 with compute_dtype bfloat16: each attention's
-// per-edge chain, and the VJPs of its rotations) takes bf16 x and writes a
-// bf16 output, rounding where the TPU kernel rounds with x_ref.dtype bf16:
-// J's entries and the cos/sin(m t) tables are bf16 values (the wrapper
-// rounds J's blocks; the tables are rounded where they are made); each block
-// product sums in f32 and is rounded to bf16 (the TPU kernel's f32 dots cast
-// to dt); each Dz stage runs in bf16, both products and their sum rounded
-// (h[:dp] * c + h[dp:] * s in dt). The f32 variant is unchanged.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include "dtype.cuh"
 
 namespace {
 
@@ -70,9 +59,8 @@ struct RotConsts {
   int row[dim_of(LMAX)];         // truncated row r < n_sel of l-primary row i, or -1
 };
 
-// v <- Dz(t) v on every (l, +-m) pair; cs[m], sn[m] = cos(m t), sin(m t). In
-// bf16 each product and the sum are rounded.
-template <int LMAX, typename T>
+// v <- Dz(t) v on every (l, +-m) pair; cs[m], sn[m] = cos(m t), sin(m t)
+template <int LMAX>
 __device__ __forceinline__ void dz(float* v, const float* cs, const float* sn, const RotConsts<LMAX>& k) {
 #pragma unroll
   for (int l = 1; l <= LMAX; ++l) {
@@ -80,20 +68,14 @@ __device__ __forceinline__ void dz(float* v, const float* cs, const float* sn, c
     for (int m = 1; m <= l; ++m) {
       const int ip = l * l + l + m, in = l * l + l - m;
       const float a = v[ip], b = v[in];
-      if constexpr (dtype::kF32<T>) {
-        v[ip] = fmaf(cs[m], a, k.sign[ip] * sn[m] * b);
-        v[in] = fmaf(cs[m], b, k.sign[in] * sn[m] * a);
-      } else {
-        v[ip] = dtype::rounded<T>(dtype::rounded<T>(cs[m] * a) + dtype::rounded<T>(k.sign[ip] * sn[m] * b));
-        v[in] = dtype::rounded<T>(dtype::rounded<T>(cs[m] * b) + dtype::rounded<T>(k.sign[in] * sn[m] * a));
-      }
+      v[ip] = fmaf(cs[m], a, k.sign[ip] * sn[m] * b);
+      v[in] = fmaf(cs[m], b, k.sign[in] * sn[m] * a);
     }
   }
 }
 
-// v <- J v (TRANSPOSE false) or J^T v (true), block by block; each row's sum
-// rounded to T
-template <int LMAX, bool TRANSPOSE, typename T>
+// v <- J v (TRANSPOSE false) or J^T v (true), block by block
+template <int LMAX, bool TRANSPOSE>
 __device__ __forceinline__ void jmul(float* v, const RotConsts<LMAX>& k) {
 #pragma unroll
   for (int l = 0; l <= LMAX; ++l) {
@@ -105,15 +87,15 @@ __device__ __forceinline__ void jmul(float* v, const RotConsts<LMAX>& k) {
       float s = 0.f;
 #pragma unroll
       for (int b = 0; b < n; ++b) s = fmaf(TRANSPOSE ? k.j[off + b * n + a] : k.j[off + a * n + b], v[base + b], s);
-      t[a] = dtype::rounded<T>(s);
+      t[a] = s;
     }
 #pragma unroll
     for (int a = 0; a < n; ++a) v[base + a] = t[a];
   }
 }
 
-// cs[m], sn[m] = cos(m t), sign sin(m t), rounded to T
-template <int LMAX, typename T>
+// cs[m], sn[m] = cos(m t), sign sin(m t)
+template <int LMAX>
 __device__ __forceinline__ void angle_table(float t, float sign, float* cs, float* sn) {
   cs[0] = 1.f;
   sn[0] = 0.f;
@@ -121,17 +103,17 @@ __device__ __forceinline__ void angle_table(float t, float sign, float* cs, floa
   for (int m = 1; m <= LMAX; ++m) {
     float s, c;
     sincosf((float)m * t, &s, &c);
-    cs[m] = dtype::rounded<T>(c);
-    sn[m] = dtype::rounded<T>(sign * s);
+    cs[m] = c;
+    sn[m] = sign * s;
   }
 }
 
 // x: rows of n_in coefficients x C channels; the input row of edge e is
 // (e / nk) * n_nodes + src[e] with src, else e / kdiv. out [E, n_out, C].
-template <int LMAX, bool TO, typename T>
+template <int LMAX, bool TO>
 __global__ void __launch_bounds__(kThreads) eqv2_edge_rotate_kernel(
-    const T* __restrict__ x, const int* __restrict__ src, const float* __restrict__ gamma,
-    const float* __restrict__ beta, T* __restrict__ out, long long E, int C, int n_in, int n_out,
+    const float* __restrict__ x, const int* __restrict__ src, const float* __restrict__ gamma,
+    const float* __restrict__ beta, float* __restrict__ out, long long E, int C, int n_in, int n_out,
     long long kdiv, long long nk, int n_nodes, const RotConsts<LMAX> k) {
   constexpr int D = dim_of(LMAX);
   const long long col = (long long)blockIdx.x * kThreads + threadIdx.x;
@@ -139,48 +121,48 @@ __global__ void __launch_bounds__(kThreads) eqv2_edge_rotate_kernel(
   const long long e = col / C;
   const int c = (int)(col - e * C);
   const long long in_row = src != nullptr ? (e / nk) * n_nodes + src[e] : e / kdiv;
-  const T* xin = x + in_row * n_in * (long long)C + c;
+  const float* xin = x + in_row * n_in * (long long)C + c;
 
   float v[D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
     if (TO) {
-      v[i] = dtype::f32(xin[(long long)i * C]);
+      v[i] = xin[(long long)i * C];
     } else {
       const int r = k.row[i];
-      v[i] = r >= 0 ? dtype::f32(xin[(long long)r * C]) : 0.f;
+      v[i] = r >= 0 ? xin[(long long)r * C] : 0.f;
     }
   }
 
   float cs[LMAX + 1], sn[LMAX + 1];
   const float g = gamma[e], bt = beta[e];
   if (TO) {
-    angle_table<LMAX, T>(g, 1.f, cs, sn);
-    dz<LMAX, T>(v, cs, sn, k);
+    angle_table<LMAX>(g, 1.f, cs, sn);
+    dz<LMAX>(v, cs, sn, k);
   }
-  jmul<LMAX, true, T>(v, k);
-  angle_table<LMAX, T>(bt, TO ? 1.f : -1.f, cs, sn);
-  dz<LMAX, T>(v, cs, sn, k);
-  jmul<LMAX, false, T>(v, k);
+  jmul<LMAX, true>(v, k);
+  angle_table<LMAX>(bt, TO ? 1.f : -1.f, cs, sn);
+  dz<LMAX>(v, cs, sn, k);
+  jmul<LMAX, false>(v, k);
   if (!TO) {
-    angle_table<LMAX, T>(g, -1.f, cs, sn);
-    dz<LMAX, T>(v, cs, sn, k);
+    angle_table<LMAX>(g, -1.f, cs, sn);
+    dz<LMAX>(v, cs, sn, k);
   }
 
-  T* dst = out + e * n_out * (long long)C + c;
+  float* dst = out + e * n_out * (long long)C + c;
 #pragma unroll
   for (int i = 0; i < D; ++i) {
     if (TO) {
       const int r = k.row[i];
-      if (r >= 0) dst[(long long)r * C] = dtype::narrow<T>(v[i]);
+      if (r >= 0) dst[(long long)r * C] = v[i];
     } else {
-      dst[(long long)i * C] = dtype::narrow<T>(v[i]);
+      dst[(long long)i * C] = v[i];
     }
   }
 }
 
-template <int LMAX, typename T>
-int launch(const T* x, const int* src, const float* gamma, const float* beta, T* out, long long E, int C,
+template <int LMAX>
+int launch(const float* x, const int* src, const float* gamma, const float* beta, float* out, long long E, int C,
            int n_in, int n_out, long long kdiv, long long nk, int n_nodes, bool to, const float* j_host,
            const float* sign_host, const int* row_host, cudaStream_t stream) {
   RotConsts<LMAX> k;
@@ -191,37 +173,36 @@ int launch(const T* x, const int* src, const float* gamma, const float* beta, T*
   }
   const long long blocks = (E * C + kThreads - 1) / kThreads;
   if (to) {
-    eqv2_edge_rotate_kernel<LMAX, true, T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+    eqv2_edge_rotate_kernel<LMAX, true><<<(unsigned)blocks, kThreads, 0, stream>>>(
         x, src, gamma, beta, out, E, C, n_in, n_out, kdiv, nk, n_nodes, k);
   } else {
-    eqv2_edge_rotate_kernel<LMAX, false, T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+    eqv2_edge_rotate_kernel<LMAX, false><<<(unsigned)blocks, kThreads, 0, stream>>>(
         x, src, gamma, beta, out, E, C, n_in, n_out, kdiv, nk, n_nodes, k);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(const void* x, const void* src, const void* gamma, const void* beta, void* out, long long E, int C,
              int n_in, int n_out, long long kdiv, long long nk, int n_nodes, int lmax, int direction_to,
              const void* j_blocks, const void* sign, const void* row, void* stream) {
   if (E <= 0 || C <= 0) return 0;
-  const T* xp = static_cast<const T*>(x);
+  const float* xp = static_cast<const float*>(x);
   const int* sp = static_cast<const int*>(src);
   const float* gp = static_cast<const float*>(gamma);
   const float* bp = static_cast<const float*>(beta);
-  T* op = static_cast<T*>(out);
+  float* op = static_cast<float*>(out);
   const float* jh = static_cast<const float*>(j_blocks);
   const float* sh = static_cast<const float*>(sign);
   const int* rh = static_cast<const int*>(row);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool to = direction_to != 0;
   switch (lmax) {
-    case 1: return launch<1, T>(xp, sp, gp, bp, op, E, C, n_in, n_out, kdiv, nk, n_nodes, to, jh, sh, rh, s);
-    case 2: return launch<2, T>(xp, sp, gp, bp, op, E, C, n_in, n_out, kdiv, nk, n_nodes, to, jh, sh, rh, s);
-    case 3: return launch<3, T>(xp, sp, gp, bp, op, E, C, n_in, n_out, kdiv, nk, n_nodes, to, jh, sh, rh, s);
-    case 4: return launch<4, T>(xp, sp, gp, bp, op, E, C, n_in, n_out, kdiv, nk, n_nodes, to, jh, sh, rh, s);
-    case 5: return launch<5, T>(xp, sp, gp, bp, op, E, C, n_in, n_out, kdiv, nk, n_nodes, to, jh, sh, rh, s);
-    case kMaxL: return launch<kMaxL, T>(xp, sp, gp, bp, op, E, C, n_in, n_out, kdiv, nk, n_nodes, to, jh, sh, rh, s);
+    case 1: return launch<1>(xp, sp, gp, bp, op, E, C, n_in, n_out, kdiv, nk, n_nodes, to, jh, sh, rh, s);
+    case 2: return launch<2>(xp, sp, gp, bp, op, E, C, n_in, n_out, kdiv, nk, n_nodes, to, jh, sh, rh, s);
+    case 3: return launch<3>(xp, sp, gp, bp, op, E, C, n_in, n_out, kdiv, nk, n_nodes, to, jh, sh, rh, s);
+    case 4: return launch<4>(xp, sp, gp, bp, op, E, C, n_in, n_out, kdiv, nk, n_nodes, to, jh, sh, rh, s);
+    case 5: return launch<5>(xp, sp, gp, bp, op, E, C, n_in, n_out, kdiv, nk, n_nodes, to, jh, sh, rh, s);
+    case kMaxL: return launch<kMaxL>(xp, sp, gp, bp, op, E, C, n_in, n_out, kdiv, nk, n_nodes, to, jh, sh, rh, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -229,10 +210,9 @@ int dispatch(const void* x, const void* src, const void* gamma, const void* beta
 }  // namespace
 
 // Plain C interface (loaded with ctypes). Device pointers of contiguous
-// tensors: x (rows of n_in x C; f32, or bf16 for the _bf16 entry), src int32
-// [E] or null, gamma and beta f32 [E], out [E, n_out, C] in x's dtype
-// (written). Host pointers: j_blocks f32 (J's diagonal blocks, sum_l (2l+1)^2
-// floats; bf16 values for the _bf16 entry), sign f32 [D], row int32 [D] (the
+// tensors: x f32 (rows of n_in x C), src int32 [E] or null, gamma and beta
+// f32 [E], out f32 [E, n_out, C] (written). Host pointers: j_blocks f32 (J's
+// diagonal blocks, sum_l (2l+1)^2 floats), sign f32 [D], row int32 [D] (the
 // truncated row of each l-primary row, -1 where P_sel drops it). direction_to
 // is 1 for "to" (n_in = D, n_out = n_sel) and 0 for "from" (n_in = n_sel,
 // n_out = D). lmax <= 6. Launches on `stream` and returns cudaGetLastError()
@@ -241,16 +221,8 @@ extern "C" int eqv2_edge_rotate_f32(const void* x, const void* src, const void* 
                                     long long E, int C, int n_in, int n_out, long long kdiv, long long nk,
                                     int n_nodes, int lmax, int direction_to, const void* j_blocks,
                                     const void* sign, const void* row, void* stream) {
-  return dispatch<float>(x, src, gamma, beta, out, E, C, n_in, n_out, kdiv, nk, n_nodes, lmax, direction_to,
-                         j_blocks, sign, row, stream);
-}
-
-extern "C" int eqv2_edge_rotate_bf16(const void* x, const void* src, const void* gamma, const void* beta, void* out,
-                                     long long E, int C, int n_in, int n_out, long long kdiv, long long nk,
-                                     int n_nodes, int lmax, int direction_to, const void* j_blocks,
-                                     const void* sign, const void* row, void* stream) {
-  return dispatch<__nv_bfloat16>(x, src, gamma, beta, out, E, C, n_in, n_out, kdiv, nk, n_nodes, lmax,
-                                 direction_to, j_blocks, sign, row, stream);
+  return dispatch(x, src, gamma, beta, out, E, C, n_in, n_out, kdiv, nk, n_nodes, lmax, direction_to, j_blocks, sign,
+                  row, stream);
 }
 
 extern "C" const char* eqv2_edge_rotate_error_string(int code) {

@@ -14,7 +14,8 @@
 // 16 columns (s2_grid_silu_bf16.cu keeps its grid in registers that way).
 //
 // ldmatrix: lane l gives the shared address of row l % 8 of 8x8 matrix l / 8
-// (16 bytes a row); register j receives matrix j. Without .trans lane l gets
+// (16 bytes a row); register j receives matrix j. stmatrix, with the same
+// addresses, stores the registers back where ldmatrix would read them. Without .trans lane l gets
 // row g, elements 2t, 2t+1; with .trans, column g, rows 2t, 2t+1.
 // - A from an [m][k] array (k contiguous): no .trans, lane l addresses row
 //   m0 + l % 16, column k0 + 8 (l / 16).
@@ -61,6 +62,12 @@ __device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], uint32_t addr) {
                : "r"(addr));
 }
 
+__device__ __forceinline__ void stsm_x4_trans(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(r[0]),
+               "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
 // d += a b: one m16n8k16 product of bf16 values summed in f32
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
@@ -79,6 +86,20 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // the two bf16 of v widened to f32
 __device__ __forceinline__ float2 unpack_bf16x2(uint32_t v) {
   return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
+}
+
+// a b and a + b on both bf16 halves, each result rounded to bf16 once
+// (nearest even; subnormals kept)
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(b));
+  return r;
 }
 
 // both bf16 of v negated (exact)

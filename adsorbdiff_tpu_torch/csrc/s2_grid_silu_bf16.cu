@@ -1,5 +1,5 @@
-// EquiformerV2 S^2 grid activation in bf16, fused, for Hopper (sm_90a), on
-// the bf16 tensor cores.
+// EquiformerV2 S^2 grid activation in bf16 and its backward, fused, for
+// Hopper (sm_90a), on the bf16 tensor cores.
 //
 // Replaces the TPU kernel adsorbdiff_tpu/ops/pallas_kernels.py::
 // _s2_act_fwd_kernel (called from _s2_act_call; public s2_grid_silu) for bf16
@@ -50,8 +50,36 @@
 // 8, (1, 2) to 16, (2, 3) to 24, (2, 4) to 32; columns past M C are zero
 // and never stored.
 //
+// The backward (s2_grid_silu_bf16_bwd_mma) replaces the TPU kernel
+// pallas_kernels.py::_s2_act_bwd_kernel (launched from _s2_act_bwd) for bf16
+// h and dy, with its rounding: for every column, with the same bf16 tables,
+//
+//   g = to_eff @ x, dg = from_eff^T @ dy     (both summed in f32)
+//   dx = bf16(to_eff^T @ bf16(dg * silu'(g)))   silu'(g) = s (1 + g (1 - s)), s = sigmoid(g)
+//
+// Its floor is the sigmoid on the SFU: one tanh.approx a grid point, ~0.095
+// ms at the training shape h [12,80,20,19,64] (0.19 with the forward's ex2
+// and rcp); the three products (45 GFLOP of bf16 values) take ~0.05 ms at
+// the bf16 tensor rate. The design is the forward's with one more product:
+// - A warp's 32 columns are loaded once as A fragments of both X^T and dY^T
+//   (KS k16 steps each, two tiles of the warp's shared memory) and stay in
+//   registers for the whole grid.
+// - Per 16-point chunk: G^T = X^T to^T and dG^T = dY^T from (2 n8 tiles x
+//   KS each), silu'(g) dg in f32 with the sigmoid from the SFU's
+//   tanh.approx, rounded and packed into one A fragment, then dX^T += W^T
+//   to[chunk, :] over NT n8 tiles in f32 registers.
+// - One table blob serves the three products: `to` [GP][KS 16 + 8] by grid
+//   point is the first product's B without .trans and the third's with it;
+//   `from` [NT 8][GP + 8] by coefficient is the second's with .trans (a k16
+//   step past its NT 8 rows, at NC <= 8 and 17-24, reads only its first 8
+//   rows and takes zeros for the rest).
+// - dX leaves through the warp's tile as the forward's output does.
+// The sigmoid is s = 1/2 + tanh(g / 2) / 2 from tanh.approx.f32, one SFU
+// operation where the forward's ex2 and rcp take two;
+// scripts/variants_eqv2_bf16_mma.py times and checks ex2 and rcp here too.
+//
 // Measured (chip_smoke.py phase 25, scripts/variants_eqv2_bf16_mma.py;
-// NVIDIA H100 80GB HBM3): PERF.md section 6, row 6 bf16.
+// NVIDIA H100 80GB HBM3): PERF.md section 6, rows 6 bf16 and 7 bf16.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,6 +104,15 @@ __device__ __forceinline__ float silu(float g) {
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"(g * -1.4426950408889634f));
   asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(1.f + e));
   return g * r;
+}
+
+// dg silu'(g) in f32, silu'(g) = s (1 + g (1 - s)) with s = sigmoid(g) =
+// 1/2 + tanh(g / 2) / 2 from the SFU (tanh.approx: |error| < 2^-11 of tanh)
+__device__ __forceinline__ float dsilu_times(float g, float dg) {
+  float th;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(th) : "f"(0.5f * g));
+  const float s = fmaf(0.5f, th, 0.5f);
+  return dg * (s * fmaf(g, 1.f - s, 1.f));
 }
 
 // The warp's tile rows r < rows (coefficients) x 32 columns from col0 on: h
@@ -131,6 +168,22 @@ __device__ __forceinline__ void store_out(const char* xs, __nv_bfloat16* __restr
       }
     }
   }
+}
+
+// C fragments of the warp's 32 columns x NT n8 tiles -> bf16 into the tile as [coefficient][column]
+template <int NT>
+__device__ __forceinline__ void stage_out(char* xs, const float (&acc)[2][NT][4], int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = 16 * mt + g + 8 * (i / 2), r = 8 * nt + 2 * t + i % 2;
+        *reinterpret_cast<__nv_bfloat16*>(xs + mma::swz64(r, col / 8) + 2 * (col % 8)) =
+            __float2bfloat16_rn(acc[mt][nt][i]);
+      }
 }
 
 template <int KS, int NT>
@@ -209,21 +262,114 @@ __global__ void __launch_bounds__(kThreads, 2) s2_grid_silu_bf16_kernel(const __
       }
     }
 
-    // C fragments -> bf16 into the tile as [coefficient][column], then out
     __syncwarp();
-    const int g = lane / 4, t = lane % 4;
+    stage_out<NT>(xs, acc, lane);
+    __syncwarp();
+    store_out(xs, out, NC, C, col0, ncols, vec != 0, lane);
+    __syncwarp();
+  }
+}
+
+template <int KS, int NT>
+__global__ void __launch_bounds__(kThreads, 2) s2_grid_silu_bf16_bwd_kernel(
+    const __nv_bfloat16* __restrict__ h, const __nv_bfloat16* __restrict__ dy,
+    const __nv_bfloat16* __restrict__ tables, __nv_bfloat16* __restrict__ dh, long long M, int NC, int C, int GP,
+    int vec) {
+  constexpr int TS = to_stride(KS);
+  const int FS = from_stride(GP);
+  extern __shared__ uint4 smem16[];
+  char* smem = reinterpret_cast<char*>(smem16);
+  const int tbytes = (int)table_bytes(KS, NT, GP);
+  for (int i = threadIdx.x; i < tbytes / 16; i += kThreads) {
+    smem16[i] = __ldg(reinterpret_cast<const uint4*>(tables) + i);
+  }
+  const __nv_bfloat16* to_s = reinterpret_cast<const __nv_bfloat16*>(smem);
+  const __nv_bfloat16* from_s = to_s + GP * TS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  char* xs = smem + tbytes + warp * (2 * KS * 16 * 64);  // X^T, then dX^T
+  char* ds = xs + KS * 16 * 64;                          // dY^T
+  __syncthreads();
+
+  // per-lane ldmatrix row offsets within a chunk's tables: to^T as the first
+  // product's B (by grid point, k = coefficient), from as the second's
+  // (.trans, by coefficient; x2: its first 8 rows only), to as the third's
+  // (.trans, by grid point, n = coefficient; x2: one n tile)
+  const uint32_t to_base = mma::smem_addr(to_s + (8 * (lane / 16) + lane % 8) * TS + 8 * ((lane / 8) % 2));
+  const uint32_t from_base = mma::smem_addr(from_s + (lane % 16) * FS + 8 * (lane / 16));
+  const uint32_t from_base2 = mma::smem_addr(from_s + (lane % 8) * FS + 8 * ((lane / 8) % 2));
+  const uint32_t tot_base = mma::smem_addr(to_s + (lane % 16) * TS + 8 * (lane / 16));
+  const uint32_t tot_base2 = mma::smem_addr(to_s + (lane % 16) * TS);
+
+  const long long ncols = M * (long long)C;
+  const long long ntiles = (ncols + kWarpCols - 1) / kWarpCols;
+  for (long long tile = (long long)blockIdx.x * kWarps + warp; tile < ntiles; tile += (long long)gridDim.x * kWarps) {
+    const long long col0 = tile * kWarpCols;
+    load_x(xs, h, KS * 16, NC, C, col0, ncols, vec != 0, lane);
+    load_x(ds, dy, KS * 16, NC, C, col0, ncols, vec != 0, lane);
+    __syncwarp();
+    uint32_t xa[2][KS][4], da[2][KS][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const int off = mma::swz64(16 * ks + 8 * (lane / 16) + lane % 8, 2 * mt + (lane / 8) % 2);
+        mma::ldsm_x4_trans(xa[mt][ks], mma::smem_addr(xs + off));
+        mma::ldsm_x4_trans(da[mt][ks], mma::smem_addr(ds + off));
+      }
+    float acc[2][NT][4];
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int col = 16 * mt + g + 8 * (i / 2), r = 8 * nt + 2 * t + i % 2;
-          *reinterpret_cast<__nv_bfloat16*>(xs + mma::swz64(r, col / 8) + 2 * (col % 8)) =
-              __float2bfloat16_rn(acc[mt][nt][i]);
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+#pragma unroll 1
+    for (int q = 0; q < GP / 16; ++q) {
+      uint32_t tb[KS][4], fb[KS][4];  // {n tile 0 k lo, n tile 0 k hi, n tile 1 k lo, n tile 1 k hi} per k step
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        mma::ldsm_x4(tb[ks], to_base + 2 * (16 * q * TS + 16 * ks));
+        if (16 * (ks + 1) <= 8 * NT) {
+          mma::ldsm_x4_trans(fb[ks], from_base + 2 * (16 * ks * FS + 16 * q));
+        } else {  // rows past from's NT 8: zero (their dY^T columns are zero too)
+          uint32_t r2[2];
+          mma::ldsm_x2_trans(r2, from_base2 + 2 * (16 * ks * FS + 16 * q));
+          fb[ks][0] = r2[0], fb[ks][1] = 0u, fb[ks][2] = r2[1], fb[ks][3] = 0u;
         }
+      }
+      uint32_t wb[NT][2];
+#pragma unroll
+      for (int nt = 0; nt + 1 < NT; nt += 2) {
+        uint32_t r4[4];
+        mma::ldsm_x4_trans(r4, tot_base + 2 * (16 * q * TS + 8 * nt));
+        wb[nt][0] = r4[0], wb[nt][1] = r4[1], wb[nt + 1][0] = r4[2], wb[nt + 1][1] = r4[3];
+      }
+      if constexpr (NT % 2 == 1) mma::ldsm_x2_trans(wb[NT - 1], tot_base2 + 2 * (16 * q * TS + 8 * (NT - 1)));
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        float g[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        float dg[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          mma::mma_bf16(g[0], xa[mt][ks], tb[ks][0], tb[ks][1]);
+          mma::mma_bf16(g[1], xa[mt][ks], tb[ks][2], tb[ks][3]);
+          mma::mma_bf16(dg[0], da[mt][ks], fb[ks][0], fb[ks][1]);
+          mma::mma_bf16(dg[1], da[mt][ks], fb[ks][2], fb[ks][3]);
+        }
+        const uint32_t w[4] = {mma::pack_bf16x2(dsilu_times(g[0][0], dg[0][0]), dsilu_times(g[0][1], dg[0][1])),
+                               mma::pack_bf16x2(dsilu_times(g[0][2], dg[0][2]), dsilu_times(g[0][3], dg[0][3])),
+                               mma::pack_bf16x2(dsilu_times(g[1][0], dg[1][0]), dsilu_times(g[1][1], dg[1][1])),
+                               mma::pack_bf16x2(dsilu_times(g[1][2], dg[1][2]), dsilu_times(g[1][3], dg[1][3]))};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma::mma_bf16(acc[mt][nt], w, wb[nt][0], wb[nt][1]);
+      }
+    }
+
     __syncwarp();
-    store_out(xs, out, NC, C, col0, ncols, vec != 0, lane);
+    stage_out<NT>(xs, acc, lane);
+    __syncwarp();
+    store_out(xs, dh, NC, C, col0, ncols, vec != 0, lane);
     __syncwarp();
   }
 }
@@ -241,6 +387,22 @@ int launch(const void* h, const void* tables, void* out, long long M, int NC, in
   s2_grid_silu_bf16_kernel<KS, NT><<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(h), static_cast<const __nv_bfloat16*>(tables),
       static_cast<__nv_bfloat16*>(out), M, NC, C, GP, vec);
+  return (int)cudaGetLastError();
+}
+
+template <int KS, int NT>
+int launch_bwd(const void* h, const void* dy, const void* tables, void* dh, long long M, int NC, int C, int GP,
+               long long blocks, int smem, cudaStream_t stream) {
+  const long long need = table_bytes(KS, NT, GP) + (long long)kWarps * 2 * KS * 16 * 64;
+  if (smem != need || blocks < 1 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(s2_grid_silu_bf16_bwd_kernel<KS, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = C % 8 == 0 && (reinterpret_cast<uintptr_t>(h) & 15) == 0 &&
+                  (reinterpret_cast<uintptr_t>(dy) & 15) == 0 && (reinterpret_cast<uintptr_t>(dh) & 15) == 0;
+  s2_grid_silu_bf16_bwd_kernel<KS, NT><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(h), static_cast<const __nv_bfloat16*>(dy),
+      static_cast<const __nv_bfloat16*>(tables), static_cast<__nv_bfloat16*>(dh), M, NC, C, GP, vec);
   return (int)cudaGetLastError();
 }
 
@@ -264,6 +426,22 @@ extern "C" int s2_grid_silu_bf16_mma(const void* h, const void* tables, void* ou
   if (NC <= 16) return launch<1, 2>(h, tables, out, M, NC, C, GP, blocks, smem, s);
   if (NC <= 24) return launch<2, 3>(h, tables, out, M, NC, C, GP, blocks, smem, s);
   return launch<2, 4>(h, tables, out, M, NC, C, GP, blocks, smem, s);
+}
+
+// The backward, same layout and rules: h and dy [M, NC, C] bf16, tables as
+// the forward's, dh [M, NC, C] bf16 written. `blocks` and `smem` from
+// ops/kernels.py::s2_grid_silu_bf16_bwd_plan (the tables and 2 KB a k16
+// step a warp: X^T and dY^T tiles); a plan this kernel does not match is
+// refused with cudaErrorInvalidValue.
+extern "C" int s2_grid_silu_bf16_bwd_mma(const void* h, const void* dy, const void* tables, void* dh, long long M,
+                                         int NC, int C, int GP, long long blocks, int smem, void* stream) {
+  if (M <= 0 || C <= 0) return 0;
+  if (GP <= 0 || GP % 16 != 0 || NC < 1 || NC > 32) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (NC <= 8) return launch_bwd<1, 1>(h, dy, tables, dh, M, NC, C, GP, blocks, smem, s);
+  if (NC <= 16) return launch_bwd<1, 2>(h, dy, tables, dh, M, NC, C, GP, blocks, smem, s);
+  if (NC <= 24) return launch_bwd<2, 3>(h, dy, tables, dh, M, NC, C, GP, blocks, smem, s);
+  return launch_bwd<2, 4>(h, dy, tables, dh, M, NC, C, GP, blocks, smem, s);
 }
 
 extern "C" const char* s2_grid_silu_bf16_error_string(int code) {

@@ -1,5 +1,5 @@
 // Backward of EquiformerV2's S^2 grid activation, fused, for Hopper (sm_90a),
-// f32 and bf16.
+// f32 (the bf16 form is s2_grid_silu_bf16_bwd_mma in csrc/s2_grid_silu_bf16.cu).
 //
 // Replaces the TPU kernel adsorbdiff_tpu/ops/pallas_kernels.py::
 // _s2_act_bwd_kernel (called from _s2_act_bwd, the custom VJP of
@@ -60,15 +60,6 @@
 // that disagrees with this layout. Every column is written by its own
 // thread: no atomics, so the result repeats bit for bit from run to run.
 //
-// The bf16 variant (EquiformerV2 training with amp) takes bf16 h and dy and
-// writes a bf16 dh, rounding where the TPU backward rounds in bf16: the tables
-// are rounded to bf16 as they are staged (widened in the same f32 shared
-// memory: the plan and its layout are the f32 ones); g and dg sum in f32;
-// dg * silu'(g) is rounded to bf16 once, before the last product
-// ((dg * dsilu).astype(to_ref.dtype)); dh is rounded once. The SFU sigmoid
-// stays (its few ulp can move that rounding by one bf16 ulp where the value
-// sits on a boundary, inside the bf16 gate).
-//
 // Measured (chip_smoke.py phase 13b, NVIDIA H100 80GB HBM3, 700 W): see
 // PERF.md section 6, row 7, for this design's time and share of the bound
 // beside the 1.919 ms (38.4%) of the kernel it replaced. What is left:
@@ -77,8 +68,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include "dtype.cuh"
 
 namespace {
 
@@ -106,10 +95,10 @@ __device__ __forceinline__ float dsilu_times(float g, float dg) {
 // the kernel ran slower. Blocks per SM from ptxas's register counts
 // at 128 threads: 3 (at most 168 registers a thread) hold the 6 NC array
 // values and the to-row without spilling up to NC = 19; wider NC takes 2.
-template <int NC, typename T>
+template <int NC>
 __global__ void __launch_bounds__(kThreads, NC <= 19 ? 3 : 2) s2_grid_silu_bwd_kernel(
-    const T* __restrict__ h, const T* __restrict__ dy, const float* __restrict__ to_eff,
-    const float* __restrict__ from_eff, T* __restrict__ dh, long long M, int C, int G) {
+    const float* __restrict__ h, const float* __restrict__ dy, const float* __restrict__ to_eff,
+    const float* __restrict__ from_eff, float* __restrict__ dh, long long M, int C, int G) {
   constexpr int NCP = (NC + 3) & ~3;
   constexpr int NQ = NCP / 4;
   extern __shared__ float4 smem4[];
@@ -117,8 +106,8 @@ __global__ void __launch_bounds__(kThreads, NC <= 19 ? 3 : 2) s2_grid_silu_bwd_k
   float* from_s = to_s + (size_t)G * NCP;         // [G][NCP] = from_eff^T
   for (int i = threadIdx.x; i < G * NCP; i += kThreads) {
     const int p = i / NCP, r = i - p * NCP;
-    to_s[i] = r < NC ? dtype::rounded<T>(to_eff[(size_t)p * NC + r]) : 0.f;
-    from_s[i] = r < NC ? dtype::rounded<T>(from_eff[(size_t)r * G + p]) : 0.f;
+    to_s[i] = r < NC ? to_eff[(size_t)p * NC + r] : 0.f;
+    from_s[i] = r < NC ? from_eff[(size_t)r * G + p] : 0.f;
   }
   __syncthreads();
 
@@ -136,8 +125,8 @@ __global__ void __launch_bounds__(kThreads, NC <= 19 ? 3 : 2) s2_grid_silu_bwd_k
       const long long base = m * (long long)NC * C + c;
 #pragma unroll
       for (int r = 0; r < NC; ++r) {
-        x[j][r] = valid[j] ? dtype::ldg(h + base + (size_t)r * C) : 0.f;
-        d[j][r] = valid[j] ? dtype::ldg(dy + base + (size_t)r * C) : 0.f;
+        x[j][r] = valid[j] ? __ldg(h + base + (size_t)r * C) : 0.f;
+        d[j][r] = valid[j] ? __ldg(dy + base + (size_t)r * C) : 0.f;
         acc[j][r] = 0.f;
       }
     }
@@ -175,7 +164,7 @@ __global__ void __launch_bounds__(kThreads, NC <= 19 ? 3 : 2) s2_grid_silu_bwd_k
       }
       float w[kCols];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) w[j] = dtype::rounded<T>(dsilu_times(ge[j] + go[j], de[j] + dd[j]));
+      for (int j = 0; j < kCols; ++j) w[j] = dsilu_times(ge[j] + go[j], de[j] + dd[j]);
 #pragma unroll
       for (int q = 0; q < NQ; ++q) {
         const float tv[4] = {t[q].x, t[q].y, t[q].z, t[q].w};
@@ -195,16 +184,16 @@ __global__ void __launch_bounds__(kThreads, NC <= 19 ? 3 : 2) s2_grid_silu_bwd_k
       if (!valid[j]) continue;
       const long long m = col[j] / C;
       const int c = (int)(col[j] - m * C);
-      T* dst = dh + m * (long long)NC * C + c;
+      float* dst = dh + m * (long long)NC * C + c;
 #pragma unroll
-      for (int r = 0; r < NC; ++r) dst[(size_t)r * C] = dtype::narrow<T>(acc[j][r]);
+      for (int r = 0; r < NC; ++r) dst[(size_t)r * C] = acc[j][r];
     }
   }
 }
 
-template <int NC, typename T>
-int launch(const T* h, const T* dy, const float* to_eff, const float* from_eff, T* dh, long long M, int C, int G,
-           long long blocks, int smem, cudaStream_t stream) {
+template <int NC>
+int launch(const float* h, const float* dy, const float* to_eff, const float* from_eff, float* dh, long long M, int C,
+           int G, long long blocks, int smem, cudaStream_t stream) {
   constexpr int NCP = (NC + 3) & ~3;
   const long long ncols = M * (long long)C;
   const long long groups = (ncols + kThreads * kCols - 1) / (kThreads * kCols);
@@ -213,27 +202,26 @@ int launch(const T* h, const T* dy, const float* to_eff, const float* from_eff, 
   }
   if (smem > 48 * 1024) {
     cudaError_t err =
-        cudaFuncSetAttribute(s2_grid_silu_bwd_kernel<NC, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        cudaFuncSetAttribute(s2_grid_silu_bwd_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  s2_grid_silu_bwd_kernel<NC, T><<<(unsigned)blocks, kThreads, smem, stream>>>(h, dy, to_eff, from_eff, dh, M, C, G);
+  s2_grid_silu_bwd_kernel<NC><<<(unsigned)blocks, kThreads, smem, stream>>>(h, dy, to_eff, from_eff, dh, M, C, G);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(const void* h, const void* dy, const void* to_eff, const void* from_eff, void* dh, long long M, int NC,
              int C, int G, long long blocks, int smem, void* stream) {
   if (M <= 0 || C <= 0) return 0;
-  const T* hp = static_cast<const T*>(h);
-  const T* dp = static_cast<const T*>(dy);
+  const float* hp = static_cast<const float*>(h);
+  const float* dp = static_cast<const float*>(dy);
   const float* tp = static_cast<const float*>(to_eff);
   const float* fp = static_cast<const float*>(from_eff);
-  T* op = static_cast<T*>(dh);
+  float* op = static_cast<float*>(dh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (NC) {
 #define S2B_CASE(n) \
   case n:           \
-    return launch<n, T>(hp, dp, tp, fp, op, M, C, G, blocks, smem, s);
+    return launch<n>(hp, dp, tp, fp, op, M, C, G, blocks, smem, s);
     S2B_CASE(1) S2B_CASE(2) S2B_CASE(3) S2B_CASE(4) S2B_CASE(5) S2B_CASE(6) S2B_CASE(7) S2B_CASE(8)
     S2B_CASE(9) S2B_CASE(10) S2B_CASE(11) S2B_CASE(12) S2B_CASE(13) S2B_CASE(14) S2B_CASE(15) S2B_CASE(16)
     S2B_CASE(17) S2B_CASE(18) S2B_CASE(19) S2B_CASE(20) S2B_CASE(21) S2B_CASE(22) S2B_CASE(23) S2B_CASE(24)
@@ -247,8 +235,8 @@ int dispatch(const void* h, const void* dy, const void* to_eff, const void* from
 }  // namespace
 
 // Plain C interface (loaded with ctypes). Device pointers of contiguous
-// tensors: h and dy [M, NC, C] (f32, or bf16 for the _bf16 entry); to_eff
-// [G, NC] and from_eff [NC, G] f32; dh [M, NC, C] in h's dtype is written.
+// tensors: h and dy [M, NC, C], to_eff [G, NC] and from_eff [NC, G], f32;
+// dh [M, NC, C] f32 is written.
 // 1 <= NC <= 32. `blocks` and `smem` come from the wrapper's plan
 // (ops/kernels.py::s2_grid_silu_bwd_plan: persistent blocks of 128 threads x
 // 2 columns over the 256-column groups, both tables in shared memory as f32);
@@ -259,13 +247,7 @@ int dispatch(const void* h, const void* dy, const void* to_eff, const void* from
 extern "C" int s2_grid_silu_bwd_f32(const void* h, const void* dy, const void* to_eff, const void* from_eff,
                                     void* dh, long long M, int NC, int C, int G, long long blocks, int smem,
                                     void* stream) {
-  return dispatch<float>(h, dy, to_eff, from_eff, dh, M, NC, C, G, blocks, smem, stream);
-}
-
-extern "C" int s2_grid_silu_bwd_bf16(const void* h, const void* dy, const void* to_eff, const void* from_eff,
-                                     void* dh, long long M, int NC, int C, int G, long long blocks, int smem,
-                                     void* stream) {
-  return dispatch<__nv_bfloat16>(h, dy, to_eff, from_eff, dh, M, NC, C, G, blocks, smem, stream);
+  return dispatch(h, dy, to_eff, from_eff, dh, M, NC, C, G, blocks, smem, stream);
 }
 
 extern "C" const char* s2_grid_silu_bwd_error_string(int code) {

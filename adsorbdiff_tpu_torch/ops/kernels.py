@@ -37,7 +37,7 @@ import collections
 import ctypes
 import functools
 import math
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -337,10 +337,6 @@ def _message_variant(kernel: str, xh: torch.Tensor, vec: torch.Tensor) -> str:
         return "bf16" if vec.dtype == torch.bfloat16 else "bf16_vf32"
     raise TypeError(f"{kernel}: xh and vec must be f32, or xh bf16 with vec bf16 or f32; got {xh.dtype}, "
                     f"{vec.dtype}")
-
-
-# the EquiformerV2 kernels' C entries by the dtype of their bf16-able tensors (h and dy, x, the messages) and outputs
-_EQV2_VARIANTS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def _count_suffix(variant: str) -> str:
@@ -1687,20 +1683,20 @@ def s2_bf16_tables(to_grid_m: torch.Tensor, from_grid_m: torch.Tensor) -> torch.
     return blob
 
 
-def s2_grid_silu_bf16_plan(m: int, nc: int, c: int, g: int, sms: int) -> LaunchPlan:
+def s2_grid_silu_bf16_plan(m: int, nc: int, c: int, g: int, sms: int, tiles: int = 1) -> LaunchPlan:
     """``csrc/s2_grid_silu_bf16.cu``'s launch on a card of ``sms`` SMs:
     persistent blocks of 8 warps (2 an SM where the shared memory allows),
     each warp taking 32 columns at a time; shared memory holds the tables of
-    :func:`s2_bf16_tables` and 2 KB (1 KB for NC <= 16) a warp for its
-    columns.  Raises ValueError when the tables do not fit."""
+    :func:`s2_bf16_tables` and ``tiles`` x 2 KB (1 KB for NC <= 16) a warp
+    for its columns (the backward's ``tiles=2``: X^T and dY^T).  Raises
+    ValueError when the tables do not fit."""
     ks, nt, gp, ts, fs = s2_bf16_layout(nc, g)
-    smem = 2 * (gp * ts + nt * 8 * fs) + _S2B_WARPS * ks * 16 * 64
+    smem = 2 * (gp * ts + nt * 8 * fs) + _S2B_WARPS * tiles * ks * 16 * 64
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"s2_grid_silu: the bf16 tables (G {g}, NC {nc}) need {smem} bytes of shared memory a "
                          f"block, more than {SMEM_PER_BLOCK}")
     per_sm = min(_S2B_PER_SM, SMEM_PER_SM // (smem + 1024))
-    tiles = _cdiv(m * c, _S2B_COLS)
-    blocks = max(1, min(_cdiv(tiles, _S2B_WARPS), per_sm * sms))
+    blocks = max(1, min(_cdiv(_cdiv(m * c, _S2B_COLS), _S2B_WARPS), per_sm * sms))
     return LaunchPlan(tile=_S2B_WARPS * _S2B_COLS, cluster=1, threads=32 * _S2B_WARPS, blocks=blocks, smem_bytes=smem)
 
 
@@ -1974,9 +1970,12 @@ def s2_grid_silu_bwd(h: torch.Tensor, dy: torch.Tensor, to_grid_m: torch.Tensor,
     takes them.  Returns ``dh`` like ``h``: f32, or bf16 for bf16 ``h`` and
     ``dy`` (the bf16 variant, counted under ``s2_grid_silu_bwd.bf16``: the
     tables rounded to bf16, ``dg * silu'(g)`` rounded once before its
-    second product).  On the card: the forward's input rules, ``dy`` in
-    ``h``'s dtype, launched by :func:`s2_grid_silu_bwd_plan`.  Each column
-    is written by one thread (no atomics): the result repeats bit for bit.
+    second product; on the card the backward entry of
+    ``csrc/s2_grid_silu_bf16.cu``, its three products on the bf16 tensor
+    cores, launched by ``s2_grid_silu_bf16_plan(..., tiles=2)``).  On the
+    card: the forward's input rules, ``dy`` in ``h``'s dtype; f32 launched
+    by :func:`s2_grid_silu_bwd_plan`.  Each column is written by one thread
+    (no atomics): the result repeats bit for bit.
     """
     if h.device.type == "cpu":
         return s2_grid_silu_bwd_reference(h, dy, to_grid_m, from_grid_m)
@@ -1987,22 +1986,33 @@ def s2_grid_silu_bwd(h: torch.Tensor, dy: torch.Tensor, to_grid_m: torch.Tensor,
     _check_shapes("s2_grid_silu_bwd", tensors, dict(dy=tuple(h.shape)))
     if h.numel() == 0:  # empty output: nothing to launch
         return torch.empty_like(h)
-    return _s2_grid_silu_bwd_launch(h, dy, to_grid_m, from_grid_m, s2_grid_silu_bwd_plan(m, nc, c, g,
-                                                                                           _sm_count(h.device)))
+    if h.dtype == torch.bfloat16:
+        plan = s2_grid_silu_bf16_plan(m, nc, c, g, _sm_count(h.device), tiles=2)
+    else:
+        plan = s2_grid_silu_bwd_plan(m, nc, c, g, _sm_count(h.device))
+    return _s2_grid_silu_bwd_launch(h, dy, to_grid_m, from_grid_m, plan)
 
 
 def _s2_grid_silu_bwd_launch(h, dy, to_grid_m, from_grid_m, plan: LaunchPlan) -> torch.Tensor:
-    """Launch ``csrc/s2_grid_silu_bwd.cu`` with ``plan`` on checked, non-empty
-    inputs (:func:`s2_grid_silu_bwd`'s) and return ``dh``."""
+    """Launch the backward with ``plan`` on checked, non-empty inputs
+    (:func:`s2_grid_silu_bwd`'s) and return ``dh``: ``csrc/s2_grid_silu_bwd.cu``
+    for f32, the backward entry of ``csrc/s2_grid_silu_bf16.cu`` for bf16."""
     nc, c = h.shape[-2:]
+    m, g = h.numel() // (nc * c), to_grid_m.shape[0]
     dh = torch.empty_like(h)
-    variant = _EQV2_VARIANTS[h.dtype]
+    if h.dtype == torch.bfloat16:
+        tables = s2_bf16_tables(to_grid_m, from_grid_m)
+        lib = _library("s2_grid_silu_bf16", [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p], ("bwd_mma",))
+        _launch("s2_grid_silu_bf16", lib, h.device, h.data_ptr(), dy.data_ptr(), tables.data_ptr(), dh.data_ptr(), m,
+                nc, c, s2_bf16_layout(nc, g)[2], plan.blocks, plan.smem_bytes, shape=f"h{tuple(h.shape)}",
+                variant="bwd_mma", count_as="s2_grid_silu_bwd.bf16")
+        return dh
     lib = _library("s2_grid_silu_bwd", [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p], tuple(_EQV2_VARIANTS.values()))
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     _launch("s2_grid_silu_bwd", lib, h.device, h.data_ptr(), dy.data_ptr(), to_grid_m.data_ptr(),
-            from_grid_m.data_ptr(), dh.data_ptr(), h.numel() // (nc * c), nc, c, to_grid_m.shape[0], plan.blocks,
-            plan.smem_bytes, shape=f"h{tuple(h.shape)}", variant=variant,
-            count_as="s2_grid_silu_bwd" + _count_suffix(variant))
+            from_grid_m.data_ptr(), dh.data_ptr(), m, nc, c, g, plan.blocks, plan.smem_bytes,
+            shape=f"h{tuple(h.shape)}")
     return dh
 
 
@@ -2618,7 +2628,9 @@ def eqv2_edge_rotate(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, l
     K-broadcast copy never exists).  Returns a tensor in x's dtype with the
     angles' leading dims: f32, or bf16 for bf16 x (the bf16 variant of every
     form, counted under ``eqv2_edge_rotate.bf16``: the TPU kernel's bf16
-    chain, :func:`_edge_rotate_bf16_reference`).  On the card: f32 or bf16
+    chain, :func:`_edge_rotate_bf16_reference`; on the card
+    ``csrc/eqv2_edge_rotate_bf16.cu``, both products on the bf16 tensor
+    cores, its slots from :func:`rotate_bf16_layout`).  On the card: f32 or bf16
     contiguous x, f32 contiguous angles, lmax <= 6.  When autograd needs a
     gradient the call goes through :class:`EqV2EdgeRotate`.
     """
@@ -2650,7 +2662,7 @@ def _rotate_forward(x, src, gamma, beta, lmax, mmax, direction, n_sel) -> torch.
         return eqv2_edge_rotate_reference(x, gamma, beta, lmax, mmax, direction=direction, n_sel=n_sel)
     kernel = "eqv2_edge_rotate"
     tensors = dict(x=x, gamma=gamma, beta=beta, **({} if src is None else {"src": src}))
-    if x.dtype not in _EQV2_VARIANTS:
+    if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{kernel}: x must be f32 or bf16, got {x.dtype}")
     _check_cuda_inputs(kernel, tensors, {"src": torch.int32, "x": x.dtype})
     if direction not in ("to", "from"):
@@ -2680,28 +2692,161 @@ def _rotate_forward(x, src, gamma, beta, lmax, mmax, direction, n_sel) -> torch.
     e = math.prod(lead)
     if e * c == 0:  # empty output: nothing to launch
         return out
-    variant = _EQV2_VARIANTS[x.dtype]
-    j_blocks, sign, row = _rotate_consts(lmax, mmax, n_sel, variant)  # contiguous host arrays, cached
+    geom = (e, c, n_in, n_out, kdiv, nk, n_nodes)
+    if x.dtype == torch.bfloat16:
+        layout = rotate_bf16_layout(lmax, mmax, n_sel, direction)
+        blob = so3.device_table(_rotate_bf16_blob(lmax, mmax, n_sel, direction), x.device, torch.int16)
+        _rotate_bf16_launch(x, src, gamma, beta, out, geom, layout, direction, blob)
+        return out
+    j_blocks, sign, row = so3.edge_rot_consts(lmax, mmax, n_sel)  # contiguous host arrays, cached
     lib = _library(kernel, [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4,
-                   tuple(_EQV2_VARIANTS.values()))
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
     _launch(kernel, lib, x.device, x.data_ptr(), None if src is None else src.data_ptr(), gamma.data_ptr(),
-            beta.data_ptr(), out.data_ptr(), e, c, n_in, n_out, kdiv, nk, n_nodes, lmax, int(direction == "to"),
-            j_blocks.ctypes.data, sign.ctypes.data, row.ctypes.data, variant=variant,
-            count_as=kernel + _count_suffix(variant))
+            beta.data_ptr(), out.data_ptr(), *geom, lmax, int(direction == "to"), j_blocks.ctypes.data,
+            sign.ctypes.data, row.ctypes.data)
     return out
 
 
+def _rotate_bf16_launch(x, src, gamma, beta, out, geom, layout: "RotateBf16Layout", direction: str,
+                        blob: torch.Tensor) -> None:
+    """Launch ``csrc/eqv2_edge_rotate_bf16.cu`` on checked inputs
+    (:func:`_rotate_forward`'s; ``geom = (E, C, n_in, n_out, kdiv, nk,
+    n_nodes)``) with ``layout``'s slots and the constants ``blob`` (a device
+    tensor of :func:`rotate_bf16_consts`), writing ``out``."""
+    e, c = geom[:2]
+    aligned = c % _ROT_COLS == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    plan = rotate_bf16_plan(e, c, layout.p, _sm_count(x.device), aligned)
+    lib = _library("eqv2_edge_rotate_bf16", [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+                   ("mma",))
+    _launch("eqv2_edge_rotate_bf16", lib, x.device, x.data_ptr(), None if src is None else src.data_ptr(),
+            gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), blob.data_ptr(), *geom, layout.p,
+            int(direction == "to"), layout.in_groups, layout.out_groups, plan.blocks, plan.smem_bytes, variant="mma",
+            count_as="eqv2_edge_rotate.bf16")
 
-@functools.lru_cache(maxsize=32)
-def _rotate_consts(lmax: int, mmax: int, n_sel: int, variant: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """:func:`so3.edge_rot_consts`, with J's blocks rounded to bf16 (kept as
-    f32 values) for the bf16 variant, as the TPU wrapper casts its constant
-    matrices to the input dtype."""
-    j_blocks, sign, row = so3.edge_rot_consts(lmax, mmax, n_sel)
-    if variant == "bf16":
-        j_blocks = np.ascontiguousarray(torch.from_numpy(j_blocks).to(torch.bfloat16).float().numpy())
-    return j_blocks, sign, row
+
+class RotateBf16Layout(NamedTuple):
+    """The coefficient slots of ``csrc/eqv2_edge_rotate_bf16.cu`` for one
+    rotation.  The slots come in groups of 16, each holding whole l blocks
+    of J (so J[perm, perm] is block diagonal over the groups: each product
+    is one 16 x 16 block a group); in a group, each (l, +m) row sits at an
+    even slot with its (l, -m) partner after it, and the m = 0 rows pair
+    with each other (a pad where their count is odd).  ``perm[s]``: the
+    l-primary row in slot ``s`` (-1: a pad); ``p``: the slots, 16 a group.
+    Per slot pair: its |m| (0 for the m = 0 pairs and pads) and the Dz sign
+    of its first row.  Per slot: the input row copied into it and the
+    output row stored from it (-1: none).  ``in_groups`` and
+    ``out_groups``: bit g set where group g holds input rows (the first
+    product's blocks to multiply) and output rows (the second's)."""
+
+    p: int
+    perm: np.ndarray
+    pair_m: np.ndarray
+    pair_sign: np.ndarray
+    in_row: np.ndarray
+    out_row: np.ndarray
+    in_groups: int
+    out_groups: int
+
+
+def _slot_groups(lmax: int) -> List[List[int]]:
+    """J's l blocks packed first-fit, largest first, into groups of at most
+    16 slots (a group's m = 0 rows padded to an even count)."""
+    groups: List[List[int]] = []
+    for l in range(lmax, -1, -1):
+        for g in groups:
+            if len(g) + 1 + (len(g) + 1) % 2 + 2 * (sum(g) + l) <= 16:
+                g.append(l)
+                break
+        else:
+            groups.append([l])
+    return groups
+
+
+@functools.lru_cache(maxsize=64)
+def rotate_bf16_layout(lmax: int, mmax: int, n_sel: int, direction: str) -> RotateBf16Layout:
+    """:class:`RotateBf16Layout` of a rotation in ``direction`` ("to": input
+    rows are x's l-primary rows, outputs the first ``n_sel`` truncated
+    m-primary rows; "from": the reverse).  Raises ValueError past lmax 6."""
+    if not 1 <= lmax <= 6:
+        raise ValueError(f"eqv2_edge_rotate: the bf16 kernel takes 1 <= lmax <= 6, got {lmax}")
+    sign = so3.zrot_swap_sign(lmax)[2]
+    row = so3.edge_rot_consts(lmax, mmax, n_sel)[2]
+    perm, pair_m, pair_sign = [], [], []
+    for group in _slot_groups(lmax):
+        slots = [l * l + l for l in sorted(group)]
+        slots += [-1] * (len(slots) % 2)
+        pair_m += [0] * (len(slots) // 2)
+        pair_sign += [1] * (len(slots) // 2)
+        for l in sorted(group):
+            for m in range(1, l + 1):
+                slots += [l * l + l + m, l * l + l - m]
+                pair_m.append(m)
+                pair_sign.append(int(sign[l * l + l + m]))
+        pad = 16 - len(slots)
+        perm += slots + [-1] * pad
+        pair_m += [0] * (pad // 2)
+        pair_sign += [1] * (pad // 2)
+    perm = np.array(perm, np.int64)
+    sel = np.where(perm >= 0, row[np.maximum(perm, 0)], -1)
+    in_row, out_row = (perm, sel) if direction == "to" else (sel, perm)
+    in_groups, out_groups = (sum(1 << g for g in range(len(perm) // 16) if (rows[16 * g:16 * g + 16] >= 0).any())
+                             for rows in (in_row, out_row))
+    return RotateBf16Layout(len(perm), perm, np.array(pair_m), np.array(pair_sign), in_row, out_row, in_groups,
+                            out_groups)
+
+
+def rotate_bf16_consts(layout: RotateBf16Layout, j: np.ndarray) -> np.ndarray:
+    """The int16 blob ``csrc/eqv2_edge_rotate_bf16.cu`` copies into shared
+    memory: ``j [D, D]`` permuted to ``J[perm, perm]`` and rounded to bf16
+    (``[p, odd stride]`` rows, zeros in every pad), then ``in_row``,
+    ``out_row``, ``pair_m`` and ``pair_sign``, zero-padded to 16 bytes."""
+    p = layout.p
+    live = np.flatnonzero(layout.perm >= 0)
+    jp = np.zeros((p, _odd_stride(p)), np.float32)
+    jp[np.ix_(live, live)] = j[np.ix_(layout.perm[live], layout.perm[live])]
+    bits = torch.from_numpy(jp).to(torch.bfloat16).view(torch.int16).numpy().reshape(-1)
+    maps = np.concatenate([layout.in_row, layout.out_row, layout.pair_m, layout.pair_sign]).astype(np.int16)
+    blob = np.concatenate([bits, maps])
+    return np.concatenate([blob, np.zeros(-blob.size % 8, np.int16)])
+
+
+@functools.lru_cache(maxsize=64)
+def _rotate_bf16_blob(lmax: int, mmax: int, n_sel: int, direction: str) -> np.ndarray:
+    return rotate_bf16_consts(rotate_bf16_layout(lmax, mmax, n_sel, direction),
+                              np.asarray(so3.get_J_matrix(lmax), np.float32))
+
+
+# csrc/eqv2_edge_rotate_bf16.cu's kWarps, kWarpCols, kBlocksPerSM and kStages: warps a block, columns a warp takes
+# at a time, blocks an SM at most (its launch bound), tile buffers a warp; its C entry refuses a plan whose shared
+# bytes differ from its own layout's
+_ROT_WARPS, _ROT_COLS, _ROT_PER_SM, _ROT_STAGES = 8, 32, 2, 3
+
+
+def rotate_bf16_smem(p: int, c: int, aligned: bool) -> int:
+    """Shared bytes of a ``csrc/eqv2_edge_rotate_bf16.cu`` block: the
+    constants of :func:`rotate_bf16_consts`, and per warp its tile buffers
+    (``p`` rows of 32 columns and 16 bytes for its edge's angles; 3, a ring
+    of loads in flight, for ``aligned`` tiles: C % 32 == 0 and 16-byte
+    aligned rows, else 1) and its angle table (2 angles x the edges 32
+    columns of C channels can touch x ``p / 2`` pairs x 8 bytes)."""
+    edges = min((c + 30) // c + 1, 32)
+    return (_round_up(2 * (p * _odd_stride(p) + 3 * p), 16)
+            + _ROT_WARPS * ((_ROT_STAGES if aligned else 1) * (64 * p + 16) + 8 * p * edges))
+
+
+def rotate_bf16_plan(e: int, c: int, p: int, sms: int, aligned: bool) -> LaunchPlan:
+    """``csrc/eqv2_edge_rotate_bf16.cu``'s launch on a card of ``sms`` SMs:
+    persistent blocks of 8 warps (2 an SM, as the kernel's launch bound
+    holds them, where the shared memory allows), warp w taking the w-th run
+    of consecutive 32-column tiles of the ``e * c`` (edge, channel) columns,
+    shared memory :func:`rotate_bf16_smem` (``aligned``: the kernel's tiles
+    are whole, C % 32 == 0, and x and out 16-byte aligned)."""
+    smem = rotate_bf16_smem(p, c, aligned)
+    per_sm = min(_ROT_PER_SM, SMEM_PER_SM // (smem + 1024))
+    blocks = max(1, min(_cdiv(_cdiv(e * c, _ROT_COLS), _ROT_WARPS), per_sm * sms))
+    return LaunchPlan(tile=_ROT_WARPS * _ROT_COLS, cluster=1, threads=32 * _ROT_WARPS, blocks=blocks,
+                      smem_bytes=smem)
 
 
 class EqV2EdgeRotate(torch.autograd.Function):

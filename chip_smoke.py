@@ -310,14 +310,17 @@ Phases; any failure raises and the exit code is then non-zero:
    an output by one ulp: 4e-3 to 7.8e-3 of max by where max lies in its
    binade); each timed beside its f32 kernel on the same values, its plain
    version and its bound in bf16 bytes; conv1's wide route raises
-   TypeError on bf16 messages.  s2_grid_silu's and eqv2_attn_conv1's bf16
-   forms are tensor-core kernels of their own (csrc/s2_grid_silu_bf16.cu,
-   csrc/eqv2_attn_conv1_bf16.cu), printed with their plans, ptxas's
-   lines and, for s2_grid_silu, the SiLU's SFU floor; their ragged cases
-   add the tiling edges: column counts that no m16 tile or 32-column warp
-   tile divides and NC 25 and 32; E that leaves a partial m16 tile in a
-   unit, or one m16 tile; ODD widths (C 12, c_out 6, extra 11, 21
-   gaussians, trunk 24) that no 8 or 16 divides.
+   TypeError on bf16 messages.  All four bf16 forms are tensor-core
+   kernels of their own (csrc/s2_grid_silu_bf16.cu with the S^2
+   backward's entry, csrc/eqv2_attn_conv1_bf16.cu,
+   csrc/eqv2_edge_rotate_bf16.cu), printed with their plans, ptxas's
+   lines and, for the S^2 pair, the sigmoid's SFU floor; their ragged
+   cases add the tiling edges: column counts that no m16 tile or 32-column
+   warp tile divides and NC 25 and 32; E that leaves a partial m16 tile in
+   a unit, or one m16 tile; ODD widths (C 12, c_out 6, extra 11, 21
+   gaussians, trunk 24) that no 8 or 16 divides; the rotation at every
+   slot count (lmax 1, 3, 5, 6: P = 16, 16, 48, 64) with channel counts no
+   8 divides (1, 3, 5) and 33 in both directions and the gather form.
 26. PaiNN in bf16 (compute_dtype bfloat16, phase 4's weights): one B=2
    forward on the card against the same bf16 model on the CPU, both heads
    within 3e-2 * max|cpu bf16| and within the CPU's bf16-to-f32 distance,
@@ -371,9 +374,11 @@ Phases; any failure raises and the exit code is then non-zero:
    24's runs'; painn_message_fused's are phase 4's plus phase 23's; the
    consumers' and fused_rbf_filter's launches are
    their counts summed over every path run (0: no path calls them).  The
-   eight bf16 variants are rows of their own (``<kernel>.bf16``, the same
-   source), their launches those of phases 26-30; eqv2_edge_rotate.bf16's
-   times are the mean over the three bf16 forms a forward launches.
+   eight bf16 variants are rows of their own (``<kernel>.bf16``; the four
+   EquiformerV2 ones from their tensor-core sources, the others from their
+   f32 kernel's), their launches those of phases 26-30;
+   eqv2_edge_rotate.bf16's times are the mean over the three bf16 forms a
+   forward launches.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -1210,7 +1215,6 @@ EQV2_REPLACES = {"s2_grid_silu": "adsorbdiff_tpu/ops/pallas_kernels.py:903",
                  "s2_grid_silu_bwd": "adsorbdiff_tpu/ops/pallas_kernels.py:919",
                  "eqv2_edge_rotate": "adsorbdiff_tpu/ops/pallas_kernels.py:1079",
                  "eqv2_attn_conv1": "adsorbdiff_tpu/ops/pallas_kernels.py:1252"}
-BF16_PTXAS = "13__nv_bfloat16"  # the bf16 template instances' mangled names hold it
 
 
 def bf16_ulp(x):
@@ -1272,7 +1276,8 @@ def eqv2_timing(bf16, kernel_fn, f32_fn, plain_fn, iters, plain_iters):
 
 # the bf16 forms with a source of their own (the tensor-core kernels); the other bf16 variants are entries of their
 # f32 kernel's source
-BF16_SOURCES = {"s2_grid_silu": "s2_grid_silu_bf16", "eqv2_attn_conv1": "eqv2_attn_conv1_bf16"}
+BF16_SOURCES = {"s2_grid_silu": "s2_grid_silu_bf16", "s2_grid_silu_bwd": "s2_grid_silu_bf16",
+                "eqv2_attn_conv1": "eqv2_attn_conv1_bf16", "eqv2_edge_rotate": "eqv2_edge_rotate_bf16"}
 
 
 def eqv2_source(kernel, bf16):
@@ -1394,13 +1399,23 @@ def s2_bwd_kernel_checks(device, gen, h, dy, to_m, from_m):
     bound_ms, by, nbytes, flops = s2_bwd_bound_ms(h, dy, to_m, from_m, out)
     nc, c = h.shape[-2:]
     m = h.numel() // (nc * c)
-    plan = kernels.s2_grid_silu_bwd_plan(m, nc, c, to_m.shape[0], kernels._sm_count(device))
-    ptxas = ptxas_lines("s2_grid_silu_bwd", f"ILi{nc}E" + (BF16_PTXAS if bf16 else "fE"))
+    if bf16:
+        ks, nt, gp, _, _ = kernels.s2_bf16_layout(nc, to_m.shape[0])
+        plan = kernels.s2_grid_silu_bf16_plan(m, nc, c, to_m.shape[0], kernels._sm_count(device), tiles=2)
+        floor_ms, mhz = sfu_floor_ms(m * c * to_m.shape[0], device)
+        ptxas = ptxas_lines("s2_grid_silu_bf16", f"bwd_kernelILi{ks}ELi{nt}E")
+        design = (f"plan: {plan.blocks} persistent blocks of {plan.threads // 32} warps x 32 columns, NC padded to "
+                  f"{16 * ks} (k) and {8 * nt} (n), G to {gp}, {plan.smem_bytes} B shared; the sigmoid's SFU floor "
+                  f"{floor_ms / 2:.4f} ms with one tanh.approx each, {floor_ms:.4f} with ex2 and rcp, at {mhz} MHz "
+                  f"({m * c * to_m.shape[0] / 1e6:.1f} M sigmoids, 16 SFU operations a clock per SM)")
+    else:
+        plan = kernels.s2_grid_silu_bwd_plan(m, nc, c, to_m.shape[0], kernels._sm_count(device))
+        ptxas = ptxas_lines("s2_grid_silu_bwd", f"ILi{nc}EE")
+        design = (f"plan: {plan.blocks} persistent blocks of {plan.threads} threads x 2 columns over "
+                  f"{-(-m * c // plan.tile)} groups of {plan.tile} columns, {plan.smem_bytes} B shared")
     print(f"[kernel] {key} at h{tuple(h.shape)}: {text}, bound {bound_ms:.4f} ms by {by} ({flops_text(flops, bf16)}, "
-          f"{nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}% of the bound; plan: {plan.blocks} persistent blocks of "
-          f"{plan.threads} threads x 2 columns over {-(-m * c // plan.tile)} groups of {plan.tile} columns, "
-          f"{plan.smem_bytes} B shared; ptxas (NC = {nc}): {' | '.join(ptxas) or 'not built in this process'}",
-          flush=True)
+          f"{nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}% of the bound; {design}; ptxas (NC = {nc}): "
+          f"{' | '.join(ptxas) or 'not built in this process'}", flush=True)
     return eqv2_row("s2_grid_silu_bwd", bf16, err, ms, plain_ms, bound_ms, by, extra)
 
 
@@ -1659,15 +1674,23 @@ def check_rotations(device, gen, batch, model, dtype=torch.float32):
                 (want,) = torch.autograd.grad(apply(plain, leaf_ref), leaf_ref, ct)
         err = max(err, check_eqv2(f"{key} VJP of {name}", [dx], [want], bf16))
         del got, ct, dx, want, out, leaf, i32
-    tiny_l, tiny_m = EQV2_TINY[:2]
-    tiny_dim, tiny_act = (tiny_l + 1) ** 2, so3.n_act_rows(tiny_l, tiny_m)
-    for lead in ((37,), (3, 11, 7)):
+    ragged = [(EQV2_TINY[:2], lead, 16) for lead in ((37,), (3, 11, 7))]
+    if bf16:  # every slot count of the bf16 kernel, channel counts no 8 divides (2-byte rows) and 33
+        ragged += [((1, 1), (3, 7, 5), 5), ((3, 3), (3, 7, 5), 1), ((5, 2), (2, 9, 4), 33), ((6, 2), (3, 7, 5), 3)]
+    for (r_l, r_m), lead, r_c in ragged:
+        r_dim, r_act = (r_l + 1) ** 2, so3.n_act_rows(r_l, r_m)
         g_t, b_t = (torch.rand(lead, generator=gen).to(device) * np.pi for _ in range(2))
-        for direction, rows in (("to", tiny_dim), ("from", tiny_act)):
-            a = (randn(*lead, rows, 16), g_t, b_t, tiny_l, tiny_m)
+        for direction, rows in (("to", r_dim), ("from", r_act)):
+            a = (randn(*lead, rows, r_c), g_t, b_t, r_l, r_m)
             got = launched_one(key, lambda: edge(*a, direction=direction))
-            err = max(err, check_eqv2(f"{key} {direction} ragged x{tuple(a[0].shape)}", [got],
+            err = max(err, check_eqv2(f"{key} {direction} ragged lmax {r_l} x{tuple(a[0].shape)}", [got],
                                       [edge_ref(*a, direction=direction)], bf16))
+        if len(lead) == 3:  # the gather form: source rows of [B, N, dim, C] node tables
+            xn, src_t = randn(lead[0], lead[1], r_dim, r_c), torch.randint(0, lead[1], lead, generator=gen)
+            a = (xn, src_t.to(torch.int32).to(device), g_t, b_t, r_l, r_m)
+            got = launched_one(key, lambda: kernels.eqv2_gather_rotate_to(*a))
+            err = max(err, check_eqv2(f"{key} gather ragged lmax {r_l} x{tuple(xn.shape)}", [got],
+                                      [kernels.eqv2_gather_rotate_to_reference(*a)], bf16))
     # per launch, weighted as one forward launches them: per attention the gathered source half, the target
     # half and the value rotation back; the edge-degree embedding once (in f32 in a bf16 forward)
     attn = model.num_layers + 2
@@ -1677,10 +1700,17 @@ def check_rotations(device, gen, batch, model, dtype=torch.float32):
     ms, plain_ms, bound_ms, f32_ms = (sum(n_ * times[name][i] for name, n_ in mix.items()) / sum(mix.values())
                                       for i in range(4))
     extra = {"f32_ms": f32_ms} if bf16 else {}
-    ptxas = ptxas_lines("eqv2_edge_rotate", BF16_PTXAS if bf16 else "EfE")
+    if bf16:
+        layout = kernels.rotate_bf16_layout(lmax, mmax, n_act, "to")
+        plan = kernels.rotate_bf16_plan(gamma.numel(), c, layout.p, kernels._sm_count(device), c % 32 == 0)
+        ptxas = ptxas_lines("eqv2_edge_rotate_bf16", f"ILi{layout.p}E")
+        design = (f"plan: {plan.blocks} persistent blocks of {plan.threads // 32} warps x 32 columns, {layout.p} "
+                  f"coefficient slots, {plan.smem_bytes} B shared; ")
+    else:
+        ptxas, design = ptxas_lines("eqv2_edge_rotate"), ""
     print(f"[kernel] {key} per launch at E={gamma.numel()}, weighted {mix}: {ms:.4f} ms"
           f"{f', its f32 kernel on the same values {f32_ms:.4f} ms' if bf16 else ''}, plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms by bytes, {100 * bound_ms / ms:.1f}% of the bound; ptxas: "
+          f"{bound_ms:.4f} ms by bytes, {100 * bound_ms / ms:.1f}% of the bound; {design}ptxas: "
           f"{' | '.join(ptxas) or 'not built in this process'}", flush=True)
     return eqv2_row("eqv2_edge_rotate", bf16, err, ms, plain_ms, bound_ms, "bytes", extra)
 

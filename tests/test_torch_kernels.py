@@ -2211,3 +2211,144 @@ def test_bf16_edge_rotate_kernel_and_vjp_match_plain_versions_on_card(cuda_devic
     want_dx = kernels.eqv2_edge_rotate_vjp_reference(ct, src_arg, gamma, beta, lmax, mmax, direction=direction,
                                                      n_sel=n_act, x_shape=ref_shape or tuple(x.shape))
     _bf16_ulp_err([got.detach(), dx], [apply(kernels.eqv2_edge_rotate_reference, x), want_dx.reshape(x.shape)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(S2_BWD_CASES.values()), ids=list(S2_BWD_CASES))
+def test_bf16_s2_grid_silu_bwd_kernel_matches_plain_version_on_card(cuda_device, case):
+    """The bf16 backward (the backward entry of csrc/s2_grid_silu_bf16.cu) at
+    every f32 case's shape with bf16 h and dy: one launch, finite, within one
+    bf16 ulp of max of the plain version, bit for bit again on a second call."""
+    h, dy, to_m, from_m = _s2_bwd_case(case, cuda_device)
+    h, dy = h.to(BF16), dy.to(BF16)
+    before = dict(kernels.launches)
+    got = s2_grid_silu_bwd(h, dy, to_m, from_m)
+    torch.cuda.synchronize()
+    assert {k: v - before.get(k, 0) for k, v in kernels.launches.items() if v != before.get(k, 0)} == {
+        "s2_grid_silu_bwd.bf16": 1}
+    assert got.dtype == BF16 and torch.isfinite(got.float()).all()
+    _bf16_ulp_err([got], [s2_grid_silu_bwd_reference(h, dy, to_m, from_m)])
+    assert torch.equal(s2_grid_silu_bwd(h, dy, to_m, from_m), got)
+
+
+@pytest.mark.cuda
+def test_bf16_s2_grid_silu_bwd_kernel_refuses_a_plan_that_disagrees_with_its_layout(cuda_device):
+    h, dy, to_m, from_m = (t.to(BF16) if i < 2 else t
+                           for i, t in enumerate(_s2_bwd_case(S2_BWD_CASES["nc19-cols645"], cuda_device)))
+    nc, c = h.shape[-2:]
+    plan = kernels.s2_grid_silu_bf16_plan(h.numel() // (nc * c), nc, c, to_m.shape[0], kernels._sm_count(cuda_device),
+                                          tiles=2)
+    before = kernels.launches["s2_grid_silu_bwd.bf16"]
+    for bad in (plan._replace(smem_bytes=plan.smem_bytes + 16), plan._replace(blocks=0),
+                kernels.s2_grid_silu_bf16_plan(h.numel() // (nc * c), nc, c, to_m.shape[0], 132)):
+        with pytest.raises(RuntimeError, match="s2_grid_silu_bf16 launch failed at h"):
+            kernels._s2_grid_silu_bwd_launch(h, dy, to_m, from_m, bad)
+    assert kernels.launches["s2_grid_silu_bwd.bf16"] == before
+
+
+def _safe_angles(rng, n, lmax, low, high):
+    """``n`` f32 angles t for which every cos(m t), sin(m t), m <= lmax, lies
+    at least 4e-7 (relative) from a bf16 rounding boundary: any f32 cos/sin
+    within two ulp rounds them to the same bf16 value, on the card and on
+    the CPU."""
+    out = []
+    while len(out) < n:
+        t = np.float32(rng.uniform(low, high))
+        a = torch.tensor([np.float32(t * np.float32(m)) for m in range(lmax + 1)], dtype=torch.float64)
+        v = torch.cat([torch.cos(a), torch.sin(a)])
+        if torch.equal((v * (1 + 4e-7)).to(BF16), (v * (1 - 4e-7)).to(BF16)):
+            out.append(t)
+    return np.array(out, np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["to", "from"])
+def test_bf16_edge_rotate_dz_stages_match_the_emulated_dz_bit_for_bit_on_card(cuda_device, direction):
+    """csrc/eqv2_edge_rotate_bf16.cu's Dz stages (bf16x2 mul.rn and add.rn on
+    packed pairs) against the plain Dz (f32 products and sum, each rounded
+    to bf16), bit for bit: the kernel launched with J = I, so each product
+    passes its input through exactly, on inputs a third of them bf16
+    subnormals (products and sums below 2^-126), at angles whose bf16 tables
+    do not depend on the cos/sin implementation."""
+    from tests.test_torch_bf16_rotate_pack import emulate_rotate_bf16
+
+    rng = np.random.default_rng(73)
+    lmax, mmax, c, b, n, k = 4, 2, 24, 2, 6, 5
+    dim, n_sel = 25, 19
+    n_in, n_out = (dim, n_sel) if direction == "to" else (n_sel, dim)
+    x = rng.normal(size=(b, n, k, n_in, c)).astype(np.float32)
+    x *= np.where(rng.uniform(size=x.shape) < 1 / 3, np.float32(2.0 ** -128), np.float32(1.0))
+    x = torch.from_numpy(x).to(BF16)
+    assert ((x.float().abs() < 2.0 ** -126) & (x != 0)).any()
+    gamma = torch.from_numpy(_safe_angles(rng, b * n * k, lmax, -np.pi, np.pi).reshape(b, n, k))
+    beta = torch.from_numpy(_safe_angles(rng, b * n * k, lmax, 0, np.pi).reshape(b, n, k))
+    layout = kernels.rotate_bf16_layout(lmax, mmax, n_sel, direction)
+    blob = kernels.rotate_bf16_consts(layout, np.eye(dim, dtype=np.float32))
+    out = torch.empty((b, n, k, n_out, c), dtype=BF16, device=cuda_device)
+    xd, gd, bd = (t.to(cuda_device) for t in (x, gamma, beta))
+    kernels._rotate_bf16_launch(xd, None, gd, bd, out, (b * n * k, c, n_in, n_out, 1, 1, 1), layout, direction,
+                                torch.from_numpy(blob).to(cuda_device))
+    torch.cuda.synchronize()
+    want = emulate_rotate_bf16(x, None, gamma, beta, lmax, mmax, n_sel, direction, blob=blob)
+    assert ((want.float().abs() < 2.0 ** -126) & (want != 0)).any()
+    assert torch.equal(out.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lmax,mmax,c", [(1, 1, 5), (3, 3, 1), (4, 2, 33), (5, 2, 24), (6, 2, 3), (6, 6, 16)],
+                         ids=["l1-c5", "l3m3-c1", "l4m2-c33", "l5m2-c24", "l6m2-c3", "l6m6-c16"])
+@pytest.mark.parametrize("form", ["to", "to-node-row", "gather-to", "from", "from-n0"])
+def test_bf16_edge_rotate_kernel_at_every_lmax_and_ragged_widths_on_card(cuda_device, lmax, mmax, c, form):
+    """Every lmax the kernel takes (P = 16, 32, 48, 64), channel counts no 8
+    divides (2-byte loads and stores) and 24, in each form: one launch,
+    within one bf16 ulp of max of the plain version."""
+    from tests.test_torch_bf16_rotate_pack import _rotate_case
+
+    (x, src, direction, n_sel), gamma, beta = _rotate_case(74, lmax, mmax, form, c, b=3, n=7, k=5)
+    x, gamma, beta = (t.to(cuda_device) for t in (x, gamma, beta))
+    src = None if src is None else src.to(cuda_device)
+    before = kernels.launches["eqv2_edge_rotate.bf16"]
+    if src is not None:
+        got = eqv2_gather_rotate_to(x, src, gamma, beta, lmax, mmax, n_sel=n_sel)
+        want = eqv2_gather_rotate_to_reference(x, src, gamma, beta, lmax, mmax, n_sel=n_sel)
+    else:
+        got = eqv2_edge_rotate(x, gamma, beta, lmax, mmax, direction=direction, n_sel=n_sel)
+        want = eqv2_edge_rotate_reference(x, gamma, beta, lmax, mmax, direction=direction, n_sel=n_sel)
+    torch.cuda.synchronize()
+    assert kernels.launches["eqv2_edge_rotate.bf16"] == before + 1 and got.shape == want.shape
+    _bf16_ulp_err([got], [want])
+
+
+@pytest.mark.cuda
+def test_bf16_eqv2_wrappers_raise_instead_of_falling_back(cuda_device):
+    """bf16 inputs the kernels do not take raise, and a layout the rotation
+    kernel does not match is refused by it: nothing is launched, no plain
+    version runs in their place."""
+    before = dict(kernels.launches)
+    angles = torch.zeros((2, 3, 4), device=cuda_device)
+    with pytest.raises(ValueError, match="lmax"):
+        eqv2_edge_rotate(torch.zeros((2, 3, 4, 64, 5), dtype=BF16, device=cuda_device), angles, angles, 7, 1,
+                         direction="to")
+    with pytest.raises(ValueError, match="contiguous"):
+        eqv2_edge_rotate(torch.zeros((2, 3, 4, 5, 9), dtype=BF16, device=cuda_device).transpose(-1, -2), angles,
+                         angles, 2, 1, direction="to")
+    with pytest.raises(TypeError, match="src must be torch.int32"):
+        eqv2_gather_rotate_to(torch.zeros((2, 3, 9, 5), dtype=BF16, device=cuda_device),
+                              torch.zeros((2, 3, 4), dtype=torch.int64, device=cuda_device), angles, angles, 2, 1)
+    x = torch.zeros((2, 3, 4, 9, 5), dtype=BF16, device=cuda_device)
+    out = torch.empty((2, 3, 4, 5, 5), dtype=BF16, device=cuda_device)
+    layout = kernels.rotate_bf16_layout(2, 1, 5, "to")
+    blob = torch.from_numpy(kernels._rotate_bf16_blob(2, 1, 5, "to")).to(cuda_device)
+    for bad in (layout._replace(in_groups=0), layout._replace(out_groups=2), layout._replace(p=24)):
+        with pytest.raises(RuntimeError, match="eqv2_edge_rotate_bf16 launch failed"):
+            kernels._rotate_bf16_launch(x, None, angles, angles, out, (24, 5, 9, 5, 1, 1, 1), bad, "to", blob)
+    to_m, from_m = (torch.from_numpy(t).to(cuda_device) for t in _s2_tables(2, 1, 8))
+    h = torch.zeros((4, 9, 3), dtype=BF16, device=cuda_device)
+    with pytest.raises(TypeError, match="dy must be"):
+        s2_grid_silu_bwd(h, h.float(), to_m, from_m)
+    with pytest.raises(ValueError, match="NC <= 32"):
+        s2_grid_silu_bwd(torch.zeros((4, 33, 3), dtype=BF16, device=cuda_device),
+                         torch.zeros((4, 33, 3), dtype=BF16, device=cuda_device),
+                         torch.zeros((10, 33), device=cuda_device), torch.zeros((33, 10), device=cuda_device))
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == before
