@@ -1,4 +1,4 @@
-// PaiNN message block, fused, for Hopper (sm_90a), f32 and bf16.
+// PaiNN message block, fused, for Hopper (sm_90a), in f32.
 //
 // Replaces the TPU kernel adsorbdiff_tpu/ops/pallas_kernels.py::
 // _painn_message_fused_kernel (wrapper painn_message_fused). For every target
@@ -64,22 +64,12 @@
 // W load feeds half the FMAs, and splitting a group's rows by half-group
 // timed slower); the basis walk, the slot reads and the gather-multiply take
 // the rest. chip_smoke.py phase 3 prints the time against the bound. Not yet
-// used: tensor cores (wgmma) and TMA; the f32 path rules out TF32.
-//
-// The bf16 variants (PaiNN with compute_dtype: bfloat16): xh and W in bf16,
-// vec in bf16 or f32, everything else f32. As in the TPU kernel, the basis is
-// rounded to bf16 before the filter product (basis.astype(cdt) against
-// weights.astype(cdt)), the product sums in f32, and the gathers and every
-// later product are exact widenings and f32. The rows and W columns are
-// widened into the same f32 shared memory (by a load and a store: cp.async
-// copies whole words), so the plan and the layout are the f32 ones, and the
-// FMAs, which bound the kernel, are the same.
+// used: tensor cores (wgmma) and TMA; the f32 path rules out TF32. With bf16
+// xh the wrapper launches csrc/painn_message_fused_bf16.cu instead.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include "dtype.cuh"
 
 namespace {
 
@@ -120,22 +110,9 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok)
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(ok ? 4 : 0));
 }
 
-// One element into the f32 shared memory (zero where !ok): by cp.async for
-// float, by a widening load and a store for bf16.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, bool ok) {
-  if constexpr (dtype::kF32<T>) {
-    cp_async4(dst, src, ok);
-  } else {
-    *dst = ok ? dtype::ldg(src) : 0.f;
-  }
-}
-
-// TX: xh and W (float or bf16); TV: vec
-template <typename TX, typename TV>
 struct Args {
-  const TX *xh, *w;
-  const TV* vec;
+  const float *xh, *w;
+  const float* vec;
   const float *dist, *unit, *bias;
   const int32_t* src;
   const uint8_t* mask;
@@ -147,9 +124,9 @@ struct Args {
 
 // The filter over the basis rows [plo, phi] of the owner's buffer: acc[i][j] += basis[r][i] * W[r][jH + (hA, hB)]
 // for the group's first TE slots (TE = 8, 4 or 2); W from shared memory (SW) or through L1/L2.
-template <int TE, bool SW, typename TX>
+template <int TE, bool SW>
 __device__ __forceinline__ void filter_rows(float2 (&acc)[kGroup][3], const float4* __restrict__ b4,
-                                            const float2* __restrict__ w2, const TX* __restrict__ w, size_t F,
+                                            const float2* __restrict__ w2, const float* __restrict__ w, size_t F,
                                             int H, int cA, int cB, int plo, int phi) {
   constexpr int kUnroll = SW ? 4 : 2;  // deeper unrolling spills where W is read through L1/L2
 #pragma unroll kUnroll
@@ -168,10 +145,10 @@ __device__ __forceinline__ void filter_rows(float2 (&acc)[kGroup][3], const floa
       w1 = wr[kCols / 2];
       w2v = wr[kCols];
     } else {
-      const TX* wr = w + (size_t)r * F;
-      w0 = make_float2(dtype::ldg(wr + cA), dtype::ldg(wr + cB));
-      w1 = make_float2(dtype::ldg(wr + H + cA), dtype::ldg(wr + H + cB));
-      w2v = make_float2(dtype::ldg(wr + 2 * H + cA), dtype::ldg(wr + 2 * H + cB));
+      const float* wr = w + (size_t)r * F;
+      w0 = make_float2(__ldg(wr + cA), __ldg(wr + cB));
+      w1 = make_float2(__ldg(wr + H + cA), __ldg(wr + H + cB));
+      w2v = make_float2(__ldg(wr + 2 * H + cA), __ldg(wr + 2 * H + cB));
     }
 #pragma unroll
     for (int i = 0; i < TE; ++i) {
@@ -185,8 +162,8 @@ __device__ __forceinline__ void filter_rows(float2 (&acc)[kGroup][3], const floa
   }
 }
 
-template <typename TX, typename TV, bool SW, bool SR>
-__global__ void __launch_bounds__(kThreads, 1) painn_fwd_kernel(const Args<TX, TV> a) {
+template <bool SW, bool SR>
+__global__ void __launch_bounds__(kThreads, 1) painn_fwd_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -218,15 +195,15 @@ __global__ void __launch_bounds__(kThreads, 1) painn_fwd_kernel(const Args<TX, T
   if (SW) {
     for (int i = tid; i < 3 * R * kCols; i += kThreads) {
       const int r = i / (3 * kCols), j = i / kCols % 3, c = h0 + i % kCols;
-      stage(w_s + i, a.w + (size_t)r * F + j * H + (c < H ? c : 0), c < H);
+      cp_async4(w_s + i, a.w + (size_t)r * F + j * H + (c < H ? c : 0), c < H);
     }
   }
   if (SR) {
     for (int i = tid; i < 3 * nrows * kCols; i += kThreads) {
       const int s = i / (3 * kCols), j = i / kCols % 3, c = h0 + i % kCols;
       const size_t g = (size_t)(row0 + s) * F + j * H + (c < H ? c : 0);
-      stage(x_s + i, a.xh + g, c < H);
-      stage(v_s + i, a.vec + g, c < H);
+      cp_async4(x_s + i, a.xh + g, c < H);
+      cp_async4(v_s + i, a.vec + g, c < H);
     }
   }
   asm volatile("cp.async.commit_group;\n" ::);
@@ -273,14 +250,9 @@ __global__ void __launch_bounds__(kThreads, 1) painn_fwd_kernel(const Args<TX, T
     const bool reach = d < 1.f;  // a valid slot with a non-zero basis
     float env = 0.f;
     if (reach) {
-      if constexpr (dtype::kF32<TX>) {
-        float dp = 1.f;
-        for (int j = 0; j < a.p; ++j) dp *= d;
-        env = 1.f + ca * dp + cb * dp * d + cc * dp * d * d;
-      } else {  // the plain version's f32 steps (see the basis below)
-        env = __fadd_rn(__fadd_rn(__fadd_rn(1.f, __fmul_rn(ca, powf(d, pf))), __fmul_rn(cb, powf(d, pf + 1.f))),
-                        __fmul_rn(cc, powf(d, pf + 2.f)));
-      }
+      float dp = 1.f;
+      for (int j = 0; j < a.p; ++j) dp *= d;
+      env = 1.f + ca * dp + cb * dp * d + cc * dp * d * d;
     }
     const int bin = reach ? min((int)(d * rm1), R - 1) : 0;
     if (l < kGroup) {
@@ -301,40 +273,27 @@ __global__ void __launch_bounds__(kThreads, 1) painn_fwd_kernel(const Args<TX, T
     for (int plo = lo; plo <= hi; plo += kWin) {
       const int phi = min(hi, plo + kWin - 1);
       // basis rows [plo, phi] of slot e: from r0, the row nearest the centre within the pass, up or down
-      if constexpr (!dtype::kF32<TX>) {
-        // bf16: each value by the plain version's f32 steps (ops/kernels.py::message_basis: exp(c0 (d - r/(R-1))^2)
-        // times the envelope of powf terms, rounded to nearest, unfused), then rounded to bf16. The recurrence's
-        // drift of a few f32 ulps would round a value now and then to the neighbouring bf16 number (0.4%), which
-        // the plain version does not.
-        const float c0 = -0.5f * rm1 * rm1;
-        for (int r = plo + (up ? 0 : 1); r <= phi; r += 2) {
-          const float df = __fsub_rn(de, __fdiv_rn((float)r, rm1));
-          const float g = enve != 0.f ? __fmul_rn(expf(__fmul_rn(c0, __fmul_rn(df, df))), enve) : 0.f;
-          buf[(r - plo) * kGroup + e] = dtype::rounded<TX>(g);  // the TPU kernel's basis.astype(cdt)
-        }
-      } else {
-        const bool real = enve != 0.f;
-        const float c = de * rm1;
-        const int r0 = real ? max(plo, min(phi, __float2int_rn(c))) : plo;
-        const float x = real ? (float)r0 - c : 0.f;
-        float g = real ? expf(-0.5f * x * x) * enve : 0.f;
-        float q = real ? expf((up ? -x : x) - 0.5f) : 0.f;
-        int r = r0;
-        int n = phi - r0 + 1;
-        if (!up) {
-          g *= q;
-          q *= einv;
-          r = r0 - 1;
-          n = r0 - plo;
-        }
-        const int step = up ? kGroup : -kGroup;
-        float* dst = buf + (r - plo) * kGroup + e;
-        for (int i = 0; i < n; ++i) {
-          *dst = g;
-          g *= q;
-          q *= einv;
-          dst += step;
-        }
+      const bool real = enve != 0.f;
+      const float c = de * rm1;
+      const int r0 = real ? max(plo, min(phi, __float2int_rn(c))) : plo;
+      const float x = real ? (float)r0 - c : 0.f;
+      float g = real ? expf(-0.5f * x * x) * enve : 0.f;
+      float q = real ? expf((up ? -x : x) - 0.5f) : 0.f;
+      int r = r0;
+      int n = phi - r0 + 1;
+      if (!up) {
+        g *= q;
+        q *= einv;
+        r = r0 - 1;
+        n = r0 - plo;
+      }
+      const int step = up ? kGroup : -kGroup;
+      float* dst = buf + (r - plo) * kGroup + e;
+      for (int i = 0; i < n; ++i) {
+        *dst = g;
+        g *= q;
+        q *= einv;
+        dst += step;
       }
       __syncwarp(omask);
       // ---- the filter; a group of 4 or fewer slots (the tail of K) runs a narrower tile ----
@@ -364,14 +323,14 @@ __global__ void __launch_bounds__(kThreads, 1) painn_fwd_kernel(const Args<TX, T
           x0 = xr[0], x1 = xr[kCols / 2], x2 = xr[kCols];
           v0 = vr[0], v1 = vr[kCols / 2], v2 = vr[kCols];
         } else {
-          const TX* xr = a.xh + (size_t)row * F;
-          const TV* vr = a.vec + (size_t)row * F;
-          x0 = make_float2(dtype::ldg(xr + cA), dtype::ldg(xr + cB));
-          x1 = make_float2(dtype::ldg(xr + H + cA), dtype::ldg(xr + H + cB));
-          x2 = make_float2(dtype::ldg(xr + 2 * H + cA), dtype::ldg(xr + 2 * H + cB));
-          v0 = make_float2(dtype::ldg(vr + cA), dtype::ldg(vr + cB));
-          v1 = make_float2(dtype::ldg(vr + H + cA), dtype::ldg(vr + H + cB));
-          v2 = make_float2(dtype::ldg(vr + 2 * H + cA), dtype::ldg(vr + 2 * H + cB));
+          const float* xr = a.xh + (size_t)row * F;
+          const float* vr = a.vec + (size_t)row * F;
+          x0 = make_float2(__ldg(xr + cA), __ldg(xr + cB));
+          x1 = make_float2(__ldg(xr + H + cA), __ldg(xr + H + cB));
+          x2 = make_float2(__ldg(xr + 2 * H + cA), __ldg(xr + 2 * H + cB));
+          v0 = make_float2(__ldg(vr + cA), __ldg(vr + cB));
+          v1 = make_float2(__ldg(vr + H + cA), __ldg(vr + H + cB));
+          v2 = make_float2(__ldg(vr + 2 * H + cA), __ldg(vr + 2 * H + cB));
         }
         const float g1x = x0.x * (acc[i][0].x + b0.x), g1y = x0.y * (acc[i][0].y + b0.y);
         const float g2x = x1.x * (acc[i][1].x + b1.x) * inv_sqrt3, g2y = x1.y * (acc[i][1].y + b1.y) * inv_sqrt3;
@@ -407,18 +366,17 @@ __global__ void __launch_bounds__(kThreads, 1) painn_fwd_kernel(const Args<TX, T
   }
 }
 
-template <typename TX, typename TV, bool SW, bool SR>
-cudaError_t launch(const Args<TX, TV>& a, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(painn_fwd_kernel<TX, TV, SW, SR>,
+template <bool SW, bool SR>
+cudaError_t launch(const Args& a, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(painn_fwd_kernel<SW, SR>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int T = a.B * a.N;
   const dim3 grid((unsigned)((T + a.tpb - 1) / a.tpb), (unsigned)((a.H + kCols - 1) / kCols));
-  painn_fwd_kernel<TX, TV, SW, SR><<<grid, kThreads, smem, stream>>>(a);
+  painn_fwd_kernel<SW, SR><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename TX, typename TV>
 int run(const void* xh, const void* vec, const void* src, const void* dist, const void* mask, const void* unit,
         const void* w, const void* bias, void* dx, void* dvec, int B, int N, int K, int R, int H, float inv_cutoff,
         int envelope_exponent, int tpb, int stage_w, int stage_rows, int rows, int smem, void* stream) {
@@ -428,12 +386,12 @@ int run(const void* xh, const void* vec, const void* src, const void* dist, cons
       (stage_rows && rows < staged_rows(B * N, N, tpb))) {
     return (int)cudaErrorInvalidValue;
   }
-  Args<TX, TV> a;
-  a.xh = static_cast<const TX*>(xh);
-  a.vec = static_cast<const TV*>(vec);
+  Args a;
+  a.xh = static_cast<const float*>(xh);
+  a.vec = static_cast<const float*>(vec);
   a.dist = static_cast<const float*>(dist);
   a.unit = static_cast<const float*>(unit);
-  a.w = static_cast<const TX*>(w);
+  a.w = static_cast<const float*>(w);
   a.bias = static_cast<const float*>(bias);
   a.src = static_cast<const int32_t*>(src);
   a.mask = static_cast<const uint8_t*>(mask);
@@ -451,35 +409,30 @@ int run(const void* xh, const void* vec, const void* src, const void* dist, cons
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t bytes = (size_t)smem;
   if (stage_w) {
-    return (int)(stage_rows ? launch<TX, TV, true, true>(a, bytes, s) : launch<TX, TV, true, false>(a, bytes, s));
+    return (int)(stage_rows ? launch<true, true>(a, bytes, s) : launch<true, false>(a, bytes, s));
   }
-  return (int)(stage_rows ? launch<TX, TV, false, true>(a, bytes, s) : launch<TX, TV, false, false>(a, bytes, s));
+  return (int)(stage_rows ? launch<false, true>(a, bytes, s) : launch<false, false>(a, bytes, s));
 }
 
 }  // namespace
 
 // Plain C interface (loaded with ctypes). All pointers are device pointers of
-// contiguous tensors: xh, vec [B,N,3H]; src [B,N,K] i32; dist [B,N,K] f32;
-// mask [B,N,K] bool (1 byte); unit [B,N,K,3] f32; w [R,3H]; bias [3H] f32;
-// dx [B,N,H] f32 and dvec [B,N,3,H] f32 are written whole. The entries:
-// painn_message_fused_f32 (xh, vec, w f32), _bf16 (xh, vec, w bf16) and
-// _bf16_vf32 (xh, w bf16, vec f32). The plan
+// contiguous tensors: xh, vec [B,N,3H] f32; src [B,N,K] i32; dist [B,N,K] f32;
+// mask [B,N,K] bool (1 byte); unit [B,N,K,3] f32; w [R,3H] f32; bias [3H] f32;
+// dx [B,N,H] f32 and dvec [B,N,3,H] f32 are written whole. The plan
 // (ops/kernels.py::painn_fwd_plan): tpb targets a block, stage_w, stage_rows,
 // rows (the most staged rows a block holds, at least what its systems need)
 // and smem_bytes must agree with this file's layout, else
 // cudaErrorInvalidValue. Needs K >= 1 and R >= 2. Launches on `stream` and
 // returns cudaGetLastError() after the launch (0 = success).
-#define PAINN_FWD_ENTRY(NAME, TX, TV)                                                                             \
-  extern "C" int NAME(const void* xh, const void* vec, const void* src, const void* dist, const void* mask,        \
-                      const void* unit, const void* w, const void* bias, void* dx, void* dvec, int B, int N, int K, \
-                      int R, int H, float inv_cutoff, int envelope_exponent, int tpb, int stage_w, int stage_rows,  \
-                      int rows, int smem, void* stream) {                                                          \
-    return run<TX, TV>(xh, vec, src, dist, mask, unit, w, bias, dx, dvec, B, N, K, R, H, inv_cutoff,               \
-                       envelope_exponent, tpb, stage_w, stage_rows, rows, smem, stream);                           \
-  }
-PAINN_FWD_ENTRY(painn_message_fused_f32, float, float)
-PAINN_FWD_ENTRY(painn_message_fused_bf16, __nv_bfloat16, __nv_bfloat16)
-PAINN_FWD_ENTRY(painn_message_fused_bf16_vf32, __nv_bfloat16, float)
+extern "C" int painn_message_fused_f32(const void* xh, const void* vec, const void* src, const void* dist,
+                                       const void* mask, const void* unit, const void* w, const void* bias, void* dx,
+                                       void* dvec, int B, int N, int K, int R, int H, float inv_cutoff,
+                                       int envelope_exponent, int tpb, int stage_w, int stage_rows, int rows, int smem,
+                                       void* stream) {
+  return run(xh, vec, src, dist, mask, unit, w, bias, dx, dvec, B, N, K, R, H, inv_cutoff, envelope_exponent, tpb,
+             stage_w, stage_rows, rows, smem, stream);
+}
 
 extern "C" const char* painn_message_fused_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

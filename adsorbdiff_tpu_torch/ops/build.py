@@ -27,7 +27,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 KERNELS = ("painn_message_fused", "painn_message_fused_bwd", "gemnet_quad_chain", "s2_grid_silu",
            "eqv2_attn_conv1", "s2_grid_silu_bwd", "eqv2_edge_rotate", "masked_legendre_cos",
            "painn_message_consumer", "fused_rbf_filter", "eqv2_attn_conv1_wide", "s2_grid_silu_bf16",
-           "eqv2_attn_conv1_bf16", "eqv2_edge_rotate_bf16")
+           "eqv2_attn_conv1_bf16", "eqv2_edge_rotate_bf16", "painn_message_fused_bf16")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -19,10 +19,12 @@ bf16 output), ``gemnet_quad_chain`` (a bf16 output), ``s2_grid_silu`` and
 its backward (bf16 ``h``, ``dy`` and output), ``eqv2_edge_rotate`` in all
 three forms (bf16 ``x`` and output) and ``eqv2_attn_conv1`` (bf16 messages
 and outputs).  Their plain versions take the same dtypes and round at the
-same points; a launch of a bf16 variant counts under ``<kernel>.bf16``.  Two
+same points; a launch of a bf16 variant counts under ``<kernel>.bf16``.  Five
 bf16 forms are kernels of their own, whose products run on the bf16 tensor
-cores: ``csrc/s2_grid_silu_bf16.cu`` and ``csrc/eqv2_attn_conv1_bf16.cu``;
-the others are entries of their f32 kernel's source.
+cores: ``csrc/painn_message_fused_bf16.cu``, ``csrc/s2_grid_silu_bf16.cu``
+(with the backward), ``csrc/eqv2_attn_conv1_bf16.cu`` and
+``csrc/eqv2_edge_rotate_bf16.cu``; the others are entries of their f32
+kernel's source.
 
 A kernel with a backward is wrapped in a ``torch.autograd.Function``
 (:class:`PainnMessageFused`, :class:`S2GridSilu`, :class:`EqV2AttnConv1`,
@@ -275,9 +277,13 @@ def painn_message_fused(
     scale.  ``xh`` and ``vec`` are f32, or ``xh`` bf16 with ``vec`` bf16 or
     f32 (the bf16 variant: basis and W rounded to bf16 before the filter
     product, as the TPU kernel rounds them); everything else f32.  On the
-    card: contiguous inputs, ``src`` int32, ``mask`` bool; the launch is
-    :func:`painn_fwd_plan`'s (the bf16 rows widened into the same f32 shared
-    memory), counted under ``painn_message_fused.bf16`` for bf16 ``xh``.  When autograd needs a
+    card: contiguous inputs, ``src`` int32, ``mask`` bool; f32 ``xh``
+    launches :func:`painn_fwd_plan`'s f32 kernel, bf16 ``xh``
+    ``csrc/painn_message_fused_bf16.cu`` (the filter product on the bf16
+    tensor cores, W packed by :func:`pack_painn_message_bf16`, the launch
+    :func:`painn_bf16_plan`'s, a pre-pass making the basis fragments once
+    into a scratch tensor; H a multiple of 4), counted under
+    ``painn_message_fused.bf16`` (one count a call).  When autograd needs a
     gradient the call goes through :class:`PainnMessageFused`, whose backward
     is :func:`painn_message_fused_bwd`; without one (sampling, ``no_grad``)
     it launches the forward kernel alone.
@@ -306,26 +312,39 @@ def _painn_message_fused_forward(
         return xh.new_empty((b, n, h)), xh.new_empty((b, n, 3, h))
     if k == 0:  # no slots: the sums are empty
         return xh.new_zeros((b, n, h), dtype=torch.float32), xh.new_zeros((b, n, 3, h), dtype=torch.float32)
-    plan = painn_fwd_plan(b, n, k, r, h, _sm_count(xh.device))
     dx = torch.empty((b, n, h), dtype=torch.float32, device=xh.device)
     dvec = torch.empty((b, n, 3, h), dtype=torch.float32, device=xh.device)
-    if variant != "f32":  # the TPU kernel's weights.astype(cdt): W in the features' dtype
-        weight = weight.to(xh.dtype)
+    shape = f"B, N, K, R, H = {b}, {n}, {k}, {r}, {h}"
+    if variant != "f32":
+        plan16 = painn_bf16_plan(b, n, k, r, h, _sm_count(xh.device))
+        scratch = torch.empty(plan16.scratch_bytes, dtype=torch.uint8, device=xh.device)
+        lib = _library("painn_message_fused_bf16", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float]
+                       + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p], ("mma", "mma_vf32"))
+        _launch(
+            "painn_message_fused_bf16", lib, xh.device,
+            xh.data_ptr(), vec.data_ptr(), src.data_ptr(), dist.data_ptr(), mask.data_ptr(), unit.data_ptr(),
+            pack_painn_message_bf16(weight).data_ptr(), bias.data_ptr(), dx.data_ptr(), dvec.data_ptr(),
+            scratch.data_ptr(), b, n, k, r, h, 1.0 / cutoff, int(envelope_exponent), plan16.tpb, plan16.w_stride,
+            plan16.smem_bytes, plan16.range_off, plan16.record_off, plan16.scratch_bytes, shape=shape,
+            variant="mma" if variant == "bf16" else "mma_vf32", count_as="painn_message_fused.bf16",
+        )
+        return dx, dvec
+    plan = painn_fwd_plan(b, n, k, r, h, _sm_count(xh.device))
     lib = _library("painn_message_fused", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-                   + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p], _MESSAGE_VARIANTS)
+                   + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     _launch(
         "painn_message_fused", lib, xh.device,
         xh.data_ptr(), vec.data_ptr(), src.data_ptr(), dist.data_ptr(), mask.data_ptr(),
         unit.data_ptr(), weight.data_ptr(), bias.data_ptr(), dx.data_ptr(), dvec.data_ptr(),
         b, n, k, r, h, 1.0 / cutoff, int(envelope_exponent), plan.tpb, int(plan.stage_w), int(plan.stage_rows),
-        plan.rows, plan.smem_bytes, shape=f"B, N, K, R, H = {b}, {n}, {k}, {r}, {h}", variant=variant,
-        count_as="painn_message_fused" + _count_suffix(variant),
+        plan.rows, plan.smem_bytes, shape=shape,
     )
     return dx, dvec
 
 
-# the message kernels' C entry points: f32 rows; bf16 xh and vec rows; bf16 xh with f32 vec rows (PaiNN's trunk in
-# bf16 from its second layer on: the f32 scale factor widens the vector features there, as in JAX)
+# the backward's C entry points (the forward's bf16 kernel has its own source): f32 rows; bf16 xh and vec rows; bf16
+# xh with f32 vec rows (PaiNN's trunk in bf16 from its third layer on: the f32 scale factor widens the vector
+# features there, as in JAX)
 _MESSAGE_VARIANTS = ("f32", "bf16", "bf16_vf32")
 
 
@@ -458,6 +477,125 @@ def painn_fwd_windows(dist: torch.Tensor, mask: torch.Tensor, src: torch.Tensor,
     lo = torch.where(reach, torch.clamp(bins - 14, min=0), torch.full_like(bins, r)).amin(-1)
     hi = torch.where(reach, torch.clamp(bins + 15, max=r - 1), torch.full_like(bins, -1)).amax(-1)
     return lo, hi
+
+
+# csrc/painn_message_fused_bf16.cu's constants: warps a block (one a target), columns h a block (in each H-block),
+# W^T rows a block (its six m16 tiles), slots a tile, blocks an SM its launch bounds ask for, tiles a warp of the
+# pre-pass takes; the bytes of a chunk's B fragment (32 lanes x 8), of a chunk range and of a slot record; the most
+# dynamic shared memory a block may take, and what an SM holds with its reservation
+_PB16_WARPS, _PB16_COLS, _PB16_WROWS, _PB16_TILE, _PB16_PER_SM, _PB16_ITEMS = 8, 32, 96, 8, 2, 4
+_PB16_FRAG, _PB16_RANGE, _PB16_RECORD = 256, 8, 16
+_PB16_SMEM, _PB16_SMEM_SM, _PB16_RESERVED = 232448, 233472, 1024
+
+
+class MessageBf16Plan(NamedTuple):
+    """How :func:`painn_message_fused` with bf16 ``xh`` is launched
+    (``csrc/painn_message_fused_bf16.cu``).  Its pre-pass takes one warp 4
+    tiles of 8 slots (``tiles`` a target, ``basis_blocks`` blocks of 8
+    warps).
+    Block ``(x, y)`` of the main kernel takes targets ``[x * tpb, (x + 1) *
+    tpb)`` of the ``B * N`` (any systems) and the 32 columns ``y * 32 ..``
+    of each H-block; ``blocks`` = target ranges x ``slices`` of ``threads``
+    threads, ``per_sm`` of them an SM (the kernel's launch bounds ask for
+    two, where their shared memory fits), ``waves`` = blocks / (SMs x
+    per_sm), ``load``: targets its busiest warp takes one after another.
+    The layouts, which the C entry checks against what the kernels read and
+    write: shared memory holds W^T's 96 rows of ``w_stride`` bf16,
+    ``smem_bytes`` in all; the scratch (``scratch_bytes``) the B fragments
+    (``chunks`` of 256 bytes a tile) from byte 0, the tiles' chunk ranges
+    from ``range_off`` and their slot records from ``record_off``."""
+
+    tpb: int
+    slices: int
+    blocks: int
+    threads: int
+    per_sm: int
+    waves: float
+    load: int
+    w_stride: int
+    smem_bytes: int
+    tiles: int
+    chunks: int
+    basis_blocks: int
+    range_off: int
+    record_off: int
+    scratch_bytes: int
+
+
+@functools.lru_cache(maxsize=64)
+def painn_bf16_plan(b: int, n: int, k: int, r: int, h: int, sms: int) -> MessageBf16Plan:
+    """``csrc/painn_message_fused_bf16.cu``'s launch for ``b`` systems of
+    ``n`` targets, ``k`` slots, ``r`` radial functions and ``h`` columns on
+    a card of ``sms`` SMs.  The target range ``tpb`` (a multiple of the 8
+    warps, or all targets) minimises ``ceil(waves) * (load + 1)`` (a block's
+    W^T staging counted as one more target), ties to fewer blocks: at the
+    sampling shape 80 targets, 10 a warp, 256 blocks in one wave of two an
+    SM.  Refuses ``k < 1``, ``r < 2``, ``h`` not a multiple of 4 and an
+    ``r`` whose W^T slice does not fit one block's shared memory (past
+    1200)."""
+    chunks = _cdiv(r, 16)
+    w_stride = _odd_stride(16 * chunks)
+    smem = 2 * _PB16_WROWS * w_stride
+    slices = _cdiv(h, _PB16_COLS)
+    if k < 1 or r < 2 or h % 4 or smem > _PB16_SMEM or slices > 65535:
+        raise ValueError(f"painn_message_fused.bf16: no launch for B, N, K, R, H = {b}, {n}, {k}, {r}, {h} (the "
+                         f"kernel takes K >= 1, 2 <= R <= 1200 and H a multiple of 4 up to {65535 * _PB16_COLS})")
+    t, tiles = b * n, _cdiv(k, _PB16_TILE)
+    items = t * tiles
+    range_off = items * chunks * _PB16_FRAG
+    record_off = _round_up(range_off + items * _PB16_RANGE, 16)
+    per_sm = max(1, min(_PB16_PER_SM, _PB16_SMEM_SM // (smem + _PB16_RESERVED)))
+    best = None
+    for tpb in sorted(set(range(_PB16_WARPS, t, _PB16_WARPS)) | {t}):
+        blocks = _cdiv(t, tpb) * slices
+        load = _cdiv(tpb, _PB16_WARPS)
+        key = (_cdiv(blocks, sms * per_sm) * (load + 1), blocks)
+        if best is None or key < best[0]:
+            best = key, tpb, blocks, load
+    _, tpb, blocks, load = best
+    return MessageBf16Plan(tpb=tpb, slices=slices, blocks=blocks, threads=32 * _PB16_WARPS, per_sm=per_sm,
+                           waves=blocks / (sms * per_sm), load=load, w_stride=w_stride, smem_bytes=smem, tiles=tiles,
+                           chunks=chunks, basis_blocks=_cdiv(items, _PB16_WARPS * _PB16_ITEMS), range_off=range_off,
+                           record_off=record_off, scratch_bytes=record_off + items * _PB16_TILE * _PB16_RECORD)
+
+
+@functools.lru_cache(maxsize=16)
+def _bf16_w_columns(h: int, device: torch.device) -> torch.Tensor:
+    """The W column of each of :func:`pack_painn_message_bf16`'s W^T rows,
+    ``[slices, 96]``, ``3 H`` where the column is past H (a zero row)."""
+    slices = _cdiv(h, _PB16_COLS)
+    m = np.arange(_PB16_COLS)
+    hh = 4 * (m % 8) + 2 * (m // 16) + (m // 8) % 2  # row 16 q + i of H-block j: column 4 (i % 8) + 2 q + i // 8
+    cols = np.arange(slices)[:, None, None] * _PB16_COLS + hh[None, None, :]  # [slices, 1, 32]
+    w_col = np.arange(3)[None, :, None] * h + cols
+    return torch.from_numpy(np.where(cols < h, w_col, 3 * h).reshape(slices, _PB16_WROWS)).to(device)
+
+
+def pack_painn_message_bf16(weight: torch.Tensor) -> torch.Tensor:
+    """W ``[R, 3H]`` rounded to bf16 (the TPU kernel's ``weights.astype(cdt)``)
+    as ``csrc/painn_message_fused_bf16.cu``'s W^T slices, ``[ceil(H / 32),
+    96, w_stride]`` bf16: row ``32 j + 16 q + i`` of slice ``s`` is W's column
+    ``j H + 32 s + 4 (i % 8) + 2 q + i // 8`` (so lane 4g + t of an m16n8k16
+    C fragment holds four consecutive columns of each H-block), zero past R
+    and past H; ``w_stride`` (:func:`painn_bf16_plan`) an odd number of
+    16-byte chunks.  One gather of the padded, transposed W."""
+    r, f3 = weight.shape
+    h = f3 // 3
+    w_stride = _odd_stride(_round_up(r, 16))
+    wt = torch.zeros((f3 + 1, w_stride), dtype=torch.bfloat16, device=weight.device)
+    wt[:f3, :r] = weight.t()
+    return wt[_bf16_w_columns(h, weight.device)]
+
+
+def painn_bf16_chunks(dist: torch.Tensor, mask: torch.Tensor, src: torch.Tensor, r: int,
+                      cutoff: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 kernel's chunk rule, in Python: ``(first, last)`` ``[B, N,
+    G]`` (G = ceil(K / 8)), the 16-row chunks of the basis each tile of 8
+    consecutive slots multiplies: those that :func:`painn_fwd_windows`'s
+    window of the tile (the union of its valid slots' reach) touches; ``last
+    < first`` where no slot of the tile reaches a row."""
+    lo, hi = painn_fwd_windows(dist, mask, src, r, cutoff)
+    return lo // 16, torch.div(hi, 16, rounding_mode="floor")
 
 
 def _message_shape(kernel: str, tensors: dict) -> Tuple[int, int, int, int, int]:

@@ -284,9 +284,14 @@ Phases; any failure raises and the exit code is then non-zero:
    steps printed with its file and line).
 25. the bf16 variants (ROADMAP A.8 step 1) against their bf16 plain
    versions on the card: painn_message_fused with bf16 xh and bf16 or f32
-   vec at the sampling shape on the bench graph (B=16) and at two ragged
-   shapes of phase 3, |kernel - plain| <= 1e-3 * max|plain| + 1e-5 (f32
-   outputs); painn_message_fused_bwd at the training shape (B=48, the bench
+   vec (csrc/painn_message_fused_bf16.cu, the filter product on the bf16
+   tensor cores) at the sampling shape on the bench graph (B=16) and at
+   six ragged shapes (two of phase 3; K = 1; K = 17 with R = 21 and H = 40,
+   its slots past the cutoff carrying the bias; N = 1; sources out of
+   range), each in both vec dtypes, |kernel - plain| <= 1e-3 * max|plain| +
+   1e-5 (f32 outputs), printed with its plan, its ptxas lines, its device
+   time behind a sleep and the f32 kernel's time on the same values
+   widened; painn_message_fused_bwd at the training shape (B=48, the bench
    graph) and the same two ragged shapes, the same gate;
    masked_legendre_cos's grouped call of one bf16 GemNet-OC forward at B=8
    (bf16 outputs) and two ragged groups, 4e-3 * max|plain| + 1e-5 (one bf16
@@ -3164,15 +3169,41 @@ def bf16_message_inputs(gen, device, shape, cutoff, nl=None, unit=None, vec_bf16
     return inputs
 
 
-def check_bf16_message(device, gen, shape, cutoff, nl=None, unit=None, vec_bf16=True):
+def bf16_plan_line(plan):
+    return (f"plan: pre-pass {plan.basis_blocks} blocks of 8 warps, 4 tiles a warp ({plan.tiles} tiles of 8 slots a "
+            f"target, up to {plan.chunks} chunks a tile, {plan.scratch_bytes / 1e6:.2f} MB scratch); main kernel "
+            f"{plan.tpb} targets a block, {plan.blocks // plan.slices} ranges x {plan.slices} slices of 32 columns = "
+            f"{plan.blocks} blocks x {plan.threads} threads, {plan.per_sm} an SM, {plan.waves:.2f} waves, {plan.load} "
+            f"targets on a block's busiest warp, {plan.smem_bytes} B shared (W^T rows of {plan.w_stride} bf16)")
+
+
+def chunk_ratio(inputs, cutoff):
+    """Basis rows the bf16 forward kernel multiplies (each 8-slot tile's
+    16-row chunks, kernels.painn_bf16_chunks, times its valid slots) over
+    the non-zero basis values those slots need."""
+    src, dist, mask = inputs["src"], inputs["dist"], inputs["mask"]
+    b, n, k = src.shape
+    first, last = kernels.painn_bf16_chunks(dist, mask, src, inputs["weight"].shape[0], cutoff)
+    valid = mask & (src >= 0) & (src < n)
+    per_tile = torch.nn.functional.pad(valid, (0, first.shape[-1] * 8 - k)).reshape(b, n, -1, 8).sum(-1)
+    _, rows = basis_rows(inputs, cutoff)
+    return float((16 * torch.clamp(last - first + 1, min=0) * per_tile).sum()) / rows
+
+
+def check_bf16_message(device, gen, shape, cutoff, nl=None, unit=None, vec_bf16=True, fill=None):
+    """The bf16 forward against its plain version; ``fill`` as
+    message_fill's."""
     inputs = bf16_message_inputs(gen, device, shape, cutoff, nl, unit, vec_bf16)
+    plain = message_fill(inputs, fill, shape[1], cutoff)
     before = dict(kernels.launches)
     got = kernels.painn_message_fused(**inputs, cutoff=cutoff)
     torch.cuda.synchronize()
     if launches_since(before) != bf16_launches("painn_message_fused", 1):
         raise AssertionError(f"painn_message_fused with bf16 xh launched {launches_since(before)}")
-    err = check_bf16(f"painn_message_fused.bf16 b,n,k,r,h={shape} vec {'bf16' if vec_bf16 else 'f32'}", got,
-                     kernels.painn_message_fused_reference(**inputs, cutoff=cutoff))
+    plan = kernels.painn_bf16_plan(*shape, kernels._sm_count(device))
+    err = check_bf16(f"painn_message_fused.bf16 b,n,k,r,h={shape} vec {'bf16' if vec_bf16 else 'f32'}"
+                     f"{' ' + fill if fill else ''} ({bf16_plan_line(plan)})", got,
+                     kernels.painn_message_fused_reference(**plain, cutoff=cutoff))
     return inputs, got, err
 
 
@@ -3211,10 +3242,13 @@ REPLACES = {"painn_message_fused": "adsorbdiff_tpu/ops/pallas_kernels.py:336",
             "gemnet_quad_chain": "adsorbdiff_tpu/ops/pallas_kernels.py:1728"}
 
 
-def bf16_row(name, err, ms, plain_ms, bound_ms, bound_by, **extra):
-    """A bf16 variant's kernels-line row (its launches filled in by main)."""
-    return dict(name=name + ".bf16", source=f"adsorbdiff_tpu_torch/csrc/{name}.cu", replaces=REPLACES[name],
-                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, **extra)
+def bf16_row(name, err, ms, plain_ms, bound_ms, bound_by, source=None, **extra):
+    """A bf16 variant's kernels-line row (its launches filled in by main);
+    ``source``: the file under csrc/ without ``.cu`` where it is not the f32
+    kernel's."""
+    return dict(name=name + ".bf16", source=f"adsorbdiff_tpu_torch/csrc/{source or name}.cu",
+                replaces=REPLACES[name], launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, **extra)
 
 
 def bf16_kernel_checks(device, gen, systems, relax_model):
@@ -3233,20 +3267,32 @@ def bf16_kernel_checks(device, gen, systems, relax_model):
     nl, _, unit = generate_graph(batch, cutoff=cutoff, max_neighbors=k, cell_reps=MODEL_KW["cell_reps"])
     shape = (batch.batch_size, batch.max_atoms, k, r, h)
     inputs, outputs, err = check_bf16_message(device, gen, shape, cutoff, nl, unit)
-    err = max(err, check_bf16_message(device, gen, shape, cutoff, nl, unit, vec_bf16=False)[2])
-    for ragged in ((2, 13, 10, 16, 64), (1, 37, 45, 128, 192)):
-        err = max(err, check_bf16_message(device, gen, ragged, 6.0)[2])
-    ms = cuda_ms(lambda: kernels.painn_message_fused(**inputs, cutoff=cutoff), 20)
+    inputs_vf32, _, err_vf32 = check_bf16_message(device, gen, shape, cutoff, nl, unit, vec_bf16=False)
+    err = max(err, err_vf32)
+    # two ragged shapes of phase 3; K = 1; K = 17 with R = 21, H = 40 and slots past the cutoff; N = 1; sources
+    # out of range; each in both entries
+    for ragged, fill in (((2, 13, 10, 16, 64), None), ((1, 37, 45, 128, 192), None), ((2, 13, 1, 16, 64), None),
+                         ((2, 13, 17, 21, 40), "past-cutoff"), ((3, 1, 6, 16, 64), None),
+                         ((2, 13, 10, 16, 64), "bad-src")):
+        for vec_bf16 in (True, False):
+            err = max(err, check_bf16_message(device, gen, ragged, 6.0, vec_bf16=vec_bf16, fill=fill)[2])
+    ms = cuda_ms(lambda: kernels.painn_message_fused(**inputs, cutoff=cutoff), 200)
+    dev_ms = device_ms(lambda: kernels.painn_message_fused(**inputs, cutoff=cutoff), 50)
+    ms_vf32 = cuda_ms(lambda: kernels.painn_message_fused(**inputs_vf32, cutoff=cutoff), 200)
+    widened = dict(inputs, xh=inputs["xh"].float(), vec=inputs["vec"].float())
+    f32_ms = cuda_ms(lambda: kernels.painn_message_fused(**widened, cutoff=cutoff), 200)
     plain_ms = cuda_ms(lambda: kernels.painn_message_fused_reference(**inputs, cutoff=cutoff), 5)
     bound_ms, bound_by, nbytes, flops = message_bound_ms(inputs, outputs, cutoff)
-    print(f"[kernel] painn_message_fused.bf16 at {shape} (xh, vec bf16): {ms:.4f} ms (the wrapper's W cast "
-          f"included), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops_text(flops, True)}, "
-          f"{nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}% of the bound; "
-          f"{fwd_plan_line(kernels.painn_fwd_plan(*shape, kernels._sm_count(device)))}; ptxas (bf16 instances): "
-          f"{' | '.join(ptxas_lines('painn_message_fused', '__nv_bfloat16')) or 'not built in this process'}",
-          flush=True)
-    rows.append(bf16_row("painn_message_fused", err, ms, plain_ms, bound_ms, bound_by))
-    del inputs, outputs
+    print(f"[kernel] painn_message_fused.bf16 at {shape} (xh, vec bf16): {ms:.4f} ms wall back to back (the "
+          f"wrapper's W pack included), {dev_ms:.4f} ms on the device; vec f32 {ms_vf32:.4f} ms; the f32 kernel on "
+          f"the same values widened {f32_ms:.4f} ms; plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+          f"({flops_text(flops, True)}, {nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}% of the bound; its chunks "
+          f"multiply {chunk_ratio(inputs, cutoff):.3f}x the non-zero basis rows; "
+          f"{bf16_plan_line(kernels.painn_bf16_plan(*shape, kernels._sm_count(device)))}; ptxas: "
+          f"{' | '.join(ptxas_lines('painn_message_fused_bf16')) or 'not built in this process'}", flush=True)
+    rows.append(bf16_row("painn_message_fused", err, ms, plain_ms, bound_ms, bound_by,
+                         source="painn_message_fused_bf16", device_ms=dev_ms, vf32_ms=ms_vf32, f32_kernel_ms=f32_ms))
+    del inputs, outputs, inputs_vf32, widened
 
     # painn_message_fused_bwd: the training shape (B=48) on the bench graph
     big = collate(bench_systems(TRAIN_BATCH), max_atoms=80, device=device)

@@ -1026,6 +1026,79 @@ def test_bf16_message_wrapper_refuses_f32_xh_with_bf16_vec(cuda_device):
         painn_message_fused(**dict(inputs, vec=inputs["vec"].to(BF16)), cutoff=6.0)
 
 
+# the bf16 forward's own kernel (csrc/painn_message_fused_bf16.cu) at ragged shapes: K = 1 and 17 (a tile of one
+# slot, a pass of one tile), R = 21 (a chunk half past R), H = 40 (a slice of 8 columns), N = 1
+BF16_RAGGED = {"k1": (2, 13, 1, 16, 64), "k17-r21-h40": (2, 13, 17, 21, 40), "n1": (3, 1, 6, 16, 64),
+               "k45-h192": (1, 37, 45, 128, 192)}
+
+
+def _message_fill(inputs, fill, n):
+    """chip_smoke.py's message_fill: "bad-src" (sources -1 and N + 5 on
+    unmasked slots) or "past-cutoff" (every slot of system 0 unmasked, every
+    other one at or past the cutoff); returns the plain version's inputs."""
+    if fill == "bad-src":
+        inputs["src"][..., ::7] = -1
+        inputs["src"][..., 3::11] = n + 5
+    elif fill == "past-cutoff":
+        inputs["mask"][0] = True
+        far = inputs["dist"][0, :, ::2]
+        far.copy_(torch.linspace(1.0, 1.5, far.numel(), device=far.device).reshape(far.shape) * 6.0)
+    ok = (inputs["src"] >= 0) & (inputs["src"] < n)
+    return dict(inputs, src=torch.where(ok, inputs["src"], 0), mask=inputs["mask"] & ok)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(BF16_RAGGED.values()), ids=list(BF16_RAGGED))
+@pytest.mark.parametrize("fill", [None, "bad-src", "past-cutoff"])
+@pytest.mark.parametrize("vec_bf16", [True, False], ids=["vec-bf16", "vec-f32"])
+def test_bf16_message_kernel_matches_plain_version_at_ragged_shapes_on_card(cuda_device, shape, fill, vec_bf16):
+    """Both entries of the bf16 forward kernel, one launch each, |kernel -
+    plain| <= 1e-3 * max|plain| + 1e-5, with sources out of range and slots
+    past the cutoff (which add xh * bias)."""
+    b, n, k, r, h = shape
+    inputs = _torch(_inputs(70, *shape), cuda_device)
+    inputs["xh"] = inputs["xh"].to(BF16)
+    if vec_bf16:
+        inputs["vec"] = inputs["vec"].to(BF16)
+    plain = _message_fill(inputs, fill, n)
+    before = dict(kernels.launches)
+    got = painn_message_fused(**inputs, cutoff=6.0)
+    torch.cuda.synchronize()
+    assert {k: v - before.get(k, 0) for k, v in kernels.launches.items() if v != before.get(k, 0)} == {
+        "painn_message_fused.bf16": 1}
+    _bf16_err(got, painn_message_fused_reference(**plain, cutoff=6.0), 1e-3)
+
+
+@pytest.mark.cuda
+def test_bf16_message_wrapper_raises_instead_of_falling_back(cuda_device, monkeypatch):
+    """A bf16 xh on the card launches the bf16 kernel or raises: H not a
+    multiple of 4, a misaligned row pointer and a plan whose shared-memory or
+    scratch layout the C entry refuses all raise, and neither the plain
+    version nor the f32 kernel runs."""
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the wrapper fell back to the plain version")
+
+    monkeypatch.setattr(kernels, "painn_message_fused_reference", no_plain)
+    inputs = _torch(_inputs(71, *RAGGED), cuda_device)
+    inputs["xh"] = inputs["xh"].to(BF16)
+    before = dict(kernels.launches)
+    odd = _torch(_inputs(72, 2, 13, 10, 16, 42), cuda_device)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        painn_message_fused(**dict(odd, xh=odd["xh"].to(BF16)), cutoff=6.0)
+    shifted = torch.empty(inputs["xh"].numel() + 1, dtype=BF16, device=cuda_device)[1:].view(inputs["xh"].shape)
+    shifted.copy_(inputs["xh"])
+    with pytest.raises(RuntimeError, match="painn_message_fused_bf16 launch failed"):
+        painn_message_fused(**dict(inputs, xh=shifted), cutoff=6.0)
+    plan = kernels.painn_bf16_plan(*RAGGED, kernels._sm_count(cuda_device))
+    for bad in (plan._replace(smem_bytes=plan.smem_bytes + 16), plan._replace(w_stride=plan.w_stride + 8),
+                plan._replace(scratch_bytes=plan.scratch_bytes - 16), plan._replace(record_off=plan.range_off)):
+        monkeypatch.setattr(kernels, "painn_bf16_plan", lambda *args, bad=bad: bad)
+        with pytest.raises(RuntimeError, match="painn_message_fused_bf16 launch failed"):
+            painn_message_fused(**inputs, cutoff=6.0)
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [QUAD_RELAX, QUAD_RAGGED, QUAD_E40_F48, QUAD_UNALIGNED],
                          ids=["relax-shape", "ragged", "e40-f48", "unaligned-sqf"])
