@@ -39,9 +39,10 @@ Parameter names follow the JAX module tree
 ``attn_3/so2_conv_1/fc_m0/kernel``), not the AdsorbDiff reference's: the JAX
 package keeps its SO(2) and radial weights in another basis and layout than
 the reference (a per-l change of basis, m-primary rows, fused group kernels),
-so a reference ``.pt`` would not load into these names.
+so a reference ``.pt`` does not load into these names as it is.
 :func:`eqv2_state_dict_from_jax` converts a JAX variable tree with plain
-transposes.
+transposes, and ``adsorbdiff_tpu_torch/train/torch_import.py`` a reference
+state dict (the basis change, then that function).
 
 ``compute_dtype="bfloat16"`` (the trainers' ``amp``) is the JAX model's bf16
 path: it casts where that model casts and keeps the rest f32 (the geometry,
@@ -54,8 +55,11 @@ and the FFN's grid MLP (its three Dense layers, SiLUs and the product back
 from the grid, then ``so3_linear_2``); the SO3Linear layers that take f32
 inputs round input and weight to bf16 and sum in f32.  The outputs are f32.
 
-Not ported yet (raises ``NotImplementedError``): ``grid_mode="e3nn"``
-(reference checkpoint imports, ROADMAP A.10).
+``grid_mode`` picks the S^2 quadrature of every S^2 activation and grid
+MLP: ``"gauss"`` (the training default) or ``"e3nn"``, the soft grid with the
+component scale that reference (e3nn-trained) checkpoints need
+(:func:`adsorbdiff_tpu_torch.models.so3.s2_grid_matrices`); the kernels take
+either set of tables.
 """
 from __future__ import annotations
 
@@ -151,15 +155,16 @@ def _jax_dense(linear: nn.Linear) -> Dict[str, torch.Tensor]:
     return tree
 
 
-def s2_act_matrices(lmax: int, mmax: int, grid_res: int) -> Tuple[np.ndarray, np.ndarray]:
+def s2_act_matrices(lmax: int, mmax: int, grid_res: int, grid_mode: str = "gauss") -> Tuple[np.ndarray, np.ndarray]:
     """The attention's S^2 activation matrices ``(to_eff [G, n_act], from_eff
-    [n_act, G])``: the grid matrices on the truncated m-primary rows with the
+    [n_act, G])``: the grid matrices of ``grid_mode`` (with e3nn's component
+    scale already in them) on the truncated m-primary rows with the
     m-truncation rescale folded in, as f32 products (the JAX model's
     ``equiformer_v2.py:607-618``)."""
     order, ranges = m_primary_order(lmax, mmax)
     keep = order[: ranges[-1][1]]
     rescale = m_trunc_rescale(lmax, mmax)[keep]
-    to_grid, from_grid = s2_grid_matrices(lmax, grid_res, grid_res)
+    to_grid, from_grid = s2_grid_matrices(lmax, grid_res, grid_res, grid_mode)
     return (np.ascontiguousarray(to_grid[:, keep] * rescale[None, :]),
             np.ascontiguousarray(rescale[:, None] * from_grid[keep, :]))
 
@@ -316,14 +321,14 @@ class GridMLPFFN(nn.Module):
     ``so3_linear_2``: the output is in ``cdt``."""
 
     def __init__(self, lmax: int, c_in: int, hidden: int, c_out: int, grid_res: int = 18,
-                 cdt: Optional[torch.dtype] = None) -> None:
+                 cdt: Optional[torch.dtype] = None, grid_mode: str = "gauss") -> None:
         super().__init__()
         self.scalar_mlp = nn.Linear(c_in, hidden)
         self.so3_linear_1 = SO3Linear(c_in, hidden, lmax, cdt)
         for i in range(3):
             self.add_module(f"grid_mlp_{i}", Linear(hidden, hidden, bias=False, cdt=cdt))
         self.so3_linear_2 = SO3Linear(hidden, c_out, lmax, cdt)
-        to_grid, from_grid = s2_grid_matrices(lmax, grid_res, grid_res)
+        to_grid, from_grid = s2_grid_matrices(lmax, grid_res, grid_res, grid_mode)
         self.register_buffer("to_grid", torch.from_numpy(to_grid), persistent=False)
         self.register_buffer("from_grid", torch.from_numpy(from_grid), persistent=False)
 
@@ -348,7 +353,7 @@ class SO2Attention(nn.Module):
     def __init__(self, lmax: int, mmax: int, channels: int, attn_hidden: int, num_heads: int, attn_alpha: int,
                  attn_value: int, c_out: int, max_num_elements: int, rad_channels: Tuple[int, ...],
                  grid_res: int = 18, cutoff: float = 12.0, num_gauss: int = 600, alpha_drop: float = 0.0,
-                 cdt: Optional[torch.dtype] = None) -> None:
+                 cdt: Optional[torch.dtype] = None, grid_mode: str = "gauss") -> None:
         super().__init__()
         self.lmax, self.mmax, self.cdt = lmax, mmax, cdt
         self.alpha_drop = alpha_drop
@@ -366,7 +371,7 @@ class SO2Attention(nn.Module):
         self.alpha_dot = nn.Parameter(torch.empty(num_heads, attn_alpha))
         self.proj = SO3Linear(num_heads * attn_value, c_out, lmax, cdt)
 
-        to_eff, from_eff = s2_act_matrices(lmax, mmax, grid_res)
+        to_eff, from_eff = s2_act_matrices(lmax, mmax, grid_res, grid_mode)
         self.register_buffer("to_eff", torch.from_numpy(to_eff), persistent=False)
         self.register_buffer("from_eff", torch.from_numpy(from_eff), persistent=False)
         self.register_buffer("rescale_out", torch.from_numpy(m_trunc_rescale(lmax, mmax)), persistent=False)
@@ -416,12 +421,12 @@ class TransBlock(nn.Module):
     (the JAX model's ``{norm_attn,attn,norm_ffn,ffn}_{i}``)."""
 
     def __init__(self, lmax: int, channels: int, attn: SO2Attention, ffn_hidden: int, grid_res: int,
-                 cdt: Optional[torch.dtype] = None) -> None:
+                 cdt: Optional[torch.dtype] = None, grid_mode: str = "gauss") -> None:
         super().__init__()
         self.norm_attn = EquivariantLayerNormSH(lmax, channels)
         self.attn = attn
         self.norm_ffn = EquivariantLayerNormSH(lmax, channels)
-        self.ffn = GridMLPFFN(lmax, channels, ffn_hidden, channels, grid_res, cdt)
+        self.ffn = GridMLPFFN(lmax, channels, ffn_hidden, channels, grid_res, cdt, grid_mode)
 
 
 @registry.register_model("equiformer_v2")
@@ -491,15 +496,16 @@ class EquiformerV2(nn.Module):
         device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.cdt = cdt = resolve_compute_dtype(compute_dtype)
-        if grid_mode != "gauss":
-            raise NotImplementedError(f"EquiformerV2 grid_mode={grid_mode!r} serves reference-checkpoint imports, "
-                                      "not ported yet (ROADMAP A.10)")
+        if grid_mode not in ("gauss", "e3nn"):
+            raise ValueError(f"unknown EquiformerV2 grid_mode {grid_mode!r}")
+        self.grid_mode = grid_mode
         if mode not in ("denoising", "s2ef"):
             raise ValueError(f"unknown EquiformerV2 mode {mode!r}")
         if energy_encoding not in (None, "scalar"):
             raise ValueError(f"unknown energy_encoding {energy_encoding!r}")
         self.num_layers = num_layers
         self.sphere_channels = sphere_channels
+        self.ffn_hidden_channels, self.edge_channels = ffn_hidden_channels, edge_channels
         self.lmax, self.mmax = lmax, mmax
         self.cutoff = cutoff
         self.max_neighbors = max_neighbors
@@ -526,7 +532,7 @@ class EquiformerV2(nn.Module):
         def attention(c_out, alpha_drop=0.0):  # the force heads drop nothing, as in JAX
             return SO2Attention(lmax, mmax, c, attn_hidden_channels, num_heads, attn_alpha_channels,
                                 attn_value_channels, c_out, max_num_elements, rad, grid_resolution, cutoff,
-                                num_distance_basis, alpha_drop, cdt)
+                                num_distance_basis, alpha_drop, cdt, grid_mode)
 
         self.sphere_embedding = nn.Embedding(max_num_elements, c)
         if energy_encoding == "scalar":
@@ -535,12 +541,12 @@ class EquiformerV2(nn.Module):
         self.edge_degree_target_embedding = nn.Embedding(max_num_elements, edge_channels)
         self.edge_degree_rad_func = RadialFunction(rad + (n0 * c,))
         self.blocks = nn.ModuleList(
-            TransBlock(lmax, c, attention(c, alpha_drop), ffn_hidden_channels, grid_resolution, cdt)
+            TransBlock(lmax, c, attention(c, alpha_drop), ffn_hidden_channels, grid_resolution, cdt, grid_mode)
             for _ in range(num_layers))
         self.norm_final = EquivariantLayerNormSH(lmax, c)
         self.force_block = attention(1)
         if mode == "s2ef":
-            self.energy_block = GridMLPFFN(lmax, c, ffn_hidden_channels, 1, grid_resolution, cdt)
+            self.energy_block = GridMLPFFN(lmax, c, ffn_hidden_channels, 1, grid_resolution, cdt, grid_mode)
         elif so3_denoising and for_denoising:
             self.force_block2 = attention(1)
         scale = 1.0 if radii_pm_bug_compat else 0.01

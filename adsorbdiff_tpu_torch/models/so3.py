@@ -5,7 +5,8 @@ Port of :mod:`adsorbdiff_tpu.models.so3`.  The numpy tables are this module's
 own copies of the JAX package's (same code, so the same bits): the real-SH
 basis (z-up, Condon-Shortley absorbed), the fixed change of frame ``J = D(Q)``
 solved by least squares, the truncated m-primary layout (19 active rows at
-lmax 4 / mmax 2), and the Gauss-Legendre S^2 grid.  These are what trained
+lmax 4 / mmax 2), and both S^2 grids (Gauss-Legendre, and the e3nn soft grid
+that reference checkpoints were trained with).  These are what trained
 weights mean, so nothing here may change them.
 
 The torch functions apply the edge-frame rotation ``P D(R_e) = (P J) Dz(beta)
@@ -13,10 +14,6 @@ J^T Dz(gamma)`` (alpha = 0 gauge) as per-edge elementwise +-m mixing between
 shared constant matmuls, never building per-edge Wigner matrices.  Their
 constants live on the device in a cache keyed by table and device, so a
 rotation copies nothing from the host after its first call.
-
-``s2_grid_matrices(mode="e3nn")`` (the reference-checkpoint quadrature)
-raises ``NotImplementedError``: it serves checkpoint imports, which are not
-ported yet (ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -219,32 +216,78 @@ def l_expand_matrix(lmax: int) -> np.ndarray:
     return e
 
 
+def soft_grid_weights(res_beta: int) -> np.ndarray:
+    """Beta quadrature weights of the midpoint grid ``(j + 0.5) / n * pi``:
+    the unique weights with ``sum_j w_j P_l(cos beta_j) = 2 delta_{l0}`` for
+    l = 0..res_beta-1 (the Legendre-Vandermonde moment system, float64).  By
+    the Driscoll-Healy theorem they are the SOFT weights e3nn's soft grid
+    uses (up to its global rescale, which its normalisation folds out)."""
+    betas = (np.arange(res_beta) + 0.5) / res_beta * np.pi
+    ct = np.cos(betas)
+    p = np.zeros((res_beta, res_beta))  # P_l(cos beta_j), rows l, by the recurrence
+    p[0] = 1.0
+    if res_beta > 1:
+        p[1] = ct
+    for l in range(2, res_beta):
+        p[l] = ((2 * l - 1) * ct * p[l - 1] - (l - 1) * p[l - 2]) / l
+    rhs = np.zeros(res_beta)
+    rhs[0] = 2.0
+    return np.linalg.solve(p, rhs)
+
+
 @functools.lru_cache(maxsize=16)
 def s2_grid_matrices(lmax: int, res_beta: int, res_alpha: int,
                      mode: str = "gauss") -> Tuple[np.ndarray, np.ndarray]:
-    """(to_grid [G, (L)^2], from_grid [(L)^2, G]) with from @ to == I:
-    Gauss-Legendre nodes in cos(beta) x uniform alpha, 'integral'-normalised
-    basis (the JAX package's ``mode="gauss"``, bit for bit)."""
-    if mode == "e3nn":
-        raise NotImplementedError(
-            "s2_grid_matrices(mode='e3nn') serves reference-checkpoint imports, not ported yet (ROADMAP A.10)")
-    if mode != "gauss":
-        raise ValueError(f"unknown s2 grid mode {mode!r}")
+    """(to_grid [G, (L)^2], from_grid [(L)^2, G]) with from @ to == I, the
+    JAX package's tables bit for bit.
+
+    ``mode="gauss"``: Gauss-Legendre nodes in cos(beta) x uniform alpha,
+    'integral'-normalised basis (the training default).
+
+    ``mode="e3nn"``: e3nn's ``ToS2Grid``/``FromS2Grid`` with
+    ``normalization="component"``, as the reference's ``SO3_Grid`` builds
+    them, expressed in this module's real-SH basis: midpoint betas, uniform
+    alphas, e3nn's y-up points (x = sin b sin a, y = cos b, z = sin b cos a),
+    :func:`soft_grid_weights`, and the component scale ``c_l = sqrt(4 pi /
+    ((2l+1)(lmax+1)))`` multiplying ``to_grid``'s columns and dividing
+    ``from_grid``'s rows.  ``c_l`` reaches the pointwise SiLU, so it is part
+    of the model function of every e3nn-trained checkpoint.
+    """
     alphas = np.linspace(0, 2 * np.pi, res_alpha, endpoint=False)
-    ct, w_beta = np.polynomial.legendre.leggauss(res_beta)
-    st = np.sqrt(1 - ct**2)
-    pts = np.stack(
-        [
-            np.outer(st, np.cos(alphas)).ravel(),
-            np.outer(st, np.sin(alphas)).ravel(),
-            np.outer(ct, np.ones_like(alphas)).ravel(),
-        ],
-        axis=-1,
-    )
+    if mode == "e3nn":
+        betas = (np.arange(res_beta) + 0.5) / res_beta * np.pi
+        ct, st = np.cos(betas), np.sin(betas)
+        pts = np.stack(
+            [
+                np.outer(st, np.sin(alphas)).ravel(),
+                np.outer(ct, np.ones_like(alphas)).ravel(),
+                np.outer(st, np.cos(alphas)).ravel(),
+            ],
+            axis=-1,
+        )
+        w_beta = soft_grid_weights(res_beta)
+    elif mode == "gauss":
+        ct, w_beta = np.polynomial.legendre.leggauss(res_beta)
+        st = np.sqrt(1 - ct**2)
+        pts = np.stack(
+            [
+                np.outer(st, np.cos(alphas)).ravel(),
+                np.outer(st, np.sin(alphas)).ravel(),
+                np.outer(ct, np.ones_like(alphas)).ravel(),
+            ],
+            axis=-1,
+        )
+    else:
+        raise ValueError(f"unknown s2 grid mode {mode!r}")
     y = real_sph_harm(lmax, pts)  # [(L)^2, G]
     w = (np.outer(w_beta, np.ones_like(alphas)) * (2 * np.pi / res_alpha)).ravel()
     to_grid = y.T
     from_grid = y * w  # quadrature: integral of Y_i Y_j over S^2 = delta_ij
+    if mode == "e3nn":
+        c = np.concatenate([np.full(2 * l + 1, math.sqrt(4 * np.pi / ((2 * l + 1) * (lmax + 1))))
+                            for l in range(lmax + 1)])
+        to_grid = to_grid * c[None, :]
+        from_grid = from_grid / c[:, None]
     return to_grid.astype(np.float32), from_grid.astype(np.float32)
 
 

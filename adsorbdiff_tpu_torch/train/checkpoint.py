@@ -2,8 +2,11 @@
 
 One file holds the trainer state: ``params`` (the model's state dict without
 its ScaleFactor buffers), ``ema_params``, ``opt_state`` (``count``, ``mu``,
-``nu``), ``step``, ``scale_factors`` and ``config``.  Loading JAX (orbax) or
-reference ``.pt`` checkpoints is not ported yet.
+``nu``), ``step``, ``scale_factors`` and ``config``.  A reference AdsorbDiff/OCP
+``.pt`` checkpoint converts into this format with
+:func:`adsorbdiff_tpu_torch.train.torch_import.convert_torch_checkpoint`
+(``python -m adsorbdiff_tpu_torch.scripts.convert_checkpoint``); JAX (orbax)
+checkpoints do not load.
 """
 from __future__ import annotations
 

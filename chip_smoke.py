@@ -5,7 +5,7 @@
 
 Phases; any failure raises and the exit code is then non-zero:
 1. device: the card's name and power limit (nvidia-smi); CUDA required;
-   TF32 off (phases 3-24 are f32; phases 25-30 run bf16 where asked).
+   TF32 off (phases 3-24 and 31 are f32; phases 25-30 run bf16 where asked).
 2. build: every kernel, from csrc/ with nvcc (one process per source, all
    started together); ptxas register and spill lines for each.
 3. kernel vs plain: each kernel against its plain PyTorch version on the
@@ -368,7 +368,26 @@ Phases; any failure raises and the exit code is then non-zero:
    systems/s and peak beside phase 14's; one amp step at B=2 card against
    CPU under phase 28's gates for eqv2_so3.yml and eqv2_conditional.yml,
    cut to EQV2_STEP_LAYERS layers.
-31. the kernels line, then the device line as the last line.  A row's ms,
+31. reference checkpoints (ROADMAP A.10 step 1): reference-shaped .pt
+   files (DDP prefixes, the embedded config) at published widths with
+   random weights from a seeded generator (EquiformerV2 at
+   eqv2_conditional.yml, from the port's table of the reference's names and
+   shapes; PaiNN at painn_so3.yml; GemNet-OC at gemnet_relax.yml with fitted-
+   looking scale factors), converted by `python -m
+   adsorbdiff_tpu_torch.scripts.convert_checkpoint` in processes of their own
+   beside `python -m adsorbdiff_tpu_torch.scripts.eval nsite` on phase 16's
+   tree (its printed rate and per-system results must be phase 16's); each
+   converted file loaded by its trainer from the sidecar's model section;
+   PaiNN and GemNet-OC B=2 forwards card against CPU (GemNet-OC's scale
+   factors the reference's); the EquiformerV2 (e3nn grid, energy-
+   conditional, f32): its S^2 tables checked to be the e3nn ones,
+   s2_grid_silu and s2_grid_silu_bwd on them at the first attention block's
+   input (phases 10a/13b's checks, times beside the gauss ones), the
+   run-relaxations task from the checkpoint (100 ODE steps at B=16, exact
+   launch counts 1000 + 1000 + 3100, rate beside phase 11's), a B=2 forward
+   with non-zero energies card against CPU, and one training step at B=2
+   card against CPU (all 8 layers) with its exact launches.
+32. the kernels line, then the device line as the last line.  A row's ms,
    plain_ms and bound_ms are per launch; eqv2_edge_rotate's are the mean
    over the four forms in the proportions one forward launches them, and
    its launches are the EquiformerV2 sampling run's; masked_legendre_cos's
@@ -376,7 +395,8 @@ Phases; any failure raises and the exit code is then non-zero:
    wall back to back, bound_ms the three bases' bounds summed);
    masked_legendre_cos's and gemnet_quad_chain's launches are the
    relaxation path's plus phase 19's four tasks' plus phases 21's and
-   24's runs'; painn_message_fused's are phase 4's plus phase 23's; the
+   24's runs' plus phase 31's; painn_message_fused's are phase 4's plus
+   phases 23's and 31's; the EquiformerV2 kernels' f32 rows add phase 31's; the
    consumers' and fused_rbf_filter's launches are
    their counts summed over every path run (0: no path calls them).  The
    eight bf16 variants are rows of their own (``<kernel>.bf16``; the four
@@ -427,6 +447,7 @@ from adsorbdiff_tpu_torch.relaxation.lbfgs import make_mlff_energy_forces
 from adsorbdiff_tpu_torch.relaxation.ml_relaxation import DiffusionEngine, RelaxationEngine, make_score_fn
 from adsorbdiff_tpu_torch.runtime.trajectory import SUFFIX, Trajectory
 from adsorbdiff_tpu_torch.tasks import new_trainer_context
+from adsorbdiff_tpu_torch.train import torch_import
 from adsorbdiff_tpu_torch.train.trainer import DenoisingTrainer, S2EFTrainer
 
 # NVIDIA H100 SXM data sheet: dense f32 outside the tensor cores, dense bf16 on the tensor cores, HBM3 rate
@@ -2144,16 +2165,19 @@ def step_loss_and_grads(tr, b, draws, trainer_cls):
     return loss, aux, torch.autograd.grad(loss, tr.params)
 
 
-def check_training_step(config, device, model_name, trainer_cls=DenoisingTrainer, systems=None):
+def check_training_step(config, device, model_name, trainer_cls=DenoisingTrainer, systems=None, checkpoint=None):
     """One training step at B=2 on the card against the same step on the
     CPU: loss, grad_norm and every parameter's gradient.  A denoising
     trainer's step takes the same schedule draws on both sides; an S2EF
-    trainer's takes ``systems``, whose energies and forces are the targets."""
+    trainer's takes ``systems``, whose energies and forces are the targets.
+    Both trainers start from ``checkpoint`` where given."""
     small, two, draws = training_step_inputs(config, systems)
     card, host = trainer_cls(small, device=device), trainer_cls(dict(small, cpu=True))
     results = []
     for tr, b in ((card, two.to(device)), (host, two)):
         tr.init_state()
+        if checkpoint is not None:
+            tr.load_checkpoint(checkpoint)
         loss, aux, grads = step_loss_and_grads(tr, b, draws, trainer_cls)
         results.append((tr._finalize_train_step(loss, aux, list(grads)), [g.cpu() for g in grads]))
     (card_aux, card_grads), (host_aux, host_grads) = results
@@ -2402,7 +2426,9 @@ def pipeline_path(device, systems, root):
     """Phase 16: run_pipeline once, sample -> convert -> relax -> score, with
     both trainers built from configs and checkpoints as the command line
     builds them.  Returns ``{"sampler"|"relaxer": (config path, checkpoint
-    path), "relax_input": shard}`` for phase 19."""
+    path), "relax_input": shard}`` for phase 19, and the scored tree
+    (``"out_dir"``, ``"dft"``: the targets as a JSON file, ``"rate"``,
+    ``"per_system"``) for phase 31's eval command."""
     write_shard(os.path.join(root, "relax_input"), systems)
     relax_input = os.path.join(root, "relax_input.adshard.npz")
     sampler_cfg = dict(copy.deepcopy(TRAIN_CONFIG), run_dir=root, identifier="smoke_pipeline", logger=None,
@@ -2430,6 +2456,9 @@ def pipeline_path(device, systems, root):
     rng = np.random.default_rng(11)
     dft = {str(s.sid): float(rng.normal(-1.0, 1.0)) for s in systems}  # synthetic DFT minima, one per sid
     out_dir = os.path.join(root, "out")
+    files["dft"] = os.path.join(root, "dft_targets.json")
+    with open(files["dft"], "w") as f:
+        json.dump(dft, f)
     print(f"[pipeline] sampler painn_so3.yml widths, {PARAMS['num_steps']} ODE steps, B={len(systems)}; relaxer "
           f"S2EFTrainer (GemNet-OC, gemnet_relax.yml), cell_reps {relaxer.model.cell_reps} (auto), energies "
           f"denormalised by {relaxer.normalizers['energy'].state_dict()}; both built by run_pipeline.build_trainer "
@@ -2516,6 +2545,7 @@ def pipeline_path(device, systems, root):
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB allocated; launches {launches}", flush=True)
     print(f"[pipeline] success rate {rate:.4f}; per system {per_system}; anomaly flags (dissociated, desorbed, "
           f"surface changed, intercalated) {flags}", flush=True)
+    files.update(out_dir=out_dir, rate=rate, per_system=per_system)
     return files
 
 
@@ -3849,6 +3879,296 @@ def bf16_eqv2_training_path(device, root):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 31: reference checkpoints
+# --------------------------------------------------------------------------
+# the embedded model configs of reference checkpoints at published widths (what base_trainer.py saves under
+# config.model_attributes): EquiformerV2 at configs/denoising/eqv2_conditional.yml (eqv2_so3.yml + the scalar energy
+# encoding) with the reference's own keys, PaiNN at painn_so3.yml, GemNet-OC at gemnet_relax.yml
+REF_EQV2 = ("adsorbdiff.models.equiformer_v2.equiformer_v2_denoising.EquiformerV2S_OC20_DenoisingPos", dict(
+    num_layers=8, sphere_channels=128, attn_hidden_channels=64, num_heads=8, attn_alpha_channels=64,
+    attn_value_channels=16, ffn_hidden_channels=128, norm_type="layer_norm_sh", lmax_list=[4], mmax_list=[2],
+    grid_resolution=18, num_sphere_samples=128, edge_channels=128, use_atom_edge_embedding=True,
+    share_atom_edge_embedding=False, use_m_share_rad=False, distance_function="gaussian", num_distance_basis=512,
+    attn_activation="silu", use_s2_act_attn=False, use_attn_renorm=True, ffn_activation="silu", use_gate_act=False,
+    use_grid_mlp=True, use_sep_s2_act=True, weight_init="uniform", max_neighbors=20, max_radius=12.0,
+    max_num_elements=90, use_pbc=True, regress_forces=True, otf_graph=True, FOR_denoising=True, so3_denoising=True,
+    energy_encoding="scalar"))
+REF_PAINN = ("adsorbdiff.models.painn.painn_denoising.PaiNN", dict(
+    hidden_channels=512, num_layers=6, num_rbf=128, max_radius=12.0, max_neighbors=50, so3_denoising=True,
+    use_pbc=True, otf_graph=True, regress_forces=True))
+REF_GEMNET = ("gemnet_oc", dict(
+    {k: v for k, v in GEMNET_KW.items() if k not in ("mode", "fused_quad")}, qint_tags=[1, 2], regress_forces=True,
+    direct_forces=True, otf_graph=True, scale_file="configs/relaxation/gemnet_oc/gemnet-oc.pt",
+    output_init="HeOrthogonal", activation="silu", forces_coupled=False, enforce_max_neighbors_strictly=False))
+# the conversions' overrides: phase 11's sampling setting for EquiformerV2 and PaiNN (bench.py's cell_reps and
+# max_ads), the bench slabs' image counts for GemNet-OC
+REF_OVERRIDES = {"equiformer_v2": ["cell_reps=(2, 2, 0)", "max_ads=8"], "painn": ["cell_reps=(2, 2, 0)", "max_ads=8"],
+                 "gemnet_oc": ["cell_reps=(2, 2, 0)"]}
+REF_BATCH = 16
+
+
+def random_reference_state(name, attrs, gen):
+    """A reference state dict for the embedded config (``name``, ``attrs``),
+    random from ``gen``.  EquiformerV2: the port's table of the reference's
+    names and shapes (which the CPU tests hold to the oracle's), matrices
+    N(0, 1/fan_in) (fan_in the last axis), biases N(0, 0.02^2), layer-norm
+    and affine weights 1 + N(0, 0.02^2).  PaiNN and GemNet-OC: their port's
+    module names are the reference's, so the initial state dict of the
+    port's model of that config, with fitted-looking scale factors,
+    U(0.5, 1.5)."""
+    cfg = torch_import.reference_model_config_to_ours(dict(attrs, name=name))
+    family = cfg.pop("name")
+    if family == "equiformer_v2":
+        widths = ("lmax", "mmax", "num_layers", "sphere_channels", "attn_hidden_channels", "num_heads",
+                  "attn_alpha_channels", "attn_value_channels", "ffn_hidden_channels", "edge_channels",
+                  "max_num_elements", "energy_encoding")
+        sd = {}
+        for key, shape in torch_import.eqv2_reference_shapes(**{k: cfg[k] for k in widths if k in cfg}).items():
+            noise = torch.randn(shape, generator=gen)
+            if key.endswith("affine_weight") or (len(shape) == 1 and key.endswith("weight")):
+                sd[key] = 1.0 + 0.02 * noise
+            elif len(shape) == 1:
+                sd[key] = 0.02 * noise
+            else:
+                sd[key] = noise / math.sqrt(shape[-1])
+        return family, sd
+    sd = {"painn": PaiNN, "gemnet_oc": GemNetOC}[family](**cfg, device="cpu", generator=gen).state_dict()
+    for key in sd:
+        if key.endswith(".scale_factor"):
+            sd[key] = 0.5 + torch.rand((), generator=gen)
+    return family, sd
+
+
+def save_reference_pt(path, model_name, attrs, sd):
+    """A checkpoint as the reference saves one: DDP ``module.`` prefixes, the
+    config's model name and attributes, epoch and step."""
+    torch.save({"state_dict": {"module." + k: v for k, v in sd.items()},
+                "config": {"model": model_name, "model_attributes": attrs}, "epoch": 0, "step": 0}, path)
+
+
+def run_commands(commands, timeout=600):
+    """Run the command lines together (each a list; on the host: no card is
+    visible to them); return their standard outputs.  Raise on a non-zero exit
+    or a timeout, each process ended."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join([here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    procs = [subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in commands]
+    outs = []
+    try:
+        for cmd, proc in zip(commands, procs):
+            out, err = proc.communicate(timeout=timeout)
+            if proc.returncode != 0:
+                raise AssertionError(f"{' '.join(cmd[2:4])} exited {proc.returncode}: {err[-3000:]}")
+            outs.append(out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
+
+
+def reference_model(trainer_cls, path, root, device):
+    """``trainer_cls`` built from a converted checkpoint's sidecar model
+    section, the checkpoint loaded (``weights_only=True``)."""
+    with open(path + ".config.yaml") as f:
+        model_cfg = yaml.safe_load(f)["model"]
+    trainer = trainer_cls(dict(model=model_cfg, optim=dict(lr_initial=1e-4), run_dir=root, is_debug=True, seed=0,
+                               identifier="smoke_reference"), device=device)
+    trainer.load_checkpoint(path)
+    return trainer
+
+
+def counted_forward(what, model, batch, want):
+    """``model(batch)`` with the launch counts zeroed just before and read
+    just after; raise unless they are ``want``."""
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    with torch.no_grad():
+        out = model(batch)
+    torch.cuda.synchronize()
+    launches = path_launches()
+    if launches != want:
+        raise AssertionError(f"{what}: one forward launched {launches}, want {want}")
+    return out
+
+
+def reference_checkpoint_path(device, systems, files, rows, root, smi):
+    """Phase 31: reference-shaped ``.pt`` checkpoints of the three families at
+    published widths, converted by the port's command line, then run from
+    the converted files on the card.  Returns the launches of its runs."""
+    gen = torch.Generator().manual_seed(31)
+    pts = {}
+    for name, attrs in (REF_EQV2, REF_PAINN, REF_GEMNET):
+        family, sd = random_reference_state(name, attrs, gen)
+        pts[family] = (os.path.join(root, f"{family}.pt"), sd)
+        save_reference_pt(pts[family][0], name, attrs, sd)
+    out_dir = os.path.join(root, "converted")
+    t0 = time.perf_counter()
+    commands = [[sys.executable, "-m", "adsorbdiff_tpu_torch.scripts.convert_checkpoint", pt, out_dir, "--name",
+                 family, "--cpu"] + [a for o in REF_OVERRIDES[family] for a in ("--override", o)]
+                for family, (pt, _) in pts.items()]
+    commands.append([sys.executable, "-m", "adsorbdiff_tpu_torch.scripts.eval", "nsite", files["out_dir"],
+                     "--targets", files["dft"]])
+    outs = run_commands(commands)
+    paths = {family: os.path.join(out_dir, family) for family in pts}
+    print(f"[reference] {smi}; reference-shaped .pt files at published widths (EquiformerV2 eqv2_conditional.yml, "
+          f"PaiNN painn_so3.yml, GemNet-OC gemnet_relax.yml; random weights from a seeded generator) converted by "
+          f"`python -m adsorbdiff_tpu_torch.scripts.convert_checkpoint`, and the eval command, as four processes "
+          f"together in {time.perf_counter() - t0:.2f} s: " + "; ".join(o.strip().splitlines()[-1] for o in outs[:3]),
+          flush=True)
+
+    # the eval command on phase 16's pipeline tree: phase 16's success rate and per-system results
+    lines = outs[3].strip().splitlines()
+    per_line = {sid: flag == "success" for sid, flag in (line.split(": ") for line in lines[:-1])}
+    k, n = (int(x) for x in lines[-1].split("(")[1].rstrip(")").split("/"))
+    want_per = {str(sid): bool(v) for sid, v in files["per_system"].items()}
+    if per_line != want_per or k / n != files["rate"] or lines[-1] != (
+            f"success rate: {files['rate'] * 100:.1f}%  ({sum(want_per.values())}/{len(want_per)})"):
+        raise AssertionError(f"eval nsite on phase 16's tree printed {lines}; phase 16: rate {files['rate']}, "
+                             f"{want_per}")
+    print(f"[reference] `python -m adsorbdiff_tpu_torch.scripts.eval nsite` on phase 16's tree: '{lines[-1]}', "
+          f"per system as phase 16's scorer (rate {files['rate']:.4f})", flush=True)
+
+    launches = collections.Counter()
+    small = collate(systems[:2], max_atoms=80, device=device)
+    conditioned = small.replace(energy=torch.tensor([1.3, -0.7], device=device))
+
+    # PaiNN and GemNet-OC: the converted files loaded by their trainers, B=2 card against CPU
+    for family, trainer_cls, heads in (("painn", DenoisingTrainer, ("out_forces", "out_forces2")),
+                                       ("gemnet_oc", S2EFTrainer, ("energy", "forces"))):
+        trainer = reference_model(trainer_cls, paths[family], root, device)
+        model = trainer.ema_module
+        want = {"painn_message_fused": model.num_layers} if family == "painn" else gemnet_launches(model, 1)
+        ref_sd = pts[family][1]
+        factors = {n: b for n, b in model.named_buffers() if n.endswith(".scale_factor")}
+        if family == "gemnet_oc" and not (trainer.scale_factors_fitted and factors and all(
+                torch.equal(b.cpu(), ref_sd[n]) for n, b in factors.items())):
+            raise AssertionError("GemNet-OC: the converted checkpoint's scale factors are not the reference's")
+        card = counted_forward(f"converted {family}", model, small, want)
+        launches.update(want)
+        with torch.no_grad():
+            host = copy.deepcopy(model).to("cpu")(small.to("cpu"))
+        pairs = zip(heads, card.values(), host.values()) if isinstance(card, dict) else zip(heads, card, host)
+        check_model(f"converted {family}", pairs)
+        del trainer, model, card, host
+
+    # EquiformerV2, e3nn grid: run-relaxations from the converted checkpoint through the trainer context
+    write_shard(os.path.join(root, "reference_relax"), systems[:REF_BATCH])
+    traj_dir = os.path.join(root, "reference_trajs")
+    with open(paths["equiformer_v2"] + ".config.yaml") as f:
+        eqv2_cfg = yaml.safe_load(f)["model"]
+    cfg = dict(trainer="denoising", model=eqv2_cfg, optim=dict(TRAIN_CONFIG["optim"], eval_batch_size=REF_BATCH,
+                                                                 denoising_pos_params=dict(EQV2_PARAMS)),
+               task=dict(TRAIN_CONFIG["task"], relax_dataset={"src": os.path.join(root, "reference_relax.adshard.npz")},
+                         relax_opt={"traj_dir": traj_dir}, write_pos=True),
+               logger=None, is_debug=True, seed=0, identifier="smoke_reference_eqv2", run_dir=root, print_every=100,
+               cpu=device.type == "cpu")  # the task context builds on the card unless told
+    if eqv2_cfg.get("grid_mode") != "e3nn" or eqv2_cfg.get("energy_encoding") != "scalar":
+        raise AssertionError(f"converted EquiformerV2 config {eqv2_cfg}")
+    steps = EQV2_PARAMS["num_steps"]
+    with new_trainer_context(dict(cfg, mode="run-relaxations", checkpoint=paths["equiformer_v2"])) as ctx:
+        trainer = ctx.trainer
+        model = trainer.ema_module
+        per_step = model.num_layers + 2
+        batch = collate(systems[:REF_BATCH], max_atoms=80, device=device)
+        with torch.no_grad():
+            static = trainer.sampling_static_fn()(batch)
+            calls = capture_first_calls(equiformer_v2, ("s2_grid_silu",), lambda: trainer.score_fn(batch, static))
+        h, to_m, from_m = calls["s2_grid_silu"][0]
+        e3nn = [torch.from_numpy(t) for t in equiformer_v2.s2_act_matrices(model.lmax, model.mmax,
+                                                                            eqv2_cfg["grid_resolution"], "e3nn")]
+        if not (torch.equal(to_m.cpu(), e3nn[0]) and torch.equal(from_m.cpu(), e3nn[1])):
+            raise AssertionError("the converted EquiformerV2 does not run the e3nn S^2 tables")
+        # 31a. both S^2 kernels on the e3nn tables at the first attention block's input
+        s2 = s2_kernel_checks(device, gen, h, to_m, from_m)
+        s2b = s2_bwd_kernel_checks(device, gen, h, torch.randn(h.shape, generator=gen).to(device), to_m, from_m)
+        # the gauss tables at the same input, in this call, and the earlier phases' rows
+        to_g, from_g = (torch.from_numpy(t).to(device) for t in equiformer_v2.s2_act_matrices(
+            model.lmax, model.mmax, eqv2_cfg["grid_resolution"]))
+        dy = torch.randn(h.shape, generator=gen).to(device)
+        g_ms = cuda_ms(lambda: kernels.s2_grid_silu(h, to_g, from_g), 20)
+        gb_ms = cuda_ms(lambda: kernels.s2_grid_silu_bwd(h, dy, to_g, from_g), 20)
+        gauss = {r["name"]: r for r in rows}
+        print(f"[reference] e3nn tables at h{tuple(h.shape)}: s2_grid_silu {s2['ms']:.4f} ms against the gauss "
+              f"tables' {g_ms:.4f} at the same input (phase 10a's: {gauss['s2_grid_silu']['ms']:.4f}), max_abs_err "
+              f"over its checks {s2['max_abs_err']:.3e}; s2_grid_silu_bwd {s2b['ms']:.4f} ms against {gb_ms:.4f} "
+              f"(phase 13b's at B={EQV2_TRAIN_BATCH}: {gauss['s2_grid_silu_bwd']['ms']:.4f}), max_abs_err "
+              f"{s2b['max_abs_err']:.3e}; {smi}", flush=True)
+        del calls, h, dy
+
+        # 31b. 100-step sampling of 16 with the converted model's sampling model
+        forwards, score_fn = 0, trainer.score_fn
+
+        def counted(*args, **kwargs):
+            nonlocal forwards
+            forwards += 1
+            return score_fn(*args, **kwargs)
+
+        trainer.score_fn = counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.launches.clear()
+        t0 = time.perf_counter()
+        ctx.task.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = path_launches()
+        trainer.score_fn = score_fn
+        want = {"s2_grid_silu": per_step * forwards, "eqv2_attn_conv1": per_step * forwards,
+                "eqv2_edge_rotate": (1 + 3 * per_step) * forwards}
+        if forwards != steps or run != want:
+            raise AssertionError(f"converted EquiformerV2 run-relaxations launched {run} in {forwards} score "
+                                 f"forwards; want {want} and {steps} forwards")
+        launches.update(run)
+        relaxed = np.load(os.path.join(trainer.results_dir, "relaxed_positions.npz"))
+        if sorted(relaxed["ids"].tolist()) != sorted(str(s.sid) for s in systems[:REF_BATCH]) or not np.isfinite(
+                relaxed["pos"]).all():
+            raise AssertionError(f"relaxed_positions.npz: ids {relaxed['ids'].tolist()} or non-finite positions")
+        for s in systems[:REF_BATCH]:
+            traj = Trajectory.load(os.path.join(traj_dir, f"{s.sid}{SUFFIX}"))
+            slab = traj.tags != 2
+            if len(traj) != steps + 1 or not np.isfinite(traj.positions).all() or not (
+                    traj.positions[:, slab] == s.pos[slab]).all():
+                raise AssertionError(f"trajectory {s.sid}: {len(traj)} frames, non-finite or moved slab positions")
+        rate = steps * REF_BATCH / wall
+        print(f"[reference] converted EquiformerV2 (e3nn grid, energy-conditional) run-relaxations from the "
+              f"checkpoint: {steps} ODE steps, B={REF_BATCH}: {wall:.3f} s wall, {rate:.2f} system-steps/s (phase "
+              f"11's gauss grid, DiffusionEngine alone: {RATES['eqv2_sample']:.2f}), peak "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB allocated, launches {run}", flush=True)
+
+        # 31c. card vs CPU, B=2, non-zero energies
+        want = {"s2_grid_silu": per_step, "eqv2_attn_conv1": per_step, "eqv2_edge_rotate": 1 + 3 * per_step}
+        card = counted_forward("converted EquiformerV2", model, conditioned, want)
+        launches.update(want)
+        with torch.no_grad():
+            host = copy.deepcopy(model).to("cpu")(conditioned.to("cpu"))
+            unconditioned = model(small)
+        check_model("converted EquiformerV2 (e3nn)", zip(("force_block", "force_block2"), card, host))
+        moved = (card[0] - unconditioned[0]).abs().max().item()
+        if not moved > 0:
+            raise AssertionError("converted EquiformerV2: the energy does not change the output")
+        del trainer, model, card, host, unconditioned
+
+    # 31d. one f32 training step at B=2 from the converted checkpoint, card vs CPU
+    step_cfg = dict(cfg, optim=dict(cfg["optim"], batch_size=2), task=TRAIN_CONFIG["task"])
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    check_training_step(step_cfg, device, "converted EquiformerV2 (e3nn)", checkpoint=paths["equiformer_v2"])
+    torch.cuda.synchronize()
+    step = path_launches()
+    want = {"s2_grid_silu": per_step, "eqv2_attn_conv1": per_step, "s2_grid_silu_bwd": per_step,
+            "eqv2_edge_rotate": 2 * (1 + 3 * per_step)}
+    if step != want:
+        raise AssertionError(f"the converted EquiformerV2's training step launched {step}, want {want}")
+    launches.update(step)
+    print(f"[reference] phase 31's launches: {dict(launches)}", flush=True)
+    return launches
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -3883,12 +4203,12 @@ def main():
     rows += eqv2_path(device, torch.Generator().manual_seed(7), systems)
     with tempfile.TemporaryDirectory() as root:
         rows.append(eqv2_training_path(device, torch.Generator().manual_seed(9), root))
-    with tempfile.TemporaryDirectory() as root:
-        files = pipeline_path(device, systems, root)
-        so3_root = os.path.join(root, "so3")
-        os.makedirs(so3_root)
-        denoising_tasks_path(device, torch.Generator().manual_seed(17), systems[:SO3_RELAX_BATCH], so3_root)
-        s2ef_launches = s2ef_tasks_path(device, systems, root, files, smi)
+    pipeline_dir = tempfile.TemporaryDirectory()  # phase 16's tree stays for phase 31's eval command
+    files = pipeline_path(device, systems, pipeline_dir.name)
+    so3_root = os.path.join(pipeline_dir.name, "so3")
+    os.makedirs(so3_root)
+    denoising_tasks_path(device, torch.Generator().manual_seed(17), systems[:SO3_RELAX_BATCH], so3_root)
+    s2ef_launches = s2ef_tasks_path(device, systems, pipeline_dir.name, files, smi)
     # 20-22. S2EF training: the quad chain's VJP, gemnet_relax.yml's trainer, card vs CPU
     quad_vjp_path(device, torch.Generator().manual_seed(20))
     with tempfile.TemporaryDirectory() as root:
@@ -3911,15 +4231,19 @@ def main():
     bf16.update(bf16_eqv2_sampling_path(device, systems))
     with tempfile.TemporaryDirectory() as root:
         bf16.update(bf16_eqv2_training_path(device, root))
+    # 31. ROADMAP A.10 step 1: reference checkpoints converted by the port's command line and run on the card
+    with tempfile.TemporaryDirectory() as root:
+        s2ef_launches.update(reference_checkpoint_path(device, systems, files, rows, root, smi))
+    pipeline_dir.cleanup()
     for r in bf16_rows:
         r["launches"] = bf16[r["name"]]
     rows += bf16_rows
 
-    # 31. results
+    # 32. results
     for r in rows:
         if r["launches"] is None:  # a standalone kernel: what the path runs launched of it
             r["launches"] = PATH_LAUNCHES[r["name"]]
-        elif r["name"] in s2ef_launches:  # the sampling and relaxation paths' kernels: phases 19, 21, 23 and 24 too
+        elif r["name"] in s2ef_launches:  # the f32 paths' kernels: phases 19, 21, 23, 24 and 31 too
             r["launches"] += s2ef_launches[r["name"]]
     print(json.dumps({"kernels": [
         dict(name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"], launches=r["launches"],

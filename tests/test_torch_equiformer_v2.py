@@ -1,6 +1,6 @@
 """PyTorch port: the whole EquiformerV2 against the JAX model, the pinned
 goldens, padding, equivariance, training (parameter gradients, the drop
-regularisers, the JAX model's rotation kernel) and the options not ported yet.
+regularisers, the JAX model's rotation kernel) and the trainer with the e3nn grid.
 
 The JAX model runs the S^2 activation through its Pallas kernel in interpret
 mode (``use_pallas=True``, patched as ``tests/test_pallas_kernels.py:338-351``
@@ -171,12 +171,6 @@ def test_state_dict_names_follow_the_jax_tree():
     assert registry.get_model_class("equiformer_v2_denoising") is EquiformerV2
 
 
-@pytest.mark.parametrize("kw", [dict(grid_mode="e3nn")], ids=["e3nn-grid"])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EquiformerV2(**TINY, **kw, device="cpu")
-
-
 def test_training_flag_without_drop_rates_is_the_eval_forward():
     variables = jax_init(MODES["denoising-two-heads"])
     batch = to_torch_batch(make_batch(np.random.default_rng(11)))
@@ -189,15 +183,24 @@ def test_training_flag_without_drop_rates_is_the_eval_forward():
 
 def test_denoising_trainer_on_equiformer_v2_raises(tmp_path):
     """DenoisingTrainer builds an EquiformerV2 (in train mode, its EMA copy in
-    eval mode) and raises only for the options not ported yet."""
+    eval mode), also with the e3nn S^2 grid (its attention and FFN tables the
+    e3nn ones), and raises on an unknown grid mode."""
     config = {"model": dict(TINY, name="equiformer_v2", so3_denoising=True), "optim": {"lr_initial": 1e-4},
               "cpu": True, "run_dir": str(tmp_path)}
     trainer = DenoisingTrainer(config)
     assert isinstance(trainer.model, EquiformerV2) and trainer.model.training
     trainer.init_state()
     assert not trainer.ema_module.training
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DenoisingTrainer(dict(config, model=dict(config["model"], grid_mode="e3nn")))
+    e3nn = DenoisingTrainer(dict(config, model=dict(config["model"], grid_mode="e3nn"))).model
+    assert isinstance(e3nn, EquiformerV2) and e3nn.grid_mode == "e3nn"
+    lmax, mmax, res = TINY["lmax"], TINY["mmax"], TINY["grid_resolution"]
+    to_eff, _ = port_eqv2.s2_act_matrices(lmax, mmax, res, "e3nn")
+    np.testing.assert_array_equal(to_numpy(e3nn.blocks[0].attn.to_eff), to_eff)
+    np.testing.assert_array_equal(to_numpy(e3nn.blocks[0].ffn.to_grid),
+                                  port_eqv2.s2_grid_matrices(lmax, res, res, "e3nn")[0])
+    assert not np.array_equal(to_eff, port_eqv2.s2_act_matrices(lmax, mmax, res)[0])
+    with pytest.raises(ValueError, match="grid_mode"):
+        DenoisingTrainer(dict(config, model=dict(config["model"], grid_mode="lebedev")))
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """PyTorch port: anomaly detection and the success-rate / DwT evaluation.
 
-Mirrors tests/test_eval_tools.py on the port's modules (not its CLI test:
-``scripts/eval.py`` has no counterpart yet), plus parity with the JAX
+Mirrors tests/test_eval_tools.py on the port's modules (the command line,
+``adsorbdiff_tpu_torch/scripts/eval.py``, is held to ``scripts/eval.py`` in
+``tests/test_torch_reference_import.py``), plus parity with the JAX
 package on one trajectory tree: the same rate and per-system dict, and the
 same anomaly flags per trajectory.
 """

@@ -46,6 +46,8 @@ def test_numpy_tables_equal_jax_bit_for_bit(lmax, mmax):
         ("_rot_decomp_mats", (lmax, mmax, lmax + 1)),
         ("l_expand_matrix", (lmax,)),
         ("s2_grid_matrices", (lmax, 18, 18)),
+        ("s2_grid_matrices", (lmax, 18, 18, "e3nn")),
+        ("soft_grid_weights", (18,)),
         ("m_primary_order", (lmax, mmax)),
         ("m_trunc_rescale", (lmax, mmax)),
     ]:
@@ -62,8 +64,11 @@ def test_production_layout_has_19_active_rows():
 
 
 def test_e3nn_grid_mode_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        so3.s2_grid_matrices(2, 8, 8, mode="e3nn")
+    """The e3nn grid is ported (JAX's tables bit for bit, above); a mode that
+    neither package knows still raises."""
+    _assert_tree_equal(so3.s2_grid_matrices(2, 8, 8, mode="e3nn"), jso3.s2_grid_matrices(2, 8, 8, mode="e3nn"))
+    with pytest.raises(ValueError, match="unknown s2 grid mode"):
+        so3.s2_grid_matrices(2, 8, 8, mode="lebedev")
 
 
 def _geometry(seed, b=2, n=5, k=4):
