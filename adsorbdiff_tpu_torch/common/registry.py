@@ -1,6 +1,6 @@
 """Global name -> class registry (port of :mod:`adsorbdiff_tpu.common.registry`).
 
-Decorator registration for trainers, models, loggers and tasks, and
+Decorator registration for trainers, models, datasets, loggers and tasks, and
 fully-qualified class paths as a fallback, so a config may say
 ``trainer: denoising`` or name a class by its import path.
 """
@@ -24,7 +24,7 @@ def _import_class(path: str) -> type:
 class Registry:
     """Name -> class maps per kind."""
 
-    KINDS = ("task", "model", "logger", "trainer")
+    KINDS = ("task", "dataset", "model", "logger", "trainer")
 
     def __init__(self) -> None:
         self._maps: Dict[str, Dict[str, type]] = {k: {} for k in self.KINDS}
@@ -41,6 +41,9 @@ class Registry:
 
     def register_task(self, name: str):
         return self._register("task", name)
+
+    def register_dataset(self, name: str):
+        return self._register("dataset", name)
 
     def register_model(self, name: str):
         return self._register("model", name)
@@ -61,6 +64,9 @@ class Registry:
 
     def get_task_class(self, name: str) -> type:
         return self.get_class("task", name)
+
+    def get_dataset_class(self, name: str) -> type:
+        return self.get_class("dataset", name)
 
     def get_model_class(self, name: str) -> type:
         return self.get_class("model", name)

@@ -12,10 +12,11 @@ import glob
 import os
 import tempfile
 from bisect import bisect_right
-from typing import Iterable, List, Optional, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
+from adsorbdiff_tpu_torch.common.registry import registry
 from adsorbdiff_tpu_torch.data.schema import System
 
 _FIELDS_ATOM = ("pos", "atomic_numbers", "tags", "fixed", "pos_relaxed", "forces")
@@ -89,12 +90,18 @@ class _Shard:
         )
 
 
+@registry.register_dataset("shards")
+@registry.register_dataset("lmdb")  # config compatibility: `task.dataset: lmdb` resolves here
 class ShardDataset:
     """Dataset over a single shard file or a directory of shards.
 
     A single file or a directory of shards, with the reference LmdbDataset's
     ``shard/total_shards`` contiguous subsetting.  Config:
-    ``{"src": path, "shard": i, "total_shards": n}``.
+    ``{"src": path, "shard": i, "total_shards": n, "transforms": [f, ...]}``;
+    each transform is a callable applied in order to every system read
+    (e.g. a :class:`~adsorbdiff_tpu_torch.data.transforms.DataTransforms`).
+    A reference LMDB converts to shards with
+    :func:`adsorbdiff_tpu_torch.data.lmdb_compat.convert_lmdb_to_shards`.
     """
 
     def __init__(self, config: dict) -> None:
@@ -120,8 +127,7 @@ class ShardDataset:
             lo = per * int(config["shard"])
             self.indices = self.indices[lo : lo + per]
 
-        if config.get("transforms"):
-            raise NotImplementedError("dataset transforms are not ported yet")
+        self.transforms = list(config.get("transforms", []) or [])
 
     def __len__(self) -> int:
         return len(self.indices)
@@ -130,7 +136,10 @@ class ShardDataset:
         gi = int(self.indices[idx])
         shard_i = int(bisect_right(self._cum, gi))
         local = gi - (int(self._cum[shard_i - 1]) if shard_i else 0)
-        return self._shards[shard_i].get(local)
+        system = self._shards[shard_i].get(local)
+        for t in self.transforms:
+            system = t(system)
+        return system
 
     def natoms_array(self) -> np.ndarray:
         """[len] atom counts without materializing systems (for bucketing)."""

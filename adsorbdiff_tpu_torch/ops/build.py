@@ -19,7 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -56,6 +56,31 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
+def compile_libraries(commands: Dict[str, Tuple[List[str], str]], logs: Dict[str, str]) -> None:
+    """Run every ``name: (command, library path)`` at once, each command
+    given ``-o`` and a ``tempfile.mkstemp`` name beside its library, which
+    ``os.replace`` then moves onto the path: a reader never sees half a
+    library, and processes that build at once each load a whole one.  Each
+    compiler's output goes into ``logs``; a failure raises with it."""
+    procs = {}
+    for n, (cmd, path) in commands.items():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(path))
+        os.close(fd)
+        procs[n] = (tmp, path, subprocess.Popen([*cmd, "-o", tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                                text=True))
+    errors = []
+    for n, (tmp, path, proc) in procs.items():
+        out, _ = proc.communicate()
+        logs[n] = out
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            errors.append(f"{os.path.basename(proc.args[0])} failed for {n} (exit {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, path)  # atomic
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Compile every named kernel that has no up-to-date library, one
     ``nvcc`` process per source, all started together.  Returns
@@ -63,25 +88,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     names = tuple(KERNELS if names is None else names)
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths = {n: library_path(n) for n in names}
-    procs = {}
-    for n, path in paths.items():
-        if os.path.exists(path):
-            continue
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, n + ".cu")]
-        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    errors = []
-    for n, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        build_logs[n] = out
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            errors.append(f"nvcc failed for {n} (exit {proc.returncode}):\n{out}")
-        else:
-            os.replace(tmp, paths[n])  # atomic: a reader never sees half a library
-    if errors:
-        raise RuntimeError("\n".join(errors))
+    compile_libraries({n: ([nvcc_path(), *NVCC_FLAGS, os.path.join(CSRC_DIR, n + ".cu")], path)
+                       for n, path in paths.items() if not os.path.exists(path)}, build_logs)
     return paths
 
 

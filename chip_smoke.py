@@ -5,7 +5,7 @@
 
 Phases; any failure raises and the exit code is then non-zero:
 1. device: the card's name and power limit (nvidia-smi); CUDA required;
-   TF32 off (phases 3-24 and 31 are f32; phases 25-30 run bf16 where asked).
+   TF32 off (phases 3-24, 31 and 32 are f32; phases 25-30 run bf16 where asked).
 2. build: every kernel, from csrc/ with nvcc (one process per source, all
    started together); ptxas register and spill lines for each.
 3. kernel vs plain: each kernel against its plain PyTorch version on the
@@ -387,7 +387,26 @@ Phases; any failure raises and the exit code is then non-zero:
    launch counts 1000 + 1000 + 3100, rate beside phase 11's), a B=2 forward
    with non-zero energies card against CPU, and one training step at B=2
    card against CPU (all 8 layers) with its exact launches.
-32. the kernels line, then the device line as the last line.  A row's ms,
+32. the reference's LMDB data (ROADMAP A.10 step 2): both host libraries
+   built with g++ from the checkout (no fallback); 8192 bench systems with
+   energies and forces exported by export_systems_to_lmdb (every record an
+   overflow chain, a branch level), read back by the C++ and the Python
+   reader (equal byte for byte, records/s of each), converted by
+   convert_lmdb_to_shards (two shards of at most 5000) and write_shard_bin,
+   every converted system equal bit for bit to the same system written to a
+   shard directly; the fixture tests/fixtures/oc20_2sys.lmdb through both
+   readers; the first 20 batches of an epoch at B=48 from NativeShardDataset
+   (the C++ collator) and ShardDataset equal bit for bit (batches/s of
+   each); neighbor_counts of 256 systems at 12 A and 50 neighbours card
+   against CPU, exactly equal, and a mode="neighbors" plan; 4
+   DenoisingTrainer steps (painn_so3.yml + base.yml, B=48) on the converted
+   shards, step 1's batch equal to the direct shards' and its loss within
+   1e-6 relative, 6 + 6 launches a step; run_relaxations over 16 converted
+   systems (100 ODE steps at B=16, 600 launches); 2 S2EFTrainer steps
+   (gemnet_relax.yml, B=16) on the converted labelled records, 4 + 1
+   launches a step.  Every rate beside the card's name and power limit and
+   the host's CPU.
+33. the kernels line, then the device line as the last line.  A row's ms,
    plain_ms and bound_ms are per launch; eqv2_edge_rotate's are the mean
    over the four forms in the proportions one forward launches them, and
    its launches are the EquiformerV2 sampling run's; masked_legendre_cos's
@@ -395,8 +414,9 @@ Phases; any failure raises and the exit code is then non-zero:
    wall back to back, bound_ms the three bases' bounds summed);
    masked_legendre_cos's and gemnet_quad_chain's launches are the
    relaxation path's plus phase 19's four tasks' plus phases 21's and
-   24's runs' plus phase 31's; painn_message_fused's are phase 4's plus
-   phases 23's and 31's; the EquiformerV2 kernels' f32 rows add phase 31's; the
+   24's runs' plus phases 31's and 32's; painn_message_fused's are phase 4's
+   plus phases 23's, 31's and 32's; painn_message_fused_bwd's add phase
+   32's; the EquiformerV2 kernels' f32 rows add phase 31's; the
    consumers' and fused_rbf_filter's launches are
    their counts summed over every path run (0: no path calls them).  The
    eight bf16 variants are rows of their own (``<kernel>.bf16``; the four
@@ -430,6 +450,8 @@ import yaml
 from adsorbdiff_tpu_torch.data.schema import System, collate
 from adsorbdiff_tpu_torch import eval_tools, pipeline, run_pipeline
 from adsorbdiff_tpu_torch.common.config import load_config
+from adsorbdiff_tpu_torch.data import lmdb_compat, lmdb_native, lmdbio, metadata, native
+from adsorbdiff_tpu_torch.data.buckets import BucketedBatcher
 from adsorbdiff_tpu_torch.data.store import ShardDataset, write_shard
 from adsorbdiff_tpu_torch.device import resolve_device
 from adsorbdiff_tpu_torch.diffusion.sampler import langevin_dynamics
@@ -440,7 +462,7 @@ from adsorbdiff_tpu_torch.models.equiformer_v2 import EquiformerV2
 from adsorbdiff_tpu_torch.models.gemnet_oc import GemNetOC
 from adsorbdiff_tpu_torch.models import painn, so3
 from adsorbdiff_tpu_torch.models.painn import PaiNN
-from adsorbdiff_tpu_torch.ops import build, kernels, pbc
+from adsorbdiff_tpu_torch.ops import build, host_build, kernels, pbc
 from adsorbdiff_tpu_torch.ops.segment import masked_mean
 from adsorbdiff_tpu_torch.relaxation.continuous import ContinuousRelaxationEngine
 from adsorbdiff_tpu_torch.relaxation.lbfgs import make_mlff_energy_forces
@@ -4169,6 +4191,261 @@ def reference_checkpoint_path(device, systems, files, rows, root, smi):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 32: the reference's LMDB data
+# --------------------------------------------------------------------------
+# 8192 bench systems (80 atoms, energies and forces as labelled_systems gives them) in the reference's LMDB format;
+# 5000 systems a converted shard (two shards); 20 batches of an epoch plan at B=48 for the collators; neighbour
+# counts of 256 systems at painn_so3.yml's cutoff 12 A and 50 neighbours; 4 PaiNN and 2 GemNet-OC training steps; a
+# 16-system relax set (shard 0 of 512 of the converted set)
+DATA_SYSTEMS, DATA_SHARD_SIZE, DATA_BATCHES = 8192, 5000, 20
+DATA_NEIGHBOR_SYSTEMS, DATA_CUTOFF, DATA_MAX_NEIGHBORS = 256, 12.0, 50
+DATA_TRAIN_STEPS, DATA_S2EF_STEPS, DATA_RELAX_BATCH = 4, 2, 16
+DATA_LOSS_RTOL = 1e-6
+SYSTEM_FIELDS = ("pos", "atomic_numbers", "tags", "fixed", "cell", "sid", "fid", "energy", "y_relaxed",
+                 "pos_relaxed", "forces")
+
+
+def same_system(a, b):
+    """Every field equal bit for bit, with its dtype (or both None)."""
+    for name in SYSTEM_FIELDS:
+        x, y = getattr(a, name), getattr(b, name)
+        if isinstance(y, np.ndarray):
+            if not (isinstance(x, np.ndarray) and x.dtype == y.dtype and np.array_equal(x, y)):
+                return False
+        elif x != y or type(x) is not type(y):
+            return False
+    return True
+
+
+def same_batch(a, b):
+    """Every tensor of two batches equal bit for bit, with its dtype."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if (x is None) != (y is None) or (x is not None and not (x.dtype == y.dtype and torch.equal(x, y))):
+            return False
+    return True
+
+
+def timed_items(reader):
+    """All of a reader's (key, value) pairs and the seconds it took."""
+    t0 = time.perf_counter()
+    items = list(reader.items())
+    return items, time.perf_counter() - t0
+
+
+def first_batches(batcher, count):
+    """The first ``count`` batches of an epoch and the seconds they took."""
+    t0 = time.perf_counter()
+    out = [b for _, b in zip(range(count), batcher)]
+    return out, time.perf_counter() - t0
+
+
+def counted_steps(trainer, batches, device, want):
+    """train_step on each batch with the noise of step i; launches exactly
+    ``want`` a step.  Returns the losses (on the host)."""
+    losses = []
+    for i, batch in enumerate(batches):
+        before = dict(kernels.launches)
+        aux = trainer.train_step(batch.to(device), generator=torch.Generator(device=device).manual_seed(i))
+        got = launches_since(before)
+        if got != want:
+            raise AssertionError(f"a training step on the converted data launched {got}, want {want}")
+        losses.append(aux["loss"])
+    losses = torch.stack(losses).cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"non-finite losses {losses.tolist()}")
+    return losses
+
+
+def reference_data_path(device, root, smi):
+    """Phase 32: the reference's LMDB data through the port's data layer on
+    the card's machine, then trained from and relaxed on the card.  Returns
+    the phase's launches."""
+    t_phase = time.perf_counter()
+    print(f"[data] {smi}; {host_cpu()}; rates below are host work on the card's machine", flush=True)
+    # 1. both host libraries from the checkout, no fallback
+    t0 = time.perf_counter()
+    libs = host_build.build()
+    for name in host_build.LIBRARIES:
+        host_build.load(name)
+    print(f"[data] g++ built {sorted(host_build.build_logs) or 'nothing (up to date)'} in "
+          f"{time.perf_counter() - t0:.2f} s: {', '.join(os.path.basename(p) for p in libs.values())}", flush=True)
+
+    # 2. export
+    systems = labelled_systems(bench_systems(DATA_SYSTEMS), 32)
+    lmdb_path = os.path.join(root, "oc20_like.lmdb")
+    t0 = time.perf_counter()
+    count = lmdb_compat.export_systems_to_lmdb(systems, lmdb_path)
+    export_s = time.perf_counter() - t0
+    with lmdb_native.NativeLmdbReader(lmdb_path) as nat, lmdbio.LmdbReader(lmdb_path) as py:
+        native_items, native_s = timed_items(nat)
+        python_items, python_s = timed_items(py)
+        main = py.meta["main"]
+        psize = py.psize
+    size = os.path.getsize(lmdb_path)
+    records = [v for k, v in python_items if k != b"length"]
+    half_page = ((psize - 16) // 2) & ~1
+    if count != DATA_SYSTEMS or main["entries"] != DATA_SYSTEMS + 1 or main["depth"] < 2:
+        raise AssertionError(f"export: {count} records, meta {main}")
+    if min(len(v) for v in records) <= half_page:
+        raise AssertionError(f"a record of {min(len(v) for v in records)} bytes fits a node of {half_page}")
+    print(f"[data] export_systems_to_lmdb: {count} records of {min(len(v) for v in records)}-"
+          f"{max(len(v) for v in records)} bytes (every one an overflow chain past the {half_page}-byte node limit), "
+          f"{size / 1e6:.2f} MB, {size // psize} pages of {psize} B, tree depth {main['depth']}, in {export_s:.3f} s "
+          f"({count / export_s:.0f} records/s)", flush=True)
+
+    # 3. read and convert
+    if native_items != python_items:
+        raise AssertionError("the C++ and Python LMDB readers disagree")
+    n = len(python_items)
+    print(f"[data] readers: C++ {n / native_s:.0f} records/s ({native_s:.3f} s), Python {n / python_s:.0f} "
+          f"records/s ({python_s:.3f} s); all {n} keys and values equal byte for byte", flush=True)
+    del native_items, python_items, records
+    with lmdb_native.open_best_reader(lmdb_path) as best:
+        if best.backend != "native":
+            raise AssertionError(f"open_best_reader took the {best.backend} reader")
+    conv_dir = os.path.join(root, "converted")
+    os.makedirs(conv_dir)
+    t0 = time.perf_counter()
+    converted = lmdb_compat.convert_lmdb_to_shards(lmdb_path, os.path.join(conv_dir, "oc20_like"), DATA_SHARD_SIZE)
+    convert_s = time.perf_counter() - t0
+    shards = sorted(os.listdir(conv_dir))
+    conv = ShardDataset({"src": conv_dir})
+    back = [conv[i] for i in range(len(conv))]
+    if converted != DATA_SYSTEMS or len(shards) != 2 or len(back) != DATA_SYSTEMS:
+        raise AssertionError(f"convert_lmdb_to_shards: {converted} systems in {shards}")
+    # the exported systems as the shard format holds them: written directly, without the LMDB
+    direct = os.path.join(root, "direct")
+    write_shard(direct, systems)
+    direct_ds = ShardDataset({"src": direct})
+    bad = [i for i, a in enumerate(back) if not same_system(a, direct_ds[i])]
+    if bad:
+        raise AssertionError(f"{len(bad)} converted systems differ from the exported ones, the first {bad[0]}")
+    t0 = time.perf_counter()
+    adbin = native.write_shard_bin(os.path.join(root, "oc20_like"), back)
+    adbin_s = time.perf_counter() - t0
+    print(f"[data] convert_lmdb_to_shards (the C++ reader, shard size {DATA_SHARD_SIZE}): {converted} systems into "
+          f"{shards} in {convert_s:.3f} s ({converted / convert_s:.0f} systems/s); write_shard_bin "
+          f"{os.path.getsize(adbin) / 1e6:.2f} MB in {adbin_s:.3f} s; every converted system equals its exported one "
+          f"(written to a shard directly) bit for bit, field by field", flush=True)
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "oc20_2sys.lmdb")
+    with lmdb_native.NativeLmdbReader(fixture) as nat, lmdbio.LmdbReader(fixture) as py:
+        if list(nat.items()) != list(py.items()) or nat.psize != py.psize:
+            raise AssertionError("the readers disagree on tests/fixtures/oc20_2sys.lmdb")
+    fixture_systems = list(lmdb_compat.iter_lmdb_systems(fixture))
+    print(f"[data] tests/fixtures/oc20_2sys.lmdb: both readers equal ({py.entries} entries); its systems have "
+          f"{[s.natoms for s in fixture_systems]} atoms, sids {[s.sid for s in fixture_systems]}", flush=True)
+
+    # 4. collate: the C++ collator against the Python one on the same epoch plan
+    nat_ds = native.NativeShardDataset({"src": adbin})
+    conv[0]  # columns decompressed before the clock starts
+    nat_batches, nat_s = first_batches(BucketedBatcher(nat_ds, TRAIN_BATCH, seed=0), DATA_BATCHES)
+    py_batches, py_s = first_batches(BucketedBatcher(conv, TRAIN_BATCH, seed=0), DATA_BATCHES)
+    if len(nat_batches) != DATA_BATCHES or not all(same_batch(a, b) for a, b in zip(nat_batches, py_batches)):
+        raise AssertionError("the C++ collator's batches differ from ShardDataset + collate's")
+    print(f"[data] the first {DATA_BATCHES} batches of an epoch at B={TRAIN_BATCH}: NativeShardDataset "
+          f"(collate_indices) {DATA_BATCHES / nat_s:.1f} batches/s, ShardDataset + collate {DATA_BATCHES / py_s:.1f} "
+          f"batches/s; equal bit for bit", flush=True)
+    del nat_batches, py_batches
+
+    # 5. neighbour counts, card against CPU, and a plan balanced on them
+    subset = ShardDataset({"src": conv_dir, "shard": 0, "total_shards": DATA_SYSTEMS // DATA_NEIGHBOR_SYSTEMS})
+    t0 = time.perf_counter()
+    card_counts = metadata.neighbor_counts(subset, DATA_CUTOFF, DATA_MAX_NEIGHBORS, device=device)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_counts = metadata.neighbor_counts(subset, DATA_CUTOFF, DATA_MAX_NEIGHBORS, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if len(card_counts) != DATA_NEIGHBOR_SYSTEMS or not np.array_equal(card_counts, cpu_counts):
+        raise AssertionError(f"neighbor_counts: card and CPU differ in {(card_counts != cpu_counts).sum()} systems")
+    plan = BucketedBatcher(subset, TRAIN_BATCH, seed=0, mode="neighbors", sizes=card_counts)
+    print(f"[data] neighbor_counts of {len(subset)} systems at {DATA_CUTOFF} A, {DATA_MAX_NEIGHBORS} neighbours, "
+          f"images (2, 2, 0): card {card_s:.3f} s, CPU {cpu_s:.3f} s, equal (counts {card_counts.min()}-"
+          f"{card_counts.max()}); mode='neighbors' plan: {len(plan)} batches, atom edges {plan.bucket_edges}",
+          flush=True)
+
+    # 6. training on the converted shards, step 1 against the shards written directly from the same systems
+    relax_set = {"src": conv_dir, "shard": 0, "total_shards": DATA_SYSTEMS // DATA_RELAX_BATCH}
+    traj_dir = os.path.join(root, "trajs")
+    base = copy.deepcopy(TRAIN_CONFIG)
+    base["optim"].update(eval_batch_size=DATA_RELAX_BATCH,
+                         denoising_pos_params=dict(base["optim"]["denoising_pos_params"], ode=True))
+    base["task"].update(relax_dataset=relax_set, write_pos=True, relax_opt=dict(traj_dir=traj_dir))
+    base.update(run_dir=root, is_debug=True)
+    on_conv = DenoisingTrainer(dict(base, dataset=[{"src": conv_dir}], identifier="smoke_data"), device=device)
+    on_direct = DenoisingTrainer(dict(base, dataset=[{"src": direct + ".adshard.npz"}],
+                                      identifier="smoke_data_direct"), device=device)
+    want = {"painn_message_fused": on_conv.model.num_layers, "painn_message_fused_bwd": on_conv.model.num_layers}
+    batches = [b for _, b in zip(range(DATA_TRAIN_STEPS), on_conv.train_batcher)]
+    first_direct = next(iter(on_direct.train_batcher))
+    if not same_batch(batches[0], first_direct):
+        raise AssertionError("step 1's batch from the converted shards differs from the directly written shards'")
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    losses = counted_steps(on_conv, batches, device, want)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    direct_loss = counted_steps(on_direct, [first_direct], device, want)[0].item()
+    launches = collections.Counter(path_launches())
+    rel = abs(losses[0].item() - direct_loss) / abs(direct_loss)
+    if not rel <= DATA_LOSS_RTOL or launches != {k: (DATA_TRAIN_STEPS + 1) * v for k, v in want.items()}:
+        raise AssertionError(f"step 1's loss {losses[0].item()} against {direct_loss} from the direct shards "
+                             f"(relative {rel}); launches {dict(launches)}")
+    del on_direct, first_direct
+    print(f"[data] DenoisingTrainer (painn_so3.yml + base.yml, B={TRAIN_BATCH}) on the converted shards: "
+          f"{DATA_TRAIN_STEPS} steps in {train_s:.3f} s, losses {', '.join(f'{x:.4f}' for x in losses.tolist())}; "
+          f"step 1's batch equals the directly written shards' bit for bit, its loss {direct_loss:.6f} there "
+          f"(relative {rel:.1e}, limit {DATA_LOSS_RTOL}); launches {dict(launches)} ({DATA_TRAIN_STEPS} + 1 steps)",
+          flush=True)
+
+    # 7. the relax set converted from the LMDB: run_relaxations, 100 ODE steps at B=16
+    steps = base["optim"]["denoising_pos_params"]["num_steps"]
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    on_conv.run_relaxations()
+    torch.cuda.synchronize()
+    relax_s = time.perf_counter() - t0
+    relax = path_launches()
+    want_relax = {"painn_message_fused": on_conv.model.num_layers * steps}
+    relaxed = np.load(os.path.join(on_conv.results_dir, "relaxed_positions.npz"))
+    sids = sorted(s.sid for s in systems[:DATA_RELAX_BATCH])
+    if relax != want_relax or sorted(int(i) for i in relaxed["ids"]) != sids or not np.isfinite(relaxed["pos"]).all():
+        raise AssertionError(f"run_relaxations launched {relax} (want {want_relax}); ids {relaxed['ids'].tolist()}")
+    launches.update(relax)
+    print(f"[data] run_relaxations over shard 0 of {relax_set['total_shards']} of the converted set "
+          f"({DATA_RELAX_BATCH} systems): {steps} ODE steps at B={DATA_RELAX_BATCH} in {relax_s:.3f} s "
+          f"({steps * DATA_RELAX_BATCH / relax_s:.1f} system-steps/s), launches {relax}; relaxed_positions.npz holds "
+          f"sids {sids[0]}..{sids[-1]}, finite", flush=True)
+    del on_conv
+
+    # S2EF: gemnet_relax.yml on the converted labelled records
+    s2ef = S2EFTrainer(s2ef_train_config(root, {"train": conv_dir, "val": conv_dir}), device=device)
+    want = gemnet_launches(s2ef.model, 1)
+    batches = [b for _, b in zip(range(DATA_S2EF_STEPS), s2ef.train_batcher)]
+    if any(b.forces is None for b in batches):
+        raise AssertionError("an S2EF batch of the converted data has no forces")
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    losses = counted_steps(s2ef, batches, device, want)
+    torch.cuda.synchronize()
+    s2ef_s = time.perf_counter() - t0
+    s2ef_launches = path_launches()
+    if s2ef_launches != {k: DATA_S2EF_STEPS * v for k, v in want.items()}:
+        raise AssertionError(f"S2EF training launched {s2ef_launches}")
+    launches.update(s2ef_launches)
+    print(f"[data] S2EFTrainer (gemnet_relax.yml, B={s2ef.optim_cfg['batch_size']}) on the converted records with "
+          f"their energies and forces: {DATA_S2EF_STEPS} steps in {s2ef_s:.3f} s, losses "
+          f"{', '.join(f'{x:.4f}' for x in losses.tolist())}, launches {s2ef_launches}", flush=True)
+    del s2ef
+    nat_ds.close_db()
+    print(f"[data] phase 32: {time.perf_counter() - t_phase:.1f} s wall, launches {dict(launches)}", flush=True)
+    return launches
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -4234,16 +4511,19 @@ def main():
     # 31. ROADMAP A.10 step 1: reference checkpoints converted by the port's command line and run on the card
     with tempfile.TemporaryDirectory() as root:
         s2ef_launches.update(reference_checkpoint_path(device, systems, files, rows, root, smi))
+    # 32. ROADMAP A.10 step 2: the reference's LMDB data converted by the port, trained from and relaxed on the card
+    with tempfile.TemporaryDirectory() as root:
+        s2ef_launches.update(reference_data_path(device, root, smi))
     pipeline_dir.cleanup()
     for r in bf16_rows:
         r["launches"] = bf16[r["name"]]
     rows += bf16_rows
 
-    # 32. results
+    # 33. results
     for r in rows:
         if r["launches"] is None:  # a standalone kernel: what the path runs launched of it
             r["launches"] = PATH_LAUNCHES[r["name"]]
-        elif r["name"] in s2ef_launches:  # the f32 paths' kernels: phases 19, 21, 23, 24 and 31 too
+        elif r["name"] in s2ef_launches:  # the f32 paths' kernels: phases 19, 21, 23, 24, 31 and 32 too
             r["launches"] += s2ef_launches[r["name"]]
     print(json.dumps({"kernels": [
         dict(name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"], launches=r["launches"],
