@@ -11,4 +11,16 @@ card unless the caller passes ``device="cpu"``; with ``device=None`` and no
 card they raise (:func:`adsorbdiff_tpu_torch.device.resolve_device`).  The
 TPU's Pallas kernels become hand-written Hopper kernels under ``csrc/``, built
 on first use by :mod:`adsorbdiff_tpu_torch.ops.build`.
+
+Top-level convenience export mirrors the reference's single public symbol
+(``AdsorbDiffCalculator``, ref: adsorbdiff/__init__.py:8), as the JAX package
+does.
 """
+
+
+def __getattr__(name):  # lazy: importing the package loads no model code
+    if name == "AdsorbDiffCalculator":
+        from adsorbdiff_tpu_torch.relaxation.calculator import AdsorbDiffCalculator
+
+        return AdsorbDiffCalculator
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

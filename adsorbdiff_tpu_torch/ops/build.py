@@ -1,14 +1,14 @@
 """Build the port's CUDA kernels with ``nvcc`` on first use and load them.
 
 Each ``csrc/<name>.cu`` exports a plain C function and is compiled on its own
-into ``adsorbdiff_tpu_torch/_build/lib<name>-<hash>.so`` (the directory is
-git-ignored), then loaded with ``ctypes``: no PyTorch headers, so a build
-takes seconds.  A source may include the shared headers ``csrc/*.cuh``.  The
-hash covers the source, every shared header and the flags, so an edited
-source or header is rebuilt and a stale library is never loaded.  Nothing is
-built at import: only when a CUDA tensor reaches a kernel wrapper, or when a
-caller asks for :func:`build`.  A failed build raises with the compiler's
-output.
+into ``lib<name>-<hash>.so`` in the build directory (:func:`build_dir`: by
+default the git-ignored ``adsorbdiff_tpu_torch/_build/``), then loaded with
+``ctypes``: no PyTorch headers, so a build takes seconds.  A source may
+include the shared headers ``csrc/*.cuh``.  The hash covers the source,
+every shared header and the flags, so an edited source or header is rebuilt
+and a stale library is never loaded.  Nothing is built at import: only when
+a CUDA tensor reaches a kernel wrapper, or when a caller asks for
+:func:`build`.  A failed build raises with the compiler's output.
 """
 from __future__ import annotations
 
@@ -20,6 +20,8 @@ import shutil
 import subprocess
 import tempfile
 from typing import Dict, Iterable, List, Optional, Tuple
+
+from adsorbdiff_tpu_torch.common import compile_cache
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -47,13 +49,20 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def build_dir() -> str:
+    """Where libraries are built and loaded from
+    (:func:`adsorbdiff_tpu_torch.common.compile_cache.cache_dir`, by default
+    :data:`BUILD_DIR`)."""
+    return compile_cache.cache_dir(BUILD_DIR)
+
+
 def library_path(name: str) -> str:
     digest = hashlib.sha256()
     for path in [os.path.join(CSRC_DIR, name + ".cu")] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         with open(path, "rb") as f:
             digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+    return os.path.join(build_dir(), f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
 def compile_libraries(commands: Dict[str, Tuple[List[str], str]], logs: Dict[str, str]) -> None:
@@ -86,7 +95,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     ``nvcc`` process per source, all started together.  Returns
     ``{name: library path}``."""
     names = tuple(KERNELS if names is None else names)
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir(), exist_ok=True)
     paths = {n: library_path(n) for n in names}
     compile_libraries({n: ([nvcc_path(), *NVCC_FLAGS, os.path.join(CSRC_DIR, n + ".cu")], path)
                        for n, path in paths.items() if not os.path.exists(path)}, build_logs)

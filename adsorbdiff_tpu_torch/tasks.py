@@ -10,6 +10,7 @@ from types import SimpleNamespace
 
 import numpy as np
 
+from adsorbdiff_tpu_torch.common.compile_cache import setup_compilation_cache
 from adsorbdiff_tpu_torch.common.registry import registry
 from adsorbdiff_tpu_torch.train import trainer  # noqa: F401  (registers the trainers)
 
@@ -80,7 +81,10 @@ class RelaxationTask(BaseTask):
 @contextlib.contextmanager
 def new_trainer_context(config: dict):
     """Build ``(config, task, trainer)`` from a run config; the trainer runs
-    on the CUDA card, or on the host when ``config["cpu"]`` is set."""
+    on the CUDA card, or on the host when ``config["cpu"]`` is set.
+    ``compilation_cache_dir`` picks where the compiled libraries persist
+    (:func:`~adsorbdiff_tpu_torch.common.compile_cache.setup_compilation_cache`)."""
+    setup_compilation_cache(config.get("compilation_cache_dir"))
     trainer_cls = registry.get_trainer_class(config.get("trainer", "denoising"))
     trainer_obj = trainer_cls(config)
     task = registry.get_task_class(config.get("mode", "train"))(config)

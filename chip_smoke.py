@@ -5,7 +5,7 @@
 
 Phases; any failure raises and the exit code is then non-zero:
 1. device: the card's name and power limit (nvidia-smi); CUDA required;
-   TF32 off (phases 3-24, 31 and 32 are f32; phases 25-30 run bf16 where asked).
+   TF32 off (phases 3-24 and 31-33 are f32; phases 25-30 run bf16 where asked).
 2. build: every kernel, from csrc/ with nvcc (one process per source, all
    started together); ptxas register and spill lines for each.
 3. kernel vs plain: each kernel against its plain PyTorch version on the
@@ -406,7 +406,23 @@ Phases; any failure raises and the exit code is then non-zero:
    (gemnet_relax.yml, B=16) on the converted labelled records, 4 + 1
    launches a step.  Every rate beside the card's name and power limit and
    the host's CPU.
-33. the kernels line, then the device line as the last line.  A row's ms,
+33. ROADMAP A items 1-4 through the port's public API: Bulk.get_slabs
+   (max_miller=2) on val_sample's Cu bulk and AdsorbateSlabConfig in its
+   three modes with CO and *N*NH from the packaged table (each timed, no
+   covalent overlap); painn_so3.yml's and gemnet_relax.yml's model sections
+   (cell_reps: auto resolved over the phase's adslabs) written by
+   make_demo_checkpoint; AdsorbDiffCalculator on one Cu(100) + CO adslab:
+   run_diffusion (100 steps, exactly 600 painn_message_fused launches, equal
+   to DiffusionEngine.run with the same generator bit for bit, slab
+   unmoved, adsorbate rigid), calculate card against CPU (1 + 4 launches):
+   on the placed adslab, a perfect fcc slab whose neighbour tables part at
+   tied edges only (checked, edge by edge), and under phase 7's gate on a
+   copy moved by N(0, 0.05 A), whose tables agree; relax (100 of 300
+   steps, 1 + 4 launches a forward, fixed atoms unmoved) and the anomaly
+   flags; then val_sample and nrr_screening --bulks 2 in-process through
+   their main(argv) with those checkpoints (600 launches a diffusion run,
+   1 + 4 a GemNet-OC forward).
+34. the kernels line, then the device line as the last line.  A row's ms,
    plain_ms and bound_ms are per launch; eqv2_edge_rotate's are the mean
    over the four forms in the proportions one forward launches them, and
    its launches are the EquiformerV2 sampling run's; masked_legendre_cos's
@@ -414,8 +430,8 @@ Phases; any failure raises and the exit code is then non-zero:
    wall back to back, bound_ms the three bases' bounds summed);
    masked_legendre_cos's and gemnet_quad_chain's launches are the
    relaxation path's plus phase 19's four tasks' plus phases 21's and
-   24's runs' plus phases 31's and 32's; painn_message_fused's are phase 4's
-   plus phases 23's, 31's and 32's; painn_message_fused_bwd's add phase
+   24's runs' plus phases 31's, 32's and 33's; painn_message_fused's are
+   phase 4's plus phases 23's and 31-33's; painn_message_fused_bwd's add phase
    32's; the EquiformerV2 kernels' f32 rows add phase 31's; the
    consumers' and fused_rbf_filter's launches are
    their counts summed over every path run (0: no path calls them).  The
@@ -448,7 +464,7 @@ import torch
 import yaml
 
 from adsorbdiff_tpu_torch.data.schema import System, collate
-from adsorbdiff_tpu_torch import eval_tools, pipeline, run_pipeline
+from adsorbdiff_tpu_torch import AdsorbDiffCalculator, eval_tools, pipeline, run_pipeline
 from adsorbdiff_tpu_torch.common.config import load_config
 from adsorbdiff_tpu_torch.data import lmdb_compat, lmdb_native, lmdbio, metadata, native
 from adsorbdiff_tpu_torch.data.buckets import BucketedBatcher
@@ -456,6 +472,7 @@ from adsorbdiff_tpu_torch.data.store import ShardDataset, write_shard
 from adsorbdiff_tpu_torch.device import resolve_device
 from adsorbdiff_tpu_torch.diffusion.sampler import langevin_dynamics
 from adsorbdiff_tpu_torch.diffusion.schedules import draw_schedule
+from adsorbdiff_tpu_torch.examples import nrr_screening, val_sample
 from adsorbdiff_tpu_torch.models import equiformer_v2, gemnet_oc
 from adsorbdiff_tpu_torch.models.base import generate_graph
 from adsorbdiff_tpu_torch.models.equiformer_v2 import EquiformerV2
@@ -464,9 +481,13 @@ from adsorbdiff_tpu_torch.models import painn, so3
 from adsorbdiff_tpu_torch.models.painn import PaiNN
 from adsorbdiff_tpu_torch.ops import build, host_build, kernels, pbc
 from adsorbdiff_tpu_torch.ops.segment import masked_mean
+from adsorbdiff_tpu_torch.placement import Adsorbate, AdsorbateSlabConfig, DetectTrajAnomaly, Slab
+from adsorbdiff_tpu_torch.placement.adsorbate_slab_config import there_is_overlap
+from adsorbdiff_tpu_torch.relaxation.calculator import load_model
 from adsorbdiff_tpu_torch.relaxation.continuous import ContinuousRelaxationEngine
 from adsorbdiff_tpu_torch.relaxation.lbfgs import make_mlff_energy_forces
 from adsorbdiff_tpu_torch.relaxation.ml_relaxation import DiffusionEngine, RelaxationEngine, make_score_fn
+from adsorbdiff_tpu_torch.runtime.atoms import atoms_to_system
 from adsorbdiff_tpu_torch.runtime.trajectory import SUFFIX, Trajectory
 from adsorbdiff_tpu_torch.tasks import new_trainer_context
 from adsorbdiff_tpu_torch.train import torch_import
@@ -4446,6 +4467,247 @@ def reference_data_path(device, root, smi):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 33: ROADMAP A items 1-4, the placement toolkit, AdsorbDiffCalculator and both examples
+# --------------------------------------------------------------------------
+# The score model is configs/denoising/painn_so3.yml's model section, the MLFF gemnet_relax.yml's (fused_quad:
+# True), each cell_reps: auto resolved by auto_cell_reps over the phase's placed adslabs; random weights (seed 0)
+# written by the port's make_demo_checkpoint.  100 diffusion steps as published; relaxation cut from 300
+# (relaxation_steps) to 100 steps to fit the time limit, as phase 6 cuts it, with gemnet_relax.yml's relax_opt.
+SCORE_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "denoising", "painn_so3.yml")
+A_RELAX_STEPS = 100
+A_RELAX_OPT = dict(maxstep=0.04, memory=50, damping=1.0, alpha=70.0)
+A_PLACEMENT_MODES = ("random", "heuristic", "random_site_heuristic_placement")
+A_NRR_BULKS = 2
+
+
+def model_section(path, adslabs):
+    """A YAML config's model section, its ``cell_reps: auto`` resolved over
+    ``adslabs`` by auto_cell_reps at the section's cutoff."""
+    with open(path) as f:
+        cfg = yaml.safe_load(f)["model"]
+    reps = pbc.auto_cell_reps([a.positions for a in adslabs], [a.cell for a in adslabs], cfg["cutoff"])
+    return dict(cfg, cell_reps=list(reps))
+
+
+def placed_rigidly(what, before, after):
+    """The slab of ``after`` is ``before``'s bit for bit (as f32) and the
+    adsorbate's interatomic distances are kept within 1e-3 A; returns the
+    largest change of such a distance."""
+    slab, ads = before.tags < 2, before.tags == 2
+    if not np.array_equal(after.positions[slab], before.positions[slab].astype(np.float32)):
+        raise AssertionError(f"{what} moved slab atoms")
+    d0 = np.linalg.norm(before.positions[ads][:, None] - before.positions[ads][None], axis=-1)
+    d1 = np.linalg.norm(after.positions[ads][:, None] - after.positions[ads][None], axis=-1)
+    worst = float(np.abs(d1 - d0).max())
+    if not (np.isfinite(after.positions).all() and worst <= 1e-3):
+        raise AssertionError(f"{what} deformed the adsorbate: a distance changed by {worst} A")
+    return worst
+
+
+def edges_by_row(nl):
+    """{(source, cell offset): distance} of each row of a one-system
+    neighbour table, over its valid slots."""
+    src, off, mask, dist = (t[0].cpu().tolist() for t in (nl.src, nl.cell_offsets, nl.mask, nl.dist))
+    return [{(s_, tuple(o)): d for s_, o, m, d in zip(*row) if m} for row in zip(src, off, mask, dist)]
+
+
+def tied_rows(batch, model):
+    """For each neighbour table GemNet-OC builds (main, aeaint, qint), the
+    rows whose edge sets differ between the card and the CPU.  Raises unless
+    every differing edge lies at its row's truncation boundary (within 1e-4 A
+    of the row's largest kept distance): a tie that roundoff and sort order
+    decide, as on a perfect lattice."""
+    out = {}
+    specs = {"main": (model.cutoff, model.max_neighbors), "aeaint": (model.cutoff_aeaint, model.max_neighbors_aeaint),
+             "qint": (model.cutoff_qint, model.max_neighbors_qint)}
+    for name, (cutoff, k) in specs.items():
+        card, cpu = (edges_by_row(generate_graph(b, cutoff=cutoff, max_neighbors=k, cell_reps=model.cell_reps)[0])
+                     for b in (batch, batch.to("cpu")))
+        rows = 0
+        for i, (c, h) in enumerate(zip(card, cpu)):
+            if c.keys() == h.keys():
+                continue
+            rows += 1
+            for edges, only in ((c, c.keys() - h.keys()), (h, h.keys() - c.keys())):
+                edge = max(edges.values())
+                if any(edge - edges[key] > 1e-4 for key in only):
+                    raise AssertionError(f"{name} table, row {i}: card and CPU keep edges that are no tie")
+        out[name] = rows
+    return out
+
+
+def counted_calls(what, fn, want):
+    """``fn()`` with the launch counts zeroed just before and read just
+    after; they must be ``want`` (a dict, or a function of the result and the
+    counts).  Returns (result, wall seconds, launches)."""
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = path_launches()
+    expected = want(out) if callable(want) else want
+    if launches != expected:
+        raise AssertionError(f"{what} launched {launches}, want {expected}")
+    return out, wall, launches
+
+
+def placement_calculator_path(device, root, smi):
+    """Phase 33: the placement toolkit, AdsorbDiffCalculator and both worked
+    examples through the port's public API at published widths.  Returns the
+    phase's launches."""
+    t_phase = time.perf_counter()
+    launches = collections.Counter()
+    # 1. placement: every slab of the Cu bulk up to Miller index 2, AdsorbateSlabConfig in its three modes
+    t0 = time.perf_counter()
+    slabs = val_sample.cu_bulk().get_slabs(max_miller=2)
+    slabs_s = time.perf_counter() - t0
+    if not (len(slabs) >= 3 and all(s.has_surface_tagged() for s in slabs)):
+        raise AssertionError(f"get_slabs(max_miller=2) gave {len(slabs)} slabs, or one without surface atoms")
+    cu100 = Slab.from_bulk_get_specific_millers((1, 0, 0), val_sample.cu_bulk())[0]
+    nnh = Adsorbate(adsorbate_smiles_from_db="*N*NH")
+    timings = []
+    for mode in A_PLACEMENT_MODES:
+        for ads in (val_sample.co_adsorbate(), nnh):
+            t0 = time.perf_counter()
+            config = AdsorbateSlabConfig(cu100, ads, num_sites=20, mode=mode, rng=np.random.default_rng(0))
+            timings.append(f"{mode}/{ads.smiles} {len(config.atoms_list)} placements {time.perf_counter() - t0:.3f} s")
+            if not config.atoms_list or any(there_is_overlap(a) for a in config.atoms_list):
+                raise AssertionError(f"AdsorbateSlabConfig {mode} with {ads.smiles}: no placement, or an overlap")
+    print(f"[placement] {smi}; Bulk.get_slabs(max_miller=2) on val_sample's Cu: {len(slabs)} slabs over "
+          f"{len({s.millers for s in slabs})} Miller indices in {slabs_s:.3f} s; AdsorbateSlabConfig on Cu(100) "
+          f"({len(cu100)} atoms): {'; '.join(timings)}; no covalent overlap", flush=True)
+
+    # 2. checkpoints at full width, cell_reps from the adslabs the calculator and the examples place
+    adslab = val_sample.cu100_co_adslab()
+    ads_h = Adsorbate(adsorbate_smiles_from_db="*H")
+    placed = [adslab] + [
+        AdsorbateSlabConfig(Slab.from_bulk_get_specific_millers((1, 1, 1), nrr_screening.l12_bulk(*alloy[:3]))[0],
+                            ads, mode="heuristic", num_sites=1, rng=np.random.default_rng(0)).atoms_list[0]
+        for alloy in nrr_screening.ALLOYS[:A_NRR_BULKS] for ads in (ads_h, nnh)]
+    score_cfg, mlff_cfg = (model_section(path, placed) for path in (SCORE_CONFIG, RELAX_CONFIG))
+    t0 = time.perf_counter()
+    diff_ckpt = val_sample.make_demo_checkpoint(root, score_cfg, name="painn_so3")
+    mlff_ckpt = val_sample.make_demo_checkpoint(root, mlff_cfg, mode="s2ef", name="gemnet_relax")
+    print(f"[calc] checkpoints by make_demo_checkpoint in {time.perf_counter() - t0:.3f} s: painn_so3.yml "
+          f"(H={score_cfg['hidden_channels']}, {score_cfg['num_layers']} layers, cell_reps {score_cfg['cell_reps']}), "
+          f"gemnet_relax.yml (fused_quad {mlff_cfg['fused_quad']}, cell_reps {mlff_cfg['cell_reps']}), "
+          f"resolved over {len(placed)} adslabs of {sorted({len(a) for a in placed})} atoms", flush=True)
+
+    # 3. the calculator: run_diffusion (exactly 600 launches), the engine called directly, calculate card vs CPU,
+    # relax (1 + 4 launches a forward)
+    calc = AdsorbDiffCalculator(checkpoint_path=diff_ckpt, mlff_checkpoint_path=mlff_ckpt, device=device)
+    steps = calc.denoising_pos_params["num_steps"]
+    want_sample = {"painn_message_fused": score_cfg["num_layers"] * steps}
+    first, first_s, got = counted_calls("run_diffusion", lambda: calc.run_diffusion(adslab), want_sample)
+    launches.update(got)
+    gen_seed = 7
+    out, sample_s, got = counted_calls(
+        "run_diffusion", lambda: calc.run_diffusion(adslab, torch.Generator(device=device).manual_seed(gen_seed)),
+        want_sample)
+    launches.update(got)
+    model = load_model(diff_ckpt, device, sampling=True)
+    engine = DiffusionEngine(make_score_fn(model), calc.denoising_pos_params, static_fn=model.prepare_static,
+                             device=device)
+    batch = collate([atoms_to_system(adslab)], max_atoms=-(-len(adslab) // 8) * 8, device=device)
+    res, _, got = counted_calls("DiffusionEngine.run", lambda: engine.run(
+        batch, generator=torch.Generator(device=device).manual_seed(gen_seed)), want_sample)
+    launches.update(got)
+    del model, engine
+    if not np.array_equal(out.positions, res.batch.pos[0, :len(adslab)].cpu().numpy()):
+        raise AssertionError("run_diffusion differs from DiffusionEngine.run with the same generator")
+    worst = max(placed_rigidly("run_diffusion", adslab, first), placed_rigidly("run_diffusion", adslab, out))
+    print(f"[calc] run_diffusion of one adslab ({len(adslab)} atoms, B=1 x {batch.max_atoms}): {steps} steps in "
+          f"{sample_s:.3f} s, {steps / sample_s:.1f} system-steps/s (first call, the checkpoint's load included: "
+          f"{first_s:.3f} s); launches {want_sample} each; equal to DiffusionEngine.run with the same generator bit "
+          f"for bit; slab unmoved, adsorbate rigid (largest distance change {worst:.2e} A)", flush=True)
+
+    forwards = collections.Counter()
+    mlff = calc._mlff_model()
+    hook = mlff.register_forward_pre_hook(lambda module, args: forwards.update(["forward"]))
+    try:
+        # card against CPU: on the placed adslab the slab is a perfect fcc lattice, whose neighbour shells put
+        # ties at the tables' truncation (K = 30, 20, 8), so roundoff and sort order pick different edges on
+        # each device; the gate holds on a copy with every atom moved by N(0, 0.05 A), whose tables agree
+        cpu_calc = AdsorbDiffCalculator(checkpoint_path=diff_ckpt, mlff_checkpoint_path=mlff_ckpt, device="cpu")
+        jittered = out.copy()
+        jittered.positions = out.positions + np.random.default_rng(33).normal(0.0, 0.05, out.positions.shape)
+        results = {}
+        for name, atoms in (("lattice", out), ("jittered", jittered)):
+            card, _, got = counted_calls("calculate", lambda: calc.calculate(atoms), gemnet_launches(mlff, 1))
+            launches.update(got)
+            results[name] = (card, cpu_calc.calculate(atoms), tied_rows(calc._batch(atoms), mlff))
+        card, cpu, ties = results["lattice"]
+        placed_energy = card["energy"]
+        print(f"[calc] calculate on the placed adslab: card {card['energy']:.4f} eV, CPU {cpu['energy']:.4f} eV "
+              f"(|diff| {abs(card['energy'] - cpu['energy']):.4f}, forces "
+              f"{np.abs(card['forces'] - cpu['forces']).max():.3e}); rows whose tables differ card against CPU "
+              f"{ties}, every differing edge a tie at its row's truncation", flush=True)
+        card, cpu, ties = results["jittered"]
+        if any(ties.values()):
+            raise AssertionError(f"the jittered adslab's tables differ card against CPU in rows {ties}")
+        check_model("AdsorbDiffCalculator.calculate GemNet-OC (jittered adslab, equal tables)", (
+            ("energy", torch.tensor([card["energy"]]), torch.tensor([cpu["energy"]])),
+            ("forces", torch.from_numpy(card["forces"]), torch.from_numpy(cpu["forces"]))))
+        del cpu_calc
+        forwards.clear()
+        relaxed, relax_s, got = counted_calls(
+            "relax", lambda: calc.relax(out, steps=A_RELAX_STEPS, fmax=0.01, relax_opt=A_RELAX_OPT),
+            lambda _: gemnet_launches(mlff, forwards["forward"]))
+        launches.update(got)
+    finally:
+        hook.remove()
+    fixed = adslab.fixed
+    if not (fixed.any() and np.array_equal(relaxed.positions[fixed], out.positions[fixed])):
+        raise AssertionError("relax moved fixed slab atoms")
+    if not (np.isfinite(relaxed.positions).all() and np.isfinite(relaxed.energy) and np.isfinite(relaxed.forces).all()):
+        raise AssertionError("relax gave non-finite positions, energy or forces")
+    relax_steps = forwards["forward"] - 1  # the last forward is the final state's full build
+    det = DetectTrajAnomaly(out, relaxed, out.tags)
+    flags = dict(dissociated=det.is_adsorbate_dissociated(), desorbed=det.is_adsorbate_desorbed(),
+                 surface_changed=det.has_surface_changed(), intercalated=det.is_adsorbate_intercalated())
+    print(f"[calc] relax (gemnet_relax.yml's relax_opt, fmax 0.01, {A_RELAX_STEPS} steps of 300): "
+          f"{forwards['forward']} forwards in {relax_s:.3f} s, {relax_steps / relax_s:.2f} relax system-steps/s; "
+          f"launches {got}; energy {placed_energy:.4f} -> {relaxed.energy:.4f} eV; fixed atoms unmoved; anomaly "
+          f"flags {flags}", flush=True)
+    del calc, mlff
+
+    # 4. both examples in-process through their main(argv), at full width
+    gemnet_forwards = collections.Counter()
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(
+        lambda module, args: gemnet_forwards.update(["forward"]) if isinstance(module, GemNetOC) else None)
+    ckpts = ["--diffusion-ckpt", diff_ckpt, "--mlff-ckpt", mlff_ckpt, "--num-steps", str(steps),
+             "--relax-steps", str(A_RELAX_STEPS)]
+    try:
+        for name, example, argv, runs in (
+                ("val_sample", val_sample, ckpts, lambda r: 1),
+                ("nrr_screening", nrr_screening, ckpts + ["--bulks", str(A_NRR_BULKS)], lambda r: r["runs"])):
+            gemnet_forwards.clear()
+            result, wall, got = counted_calls(name, lambda: example.main(argv), lambda r: dict(
+                painn_message_fused=want_sample["painn_message_fused"] * runs(r),
+                gemnet_quad_chain=mlff_cfg["num_blocks"] * gemnet_forwards["forward"],
+                masked_legendre_cos=gemnet_forwards["forward"]))
+            launches.update(got)
+            if name == "val_sample":
+                placed_rigidly("val_sample's diffusion", result["adslab"], result["placed"])
+                summary = (f"energy {result['energy']:.4f} -> {result['relaxed'].energy:.4f} eV, anomaly flags "
+                           f"{result['anomalies']}")
+            else:
+                if result["runs"] != 2 * A_NRR_BULKS or len(result["rows"]) + result["anomalies"] != result["runs"]:
+                    raise AssertionError(f"nrr_screening: {result}")
+                summary = (f"{result['runs']} adslabs, {result['anomalies']} anomalous, rows "
+                           f"{[(r['bulk'], r['adsorbate'], round(r['e_ml'], 4)) for r in result['rows']]}")
+            print(f"[examples] {name} (--num-steps {steps} --relax-steps {A_RELAX_STEPS}, the phase's checkpoints): "
+                  f"{wall:.3f} s, {gemnet_forwards['forward']} GemNet-OC forwards, launches {got}; {summary}",
+                  flush=True)
+    finally:
+        hook.remove()
+    print(f"[calc] phase 33: {time.perf_counter() - t_phase:.1f} s wall, launches {dict(launches)}", flush=True)
+    return launches
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -4514,16 +4776,19 @@ def main():
     # 32. ROADMAP A.10 step 2: the reference's LMDB data converted by the port, trained from and relaxed on the card
     with tempfile.TemporaryDirectory() as root:
         s2ef_launches.update(reference_data_path(device, root, smi))
+    # 33. ROADMAP A items 1-4: the placement toolkit, AdsorbDiffCalculator and both examples at full width
+    with tempfile.TemporaryDirectory() as root:
+        s2ef_launches.update(placement_calculator_path(device, root, smi))
     pipeline_dir.cleanup()
     for r in bf16_rows:
         r["launches"] = bf16[r["name"]]
     rows += bf16_rows
 
-    # 33. results
+    # 34. results
     for r in rows:
         if r["launches"] is None:  # a standalone kernel: what the path runs launched of it
             r["launches"] = PATH_LAUNCHES[r["name"]]
-        elif r["name"] in s2ef_launches:  # the f32 paths' kernels: phases 19, 21, 23, 24, 31 and 32 too
+        elif r["name"] in s2ef_launches:  # the f32 paths' kernels: phases 19, 21, 23, 24 and 31-33 too
             r["launches"] += s2ef_launches[r["name"]]
     print(json.dumps({"kernels": [
         dict(name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"], launches=r["launches"],
